@@ -1,0 +1,702 @@
+"""Runtime configuration.
+
+The port's own copy of ``ramses_tpu/config.py`` (pure Python; the port
+imports nothing of the JAX package).  Keep the two in step: the parity
+tests load every namelist through both.
+
+Mirrors the reference's two-stage config system (SURVEY.md §5.6):
+compile-time constants become static fields of the solver configuration,
+and the runtime Fortran namelist (``amr/read_params.f90:51-70``,
+``hydro/read_hydro_params.f90:23-109``) is parsed by
+:mod:`ramses_tpu_torch.nml` into the dataclasses below.  Defaults
+replicate the reference parameter modules (``amr/amr_parameters.f90``,
+``hydro/hydro_parameters.f90``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, List
+
+from ramses_tpu_torch.nml import densify, load_nml, parse_nml
+
+MAXREGION = 100
+MAXBOUND = 100
+MAXLEVEL = 100
+MAXOUT = 1000
+HUGE = 1e30
+
+
+@dataclass
+class RunParams:
+    """&RUN_PARAMS (amr/amr_parameters.f90:58-103)."""
+    hydro: bool = False
+    poisson: bool = False
+    pic: bool = False
+    cosmo: bool = False
+    mhd: bool = False          # ours: solver selection is runtime, not VPATH
+    rt: bool = False
+    verbose: bool = False
+    static: bool = False
+    nrestart: int = 0
+    nstepmax: int = 1000000
+    ncontrol: int = 1
+    nremap: int = 0
+    nsubcycle: List[int] = field(default_factory=lambda: [2] * MAXLEVEL)
+    ordering: str = "hilbert"
+    cost_weighting: bool = True
+    # lightcone particle emission each coarse step (&RUN_PARAMS
+    # lightcone, amr/light_cone.f90; geometry in &LIGHTCONE_PARAMS)
+    lightcone: bool = False
+    # in-run PHEW clump finding at every output (&RUN_PARAMS clumpfind,
+    # pm/clump_finder.f90; options in &CLUMPFIND_PARAMS)
+    clumpfind: bool = False
+    # Monte-Carlo gas tracers (&RUN_PARAMS tracer/MC_tracer,
+    # pm/tracer_utils.f90): seed tracer_per_cell tracers per leaf cell
+    tracer: bool = False
+    tracer_per_cell: float = 1.0
+    # runtime plug-in overlay (ramses_tpu/patch.py) — the namelist
+    # equivalent of the reference's compile-time PATCH= VPATH shadowing
+    patch: str = ""
+    # NaN-trap sanitizer (SURVEY.md §5.2 — the runtime analogue of the
+    # reference's FPE-trapping debug builds): jax_debug_nans at jit
+    # level plus per-step finite checks in the ops guard, which dumps a
+    # crash snapshot and stops the run on the first non-finite state
+    debug_nan: bool = False
+    # fault-tolerant execution (ramses_tpu/resilience): auto_resume (or
+    # nrestart=-1) restarts from the newest manifest-valid checkpoint;
+    # max_step_retries>0 arms rollback-with-halved-dt on non-finite
+    # steps (redo-step semantics, LLF escalation on the 2nd retry);
+    # fault_inject is the deterministic test harness ('nan@K',
+    # 'sigterm@K', 'truncate:NAME')
+    auto_resume: bool = False
+    max_step_retries: int = 0
+    fault_inject: str = ""
+    # hang watchdog (resilience/watchdog.py): wall-clock budgets for
+    # the first (compiling) fused window, every later window, and
+    # checkpoint writes.  0 disables (zero-overhead off); on expiry a
+    # structured 'hang' event + emergency hang_NNNNN dump land and the
+    # supervisor resumes immediately from the newest checkpoint.
+    # RAMSES_{COMPILE,STEP,IO}_DEADLINE_S env vars override.
+    compile_deadline_s: float = 0.0
+    step_deadline_s: float = 0.0
+    io_deadline_s: float = 0.0
+    # mesh-shape-elastic restore (io/pario.py format 2): a sharded
+    # checkpoint restores onto the CURRENT process/device mesh (write
+    # on 8, restore on 4 or 1, and vice versa).  .false. refuses a
+    # restore whose saved process count differs from the current run.
+    elastic_restore: bool = True
+    # JAX persistent compilation cache directory (env fallback
+    # RAMSES_COMPILE_CACHE): set before the first trace so a known
+    # namelist cold-starts in O(load) instead of O(compile); "" keeps
+    # the package default (~/.cache/ramses_tpu_xla on TPU, off on
+    # CPU-forced runs).  Cache hit/miss counts land in the telemetry
+    # run header.
+    compile_cache_dir: str = ""
+
+
+@dataclass
+class AmrParams:
+    """&AMR_PARAMS (amr/amr_parameters.f90:81-95)."""
+    levelmin: int = 1
+    levelmax: int = 1
+    ngridmax: int = 0
+    ngridtot: int = 0
+    npartmax: int = 0
+    nparttot: int = 0
+    nexpand: List[int] = field(default_factory=lambda: [1] * MAXLEVEL)
+    boxlen: float = 1.0
+    nx: int = 1
+    ny: int = 1
+    nz: int = 1
+    # cost-weighted Hilbert load balancing (amr/load_balance.f90
+    # cost_weighting): opt-in rebalance of partial-level row layouts at
+    # regrid time when max/mean device cost exceeds the threshold
+    load_balance: bool = False
+    load_balance_threshold: float = 1.1
+    # gather-fused blocked tile sweep on partial levels: octs grouped
+    # into Morton-aligned tiles of 2^oct_block_shift octs per side so
+    # the stencil gather is one compact tile batch instead of a
+    # ~(3^ndim)x duplicated per-oct batch (universal: hydro/rhd/MHD,
+    # load-balance layouts, and row-sharded meshes; explicit-comm
+    # schedules keep the stencil path)
+    oct_blocking: bool = True
+    oct_block_shift: int = 2
+    # device-resident regrid migration (amr/device_regrid.py): derive
+    # the survivor-copy/prolongation maps on device from the level key
+    # arrays instead of per-level host numpy tables; families that
+    # replay migration into side-channel state (MHD/RT) and
+    # layout-permuted levels keep the bitwise-identical host path
+    device_regrid: bool = True
+    # multi-chip halo exchange backend (parallel/dma_halo.py): "auto"
+    # resolves to the Pallas async remote-copy (DMA) engine on a real
+    # TPU backend and to lax.ppermute everywhere else; "ppermute" /
+    # "dma" force a backend (an unavailable "dma" warns and falls back)
+    halo_backend: str = "auto"
+    cost_weight_hydro: float = 1.0
+    cost_weight_mhd: float = 2.0
+    cost_weight_rt: float = 1.5
+    cost_weight_part: float = 0.3
+    # out-of-core hierarchy (amr/offload.py): "off" keeps every level
+    # HBM-resident (the bit-for-bit untouched fast path); "on" parks
+    # inactive levels in host RAM with async double-buffered prefetch
+    # around the subcycle schedule; "auto" engages only when the
+    # estimated resident set exceeds offload_hbm_budget_mb
+    offload: str = "off"
+    # device-memory budget [MiB] the auto mode compares the estimated
+    # resident set against; 0 reads the device's reported bytes_limit
+    # (platforms that report none never auto-engage)
+    offload_hbm_budget_mb: float = 0.0
+    # levels smaller than this [MiB] are never parked — the transfer
+    # cost outweighs the HBM reclaimed
+    offload_min_park_mb: float = 0.0
+
+
+@dataclass
+class ClumpfindParams:
+    """&CLUMPFIND_PARAMS (pm/clfind_commons.f90:12-17)."""
+    density_threshold: float = -1.0   # code units; <0 → 5x mean density
+    relevance_threshold: float = 2.0  # peak/saddle merge ratio
+    saddle_threshold: float = -1.0    # >0: HOP-style clump→halo merge
+    mass_threshold: float = 0.0       # min clump mass [particle masses]
+    npart_min: int = 10
+    unbind: bool = True               # &UNBINDING_PARAMS role
+    saddle_pot: bool = False
+    nmassbins: int = 0
+    nx_clump: int = 64                # deposition grid per dim
+
+
+@dataclass
+class LightconeParams:
+    """&LIGHTCONE_PARAMS (amr/read_params.f90:62): narrow-cone opening
+    half-angles [degrees] and the maximum emission redshift.  Angles
+    >= 90 degrees mean full sky."""
+    thetay_cone: float = 12.5
+    thetaz_cone: float = 12.5
+    zmax_cone: float = 2.0
+
+
+@dataclass
+class OutputParams:
+    """&OUTPUT_PARAMS (amr/amr_parameters.f90:109-121)."""
+    noutput: int = 0
+    foutput: int = 1000000
+    tout: List[float] = field(default_factory=list)
+    aout: List[float] = field(default_factory=list)
+    delta_tout: float = HUGE
+    tend: float = 0.0
+    walltime_hrs: float = -1.0
+    minutes_dump: float = 1.0
+    output_dir: str = "."
+    # structured run telemetry (ramses_tpu/telemetry): JSONL event-log
+    # path ('' = off — the zero-overhead default) and the coarse-step
+    # cadence of emitted records
+    telemetry: str = ""
+    telemetry_interval: int = 1
+    # keep only the newest N manifest-valid checkpoints (0 = keep all);
+    # rotation never touches pre-atomic output dirs without manifests
+    checkpoint_keep: int = 0
+    # also write each particle output as a Gadget SnapFormat=1 file
+    # (io/gadget.py write_gadget — the reference's savegadget flag)
+    savegadget: bool = False
+    # elastic sharded checkpoints (io/pario.py format 2): .true. makes
+    # dump() write pario_NNNNN/ shard dirs under the two-phase global
+    # commit instead of reference-format output_NNNNN/ snapshots
+    pario: bool = False
+    # writer concurrency bound for pario dumps — the reference's
+    # IOGROUPSIZE ring: per-process semaphore over the writer threads
+    # AND cross-host wave stagger (0 = unbounded, all hosts at once)
+    io_group_size: int = 0
+    # split each process's pario payload into this many shard dirs
+    # written concurrently (0/1 = one shard per process; >1 exercises
+    # the per-shard decomposition on a single-host test mesh)
+    pario_split_hosts: int = 0
+    # observability HTTP server (ramses_tpu/obs): TCP port for the
+    # streaming results/metrics endpoints (/healthz /jobs /metrics,
+    # resumable telemetry tails, manifest-validated artifact files).
+    # 0 = off.  Serve workers usually arm it with --obs-port instead;
+    # set here, a solo run serves its own output dir as a single-run
+    # view.  Scrapes read artifacts only — zero added device fetches.
+    obs_port: int = 0
+    # bind address for the observability server (default loopback;
+    # 0.0.0.0 exposes it on all interfaces)
+    obs_bind: str = "127.0.0.1"
+
+
+@dataclass
+class InitParams:
+    """&INIT_PARAMS regions (amr/amr_parameters.f90:301-311)."""
+    nregion: int = 0
+    region_type: List[str] = field(default_factory=list)
+    x_center: List[float] = field(default_factory=list)
+    y_center: List[float] = field(default_factory=list)
+    z_center: List[float] = field(default_factory=list)
+    length_x: List[float] = field(default_factory=list)
+    length_y: List[float] = field(default_factory=list)
+    length_z: List[float] = field(default_factory=list)
+    exp_region: List[float] = field(default_factory=list)
+    d_region: List[float] = field(default_factory=list)
+    u_region: List[float] = field(default_factory=list)
+    v_region: List[float] = field(default_factory=list)
+    w_region: List[float] = field(default_factory=list)
+    p_region: List[float] = field(default_factory=list)
+    # MHD region fields (mhd/hydro_parameters.f90:80-82): uniform B per region
+    A_region: List[float] = field(default_factory=list)
+    B_region: List[float] = field(default_factory=list)
+    C_region: List[float] = field(default_factory=list)
+    filetype: str = "ascii"
+    initfile: List[str] = field(default_factory=list)
+    aexp_ini: float = 10.0
+    multiple: bool = False
+
+
+@dataclass
+class HydroParams:
+    """&HYDRO_PARAMS (hydro/hydro_parameters.f90:75-90)."""
+    gamma: float = 1.4
+    gamma_rad: List[float] = field(default_factory=list)
+    courant_factor: float = 0.5
+    smallr: float = 1e-10
+    smallc: float = 1e-10
+    niter_riemann: int = 10
+    slope_type: int = 1
+    slope_theta: float = 1.5
+    scheme: str = "muscl"
+    riemann: str = "llf"
+    riemann2d: str = "llf"     # MHD corner solver
+    difmag: float = 0.0
+    pressure_fix: bool = False
+    beta_fix: float = 0.0
+    eta_mag: float = 0.0
+
+
+@dataclass
+class RefineParams:
+    """&REFINE_PARAMS (hydro/hydro_parameters.f90:47-58 + amr flags)."""
+    err_grad_d: float = -1.0
+    err_grad_u: float = -1.0
+    err_grad_p: float = -1.0
+    err_grad_b: float = -1.0    # MHD (mhd/hydro_parameters variant)
+    floor_d: float = 1e-10
+    floor_u: float = 1e-10
+    floor_p: float = 1e-10
+    floor_b: float = 1e-10
+    interpol_var: int = 0
+    interpol_type: int = 1
+    jeans_refine: List[float] = field(default_factory=lambda: [-1.0] * MAXLEVEL)
+    m_refine: List[float] = field(default_factory=lambda: [-1.0] * MAXLEVEL)
+    mass_sph: float = 0.0
+    x_refine: List[float] = field(default_factory=lambda: [0.0] * MAXLEVEL)
+    y_refine: List[float] = field(default_factory=lambda: [0.0] * MAXLEVEL)
+    z_refine: List[float] = field(default_factory=lambda: [0.0] * MAXLEVEL)
+    r_refine: List[float] = field(default_factory=lambda: [-1.0] * MAXLEVEL)
+    a_refine: List[float] = field(default_factory=lambda: [1.0] * MAXLEVEL)
+    b_refine: List[float] = field(default_factory=lambda: [1.0] * MAXLEVEL)
+    exp_refine: List[float] = field(default_factory=lambda: [2.0] * MAXLEVEL)
+
+
+@dataclass
+class BoundaryParams:
+    """&BOUNDARY_PARAMS (amr/amr_parameters.f90:313-330).
+
+    boundary_type semantics follow the reference: per-region integer code,
+    1/2 = x-reflexive, 3/4 = y, 5/6 = z, 2x = outflow variants (20+ codes
+    collapse to: 0 periodic, 1 reflecting, 2 outflow, 3 inflow/imposed).
+    We keep the raw codes and region boxes.
+    """
+    nboundary: int = 0
+    bound_type: List[int] = field(default_factory=list)
+    ibound_min: List[int] = field(default_factory=list)
+    ibound_max: List[int] = field(default_factory=list)
+    jbound_min: List[int] = field(default_factory=list)
+    jbound_max: List[int] = field(default_factory=list)
+    kbound_min: List[int] = field(default_factory=list)
+    kbound_max: List[int] = field(default_factory=list)
+    d_bound: List[float] = field(default_factory=list)
+    u_bound: List[float] = field(default_factory=list)
+    v_bound: List[float] = field(default_factory=list)
+    w_bound: List[float] = field(default_factory=list)
+    p_bound: List[float] = field(default_factory=list)
+    no_inflow: bool = False
+
+
+@dataclass
+class PoissonParams:
+    """&POISSON_PARAMS (amr/amr_parameters.f90 + poisson commons)."""
+    epsilon: float = 1e-4
+    gravity_type: int = 0
+    gravity_params: List[float] = field(default_factory=lambda: [0.0] * 10)
+    cg_levelmin: int = 999
+    cic_levelmax: int = 0
+
+
+@dataclass
+class RtParams:
+    """&RT_PARAMS (rt/rt_init.f90:151-152) + the group/SED surface of
+    ``rt/rt_parameters.f90`` (nGroups, group energy bounds, stellar
+    blackbody SED) and a point-source shortcut (the reference injects
+    via stellar particles or &RT_REGIONS; ``rt_src_*`` is the reduced
+    single-source form the Stromgren tests use)."""
+    rt_c_fraction: float = 0.01
+    rt_courant_factor: float = 0.8
+    rt_otsa: bool = True
+    rt_nsubcycle: int = 1
+    rt_is_outflow_bound: bool = False
+    rt_ngroups: int = 1
+    rt_t_star: float = 1e5            # blackbody SED temperature [K]
+    rt_y_he: float = 0.0              # helium mass fraction in the chem
+    # empty = unset → group defaults from rt/spectra.DEFAULT_BOUNDS
+    rt_egy_bounds: List[float] = field(default_factory=list)
+    rt_src_pos: List[float] = field(default_factory=lambda: [0.5, 0.5, 0.5])
+    rt_ndot: float = 0.0              # source photons/s (0: no source)
+    # multi-source surface (rt_parameters.f90 rt_nsource point list,
+    # namelist/rad_beams.nml usage) — per-source centres in box units,
+    # rates in photons/s, optional beam direction (rt_u/v/w_source)
+    rt_nsource: int = 0
+    rt_source_type: List[str] = field(default_factory=list)
+    rt_src_x_center: List[float] = field(default_factory=list)
+    rt_src_y_center: List[float] = field(default_factory=list)
+    rt_src_z_center: List[float] = field(default_factory=list)
+    rt_n_source: List[float] = field(default_factory=list)
+    rt_u_source: List[float] = field(default_factory=list)
+    rt_v_source: List[float] = field(default_factory=list)
+    rt_w_source: List[float] = field(default_factory=list)
+    # pure photon propagation: skip the thermochemistry entirely
+    # (rt_pp / rt_freeflow of rt_parameters.f90)
+    rt_pp: bool = False
+    rt_freeflow: bool = False
+    # stellar SED tables (rt/rt_spectra.f90): directory holding
+    # metallicity_bins.dat / age_bins.dat / all_seds.dat; empty →
+    # RAMSES_SED_DIR env, else the blackbody SED above
+    sed_dir: str = ""
+    sedprops_update: int = 5          # group-prop refresh cadence (steps)
+    rt_esc_frac: float = 1.0          # stellar photon escape fraction
+    # homogeneous UV background inside the RT chemistry
+    # (rt_UV_hom; amplitude from &COOLING_PARAMS J21/a_spec/z_reion)
+    rt_uv_hom: bool = False
+
+
+@dataclass
+class CoolingParams:
+    """&COOLING_PARAMS (hydro/read_hydro_params.f90:92-95)."""
+    cooling: bool = False
+    metal: bool = False
+    isothermal: bool = False
+    haardt_madau: bool = False
+    J21: float = 0.0
+    a_spec: float = 1.0
+    self_shielding: bool = False
+    z_ave: float = 0.0
+    z_reion: float = 8.5
+    T2max: float = 1e50
+    neq_chem: bool = False
+    cooling_ism: bool = False
+    barotropic_eos: bool = False
+    barotropic_eos_form: str = "isothermal"
+    polytrope_rho: float = 0.0
+    polytrope_index: float = 1.0
+    T_eos: float = 10.0
+    mu_gas: float = 1.0
+
+
+@dataclass
+class UnitsParams:
+    """&UNITS_PARAMS (amr/units.f90)."""
+    units_density: float = 1.0
+    units_time: float = 1.0
+    units_length: float = 1.0
+
+
+@dataclass
+class EnsembleParams:
+    """&ENSEMBLE_PARAMS (ours: the batched many-scenario engine,
+    ramses_tpu/ensemble — no reference equivalent; the reference runs
+    one namelist per MPI job).
+
+    ``nmember > 1`` turns the namelist into an ensemble: the uniform
+    fused step chain is vmapped over a leading member axis so one
+    compiled program advances every member.  ``sweep_name`` rows give
+    dotted parameter paths ("init.p_region[1]", "hydro.gamma") ramped
+    linearly from ``sweep_start`` to ``sweep_stop`` across members;
+    ``perturb_amp > 0`` additionally applies a deterministic per-member
+    density perturbation seeded by ``perturb_seed + member``."""
+    nmember: int = 0
+    sweep_name: List[str] = field(default_factory=list)
+    sweep_start: List[float] = field(default_factory=list)
+    sweep_stop: List[float] = field(default_factory=list)
+    perturb_amp: float = 0.0
+    perturb_seed: int = 0
+    chunk_steps: int = 16          # fused steps per engine dispatch
+    # member isolation ladder (resilience/stepguard.BatchGuard): a
+    # non-finite member is rolled back to its pre-window state and
+    # re-advanced at halved dt (LLF escalation from the second retry);
+    # after max_member_retries failures it is quarantined so the rest
+    # of the batch keeps running.  member_quarantine arms the guard
+    # even with zero retries (trip -> quarantine directly).  Both off
+    # by default: the engine retains no state and adds no fetches.
+    max_member_retries: int = 0
+    member_quarantine: bool = False
+    # run-service knobs (ensemble/queue): a running job whose heartbeat
+    # mtime is older than queue_stale_s is presumed orphaned and may be
+    # reclaimed by another worker
+    queue_stale_s: float = 300.0
+    # two-level parallelism (ensemble/meshplan.MeshPlan): a job whose
+    # per-member cell count stays at or below pack_cell_budget packs
+    # members across independent per-device replicas (the member vmap
+    # sharded over a replica mesh axis); above the budget the job is
+    # mesh-wide — members stream through the explicit slab pipeline on
+    # the full local mesh
+    pack_cell_budget: int = 2 ** 21
+    # cap on the replica count a packed job may spread over (0 = every
+    # device the scheduler assigned)
+    pack_max_replicas: int = 0
+    # scheduler demand clamps stamped into the queue record at submit
+    # (0 = auto: min 1 shard, max = the worker's mesh size); a
+    # mesh-wide job effectively pins min_shards to the whole mesh
+    min_shards: int = 0
+    max_shards: int = 0
+    # starvation bound for the cost-aware gang scheduler: a queued
+    # mesh-wide (exclusive) job older than this preempts small-job
+    # bin-packing — the worker drains to exclusive mode and runs it
+    # next regardless of cost order
+    gang_starve_s: float = 600.0
+    # serve-loop default: point the persistent compile cache at a
+    # shared <queue_dir>/compile_cache so fleet workers warm-start each
+    # other (an explicit &RUN_PARAMS compile_cache_dir or
+    # RAMSES_COMPILE_CACHE still wins); .false. restores the earlier
+    # opt-in behavior
+    shared_compile_cache: bool = True
+    # hang watchdog for the batched engine (resilience/watchdog.py):
+    # same semantics as the &RUN_PARAMS deadlines, but guarding the
+    # engine's per-chunk dispatch fetch; a hang escaping run_job makes
+    # the serve loop requeue the job with stage="hang"
+    compile_deadline_s: float = 0.0
+    step_deadline_s: float = 0.0
+    io_deadline_s: float = 0.0
+    # disk-pressure degradation (resilience/diskguard): free-space
+    # watermarks [MiB] on the job's results filesystem.  Below
+    # disk_soft_free_mb the per-chunk checkpoint beat is shed (the run
+    # keeps stepping; an io_degraded event + Prometheus gauge say so);
+    # the worker-level hard watermark additionally pauses new claims.
+    # 0 disables; RAMSES_DISK_SOFT_MB / RAMSES_DISK_HARD_MB env vars
+    # override per worker
+    disk_soft_free_mb: float = 0.0
+    disk_hard_free_mb: float = 0.0
+
+
+@dataclass
+class CalibrationParams:
+    """&CALIBRATION_PARAMS (ours: the differentiable calibration service,
+    ramses_tpu/diff — no reference equivalent; fits namelist parameters
+    to a target rollout by Adam gradient descent through the checkpointed
+    adjoint step chain)."""
+    # master switch: run this namelist as a calibration (fit selected
+    # parameters against a target rollout) instead of a forward
+    # simulation; `--calibrate` on the CLI and calibrate-kind queue jobs
+    # take the same path
+    calibrate: bool = False
+    # fit the EOS gamma (traced through the inlined step chain) — the
+    # namelist's &HYDRO_PARAMS gamma is the *truth* used to synthesise
+    # the target, and the optimizer starts from a perturbed guess
+    fit_gamma: bool = True
+    # additionally fit a log-amplitude scale on the initial condition
+    # (one scalar multiplying the whole IC state)
+    fit_ic: bool = False
+    # Courant steps in the target/fit rollout window
+    nsteps: int = 8
+    # physical end time of the rollout; 0 → the last &OUTPUT_PARAMS tout
+    tend: float = 0.0
+    # remat window length of the checkpointed scan;
+    # 0 → ceil(sqrt(nsteps)) (the O(sqrt N) adjoint-memory schedule)
+    inner: int = 0
+    # optimizer iterations
+    niter: int = 60
+    # Adam learning rate
+    lr: float = 2e-2
+    # clip the per-member global gradient norm (0 = off)
+    grad_clip: float = 0.0
+    # batched calibration: B independent members advance in one compiled
+    # vmapped program (cf. &ENSEMBLE_PARAMS nmember)
+    nmember: int = 1
+    # initial gamma guess; 0 → truth * (1 + guess_spread).  With
+    # nmember > 1 the member guesses are spread uniformly over
+    # guess ± truth*guess_spread
+    gamma_guess: float = 0.0
+    guess_spread: float = 0.05
+    # initial IC log-amplitude guess (fit_ic)
+    ic_guess: float = 0.0
+    # divergence screen: a member whose loss is non-finite or exceeds
+    # diverge_loss (0 = non-finite only) is quarantined via the
+    # BatchGuard ladder — its parameters freeze, the batch keeps running
+    diverge_loss: float = 0.0
+    # optimizer-state checkpoint cadence in iterations (0 = final only);
+    # checkpoints are manifest-valid output_NNNNN dirs, so &RUN_PARAMS
+    # auto_resume restarts a killed calibration from the last one
+    checkpoint_every: int = 0
+
+
+@dataclass
+class Params:
+    """Full runtime configuration (one object per simulation)."""
+    ndim: int = 3               # compile-time in the reference (bin/Makefile:7)
+    nvar: int = 0               # 0 → ndim+2+nener+npassive
+    nener: int = 0
+    npassive: int = 0
+    run: RunParams = field(default_factory=RunParams)
+    amr: AmrParams = field(default_factory=AmrParams)
+    output: OutputParams = field(default_factory=OutputParams)
+    init: InitParams = field(default_factory=InitParams)
+    hydro: HydroParams = field(default_factory=HydroParams)
+    refine: RefineParams = field(default_factory=RefineParams)
+    boundary: BoundaryParams = field(default_factory=BoundaryParams)
+    poisson: PoissonParams = field(default_factory=PoissonParams)
+    cooling: CoolingParams = field(default_factory=CoolingParams)
+    rt: RtParams = field(default_factory=RtParams)
+    units: UnitsParams = field(default_factory=UnitsParams)
+    ensemble: EnsembleParams = field(default_factory=EnsembleParams)
+    calibration: CalibrationParams = field(
+        default_factory=CalibrationParams)
+    lightcone: LightconeParams = field(
+        default_factory=LightconeParams)
+    clumpfind: ClumpfindParams = field(
+        default_factory=ClumpfindParams)
+    raw: Dict[str, Dict[str, Any]] = field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.nvar == 0:
+            self.nvar = self.ndim + 2 + self.nener + self.npassive
+        else:
+            self.npassive = self.nvar - self.ndim - 2 - self.nener
+
+
+_GROUP_MAP = {
+    "run_params": "run",
+    "amr_params": "amr",
+    "output_params": "output",
+    "init_params": "init",
+    "hydro_params": "hydro",
+    "refine_params": "refine",
+    "boundary_params": "boundary",
+    "poisson_params": "poisson",
+    "cooling_params": "cooling",
+    "rt_params": "rt",
+    "units_params": "units",
+    "ensemble_params": "ensemble",
+    "calibration_params": "calibration",
+    "lightcone_params": "lightcone",
+    "clumpfind_params": "clumpfind",
+}
+
+# fields that are per-region/bound/level lists: (field, count_attr, default)
+_LIST_FIELDS = {
+    "init": dict(count="nregion",
+                 fields=dict(region_type="square", x_center=0.0, y_center=0.0,
+                             z_center=0.0, length_x=1e10, length_y=1e10,
+                             length_z=1e10, exp_region=2.0, d_region=0.0,
+                             u_region=0.0, v_region=0.0, w_region=0.0,
+                             p_region=0.0, A_region=0.0, B_region=0.0,
+                             C_region=0.0)),
+    "boundary": dict(count="nboundary",
+                     fields=dict(bound_type=0, ibound_min=0, ibound_max=0,
+                                 jbound_min=0, jbound_max=0, kbound_min=0,
+                                 kbound_max=0, d_bound=0.0, u_bound=0.0,
+                                 v_bound=0.0, w_bound=0.0, p_bound=0.0)),
+}
+
+
+def params_from_dict(groups: Dict[str, Dict[str, Any]],
+                     ndim: int = 3, **overrides: Any) -> Params:
+    """Build :class:`Params` from parsed namelist groups."""
+    p = Params(ndim=ndim, **overrides)
+    p.raw = groups
+    for gname, attr in _GROUP_MAP.items():
+        gdict = groups.get(gname)
+        if not gdict:
+            continue
+        sub = getattr(p, attr)
+        valid = {f.name: f for f in dataclasses.fields(sub)}
+        for key, value in gdict.items():
+            if key == "boundary_type":
+                key = "bound_type"  # nml name differs from our field name
+            # the parser lowercases namelist keys; map back the reference's
+            # capitalized MHD region fields (mhd/hydro_parameters.f90:80-82)
+            key = {"a_region": "A_region", "b_region": "B_region",
+                   "c_region": "C_region", "j21": "J21", "t2max": "T2max",
+                   "t_eos": "T_eos"}.get(key, key)
+            if key not in valid:
+                continue  # unknown keys ignored (subsystem not yet built)
+            ftype = valid[key].type
+            cur = getattr(sub, key)
+            if isinstance(cur, list) or str(ftype).startswith("List"):
+                setattr(sub, key, value if isinstance(value, (list, dict))
+                        else [value])
+            else:
+                if isinstance(value, list):
+                    value = value[0]
+                setattr(sub, key, value)
+    # initfile(1)=... indexed assignment (the reference's multi-level
+    # zoom IC syntax, amr/init_time.f90 initfile(1:nlevelmax)) parses
+    # to a {1-based-index: value} dict: densify to an ordered list
+    if isinstance(p.init.initfile, dict):
+        idx = p.init.initfile
+        nmax = max(idx)
+        p.init.initfile = [
+            (idx[i][0] if isinstance(idx.get(i), list) else idx.get(i, ""))
+            for i in range(1, nmax + 1)]
+    # densify per-region / per-boundary lists
+    for attr, spec in _LIST_FIELDS.items():
+        sub = getattr(p, attr)
+        n = getattr(sub, spec["count"])
+        for fname, default in spec["fields"].items():
+            setattr(sub, fname, densify(getattr(sub, fname) or None, n, default))
+    # densify per-level lists
+    p.run.nsubcycle = [int(v) for v in
+                       densify(p.run.nsubcycle, MAXLEVEL, 2)]
+    p.amr.nexpand = [int(v) for v in densify(p.amr.nexpand, MAXLEVEL, 1)]
+    for f in ("jeans_refine", "m_refine", "x_refine", "y_refine", "z_refine",
+              "r_refine", "a_refine", "b_refine", "exp_refine"):
+        cur = getattr(p.refine, f)
+        dflt = {"a_refine": 1.0, "b_refine": 1.0, "exp_refine": 2.0,
+                "x_refine": 0.0, "y_refine": 0.0, "z_refine": 0.0}.get(f, -1.0)
+        setattr(p.refine, f, [float(v) for v in densify(cur, MAXLEVEL, dflt)])
+    # output times (tout/aout accept scalars, lists and indexed assignment)
+    for f in ("tout", "aout"):
+        cur = getattr(p.output, f)
+        if isinstance(cur, dict) or any(isinstance(v, dict) for v in cur
+                                        if isinstance(cur, list)):
+            if isinstance(cur, list):  # list wrapping a {idx: vals} dict
+                cur = cur[0]
+            n = max(p.output.noutput, max(cur) + max(len(v) for v in
+                                                     cur.values()) - 1)
+            setattr(p.output, f, [float(v) for v in densify(cur, n, HUGE)])
+        elif not isinstance(cur, list):
+            setattr(p.output, f, [cur])
+    if p.output.noutput == 0 and p.output.tout:
+        p.output.noutput = len(p.output.tout)
+    # tend/delta_tout style (e.g. the reference's dice namelists): synthesise
+    # the tout ladder the driver iterates over.
+    if p.output.tend > 0.0 and not p.output.tout:
+        dt = p.output.delta_tout
+        if dt >= HUGE or dt <= 0.0:
+            p.output.tout = [p.output.tend]
+        else:
+            ts, t = [], dt
+            while t < p.output.tend * (1.0 - 1e-12):
+                ts.append(t)
+                t += dt
+            ts.append(p.output.tend)
+            p.output.tout = ts
+        p.output.noutput = len(p.output.tout)
+    if p.amr.ngridmax == 0 and p.amr.ngridtot:
+        p.amr.ngridmax = p.amr.ngridtot
+    return p
+
+
+def load_params(path: str, ndim: int = 3, **overrides: Any) -> Params:
+    """Load a RAMSES-style namelist file into a :class:`Params`."""
+    return params_from_dict(load_nml(path), ndim=ndim, **overrides)
+
+
+def params_from_string(text: str, ndim: int = 3, **overrides: Any) -> Params:
+    return params_from_dict(parse_nml(text), ndim=ndim, **overrides)
