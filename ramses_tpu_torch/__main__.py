@@ -1,8 +1,10 @@
 """Command-line entry point: ``python -m ramses_tpu_torch run.nml``.
 
-Runs a uniform pure-hydro namelist on the GPU (``--device cpu`` for the
-CPU), printing one line per chunk of fused steps and the final
-conservation totals.  Snapshot output is not ported yet.
+Runs a pure-hydro namelist on the GPU (``--device cpu`` for the CPU): a
+uniform grid, or with ``levelmax > levelmin`` the AMR hierarchy on one
+device.  Prints one line per chunk of steps (per coarse step on the
+hierarchy) and the final conservation totals.  Snapshot output is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import sys
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="ramses_tpu_torch",
-        description="PyTorch/CUDA port of ramses_tpu (uniform pure hydro)")
+        description="PyTorch/CUDA port of ramses_tpu (pure hydro, "
+                    "uniform or AMR)")
     ap.add_argument("namelist", help="Fortran-namelist runtime config")
     ap.add_argument("--ndim", type=int, default=3,
                     help="spatial dimensions (compile-time in the reference)")
@@ -36,8 +39,8 @@ def main(argv=None) -> int:
     mom = ", ".join(f"{float(m):.9e}" for m in tot["momentum"])
     print(f"totals: t={sim.t:.6e} nstep={sim.nstep} "
           f"mass={float(tot['mass']):.9e} momentum=[{mom}] "
-          f"energy={float(tot['energy']):.9e} "
-          f"mus/pt={sim.mus_per_cell_update():.4f} device={sim.device}")
+          f"energy={float(tot['energy']):.9e} {sim.status_note()} "
+          f"device={sim.device}")
     return 0
 
 

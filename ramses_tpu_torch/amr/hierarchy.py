@@ -1,0 +1,660 @@
+"""AMR simulation driver: recursive subcycled level stepping (PyTorch).
+
+Port of the pure-hydro, single-device ``AmrSim`` of
+``ramses_tpu/amr/hierarchy.py``.  The host keeps the octree and builds the
+per-level index maps at each regrid; every level's state lives on the
+device as flat rows ``[ncell_pad, nvar]`` (the JAX package's bucket padding
+and its hysteresis are kept, so the two compare row for row).  One coarse
+step is the recursion of ``amr_step`` (``amr/amr_step.f90:1-586``) with the
+hydro-only operation order:
+
+    set_unew(l) → recurse(l+1) ×2 → godunov(l) [+ coarse corrections]
+    → set_uold(l) → upload_fine(l)
+
+and ``dt = min_l courant(l)·2^(l-levelmin)`` with exact factor-2
+subcycling.  A coarse step issues device work only; the host fetches what
+the JAX package fetches: the packed refinement flags once per regrid and
+the Courant dt once per coarse step.
+
+Complete levels sweep through K1, blocked partial levels through K3 and
+stencil partial levels (``oct_blocking=.false.``) through K2 where the
+kernels cover the configuration (:mod:`ramses_tpu_torch.amr.kernels`).
+
+Regrids always take the host prolongation-map migrate; the JAX package's
+``device_regrid`` (on by default there) is pinned bitwise equal to it by
+its own tests and is not ported.  Gravity, particles, cooling, cosmology,
+tracers, star formation, sinks, RT, movies, load balance, offload, the
+step guard, the watchdog, telemetry, patch hooks, non-cubic roots and
+snapshots are not ported yet: a namelist that turns one on raises
+``NotImplementedError`` naming it.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ramses_tpu_torch.amr import flag as flagmod
+from ramses_tpu_torch.amr import kernels as K
+from ramses_tpu_torch.amr import maps as mapmod
+from ramses_tpu_torch.amr.tree import Octree, cell_offsets
+from ramses_tpu_torch.config import Params
+from ramses_tpu_torch.device import resolve_device
+from ramses_tpu_torch.grid import boundary as bmod
+from ramses_tpu_torch.hydro.core import HydroStatic
+from ramses_tpu_torch.init import regions
+
+
+class FusedSpec(NamedTuple):
+    """Static description of one coarse step's level structure (re-derived
+    per regrid)."""
+    cfg: HydroStatic
+    bspec: bmod.BoundarySpec
+    lmin: int
+    boxlen: float
+    levels: tuple          # populated levels, ascending
+    complete: tuple        # per-level bool
+    itype: int
+    # per-level bool: partial level runs the blocked tile sweep
+    blocked: tuple = ()
+    block_shift: int = 2
+
+
+def _advance(u, dev, dt, spec: FusedSpec):
+    """One coarse step (the recursive subcycled ``amr_step``) as device work
+    only: ``u`` maps level → rows, ``dt`` is a 0-d device tensor in the
+    state dtype.  Returns the new state dict; the input tensors are not
+    modified."""
+    cfg = spec.cfg
+    u = dict(u)
+    unew = dict(u)
+    levels = spec.levels
+
+    def dx(l):
+        return spec.boxlen / (1 << l)
+
+    def advance(i, dtl):
+        l = levels[i]
+        d = dev[l]
+        unew[l] = u[l]
+        if i + 1 < len(levels):
+            advance(i + 1, 0.5 * dtl)
+            advance(i + 1, 0.5 * dtl)
+        corr = None
+        if spec.complete[i]:
+            du = K.dense_sweep(u[l], None, None, d["ok_dense"], dtl, dx(l),
+                               (1 << l,) * cfg.ndim, spec.bspec, cfg)
+        elif spec.blocked and spec.blocked[i]:
+            interp = K.interp_cells(u[l - 1], d["b_interp_cell"],
+                                    d["b_interp_nb"], d["b_interp_sgn"],
+                                    cfg, itype=spec.itype)
+            du, corr = K.tile_sweep(
+                u[l], interp, d["tile_src"], d["tile_vsgn"], d["tile_ok"],
+                d["cell_tile"], d["cell_slot"], d["oct_tile"],
+                d["oct_slot"], dtl, dx(l), cfg, spec.block_shift)
+        else:
+            interp = K.interp_cells(u[l - 1], d["interp_cell"],
+                                    d["interp_nb"], d["interp_sgn"], cfg,
+                                    itype=spec.itype)
+            du, corr = K.level_sweep(u[l], interp, d["stencil_src"],
+                                     d["vsgn"], d["ok_ref"], dtl, dx(l), cfg)
+        unew[l] = unew[l] + du
+        if corr is not None and l > spec.lmin:
+            unew[l - 1] = K.scatter_corrections(unew[l - 1], corr,
+                                                d["corr_plan"], cfg)
+        u[l] = unew[l]
+        if i + 1 < len(levels):
+            u[l] = K.restrict_upload(u[l], u[levels[i + 1]], d["ref_cell"],
+                                     d["son_oct"], cfg)
+
+    advance(0, dt)
+    return u
+
+
+def _courant(u, dev, spec: FusedSpec):
+    """All levels' CFL dts as coarse-step equivalents ``[nlevel]``."""
+    return torch.stack([
+        K.level_courant(u[l], dev[l]["valid_cell"], spec.boxlen / (1 << l),
+                        spec.cfg) * (2.0 ** (l - spec.lmin))
+        for l in spec.levels])
+
+
+def _coarse_step(u, dev, dt, spec: FusedSpec):
+    """One coarse step and the NEXT step's Courant dt (a 0-d device
+    tensor), the reference's ``dtnew`` bookkeeping."""
+    u = _advance(u, dev, dt, spec)
+    return u, torch.min(_courant(u, dev, spec))
+
+
+def _multi_step(u, dev, t, tend, dt0, spec: FusedSpec, nsteps: int):
+    """``nsteps`` coarse steps with the time bookkeeping on the device
+    (``t``, ``tend``, ``dt0``: 0-d f64 tensors); steps past ``tend`` are
+    no-ops.  Only valid while the tree is frozen.  Returns ``(u, t, dt_next,
+    n_done)`` as device values."""
+    dtc = dt0
+    ndone = torch.zeros((), dtype=torch.int64, device=t.device)
+    sdtype = u[spec.lmin].dtype
+    for _ in range(nsteps):
+        dt = torch.minimum(dtc, torch.clamp(tend - t, min=0.0))
+        active = t < tend
+        un, dtn = _coarse_step(u, dev,
+                               torch.where(active, dt, 0.0).to(sdtype), spec)
+        u = {l: torch.where(active, un[l], u[l]) for l in u}
+        t = torch.where(active, t + dt, t)
+        dtc = torch.where(active, dtn.to(dtc.dtype), dtc)
+        ndone = ndone + active.to(torch.int64)
+    return u, t, dtc, ndone
+
+
+def unported_amr_features(params: Params) -> list:
+    """Names of the namelist's features the port's AMR hierarchy does not
+    run yet."""
+    from ramses_tpu_torch.driver import unported_features
+    a, r = params.amr, params.run
+    root = [a.nx, a.ny, a.nz][:params.ndim]
+    checks = [
+        ("tracers (&RUN_PARAMS tracer)", r.tracer),
+        ("load balance (&AMR_PARAMS load_balance)", a.load_balance),
+        ("offload (&AMR_PARAMS offload)",
+         str(a.offload).strip().lower() != "off"),
+        ("step guard (&RUN_PARAMS max_step_retries)",
+         r.max_step_retries > 0),
+        ("watchdog (&RUN_PARAMS *_deadline_s)",
+         max(r.compile_deadline_s, r.step_deadline_s, r.io_deadline_s) > 0),
+        ("telemetry (&OUTPUT_PARAMS telemetry)",
+         bool(str(params.output.telemetry or "").strip("'\" "))),
+        ("restart (&RUN_PARAMS nrestart)", r.nrestart > 0),
+        ("non-cubic coarse grid (&AMR_PARAMS nx, ny, nz)",
+         any(int(n) != 1 for n in root)),
+    ]
+    return unported_features(params) + [n for n, on in checks if on]
+
+
+def _mig_consts(ndim: int):
+    offs = cell_offsets(ndim)
+    return (offs * 2 - 1).astype(np.float64), np.arange(1 << ndim)
+
+
+class AmrSim:
+    """Adaptive simulation: host octree + per-level device states.
+
+    Runs on CUDA unless ``device="cpu"`` is given; without a GPU a run that
+    did not ask for the CPU raises."""
+
+    def __init__(self, params: Params, dtype=torch.float32, device=None,
+                 init_tree: Optional[Octree] = None,
+                 noct_pad: Optional[Dict[int, int]] = None):
+        missing = unported_amr_features(params)
+        if missing:
+            raise NotImplementedError(
+                "not ported to ramses_tpu_torch's AMR hierarchy yet: "
+                + ", ".join(missing))
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = HydroStatic.from_params(params)
+        self.dtype = dtype
+        self.boxlen = float(params.amr.boxlen)
+        self.bspec = bmod.BoundarySpec.from_params(params)
+        self.bc_kinds = list(self.bspec.kinds)
+        self.lmin = params.amr.levelmin
+        self.lmax = params.amr.levelmax
+        self.t = 0.0
+        self.nstep = 0
+        self.dt_old = 0.0
+        # regrid cadence: nremap coarse steps (>= 1), amr/amr_step.f90:100-123
+        self.regrid_interval = max(1, int(params.run.nremap))
+        # next-step CFL dt (0-d device tensor) from the last fused step;
+        # None whenever u changed outside a step (regrid, ICs)
+        self._dt_cache = None
+        # last padded oct count per level (seeded by from_state)
+        self._pad_hist: Dict[int, int] = dict(noct_pad or {})
+        self._spec = None
+        self.blocks: Dict[int, mapmod.BlockMaps] = {}
+        # cells × level substeps advanced by evolve (bench.py's count)
+        self.cell_updates = 0
+        if init_tree is not None:
+            self.tree = init_tree
+            self._rebuild_maps()
+            self._alloc_from_ics()
+        else:
+            self._init_refine()
+
+    @classmethod
+    def from_state(cls, params: Params, tree_og: Dict[int, np.ndarray],
+                   rows: Dict[int, np.ndarray], t: float = 0.0,
+                   nstep: int = 0, noct_pad: Optional[Dict[int, int]] = None,
+                   dtype=None, device=None) -> "AmrSim":
+        """Start from a given hierarchy: per-level oct coordinates
+        ``tree_og`` and state rows ``rows`` (numpy, e.g. from
+        :func:`ramses_tpu_torch.convert.amr_state_from`), the time and the
+        step count.  ``noct_pad`` (per level) reproduces another run's
+        padding so that arrays compare row for row; the dtype defaults to
+        the rows'."""
+        tree = Octree(params.ndim, params.amr.levelmin, params.amr.levelmax)
+        for l, og in tree_og.items():
+            tree.set_level(l, og)
+        if dtype is None:
+            dtype = (torch.float64 if next(iter(rows.values())).dtype
+                     == np.float64 else torch.float32)
+        sim = cls(params, dtype=dtype, device=device, init_tree=tree,
+                  noct_pad=noct_pad)
+        for l in sim.levels():
+            r = np.asarray(rows[l])
+            ncell = sim.tree.noct(l) * 2 ** sim.cfg.ndim
+            if r.shape[0] < ncell:
+                raise ValueError(f"level {l}: {r.shape[0]} rows for "
+                                 f"{ncell} cells")
+            full = np.array(sim.u[l].cpu().numpy())
+            n = min(r.shape[0], full.shape[0])
+            full[:n] = r[:n]
+            sim.u[l] = torch.as_tensor(full, dtype=dtype, device=sim.device)
+        sim.t, sim.nstep = float(t), int(nstep)
+        sim._dt_cache = None
+        return sim
+
+    # ------------------------------------------------------------------
+    # setup
+    # ------------------------------------------------------------------
+    def dx(self, lvl: int) -> float:
+        return self.boxlen / (1 << lvl)
+
+    def _dev(self, a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=self.device)
+
+    def _noct_pad(self, lvl: int, noct: int) -> int:
+        """Padded oct count with hysteresis: keep the previous bucket while
+        the level still fits in it and fills more than 1/4."""
+        pad = mapmod.bucket(noct)
+        prev = self._pad_hist.get(lvl)
+        if prev is not None and pad <= prev and noct * 4 > prev:
+            pad = prev
+        self._pad_hist[lvl] = pad
+        return pad
+
+    def _keys_same(self, other: Optional[Octree], l: int) -> bool:
+        """True when level ``l`` has identical oct sets in self.tree and
+        ``other`` (both absent counts as same)."""
+        if other is None:
+            return False
+        ha, hb = self.tree.has(l), other.has(l)
+        if ha != hb:
+            return False
+        if not ha:
+            return True
+        a, b = self.tree.levels[l].keys, other.levels[l].keys
+        return len(a) == len(b) and np.array_equal(a, b)
+
+    def tree_order_cells(self, arr, l: int) -> np.ndarray:
+        """Host f64 copy of a level's real rows in tree order."""
+        n = self.tree.noct(l) * (1 << self.tree.ndim)
+        return arr[:n].to(torch.float64).cpu().numpy()
+
+    def _restriction_dev(self, m: mapmod.LevelMaps) -> dict:
+        # the valid prefix only: pad rows write nothing
+        return dict(ref_cell=self._dev(m.ref_cell[:m.nref], torch.int64),
+                    son_oct=self._dev(m.son_oct[:m.nref], torch.int64))
+
+    def _rebuild_maps(self, old_tree: Optional[Octree] = None,
+                      old_maps: Optional[dict] = None,
+                      old_dev: Optional[dict] = None):
+        """(Re)build per-level index maps, reusing cached maps for levels
+        whose (l-1, l, l+1) oct sets are unchanged."""
+        prev_maps = old_maps or {}
+        prev_dev = old_dev or {}
+        prev_blocks = self.blocks
+        ttd = 1 << self.tree.ndim
+        shift = int(self.params.amr.oct_block_shift)
+        self._spec = None
+        self.maps: Dict[int, mapmod.LevelMaps] = {}
+        self.dev: Dict[int, dict] = {}
+        self.blocks = {}
+        self.block_stats = {"blocks_total": 0, "blocks_rebuilt": 0}
+        for l in range(self.lmin, self.lmax + 1):
+            if not self.tree.has(l):
+                break
+            if (l in prev_maps and self._keys_same(old_tree, l - 1)
+                    and self._keys_same(old_tree, l)
+                    and self._keys_same(old_tree, l + 1)):
+                self.maps[l] = prev_maps[l]
+                self.dev[l] = prev_dev[l]
+                if l in prev_blocks:
+                    self.blocks[l] = prev_blocks[l]
+                    self.block_stats["blocks_total"] += prev_blocks[l].ntile
+                continue
+            if (l in prev_maps and prev_maps[l].complete
+                    and self._keys_same(old_tree, l)):
+                # complete level, same oct set: only the restriction and
+                # refined-mask maps (which read l+1) change
+                m = mapmod.refresh_restriction(prev_maps[l], self.tree)
+                self.maps[l] = m
+                self.dev[l] = dict(
+                    prev_dev[l], ok_dense=(self._dev(m.ok_dense)
+                                           if m.ok_dense is not None
+                                           else None),
+                    **self._restriction_dev(m))
+                continue
+            m = mapmod.build_level_maps(
+                self.tree, l, self.bc_kinds,
+                noct_pad=self._noct_pad(l, self.tree.noct(l)))
+            self.maps[l] = m
+            valid_cell = self._dev(np.repeat(m.valid_oct, ttd))
+            if m.complete:
+                self.dev[l] = dict(
+                    ok_dense=(self._dev(m.ok_dense)
+                              if m.ok_dense is not None else None),
+                    valid_cell=valid_cell, **self._restriction_dev(m))
+                continue
+            self.dev[l] = dict(
+                stencil_src=self._dev(m.stencil_src),
+                vsgn=self._dev(m.vsgn) if m.vsgn is not None else None,
+                ok_ref=self._dev(m.ok_ref),
+                interp_cell=self._dev(m.interp_cell),
+                interp_nb=self._dev(m.interp_nb),
+                interp_sgn=self._dev(m.interp_sgn, self.dtype),
+                corr_plan=K.corr_plan(m.corr_idx, self.device),
+                valid_cell=valid_cell, **self._restriction_dev(m))
+            if self.params.amr.oct_blocking:
+                b = mapmod.build_block_maps(
+                    self.tree, l, self.bc_kinds, shift=shift,
+                    noct_pad=m.noct_pad, prev=prev_blocks.get(l))
+                self.blocks[l] = b
+                self.block_stats["blocks_total"] += b.ntile
+                self.block_stats["blocks_rebuilt"] += b.blocks_rebuilt
+                self.dev[l].update(
+                    tile_src=self._dev(b.tile_src),
+                    tile_vsgn=(self._dev(b.tile_vsgn)
+                               if b.tile_vsgn is not None else None),
+                    tile_ok=self._dev(b.tile_ok),
+                    cell_tile=self._dev(b.cell_tile),
+                    cell_slot=self._dev(b.cell_slot),
+                    oct_tile=self._dev(b.oct_tile),
+                    oct_slot=self._dev(b.oct_slot),
+                    b_interp_cell=self._dev(b.interp_cell),
+                    b_interp_nb=self._dev(b.interp_nb),
+                    b_interp_sgn=self._dev(b.interp_sgn, self.dtype))
+
+    def _ic_state(self, lvl: int) -> torch.Tensor:
+        """Analytic conservative ICs on this level's (padded) rows."""
+        m = self.maps[lvl]
+        centers = self.tree.cell_centers(lvl, self.boxlen)
+        x = [centers[:, d] for d in range(self.cfg.ndim)]
+        q = regions.region_condinit(x, self.dx(lvl), self.params, self.cfg)
+        u = regions.prim_to_cons(q, self.cfg)          # [nvar, ncell]
+        out = np.zeros((m.ncell_pad, self.cfg.nvar))
+        out[:, 0] = self.cfg.smallr
+        out[:, self.cfg.ndim + 1] = self.cfg.smalle * self.cfg.smallr
+        out[:u.shape[1]] = u.T
+        return self._dev(out, self.dtype)
+
+    def _alloc_from_ics(self):
+        self.u: Dict[int, torch.Tensor] = {l: self._ic_state(l)
+                                           for l in self.levels()}
+        self._restrict_all()
+        self._dt_cache = None
+
+    def _init_refine(self):
+        """Iterative initial mesh build (``amr/init_refine.f90:5-154``):
+        apply analytic ICs, flag, rebuild, repeat until stable."""
+        self.tree = Octree.base(self.params.ndim, self.lmin, self.lmax)
+        self._rebuild_maps()
+        self._alloc_from_ics()
+        for _ in range(self.lmax - self.lmin + 2):
+            newtree = self._flag_and_tree()
+            if all(newtree.has(l) == self.tree.has(l)
+                   and (not newtree.has(l) or np.array_equal(
+                       newtree.levels[l].keys, self.tree.levels[l].keys))
+                   for l in range(self.lmin, self.lmax + 1)):
+                break
+            self.tree = newtree
+            self._rebuild_maps()
+            self._alloc_from_ics()
+
+    def levels(self):
+        return [l for l in range(self.lmin, self.lmax + 1)
+                if self.tree.has(l)]
+
+    # ------------------------------------------------------------------
+    # refinement
+    # ------------------------------------------------------------------
+    def _criteria_flags(self, spec: FusedSpec):
+        """Per-level gradient criteria ``[noct_pad, 2^d]`` bool on the
+        device (``hydro_refine`` of ``flag_fine``)."""
+        r = self.params.refine
+        eg = (float(r.err_grad_d), float(r.err_grad_u), float(r.err_grad_p))
+        fls = (float(r.floor_d), float(r.floor_u), float(r.floor_p))
+        cfg = self.cfg
+        out = []
+        for i, l in enumerate(spec.levels):
+            d = self.dev[l]
+            if spec.complete[i]:
+                out.append(K.dense_refine_flags(
+                    self.u[l], None, None, eg, fls, self.tree.cell_dims(l),
+                    self.bspec, cfg))
+                continue
+            pre = "b_" if spec.blocked and spec.blocked[i] else ""
+            interp = K.interp_cells(self.u[l - 1], d[pre + "interp_cell"],
+                                    d[pre + "interp_nb"],
+                                    d[pre + "interp_sgn"], cfg,
+                                    itype=spec.itype)
+            if pre:
+                out.append(K.tile_refine_flags(
+                    self.u[l], interp, d["tile_src"], d["tile_vsgn"],
+                    d["cell_tile"], d["cell_slot"], eg, fls, cfg,
+                    spec.block_shift))
+            else:
+                out.append(K.refine_flags(self.u[l], interp,
+                                          d["stencil_src"], d["vsgn"], eg,
+                                          fls, cfg))
+        return out
+
+    def _flag_and_tree(self) -> Octree:
+        spec = self._fused_spec()
+        ttd = 2 ** self.tree.ndim
+        shifts = torch.arange(ttd, dtype=torch.int32, device=self.device)
+        # one uint8 per oct, all levels in one fetch: the only
+        # device→host copy of a regrid
+        packed = [(fl.to(torch.int32) << shifts).sum(dim=1).to(torch.uint8)
+                  for fl in self._criteria_flags(spec)]
+        host = torch.cat(packed).cpu().numpy()
+        r = self.params.refine
+        crit: Dict[int, np.ndarray] = {}
+        off = 0
+        for fl, l in zip(packed, spec.levels):
+            bits = host[off:off + fl.shape[0]]
+            off += fl.shape[0]
+            f = ((bits[:self.maps[l].noct, None] >> np.arange(ttd)) & 1) \
+                .astype(bool).reshape(-1)
+            if l - 1 < len(r.r_refine) and r.r_refine[l - 1] > 0.0:
+                f = f | flagmod.geometry_flags(
+                    self.tree.cell_centers(l, self.boxlen), l, self.params)
+            crit[l] = f
+        return flagmod.compute_new_tree(self.tree, crit, self.bc_kinds,
+                                        self.params)
+
+    def regrid(self):
+        """Flag, rebuild the tree, and migrate the device state
+        (``flag_fine`` + ``refine_fine``/``kill_grid``) through the host
+        prolongation maps."""
+        if self.lmax == self.lmin:
+            return
+        newtree = self._flag_and_tree()
+        old_u, oldtree = self.u, self.tree
+        old_maps, old_dev = self.maps, self.dev
+        self.tree = newtree
+        if all(self._keys_same(oldtree, l)
+               for l in range(self.lmin, self.lmax + 2)):
+            self.tree = oldtree
+            self.block_stats = {"blocks_total": sum(
+                b.ntile for b in self.blocks.values()), "blocks_rebuilt": 0}
+            return
+        self._rebuild_maps(oldtree, old_maps, old_dev)
+        new_u: Dict[int, torch.Tensor] = {}
+        for l in self.levels():
+            m = self.maps[l]
+            if ((l == self.lmin or self._keys_same(oldtree, l))
+                    and old_u[l].shape[0] == m.ncell_pad):
+                new_u[l] = old_u[l]
+                continue
+            new_u[l] = self._migrate_level(
+                old_u.get(l), new_u[l - 1], m.ncell_pad,
+                *mapmod.build_prolong_maps(self.tree, oldtree, l,
+                                           self.bc_kinds))
+        self.u = new_u
+        self._restrict_all()
+        self._dt_cache = None
+
+    def _migrate_level(self, old, u_coarse, ncell_pad, copy_dst, copy_src,
+                       new_octs, f_cell, nb):
+        """One level of the new tree: surviving octs copied from the old
+        rows, new octs interpolated from the (already migrated) coarser
+        level (``make_grid_fine``, ``amr/refine_utils.f90:590``).  Every
+        destination row is written once."""
+        ttd = 1 << self.cfg.ndim
+        sgn_tab, oct_ar = _mig_consts(self.cfg.ndim)
+        buf = torch.zeros((ncell_pad, self.cfg.nvar), dtype=self.dtype,
+                          device=self.device)
+        if len(copy_dst):
+            rows_d = (copy_dst.astype(np.int64)[:, None] * ttd
+                      + oct_ar).reshape(-1)
+            rows_s = (copy_src.astype(np.int64)[:, None] * ttd
+                      + oct_ar).reshape(-1)
+            buf.index_copy_(0, self._dev(rows_d),
+                            old.index_select(0, self._dev(rows_s)))
+        if len(new_octs):
+            vals = K.interp_cells(
+                u_coarse, self._dev(np.repeat(f_cell, ttd)),
+                self._dev(np.repeat(nb, ttd, axis=0)),
+                self._dev(np.tile(sgn_tab, (len(new_octs), 1)), self.dtype),
+                self.cfg, itype=int(self.params.refine.interpol_type))
+            rows_new = (new_octs.astype(np.int64)[:, None] * ttd
+                        + oct_ar).reshape(-1)
+            buf.index_copy_(0, self._dev(rows_new), vals.to(self.dtype))
+        return buf
+
+    def _restrict_all(self):
+        """Restriction sweep fine→coarse so refined cells hold son means."""
+        for l in sorted(self.levels(), reverse=True):
+            if self.tree.has(l + 1):
+                d = self.dev[l]
+                self.u[l] = K.restrict_upload(self.u[l], self.u[l + 1],
+                                              d["ref_cell"], d["son_oct"],
+                                              self.cfg)
+
+    # ------------------------------------------------------------------
+    # time stepping
+    # ------------------------------------------------------------------
+    def _fused_spec(self) -> FusedSpec:
+        if self._spec is None:
+            lv = tuple(self.levels())
+            self._spec = FusedSpec(
+                cfg=self.cfg, bspec=self.bspec, lmin=self.lmin,
+                boxlen=self.boxlen, levels=lv,
+                complete=tuple(self.maps[l].complete for l in lv),
+                itype=int(self.params.refine.interpol_type),
+                blocked=tuple(l in self.blocks for l in lv),
+                block_shift=int(self.params.amr.oct_block_shift))
+        return self._spec
+
+    def coarse_dt(self) -> float:
+        """The coarse step's CFL dt: the one device→host fetch of a step."""
+        if self._dt_cache is not None:
+            return float(self._dt_cache)
+        return float(torch.min(_courant(self.u, self.dev,
+                                        self._fused_spec())))
+
+    def step_coarse(self, dt: float):
+        self.u, self._dt_cache = _coarse_step(
+            self.u, self.dev,
+            torch.tensor(float(dt), dtype=self.dtype, device=self.device),
+            self._fused_spec())
+        self.t += float(dt)
+        self.dt_old = float(dt)
+        self.nstep += 1
+
+    def step_chunk(self, nsteps: int, tend: float) -> int:
+        """Up to ``nsteps`` coarse steps with no host synchronisation in
+        between, then one fetch of (t, dt, steps done); callers guarantee
+        no regrid is due inside the chunk.  Returns the steps done."""
+        spec = self._fused_spec()
+        f64 = dict(dtype=torch.float64, device=self.device)
+        dt0 = (self._dt_cache if self._dt_cache is not None
+               else torch.min(_courant(self.u, self.dev, spec))).to(**f64)
+        u, t, dtn, ndone = _multi_step(
+            self.u, self.dev, torch.tensor(self.t, **f64),
+            torch.tensor(float(tend), **f64), dt0, spec, nsteps)
+        self.u, self._dt_cache = u, dtn
+        t_host, dt_host, n = torch.stack([t, dtn, ndone.to(t.dtype)]) \
+            .cpu().tolist()
+        self.t, self.dt_old = t_host, dt_host
+        self.nstep += int(n)
+        return int(n)
+
+    def updates_per_step(self) -> int:
+        """Cell updates of one coarse step (every level substep counted):
+        ``Σ_l noct(l)·2^d·2^(l-levelmin)``, as ``bench.py`` counts them."""
+        ttd = 2 ** self.cfg.ndim
+        return sum(self.tree.noct(l) * ttd * 2 ** (l - self.lmin)
+                   for l in self.levels())
+
+    def evolve(self, tend: float, nstepmax: int = 10 ** 9,
+               verbose: bool = False):
+        """Advance to ``tend`` or ``nstepmax``: a regrid every
+        ``regrid_interval`` coarse steps, and between regrids chunks of
+        power-of-two length without host synchronisation."""
+        while self.t < tend * (1 - 1e-12) and self.nstep < nstepmax:
+            t0 = time.perf_counter()
+            if self.nstep % self.regrid_interval == 0:
+                self.regrid()
+            to_regrid = (self.regrid_interval
+                         - self.nstep % self.regrid_interval)
+            lim = min(to_regrid, nstepmax - self.nstep, 64)
+            chunk = 1 << (max(lim, 1).bit_length() - 1)
+            per = self.updates_per_step()
+            if chunk > 1:
+                n = self.step_chunk(chunk, tend)
+            else:
+                dt = min(self.coarse_dt(), tend - self.t)
+                self.step_coarse(dt)
+                n = 1
+            self.cell_updates += n * per
+            if verbose:
+                print(f"step {self.nstep:6d}  t={self.t:.6e} "
+                      f"dt={self.dt_old:.3e} octs="
+                      f"{[self.tree.noct(l) for l in self.levels()]} "
+                      f"wall={time.perf_counter() - t0:.3f}s"
+                      + (f" chunk={n}" if chunk > 1 else ""))
+            if n == 0:
+                break
+
+    # ------------------------------------------------------------------
+    # diagnostics
+    # ------------------------------------------------------------------
+    def drain(self):
+        """Wait until the device has finished the queued work."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def totals(self) -> dict:
+        """Conservation audit over leaf cells (``check_cons``): the volume
+        integrals of mass, momentum and energy, summed in f64 on the host,
+        keyed as :meth:`ramses_tpu_torch.driver.Simulation.totals`."""
+        nd = self.cfg.ndim
+        tot = np.zeros(self.cfg.nvar)
+        for l in self.levels():
+            u = self.tree_order_cells(self.u[l], l)
+            leaf = ~self.tree.refined_mask(l)
+            tot += u[leaf].sum(axis=0) * self.dx(l) ** nd
+        return {"mass": tot[0], "momentum": list(tot[1:1 + nd]),
+                "energy": tot[1 + nd]}
+
+    def status_note(self) -> str:
+        """The CLI's closing note on the run: octs per level."""
+        return f"octs={[self.tree.noct(l) for l in self.levels()]}"
+
+    def ncell_leaf(self) -> int:
+        return sum(int((~self.tree.refined_mask(l)).sum())
+                   for l in self.levels())

@@ -30,3 +30,20 @@ def state_from_numpy(u: np.ndarray, device, dtype=torch.float32
     """A ``[nvar, *sp]`` numpy array (e.g. ``np.asarray(state.u)``) as a
     contiguous tensor of ``dtype`` on ``device`` (always a copy)."""
     return torch.tensor(np.asarray(u), dtype=dtype, device=device)
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def amr_state_from(sim) -> dict:
+    """The hierarchy of an AMR simulation of either package (a JAX
+    ``AmrSim`` or the port's) as numpy arrays: the keyword arguments of
+    :meth:`ramses_tpu_torch.amr.hierarchy.AmrSim.from_state` (per-level
+    oct coordinates, state rows and padded oct counts, time and step
+    count)."""
+    levels = sim.levels()
+    return dict(tree_og={l: _host(sim.tree.levels[l].og) for l in levels},
+                rows={l: _host(sim.u[l]) for l in levels},
+                noct_pad={l: int(sim.maps[l].noct_pad) for l in levels},
+                t=float(sim.t), nstep=int(sim.nstep))

@@ -6,7 +6,9 @@
 // update, with an optional refined-cell mask and the Courant min of the
 // updated state (the next step's dt) from the same launch.  It computes what
 // the TPU kernel computes, in the same f32 arithmetic order; it is not a
-// block-by-block copy of it.
+// block-by-block copy of it.  The body's device functions (ctoprim, slopes,
+// predictor, face states, floors, LLF/HLLC) are in muscl_common.cuh, shared
+// with the AMR sweeps of oct_muscl.cu.
 //
 // What bounds it on an H100 at 256^3 (5 f32 variables): it must read the
 // state once and write the update once, 5 * (256^3 + 256^3) * 4 B = 0.67 GB,
@@ -42,18 +44,12 @@
 // so the result is deterministic.  A NaN maps to the key -1 and wins, so
 // dt_next is NaN when the state is, as jnp.min would give.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "muscl_common.cuh"
 
 namespace {
 
 constexpr int TZ = 32;  // threads along z (contiguous)
 constexpr int TY = 4;   // threads along y
-
-struct Consts {
-  float gamma, gm1, entho, smallr, smallc2, smallp, smalle, slope;
-  float dx, fac;
-};
 
 struct Geom {
   int n[3];
@@ -94,163 +90,24 @@ __device__ __forceinline__ void load_prim(const float* __restrict__ u,
                                           float* ir_out) {
   float s[3];
   int64_t o = cell_offset(g, x, y, z, s);
-  float r = fmaxf(__ldg(u + o), k.smallr);
-  float ir = 1.0f / r;
-  float v0 = __ldg(u + g.plane + o) * ir;
-  float v1 = __ldg(u + 2 * g.plane + o) * ir;
-  float v2 = __ldg(u + 3 * g.plane + o) * ir;
-  float ek = 0.5f * (v0 * v0 + v1 * v1 + v2 * v2);
-  float eint = fmaxf(__ldg(u + 4 * g.plane + o) * ir - ek, k.smalle);
-  q[0] = r;
-  q[1] = v0 * s[0];
-  q[2] = v1 * s[1];
-  q[3] = v2 * s[2];
-  q[4] = k.gm1 * r * eint;
-  *ir_out = ir;
+  cons_to_prim(__ldg(u + o), __ldg(u + g.plane + o),
+               __ldg(u + 2 * g.plane + o), __ldg(u + 3 * g.plane + o),
+               __ldg(u + 4 * g.plane + o), k, q, ir_out);
+  q[1] *= s[0];
+  q[2] *= s[1];
+  q[3] *= s[2];
 }
 
-// _slopes: TVD slope from (left, centre, right); sign(0) = 0 as jnp.sign.
-__device__ __forceinline__ float slope(float ql, float q, float qr, float f) {
-  float dl = q - ql;
-  float dr = qr - q;
-  float dcen = 0.5f * (dl + dr);
-  float slop = f * fminf(fabsf(dl), fabsf(dr));
-  float dlim = (dl * dr <= 0.0f) ? 0.0f : slop;
-  float sgn = (dcen > 0.0f) ? 1.0f : ((dcen < 0.0f) ? -1.0f : 0.0f);
-  return sgn * fminf(dlim, fabsf(dcen));
-}
-
-// One cell's primitives, slopes in the three directions and the trace3d
-// source terms: everything its face states need.
-struct Cell {
-  float q[5];
-  float dq[3][5];
-  float sr0, sp0, sv0[3];
+// make_cell's loader on the unpadded grid: ghosts mapped per axis.
+struct GridLoad {
+  const float* __restrict__ u;
+  const Geom* g;
+  const Consts* k;
+  __device__ __forceinline__ void operator()(int x, int y, int z, float q[5],
+                                             float* ir) const {
+    load_prim(u, *g, *k, x, y, z, q, ir);
+  }
 };
-
-__device__ __forceinline__ void make_cell(const float* __restrict__ u,
-                                          const Geom& g, const Consts& k,
-                                          int x, int y, int z, Cell& c) {
-  float ir, irn;
-  load_prim(u, g, k, x, y, z, c.q, &ir);
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    float qm1[5], qp1[5];
-    int e0 = d == 0, e1 = d == 1, e2 = d == 2;
-    load_prim(u, g, k, x - e0, y - e1, z - e2, qm1, &irn);
-    load_prim(u, g, k, x + e0, y + e1, z + e2, qp1, &irn);
-#pragma unroll
-    for (int v = 0; v < 5; ++v) c.dq[d][v] = slope(qm1[v], c.q[v], qp1[v], k.slope);
-  }
-  float divv = c.dq[0][1] + c.dq[1][2] + c.dq[2][3];
-#define ADV(comp) (c.q[1] * c.dq[0][comp] + c.q[2] * c.dq[1][comp] + \
-                   c.q[3] * c.dq[2][comp])
-  c.sr0 = -ADV(0) - divv * c.q[0];
-  c.sp0 = -ADV(4) - divv * k.gamma * c.q[4];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) c.sv0[j] = -ADV(1 + j) - c.dq[j][4] * ir;
-#undef ADV
-}
-
-// Face state of cell c in direction d: sgn=+1 its high face, -1 its low face.
-__device__ __forceinline__ void face_state(const Cell& c, const Consts& k,
-                                           int d, float half, float dtdx2,
-                                           float f[5]) {
-  float rho = c.q[0] + half * c.dq[d][0] + c.sr0 * dtdx2;
-  f[0] = (rho < k.smallr) ? c.q[0] : rho;
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-    f[1 + j] = c.q[1 + j] + half * c.dq[d][1 + j] + c.sv0[j] * dtdx2;
-  f[4] = c.q[4] + half * c.dq[d][4] + c.sp0 * dtdx2;
-}
-
-// Floors of riemann.py _prims as the TPU kernel applies them (:278-281):
-// the pressure floor uses the unfloored density.
-__device__ __forceinline__ void floor_face(float f[5], const Consts& k) {
-  float r = f[0];
-  f[0] = fmaxf(r, k.smallr);
-  f[4] = fmaxf(f[4], r * k.smallp);
-}
-
-// _llf_flux: state-layout LLF flux (mass, mom_x, mom_y, mom_z, energy).
-__device__ __forceinline__ void llf_flux(const float ql[5], const float qr[5],
-                                         int d, const Consts& k, float out[5]) {
-  float ul = ql[1 + d], ur = qr[1 + d];
-  float cl = sqrtf(fmaxf(k.gamma * ql[4] / ql[0], k.smallc2));
-  float cr = sqrtf(fmaxf(k.gamma * qr[4] / qr[0], k.smallc2));
-  float cmax = fmaxf(fabsf(ul) + cl, fabsf(ur) + cr);
-  float uc[2][5], fx[2][5];
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const float* q = s ? qr : ql;
-    float un = s ? ur : ul;
-    float r = q[0], p = q[4];
-    float ek = 0.5f * r * (q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
-    float et = p * k.entho + ek;
-    uc[s][0] = r;
-    uc[s][1] = r * q[1];
-    uc[s][2] = r * q[2];
-    uc[s][3] = r * q[3];
-    uc[s][4] = et;
-    float run = r * un;
-    fx[s][0] = run;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) fx[s][1 + c] = run * q[1 + c];
-    fx[s][1 + d] = fx[s][1 + d] + p;
-    fx[s][4] = un * (et + p);
-  }
-#pragma unroll
-  for (int v = 0; v < 5; ++v)
-    out[v] = 0.5f * (fx[0][v] + fx[1][v] - cmax * (uc[1][v] - uc[0][v]));
-}
-
-// _hllc_flux: HLLC with Toro sampling.  Every branch is computed and then
-// selected, so a division in a branch not taken cannot reach the result.
-__device__ __forceinline__ void hllc_flux(const float ql[5], const float qr[5],
-                                          int d, const Consts& k, float out[5]) {
-  float rl = ql[0], pl = ql[4], rr = qr[0], pr = qr[4];
-  float ul = ql[1 + d], ur = qr[1 + d];
-  float ekl = 0.5f * rl * (ql[1] * ql[1] + ql[2] * ql[2] + ql[3] * ql[3]);
-  float ekr = 0.5f * rr * (qr[1] * qr[1] + qr[2] * qr[2] + qr[3] * qr[3]);
-  float etotl = pl * k.entho + ekl;
-  float etotr = pr * k.entho + ekr;
-  float cfastl = sqrtf(fmaxf(k.gamma * pl / rl, k.smallc2));
-  float cfastr = sqrtf(fmaxf(k.gamma * pr / rr, k.smallc2));
-  float SL = fminf(ul, ur) - fmaxf(cfastl, cfastr);
-  float SR = fmaxf(ul, ur) + fmaxf(cfastl, cfastr);
-  float rcl = rl * (ul - SL);
-  float rcr = rr * (SR - ur);
-  float ustar = (rcr * ur + rcl * ul + (pl - pr)) / (rcr + rcl);
-  float pstar = (rcr * pl + rcl * pr + rcl * rcr * (ul - ur)) / (rcr + rcl);
-  float rstarl = rl * (SL - ul) / (SL - ustar);
-  float etotstarl = ((SL - ul) * etotl - pl * ul + pstar * ustar) / (SL - ustar);
-  float rstarr = rr * (SR - ur) / (SR - ustar);
-  float etotstarr = ((SR - ur) * etotr - pr * ur + pstar * ustar) / (SR - ustar);
-  bool sl_pos = SL > 0.0f, us_pos = ustar > 0.0f, sr_pos = SR > 0.0f;
-#define SEL(a_l, a_sl, a_sr, a_r) \
-  (sl_pos ? (a_l) : (us_pos ? (a_sl) : (sr_pos ? (a_sr) : (a_r))))
-  float ro = SEL(rl, rstarl, rstarr, rr);
-  float uo = SEL(ul, ustar, ustar, ur);
-  float po = SEL(pl, pstar, pstar, pr);
-  float etoto = SEL(etotl, etotstarl, etotstarr, etotr);
-#undef SEL
-  float fmass = ro * uo;
-  out[0] = fmass;
-  out[4] = (etoto + po) * uo;
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-    out[1 + c] = (c == d) ? fmass * uo + po
-                          : fmass * (us_pos ? ql[1 + c] : qr[1 + c]);
-}
-
-template <int RS>
-__device__ __forceinline__ void solve(float ql[5], float qr[5], int d,
-                                      const Consts& k, float out[5]) {
-  floor_face(ql, k);
-  floor_face(qr, k);
-  if (RS == 0) llf_flux(ql, qr, d, k, out);
-  else hllc_flux(ql, qr, d, k, out);
-}
 
 __device__ __forceinline__ float load_ok(const float* __restrict__ ok,
                                          const Geom& g, int x, int y, int z) {
@@ -276,8 +133,9 @@ fused_muscl_kernel(const float* __restrict__ u, const float* __restrict__ ok,
     const float dt = __ldg(dt_ptr);
     const float dtdx2 = 0.5f * dt / k.dx;
     const float scale = dt / k.dx;
+    const GridLoad load{u, &g, &k};
     Cell cc;
-    make_cell(u, g, k, x, y, z, cc);
+    make_cell(load, k, x, y, z, cc);
     float okc = 0.0f;
     if (masked) okc = load_ok(ok, g, x, y, z);
     float du[5];
@@ -287,14 +145,14 @@ fused_muscl_kernel(const float* __restrict__ u, const float* __restrict__ ok,
       float ql[5], qr[5], flo[5], fhi[5];
       {  // low face: left = high face of cell - e_d, right = low face of cell
         Cell cn;
-        make_cell(u, g, k, x - e0, y - e1, z - e2, cn);
+        make_cell(load, k, x - e0, y - e1, z - e2, cn);
         face_state(cn, k, d, 0.5f, dtdx2, ql);
       }
       face_state(cc, k, d, -0.5f, dtdx2, qr);
       solve<RS>(ql, qr, d, k, flo);
       {  // high face: left = high face of cell, right = low face of cell + e_d
         Cell cn;
-        make_cell(u, g, k, x + e0, y + e1, z + e2, cn);
+        make_cell(load, k, x + e0, y + e1, z + e2, cn);
         face_state(cn, k, d, -0.5f, dtdx2, qr);
       }
       face_state(cc, k, d, 0.5f, dtdx2, ql);

@@ -1,6 +1,7 @@
 """Simulation driver: config → initial state → time loop (PyTorch).
 
-Port of the uniform, pure-hydro branch of ``ramses_tpu/driver.py``: the
+Port of the uniform, pure-hydro branch of ``ramses_tpu/driver.py`` (and
+the dispatch of ``ramses_tpu/__main__.py`` to the AMR hierarchy): the
 host keeps the output-time bookkeeping and the device advances in fused
 multi-step chunks of :func:`ramses_tpu_torch.grid.uniform.run_steps`,
 with one host synchronisation per chunk.  Time is integrated in f64
@@ -8,7 +9,8 @@ whatever the state dtype.
 
 Runs on CUDA unless the caller passes ``device="cpu"``; without a GPU a
 run that did not ask for the CPU raises.  Every feature of the JAX driver
-beyond uniform pure hydro raises ``NotImplementedError`` naming it.
+beyond pure hydro (uniform, or AMR on one device) raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -38,7 +40,9 @@ class SimState:
 
 
 def unported_features(params: Params) -> list:
-    """Names of the namelist's features this port does not run yet."""
+    """Names of the namelist's features this port does not run yet, on the
+    uniform grid or the AMR hierarchy (which adds its own,
+    :func:`ramses_tpu_torch.amr.hierarchy.unported_amr_features`)."""
     raw = params.raw or {}
 
     def on(group, key):
@@ -46,8 +50,6 @@ def unported_features(params: Params) -> list:
         return bool(v[0] if isinstance(v, list) else v)
 
     checks = [
-        ("AMR (levelmax > levelmin)",
-         params.amr.levelmax > params.amr.levelmin),
         ("gravity (&RUN_PARAMS poisson)", params.run.poisson),
         ("particles (&RUN_PARAMS pic)", params.run.pic),
         ("cosmology (&RUN_PARAMS cosmo)", params.run.cosmo),
@@ -84,6 +86,11 @@ class Simulation:
         if missing:
             raise NotImplementedError(
                 "not ported to ramses_tpu_torch yet: " + ", ".join(missing))
+        if params.amr.levelmax > params.amr.levelmin:
+            raise NotImplementedError(
+                "AMR (levelmax > levelmin) runs through "
+                "ramses_tpu_torch.amr.hierarchy.AmrSim, not the uniform "
+                "Simulation (run_namelist and the CLI pick it)")
         self.device = resolve_device(device)
         self.params = params
         self.dtype = dtype
@@ -189,16 +196,31 @@ class Simulation:
         """Conservation audit (``check_cons``) over the active grid."""
         return _totals(self.state.u, self.cfg, self.dx)
 
+    def status_note(self) -> str:
+        """The CLI's closing note on the run: microseconds per cell
+        update."""
+        return f"mus/pt={self.mus_per_cell_update():.4f}"
+
 
 def run_namelist(path: str, ndim: int = 3, dtype=torch.float32,
                  verbose: bool = False, max_attempts: int = 1,
-                 device=None) -> Simulation:
-    """Build-and-evolve from a namelist (``max_attempts > 1``, a
-    supervised run, is not ported yet)."""
+                 device=None):
+    """Build-and-evolve from a namelist: the uniform :class:`Simulation`,
+    or with ``levelmax > levelmin`` the AMR hierarchy
+    (:class:`ramses_tpu_torch.amr.hierarchy.AmrSim`) evolved to the last
+    output time or ``nstepmax`` (``max_attempts > 1``, a supervised run, is
+    not ported yet)."""
     if max_attempts > 1:
         raise NotImplementedError("not ported to ramses_tpu_torch yet: "
                                   "supervised restart (max_attempts > 1)")
-    sim = Simulation(load_params(path, ndim=ndim), dtype=dtype,
-                     device=device)
+    params = load_params(path, ndim=ndim)
+    if params.amr.levelmax > params.amr.levelmin:
+        from ramses_tpu_torch.amr.hierarchy import AmrSim
+        sim = AmrSim(params, dtype=dtype, device=device)
+        out = params.output
+        sim.evolve(out.tout[-1] if out.tout else out.tend,
+                   nstepmax=params.run.nstepmax, verbose=verbose)
+        return sim
+    sim = Simulation(params, dtype=dtype, device=device)
     sim.evolve(verbose=verbose)
     return sim

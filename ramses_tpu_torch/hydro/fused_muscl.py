@@ -187,17 +187,17 @@ def _rdiv(a: float, t: torch.Tensor) -> torch.Tensor:
     return torch.div(torch.full_like(t, a), t)
 
 
-def fused_step_ref(u: torch.Tensor, dt: torch.Tensor, cfg: HydroStatic,
-                   dx: float, bc: bmod.BoundarySpec,
-                   ok: Optional[torch.Tensor] = None, courant: bool = False,
-                   dt_scale: float = 1.0):
-    """Plain-PyTorch version of :func:`fused_step` (``_make_kernel``'s
-    arithmetic, with ``torch.roll`` on a ghost-padded tensor).  Same
-    arguments and results."""
-    nx, ny, nz = u.shape[1:]
-    dt = torch.as_tensor(dt, dtype=u.dtype, device=u.device)
-    up = bmod.pad(u, bc, cfg, NG)
-    sl = (slice(NG, NG + nx), slice(NG, NG + ny), slice(NG, NG + nz))
+def masked_fluxes(up: torch.Tensor, dt: torch.Tensor, cfg: HydroStatic,
+                  dx: float, okf: Optional[torch.Tensor] = None):
+    """The TPU kernels' MUSCL body in plain PyTorch on a block
+    ``up [5, X, Y, Z, *batch]`` whose edges are halo: ctoprim → TVD slopes →
+    trace3d → face states → floors → LLF/HLLC, neighbours by ``torch.roll``
+    along the three spatial axes (what wraps around lands only on halo
+    results).  Returns, per direction d, the 5 unscaled fluxes through each
+    cell's LOW face; with ``okf`` (the refined mask on the same cells, in
+    ``up``'s dtype) a face next to a refined cell carries none.  Shared by
+    K1's plain version and those of K2 and K3
+    (:mod:`ramses_tpu_torch.hydro.oct_muscl`)."""
     f = _slope_factor(cfg)
     solver = _llf_flux if cfg.riemann == "llf" else _hllc_flux
     # ---- ctoprim (umuscl.f90:861-967) ----
@@ -223,10 +223,8 @@ def fused_step_ref(u: torch.Tensor, dt: torch.Tensor, cfg: HydroStatic,
     sp0 = -adv(4) - divv * cfg.gamma * p
     sv0 = [-adv(1 + j) - dq[j][4] * ir for j in range(3)]
     dtdx2 = 0.5 * dt / dx
-    if ok is not None:
-        okf = _pad_mask(ok.to(u.dtype), bc)
-    # ---- per-direction face flux + conservative update ----
-    du = [None] * 5
+    # ---- per-direction face flux ----
+    fluxes = []
     for d in range(3):
         def face_state(sgn):
             rho = r + sgn * 0.5 * dq[d][0] + sr0 * dtdx2
@@ -247,14 +245,38 @@ def fused_step_ref(u: torch.Tensor, dt: torch.Tensor, cfg: HydroStatic,
         qr5 = (torch.clamp(qr5[0], min=cfg.smallr), qr5[1], qr5[2], qr5[3],
                torch.maximum(qr5[4], qr5[0] * cfg.smallp))
         flux = solver(ql5, qr5, d, cfg)
-        if ok is not None:
+        if okf is not None:
             # face kept iff neither adjacent cell is refined
             keepf = (1.0 - okf) * (1.0 - torch.roll(okf, 1, d))
             flux = tuple(fl * keepf for fl in flux)
-        scale = dt / dx
+        fluxes.append(flux)
+    return fluxes
+
+
+def flux_update(fluxes, scale):
+    """Per variable, Σ_d (F_low − F_high)·dt/dx of :func:`masked_fluxes`'
+    output over the whole block, in the kernels' order."""
+    du = [None] * 5
+    for d in range(3):
         for c in range(5):
-            contrib = (flux[c] - torch.roll(flux[c], -1, d)) * scale
+            contrib = (fluxes[d][c] - torch.roll(fluxes[d][c], -1, d)) * scale
             du[c] = contrib if du[c] is None else du[c] + contrib
+    return du
+
+
+def fused_step_ref(u: torch.Tensor, dt: torch.Tensor, cfg: HydroStatic,
+                   dx: float, bc: bmod.BoundarySpec,
+                   ok: Optional[torch.Tensor] = None, courant: bool = False,
+                   dt_scale: float = 1.0):
+    """Plain-PyTorch version of :func:`fused_step` (``_make_kernel``'s
+    arithmetic, with ``torch.roll`` on a ghost-padded tensor).  Same
+    arguments and results."""
+    nx, ny, nz = u.shape[1:]
+    dt = torch.as_tensor(dt, dtype=u.dtype, device=u.device)
+    up = bmod.pad(u, bc, cfg, NG)
+    sl = (slice(NG, NG + nx), slice(NG, NG + ny), slice(NG, NG + nz))
+    okf = _pad_mask(ok.to(u.dtype), bc) if ok is not None else None
+    du = flux_update(masked_fluxes(up, dt, cfg, dx, okf), dt / dx)
     un = torch.stack([(up[c] + du[c])[sl] for c in range(5)])
     if not courant:
         return un

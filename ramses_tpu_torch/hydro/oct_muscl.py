@@ -1,0 +1,206 @@
+"""MUSCL-Hancock sweeps of partial AMR levels: CUDA kernels and plain versions.
+
+Port of ``ramses_tpu/hydro/pallas_oct.py``: the fused sweep of one partial
+level on a gathered batch, whose last axis runs over the batch.
+
+* :func:`tile_sweep` (K3, ``pallas_oct.tile_sweep``): blocked Morton tiles
+  ``ut [5, td, td, td, N]`` (``td = c + 4``, ``c = 2**(shift+1)``) →
+  ``du [5, c, c, c, N]`` and the per-oct-face flux planes ``corrp [5, 3,
+  c//2+1, c, c, N]``, already ×dt/dx.
+* :func:`oct_sweep` (K2, ``pallas_oct.oct_sweep``): per-oct stencils
+  ``uloc [5, 6, 6, 6, N]`` → ``du [5, 2, 2, 2, N]`` and the per-oct
+  boundary-flux sums ``corr [5, 3, 2, N]``, already ×dt/dx.
+
+Both kernels are ``csrc/oct_muscl.cu`` on K1's body (``csrc/
+muscl_common.cuh``).  A wrapper launches its kernel for a CUDA tensor, or
+raises, and runs its plain version (:func:`tile_sweep_ref`,
+:func:`oct_sweep_ref`: the TPU kernel's arithmetic in PyTorch, with
+``torch.roll``) for a CPU tensor.  The MC-tracer mass-flux output
+(``want_flux``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ramses_tpu_torch.hydro import fused_muscl as fm
+from ramses_tpu_torch.hydro.core import HydroStatic
+
+NG = 2                      # block halo width (MUSCL-Hancock stencil)
+SHIFTS = (0, 1, 2, 3)       # tile shifts the K3 build carries (c = 2..16)
+
+# Kernel launches since the counts were last reset (the main path's proof
+# that it ran through each kernel); the plain versions do not count.
+launches = {"tile_sweep": 0, "oct_sweep": 0}
+
+
+def supports(cfg: HydroStatic, dtype) -> bool:
+    """True when K2 and K3 cover this configuration: the physics scope of
+    ``pallas_oct.available`` / ``tile_available`` without their backend,
+    device-count and lane-size rules."""
+    if getattr(cfg, "physics", "hydro") != "hydro":
+        return False
+    if cfg.ndim != 3 or cfg.nener != 0 or cfg.npassive != 0:
+        return False
+    if cfg.pressure_fix or cfg.scheme != "muscl":
+        return False
+    if cfg.slope_type not in (1, 2, 8) or cfg.riemann not in fm._RIEMANN:
+        return False
+    return dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _sweep_fluxes(u, ok, dt, cfg: HydroStatic, dx: float):
+    dt = torch.as_tensor(dt, dtype=u.dtype, device=u.device)
+    fl = fm.masked_fluxes(u, dt, cfg, dx, ok.to(u.dtype))
+    return fl, dt / dx
+
+
+def _interior_update(fl, scale, c: int):
+    """du of the c^3 interior cells."""
+    core = (slice(NG, NG + c),) * 3
+    return torch.stack([x[core] for x in fm.flux_update(fl, scale)])
+
+
+def tile_sweep_ref(ut, ok, dt, cfg: HydroStatic, dx: float, shift: int):
+    """Plain-PyTorch version of :func:`tile_sweep` (``_make_tile_kernel``'s
+    arithmetic).  Same arguments and results."""
+    c = 1 << (shift + 1)
+    fl, scale = _sweep_fluxes(ut, ok, dt, cfg, dx)
+    planes = []
+    for d in range(3):
+        # faces at positions NG + 2k along d, transverse interior
+        ix = tuple(slice(NG, NG + c + 1, 2) if dd == d
+                   else slice(NG, NG + c) for dd in range(3))
+        planes.append(torch.stack([torch.movedim((f * scale)[ix], d, 0)
+                                   for f in fl[d]]))
+    return _interior_update(fl, scale, c), torch.stack(planes, dim=1)
+
+
+def oct_sweep_ref(uloc, ok, dt, cfg: HydroStatic, dx: float):
+    """Plain-PyTorch version of :func:`oct_sweep` (``_make_kernel``'s
+    arithmetic).  Same arguments and results."""
+    fl, scale = _sweep_fluxes(uloc, ok, dt, cfg, dx)
+    corr = torch.empty((5, 3, 2) + tuple(uloc.shape[4:]), dtype=uloc.dtype,
+                       device=uloc.device)
+    for d in range(3):
+        for side, pos in ((0, NG), (1, NG + 2)):
+            ix = tuple(pos if dd == d else slice(NG, NG + 2)
+                       for dd in range(3))
+            for v in range(5):
+                corr[v, d, side] = fl[d][v][ix].sum(dim=(0, 1)) * scale
+    return _interior_update(fl, scale, 2), corr
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_CONSTS = [ctypes.c_float] * 9 + [ctypes.c_void_p]
+_ARGTYPES = {
+    "ramses_tile_sweep": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + _CONSTS,
+    "ramses_oct_sweep": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + _CONSTS,
+}
+
+
+def _library():
+    from ramses_tpu_torch import kernels
+    lib = kernels.load("oct_muscl")
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(name, u, ok, dt, cfg, block):
+    if not supports(cfg, u.dtype):
+        raise ValueError(f"{name}: configuration outside the kernel's scope "
+                         f"(cfg={cfg}, dtype={u.dtype})")
+    if (u.device.type != "cuda" or u.dim() != 5
+            or tuple(u.shape[:4]) != (5,) + (block,) * 3
+            or not u.is_contiguous()):
+        raise ValueError(f"{name}: the batch must be a contiguous "
+                         f"[5, {block}, {block}, {block}, N] CUDA tensor, "
+                         f"got {tuple(u.shape)} on {u.device}")
+    if tuple(ok.shape) != tuple(u.shape[1:]) or ok.device != u.device:
+        raise ValueError(f"{name}: ok must be {tuple(u.shape[1:])} on "
+                         f"{u.device}")
+    if not (torch.is_tensor(dt) and dt.dim() == 0 and dt.device == u.device
+            and dt.dtype == torch.float32):
+        raise ValueError(f"{name}: dt must be a 0-d f32 tensor on the "
+                         "batch's device")
+
+
+def _consts(cfg: HydroStatic, dx: float):
+    g = cfg.gamma
+    return (fm._slope_factor(cfg), g, g - 1.0, 1.0 / (g - 1.0), cfg.smallr,
+            cfg.smallc ** 2, cfg.smallp, cfg.smalle, dx)
+
+
+def _run(name, fn, u, ok, dt, outs, ints, cfg, dx):
+    okf = ok.to(torch.float32).contiguous()
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = fn(u.data_ptr(), okf.data_ptr(), dt.data_ptr(),
+                 outs[0].data_ptr(), outs[1].data_ptr(), *ints,
+                 fm._RIEMANN[cfg.riemann], *_consts(cfg, dx), stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
+    launches[name] += 1
+    return outs
+
+
+def tile_sweep(ut, ok, dt, cfg: HydroStatic, dx: float, shift: int,
+               want_flux: bool = False):
+    """Fused partial-level sweep on a blocked tile batch.
+
+    ``ut``: ``[5, td, td, td, N]`` f32 contiguous (``td = 2**(shift+1) +
+    4``); ``ok``: ``[td, td, td, N]`` refined-cell mask (0/1); ``dt``: a
+    0-d tensor on ``ut``'s device, read by the kernel through a pointer.
+    Returns ``(du [5, c, c, c, N], corrp [5, 3, c//2+1, c, c, N])``, fluxes
+    ×dt/dx.  A CPU tensor runs :func:`tile_sweep_ref`; a CUDA tensor
+    launches the kernel (counted in ``launches["tile_sweep"]``) or raises.
+    """
+    if want_flux:
+        raise NotImplementedError("tile_sweep: the MC-tracer face mass "
+                                  "fluxes (want_flux) are not ported yet")
+    if ut.device.type == "cpu":
+        return tile_sweep_ref(ut, ok, dt, cfg, dx, shift)
+    if shift not in SHIFTS:
+        raise ValueError(f"tile_sweep: shift {shift} outside {SHIFTS}")
+    c = 1 << (shift + 1)
+    _check("tile_sweep", ut, ok, dt, cfg, c + 2 * NG)
+    n = ut.shape[-1]
+    outs = (ut.new_empty((5, c, c, c, n)),
+            ut.new_empty((5, 3, c // 2 + 1, c, c, n)))
+    return _run("tile_sweep", _library().ramses_tile_sweep, ut, ok, dt, outs,
+                (shift, n), cfg, dx)
+
+
+def oct_sweep(uloc, ok, dt, cfg: HydroStatic, dx: float,
+              want_flux: bool = False):
+    """Fused partial-level sweep on a per-oct stencil batch.
+
+    ``uloc``: ``[5, 6, 6, 6, N]`` f32 contiguous; ``ok``: ``[6, 6, 6, N]``
+    refined-cell mask (0/1); ``dt``: a 0-d tensor on ``uloc``'s device.
+    Returns ``(du [5, 2, 2, 2, N], corr [5, 3, 2, N])``, fluxes ×dt/dx.
+    A CPU tensor runs :func:`oct_sweep_ref`; a CUDA tensor launches the
+    kernel (counted in ``launches["oct_sweep"]``) or raises.
+    """
+    if want_flux:
+        raise NotImplementedError("oct_sweep: the MC-tracer face mass "
+                                  "fluxes (want_flux) are not ported yet")
+    if uloc.device.type == "cpu":
+        return oct_sweep_ref(uloc, ok, dt, cfg, dx)
+    _check("oct_sweep", uloc, ok, dt, cfg, 6)
+    n = uloc.shape[-1]
+    outs = (uloc.new_empty((5, 2, 2, 2, n)), uloc.new_empty((5, 3, 2, n)))
+    return _run("oct_sweep", _library().ramses_oct_sweep, uloc, ok, dt, outs,
+                (n,), cfg, dx)

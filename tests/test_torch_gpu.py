@@ -110,3 +110,118 @@ def test_driver_on_cuda_matches_cpu(cuda):
     got, want = gpu.state.u.cpu().numpy(), cpu.state.u.numpy()
     for c in range(5):
         assert np.abs(got[c] - want[c]).max() <= 1e-4 * np.abs(want[c]).max()
+
+
+# ---------------------------------------------------------------------------
+# K3 (tile_sweep) and K2 (oct_sweep)
+# ---------------------------------------------------------------------------
+
+def _batch(block, n, gamma, seed):
+    rng = np.random.default_rng(seed)
+    u = _state((block,) * 3 + (n,), gamma, seed)
+    ok = (rng.random((block,) * 3 + (n,)) < 0.15).astype(np.float32)
+    return u, ok
+
+
+@pytest.mark.parametrize("shift,n,riemann,slope_type", [
+    (0, 5, "llf", 1), (1, 33, "hllc", 2), (2, 70, "hllc", 8),
+    (2, 8, "llf", 2), (3, 9, "hllc", 1),
+])
+def test_tile_sweep_kernel_matches_plain(cuda, shift, n, riemann,
+                                         slope_type):
+    from ramses_tpu_torch.hydro import oct_muscl as om
+    cfg = HydroStatic(ndim=3, riemann=riemann, slope_type=slope_type)
+    u, ok = _batch((1 << (shift + 1)) + 4, n, cfg.gamma, n)
+    u, ok = torch.from_numpy(u).to(cuda), torch.from_numpy(ok).to(cuda)
+    dt = torch.tensor(2e-3, dtype=torch.float32, device=cuda)
+    got = om.tile_sweep(u, ok, dt, cfg, 0.05, shift)
+    want = om.tile_sweep_ref(u, ok, dt, cfg, 0.05, shift)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("n,riemann,slope_type", [
+    (13, "llf", 1), (200, "hllc", 8), (256, "hllc", 2)])
+def test_oct_sweep_kernel_matches_plain(cuda, n, riemann, slope_type):
+    from ramses_tpu_torch.hydro import oct_muscl as om
+    cfg = HydroStatic(ndim=3, riemann=riemann, slope_type=slope_type)
+    u, ok = _batch(6, n, cfg.gamma, n)
+    u, ok = torch.from_numpy(u).to(cuda), torch.from_numpy(ok).to(cuda)
+    dt = torch.tensor(2e-3, dtype=torch.float32, device=cuda)
+    got = om.oct_sweep(u, ok, dt, cfg, 0.05)
+    want = om.oct_sweep_ref(u, ok, dt, cfg, 0.05)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+
+
+def test_oct_kernels_count_launches_and_refuse_outside_scope(cuda):
+    from ramses_tpu_torch.hydro import oct_muscl as om
+    cfg = HydroStatic(ndim=3)
+    u, ok = _batch(8, 8, cfg.gamma, 0)
+    u, ok = torch.from_numpy(u).to(cuda), torch.from_numpy(ok).to(cuda)
+    dt = torch.tensor(1e-3, dtype=torch.float32, device=cuda)
+    before = dict(om.launches)
+    om.tile_sweep(u, ok, dt, cfg, 0.1, 1)
+    om.tile_sweep_ref(u, ok, dt, cfg, 0.1, 1)
+    assert om.launches["tile_sweep"] == before["tile_sweep"] + 1
+    assert om.launches["oct_sweep"] == before["oct_sweep"]
+    with pytest.raises(ValueError):
+        om.tile_sweep(u.double(), ok, dt.double(), cfg, 0.1, 1)
+    with pytest.raises(ValueError):
+        om.tile_sweep(u, ok, dt, cfg, 0.1, 2)        # td 8 is shift 1
+    with pytest.raises(ValueError):
+        om.tile_sweep(u, ok, 1e-3, cfg, 0.1, 1)
+    with pytest.raises(ValueError):
+        om.oct_sweep(u, ok, dt, cfg, 0.1)            # not a 6^3 stencil
+
+
+def test_amr_on_cuda_matches_cpu(cuda):
+    """The AMR slice end to end at levelmin 4, levelmax 5: K1 and K3 on
+    the card (K2 with oct_blocking off) against the plain versions on the
+    CPU."""
+    import os
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.hydro import oct_muscl as om
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for blocked, name in ((True, "tile_sweep"), (False, "oct_sweep")):
+        p = load_params(os.path.join(root, "namelists", "sedov3d.nml"),
+                        ndim=3)
+        p.amr.levelmin, p.amr.levelmax = 4, 5
+        p.amr.oct_blocking = blocked
+        p.refine.err_grad_d = p.refine.err_grad_p = 0.1
+        gpu, cpu = AmrSim(p), AmrSim(p, device="cpu")
+        k1, kn = fm.launches, om.launches[name]
+        for s in (gpu, cpu):
+            s.evolve(1e9, nstepmax=3)
+        assert fm.launches - k1 == 3
+        assert om.launches[name] - kn == 3 * 2     # level 5 substeps
+        assert gpu.levels() == cpu.levels() == [4, 5]
+        assert gpu.t == pytest.approx(cpu.t, rel=1e-5)
+        for l in gpu.levels():
+            got, want = gpu.u[l].cpu().numpy(), cpu.u[l].numpy()
+            scale = np.abs(want).max(axis=0)
+            assert (np.abs(got - want) <= 1e-4 * scale).all(), (blocked, l)
+
+
+def test_amr_coarse_step_never_waits_for_the_host(cuda):
+    """One coarse step (K1, K3, interpolation, corrections, restriction,
+    the next Courant dt) issues device work only: no synchronisation."""
+    import os
+    from ramses_tpu_torch.amr import hierarchy
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = load_params(os.path.join(root, "namelists", "sedov3d.nml"), ndim=3)
+    p.amr.levelmin, p.amr.levelmax = 4, 6
+    p.refine.err_grad_d = p.refine.err_grad_p = 0.1
+    sim = hierarchy.AmrSim(p)
+    sim.evolve(1e9, nstepmax=2)
+    dt = torch.tensor(sim.coarse_dt(), dtype=torch.float32, device=cuda)
+    spec = sim._fused_spec()
+    assert len(spec.levels) == 3 and any(spec.blocked)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        u, dtn = hierarchy._coarse_step(sim.u, sim.dev, dt, spec)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(dtn) > 0.0
+    assert all(bool(torch.isfinite(u[l]).all()) for l in u)

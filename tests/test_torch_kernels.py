@@ -49,14 +49,28 @@ def test_build_is_keyed_on_source_and_flags(tmp_path, build_dir,
     nvcc = _fake_nvcc(tmp_path, 'while [ "$1" != "-o" ]; do shift; done; '
                                 'echo built > "$2"')
     monkeypatch.setattr(kernels, "nvcc_path", lambda: nvcc)
-    assert kernels.sources() == ["fused_muscl"]
-    kernels.build(["fused_muscl"])
-    target = kernels.library_path("fused_muscl")
-    assert target.parent == build_dir and target.read_text() == "built\n"
-    assert [p.name for p in build_dir.iterdir()] == [target.name]
+    assert kernels.sources() == ["fused_muscl", "oct_muscl"]
+    kernels.build(kernels.sources())        # both compilers run together
+    targets = [kernels.library_path(n) for n in kernels.sources()]
+    for target in targets:
+        assert target.parent == build_dir and target.read_text() == "built\n"
+    assert sorted(p.name for p in build_dir.iterdir()) == \
+        sorted(t.name for t in targets)
+    assert kernels.build(kernels.sources()) == {}   # already built
+    target = targets[0]
+    # the shared header is part of every source's key
+    copy = tmp_path / "csrc"
+    copy.mkdir()
+    for f in kernels.CSRC.iterdir():
+        (copy / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", copy)
+    assert kernels.library_path("fused_muscl") == target
+    header = tmp_path / "csrc" / "muscl_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert kernels.library_path("fused_muscl") != target
     monkeypatch.setattr(kernels, "NVCC_FLAGS",
                         kernels.NVCC_FLAGS + ("-lineinfo",))
-    assert kernels.library_path("fused_muscl") != target
+    assert kernels.library_path("oct_muscl") != targets[1]
 
 
 def test_no_nvcc_raises(monkeypatch):
