@@ -53,7 +53,37 @@ Phases, each printing its own line; any failure exits non-zero:
    level-7 flat↔dense gather against the 22-dimensional bit-axis permute
    it replaces;
 11. profile: one AMR coarse step (regrid, Courant fetch, step) under
-   ``torch.profiler``, trace to ``chiprun_out/chip_smoke_amr_trace.json``.
+   ``torch.profiler``, trace to ``chiprun_out/chip_smoke_amr_trace.json``;
+12. MHD kernel check: K4 (``ct_step_slab``) against its plain version on
+   random 2D 256² and 3D 64³ padded boxes, {llf, hll, hlld} × riemann2d
+   {average, llf} × slope {1, 2, 8}, half of them with a random refined
+   mask and EMF override, within rtol 2e-5 / atol 2e-6;
+13. MHD main path: Orszag-Tang at 2048² (``namelists/orszag2d.nml`` with
+   levelmin = levelmax = 11, the exact vortex set in code),
+   ``MhdSimulation(...).evolve(nstepmax=20)`` with every launch counter
+   at 0 just before: K4 once per step, K1/K2/K3 never; a finite state,
+   mass and energy conserved to rel 1e-5, ``max|div B|·dx / max|B|``
+   under ``DIVB_REL``; wall time, cell-updates/s and the steady rate of
+   ``run_steps``;
+14. K4 at the main path's data: the final 2048² state, kernel against
+   plain cell by cell within ``LOCAL_ATOL + LOCAL_RTOL·M`` (M the largest
+   magnitude of any field over the cell's 5² stencil; for a face, over
+   the two cells it touches), the kernel's device time per call
+   (``torch.profiler``, all its stage kernels), the plain version's time
+   and the bound: the least bytes (the five hydro fields of the padded
+   cells, the padded faces and dt in, 8 + 3 interior fields out) and the
+   operations (the plain version's traced count less the HLLD regions it
+   evaluates and does not select);
+15. profile: 10 ``run_steps`` steps at 2048², trace to
+   ``chiprun_out/chip_smoke_mhd_trace.json``;
+16. 3D: 128³ with a random solenoidal field (hlld, llf corners), 10
+   steps: K4 once per step, div B at roundoff, a finite state; then K4
+   against its plain version on the final state, cell by cell as in
+   phase 14 (M over the cell's 5³ stencil), and its device time;
+17. ``BASELINE.json`` config 4: ``run_namelist("namelists/tube_mhd.nml",
+   ndim=1)`` for 20 steps on the card: 1D with Roe lies outside K4's gate,
+   so the torch formulation runs and K4 is launched 0 times; a finite
+   state and ``bf[0]`` bitwise unchanged.
 
 The line before the last holds every ported kernel's numbers as one JSON
 object (``{"kernels": [...]}``); the last line is
@@ -94,6 +124,31 @@ LOCAL_RTOL, LOCAL_ATOL = 1e-6, 1e-10
 # level.  The kernels' own per-value checks are phases 7 and 10.
 AMR_REL = 1e-5
 AMR_LEVELS = (7, 9)            # levelmin, levelmax of BASELINE config 2
+OT_LEVEL = 11                  # Orszag-Tang at 2048²
+MHD3D_LEVEL = 7                # the 3D solenoidal run at 128³
+MHD_CHECK_SHAPES = ((256, 256), (64, 64, 64))
+OT_NML = os.path.join(ROOT, "namelists", "orszag2d.nml")
+TUBE_NML = os.path.join(ROOT, "namelists", "tube_mhd.nml")
+# max|div B|·dx / max|B| after 20 (2D) or 10 (3D) f32 steps.  CT keeps
+# div B zero in exact arithmetic; in f32 each face update rounds once per
+# pair (0.5 ulp of |B|, 6e-8), four faces meet in one divergence and the
+# roundings of successive steps add as a random walk: ~1e-6 after 20
+# steps.  The limit leaves 7x room above that and is 5 decades below an
+# O(1) error (a CT fault breaks div B at the size of the field).
+DIVB_REL = 1e-5
+# K4's per-cell check scales by the largest magnitude of ANY field over
+# the cell's stencil, not the field's own: the CT step updates momentum
+# and the transverse field by differences of fluxes built from the total
+# pressure and the magnetic stress (flux_along), so their rounding (the
+# FMA contraction the plain version does not do) scales with those.
+# Where a momentum component crosses zero (the Orszag-Tang vortex has
+# such lines), its own stencil max bounds nothing: on an H100 the kernel
+# and the plain version read 1.07e-5 of it there, a -fmad=false build of
+# the kernel 1.3e-6 against the plain version on the host CPU, and the
+# plain version on the card 7.3e-6 against itself on the CPU (PyTorch on
+# the card divides by a Python float as a multiplication by its
+# reciprocal).  Against M the kernel reads 3.9e-7 (PERF.md, §6).
+# LOCAL_RTOL is unchanged.
 
 
 def _print(*a):
@@ -132,13 +187,14 @@ def _excess(got, want) -> float:
     return float(((got - want).abs() - (ATOL + RTOL * want.abs())).max())
 
 
-def _stencil_scale(x):
-    """Max of ``|x|`` over each cell's 5³ neighbourhood, per field,
-    wrapping periodically (the main path's box is periodic): the
+def _stencil_scale(x, nd: int = 3):
+    """Max of ``|x|`` over each cell's 5^nd neighbourhood, per field,
+    wrapping periodically (the main paths' boxes are periodic): the
     magnitudes one MUSCL step of that cell reads."""
     import torch.nn.functional as F
-    a = F.pad(x.abs()[None], (2,) * 6, mode="circular")
-    return F.max_pool3d(a, 5, stride=1)[0]
+    a = F.pad(x.abs()[None], (2,) * (2 * nd), mode="circular")
+    pool = F.max_pool3d if nd == 3 else F.max_pool2d
+    return pool(a, 5, stride=1)[0]
 
 
 def _ptxas_report(log: str) -> str:
@@ -211,7 +267,7 @@ def _profile(run, out_dir: str, name: str = "chip_smoke_trace.json",
     ours = "; ".join(
         f"{kern} x{sum(n for _, n, k in rows if kern in k)} "
         f"{sum(us for us, _, k in rows if kern in k) / 1e3:.3f} ms"
-        for kern in ("fused_muscl_kernel", "sweep_kernel")
+        for kern in ("fused_muscl_kernel", "sweep_kernel", "mhd_ct_")
         if any(kern in k for _, _, k in rows))
     return (f"device busy {busy_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms "
             f"wall ({100 * busy_us / 1e6 / wall:.1f} %); port kernels: "
@@ -222,7 +278,9 @@ def _reset_counts():
     """Every kernel's launch count to 0."""
     from ramses_tpu_torch.hydro import fused_muscl as fm
     from ramses_tpu_torch.hydro import oct_muscl as om
+    from ramses_tpu_torch.mhd import ct_slab
     fm.launches = 0
+    ct_slab.launches = 0
     for name in om.launches:
         om.launches[name] = 0
 
@@ -230,7 +288,9 @@ def _reset_counts():
 def _counts() -> dict:
     from ramses_tpu_torch.hydro import fused_muscl as fm
     from ramses_tpu_torch.hydro import oct_muscl as om
-    return {"fused_muscl": fm.launches, **om.launches}
+    from ramses_tpu_torch.mhd import ct_slab
+    return {"fused_muscl": fm.launches, **om.launches,
+            "ct_step_slab": ct_slab.launches}
 
 
 def _amr_params(blocked: bool = True):
@@ -296,11 +356,14 @@ def _local_check(got, want, scales):
     return err, rels, excess
 
 
-def _device_ms(fn, kernel: str, n: int = 50) -> float:
-    """Device time per launch of the kernels whose name holds ``kernel``,
-    from ``torch.profiler`` over ``n`` calls of ``fn`` after a warm-up:
-    the kernel's own time.  CUDA events around a call of a ~10 µs kernel
-    measure the host's dispatch of the call instead."""
+def _device_ms(fn, kernel: str, n: int = 50, per_call: int = 1) -> float:
+    """Device time per call of ``fn`` of the kernels whose name holds
+    ``kernel`` (``per_call`` distinct kernels a call), from
+    ``torch.profiler`` over ``n`` calls after a warm-up: the sum over the
+    kernels of each one's mean time.  CUDA events around a call of a
+    ~10 µs kernel measure the host's dispatch of the call instead.  The
+    trace may miss one launch of a window (it missed one of 180 K4 stage
+    launches once), so each kernel must show n or n - 1 launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -314,11 +377,11 @@ def _device_ms(fn, kernel: str, n: int = 50) -> float:
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and kernel in e.key]
-    count = sum(e.count for e in rows)
-    if count != n:
-        raise AssertionError(f"profiled {count} launches of {kernel}, "
-                             f"expected {n}")
-    return sum(e.self_device_time_total for e in rows) / count / 1e3
+    counts = [e.count for e in rows]
+    if len(rows) != per_call or not all(c in (n - 1, n) for c in counts):
+        raise AssertionError(f"profiled launches {counts} of {kernel}, "
+                             f"expected {n} of each of {per_call} kernels")
+    return sum(e.self_device_time_total / e.count for e in rows) / 1e3
 
 
 def _host_breakdown(sim, run) -> str:
@@ -419,7 +482,7 @@ def _amr_phases(dev):
     wall = time.perf_counter() - t0
     launches = _counts()
     del sim.step_coarse
-    want = {"fused_muscl": len(stepped), "oct_sweep": 0,
+    want = {"fused_muscl": len(stepped), "oct_sweep": 0, "ct_step_slab": 0,
             "tile_sweep": sum(2 ** (l - lmin) for lv in stepped for l in lv
                               if l > lmin)}
     mass1 = float(sim.totals()["mass"])
@@ -642,6 +705,407 @@ def _amr_phases(dev):
                   row("oct_sweep", "ramses_tpu/hydro/pallas_oct.py:213",
                       oct_launches)]
 
+def _ct_check(got, want, nd: int):
+    """K4 against its plain version at a main path's state, each value
+    within ``LOCAL_ATOL + LOCAL_RTOL * M``: M the largest magnitude of any
+    field over the cell's 5^nd stencil (the K4 note beside DIVB_REL), a
+    face the larger of the two cells it touches.  Returns (max abs err,
+    worst err / M of un and bfn, tolerance excess, a line of readings
+    that also holds each field of un against its own stencil max)."""
+    import torch
+    own = _stencil_scale(want[0], nd)
+    cell = own.amax(dim=0)
+    scale_b = torch.stack([torch.maximum(cell, cell.roll(1, dims=c))
+                           if c < nd else cell for c in range(3)])
+    err, rels, excess = _local_check(got, want,
+                                     (cell.expand_as(want[0]), scale_b))
+    per_field = [float(torch.where(own[c] > LOCAL_ATOL / LOCAL_RTOL,
+                                   (got[0][c] - want[0][c]).abs()
+                                   / own[c], 0.0).max())
+                 for c in range(8)]
+    readings = (f"max abs err {err:.3e}, worst err / M (un/bfn) "
+                f"{rels[0]:.3e}/{rels[1]:.3e}; per field of un against "
+                f"its own stencil max {[f'{x:.2e}' for x in per_field]}; "
+                f"tolerance excess {excess:.3e}")
+    return err, rels, excess, readings
+
+
+# The HLLD selection of the plain version forms, for each of a face's 8
+# components, all four intermediate fluxes (F*L, F*R, F**L, F**R: 3
+# operations each) and a 5-deep compare and select chain (10); a kernel
+# needs 5 compares a face and, a component, the selected flux (6
+# operations at most) and one select.
+HLLD_SELECT_EXCESS = 8 * (4 * 3 + 5 + 5) - (5 + 8 * (6 + 1))
+
+
+def _ct_ops(plain, cfg, npad: int, ncell: int) -> float:
+    """The operations a CT step of ``ncell`` interior cells needs: the
+    plain version's traced count on the padded box (``npad`` cells, one
+    face solve a direction a cell) less what its HLLD selection evaluates
+    and the selected flux does not need, scaled to the interior."""
+    nops = _count_ops(plain)
+    if cfg.riemann == "hlld":
+        nops -= HLLD_SELECT_EXCESS * cfg.ndim * npad
+    return nops * ncell / npad
+
+
+def _mhd_box(sp, seed: int, masked: bool, dev):
+    """A random padded MHD box on the card for K4's check: (up [8, sp+4],
+    bfp_ext [3, sp+6], okp, ovr) with density, pressure and faces of
+    order one and a random refined mask and EMF override when
+    ``masked``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    nd = len(sp)
+    spp = tuple(n + 4 for n in sp)
+    spe = tuple(n + 6 for n in sp)
+    r = 1.0 + 0.3 * rng.random(spp)
+    v = 0.2 * rng.standard_normal((3,) + spp)
+    p = 0.5 + 0.2 * rng.random(spp)
+    e = p / (2.0 / 3.0) + 0.5 * r * (v ** 2).sum(axis=0) + 0.2
+    up = np.stack([r, r * v[0], r * v[1], r * v[2], e,
+                   *np.zeros((3,) + spp)])
+    bf = 0.3 + 0.2 * rng.standard_normal((3,) + spe)
+
+    def t(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+    okp = ovr = None
+    if masked:
+        okp = torch.from_numpy(rng.random(spp) < 0.15).to(dev)
+        ovr = {(a, b): (torch.from_numpy(rng.random(spp) < 0.2).to(dev),
+                        t(0.05 * rng.standard_normal(spp)))
+               for a in range(nd) for b in range(a + 1, nd)}
+    return t(up), t(bf), okp, ovr
+
+
+def _orszag_tang(n: int):
+    """The exact Orszag-Tang vortex at n² as ``tests/test_mhd.py:224-257``
+    builds it (f64 numpy): (u [8, n, n], bf [3, n, n]), the staggered
+    faces from the corner vector potential Az, so div B is zero to
+    roundoff."""
+    import numpy as np
+    dx = 1.0 / n
+    gamma = 5.0 / 3.0
+    d0 = 25.0 / (36.0 * np.pi)
+    p0 = 5.0 / (12.0 * np.pi)
+    b0 = 1.0 / np.sqrt(4.0 * np.pi)
+    xc = (np.arange(n) + 0.5) * dx
+    X, Y = np.meshgrid(xc, xc, indexing="ij")
+    vx, vy = -np.sin(2 * np.pi * Y), np.sin(2 * np.pi * X)
+    xf = np.arange(n) * dx
+    Xf, Yf = np.meshgrid(xf, xf, indexing="ij")
+    Az = (b0 / (4 * np.pi) * np.cos(4 * np.pi * Xf)
+          + b0 / (2 * np.pi) * np.cos(2 * np.pi * Yf))
+    bfx = (np.roll(Az, -1, 1) - Az) / dx          # Bx = dAz/dy at x-faces
+    bfy = -(np.roll(Az, -1, 0) - Az) / dx         # By = -dAz/dx at y-faces
+    bf = np.stack([bfx, bfy, np.zeros((n, n))])
+    bcx = 0.5 * (bfx + np.roll(bfx, -1, 0))
+    bcy = 0.5 * (bfy + np.roll(bfy, -1, 1))
+    u = np.zeros((8, n, n))
+    u[0] = d0
+    u[1], u[2] = d0 * vx, d0 * vy
+    u[5], u[6] = bcx, bcy
+    u[4] = (p0 / (gamma - 1.0) + 0.5 * d0 * (vx ** 2 + vy ** 2)
+            + 0.5 * (bcx ** 2 + bcy ** 2))
+    return u, bf
+
+
+def _divb_rel(sim) -> float:
+    """max|div B|·dx / max|B| of an MHD simulation's staggered field."""
+    return float(sim.max_divb()) * sim.dx / float(sim.bf.abs().max())
+
+
+def _mhd_phases(dev):
+    """Phases 12-17 (the MHD slice); returns K4's row of the kernels
+    line."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.config import load_params, params_from_dict
+    from ramses_tpu_torch.driver import run_namelist
+    from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.mhd import uniform as mu
+    from ramses_tpu_torch.mhd.core import IBX, IP, MhdStatic
+    from ramses_tpu_torch.mhd.driver import MhdSimulation, mhd_condinit
+
+    # ---- 12. K4 against its plain version on random boxes ----
+    worst = {"max_abs_err": 0.0, "excess": -1.0}
+    ncase = 0
+    for sp in MHD_CHECK_SHAPES:
+        nd = len(sp)
+        combos = [(rs, r2, st) for rs in ("llf", "hll", "hlld")
+                  for r2 in ("average", "llf") for st in (1, 2, 8)]
+        for i, (rs, r2, st) in enumerate(combos):
+            cfg = MhdStatic(ndim=nd, riemann=rs, riemann2d=r2,
+                            slope_type=st)
+            masked = i % 2 == 1
+            up, bfp, okp, ovr = _mhd_box(sp, 300 + 50 * nd + i, masked, dev)
+            dt = torch.tensor(2e-3, dtype=torch.float32, device=dev)
+            dx = (1.0 / sp[0],) * nd
+            got = ct_slab.ct_step_slab(up, bfp, dt, dx, cfg, okp=okp,
+                                       ovr=ovr)
+            want = ct_slab.ct_step_slab_ref(up, bfp, dt, dx, cfg, okp=okp,
+                                            ovr=ovr)
+            torch.cuda.synchronize()
+            err, ex = _pair_check(got, want)
+            if not (ex <= 0.0 and all(bool(torch.isfinite(g).all())
+                                      for g in got)):
+                raise AssertionError(
+                    f"ct_step_slab disagrees with its plain version: {sp} "
+                    f"riemann={rs} riemann2d={r2} slope_type={st} "
+                    f"masked={masked}: max abs err {err:.3e}, tolerance "
+                    f"excess {ex:.3e}")
+            worst["max_abs_err"] = max(worst["max_abs_err"], err)
+            worst["excess"] = max(worst["excess"], ex)
+            ncase += 1
+            del up, bfp, okp, ovr, got, want
+    _print(f"phase 12 MHD kernel check: {ncase} cases (2D 256², 3D 64³; "
+           f"llf/hll/hlld × average/llf × slope 1/2/8, half masked with an "
+           f"EMF override) pass; max abs err {worst['max_abs_err']:.3e}, "
+           f"worst tolerance excess {worst['excess']:.3e}")
+
+    # ---- 13. the MHD main path: Orszag-Tang at 2048² ----
+    p = load_params(OT_NML, ndim=2)
+    p.amr.levelmin = p.amr.levelmax = OT_LEVEL
+    n = 2 ** OT_LEVEL
+    t0 = time.perf_counter()
+    sim = MhdSimulation(p)
+    u0, bf0 = _orszag_tang(n)
+    sim.u = torch.tensor(u0, dtype=torch.float32, device=dev)
+    sim.bf = torch.tensor(bf0, dtype=torch.float32, device=dev)
+    del u0, bf0
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tot0 = {k: float(v) for k, v in sim.totals().items() if k != "momentum"}
+    divb0 = _divb_rel(sim)
+    if not ct_slab.supports(sim.cfg, sim.grid.shape, sim.u.dtype):
+        raise AssertionError(f"Orszag-Tang is outside K4's gate: {sim.cfg}")
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim.evolve(nstepmax=20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    tot1 = {k: float(v) for k, v in sim.totals().items() if k != "momentum"}
+    divb1 = _divb_rel(sim)
+    want = {"fused_muscl": 0, "tile_sweep": 0, "oct_sweep": 0,
+            "ct_step_slab": sim.nstep}
+    if sim.nstep != 20 or sim.grid.shape != (n, n):
+        raise AssertionError(f"MHD main path ran {sim.nstep} steps at "
+                             f"{sim.grid.shape}, expected 20 at {n}²")
+    if launches != want:
+        raise AssertionError(f"MHD main path launched {launches}, "
+                             f"expected {want}")
+    if not (bool(torch.isfinite(sim.u).all())
+            and bool(torch.isfinite(sim.bf).all())):
+        raise AssertionError("MHD main path state is not finite")
+    for k in ("mass", "energy"):
+        if abs(tot1[k] - tot0[k]) > 1e-5 * abs(tot0[k]):
+            raise AssertionError(f"MHD {k} not conserved: {tot0[k]} -> "
+                                 f"{tot1[k]}")
+    if not divb1 <= DIVB_REL:
+        raise AssertionError(f"MHD div B grew: max|div B|·dx/max|B| "
+                             f"{divb0:.3e} -> {divb1:.3e}")
+    ncell = sim.grid.ncell
+    u, bf = sim.u, sim.bf
+    t = torch.tensor(sim.t, dtype=torch.float64, device=dev)
+    nsteps = 20
+    step_ms = _median_ms(lambda: mu.run_steps(sim.grid, u, bf, t, 1e30,
+                                              nsteps),
+                         reps=5, warm=1) / nsteps
+    _print(f"phase 13 MHD main path: Orszag-Tang {sim.grid.shape} "
+           f"(orszag2d.nml, riemann={sim.cfg.riemann} "
+           f"riemann2d={sim.cfg.riemann2d} slope_type="
+           f"{sim.cfg.slope_type}), {sim.nstep} steps t={sim.t:.6e}, "
+           f"launches {launches}; mass {tot0['mass']:.9e} -> "
+           f"{tot1['mass']:.9e}, energy {tot0['energy']:.9e} -> "
+           f"{tot1['energy']:.9e}; max|div B|·dx/max|B| {divb0:.3e} -> "
+           f"{divb1:.3e} (limit {DIVB_REL:.0e}); set-up {init_s:.3f} s, "
+           f"evolve {wall:.4f} s = {sim.cell_updates / wall:.4e} "
+           f"cell-updates/s (first chunk included); run_steps x{nsteps}: "
+           f"{step_ms:.4f} ms/step = {ncell / (step_ms * 1e-3):.4e} "
+           f"cell-updates/s")
+
+    # ---- 14. K4 at the main path's data ----
+    cfg = sim.cfg
+    dx = (sim.dx, sim.dx)
+    up = mu._pad(u, 2, sim.grid.bc_kinds)
+    bfp = mu._pad(bf, 2, sim.grid.bc_kinds, mu.NGHOST + 1)
+    dt = mu.cfl_dt(sim.grid, u, bf)                # the next step's dt
+    got = ct_slab.ct_step_slab(up, bfp, dt, dx, cfg)
+    want = ct_slab.ct_step_slab_ref(up, bfp, dt, dx, cfg)
+    torch.cuda.synchronize()
+    err, _, excess, readings = _ct_check(got, want, 2)
+    if not excess <= 0.0:
+        raise AssertionError(f"ct_step_slab disagrees with its plain "
+                             f"version on the Orszag-Tang state: {readings}")
+    del got, want
+    kern = lambda: ct_slab.ct_step_slab(up, bfp, dt, dx, cfg)  # noqa: E731
+    plain = lambda: ct_slab.ct_step_slab_ref(up, bfp, dt, dx, cfg)  # noqa
+    per_call = 6           # prim, predict, 2 flux, 1 edge, update kernels
+    ms = _device_ms(kern, "mhd_ct_", n=30, per_call=per_call)
+    call_ms = _median_ms(kern, reps=30)
+    torch.cuda.reset_peak_memory_stats()
+    plain_ms = _median_ms(plain, reps=10)
+    plain_peak = torch.cuda.max_memory_allocated()
+    # the least bytes: the five hydro fields of up (its B slots are not
+    # read: the cell field is the face average), the faces and dt in, the
+    # 8 + 3 interior fields out
+    nbytes = 4 * (5 * up[0].numel() + bfp.numel() + 1 + 8 * ncell
+                  + 3 * ncell)
+    nops = _ct_ops(plain, cfg, up[0].numel(), ncell)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * nops / F32_OPS_PER_S
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    _print(f"phase 14 K4 at the main path's data {tuple(u.shape[1:])}: "
+           f"ct_step_slab {ms:.4f} ms/call on the device (profiler, "
+           f"{per_call} stage kernels), {call_ms:.4f} ms a wrapper call "
+           f"(CUDA events), plain version {plain_ms:.4f} ms (peak "
+           f"{plain_peak / 2**30:.2f} GiB), bound {bound_ms:.4f} ms by "
+           f"{bound_by} ({nbytes / 1e9:.4f} GB -> {bytes_ms:.4f} ms; "
+           f"{nops / 1e9:.4f} G ops -> {ops_ms:.4f} ms); against plain: "
+           f"{readings}; library call: none (no single PyTorch call "
+           f"computes a CT step)")
+    del up, bfp
+
+    # ---- 15. profile ----
+    prof = _profile(lambda: mu.run_steps(sim.grid, u, bf, t, 1e30, 10),
+                    os.path.join(ROOT, "chiprun_out"),
+                    "chip_smoke_mhd_trace.json")
+    _print(f"phase 15 profile MHD run_steps x10 at {n}²: {prof}")
+    k4_launches = launches["ct_step_slab"]
+    del sim, u, bf, t
+    torch.cuda.empty_cache()
+
+    # ---- 16. 3D: 128³ with a random solenoidal field ----
+    n3 = 2 ** MHD3D_LEVEL
+    groups = {
+        "run_params": {"hydro": True},
+        "amr_params": {"levelmin": MHD3D_LEVEL, "levelmax": MHD3D_LEVEL,
+                       "boxlen": 1.0},
+        "init_params": {"nregion": 1, "region_type": ["square"],
+                        "x_center": [0.5], "y_center": [0.5],
+                        "z_center": [0.5], "length_x": [10.0],
+                        "length_y": [10.0], "length_z": [10.0],
+                        "exp_region": [10.0], "d_region": [1.0],
+                        "p_region": [1.0], "u_region": [0.5],
+                        "v_region": [-0.3], "w_region": [0.2],
+                        "A_region": [0.3], "B_region": [0.4],
+                        "C_region": [0.5]},
+        "hydro_params": {"gamma": 5.0 / 3.0, "riemann": "hlld",
+                         "riemann2d": "llf", "courant_factor": 0.8},
+        "output_params": {"tend": 1.0},
+    }
+    sim3 = MhdSimulation(params_from_dict(groups, ndim=3))
+    dx3 = sim3.dx
+    rng = np.random.default_rng(0)
+    ax, ay, az = rng.standard_normal((3, n3, n3, n3))
+    # faces from a staggered vector potential: solenoidal to roundoff, of
+    # rms ~0.1 beside the uniform field
+    bfx = (np.roll(az, -1, 1) - az) - (np.roll(ay, -1, 2) - ay)
+    bfy = (np.roll(ax, -1, 2) - ax) - (np.roll(az, -1, 0) - az)
+    bfz = (np.roll(ay, -1, 0) - ay) - (np.roll(ax, -1, 1) - ax)
+    bfn3 = sim3.bf.cpu().double().numpy() + 0.05 * np.stack([bfx, bfy, bfz])
+    del ax, ay, az, bfx, bfy, bfz
+    u3 = sim3.u.cpu().double().numpy()
+    bc = [0.5 * (bfn3[c] + np.roll(bfn3[c], -1, axis=c)) for c in range(3)]
+    for c in range(3):
+        u3[IBX + c] = bc[c]
+    u3[IP] = 1.0 / (5.0 / 3.0 - 1.0) + 0.5 * (
+        u3[1] ** 2 + u3[2] ** 2 + u3[3] ** 2) / u3[0] + 0.5 * sum(
+        b ** 2 for b in bc)
+    sim3.u = torch.tensor(u3, dtype=torch.float32, device=dev)
+    sim3.bf = torch.tensor(bfn3, dtype=torch.float32, device=dev)
+    del u3, bfn3, bc
+    m0 = float(sim3.totals()["mass"])
+    d0 = _divb_rel(sim3)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim3.evolve(nstepmax=10)
+    torch.cuda.synchronize()
+    wall3 = time.perf_counter() - t0
+    l3 = _counts()
+    d1 = _divb_rel(sim3)
+    m1 = float(sim3.totals()["mass"])
+    if sim3.nstep != 10 or l3 != {"fused_muscl": 0, "tile_sweep": 0,
+                                  "oct_sweep": 0, "ct_step_slab": 10}:
+        raise AssertionError(f"3D MHD ran {sim3.nstep} steps, launched "
+                             f"{l3}")
+    if not (bool(torch.isfinite(sim3.u).all()) and d1 <= DIVB_REL
+            and abs(m1 - m0) <= 1e-5 * abs(m0)):
+        raise AssertionError(f"3D MHD: finite "
+                             f"{bool(torch.isfinite(sim3.u).all())}, "
+                             f"div B {d0:.3e} -> {d1:.3e}, mass {m0} -> "
+                             f"{m1}")
+    up3 = mu._pad(sim3.u, 3, sim3.grid.bc_kinds)
+    bfp3 = mu._pad(sim3.bf, 3, sim3.grid.bc_kinds, mu.NGHOST + 1)
+    dt3 = mu.cfl_dt(sim3.grid, sim3.u, sim3.bf)
+    got = ct_slab.ct_step_slab(up3, bfp3, dt3, (dx3,) * 3, sim3.cfg)
+    want = ct_slab.ct_step_slab_ref(up3, bfp3, dt3, (dx3,) * 3, sim3.cfg)
+    torch.cuda.synchronize()
+    err3, _, excess3, readings3 = _ct_check(got, want, 3)
+    del got, want
+    if not excess3 <= 0.0:
+        raise AssertionError(f"ct_step_slab disagrees with its plain "
+                             f"version on the 3D state: {readings3}")
+    ms3 = _device_ms(lambda: ct_slab.ct_step_slab(
+        up3, bfp3, dt3, (dx3,) * 3, sim3.cfg), "mhd_ct_", n=10,
+        per_call=9)
+    _print(f"phase 16 MHD 3D {sim3.grid.shape} solenoidal (hlld, llf "
+           f"corners): {sim3.nstep} steps t={sim3.t:.6e}, launches {l3}, "
+           f"max|div B|·dx/max|B| {d0:.3e} -> {d1:.3e}, mass {m0:.9e} -> "
+           f"{m1:.9e}; evolve {wall3:.4f} s = "
+           f"{sim3.cell_updates / wall3:.4e} cell-updates/s; "
+           f"ct_step_slab {ms3:.4f} ms/call on the device; against plain "
+           f"on the final state: {readings3}")
+    del sim3, up3, bfp3
+    torch.cuda.empty_cache()
+
+    # ---- 17. BASELINE config 4: tube_mhd.nml through the torch path ----
+    pt = load_params(TUBE_NML, ndim=1)
+    tcfg = MhdStatic.from_params(pt)
+    shape = (2 ** pt.amr.levelmin,)
+    _, bft0 = mhd_condinit(shape, pt.amr.boxlen / shape[0], pt, tcfg)
+    bx0 = torch.tensor(bft0[0], dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    tube = run_namelist(TUBE_NML, ndim=1, nstepmax=20)
+    torch.cuda.synchronize()
+    wallt = time.perf_counter() - t0
+    lt = _counts()
+    if tube.nstep != 20 or lt != {"fused_muscl": 0, "tile_sweep": 0,
+                                  "oct_sweep": 0, "ct_step_slab": 0}:
+        raise AssertionError(f"tube_mhd ran {tube.nstep} steps, launched "
+                             f"{lt}")
+    if not (bool(torch.isfinite(tube.u).all())
+            and torch.equal(tube.bf[0], bx0)):
+        raise AssertionError("tube_mhd: state not finite or Bx changed")
+    _print(f"phase 17 BASELINE config 4 tube_mhd.nml {tube.grid.shape} "
+           f"(riemann={tube.cfg.riemann}, outflow): {tube.nstep} steps "
+           f"t={tube.t:.6e} on {tube.u.device}, launches {lt}: 1D with Roe "
+           f"lies outside K4's gate (ct_slab.supports), so the torch "
+           f"formulation (step_padded) ran; finite, Bx bitwise unchanged; "
+           f"run_namelist {wallt:.3f} s, evolve {tube.wall_s:.4f} s = "
+           f"{tube.wall_s / tube.nstep * 1e3:.3f} ms/step")
+
+    return {
+        "name": "ct_step_slab",
+        "route": "cuda",
+        "source": "ramses_tpu_torch/csrc/mhd_ct.cu",
+        "replaces": "ramses_tpu/mhd/pallas_ct.py:126",
+        "launches": k4_launches,
+        "max_abs_err": max(worst["max_abs_err"], err, err3),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
 
 def main() -> int:
     import torch
@@ -735,7 +1199,7 @@ def main() -> int:
         raise AssertionError(f"main path ran {sim.nstep} steps at "
                              f"{sim.grid.shape}, expected 10 at 256³")
     if launches != {"fused_muscl": sim.nstep, "tile_sweep": 0,
-                    "oct_sweep": 0}:
+                    "oct_sweep": 0, "ct_step_slab": 0}:
         raise AssertionError(f"kernels launched {launches} for "
                              f"{sim.nstep} uniform steps")
     if not bool(torch.isfinite(u).all()):
@@ -824,7 +1288,10 @@ def main() -> int:
     # ---- 7-11. the AMR slice ----
     err7, oct_rows = _amr_phases(dev)
     k1["max_abs_err"] = max(k1["max_abs_err"], err7)
-    _print(json.dumps({"kernels": [k1] + oct_rows}))
+
+    # ---- 12-17. the MHD slice ----
+    k4 = _mhd_phases(dev)
+    _print(json.dumps({"kernels": [k1] + oct_rows + [k4]}))
     _print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

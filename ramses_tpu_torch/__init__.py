@@ -8,6 +8,8 @@ The port imports ``torch``, numpy and the standard library only — never
 ``jax`` and nothing of ``ramses_tpu``.
 
 Entry points (:class:`~ramses_tpu_torch.driver.Simulation`,
+:class:`~ramses_tpu_torch.amr.hierarchy.AmrSim`,
+:class:`~ramses_tpu_torch.mhd.driver.MhdSimulation`,
 :func:`~ramses_tpu_torch.driver.run_namelist`, ``python -m
 ramses_tpu_torch``) run on CUDA unless the caller asks for the CPU.
 """

@@ -1,8 +1,10 @@
 """Command-line entry point: ``python -m ramses_tpu_torch run.nml``.
 
-Runs a pure-hydro namelist on the GPU (``--device cpu`` for the CPU): a
-uniform grid, or with ``levelmax > levelmin`` the AMR hierarchy on one
-device.  Prints one line per chunk of steps (per coarse step on the
+Runs a namelist on the GPU (``--device cpu`` for the CPU): pure hydro on
+a uniform grid, or with ``levelmax > levelmin`` on the AMR hierarchy of
+one device; or, with ``--solver mhd`` (the default when &INIT_PARAMS sets
+a region field, as in the JAX CLI), constrained-transport MHD on a
+uniform grid.  Prints one line per chunk of steps (per coarse step on the
 hierarchy) and the final conservation totals.  Snapshot output is not
 ported yet.
 """
@@ -17,7 +19,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="ramses_tpu_torch",
         description="PyTorch/CUDA port of ramses_tpu (pure hydro, "
-                    "uniform or AMR)")
+                    "uniform or AMR; uniform MHD)")
     ap.add_argument("namelist", help="Fortran-namelist runtime config")
     ap.add_argument("--ndim", type=int, default=3,
                     help="spatial dimensions (compile-time in the reference)")
@@ -26,6 +28,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, choices=["cpu", "cuda"],
                     help="default cuda; a run without a GPU must ask for "
                          "the CPU")
+    ap.add_argument("--solver", default=None, choices=["hydro", "mhd"],
+                    help="default: mhd when &INIT_PARAMS sets A/B/C_region, "
+                         "else hydro")
     args = ap.parse_args(argv)
 
     import torch
@@ -34,7 +39,7 @@ def main(argv=None) -> int:
 
     sim = run_namelist(args.namelist, ndim=args.ndim,
                        dtype=getattr(torch, args.dtype), verbose=True,
-                       device=args.device)
+                       device=args.device, solver=args.solver)
     tot = sim.totals()
     mom = ", ".join(f"{float(m):.9e}" for m in tot["momentum"])
     print(f"totals: t={sim.t:.6e} nstep={sim.nstep} "

@@ -13,16 +13,27 @@ import numpy as np
 import torch
 
 from ramses_tpu_torch.hydro.core import HydroStatic
+from ramses_tpu_torch.mhd.core import MhdStatic
+
+
+def _static_from(cls, obj):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(obj, f.name)
+        kw[f.name] = tuple(v) if isinstance(v, (list, tuple)) else v
+    return cls(**kw)
 
 
 def hydro_static_from(obj) -> HydroStatic:
     """The port's :class:`HydroStatic` built field by field from any
     object with the same attributes (such as the JAX package's)."""
-    kw = {}
-    for f in dataclasses.fields(HydroStatic):
-        v = getattr(obj, f.name)
-        kw[f.name] = tuple(v) if isinstance(v, (list, tuple)) else v
-    return HydroStatic(**kw)
+    return _static_from(HydroStatic, obj)
+
+
+def mhd_static_from(obj) -> MhdStatic:
+    """The port's :class:`MhdStatic` built field by field from any object
+    with the same attributes (such as the JAX package's)."""
+    return _static_from(MhdStatic, obj)
 
 
 def state_from_numpy(u: np.ndarray, device, dtype=torch.float32
@@ -34,6 +45,16 @@ def state_from_numpy(u: np.ndarray, device, dtype=torch.float32
 
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def mhd_state_from(sim) -> dict:
+    """The state of a uniform MHD simulation of either package (a JAX
+    ``MhdSimulation`` or the port's) as numpy arrays: the keyword
+    arguments of :meth:`ramses_tpu_torch.mhd.driver.MhdSimulation.
+    from_state` (``u [nvar, *sp]``, ``bf [3, *sp]``, time and step
+    count)."""
+    return dict(u=_host(sim.u), bf=_host(sim.bf), t=float(sim.t),
+                nstep=int(sim.nstep))
 
 
 def amr_state_from(sim) -> dict:

@@ -1,0 +1,863 @@
+// One MHD constrained-transport step, hand-written for Hopper (sm_90a).
+//
+// Replaces the TPU kernel ramses_tpu/mhd/pallas_ct.py::ct_step_slab, whose
+// body is ramses_tpu/mhd/uniform.py::step_padded: ctoprim -> TVD slopes ->
+// conservative Hancock half-step -> half-dt face field -> per-direction
+// LLF/HLL/HLLD face fluxes -> Gardiner-Stone or LLF-corner edge EMFs (with
+// an optional override) -> induction update of the staggered faces and the
+// conservative update of the cells (with an optional refined-cell mask on
+// the cell fluxes).  Every device function computes what the JAX function
+// of the same name computes, in the same f32 arithmetic order, so the
+// kernel and its plain version (mhd/ct_slab.py::ct_step_slab_ref) part only
+// by nvcc's FMA contraction.
+//
+// Contract (the padded one of step_padded, so that a halo-exchanged slab
+// can be fed as it is): cells up[8][*sp+4] (B slots ignored), low faces
+// bf[3][*sp+6]; per axis a padded cell P has face-box index P+1.  Outputs
+// are the interior only, un[8][*sp] and bfn[3][*sp].
+//
+// Design: stages, not one thread per cell recomputing everything.  The CT
+// pipeline of one cell needs 2*ND face fluxes, each from two Hancock
+// states, and each edge EMF needs four fluxes or four corner states; K1's
+// recompute-everything design already costs it 26x its bound.  So each
+// stage is its own kernel over the padded box, one thread per point, and
+// hands its results to the next through scratch in device memory:
+//   A prim    all padded cells: face-averaged B, primitives q;
+//   B predict cells [1, n+2]: slopes dq, Hancock du_half, half-step
+//             primitives q_half, half-dt faces bf_half;
+//   C flux    faces of one direction (one launch each): two reconstructed
+//             states, ctoprim, rotation, the 1D solve;
+//   D edge    edges of one pair (one launch each): the GS average or the
+//             LLF corner, then the override;
+//   E update  interior cells: masked conservative update, the induction
+//             update of each staggered face, also of the first high ghost
+//             face, whose new value the last cell's centred B reads.
+// Only the points the outputs consume are computed; the wrapped junk that
+// JAX's jnp.roll leaves in the ghost margins is never produced.
+//
+// What bounds it on an H100 (2048^2, 2D): the function must read 8 cell
+// and 3 face arrays and write 11, 0.37 GB, 0.11 ms at 3.35 TB/s; the
+// arithmetic it needs, counted op by op on the plain version
+// (chip_smoke.py), is 11.3 G f32 operations (2.7 k a cell), 0.17 ms at
+// 67 TFLOP/s: operations bound it.  This version takes about 9x that
+// (1.54 ms, PERF.md): the stages write 59 scratch floats a cell (2D) and
+// read them back through their stencils, and the predictor (105
+// registers in 2D, 161 in 3D) and flux stages run at low occupancy.
+// Fusing the stages through shared-memory tiles is later work.  Offsets
+// are 64-bit throughout.
+
+#include "muscl_common.cuh"   // slope(): K1's TVD limiter
+
+namespace {
+
+constexpr int NV = 8;            // cell variables
+constexpr float EPS = 1e-30f;    // _EPS of mhd/riemann.py and riemann2d.py
+constexpr int BLOCK = 256;
+
+struct MConsts {
+  float gamma, gm1, smallr, smallc2, pfloor, eint_floor, slope;
+  float dx[3];
+};
+
+// Padded-box geometry.  Unused axes (2D) have extent 1 and offset 0.
+struct Geo {
+  int e[3];         // padded cell extents n + 4
+  int64_t s[3];     // cell strides
+  int64_t np;       // padded cells
+  int64_t fs[3];    // face-box strides (extents n + 6)
+  int64_t nf;       // face-box points
+  int64_t is[3];    // interior strides (extents n)
+  int64_t ni;       // interior cells
+};
+
+struct Scratch {
+  float* q;     // [8][np]
+  float* dq;    // [ND][8][np]
+  float* duh;   // [8][np]
+  float* qh;    // [8][np]
+  float* bfh;   // [ND][np]
+  float* flx;   // [ND][8][np]
+  float* emf;   // [npair][np]
+};
+
+template <int ND>
+__device__ __forceinline__ void coords(const Geo& g, int64_t i, int P[3]) {
+  P[0] = (int)(i / g.s[0]);
+  int64_t r = i - (int64_t)P[0] * g.s[0];
+  if (ND == 3) {
+    P[1] = (int)(r / g.s[1]);
+    P[2] = (int)(r - (int64_t)P[1] * g.s[1]);
+  } else {
+    P[1] = (int)r;
+    P[2] = 0;
+  }
+}
+
+// Face-box offset of the low faces of padded cell P.
+template <int ND>
+__device__ __forceinline__ int64_t face_off(const Geo& g, const int P[3]) {
+  int64_t o = 0;
+#pragma unroll
+  for (int a = 0; a < ND; ++a) o += (int64_t)(P[a] + 1) * g.fs[a];
+  return o;
+}
+
+// True when lo <= P[a] <= e[a] - 1 - hi on every used axis.
+template <int ND>
+__device__ __forceinline__ bool in_box(const Geo& g, const int P[3], int lo,
+                                       int hi) {
+#pragma unroll
+  for (int a = 0; a < ND; ++a)
+    if (P[a] < lo || P[a] > g.e[a] - 1 - hi) return false;
+  return true;
+}
+
+__device__ __forceinline__ float sign0(float x) {  // jnp.sign: sign(0) = 0
+  return (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : 0.0f);
+}
+
+// ---- mhd/core.py ----------------------------------------------------------
+
+__device__ __forceinline__ void ctoprim(const float u[NV], const MConsts& k,
+                                        float q[NV]) {
+  float r = fmaxf(u[0], k.smallr);
+  float inv_r = 1.0f / r;
+  float v0 = u[1] * inv_r, v1 = u[2] * inv_r, v2 = u[3] * inv_r;
+  float eken = 0.5f * ((v0 * v0 + v1 * v1) + v2 * v2);
+  float emag = 0.5f * ((u[5] * u[5] + u[6] * u[6]) + u[7] * u[7]) * inv_r;
+  float eint = fmaxf(u[4] * inv_r - eken - emag, k.eint_floor);
+  q[0] = r;
+  q[1] = v0;
+  q[2] = v1;
+  q[3] = v2;
+  q[4] = k.gm1 * r * eint;
+  q[5] = u[5];
+  q[6] = u[6];
+  q[7] = u[7];
+}
+
+__device__ __forceinline__ void prim_to_cons(const float q[NV],
+                                             const MConsts& k, float u[NV]) {
+  float r = fmaxf(q[0], k.smallr);
+  float e = (q[4] / k.gm1 + 0.5f * r * ((q[1] * q[1] + q[2] * q[2]) + q[3] * q[3]))
+            + 0.5f * ((q[5] * q[5] + q[6] * q[6]) + q[7] * q[7]);
+  u[0] = r;
+  u[1] = r * q[1];
+  u[2] = r * q[2];
+  u[3] = r * q[3];
+  u[4] = e;
+  u[5] = q[5];
+  u[6] = q[6];
+  u[7] = q[7];
+}
+
+// flux_along: the physical flux along axis D from primitives.
+template <int D>
+__device__ __forceinline__ void flux_along(const float q[NV], const MConsts& k,
+                                           float f[NV]) {
+  float r = fmaxf(q[0], k.smallr);
+  const float* v = q + 1;
+  const float* b = q + 5;
+  float p = q[4];
+  float b2 = (b[0] * b[0] + b[1] * b[1]) + b[2] * b[2];
+  float ptot = p + 0.5f * b2;
+  float vdotb = (v[0] * b[0] + v[1] * b[1]) + v[2] * b[2];
+  float e = (p / k.gm1 + 0.5f * r * ((v[0] * v[0] + v[1] * v[1]) + v[2] * v[2]))
+            + 0.5f * b2;
+  float vd = v[D];
+  f[0] = r * vd;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float fc = r * vd * v[c] - b[D] * b[c];
+    f[1 + c] = (c == D) ? fc + ptot : fc;
+  }
+  f[4] = (e + ptot) * vd - b[D] * vdotb;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) f[5 + c] = (c == D) ? 0.0f : vd * b[c] - v[c] * b[D];
+}
+
+// ---- mhd/riemann.py (rotated layout: r, vn, vt1, vt2, p, -, bt1, bt2) ------
+
+__device__ __forceinline__ float fast(float r, float p, float bn, float bt1,
+                                      float bt2, const MConsts& k) {
+  float c2 = k.gamma * p / r;
+  float b2 = ((bn * bn + bt1 * bt1) + bt2 * bt2) / r;
+  float s = c2 + b2;
+  float disc = sqrtf(fmaxf(s * s - 4.0f * c2 * (bn * bn) / r, 0.0f));
+  return sqrtf(fmaxf(0.5f * (s + disc), k.smallc2));
+}
+
+__device__ __forceinline__ void cons1d(float r, float vn, float vt1, float vt2,
+                                       float p, float bn, float bt1, float bt2,
+                                       const MConsts& k, float u[NV]) {
+  u[0] = r;
+  u[1] = r * vn;
+  u[2] = r * vt1;
+  u[3] = r * vt2;
+  u[4] = (p / k.gm1 + 0.5f * r * ((vn * vn + vt1 * vt1) + vt2 * vt2))
+         + 0.5f * ((bn * bn + bt1 * bt1) + bt2 * bt2);
+  u[5] = bn;
+  u[6] = bt1;
+  u[7] = bt2;
+}
+
+__device__ __forceinline__ void flux1d(float r, float vn, float vt1, float vt2,
+                                       float p, float bn, float bt1, float bt2,
+                                       const MConsts& k, float f[NV]) {
+  float b2 = (bn * bn + bt1 * bt1) + bt2 * bt2;
+  float ptot = p + 0.5f * b2;
+  float vdotb = (vn * bn + vt1 * bt1) + vt2 * bt2;
+  float e = (p / k.gm1 + 0.5f * r * ((vn * vn + vt1 * vt1) + vt2 * vt2)) + 0.5f * b2;
+  f[0] = r * vn;
+  f[1] = r * vn * vn - bn * bn + ptot;
+  f[2] = r * vn * vt1 - bn * bt1;
+  f[3] = r * vn * vt2 - bn * bt2;
+  f[4] = (e + ptot) * vn - bn * vdotb;
+  f[5] = 0.0f;
+  f[6] = vn * bt1 - vt1 * bn;
+  f[7] = vn * bt2 - vt2 * bn;
+}
+
+__device__ __forceinline__ void llf(const float ql[NV], const float qr[NV],
+                                    float bn, const MConsts& k, float out[NV]) {
+  float rl = fmaxf(ql[0], k.smallr), pl = fmaxf(ql[4], k.pfloor);
+  float rr = fmaxf(qr[0], k.smallr), pr = fmaxf(qr[4], k.pfloor);
+  float al = fast(rl, pl, bn, ql[6], ql[7], k) + fabsf(ql[1]);
+  float ar = fast(rr, pr, bn, qr[6], qr[7], k) + fabsf(qr[1]);
+  float a = fmaxf(al, ar);
+  // fluxes and states take the unfloored pressure, as the JAX solver does
+  float fl[NV], fr[NV], ul[NV], ur[NV];
+  flux1d(rl, ql[1], ql[2], ql[3], ql[4], bn, ql[6], ql[7], k, fl);
+  flux1d(rr, qr[1], qr[2], qr[3], qr[4], bn, qr[6], qr[7], k, fr);
+  cons1d(rl, ql[1], ql[2], ql[3], ql[4], bn, ql[6], ql[7], k, ul);
+  cons1d(rr, qr[1], qr[2], qr[3], qr[4], bn, qr[6], qr[7], k, ur);
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+    out[v] = 0.5f * (fl[v] + fr[v]) - 0.5f * a * (ur[v] - ul[v]);
+}
+
+__device__ __forceinline__ void wave_bounds(const float ql[NV],
+                                            const float qr[NV], float bn,
+                                            const MConsts& k, float& rl,
+                                            float& pl, float& rr, float& pr,
+                                            float& SL, float& SR) {
+  rl = fmaxf(ql[0], k.smallr);
+  pl = fmaxf(ql[4], k.pfloor);
+  rr = fmaxf(qr[0], k.smallr);
+  pr = fmaxf(qr[4], k.pfloor);
+  float cl = fast(rl, pl, bn, ql[6], ql[7], k);
+  float cr = fast(rr, pr, bn, qr[6], qr[7], k);
+  SL = fminf(ql[1] - cl, qr[1] - cr);
+  SR = fmaxf(ql[1] + cl, qr[1] + cr);
+}
+
+__device__ __forceinline__ void hll(const float ql[NV], const float qr[NV],
+                                    float bn, const MConsts& k, float out[NV]) {
+  float rl, pl, rr, pr, SL, SR;
+  wave_bounds(ql, qr, bn, k, rl, pl, rr, pr, SL, SR);
+  float fl[NV], fr[NV], ul[NV], ur[NV];
+  flux1d(rl, ql[1], ql[2], ql[3], pl, bn, ql[6], ql[7], k, fl);
+  flux1d(rr, qr[1], qr[2], qr[3], pr, bn, qr[6], qr[7], k, fr);
+  cons1d(rl, ql[1], ql[2], ql[3], pl, bn, ql[6], ql[7], k, ul);
+  cons1d(rr, qr[1], qr[2], qr[3], pr, bn, qr[6], qr[7], k, ur);
+  float SLc = fminf(SL, 0.0f);
+  float SRc = fmaxf(SR, 0.0f);
+  float den = SRc - SLc + EPS;
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+    out[v] = (SRc * fl[v] - SLc * fr[v] + SLc * SRc * (ur[v] - ul[v])) / den;
+}
+
+// Miyoshi & Kusano (2005): every region's flux is computed, then selected.
+__device__ __forceinline__ void hlld(const float ql[NV], const float qr[NV],
+                                     float bn, const MConsts& k,
+                                     float out[NV]) {
+  float rl, pl, rr, pr, SL, SR;
+  wave_bounds(ql, qr, bn, k, rl, pl, rr, pr, SL, SR);
+  const float vnl = ql[1], vt1l = ql[2], vt2l = ql[3], bt1l = ql[6], bt2l = ql[7];
+  const float vnr = qr[1], vt1r = qr[2], vt2r = qr[3], bt1r = qr[6], bt2r = qr[7];
+  const float bn2 = bn * bn;
+  float b2l = (bn2 + bt1l * bt1l) + bt2l * bt2l;
+  float b2r = (bn2 + bt1r * bt1r) + bt2r * bt2r;
+  float ptl = pl + 0.5f * b2l;
+  float ptr = pr + 0.5f * b2r;
+
+  float dl = rl * (SL - vnl);
+  float dr = rr * (SR - vnr);
+  float SM = (dr * vnr - dl * vnl - ptr + ptl) / (dr - dl + EPS);
+  float pts = (dr * ptl - dl * ptr + dl * dr * (vnr - vnl)) / (dr - dl + EPS);
+
+  // star states
+  float rsl = dl / (SL - SM + EPS);
+  float rsr = dr / (SR - SM + EPS);
+  float denl = dl * (SL - SM) - bn2;
+  float denr = dr * (SR - SM) - bn2;
+  float tl = fabsf(SL) + fabsf(vnl);
+  float tr = fabsf(SR) + fabsf(vnr);
+  bool degl = fabsf(denl) < 1e-12f * (rl * (tl * tl) + bn2 + EPS);
+  bool degr = fabsf(denr) < 1e-12f * (rr * (tr * tr) + bn2 + EPS);
+  float sdl = degl ? 1.0f : denl;
+  float sdr = degr ? 1.0f : denr;
+  float vt1sl = degl ? vt1l : vt1l - bn * bt1l * (SM - vnl) / sdl;
+  float vt2sl = degl ? vt2l : vt2l - bn * bt2l * (SM - vnl) / sdl;
+  float bt1sl = degl ? bt1l : bt1l * (dl * (SL - vnl) - bn2) / sdl;
+  float bt2sl = degl ? bt2l : bt2l * (dl * (SL - vnl) - bn2) / sdl;
+  float vt1sr = degr ? vt1r : vt1r - bn * bt1r * (SM - vnr) / sdr;
+  float vt2sr = degr ? vt2r : vt2r - bn * bt2r * (SM - vnr) / sdr;
+  float bt1sr = degr ? bt1r : bt1r * (dr * (SR - vnr) - bn2) / sdr;
+  float bt2sr = degr ? bt2r : bt2r * (dr * (SR - vnr) - bn2) / sdr;
+
+  float el = (pl / k.gm1 + 0.5f * rl * ((vnl * vnl + vt1l * vt1l) + vt2l * vt2l))
+             + 0.5f * b2l;
+  float er = (pr / k.gm1 + 0.5f * rr * ((vnr * vnr + vt1r * vt1r) + vt2r * vt2r))
+             + 0.5f * b2r;
+  float vbl = (vnl * bn + vt1l * bt1l) + vt2l * bt2l;
+  float vbsl = (SM * bn + vt1sl * bt1sl) + vt2sl * bt2sl;
+  float vbr = (vnr * bn + vt1r * bt1r) + vt2r * bt2r;
+  float vbsr = (SM * bn + vt1sr * bt1sr) + vt2sr * bt2sr;
+  float esl = ((SL - vnl) * el - ptl * vnl + pts * SM + bn * (vbl - vbsl))
+              / (SL - SM + EPS);
+  float esr = ((SR - vnr) * er - ptr * vnr + pts * SM + bn * (vbr - vbsr))
+              / (SR - SM + EPS);
+
+  // Alfven (double-star) states
+  float sq_rsl = sqrtf(fmaxf(rsl, k.smallr));
+  float sq_rsr = sqrtf(fmaxf(rsr, k.smallr));
+  float SLs = SM - fabsf(bn) / sq_rsl;
+  float SRs = SM + fabsf(bn) / sq_rsr;
+  float sgn = sign0(bn);
+  float ssum = sq_rsl + sq_rsr + EPS;
+  float vt1ss = (sq_rsl * vt1sl + sq_rsr * vt1sr + sgn * (bt1sr - bt1sl)) / ssum;
+  float vt2ss = (sq_rsl * vt2sl + sq_rsr * vt2sr + sgn * (bt2sr - bt2sl)) / ssum;
+  float bt1ss = (sq_rsl * bt1sr + sq_rsr * bt1sl
+                 + sgn * sq_rsl * sq_rsr * (vt1sr - vt1sl)) / ssum;
+  float bt2ss = (sq_rsl * bt2sr + sq_rsr * bt2sl
+                 + sgn * sq_rsl * sq_rsr * (vt2sr - vt2sl)) / ssum;
+  float vbssl = (SM * bn + vt1ss * bt1ss) + vt2ss * bt2ss;
+  float essl = esl - sq_rsl * sgn * (vbsl - vbssl);
+  float essr = esr + sq_rsr * sgn * (vbsr - vbssl);
+
+  float ul[NV], ur[NV], fl[NV], fr[NV];
+  cons1d(rl, vnl, vt1l, vt2l, pl, bn, bt1l, bt2l, k, ul);
+  cons1d(rr, vnr, vt1r, vt2r, pr, bn, bt1r, bt2r, k, ur);
+  flux1d(rl, vnl, vt1l, vt2l, pl, bn, bt1l, bt2l, k, fl);
+  flux1d(rr, vnr, vt1r, vt2r, pr, bn, bt1r, bt2r, k, fr);
+  // pack(r, vn, vt1, vt2, e, bt1, bt2) = [r, r vn, r vt1, r vt2, e, bn, bt1, bt2]
+  const float usl[NV] = {rsl, rsl * SM, rsl * vt1sl, rsl * vt2sl, esl, bn, bt1sl, bt2sl};
+  const float usr[NV] = {rsr, rsr * SM, rsr * vt1sr, rsr * vt2sr, esr, bn, bt1sr, bt2sr};
+  const float ussl[NV] = {rsl, rsl * SM, rsl * vt1ss, rsl * vt2ss, essl, bn, bt1ss, bt2ss};
+  const float ussr[NV] = {rsr, rsr * SM, rsr * vt1ss, rsr * vt2ss, essr, bn, bt1ss, bt2ss};
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    float fsl = fl[v] + SL * (usl[v] - ul[v]);
+    float fsr = fr[v] + SR * (usr[v] - ur[v]);
+    float fssl = fsl + SLs * (ussl[v] - usl[v]);
+    float fssr = fsr + SRs * (ussr[v] - usr[v]);
+    out[v] = (SL > 0.0f) ? fl[v]
+           : (SLs > 0.0f) ? fsl
+           : (SM > 0.0f) ? fssl
+           : (SRs > 0.0f) ? fssr
+           : (SR > 0.0f) ? fsr : fr[v];
+  }
+}
+
+template <int RS>
+__device__ __forceinline__ void riemann1d(const float ql[NV], const float qr[NV],
+                                      float bn, const MConsts& k,
+                                      float out[NV]) {
+  if (RS == 0) llf(ql, qr, bn, k, out);
+  else if (RS == 1) hll(ql, qr, bn, k, out);
+  else hlld(ql, qr, bn, k, out);
+}
+
+// Orientation sign of an edge pair: +1 for (0,1), (1,2), (2,0).
+__device__ __forceinline__ constexpr float pair_sig(int d1, int d2) {
+  return ((d1 == 0 && d2 == 1) || (d1 == 1 && d2 == 2) || (d1 == 2 && d2 == 0))
+             ? 1.0f : -1.0f;
+}
+
+__device__ __forceinline__ constexpr int pair_index(int d1, int d2) {
+  return d1 == 0 ? d2 - 1 : 2;   // (0,1) -> 0, (0,2) -> 1, (1,2) -> 2
+}
+
+// ---- stage A: face-averaged cell B and primitives ------------------------
+
+template <int ND>
+__global__ void __launch_bounds__(BLOCK)
+mhd_ct_prim(const float* __restrict__ up, const float* __restrict__ bf,
+            Scratch w, Geo g, MConsts k) {
+  const int64_t i = blockIdx.x * (int64_t)BLOCK + threadIdx.x;
+  if (i >= g.np) return;
+  int P[3];
+  coords<ND>(g, i, P);
+  const int64_t fo = face_off<ND>(g, P);
+  float u[NV], q[NV];
+#pragma unroll
+  for (int v = 0; v < 5; ++v) u[v] = __ldg(up + v * g.np + i);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float lo = __ldg(bf + c * g.nf + fo);
+    u[5 + c] = (c < ND) ? 0.5f * (lo + __ldg(bf + c * g.nf + fo + g.fs[c])) : lo;
+  }
+  ctoprim(u, k, q);
+#pragma unroll
+  for (int v = 0; v < NV; ++v) w.q[v * g.np + i] = q[v];
+}
+
+// ---- stage B: slopes, Hancock predictor, q_half, bf_half -----------------
+
+// e_edge0 of pair (d1, d2) at cell offset x: the quarter-sum of the cell
+// EMFs of the four cells around the edge, from the primitives.
+template <int D1, int D2>
+__device__ __forceinline__ float edge0(const float* __restrict__ q,
+                                       const Geo& g, int64_t x) {
+  const float sig = pair_sig(D1, D2);
+  auto ec = [&](int64_t o) {
+    float v1 = q[(1 + D1) * g.np + o], v2 = q[(1 + D2) * g.np + o];
+    float b1 = q[(5 + D1) * g.np + o], b2 = q[(5 + D2) * g.np + o];
+    return sig * (v2 * b1 - v1 * b2);
+  };
+  return 0.25f * (ec(x) + ec(x - g.s[D1]) + ec(x - g.s[D2])
+                  + ec(x - g.s[D1] - g.s[D2]));
+}
+
+template <int ND, int D1, int D2>
+__device__ __forceinline__ void bf_half_pair(const float* __restrict__ q,
+                                             const Geo& g, const MConsts& k,
+                                             float dt, int64_t i, float bh[3]) {
+  const float sig = pair_sig(D1, D2);
+  const float e0 = edge0<D1, D2>(q, g, i);
+  bh[D1] = bh[D1] - sig * (0.5f * dt / k.dx[D2]) * (edge0<D1, D2>(q, g, i + g.s[D2]) - e0);
+  bh[D2] = bh[D2] + sig * (0.5f * dt / k.dx[D1]) * (edge0<D1, D2>(q, g, i + g.s[D1]) - e0);
+}
+
+template <int ND>
+__global__ void __launch_bounds__(BLOCK)
+mhd_ct_predict(const float* __restrict__ up, const float* __restrict__ bf,
+               const float* __restrict__ dt_ptr, Scratch w, Geo g, MConsts k) {
+  const int64_t i = blockIdx.x * (int64_t)BLOCK + threadIdx.x;
+  if (i >= g.np) return;
+  int P[3];
+  coords<ND>(g, i, P);
+  if (!in_box<ND>(g, P, 1, 1)) return;
+  const float dt = __ldg(dt_ptr);
+  const float* q = w.q;
+  float qc[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) qc[v] = q[v * g.np + i];
+  float dq[ND][NV];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      dq[d][v] = slope(q[v * g.np + i - g.s[d]], qc[v], q[v * g.np + i + g.s[d]],
+                       k.slope);
+      w.dq[((int64_t)d * NV + v) * g.np + i] = dq[d][v];
+    }
+  // conservative Hancock half-step from the cell's own faces
+  float du[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) du[v] = 0.0f;
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    float qhi[NV], qlo[NV], fhi[NV], flo[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      qhi[v] = qc[v] + 0.5f * dq[d][v];
+      qlo[v] = qc[v] - 0.5f * dq[d][v];
+    }
+    if (d == 0) { flux_along<0>(qhi, k, fhi); flux_along<0>(qlo, k, flo); }
+    else if (d == 1) { flux_along<1>(qhi, k, fhi); flux_along<1>(qlo, k, flo); }
+    else { flux_along<2>(qhi, k, fhi); flux_along<2>(qlo, k, flo); }
+    const float c = 0.5f * dt / k.dx[d];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) du[v] = du[v] - c * (fhi[v] - flo[v]);
+  }
+  // half-step primitives: up (with the face-averaged B of qc) + du_half
+  float u2[NV], qh[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    w.duh[v * g.np + i] = du[v];
+    u2[v] = ((v < 5) ? __ldg(up + v * g.np + i) : qc[v]) + du[v];
+  }
+  ctoprim(u2, k, qh);
+#pragma unroll
+  for (int v = 0; v < NV; ++v) w.qh[v * g.np + i] = qh[v];
+  // half-dt face field, pairs in the order (0,1), (0,2), (1,2)
+  const int64_t fo = face_off<ND>(g, P);
+  float bh[3];
+#pragma unroll
+  for (int c = 0; c < ND; ++c) bh[c] = __ldg(bf + c * g.nf + fo);
+  bf_half_pair<ND, 0, 1>(q, g, k, dt, i, bh);
+  if constexpr (ND == 3) {
+    bf_half_pair<ND, 0, 2>(q, g, k, dt, i, bh);
+    bf_half_pair<ND, 1, 2>(q, g, k, dt, i, bh);
+  }
+#pragma unroll
+  for (int c = 0; c < ND; ++c) w.bfh[c * g.np + i] = bh[c];
+}
+
+// ---- stage C: face fluxes of direction D ----------------------------------
+
+template <int ND, int D, int RS>
+__global__ void __launch_bounds__(BLOCK)
+mhd_ct_flux(Scratch w, Geo g, MConsts k) {
+  const int64_t i = blockIdx.x * (int64_t)BLOCK + threadIdx.x;
+  if (i >= g.np) return;
+  int P[3];
+  coords<ND>(g, i, P);
+  if (!in_box<ND>(g, P, 1, 1) || P[D] < 2) return;
+  constexpr int T1 = (D + 1) % 3, T2 = (D + 2) % 3;
+  float ql[NV], qr[NV];
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    // left state: the high face of cell P - e_D; right: the low face of P
+    const int64_t o = side ? i : i - g.s[D];
+    const float half = side ? -0.5f : 0.5f;
+    float qf[NV], uf[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      qf[v] = w.q[v * g.np + o] + half * w.dq[((int64_t)D * NV + v) * g.np + o];
+    prim_to_cons(qf, k, uf);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) uf[v] = uf[v] + w.duh[v * g.np + o];
+    ctoprim(uf, k, side ? qr : ql);
+  }
+  // rotate to (r, vn, vt1, vt2, p, bn, bt1, bt2)
+  const int perm[NV] = {0, 1 + D, 1 + T1, 1 + T2, 4, 5 + D, 5 + T1, 5 + T2};
+  float qlr[NV], qrr[NV], fg[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    qlr[v] = ql[perm[v]];
+    qrr[v] = qr[perm[v]];
+  }
+  const float bn = w.bfh[D * g.np + i];
+  riemann1d<RS>(qlr, qrr, bn, k, fg);
+  float* f = w.flx + (int64_t)D * NV * g.np + i;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) f[perm[v] * g.np] = fg[v];
+}
+
+// ---- stage D: edge EMFs of pair (D1, D2) ----------------------------------
+
+// The LLF corner solver (riemann2d.corner_emf, kind 'llf') on the four
+// corner states (r, p, u, v, c; w does not reach the result).
+struct Corner {
+  float r, p, u, v, c;
+};
+
+__device__ __forceinline__ float llf_corner(const Corner& LB, const Corner& RB,
+                                            const Corner& LT, const Corner& RT,
+                                            float A_T, float A_B, float B_R,
+                                            float B_L, const MConsts& k) {
+  // floors of corner_emf (idempotent on the floored corner states)
+  const float rLB = fmaxf(LB.r, k.smallr), rRB = fmaxf(RB.r, k.smallr);
+  const float rLT = fmaxf(LT.r, k.smallr), rRT = fmaxf(RT.r, k.smallr);
+  const float pLB = fmaxf(LB.p, k.pfloor), pRB = fmaxf(RB.p, k.pfloor);
+  const float pLT = fmaxf(LT.p, k.pfloor), pRT = fmaxf(RT.p, k.pfloor);
+  float eLB = LB.u * B_L - LB.v * A_B;
+  float eRB = RB.u * B_R - RB.v * A_B;
+  float eLT = LT.u * B_L - LT.v * A_T;
+  float eRT = RT.u * B_R - RT.v * A_T;
+  float ebar = 0.25f * (eLB + eRB + eLT + eRT);
+  // x-solve on the y-averaged sides L = (LB, LT), R = (RB, RT)
+  float bnx = 0.5f * (A_T + A_B);
+  float sL = fabsf(0.5f * (LB.u + LT.u))
+             + fast(0.5f * (rLB + rLT), 0.5f * (pLB + pLT), bnx, B_L,
+                    0.5f * (LB.c + LT.c), k);
+  float sR = fabsf(0.5f * (RB.u + RT.u))
+             + fast(0.5f * (rRB + rRT), 0.5f * (pRB + pRT), bnx, B_R,
+                    0.5f * (RB.c + RT.c), k);
+  float dx5 = 0.5f * fmaxf(sL, sR) * (B_R - B_L);
+  // y-solve on the x-averaged sides B = (LB, RB), T = (LT, RT)
+  float bny = 0.5f * (B_R + B_L);
+  float sB = fabsf(0.5f * (LB.v + RB.v))
+             + fast(0.5f * (rLB + rRB), 0.5f * (pLB + pRB), bny, A_B,
+                    0.5f * (LB.c + RB.c), k);
+  float sT = fabsf(0.5f * (LT.v + RT.v))
+             + fast(0.5f * (rLT + rRT), 0.5f * (pLT + pRT), bny, A_T,
+                    0.5f * (LT.c + RT.c), k);
+  float dy5 = 0.5f * fmaxf(sB, sT) * (A_T - A_B);
+  return ebar - dx5 + dy5;
+}
+
+// Corner state of cell x at (s1, s2) along (D1, D2): q_half + 0.5 (s1 dq_D1
+// + s2 dq_D2), density and pressure floored.
+template <int D1, int D2>
+__device__ __forceinline__ Corner corner(const Scratch& w, const Geo& g,
+                                         const MConsts& k, int64_t x, float s1,
+                                         float s2) {
+  constexpr int DO = 3 - D1 - D2;
+  auto at = [&](int v) {
+    return w.qh[v * g.np + x]
+           + 0.5f * (s1 * w.dq[((int64_t)D1 * NV + v) * g.np + x]
+                     + s2 * w.dq[((int64_t)D2 * NV + v) * g.np + x]);
+  };
+  Corner c;
+  c.r = fmaxf(at(0), k.smallr);
+  c.p = fmaxf(at(4), k.pfloor);
+  c.u = at(1 + D1);
+  c.v = at(1 + D2);
+  c.c = at(5 + DO);
+  return c;
+}
+
+template <int ND, int D1, int D2, int R2>
+__global__ void __launch_bounds__(BLOCK)
+mhd_ct_edge(const float* __restrict__ ovm, const float* __restrict__ ovv,
+            Scratch w, Geo g, MConsts k) {
+  const int64_t i = blockIdx.x * (int64_t)BLOCK + threadIdx.x;
+  if (i >= g.np) return;
+  int P[3];
+  coords<ND>(g, i, P);
+  // edges along D1 and D2 from 2 to n+2; the third axis over the interior
+  if (!in_box<ND>(g, P, 2, 1)) return;
+  if constexpr (ND == 3) {
+    constexpr int DO = 3 - D1 - D2;
+    if (P[DO] > g.e[DO] - 3) return;
+  }
+  const float sig = pair_sig(D1, D2);
+  const int64_t s1 = g.s[D1], s2 = g.s[D2];
+  float e;
+  if (R2 == 0) {  // Gardiner & Stone (2005) arithmetic corner average
+    const float* f1 = w.flx + ((int64_t)D1 * NV + 5 + D2) * g.np;
+    const float* f2 = w.flx + ((int64_t)D2 * NV + 5 + D1) * g.np;
+    auto ec = [&](int64_t o) {
+      float v1 = w.qh[(1 + D1) * g.np + o], v2 = w.qh[(1 + D2) * g.np + o];
+      float b1 = w.qh[(5 + D1) * g.np + o], b2 = w.qh[(5 + D2) * g.np + o];
+      return sig * (v2 * b1 - v1 * b2);
+    };
+    float ef1 = -sig * f1[i], ef1b = -sig * f1[i - s2];
+    float ef2 = sig * f2[i], ef2l = sig * f2[i - s1];
+    e = 0.5f * (ef1 + ef1b + ef2 + ef2l)
+        - 0.25f * (ec(i) + ec(i - s1) + ec(i - s2) + ec(i - s1 - s2));
+  } else {        // the LLF corner solver on primitive corner states
+    Corner RT = corner<D1, D2>(w, g, k, i, -1.0f, -1.0f);
+    Corner LT = corner<D1, D2>(w, g, k, i - s1, 1.0f, -1.0f);
+    Corner RB = corner<D1, D2>(w, g, k, i - s2, -1.0f, 1.0f);
+    Corner LB = corner<D1, D2>(w, g, k, i - s1 - s2, 1.0f, 1.0f);
+    float A_T = w.bfh[D1 * g.np + i], A_B = w.bfh[D1 * g.np + i - s2];
+    float B_R = w.bfh[D2 * g.np + i], B_L = w.bfh[D2 * g.np + i - s1];
+    e = -sig * llf_corner(LB, RB, LT, RT, A_T, A_B, B_R, B_L, k);
+  }
+  constexpr int IP_ = pair_index(D1, D2);
+  if (ovm != nullptr && __ldg(ovm + IP_ * g.np + i) > 0.5f)
+    e = __ldg(ovv + IP_ * g.np + i);
+  w.emf[IP_ * g.np + i] = e;
+}
+
+// ---- stage E: conservative update, induction, centred B -------------------
+
+// The new low face of component C at padded cell offset x (face offset fo):
+// the stored face plus the curl of the edge EMFs, pairs in order.
+template <int ND, int C>
+__device__ __forceinline__ float induct(const Scratch& w, const Geo& g,
+                                        const MConsts& k, float dt,
+                                        const float* __restrict__ bf,
+                                        int64_t x, int64_t fo) {
+  float b = __ldg(bf + C * g.nf + fo);
+#pragma unroll
+  for (int d1 = 0; d1 < ND; ++d1)
+#pragma unroll
+    for (int d2 = d1 + 1; d2 < ND; ++d2) {
+      if (C != d1 && C != d2) continue;
+      const float sig = pair_sig(d1, d2);
+      const float* E = w.emf + (int64_t)pair_index(d1, d2) * g.np;
+      if (C == d1) b = b - sig * (dt / k.dx[d2]) * (E[x + g.s[d2]] - E[x]);
+      else b = b + sig * (dt / k.dx[d1]) * (E[x + g.s[d1]] - E[x]);
+    }
+  return b;
+}
+
+template <int ND, int C>
+__device__ __forceinline__ void staggered(const Scratch& w, const Geo& g,
+                                          const MConsts& k, float dt,
+                                          const float* __restrict__ bf,
+                                          int64_t i, int64_t fo, int64_t io,
+                                          float* __restrict__ un,
+                                          float* __restrict__ bfn) {
+  float b0 = induct<ND, C>(w, g, k, dt, bf, i, fo);
+  float b1 = induct<ND, C>(w, g, k, dt, bf, i + g.s[C], fo + g.fs[C]);
+  bfn[C * g.ni + io] = b0;
+  un[(5 + C) * g.ni + io] = 0.5f * (b0 + b1);
+}
+
+template <int ND>
+__global__ void __launch_bounds__(BLOCK)
+mhd_ct_update(const float* __restrict__ up, const float* __restrict__ bf,
+              const float* __restrict__ okp, const float* __restrict__ dt_ptr,
+              Scratch w, Geo g, MConsts k, float* __restrict__ un,
+              float* __restrict__ bfn) {
+  const int64_t i = blockIdx.x * (int64_t)BLOCK + threadIdx.x;
+  if (i >= g.np) return;
+  int P[3];
+  coords<ND>(g, i, P);
+  if (!in_box<ND>(g, P, 2, 2)) return;
+  const float dt = __ldg(dt_ptr);
+  const int64_t fo = face_off<ND>(g, P);
+  int64_t io = 0;
+#pragma unroll
+  for (int a = 0; a < ND; ++a) io += (int64_t)(P[a] - 2) * g.is[a];
+  // face keep factors: a face next to a refined cell carries no cell flux
+  float keep_lo[3], keep_hi[3];
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    if (okp != nullptr) {
+      const bool o = __ldg(okp + i) > 0.5f;
+      keep_lo[d] = (o || __ldg(okp + i - g.s[d]) > 0.5f) ? 0.0f : 1.0f;
+      keep_hi[d] = (o || __ldg(okp + i + g.s[d]) > 0.5f) ? 0.0f : 1.0f;
+    } else {
+      keep_lo[d] = keep_hi[d] = 1.0f;
+    }
+  }
+  // variables 0-4 and the degenerate B components take the flux update
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int c = v - 5;
+    if (v >= 5 && c < ND) continue;   // staggered: from the new faces below
+    float x = (v < 5) ? __ldg(up + v * g.np + i) : __ldg(bf + c * g.nf + fo);
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      const float* F = w.flx + ((int64_t)d * NV + v) * g.np;
+      x = x + (dt / k.dx[d]) * (F[i] * keep_lo[d] - F[i + g.s[d]] * keep_hi[d]);
+    }
+    un[v * g.ni + io] = x;
+    if (v >= 5) bfn[c * g.ni + io] = x;
+  }
+  staggered<ND, 0>(w, g, k, dt, bf, i, fo, io, un, bfn);
+  staggered<ND, 1>(w, g, k, dt, bf, i, fo, io, un, bfn);
+  if constexpr (ND == 3) staggered<ND, 2>(w, g, k, dt, bf, i, fo, io, un, bfn);
+}
+
+// ---- host side -------------------------------------------------------------
+
+struct Args {
+  const float *up, *bf, *okp, *ovm, *ovv, *dt;
+  float *un, *bfn;
+  int riemann, riemann2d;
+};
+
+template <int ND, int D>
+cudaError_t launch_flux(const Args& a, const Scratch& w, const Geo& g,
+                        const MConsts& k, dim3 grid, cudaStream_t s) {
+  if (a.riemann == 0) mhd_ct_flux<ND, D, 0><<<grid, BLOCK, 0, s>>>(w, g, k);
+  else if (a.riemann == 1) mhd_ct_flux<ND, D, 1><<<grid, BLOCK, 0, s>>>(w, g, k);
+  else mhd_ct_flux<ND, D, 2><<<grid, BLOCK, 0, s>>>(w, g, k);
+  return cudaGetLastError();
+}
+
+template <int ND, int D1, int D2>
+cudaError_t launch_edge(const Args& a, const Scratch& w, const Geo& g,
+                        const MConsts& k, dim3 grid, cudaStream_t s) {
+  if (a.riemann2d == 0)
+    mhd_ct_edge<ND, D1, D2, 0><<<grid, BLOCK, 0, s>>>(a.ovm, a.ovv, w, g, k);
+  else
+    mhd_ct_edge<ND, D1, D2, 1><<<grid, BLOCK, 0, s>>>(a.ovm, a.ovv, w, g, k);
+  return cudaGetLastError();
+}
+
+#define RAMSES_CHECK(x)                 \
+  do {                                  \
+    cudaError_t e_ = (x);               \
+    if (e_ != cudaSuccess) return e_;   \
+  } while (0)
+
+template <int ND>
+cudaError_t run(const Args& a, const Scratch& w, const Geo& g,
+                const MConsts& k, cudaStream_t s) {
+  const dim3 grid((unsigned)((g.np + BLOCK - 1) / BLOCK));
+  mhd_ct_prim<ND><<<grid, BLOCK, 0, s>>>(a.up, a.bf, w, g, k);
+  RAMSES_CHECK(cudaGetLastError());
+  mhd_ct_predict<ND><<<grid, BLOCK, 0, s>>>(a.up, a.bf, a.dt, w, g, k);
+  RAMSES_CHECK(cudaGetLastError());
+  RAMSES_CHECK((launch_flux<ND, 0>(a, w, g, k, grid, s)));
+  RAMSES_CHECK((launch_flux<ND, 1>(a, w, g, k, grid, s)));
+  if constexpr (ND == 3) RAMSES_CHECK((launch_flux<ND, 2>(a, w, g, k, grid, s)));
+  RAMSES_CHECK((launch_edge<ND, 0, 1>(a, w, g, k, grid, s)));
+  if constexpr (ND == 3) {
+    RAMSES_CHECK((launch_edge<ND, 0, 2>(a, w, g, k, grid, s)));
+    RAMSES_CHECK((launch_edge<ND, 1, 2>(a, w, g, k, grid, s)));
+  }
+  mhd_ct_update<ND><<<grid, BLOCK, 0, s>>>(a.up, a.bf, a.okp, a.dt, w, g, k,
+                                           a.un, a.bfn);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Floats of scratch a launch over np padded points needs: primitives,
+// slopes, du_half, q_half, half-dt faces, face fluxes and edge EMFs, in
+// the order ramses_mhd_ct carves them.  The wrapper allocates this many.
+extern "C" int64_t ramses_mhd_ct_scratch_len(int ndim, int64_t np) {
+  const int npair = ndim == 3 ? 3 : 1;
+  return np * (int64_t)(8 + 8 * ndim + 8 + 8 + ndim + 8 * ndim + npair);
+}
+
+// up: [8, *sp+4], bf: [3, *sp+6] f32 contiguous; okp: [*sp+4] f32 0/1 or
+// NULL; ovm, ovv: [npair, *sp+4] f32 (mask 0/1, values) or NULL; dt: one
+// f32 on the device; scratch: scratch_len f32, at least
+// ramses_mhd_ct_scratch_len; un: [8, *sp], bfn: [3, *sp].  n2 = 1 in 2D.
+// riemann: 0 llf, 1 hll, 2 hlld; riemann2d: 0 average, 1 llf.  Launches
+// on `stream` without synchronising; returns the first launch error, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+extern "C" int ramses_mhd_ct(
+    const float* up, const float* bf, const float* okp, const float* ovm,
+    const float* ovv, const float* dt, float* scratch, float* un, float* bfn,
+    int64_t scratch_len, int ndim, int n0, int n1, int n2, int riemann,
+    int riemann2d, float slope_factor, float gamma, float gm1, float smallr,
+    float smallc2, float pfloor, float eint_floor, float dx0, float dx1,
+    float dx2, void* stream) {
+  if (ndim != 2 && ndim != 3) return (int)cudaErrorInvalidValue;
+  if (riemann < 0 || riemann > 2 || riemann2d < 0 || riemann2d > 1)
+    return (int)cudaErrorInvalidValue;
+  if ((ovm == nullptr) != (ovv == nullptr)) return (int)cudaErrorInvalidValue;
+  const int n[3] = {n0, n1, ndim == 3 ? n2 : 1};
+  Geo g;
+  for (int a = 0; a < 3; ++a) {
+    if (n[a] < 1) return (int)cudaErrorInvalidValue;
+    g.e[a] = (a < ndim) ? n[a] + 4 : 1;
+  }
+  const int fe[3] = {ndim > 0 ? n[0] + 6 : 1, ndim > 1 ? n[1] + 6 : 1,
+                     ndim > 2 ? n[2] + 6 : 1};
+  g.s[2] = 1;
+  g.s[1] = g.e[2];
+  g.s[0] = (int64_t)g.e[1] * g.e[2];
+  g.np = g.s[0] * g.e[0];
+  g.fs[2] = 1;
+  g.fs[1] = fe[2];
+  g.fs[0] = (int64_t)fe[1] * fe[2];
+  g.nf = g.fs[0] * fe[0];
+  g.is[2] = 1;
+  g.is[1] = n[2];
+  g.is[0] = (int64_t)n[1] * n[2];
+  g.ni = g.is[0] * n[0];
+  if (ndim == 2) {  // the 2D box is [e0][e1]: axis 1 is the contiguous one
+    g.s[1] = 1;
+    g.s[0] = g.e[1];
+    g.s[2] = 0;
+    g.fs[1] = 1;
+    g.fs[0] = fe[1];
+    g.fs[2] = 0;
+    g.is[1] = 1;
+    g.is[0] = n[1];
+    g.is[2] = 0;
+  }
+  if (scratch_len < ramses_mhd_ct_scratch_len(ndim, g.np))
+    return (int)cudaErrorInvalidValue;
+  if ((g.np + BLOCK - 1) / BLOCK > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  Scratch w;
+  w.q = scratch;
+  w.dq = w.q + 8 * g.np;
+  w.duh = w.dq + (int64_t)8 * ndim * g.np;
+  w.qh = w.duh + 8 * g.np;
+  w.bfh = w.qh + 8 * g.np;
+  w.flx = w.bfh + (int64_t)ndim * g.np;
+  w.emf = w.flx + (int64_t)8 * ndim * g.np;
+  MConsts k;
+  k.gamma = gamma; k.gm1 = gm1; k.smallr = smallr; k.smallc2 = smallc2;
+  k.pfloor = pfloor; k.eint_floor = eint_floor; k.slope = slope_factor;
+  k.dx[0] = dx0; k.dx[1] = dx1; k.dx[2] = dx2;
+  Args a{up, bf, okp, ovm, ovv, dt, un, bfn, riemann, riemann2d};
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(ndim == 2 ? run<2>(a, w, g, k, s) : run<3>(a, w, g, k, s));
+}

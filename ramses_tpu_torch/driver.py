@@ -1,15 +1,16 @@
 """Simulation driver: config → initial state → time loop (PyTorch).
 
 Port of the uniform, pure-hydro branch of ``ramses_tpu/driver.py`` (and
-the dispatch of ``ramses_tpu/__main__.py`` to the AMR hierarchy): the
-host keeps the output-time bookkeeping and the device advances in fused
-multi-step chunks of :func:`ramses_tpu_torch.grid.uniform.run_steps`,
-with one host synchronisation per chunk.  Time is integrated in f64
-whatever the state dtype.
+the dispatch of ``ramses_tpu/__main__.py`` to the AMR hierarchy and to
+the uniform MHD driver): the host keeps the output-time bookkeeping and
+the device advances in fused multi-step chunks of
+:func:`ramses_tpu_torch.grid.uniform.run_steps`, with one host
+synchronisation per chunk.  Time is integrated in f64 whatever the state
+dtype.
 
 Runs on CUDA unless the caller passes ``device="cpu"``; without a GPU a
 run that did not ask for the CPU raises.  Every feature of the JAX driver
-beyond pure hydro (uniform, or AMR on one device) raises
+beyond pure hydro (uniform, or AMR on one device) and uniform MHD raises
 ``NotImplementedError`` naming it.
 """
 
@@ -39,10 +40,20 @@ class SimState:
     iout: int = 1  # next output slot (1-based, like the reference)
 
 
+def is_mhd(params: Params) -> bool:
+    """The solver the JAX CLI picks without ``--solver``: MHD when
+    &INIT_PARAMS sets a region field (``ramses_tpu/__main__.py:189-193``)."""
+    init = params.init
+    return bool(any(init.A_region) or any(init.B_region)
+                or any(init.C_region))
+
+
 def unported_features(params: Params) -> list:
     """Names of the namelist's features this port does not run yet, on the
     uniform grid or the AMR hierarchy (which adds its own,
-    :func:`ramses_tpu_torch.amr.hierarchy.unported_amr_features`)."""
+    :func:`ramses_tpu_torch.amr.hierarchy.unported_amr_features`).  Uniform
+    MHD runs (:class:`ramses_tpu_torch.mhd.driver.MhdSimulation`); MHD on
+    the AMR hierarchy does not."""
     raw = params.raw or {}
 
     def on(group, key):
@@ -53,8 +64,8 @@ def unported_features(params: Params) -> list:
         ("gravity (&RUN_PARAMS poisson)", params.run.poisson),
         ("particles (&RUN_PARAMS pic)", params.run.pic),
         ("cosmology (&RUN_PARAMS cosmo)", params.run.cosmo),
-        ("MHD", params.run.mhd or any(params.init.A_region)
-         or any(params.init.B_region) or any(params.init.C_region)),
+        ("MHD on the AMR hierarchy (ramses_tpu/mhd/amr.py)",
+         is_mhd(params) and params.amr.levelmax > params.amr.levelmin),
         ("radiative transfer (&RUN_PARAMS rt)", params.run.rt),
         ("cooling (&COOLING_PARAMS cooling)", params.cooling.cooling),
         ("turbulence forcing (&TURB_PARAMS turb)",
@@ -86,6 +97,11 @@ class Simulation:
         if missing:
             raise NotImplementedError(
                 "not ported to ramses_tpu_torch yet: " + ", ".join(missing))
+        if is_mhd(params):
+            raise NotImplementedError(
+                "MHD namelists run through "
+                "ramses_tpu_torch.mhd.driver.MhdSimulation, not the hydro "
+                "Simulation (run_namelist and the CLI pick it)")
         if params.amr.levelmax > params.amr.levelmin:
             raise NotImplementedError(
                 "AMR (levelmax > levelmin) runs through "
@@ -204,16 +220,31 @@ class Simulation:
 
 def run_namelist(path: str, ndim: int = 3, dtype=torch.float32,
                  verbose: bool = False, max_attempts: int = 1,
-                 device=None):
-    """Build-and-evolve from a namelist: the uniform :class:`Simulation`,
-    or with ``levelmax > levelmin`` the AMR hierarchy
-    (:class:`ramses_tpu_torch.amr.hierarchy.AmrSim`) evolved to the last
-    output time or ``nstepmax`` (``max_attempts > 1``, a supervised run, is
-    not ported yet)."""
+                 device=None, solver: Optional[str] = None,
+                 nstepmax: Optional[int] = None):
+    """Build-and-evolve from a namelist to the last output time or
+    ``nstepmax`` (the namelist's unless given here).  ``solver`` "hydro"
+    or "mhd" (default: :func:`is_mhd`, the JAX CLI's choice): hydro runs
+    the uniform :class:`Simulation` or, with ``levelmax > levelmin``, the
+    AMR hierarchy (:class:`ramses_tpu_torch.amr.hierarchy.AmrSim`); MHD
+    runs the uniform :class:`ramses_tpu_torch.mhd.driver.MhdSimulation`
+    (MHD on the AMR hierarchy is not ported yet).  ``max_attempts > 1``, a
+    supervised run, is not ported yet."""
     if max_attempts > 1:
         raise NotImplementedError("not ported to ramses_tpu_torch yet: "
                                   "supervised restart (max_attempts > 1)")
     params = load_params(path, ndim=ndim)
+    if nstepmax is not None:
+        params.run.nstepmax = int(nstepmax)
+    if solver is None:
+        solver = "mhd" if is_mhd(params) else "hydro"
+    if solver == "mhd":
+        from ramses_tpu_torch.mhd.driver import MhdSimulation
+        sim = MhdSimulation(params, dtype=dtype, device=device)
+        sim.evolve(nstepmax=params.run.nstepmax, verbose=verbose)
+        return sim
+    if solver != "hydro":
+        raise ValueError(f"solver must be 'hydro' or 'mhd', not {solver!r}")
     if params.amr.levelmax > params.amr.levelmin:
         from ramses_tpu_torch.amr.hierarchy import AmrSim
         sim = AmrSim(params, dtype=dtype, device=device)

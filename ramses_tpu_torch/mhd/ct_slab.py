@@ -1,0 +1,186 @@
+"""The MHD constrained-transport step: the CUDA kernel and its plain version.
+
+Port of ``ramses_tpu/mhd/pallas_ct.py`` (``ct_step_slab``): one whole CT
+step — ``mhd/uniform.step_padded`` — on a ghost-padded box.  On the TPU it
+is one VMEM-resident block behind a size gate; here it is the
+hand-written kernel ``csrc/mhd_ct.cu``, a few stage kernels behind one
+wrapper call (primitives; slopes, Hancock predictor and half-dt face
+field; face fluxes; edge EMFs; the cell and face update), with the
+intermediates in device memory.  It takes the padded contract — cells
+padded by 2, faces by 3, with an optional padded refined mask and EMF
+override — and returns only the interior, which is all any caller keeps.
+
+:func:`ct_step_slab` launches the kernel for a CUDA tensor and runs
+:func:`ct_step_slab_ref` (``step_padded`` then unpadding) for a CPU
+tensor.  It never falls back: on a CUDA tensor it launches the kernel or
+raises.  :func:`supports` is the kernel's scope; callers take
+``step_padded`` outside it, by configuration only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+
+from ramses_tpu_torch.mhd import uniform as mu
+from ramses_tpu_torch.mhd.core import MhdStatic, NCOMP
+
+# Kernel launches (wrapper calls that launched the stage kernels) since the
+# count was last reset; the plain version does not count.
+launches = 0
+
+_RIEMANN = {"llf": 0, "hll": 1, "hlld": 2}
+_RIEMANN2D = {"average": 0, "llf": 1}
+NG = mu.NGHOST
+
+
+def supports(cfg: MhdStatic, shape, dtype) -> bool:
+    """True when the kernel covers this configuration: 2D or 3D, f32, no
+    passives, a 1D solver in llf/hll/hlld, the Gardiner-Stone average or
+    the llf corner solver, and the slope types K1's ``slope()`` serves."""
+    if cfg.ndim not in (2, 3) or len(shape) != cfg.ndim:
+        return False
+    if cfg.npassive != 0 or cfg.trailing_batch:
+        return False
+    if cfg.riemann not in _RIEMANN or cfg.riemann2d not in _RIEMANN2D:
+        return False
+    if cfg.slope_type not in (1, 2, 8) or any(n < 1 for n in shape):
+        return False
+    return dtype == torch.float32
+
+
+def _pairs(nd: int):
+    return [(d1, d2) for d1 in range(nd) for d2 in range(d1 + 1, nd)]
+
+
+def _dx3(dx, nd: int):
+    dx = tuple(dx) if isinstance(dx, (list, tuple)) else (dx,) * nd
+    return [float(x) for x in dx] + [1.0] * (3 - nd)
+
+
+def ct_step_slab_ref(up, bfp_ext, dt, dx: Sequence[float], cfg: MhdStatic,
+                     okp=None, ovr: Optional[dict] = None):
+    """Plain-PyTorch version of :func:`ct_step_slab`: ``step_padded`` on
+    the padded arrays, then the interior.  Same arguments and results."""
+    nd = cfg.ndim
+    dx = _dx3(dx, nd)[:nd]
+    dt = torch.as_tensor(dt, dtype=up.dtype, device=up.device)
+    un, bfn = mu.step_padded(cfg, dx, up, bfp_ext, dt, okp=okp, ovr=ovr)
+    return mu._unpad(un, nd), torch.stack([mu._unpad(b, nd) for b in bfn])
+
+
+def ct_step_slab(up, bfp_ext, dt, dx: Sequence[float], cfg: MhdStatic,
+                 okp=None, ovr: Optional[dict] = None):
+    """One CT step of a padded box.
+
+    ``up`` [8, \\*sp+4] padded cells (raw B slots, ignored: the cell field
+    is the face average), ``bfp_ext`` [3, \\*sp+6] padded low faces,
+    ``dt`` a 0-d tensor on ``up``'s device (or a float), ``dx`` per-dim
+    cell sizes (or one float), ``okp`` optional padded refined mask
+    [\\*sp+4], ``ovr`` optional dict (d1,d2) → (padded mask, padded
+    values), each [\\*sp+4]; a pair it lacks keeps its computed EMF.
+    Returns the interior ``(un [8, *sp], bfn [3, *sp])``.
+
+    A CPU tensor runs :func:`ct_step_slab_ref`; a CUDA tensor launches the
+    kernel or raises (outside :func:`supports` too)."""
+    if up.device.type == "cpu":
+        return ct_step_slab_ref(up, bfp_ext, dt, dx, cfg, okp=okp, ovr=ovr)
+    return _launch(up, bfp_ext, dt, dx, cfg, okp, ovr)
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int64]
+             + [ctypes.c_int] * 6 + [ctypes.c_float] * 10
+             + [ctypes.c_void_p])
+
+
+def _library():
+    from ramses_tpu_torch import kernels
+    lib = kernels.load("mhd_ct")
+    fn = lib.ramses_mhd_ct
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        # the kernel's scratch layout lives in the .cu alone
+        lib.ramses_mhd_ct_scratch_len.argtypes = [ctypes.c_int,
+                                                  ctypes.c_int64]
+        lib.ramses_mhd_ct_scratch_len.restype = ctypes.c_int64
+    return lib
+
+
+def _launch(up, bfp_ext, dt, dx, cfg, okp, ovr):
+    """One call of the kernel, counted in ``launches``.  Raises on a
+    configuration outside :func:`supports`, on bad arguments, and when
+    the build or a launch fails."""
+    global launches
+    nd = cfg.ndim
+    sp = tuple(int(n) - 2 * NG for n in up.shape[1:])
+    if not supports(cfg, sp, up.dtype):
+        raise ValueError("ct_step_slab: configuration outside the kernel's "
+                         f"scope (cfg={cfg}, shape={sp}, dtype={up.dtype})")
+    dev = up.device
+    if (up.device.type != "cuda" or up.dim() != nd + 1 or up.shape[0] != 8
+            or not up.is_contiguous()):
+        raise ValueError("ct_step_slab: up must be a contiguous "
+                         "[8, *sp+4] CUDA tensor")
+    if (tuple(bfp_ext.shape) != (NCOMP,) + tuple(n + 2 * NG + 2 for n in sp)
+            or bfp_ext.device != dev or bfp_ext.dtype != up.dtype
+            or not bfp_ext.is_contiguous()):
+        raise ValueError("ct_step_slab: bfp_ext must be a contiguous "
+                         "[3, *sp+6] tensor on up's device")
+    dt = torch.as_tensor(dt, dtype=torch.float32, device=dev)
+    if dt.dim() != 0:
+        raise ValueError("ct_step_slab: dt must be a scalar")
+    pshape = tuple(up.shape[1:])
+    okf = None
+    if okp is not None:
+        if tuple(okp.shape) != pshape or okp.device != dev:
+            raise ValueError("ct_step_slab: okp must be [*sp+4] on up's "
+                             "device")
+        okf = okp.to(torch.float32).contiguous()
+    ovm = ovv = None
+    if ovr is not None:
+        pairs = _pairs(nd)
+        zeros = torch.zeros(pshape, dtype=torch.float32, device=dev)
+        for p, (m, v) in ovr.items():
+            if (p not in pairs or tuple(m.shape) != pshape
+                    or tuple(v.shape) != pshape):
+                raise ValueError(f"ct_step_slab: override {p} must be a "
+                                 "pair (d1 < d2) with [*sp+4] mask and "
+                                 "values")
+        ovm = torch.stack([ovr[p][0].to(dev, torch.float32) if p in ovr
+                           else zeros for p in pairs]).contiguous()
+        ovv = torch.stack([ovr[p][1].to(dev, torch.float32) if p in ovr
+                           else zeros for p in pairs]).contiguous()
+    lib = _library()
+    npad = 1
+    for n in pshape:
+        npad *= n
+    nscratch = lib.ramses_mhd_ct_scratch_len(nd, npad)
+    scratch = torch.empty(nscratch, dtype=torch.float32, device=dev)
+    un = torch.empty((8,) + sp, dtype=torch.float32, device=dev)
+    bfn = torch.empty((NCOMP,) + sp, dtype=torch.float32, device=dev)
+    n3 = list(sp) + [1] * (3 - nd)
+    dx3 = _dx3(dx, nd)
+    g = cfg.gamma
+    slope = (float(cfg.slope_type) if cfg.slope_type in (1, 2)
+             else float(cfg.slope_theta))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ramses_mhd_ct(
+            up.data_ptr(), bfp_ext.data_ptr(),
+            okf.data_ptr() if okf is not None else None,
+            ovm.data_ptr() if ovm is not None else None,
+            ovv.data_ptr() if ovv is not None else None,
+            dt.data_ptr(), scratch.data_ptr(), un.data_ptr(),
+            bfn.data_ptr(), nscratch, nd, *n3,
+            _RIEMANN[cfg.riemann], _RIEMANN2D[cfg.riemann2d],
+            slope, g, g - 1.0, cfg.smallr, cfg.smallc ** 2,
+            cfg.smallr * cfg.smallc ** 2,
+            cfg.smallc ** 2 / cfg.gamma / (cfg.gamma - 1.0),
+            *dx3, stream)
+    if err:
+        raise RuntimeError(f"mhd_ct kernel launch failed (cudaError {err})")
+    launches += 1
+    return un, bfn

@@ -1,0 +1,225 @@
+"""MHD simulation driver: region ICs and the time loop (PyTorch).
+
+Port of the uniform-grid part of ``ramses_tpu/mhd/driver.py``.  Region
+ICs follow ``mhd/init_flow_fine.f90:475-596``: square regions set
+[d, u, v, w, P] plus a uniform field [A_region, B_region, C_region].
+The host keeps the output-time bookkeeping and the device advances in
+chunks of :func:`ramses_tpu_torch.mhd.uniform.run_steps`, one host
+synchronisation per chunk.
+
+Runs on CUDA unless the caller passes ``device="cpu"``.  Not ported yet,
+each raising ``NotImplementedError`` naming it when the namelist turns it
+on: snapshots (``dump``/``from_snapshot``), the step guard, the watchdog,
+fault injection and telemetry.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ramses_tpu_torch.config import Params
+from ramses_tpu_torch.device import resolve_device
+from ramses_tpu_torch.grid import boundary as bmod
+from ramses_tpu_torch.mhd import core, uniform as mu
+from ramses_tpu_torch.mhd.core import IBX, IP, MhdStatic, NCOMP
+
+
+def _region_mask(x, k, init, ndim):
+    centers = [init.x_center, init.y_center, init.z_center]
+    lengths = [init.length_x, init.length_y, init.length_z]
+    en = float(init.exp_region[k])
+    if en < 10.0:
+        r = sum((2.0 * np.abs(x[d] - centers[d][k]) / lengths[d][k]) ** en
+                for d in range(ndim)) ** (1.0 / en)
+    else:
+        r = np.maximum.reduce(
+            [2.0 * np.abs(x[d] - centers[d][k]) / lengths[d][k]
+             for d in range(ndim)])
+    return r < 1.0
+
+
+def mhd_condinit(shape, dx: float, p: Params, cfg: MhdStatic):
+    """(u [nvar, *sp], bf [3, *sp]) as f64 numpy: conservative cell state
+    and staggered faces from &INIT_PARAMS regions (uniform B per
+    region)."""
+    init = p.init
+    ndim = cfg.ndim
+    axes_c = [(np.arange(n) + 0.5) * dx for n in shape]
+
+    q = np.zeros((cfg.nvar,) + tuple(shape))
+    q[0] = cfg.smallr
+    q[IP] = cfg.smallr * cfg.smallc ** 2 / cfg.gamma
+    vels = [init.u_region, init.v_region, init.w_region]
+    bvals = [init.A_region, init.B_region, init.C_region]
+
+    # staggered faces: each cell's LOW face takes the owning cell's region
+    # value, as the reference seeds both face fields from the cell's
+    # region (mhd/init_flow_fine.f90:529-532)
+    bf = np.zeros((NCOMP,) + tuple(shape))
+    xc = np.meshgrid(*axes_c, indexing="ij")
+    for k in range(init.nregion):
+        if str(init.region_type[k]).strip() != "square":
+            raise NotImplementedError("mhd ICs: square regions only")
+        m = _region_mask(xc, k, init, ndim)
+        q[0][m] = init.d_region[k]
+        for c in range(NCOMP):
+            q[1 + c][m] = vels[c][k]
+            bf[c][m] = bvals[c][k]
+        q[IP][m] = init.p_region[k]
+
+    for c in range(NCOMP):
+        if c < ndim:
+            q[IBX + c] = 0.5 * (bf[c] + np.roll(bf[c], -1, axis=c))
+        else:
+            q[IBX + c] = bf[c]
+    u = core.prim_to_cons(torch.from_numpy(q), cfg).numpy()
+    return u, bf
+
+
+def unported_mhd_features(params: Params) -> list:
+    """Names of the namelist's features the port's MHD driver does not run
+    yet (beyond those :func:`ramses_tpu_torch.driver.unported_features`
+    lists for every run)."""
+    from ramses_tpu_torch.driver import unported_features
+    r = params.run
+    checks = [
+        ("step guard (&RUN_PARAMS max_step_retries)",
+         r.max_step_retries > 0),
+        ("watchdog (&RUN_PARAMS *_deadline_s)",
+         max(r.compile_deadline_s, r.step_deadline_s, r.io_deadline_s) > 0),
+        ("fault injection (&RUN_PARAMS fault_inject)",
+         bool(str(r.fault_inject or "").strip("'\" "))),
+        ("telemetry (&OUTPUT_PARAMS telemetry)",
+         bool(str(params.output.telemetry or "").strip("'\" "))),
+        ("restart (&RUN_PARAMS nrestart)", r.nrestart > 0),
+    ]
+    return unported_features(params) + [n for n, on in checks if on]
+
+
+class MhdSimulation:
+    """Uniform-grid MHD run (the CT solver)."""
+
+    def __init__(self, params: Params, dtype=torch.float32, device=None):
+        missing = unported_mhd_features(params)
+        if missing:
+            raise NotImplementedError(
+                "not ported to ramses_tpu_torch's MHD driver yet: "
+                + ", ".join(missing))
+        if params.amr.levelmax > params.amr.levelmin:
+            raise NotImplementedError(
+                "MHD on the AMR hierarchy (levelmax > levelmin, "
+                "ramses_tpu/mhd/amr.py MhdAmrSim) is not ported to "
+                "ramses_tpu_torch yet")
+        self.device = resolve_device(device)
+        self.params = params
+        self.dtype = dtype
+        self.cfg = MhdStatic.from_params(params)
+        base = [params.amr.nx, params.amr.ny, params.amr.nz][:params.ndim]
+        if any(b != 1 for b in base):
+            # this solver family builds cubic grids
+            raise NotImplementedError(
+                f"MHD requires nx=ny=nz=1 (got {base})")
+        n = 2 ** params.amr.levelmin
+        shape = tuple([n] * params.ndim)
+        self.dx = params.amr.boxlen / n
+        spec = bmod.BoundarySpec.from_params(params)
+        bc_kinds = tuple((f[0].kind, f[1].kind) for f in spec.faces)
+        for lo, hi in bc_kinds:
+            for k in (lo, hi):
+                if k not in (bmod.PERIODIC, bmod.OUTFLOW):
+                    raise NotImplementedError(
+                        "mhd boundaries: periodic/outflow only")
+        self.grid = mu.MhdGrid(cfg=self.cfg, shape=shape, dx=self.dx,
+                               bc_kinds=bc_kinds)
+        u0, bf0 = mhd_condinit(shape, self.dx, params, self.cfg)
+        self.u = torch.tensor(u0, dtype=dtype, device=self.device)
+        self.bf = torch.tensor(bf0, dtype=dtype, device=self.device)
+        self.t = 0.0
+        self.nstep = 0
+        self.cell_updates = 0
+        self.wall_s = 0.0
+
+    @classmethod
+    def from_state(cls, params: Params, u, bf, t: float = 0.0,
+                   nstep: int = 0, device=None, dtype=None
+                   ) -> "MhdSimulation":
+        """Start from a given state (numpy or tensors, e.g. a JAX run's
+        ``np.asarray(sim.u)``/``sim.bf``): ``u [nvar, *sp]``, ``bf [3,
+        *sp]``; the dtype defaults to ``u``'s."""
+        from ramses_tpu_torch.convert import state_from_numpy
+        arr = np.asarray(u.detach().cpu() if torch.is_tensor(u) else u)
+        fac = np.asarray(bf.detach().cpu() if torch.is_tensor(bf) else bf)
+        if dtype is None:
+            dtype = torch.float64 if arr.dtype == np.float64 else torch.float32
+        sim = cls(params, dtype=dtype, device=device)
+        want = (sim.cfg.nvar,) + sim.grid.shape
+        if arr.shape != want or fac.shape != (NCOMP,) + sim.grid.shape:
+            raise ValueError(f"state shapes {arr.shape}, {fac.shape} != "
+                             f"{want}, {(NCOMP,) + sim.grid.shape}")
+        sim.u = state_from_numpy(arr, sim.device, dtype)
+        sim.bf = state_from_numpy(fac, sim.device, dtype)
+        sim.t = float(t)
+        sim.nstep = int(nstep)
+        return sim
+
+    def mus_per_cell_update(self) -> float:
+        return 1e6 * self.wall_s / max(self.cell_updates, 1)
+
+    def evolve(self, tend: Optional[float] = None, chunk: int = 16,
+               nstepmax: int = 10 ** 9, verbose: bool = False):
+        """Advance to ``tend`` (default: the last output time, else
+        ``tend`` of the namelist) or ``nstepmax`` steps, in chunks of
+        ``chunk`` steps with one host synchronisation each."""
+        p = self.params
+        tend = tend if tend is not None else (
+            p.output.tout[-1] if p.output.tout else p.output.tend)
+        while self.t < tend * (1.0 - 1e-12) and self.nstep < nstepmax:
+            n = min(chunk, nstepmax - self.nstep)
+            t0 = time.perf_counter()
+            t_before = self.t
+            u, bf, t, ndone = mu.run_steps(self.grid, self.u, self.bf,
+                                           self.t, tend, n)
+            # the chunk's one synchronisation: fetch (t, ndone)
+            t_host, ndone = (float(v) for v in
+                             torch.stack([t, ndone.to(t.dtype)]).cpu())
+            ndone = int(ndone)
+            wall = time.perf_counter() - t0
+            self.wall_s += wall
+            self.u, self.bf, self.t = u, bf, t_host
+            self.nstep += ndone
+            self.cell_updates += ndone * self.grid.ncell
+            if verbose:
+                dt = (self.t - t_before) / ndone if ndone else None
+                print(self.step_line(dt, ndone))
+            if ndone == 0:
+                break
+
+    def step_line(self, dt: Optional[float], chunk: int) -> str:
+        """The per-chunk progress line."""
+        line = f"step {self.nstep:6d}  t={self.t:.6e}"
+        if dt is not None:
+            line += f" dt={dt:.3e}"
+        if self.cell_updates:
+            line += f" mus/pt={self.mus_per_cell_update():.4f}"
+        if chunk > 1:
+            line += f" chunk={chunk}"
+        return line + f" divb={float(self.max_divb()):.2e}"
+
+    def max_divb(self):
+        """max |div B| over the grid (a 0-d device tensor)."""
+        return torch.max(torch.abs(core.div_b(
+            [self.bf[c] for c in range(NCOMP)],
+            (self.dx,) * self.cfg.ndim, self.cfg.ndim)))
+
+    def totals(self):
+        return mu.totals(self.u, self.cfg, self.dx)
+
+    def status_note(self) -> str:
+        """The CLI's closing note: microseconds per cell update and the
+        divergence of B."""
+        return (f"mus/pt={self.mus_per_cell_update():.4f} "
+                f"max|divB|={float(self.max_divb()):.3e}")

@@ -225,3 +225,130 @@ def test_amr_coarse_step_never_waits_for_the_host(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert float(dtn) > 0.0
     assert all(bool(torch.isfinite(u[l]).all()) for l in u)
+
+
+# ---------------------------------------------------------------------------
+# K4: the MHD constrained-transport step (csrc/mhd_ct.cu)
+
+def _mhd_box(sp, seed, masked):
+    """A random padded MHD box on the card: (up, bfp_ext, okp, ovr)."""
+    rng = np.random.default_rng(seed)
+    nd = len(sp)
+    spp = tuple(n + 4 for n in sp)
+    spe = tuple(n + 6 for n in sp)
+    r = 1.0 + 0.3 * rng.random(spp)
+    v = 0.2 * rng.standard_normal((3,) + spp)
+    p = 0.5 + 0.2 * rng.random(spp)
+    e = p / (2.0 / 3.0) + 0.5 * r * (v ** 2).sum(axis=0) + 0.2
+    up = np.stack([r, r * v[0], r * v[1], r * v[2], e,
+                   *np.zeros((3,) + spp)])
+    bf = 0.3 + 0.2 * rng.standard_normal((3,) + spe)
+    dev = torch.device("cuda")
+
+    def t(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+    okp = ovr = None
+    if masked:
+        okp = torch.from_numpy(rng.random(spp) < 0.15).to(dev)
+        ovr = {(a, b): (torch.from_numpy(rng.random(spp) < 0.2).to(dev),
+                        t(0.05 * rng.standard_normal(spp)))
+               for a in range(nd) for b in range(a + 1, nd)}
+    return t(up), t(bf), okp, ovr
+
+
+@pytest.mark.parametrize("sp,riemann,corner,slope_type,masked", [
+    ((37, 19), "hlld", "llf", 1, False),
+    ((9, 13, 7), "hll", "average", 8, True),
+    ((5, 3), "llf", "llf", 2, True),
+    ((6, 4, 5), "hlld", "llf", 1, False),
+])
+def test_ct_kernel_matches_plain(cuda, sp, riemann, corner, slope_type,
+                                 masked):
+    from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.mhd.core import MhdStatic
+    cfg = MhdStatic(ndim=len(sp), riemann=riemann, riemann2d=corner,
+                    slope_type=slope_type)
+    up, bfp, okp, ovr = _mhd_box(sp, sum(sp), masked)
+    dt = torch.tensor(2e-3, dtype=torch.float32, device=cuda)
+    dx = (1.0 / 32,) * len(sp)
+    got = ct_slab.ct_step_slab(up, bfp, dt, dx, cfg, okp=okp, ovr=ovr)
+    want = ct_slab.ct_step_slab_ref(up, bfp, dt, dx, cfg, okp=okp, ovr=ovr)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+
+
+def test_scratch_matches_the_kernel_layout(cuda):
+    # the layout lives in csrc/mhd_ct.cu alone: q, dq, du_half, q_half,
+    # bf_half, fluxes, edge EMFs
+    from ramses_tpu_torch.mhd import ct_slab
+    lib = ct_slab._library()
+    assert lib.ramses_mhd_ct_scratch_len(2, 10) == 10 * (
+        8 + 16 + 8 + 8 + 2 + 16 + 1)
+    assert lib.ramses_mhd_ct_scratch_len(3, 10) == 10 * (
+        8 + 24 + 8 + 8 + 3 + 24 + 3)
+
+def test_ct_kernel_counts_launches_and_refuses_outside_scope(cuda):
+    from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.mhd.core import MhdStatic
+    cfg = MhdStatic(ndim=2, riemann="hlld", riemann2d="llf")
+    up, bfp, _, _ = _mhd_box((8, 8), 0, False)
+    dt = torch.tensor(1e-3, dtype=torch.float32, device=cuda)
+    before = ct_slab.launches
+    ct_slab.ct_step_slab(up, bfp, dt, (0.1, 0.1), cfg)
+    ct_slab.ct_step_slab_ref(up, bfp, dt, (0.1, 0.1), cfg)
+    assert ct_slab.launches == before + 1
+    assert not ct_slab.supports(MhdStatic(ndim=1), (256,), torch.float32)
+    assert not ct_slab.supports(MhdStatic(ndim=2, riemann="roe"), (8, 8),
+                                torch.float32)
+    assert not ct_slab.supports(cfg, (8, 8), torch.float64)
+    with pytest.raises(ValueError):        # no fallback on a CUDA tensor
+        ct_slab.ct_step_slab(up, bfp, dt, (0.1, 0.1),
+                             MhdStatic(ndim=2, riemann="roe"))
+    with pytest.raises(ValueError):
+        ct_slab.ct_step_slab(up.double(), bfp.double(), dt, (0.1, 0.1), cfg)
+    with pytest.raises(ValueError):
+        ct_slab.ct_step_slab(up, bfp[:, 1:], dt, (0.1, 0.1), cfg)
+    assert ct_slab.launches == before + 1
+
+
+def test_mhd_on_cuda_matches_cpu_and_never_waits(cuda):
+    """A 2D MHD run at 16² (hlld, llf corners): the kernel path on the card
+    against the plain path on the CPU, one launch per step, and a chunk of
+    steps that issues device work only."""
+    import os
+    from ramses_tpu_torch.config import load_params
+    from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.mhd import uniform as mu
+    from ramses_tpu_torch.mhd.driver import MhdSimulation
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = load_params(os.path.join(root, "namelists", "orszag2d.nml"), ndim=2)
+    p.amr.levelmin = p.amr.levelmax = 4
+    gpu = MhdSimulation(p)
+    cpu = MhdSimulation(p, device="cpu")
+    rng = np.random.default_rng(3)
+    vel = 0.3 * rng.standard_normal((2, 16, 16))
+    for sim in (gpu, cpu):
+        u = sim.u.cpu().clone()
+        u[1:3] = u[0] * torch.tensor(vel, dtype=torch.float32)
+        u[4] = u[4] + 0.5 * (u[1] ** 2 + u[2] ** 2) / u[0]
+        sim.u = u.to(sim.device)
+    before = ct_slab.launches
+    gpu.evolve(nstepmax=6, chunk=3)
+    cpu.evolve(nstepmax=6, chunk=3)
+    assert ct_slab.launches - before == gpu.nstep == cpu.nstep == 6
+    assert gpu.t == pytest.approx(cpu.t, rel=1e-5)
+    for got, want in ((gpu.u, cpu.u), (gpu.bf, cpu.bf)):
+        got, want = got.cpu().numpy(), want.numpy()
+        for c in range(got.shape[0]):
+            assert np.abs(got[c] - want[c]).max() <= \
+                1e-4 * max(np.abs(want[c]).max(), 1e-6)
+    t = torch.tensor(gpu.t, dtype=torch.float64, device=cuda)
+    tend = torch.tensor(1e9, dtype=torch.float64, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        u, bf, t, n = mu.run_steps(gpu.grid, gpu.u, gpu.bf, t, tend, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(n) == 2 and bool(torch.isfinite(u).all())
