@@ -83,7 +83,32 @@ Phases, each printing its own line; any failure exits non-zero:
 17. ``BASELINE.json`` config 4: ``run_namelist("namelists/tube_mhd.nml",
    ndim=1)`` for 20 steps on the card: 1D with Roe lies outside K4's gate,
    so the torch formulation runs and K4 is launched 0 times; a finite
-   state and ``bf[0]`` bitwise unchanged.
+   state and ``bf[0]`` bitwise unchanged;
+18. MHD on the AMR hierarchy, K4 at a complete level: the exact
+   Orszag-Tang vortex (``tests/test_mhd_amr.py:86-146``) on
+   ``orszag2d.nml``'s parameters at levelmin=9, levelmax=11 after two warm
+   regrids; in its second coarse step every K4 call is captured as the
+   hierarchy makes it, and the one at the parent of a partial level (its
+   refined mask and coarse-fine EMF override, both non-empty) goes through
+   the kernel and its plain version, cell by cell as in phase 14; the
+   kernel's device time there, the plain version's, and the bound;
+19. the MHD AMR main path: from the phase-18 set-up state,
+   ``MhdAmrSim.evolve`` for 10 coarse steps (a regrid before each) with
+   every launch counter at 0 just before: K4 once per complete-level
+   substep, K1/K2/K3 never; octs per level, wall, cell-updates/s
+   (``Σ_l noct(l)·4·2^(l-9)`` per coarse step), peak device memory, leaf
+   mass (rel 1e-5), energy, div B per level (``DIVB_REL`` on complete
+   levels, and on a partial level whose parent is complete and which has
+   no finer level: the reference scheme's reach, ROADMAP §C3) and the two
+   stored copies of every face shared by two leaf cells of a level bitwise
+   equal;
+20. one MHD AMR coarse step: host wall by part (flagging, maps and EMF
+   maps, u and face migration with the donor maps, restriction, Courant
+   fetch, the step) and a profile, trace to
+   ``chiprun_out/chip_smoke_mhd_amr_trace.json``;
+21. ``namelists/orszag2d.nml`` as the CLI runs it: ``run_namelist(...,
+   ndim=2, solver="mhd")`` to t = 0.2, then two 3-coarse-step replays
+   from its final state, bitwise equal.
 
 The line before the last holds every ported kernel's numbers as one JSON
 object (``{"kernels": [...]}``); the last line is
@@ -125,6 +150,10 @@ LOCAL_RTOL, LOCAL_ATOL = 1e-6, 1e-10
 AMR_REL = 1e-5
 AMR_LEVELS = (7, 9)            # levelmin, levelmax of BASELINE config 2
 OT_LEVEL = 11                  # Orszag-Tang at 2048²
+# Orszag-Tang on the hierarchy: 512² complete, 2048² effective (PR 3's
+# uniform run), cut to 10 coarse steps
+OT_AMR_LEVELS = (9, 11)
+OT_AMR_STEPS = 10
 MHD3D_LEVEL = 7                # the 3D solenoidal run at 128³
 MHD_CHECK_SHAPES = ((256, 256), (64, 64, 64))
 OT_NML = os.path.join(ROOT, "namelists", "orszag2d.nml")
@@ -266,11 +295,14 @@ def _profile(run, out_dir: str, name: str = "chip_smoke_trace.json",
     top = "; ".join(f"{k} x{n} {us / 1e3:.3f} ms" for us, n, k in rows[:8])
     ours = "; ".join(
         f"{kern} x{sum(n for _, n, k in rows if kern in k)} "
-        f"{sum(us for us, _, k in rows if kern in k) / 1e3:.3f} ms"
+        f"{sum(us for us, _, k in rows if kern in k) / 1e3:.3f} ms "
+        f"({100 * sum(us for us, _, k in rows if kern in k) / busy_us:.1f} "
+        f"% of busy)"
         for kern in ("fused_muscl_kernel", "sweep_kernel", "mhd_ct_")
         if any(kern in k for _, _, k in rows))
     return (f"device busy {busy_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms "
-            f"wall ({100 * busy_us / 1e6 / wall:.1f} %); port kernels: "
+            f"wall ({100 * busy_us / 1e6 / wall:.1f} %), "
+            f"{sum(n for _, n, _ in rows)} kernel launches; port kernels: "
             f"{ours}; top: {top}")
 
 
@@ -384,12 +416,15 @@ def _device_ms(fn, kernel: str, n: int = 50, per_call: int = 1) -> float:
     return sum(e.self_device_time_total / e.count for e in rows) / 1e3
 
 
-def _host_breakdown(sim, run) -> str:
+def _host_breakdown(sim, run, parts=("_flag_and_tree", "_rebuild_maps",
+                                      "_migrate_level", "_restrict_all",
+                                      "coarse_dt", "step_coarse"),
+                    nested=()) -> str:
     """Wall seconds of one ``run`` of an AMR coarse step split by the
-    hierarchy's parts, the device synchronised around each part."""
+    hierarchy's parts (methods of ``sim``), the device synchronised around
+    each part; the ``nested`` parts run inside others and stay out of the
+    remainder ("other host").  Returns (the line, seconds by part)."""
     import torch
-    parts = ("_flag_and_tree", "_rebuild_maps", "_migrate_level",
-             "_restrict_all", "coarse_dt", "step_coarse")
     acc = dict.fromkeys(parts, 0.0)
 
     def timed(name, fn):
@@ -410,9 +445,10 @@ def _host_breakdown(sim, run) -> str:
     total = time.perf_counter() - t0
     for name in parts:
         delattr(sim, name)
-    acc["other host"] = total - sum(acc.values())
+    acc["other host"] = total - sum(v for k, v in acc.items()
+                                    if k not in nested)
     return f"total {total:.4f} s: " + ", ".join(
-        f"{k.strip('_')} {v:.4f}" for k, v in acc.items())
+        f"{k.strip('_')} {v:.4f}" for k, v in acc.items()), acc
 
 
 def _amr_phases(dev):
@@ -683,7 +719,7 @@ def _amr_phases(dev):
     def coarse_step():
         sim.regrid()
         sim.step_coarse(sim.coarse_dt())
-    walls = _host_breakdown(sim, coarse_step)
+    walls, _ = _host_breakdown(sim, coarse_step)
     prof = _profile(coarse_step, os.path.join(ROOT, "chiprun_out"),
                     "chip_smoke_amr_trace.json", warm=False)
     _print(f"phase 11 one AMR coarse step (regrid + Courant fetch + step, "
@@ -1106,6 +1142,268 @@ def _mhd_phases(dev):
         "library_ms": None,
     }
 
+def _ot_amr_params(lmin: int, lmax: int):
+    """``namelists/orszag2d.nml`` (gamma 1.6666667, courant 0.8, hlld,
+    slope_type 1, ``err_grad_d = err_grad_p = err_grad_b = 0.05``, periodic,
+    ``nremap=1``) at the given levels."""
+    from ramses_tpu_torch.config import load_params
+    p = load_params(OT_NML, ndim=2)
+    p.amr.levelmin, p.amr.levelmax = lmin, lmax
+    return p
+
+
+def _set_ot_amr(sim):
+    """The exact Orszag-Tang vortex on every level of an MHD hierarchy, as
+    ``tests/test_mhd_amr.py:86-146`` builds it: faces from the vector
+    potential Az at each level's own resolution (div B zero to roundoff, a
+    coarse face the mean of its fine faces), cell B the face mean."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.mhd import core
+    rho0, p0 = 25.0 / (36.0 * np.pi), 5.0 / (12.0 * np.pi)
+    b0, two_pi = 1.0 / np.sqrt(4.0 * np.pi), 2.0 * np.pi
+
+    def az(x, y):
+        return b0 * (np.cos(4.0 * np.pi * x) / (4.0 * np.pi)
+                     + np.cos(two_pi * y) / two_pi)
+    for l in sim.levels():
+        dxl = sim.dx(l)
+        cc = sim.tree.cell_coords(l).astype(np.float64)
+        x0, y0 = cc[:, 0] * dxl, cc[:, 1] * dxl
+        n, npad = len(cc), sim.maps[l].ncell_pad
+        bf = np.zeros((npad, 3, 2))
+        bf[:n, 0, 0] = (az(x0, y0 + dxl) - az(x0, y0)) / dxl
+        bf[:n, 0, 1] = (az(x0 + dxl, y0 + dxl) - az(x0 + dxl, y0)) / dxl
+        bf[:n, 1, 0] = -(az(x0 + dxl, y0) - az(x0, y0)) / dxl
+        bf[:n, 1, 1] = -(az(x0 + dxl, y0 + dxl) - az(x0, y0 + dxl)) / dxl
+        xc, yc = x0 + 0.5 * dxl, y0 + 0.5 * dxl
+        q = np.zeros((8, npad))
+        q[0] = sim.mcfg.smallr
+        q[0, :n] = rho0
+        q[1, :n] = -np.sin(two_pi * yc)
+        q[2, :n] = np.sin(two_pi * xc)
+        q[4] = 1e-20
+        q[4, :n] = p0
+        q[5:8] = 0.5 * (bf[:, :, 0] + bf[:, :, 1]).T
+        u = core.prim_to_cons(torch.from_numpy(q), sim.mcfg).T
+        sim.u[l] = u.to(sim.device, sim.dtype).contiguous()
+        sim.bfs[l] = torch.tensor(bf, dtype=sim.dtype, device=sim.device)
+    sim._restrict_all()
+    sim._dt_cache = None
+
+
+def _mhd_amr_phases(dev):
+    """Phases 18-21 (MHD on the AMR hierarchy); returns K4's launches on
+    this slice's main path (phase 19), its worst max abs err of phase 18,
+    and that phase's readings at the AMR complete level."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.convert import mhd_amr_state_from
+    from ramses_tpu_torch.driver import run_namelist
+    from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.mhd.amr import MhdAmrSim
+
+    lmin, lmax = OT_AMR_LEVELS
+    p = _ot_amr_params(lmin, lmax)
+    t0 = time.perf_counter()
+    sim = MhdAmrSim(p)
+    _set_ot_amr(sim)
+    for _ in range(2):                 # let the tree adapt to the vortex
+        sim.regrid()
+        _set_ot_amr(sim)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    state0 = mhd_amr_state_from(sim)
+
+    # ---- 18. K4 at the AMR complete level ----
+    sim.regrid()
+    sim.step_coarse(sim.coarse_dt())
+    sim.regrid()
+    calls = []
+    kernel = ct_slab.ct_step_slab
+
+    def capture(*a, **k):
+        calls.append((a, k))
+        return kernel(*a, **k)
+    ct_slab.ct_step_slab = capture
+    try:
+        sim.step_coarse(sim.coarse_dt())
+    finally:
+        ct_slab.ct_step_slab = kernel
+    torch.cuda.synchronize()
+    with_ovr = [(a, k) for a, k in calls if k.get("ovr") is not None]
+    if not with_ovr:
+        raise AssertionError(f"no complete level of {sim.levels()} (complete "
+                             f"{sim._fused_spec().complete}) received a "
+                             f"coarse-fine EMF override")
+    a, k = with_ovr[0]
+    up, bfp, dt, dx, cfg = a
+    okp, ovr = k["okp"], k["ovr"]
+    inner = (slice(2, -2), slice(2, -2))
+    n_ok = int(okp[inner].sum()) if okp is not None else 0
+    n_ovr = int(ovr[(0, 1)][0][inner].sum())
+    if n_ok == 0 or n_ovr == 0:
+        raise AssertionError(f"K4 at the AMR complete level: refined mask "
+                             f"{n_ok} cells, override {n_ovr} corners")
+    got = kernel(*a, **k)
+    want = ct_slab.ct_step_slab_ref(*a, **k)
+    torch.cuda.synchronize()
+    err18, _, excess, readings = _ct_check(got, want, 2)
+    if not excess <= 0.0:
+        raise AssertionError(f"ct_step_slab disagrees with its plain version "
+                             f"at the AMR complete level: {readings}")
+    del got, want
+    sp = tuple(int(n) - 4 for n in up.shape[1:])
+    ncell = sp[0] * sp[1]
+    ms18 = _device_ms(lambda: kernel(*a, **k), "mhd_ct_", n=30, per_call=6)
+    plain18 = _median_ms(lambda: ct_slab.ct_step_slab_ref(*a, **k), reps=10)
+    nbytes = 4 * (5 * up[0].numel() + bfp.numel() + 1 + 8 * ncell
+                  + 3 * ncell + okp.numel() + 2 * up[0].numel())
+    nops = _ct_ops(lambda: ct_slab.ct_step_slab_ref(*a, **k), cfg,
+                   up[0].numel(), ncell)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * nops / F32_OPS_PER_S
+    _print(f"phase 18 K4 at the AMR complete level {sp} (Orszag-Tang "
+           f"levelmin={lmin} levelmax={lmax}, the second coarse step; "
+           f"{len(calls)} K4 calls in the step, {len(with_ovr)} with an EMF "
+           f"override): refined mask {n_ok} cells, override {n_ovr} corners; "
+           f"ct_step_slab {ms18:.4f} ms/call on the device (profiler), plain "
+           f"version {plain18:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+           f"by {'bytes' if bytes_ms >= ops_ms else 'operations'} "
+           f"({nbytes / 1e9:.4f} GB -> {bytes_ms:.4f} ms; {nops / 1e9:.4f} G "
+           f"ops -> {ops_ms:.4f} ms); against plain: {readings}")
+    del calls, with_ovr, a, k, up, bfp, okp, ovr, sim
+    torch.cuda.empty_cache()
+
+    # ---- 19. the MHD AMR main path: Orszag-Tang levelmin=9, levelmax=11 --
+    sim = MhdAmrSim.from_state(p, **state0)
+    tend = p.output.tout[-1] if p.output.tout else p.output.tend
+    tot0 = sim.totals()
+    stepped = []
+    step_coarse = sim.step_coarse
+    sim.step_coarse = lambda dt: (stepped.append(sim._fused_spec()),
+                                  step_coarse(dt))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim.evolve(tend, nstepmax=OT_AMR_STEPS)
+    sim.drain()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    del sim.step_coarse
+    peak = torch.cuda.max_memory_allocated()
+    k4_want = sum(2 ** (l - lmin) for spec in stepped
+                  for l, c in zip(spec.levels, spec.complete) if c)
+    want = {"fused_muscl": 0, "tile_sweep": 0, "oct_sweep": 0,
+            "ct_step_slab": k4_want}
+    tot1 = sim.totals()
+    octs = {l: sim.tree.noct(l) for l in sim.levels()}
+    complete = [l for l in sim.levels() if sim.maps[l].complete]
+    divb = sim.divb_levels()
+    # div B stays at roundoff where the JAX package's scheme keeps it: on
+    # complete levels, and on a partial level with a complete parent and
+    # no finer level.  A partial level with finer levels steps its leaves
+    # next to refined cells from their restricted faces, and keeps its own
+    # EMFs (no coarse-fine matching: the "first-order coupling" of
+    # ramses_tpu/mhd/amr.py:26-30), so those faces drift from its own, and
+    # the faces migrated below it inherit the mismatch (ROADMAP §C3)
+    held = [l for l in sim.levels() if sim.maps[l].complete
+            or (sim.maps[l - 1].complete and not sim.tree.has(l + 1))]
+    gap = sim.max_face_gap()
+    if sim.nstep != OT_AMR_STEPS or len(stepped) != OT_AMR_STEPS:
+        raise AssertionError(f"MHD AMR main path ran {sim.nstep} steps")
+    if launches != want or k4_want == 0:
+        raise AssertionError(f"MHD AMR main path launched {launches}, "
+                             f"expected {want}")
+    if not all(bool(torch.isfinite(sim.u[l]).all())
+               and bool(torch.isfinite(sim.bfs[l]).all())
+               for l in sim.levels()):
+        raise AssertionError("MHD AMR main path state is not finite")
+    if abs(tot1["mass"] - tot0["mass"]) > 1e-5 * abs(tot0["mass"]):
+        raise AssertionError(f"MHD AMR leaf mass not conserved: "
+                             f"{tot0['mass']} -> {tot1['mass']}")
+    if not (gap == 0.0 and max(divb[l] for l in held) <= DIVB_REL):
+        raise AssertionError(f"MHD AMR div B: shared-face gap {gap}, per "
+                             f"level {divb} (held on {held})")
+    _print(f"phase 19 MHD AMR main path: Orszag-Tang (orszag2d.nml) "
+           f"levelmin={lmin} levelmax={lmax}, {sim.nstep} coarse steps "
+           f"t={sim.t:.6e}; octs per level {octs}, complete levels "
+           f"{complete}; launches {launches} (K4 expected {k4_want} = Σ "
+           f"2^(l-{lmin}) over complete levels per step); set-up "
+           f"{setup_s:.3f} s, evolve {wall:.3f} s = "
+           f"{sim.cell_updates / wall:.4e} cell-updates/s "
+           f"({sim.cell_updates} cell updates); peak device memory "
+           f"{peak / 2**30:.3f} GiB; leaf mass {tot0['mass']:.9e} -> "
+           f"{tot1['mass']:.9e}, energy {tot0['energy']:.9e} -> "
+           f"{tot1['energy']:.9e}; max|div B|·dx/max|B| per level "
+           f"{ {l: float(f'{v:.3e}') for l, v in divb.items()} } (limit "
+           f"{DIVB_REL:.0e} on {held}); shared leaf faces' two copies "
+           f"differ by at most {gap}")
+
+    # ---- 20. where the time of one coarse step goes ----
+    def coarse_step():
+        sim.regrid()
+        sim.step_coarse(sim.coarse_dt())
+    _, acc = _host_breakdown(
+        sim, coarse_step,
+        parts=("regrid", "_flag_and_tree", "_rebuild_maps", "_build_emf_maps",
+               "_donor_maps", "_migrate_level", "_restrict_all", "coarse_dt",
+               "step_coarse"),
+        nested=("_flag_and_tree", "_rebuild_maps", "_build_emf_maps",
+                "_donor_maps", "_migrate_level", "_restrict_all"))
+    total = sum(acc[k] for k in ("regrid", "coarse_dt", "step_coarse",
+                                 "other host"))
+    faces = acc["regrid"] - sum(acc[k] for k in (
+        "_flag_and_tree", "_rebuild_maps", "_migrate_level", "_restrict_all"))
+    prof = _profile(coarse_step, os.path.join(ROOT, "chiprun_out"),
+                    "chip_smoke_mhd_amr_trace.json", warm=False)
+    _print(f"phase 20 one MHD AMR coarse step (regrid + Courant fetch + "
+           f"step, octs {[sim.tree.noct(l) for l in sim.levels()]}): wall by "
+           f"part, each synchronised: total {total:.4f} s: flag_and_tree "
+           f"{acc['_flag_and_tree']:.4f}, rebuild_maps "
+           f"{acc['_rebuild_maps']:.4f} (of which EMF maps "
+           f"{acc['_build_emf_maps']:.4f}), u migration "
+           f"{acc['_migrate_level']:.4f}, face migration {faces:.4f} (of "
+           f"which donor maps {acc['_donor_maps']:.4f}), restriction "
+           f"{acc['_restrict_all']:.4f}, Courant fetch "
+           f"{acc['coarse_dt']:.4f}, step {acc['step_coarse']:.4f}, other "
+           f"host {acc['other host']:.4f}; profiled: {prof}")
+    del sim
+    torch.cuda.empty_cache()
+
+    # ---- 21. namelists/orszag2d.nml as the CLI runs it ----
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    cli = run_namelist(OT_NML, ndim=2, solver="mhd")
+    cli.drain()
+    wall21 = time.perf_counter() - t0
+    l21 = _counts()
+    if not (isinstance(cli, MhdAmrSim) and cli.t >= 0.2 * (1 - 1e-12)
+            and l21["ct_step_slab"] > 0):
+        raise AssertionError(f"orszag2d.nml: {type(cli).__name__} t={cli.t} "
+                             f"launches {l21}")
+    state = mhd_amr_state_from(cli)
+    replays = []
+    for _ in range(2):
+        r = MhdAmrSim.from_state(cli.params, **state)
+        r.evolve(2 * cli.t, nstepmax=r.nstep + 3)
+        replays.append(r)
+    ra, rb = replays
+    if ra.nstep != cli.nstep + 3 or ra.levels() != rb.levels() or not all(
+            np.array_equal(ra.tree.levels[l].keys, rb.tree.levels[l].keys)
+            and torch.equal(ra.u[l], rb.u[l])
+            and torch.equal(ra.bfs[l], rb.bfs[l]) for l in ra.levels()):
+        raise AssertionError("orszag2d.nml: two 3-step replays differ")
+    _print(f"phase 21 orszag2d.nml as the CLI runs it (run_namelist, "
+           f"levelmin={cli.lmin} levelmax={cli.lmax}, its uniform-region "
+           f"ICs): {cli.nstep} coarse steps to t={cli.t:.6e} in "
+           f"{wall21:.3f} s, octs {[cli.tree.noct(l) for l in cli.levels()]}"
+           f", launches {l21}, max|divB|/max|B|*dx={cli.max_divb():.3e}; "
+           f"two 3-coarse-step replays from its final state bitwise equal")
+    return launches["ct_step_slab"], err18
+
 
 def main() -> int:
     import torch
@@ -1291,6 +1589,11 @@ def main() -> int:
 
     # ---- 12-17. the MHD slice ----
     k4 = _mhd_phases(dev)
+
+    # ---- 18-21. MHD on the AMR hierarchy ----
+    k4_amr, err18 = _mhd_amr_phases(dev)
+    k4["launches"] += k4_amr
+    k4["max_abs_err"] = max(k4["max_abs_err"], err18)
     _print(json.dumps({"kernels": [k1] + oct_rows + [k4]}))
     _print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,12 +1,13 @@
 """Command-line entry point: ``python -m ramses_tpu_torch run.nml``.
 
-Runs a namelist on the GPU (``--device cpu`` for the CPU): pure hydro on
-a uniform grid, or with ``levelmax > levelmin`` on the AMR hierarchy of
-one device; or, with ``--solver mhd`` (the default when &INIT_PARAMS sets
-a region field, as in the JAX CLI), constrained-transport MHD on a
-uniform grid.  Prints one line per chunk of steps (per coarse step on the
-hierarchy) and the final conservation totals.  Snapshot output is not
-ported yet.
+Runs a namelist on the GPU (``--device cpu`` for the CPU): pure hydro,
+or with ``--solver mhd`` (the default when &INIT_PARAMS sets a region
+field, as in the JAX CLI) constrained-transport MHD, each on a uniform grid
+or, with ``levelmax > levelmin``, on the AMR hierarchy of one device.
+Prints one line per chunk of steps (per coarse step on the hierarchy) and
+the final conservation totals; MHD on the hierarchy closes with the JAX
+CLI's ``mhd-amr t=… nstep=… max|divB|/max|B|*dx=…`` line.  Snapshot output
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ import sys
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="ramses_tpu_torch",
-        description="PyTorch/CUDA port of ramses_tpu (pure hydro, "
-                    "uniform or AMR; uniform MHD)")
+        description="PyTorch/CUDA port of ramses_tpu (pure hydro and "
+                    "CT MHD, uniform or AMR on one device)")
     ap.add_argument("namelist", help="Fortran-namelist runtime config")
     ap.add_argument("--ndim", type=int, default=3,
                     help="spatial dimensions (compile-time in the reference)")
@@ -46,6 +47,10 @@ def main(argv=None) -> int:
           f"mass={float(tot['mass']):.9e} momentum=[{mom}] "
           f"energy={float(tot['energy']):.9e} {sim.status_note()} "
           f"device={sim.device}")
+    from ramses_tpu_torch.mhd.amr import MhdAmrSim
+    if isinstance(sim, MhdAmrSim):
+        print(f"mhd-amr t={sim.t:.5e} nstep={sim.nstep} "
+              f"max|divB|/max|B|*dx={sim.max_divb():.3e}")
     return 0
 
 

@@ -184,10 +184,25 @@ class AmrSim:
     Runs on CUDA unless ``device="cpu"`` is given; without a GPU a run that
     did not ask for the CPU raises."""
 
+    # subclasses carrying per-cell state beside ``u`` (the MHD face field)
+    # set this: ``regrid`` then logs each migrated level's copy rows, new
+    # octs and their father cells in ``_mig_log`` for them to replay
+    _needs_mig_log = False
+
+    @classmethod
+    def _unported(cls, params: Params) -> list:
+        """The namelist's features this hierarchy does not run (subclass
+        hook): pure hydro here, so a namelist with a region field too."""
+        from ramses_tpu_torch.driver import is_mhd
+        mhd = ["magnetic fields (&INIT_PARAMS A/B/C_region; MHD runs "
+               "through ramses_tpu_torch.mhd.amr.MhdAmrSim)"]
+        return unported_amr_features(params) + (mhd if is_mhd(params)
+                                                else [])
+
     def __init__(self, params: Params, dtype=torch.float32, device=None,
                  init_tree: Optional[Octree] = None,
                  noct_pad: Optional[Dict[int, int]] = None):
-        missing = unported_amr_features(params)
+        missing = self._unported(params)
         if missing:
             raise NotImplementedError(
                 "not ported to ramses_tpu_torch's AMR hierarchy yet: "
@@ -242,24 +257,33 @@ class AmrSim:
         sim = cls(params, dtype=dtype, device=device, init_tree=tree,
                   noct_pad=noct_pad)
         for l in sim.levels():
-            r = np.asarray(rows[l])
-            ncell = sim.tree.noct(l) * 2 ** sim.cfg.ndim
-            if r.shape[0] < ncell:
-                raise ValueError(f"level {l}: {r.shape[0]} rows for "
-                                 f"{ncell} cells")
-            full = np.array(sim.u[l].cpu().numpy())
-            n = min(r.shape[0], full.shape[0])
-            full[:n] = r[:n]
-            sim.u[l] = torch.as_tensor(full, dtype=dtype, device=sim.device)
+            sim.u[l] = sim._rows_from(sim.u[l], rows[l], l)
         sim.t, sim.nstep = float(t), int(nstep)
         sim._dt_cache = None
         return sim
+
+    def _rows_from(self, cur: torch.Tensor, r, l: int) -> torch.Tensor:
+        """``cur`` (a level's padded rows) with its leading rows replaced by
+        the host rows ``r``, which must cover the level's cells."""
+        r = np.asarray(r)
+        ncell = self.tree.noct(l) * 2 ** self.tree_ndim
+        if r.shape[0] < ncell:
+            raise ValueError(f"level {l}: {r.shape[0]} rows for {ncell} "
+                             "cells")
+        full = np.array(cur.cpu().numpy())
+        n = min(r.shape[0], full.shape[0])
+        full[:n] = r[:n]
+        return torch.as_tensor(full, dtype=self.dtype, device=self.device)
 
     # ------------------------------------------------------------------
     # setup
     # ------------------------------------------------------------------
     def dx(self, lvl: int) -> float:
         return self.boxlen / (1 << lvl)
+
+    @property
+    def tree_ndim(self) -> int:
+        return self.params.ndim
 
     def _dev(self, a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -479,6 +503,7 @@ class AmrSim:
         """Flag, rebuild the tree, and migrate the device state
         (``flag_fine`` + ``refine_fine``/``kill_grid``) through the host
         prolongation maps."""
+        self._mig_log: Dict[int, tuple] = {}
         if self.lmax == self.lmin:
             return
         newtree = self._flag_and_tree()
@@ -499,10 +524,13 @@ class AmrSim:
                     and old_u[l].shape[0] == m.ncell_pad):
                 new_u[l] = old_u[l]
                 continue
-            new_u[l] = self._migrate_level(
-                old_u.get(l), new_u[l - 1], m.ncell_pad,
-                *mapmod.build_prolong_maps(self.tree, oldtree, l,
-                                           self.bc_kinds))
+            pmaps = mapmod.build_prolong_maps(self.tree, oldtree, l,
+                                              self.bc_kinds)
+            if self._needs_mig_log:
+                # (copy_dst, copy_src, new_octs, f_cell, ncell_pad)
+                self._mig_log[l] = pmaps[:4] + (m.ncell_pad,)
+            new_u[l] = self._migrate_level(old_u.get(l), new_u[l - 1],
+                                           m.ncell_pad, *pmaps)
         self.u = new_u
         self._restrict_all()
         self._dt_cache = None
@@ -515,7 +543,7 @@ class AmrSim:
         destination row is written once."""
         ttd = 1 << self.cfg.ndim
         sgn_tab, oct_ar = _mig_consts(self.cfg.ndim)
-        buf = torch.zeros((ncell_pad, self.cfg.nvar), dtype=self.dtype,
+        buf = torch.zeros((ncell_pad, u_coarse.shape[1]), dtype=self.dtype,
                           device=self.device)
         if len(copy_dst):
             rows_d = (copy_dst.astype(np.int64)[:, None] * ttd

@@ -68,3 +68,13 @@ def amr_state_from(sim) -> dict:
                 rows={l: _host(sim.u[l]) for l in levels},
                 noct_pad={l: int(sim.maps[l].noct_pad) for l in levels},
                 t=float(sim.t), nstep=int(sim.nstep))
+
+
+def mhd_amr_state_from(sim) -> dict:
+    """The hierarchy of an MHD AMR simulation of either package (a JAX
+    ``MhdAmrSim`` or the port's) as numpy arrays: the keyword arguments of
+    :meth:`ramses_tpu_torch.mhd.amr.MhdAmrSim.from_state` (per-level oct
+    coordinates, cell rows, face rows ``[ncell_pad, 3, 2]`` and padded oct
+    counts, time and step count)."""
+    return dict(amr_state_from(sim),
+                bfs={l: _host(sim.bfs[l]) for l in sim.levels()})

@@ -1,7 +1,7 @@
 """Simulation driver: config → initial state → time loop (PyTorch).
 
 Port of the uniform, pure-hydro branch of ``ramses_tpu/driver.py`` (and
-the dispatch of ``ramses_tpu/__main__.py`` to the AMR hierarchy and to
+the dispatch of ``ramses_tpu/__main__.py`` to the AMR hierarchies and to
 the uniform MHD driver): the host keeps the output-time bookkeeping and
 the device advances in fused multi-step chunks of
 :func:`ramses_tpu_torch.grid.uniform.run_steps`, with one host
@@ -10,7 +10,7 @@ dtype.
 
 Runs on CUDA unless the caller passes ``device="cpu"``; without a GPU a
 run that did not ask for the CPU raises.  Every feature of the JAX driver
-beyond pure hydro (uniform, or AMR on one device) and uniform MHD raises
+beyond pure hydro and MHD (uniform, or AMR on one device) raises
 ``NotImplementedError`` naming it.
 """
 
@@ -51,9 +51,10 @@ def is_mhd(params: Params) -> bool:
 def unported_features(params: Params) -> list:
     """Names of the namelist's features this port does not run yet, on the
     uniform grid or the AMR hierarchy (which adds its own,
-    :func:`ramses_tpu_torch.amr.hierarchy.unported_amr_features`).  Uniform
-    MHD runs (:class:`ramses_tpu_torch.mhd.driver.MhdSimulation`); MHD on
-    the AMR hierarchy does not."""
+    :func:`ramses_tpu_torch.amr.hierarchy.unported_amr_features`).  MHD
+    runs uniform (:class:`ramses_tpu_torch.mhd.driver.MhdSimulation`) and on
+    the hierarchy (:class:`ramses_tpu_torch.mhd.amr.MhdAmrSim`), with the
+    refusals of :func:`ramses_tpu_torch.mhd.driver.unported_mhd_features`."""
     raw = params.raw or {}
 
     def on(group, key):
@@ -64,8 +65,6 @@ def unported_features(params: Params) -> list:
         ("gravity (&RUN_PARAMS poisson)", params.run.poisson),
         ("particles (&RUN_PARAMS pic)", params.run.pic),
         ("cosmology (&RUN_PARAMS cosmo)", params.run.cosmo),
-        ("MHD on the AMR hierarchy (ramses_tpu/mhd/amr.py)",
-         is_mhd(params) and params.amr.levelmax > params.amr.levelmin),
         ("radiative transfer (&RUN_PARAMS rt)", params.run.rt),
         ("cooling (&COOLING_PARAMS cooling)", params.cooling.cooling),
         ("turbulence forcing (&TURB_PARAMS turb)",
@@ -228,7 +227,9 @@ def run_namelist(path: str, ndim: int = 3, dtype=torch.float32,
     the uniform :class:`Simulation` or, with ``levelmax > levelmin``, the
     AMR hierarchy (:class:`ramses_tpu_torch.amr.hierarchy.AmrSim`); MHD
     runs the uniform :class:`ramses_tpu_torch.mhd.driver.MhdSimulation`
-    (MHD on the AMR hierarchy is not ported yet).  ``max_attempts > 1``, a
+    or, with ``levelmax > levelmin``, the MHD hierarchy
+    (:class:`ramses_tpu_torch.mhd.amr.MhdAmrSim`), as
+    ``ramses_tpu/__main__.py`` dispatches.  ``max_attempts > 1``, a
     supervised run, is not ported yet."""
     if max_attempts > 1:
         raise NotImplementedError("not ported to ramses_tpu_torch yet: "
@@ -238,19 +239,22 @@ def run_namelist(path: str, ndim: int = 3, dtype=torch.float32,
         params.run.nstepmax = int(nstepmax)
     if solver is None:
         solver = "mhd" if is_mhd(params) else "hydro"
+    if solver not in ("hydro", "mhd"):
+        raise ValueError(f"solver must be 'hydro' or 'mhd', not {solver!r}")
+    if params.amr.levelmax > params.amr.levelmin:
+        if solver == "mhd":
+            from ramses_tpu_torch.mhd.amr import MhdAmrSim as cls
+        else:
+            from ramses_tpu_torch.amr.hierarchy import AmrSim as cls
+        sim = cls(params, dtype=dtype, device=device)
+        out = params.output
+        sim.evolve(out.tout[-1] if out.tout else out.tend,
+                   nstepmax=params.run.nstepmax, verbose=verbose)
+        return sim
     if solver == "mhd":
         from ramses_tpu_torch.mhd.driver import MhdSimulation
         sim = MhdSimulation(params, dtype=dtype, device=device)
         sim.evolve(nstepmax=params.run.nstepmax, verbose=verbose)
-        return sim
-    if solver != "hydro":
-        raise ValueError(f"solver must be 'hydro' or 'mhd', not {solver!r}")
-    if params.amr.levelmax > params.amr.levelmin:
-        from ramses_tpu_torch.amr.hierarchy import AmrSim
-        sim = AmrSim(params, dtype=dtype, device=device)
-        out = params.output
-        sim.evolve(out.tout[-1] if out.tout else out.tend,
-                   nstepmax=params.run.nstepmax, verbose=verbose)
         return sim
     sim = Simulation(params, dtype=dtype, device=device)
     sim.evolve(verbose=verbose)

@@ -1,6 +1,7 @@
 """MHD simulation driver: region ICs and the time loop (PyTorch).
 
-Port of the uniform-grid part of ``ramses_tpu/mhd/driver.py``.  Region
+Port of the uniform-grid part of ``ramses_tpu/mhd/driver.py`` (the
+hierarchy is :mod:`ramses_tpu_torch.mhd.amr`).  Region
 ICs follow ``mhd/init_flow_fine.f90:475-596``: square regions set
 [d, u, v, w, P] plus a uniform field [A_region, B_region, C_region].
 The host keeps the output-time bookkeeping and the device advances in
@@ -81,11 +82,17 @@ def mhd_condinit(shape, dx: float, p: Params, cfg: MhdStatic):
 
 
 def unported_mhd_features(params: Params) -> list:
-    """Names of the namelist's features the port's MHD driver does not run
-    yet (beyond those :func:`ramses_tpu_torch.driver.unported_features`
-    lists for every run)."""
+    """Names of the namelist's features the port's MHD drivers do not run
+    yet: the uniform :class:`MhdSimulation`, or with ``levelmax >
+    levelmin`` the hierarchy :class:`ramses_tpu_torch.mhd.amr.MhdAmrSim`
+    (beyond what :func:`ramses_tpu_torch.driver.unported_features` and, on
+    the hierarchy, :func:`ramses_tpu_torch.amr.hierarchy.
+    unported_amr_features` list: gravity, particles, tracers, offload, patch
+    hooks and the rest)."""
+    from ramses_tpu_torch.amr.hierarchy import unported_amr_features
     from ramses_tpu_torch.driver import unported_features
     r = params.run
+    amr = params.amr.levelmax > params.amr.levelmin
     checks = [
         ("step guard (&RUN_PARAMS max_step_retries)",
          r.max_step_retries > 0),
@@ -97,7 +104,8 @@ def unported_mhd_features(params: Params) -> list:
          bool(str(params.output.telemetry or "").strip("'\" "))),
         ("restart (&RUN_PARAMS nrestart)", r.nrestart > 0),
     ]
-    return unported_features(params) + [n for n, on in checks if on]
+    out = (unported_amr_features if amr else unported_features)(params)
+    return out + [n for n, on in checks if on and n not in out]
 
 
 class MhdSimulation:
@@ -111,9 +119,10 @@ class MhdSimulation:
                 + ", ".join(missing))
         if params.amr.levelmax > params.amr.levelmin:
             raise NotImplementedError(
-                "MHD on the AMR hierarchy (levelmax > levelmin, "
-                "ramses_tpu/mhd/amr.py MhdAmrSim) is not ported to "
-                "ramses_tpu_torch yet")
+                "MHD on the AMR hierarchy (levelmax > levelmin) runs "
+                "through ramses_tpu_torch.mhd.amr.MhdAmrSim (the port of "
+                "ramses_tpu/mhd/amr.py), not the uniform MhdSimulation "
+                "(run_namelist and the CLI pick it)")
         self.device = resolve_device(device)
         self.params = params
         self.dtype = dtype

@@ -170,9 +170,11 @@ def ct_core(up, bfp, dt, dx: Sequence[float], cfg: MhdStatic,
         ur_c = core.prim_to_cons(q_lo, cfg) + du_half    # this cell's lo face
         ql = core.ctoprim(torch.roll(ul_c, 1, dims=ax), cfg)
         qr = core.ctoprim(ur_c, cfg)
+        # rows by a Python list of views: indexing with the list itself
+        # would copy it to the device and wait for the copy
         perm = _rot_perm(cfg, d)
-        ql_r = ql[perm]
-        qr_r = qr[perm]
+        ql_r = torch.stack([ql[i] for i in perm])
+        qr_r = torch.stack([qr[i] for i in perm])
         bn = bf_half[d]                # staggered, half-dt predicted
         fg = rsolve.solve(ql_r, qr_r, bn, cfg)
         # scatter to state layout

@@ -352,3 +352,101 @@ def test_mhd_on_cuda_matches_cpu_and_never_waits(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(n) == 2 and bool(torch.isfinite(u).all())
+
+
+# ---------------------------------------------------------------------------
+# MHD on the AMR hierarchy: K4 on the complete levels
+
+MHD_BLOB = """
+&RUN_PARAMS
+hydro=.true.
+nremap=1
+/
+&AMR_PARAMS
+levelmin=4
+levelmax=5
+boxlen=1.0
+/
+&INIT_PARAMS
+nregion=2
+region_type(1)='square'
+region_type(2)='square'
+x_center=0.5,0.5
+y_center=0.5,0.5
+length_x=10.0,0.4
+length_y=10.0,0.4
+exp_region=10.0,2.0
+d_region=1.0,4.0
+p_region=1.0,3.0
+u_region=0.0,0.6
+v_region=0.0,-0.4
+A_region=0.5,0.5
+B_region=0.3,0.3
+C_region=0.2,0.2
+/
+&HYDRO_PARAMS
+gamma=1.6666667
+courant_factor=0.8
+riemann='hlld'
+slope_type=1
+/
+&REFINE_PARAMS
+err_grad_d=0.05
+err_grad_p=0.05
+/
+"""
+
+
+def test_mhd_amr_on_cuda_matches_cpu(cuda):
+    """A magnetised disc at levelmin 4, levelmax 5 (hlld, llf corners):
+    K4 on the complete level 4, with its refined mask and EMF override,
+    once per coarse step, against the plain path on the CPU; the same tree,
+    each field within 1e-5 of its max on the level."""
+    from ramses_tpu_torch.config import params_from_string
+    from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.mhd.amr import MhdAmrSim
+    p = params_from_string(MHD_BLOB, ndim=2)
+    gpu, cpu = MhdAmrSim(p), MhdAmrSim(p, device="cpu")
+    stepped = []
+    real = gpu.step_coarse
+    gpu.step_coarse = lambda dt: (stepped.append(gpu._fused_spec()),
+                                  real(dt))
+    before = ct_slab.launches
+    for s in (gpu, cpu):
+        s.evolve(1e9, nstepmax=3)
+    want = sum(2 ** (l - spec.lmin) for spec in stepped
+               for l, c in zip(spec.levels, spec.complete) if c)
+    assert len(stepped) == 3 and want == 3
+    assert ct_slab.launches - before == want
+    assert gpu.levels() == cpu.levels() == [4, 5]
+    assert gpu.t == pytest.approx(cpu.t, rel=1e-5)
+    for l in gpu.levels():
+        assert np.array_equal(gpu.tree.levels[l].keys, cpu.tree.levels[l].keys)
+        for a, b in ((gpu.u, cpu.u), (gpu.bfs, cpu.bfs)):
+            got, want_ = a[l].cpu().numpy(), b[l].numpy()
+            scale = np.abs(want_).reshape(len(want_), -1).max(axis=0)
+            assert (np.abs(got - want_).reshape(len(got), -1)
+                    <= 1e-5 * np.maximum(scale, 1e-30)).all(), l
+    assert gpu.max_divb() < 1e-5 and gpu.max_face_gap() == 0.0
+
+
+def test_mhd_amr_coarse_step_never_waits_for_the_host(cuda):
+    """One MHD coarse step (K4 with the override, the tile sweep, the
+    corrections, the restriction, the next Courant dt) issues device work
+    only."""
+    from ramses_tpu_torch.config import params_from_string
+    from ramses_tpu_torch.mhd import amr
+    sim = amr.MhdAmrSim(params_from_string(MHD_BLOB, ndim=2))
+    sim.evolve(1e9, nstepmax=1)
+    dt = torch.tensor(sim.coarse_dt(), dtype=torch.float32, device=cuda)
+    spec = sim._fused_spec()
+    assert spec.complete == (True, False) and spec.blocked == (False, True)
+    assert "emf_plan" in sim.dev[5]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        u, bf, dtn = amr._coarse_step(sim.u, sim.bfs, sim.dev, dt, spec)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(dtn) > 0.0
+    assert all(bool(torch.isfinite(u[l]).all()) for l in u)

@@ -435,11 +435,15 @@ def test_solver_dispatch_and_refusals():
     sim = run_namelist(TUBE, ndim=1, device="cpu", nstepmax=2,
                        dtype=torch.float64)
     assert isinstance(sim, MhdSimulation) and sim.nstep == 2
-    # orszag2d.nml runs the MHD AMR hierarchy: not ported yet
-    with pytest.raises(NotImplementedError, match="mhd/amr.py"):
-        run_namelist(OT_NML, ndim=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="mhd/amr.py"):
+    # orszag2d.nml runs the MHD AMR hierarchy (levelmax > levelmin)
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.mhd.amr import MhdAmrSim
+    sim = run_namelist(OT_NML, ndim=2, device="cpu", nstepmax=1)
+    assert isinstance(sim, MhdAmrSim) and sim.nstep == 1
+    with pytest.raises(NotImplementedError, match="MhdAmrSim"):
         MhdSimulation(load_params(OT_NML, ndim=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="MhdAmrSim"):
+        AmrSim(load_params(OT_NML, ndim=2), device="cpu")
     with pytest.raises(NotImplementedError, match="MhdSimulation"):
         Simulation(load_params(TUBE, ndim=1), device="cpu")
     with pytest.raises(ValueError, match="solver"):
