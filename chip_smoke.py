@@ -57,7 +57,14 @@ Phases, each printing its own line; any failure exits non-zero:
 12. MHD kernel check: K4 (``ct_step_slab``) against its plain version on
    random 2D 256² and 3D 64³ padded boxes, {llf, hll, hlld} × riemann2d
    {average, llf} × slope {1, 2, 8}, half of them with a random refined
-   mask and EMF override, within rtol 2e-5 / atol 2e-6;
+   mask and EMF override, then its whole scope: 1D 256 with each of the
+   five solvers, 2D 64² with each of the 5 × 7 (riemann, riemann2d)
+   pairs plain and masked, 3D 16³ with each corner and solver, slope
+   types 0/1/2/7/8 in turn and a passive scalar in some; every case
+   within rtol 2e-5 / atol 2e-6; 12b: at the Roe mean's degenerate field
+   limits (no field; Bx alone), where the f32 formulation itself reads
+   ~1e-5 from f64, K4 against the plain f32 and f64 versions and R's
+   condition number at the worst cell, reported (finite required);
 13. MHD main path: Orszag-Tang at 2048² (``namelists/orszag2d.nml`` with
    levelmin = levelmax = 11, the exact vortex set in code),
    ``MhdSimulation(...).evolve(nstepmax=20)`` with every launch counter
@@ -80,10 +87,20 @@ Phases, each printing its own line; any failure exits non-zero:
    steps: K4 once per step, div B at roundoff, a finite state; then K4
    against its plain version on the final state, cell by cell as in
    phase 14 (M over the cell's 5³ stencil), and its device time;
-17. ``BASELINE.json`` config 4: ``run_namelist("namelists/tube_mhd.nml",
-   ndim=1)`` for 20 steps on the card: 1D with Roe lies outside K4's gate,
-   so the torch formulation runs and K4 is launched 0 times; a finite
-   state and ``bf[0]`` bitwise unchanged;
+16b-16d. K4's wider scope at full width: phase 16's 3D run with HLLD
+   corners (10 steps), and Orszag-Tang 2048² with riemann/riemann2d =
+   hlld/hlld and roe/roe (20 steps each): K4 once a step, div B, a finite
+   state, then K4 against its plain version at the final state as in
+   phase 14, its device time, the plain version's and the bound (the Roe
+   solves' untraced operations added by hand, ``ROE_SOLVE_OPS``);
+17. ``BASELINE.json`` config 4, ``namelists/tube_mhd.nml`` (1D, Roe,
+   outflow) through K4: ``run_namelist`` for 20 steps (K4 20 launches)
+   and K4 against its plain version at that state (M over the cell's 5
+   cells, edges replicated); the whole run to tend and the CLI (``python
+   -m ramses_tpu_torch namelists/tube_mhd.nml --ndim 1``) in this
+   process, each with one K4 launch per step the driver issues (the last
+   chunk's steps past tend run at dt = 0); a finite state and ``bf[0]``
+   bitwise unchanged;
 18. MHD on the AMR hierarchy, K4 at a complete level: the exact
    Orszag-Tang vortex (``tests/test_mhd_amr.py:86-146``) on
    ``orszag2d.nml``'s parameters at levelmin=9, levelmax=11 after two warm
@@ -216,13 +233,15 @@ def _excess(got, want) -> float:
     return float(((got - want).abs() - (ATOL + RTOL * want.abs())).max())
 
 
-def _stencil_scale(x, nd: int = 3):
+def _stencil_scale(x, nd: int = 3, periodic: bool = True):
     """Max of ``|x|`` over each cell's 5^nd neighbourhood, per field,
-    wrapping periodically (the main paths' boxes are periodic): the
-    magnitudes one MUSCL step of that cell reads."""
+    wrapping periodically (most main paths' boxes are periodic) or
+    replicating the edge cells (outflow, as the ghosts do): the magnitudes
+    one MUSCL step of that cell reads."""
     import torch.nn.functional as F
-    a = F.pad(x.abs()[None], (2,) * (2 * nd), mode="circular")
-    pool = F.max_pool3d if nd == 3 else F.max_pool2d
+    a = F.pad(x.abs()[None], (2,) * (2 * nd),
+              mode="circular" if periodic else "replicate")
+    pool = (F.max_pool1d, F.max_pool2d, F.max_pool3d)[nd - 1]
     return pool(a, 5, stride=1)[0]
 
 
@@ -741,24 +760,31 @@ def _amr_phases(dev):
                   row("oct_sweep", "ramses_tpu/hydro/pallas_oct.py:213",
                       oct_launches)]
 
-def _ct_check(got, want, nd: int):
+def _ct_check(got, want, nd: int, periodic: bool = True):
     """K4 against its plain version at a main path's state, each value
     within ``LOCAL_ATOL + LOCAL_RTOL * M``: M the largest magnitude of any
     field over the cell's 5^nd stencil (the K4 note beside DIVB_REL), a
-    face the larger of the two cells it touches.  Returns (max abs err,
-    worst err / M of un and bfn, tolerance excess, a line of readings
-    that also holds each field of un against its own stencil max)."""
+    face the larger of the two cells it touches (the first cell's own on
+    an outflow box's low edge).  Returns (max abs err, worst err / M of un
+    and bfn, tolerance excess, a line of readings that also holds each
+    field of un against its own stencil max)."""
     import torch
-    own = _stencil_scale(want[0], nd)
+    own = _stencil_scale(want[0], nd, periodic)
     cell = own.amax(dim=0)
-    scale_b = torch.stack([torch.maximum(cell, cell.roll(1, dims=c))
+
+    def low(c):                    # the cell below each face along c
+        if periodic:
+            return cell.roll(1, dims=c)
+        return torch.cat([cell.narrow(c, 0, 1),
+                          cell.narrow(c, 0, cell.shape[c] - 1)], dim=c)
+    scale_b = torch.stack([torch.maximum(cell, low(c))
                            if c < nd else cell for c in range(3)])
     err, rels, excess = _local_check(got, want,
                                      (cell.expand_as(want[0]), scale_b))
     per_field = [float(torch.where(own[c] > LOCAL_ATOL / LOCAL_RTOL,
                                    (got[0][c] - want[0][c]).abs()
                                    / own[c], 0.0).max())
-                 for c in range(8)]
+                 for c in range(want[0].shape[0])]
     readings = (f"max abs err {err:.3e}, worst err / M (un/bfn) "
                 f"{rels[0]:.3e}/{rels[1]:.3e}; per field of un against "
                 f"its own stencil max {[f'{x:.2e}' for x in per_field]}; "
@@ -774,22 +800,41 @@ def _ct_check(got, want, nd: int):
 HLLD_SELECT_EXCESS = 8 * (4 * 3 + 5 + 5) - (5 + 8 * (6 + 1))
 
 
+# The Roe solvers' work that the trace does not see: the plain version's
+# torch.linalg.solve (one library call) and its two einsums (bmm).  The
+# 7x7 solve by elimination with partial pivoting: the LU factorisation 91
+# multiply-adds and 21 divisions (about 203 operations), the two
+# triangular solves on the right-hand side about 91: ~300 a solve.  Then
+# R (|lam| alpha), 49 multiply-adds (98), and for a face M applied by its
+# rows (32); a corner reads row 5 alone (14 and one scale).
+ROE_SOLVE_OPS = 300
+ROE_FACE_CONTRACT_OPS = 98 + 32
+ROE_CORNER_CONTRACT_OPS = 15
+
+
 def _ct_ops(plain, cfg, npad: int, ncell: int) -> float:
     """The operations a CT step of ``ncell`` interior cells needs: the
     plain version's traced count on the padded box (``npad`` cells, one
     face solve a direction a cell) less what its HLLD selection evaluates
-    and the selected flux does not need, scaled to the interior."""
+    and the selected flux does not need, plus the Roe solves' untraced
+    work (one a face for the Roe 1D solver, two an edge for the Roe
+    corner), scaled to the interior."""
     nops = _count_ops(plain)
     if cfg.riemann == "hlld":
         nops -= HLLD_SELECT_EXCESS * cfg.ndim * npad
+    if cfg.riemann == "roe":
+        nops += (ROE_SOLVE_OPS + ROE_FACE_CONTRACT_OPS) * cfg.ndim * npad
+    if cfg.riemann2d == "roe" and cfg.ndim >= 2:
+        npair = 3 if cfg.ndim == 3 else 1
+        nops += 2 * (ROE_SOLVE_OPS + ROE_CORNER_CONTRACT_OPS) * npair * npad
     return nops * ncell / npad
 
 
-def _mhd_box(sp, seed: int, masked: bool, dev):
-    """A random padded MHD box on the card for K4's check: (up [8, sp+4],
-    bfp_ext [3, sp+6], okp, ovr) with density, pressure and faces of
-    order one and a random refined mask and EMF override when
-    ``masked``."""
+def _mhd_box(sp, seed: int, masked: bool, dev, npassive: int = 0):
+    """A random padded MHD box on the card for K4's check: (up [8 +
+    npassive, sp+4], bfp_ext [3, sp+6], okp, ovr) with density, pressure
+    and faces of order one and a random refined mask and EMF override
+    (none in 1D: no edges) when ``masked``."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -811,7 +856,9 @@ def _mhd_box(sp, seed: int, masked: bool, dev):
         okp = torch.from_numpy(rng.random(spp) < 0.15).to(dev)
         ovr = {(a, b): (torch.from_numpy(rng.random(spp) < 0.2).to(dev),
                         t(0.05 * rng.standard_normal(spp)))
-               for a in range(nd) for b in range(a + 1, nd)}
+               for a in range(nd) for b in range(a + 1, nd)} or None
+    if npassive:
+        up = np.concatenate([up, r * rng.random((npassive,) + spp)])
     return t(up), t(bf), okp, ovr
 
 
@@ -852,17 +899,140 @@ def _divb_rel(sim) -> float:
     return float(sim.max_divb()) * sim.dx / float(sim.bf.abs().max())
 
 
+def _degenerate_field_check(dev):
+    """Phase 12b: K4 at the Roe mean's degenerate field limits, a field of
+    zero and a uniform Bx alone (bn = 0 on the other faces; the transverse
+    field is then only what the predictor makes, and crosses zero).  Where
+    the transverse field of a Roe mean nearly vanishes the flux turns on
+    its direction (b1h, b2h = bt / |bt|), so two f32 evaluations of the
+    JAX formulation, K4 and its plain version, each read up to ~2e-5 from
+    the f64 one at such faces, at different faces, while R stays well
+    conditioned.  The elementwise table cannot hold there (the plain f32
+    version misses it against f64 too), so these cases are reported, not
+    held to it: K4 against the plain f32 and f64 versions, the plain f32
+    against f64, and the condition number of R at the worst cell's faces
+    and edges.  They must be finite."""
+    import torch
+    from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.mhd import roe as roemod
+    from ramses_tpu_torch.mhd.core import MhdStatic
+    lines = []
+    cases = [(sp, rs, r2, bx) for sp, rs, r2 in (
+        ((256,), "roe", "average"), ((64, 64), "roe", "roe"),
+        ((64, 64), "hlld", "hlld"), ((16, 16, 16), "roe", "hlld"))
+        for bx in (0.0, 0.5)]
+    eigvec = roemod._right_eigenvectors
+    for i, (sp, rs, r2, bx) in enumerate(cases):
+        nd = len(sp)
+        cfg = MhdStatic(ndim=nd, riemann=rs, riemann2d=r2)
+        up, bfp, _, _ = _mhd_box(sp, 1100 + i, False, dev)
+        bfp.zero_()
+        bfp[0] = bx
+        dt = torch.tensor(2e-3, dtype=torch.float32, device=dev)
+        dx = (1.0 / sp[0],) * nd
+        got = ct_slab.ct_step_slab(up, bfp, dt, dx, cfg)
+        want = ct_slab.ct_step_slab_ref(up, bfp, dt, dx, cfg)
+        conds = []
+
+        def recorded(m):
+            lams, R = eigvec(m)
+            rb = torch.movedim(R.reshape(7, 7, -1), -1, 0)
+            conds.append(torch.linalg.cond(rb).reshape(R.shape[2:]))
+            return lams, R
+        roemod._right_eigenvectors = recorded
+        try:
+            exact = ct_slab.ct_step_slab_ref(up.double(), bfp.double(),
+                                             dt.double(), dx, cfg)
+        finally:
+            roemod._right_eigenvectors = eigvec
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            raise AssertionError(f"ct_step_slab is not finite at a "
+                                 f"degenerate field: {sp} {rs}/{r2} "
+                                 f"Bx={bx}")
+        dk = torch.stack([(g.double() - e).abs().amax(dim=0)
+                          for g, e in zip(got, exact)]).amax(dim=0)
+        err_k = float(dk.max())
+        err_p = max(float((w.double() - e).abs().max())
+                    for w, e in zip(want, exact))
+        f32_err, f32_ex = _pair_check(got, want)
+        line = (f"{sp} {rs}/{r2} Bx={bx}: K4 {err_k:.3e} and plain "
+                f"{err_p:.3e} from f64, K4 against plain {f32_err:.3e} "
+                f"(table excess {f32_ex:.3e})")
+        if conds:
+            # the worst cell in padded coordinates, with its neighbours
+            # along each axis: the faces and edges its step reads
+            at = [int(x) + 2 for x in
+                  torch.unravel_index(dk.argmax(), dk.shape)]
+            near = tuple(slice(a - 1, a + 2) for a in at)
+            line += (f", cond(R) at the worst cell's faces and edges "
+                     f"{max(float(c[near].max()) for c in conds):.3e} "
+                     f"(box max {max(float(c.max()) for c in conds):.3e})")
+        lines.append(line)
+    _print("phase 12b K4 at the Roe mean's degenerate field limits "
+           "(reported, not held to the table: the f32 formulation reads "
+           "~1e-5 from f64 there): " + "; ".join(lines))
+
+
+def _solenoidal_3d(dev, riemann: str, riemann2d: str):
+    """The 3D MHD run at 128³: a uniform region (``&INIT_PARAMS`` set in
+    code) plus random solenoidal faces from a staggered vector potential,
+    periodic, f32 on the card."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.config import params_from_dict
+    from ramses_tpu_torch.mhd.core import IBX, IP
+    from ramses_tpu_torch.mhd.driver import MhdSimulation
+    n3 = 2 ** MHD3D_LEVEL
+    groups = {
+        "run_params": {"hydro": True},
+        "amr_params": {"levelmin": MHD3D_LEVEL, "levelmax": MHD3D_LEVEL,
+                       "boxlen": 1.0},
+        "init_params": {"nregion": 1, "region_type": ["square"],
+                        "x_center": [0.5], "y_center": [0.5],
+                        "z_center": [0.5], "length_x": [10.0],
+                        "length_y": [10.0], "length_z": [10.0],
+                        "exp_region": [10.0], "d_region": [1.0],
+                        "p_region": [1.0], "u_region": [0.5],
+                        "v_region": [-0.3], "w_region": [0.2],
+                        "A_region": [0.3], "B_region": [0.4],
+                        "C_region": [0.5]},
+        "hydro_params": {"gamma": 5.0 / 3.0, "riemann": riemann,
+                         "riemann2d": riemann2d, "courant_factor": 0.8},
+        "output_params": {"tend": 1.0},
+    }
+    sim3 = MhdSimulation(params_from_dict(groups, ndim=3))
+    rng = np.random.default_rng(0)
+    ax, ay, az = rng.standard_normal((3, n3, n3, n3))
+    # faces from a staggered vector potential: solenoidal to roundoff, of
+    # rms ~0.1 beside the uniform field
+    bfx = (np.roll(az, -1, 1) - az) - (np.roll(ay, -1, 2) - ay)
+    bfy = (np.roll(ax, -1, 2) - ax) - (np.roll(az, -1, 0) - az)
+    bfz = (np.roll(ay, -1, 0) - ay) - (np.roll(ax, -1, 1) - ax)
+    bfn3 = sim3.bf.cpu().double().numpy() + 0.05 * np.stack([bfx, bfy, bfz])
+    del ax, ay, az, bfx, bfy, bfz
+    u3 = sim3.u.cpu().double().numpy()
+    bc = [0.5 * (bfn3[c] + np.roll(bfn3[c], -1, axis=c)) for c in range(3)]
+    for c in range(3):
+        u3[IBX + c] = bc[c]
+    u3[IP] = 1.0 / (5.0 / 3.0 - 1.0) + 0.5 * (
+        u3[1] ** 2 + u3[2] ** 2 + u3[3] ** 2) / u3[0] + 0.5 * sum(
+        b ** 2 for b in bc)
+    sim3.u = torch.tensor(u3, dtype=torch.float32, device=dev)
+    sim3.bf = torch.tensor(bfn3, dtype=torch.float32, device=dev)
+    del u3, bfn3, bc
+    return sim3
+
+
 def _mhd_phases(dev):
     """Phases 12-17 (the MHD slice); returns K4's row of the kernels
     line."""
-    import numpy as np
     import torch
-    from ramses_tpu_torch.config import load_params, params_from_dict
-    from ramses_tpu_torch.driver import run_namelist
+    from ramses_tpu_torch.config import load_params
     from ramses_tpu_torch.mhd import ct_slab
     from ramses_tpu_torch.mhd import uniform as mu
-    from ramses_tpu_torch.mhd.core import IBX, IP, MhdStatic
-    from ramses_tpu_torch.mhd.driver import MhdSimulation, mhd_condinit
+    from ramses_tpu_torch.mhd.core import MhdStatic
+    from ramses_tpu_torch.mhd.driver import MhdSimulation
 
     # ---- 12. K4 against its plain version on random boxes ----
     worst = {"max_abs_err": 0.0, "excess": -1.0}
@@ -895,10 +1065,57 @@ def _mhd_phases(dev):
             worst["excess"] = max(worst["excess"], ex)
             ncase += 1
             del up, bfp, okp, ovr, got, want
-    _print(f"phase 12 MHD kernel check: {ncase} cases (2D 256², 3D 64³; "
-           f"llf/hll/hlld × average/llf × slope 1/2/8, half masked with an "
-           f"EMF override) pass; max abs err {worst['max_abs_err']:.3e}, "
-           f"worst tolerance excess {worst['excess']:.3e}")
+    # the whole scope: 1D with each solver; 2D with each (solver, corner)
+    # pair, plain and with a mask and an override; 3D with each corner
+    # and each solver; slope types 0/1/2/7/8 in turn; passive scalars
+    solvers = ("llf", "hll", "hlld", "roe", "upwind")
+    corners = ("average", "llf", "roe", "upwind", "hll", "hlla", "hlld")
+    slopes = (0, 1, 2, 7, 8)
+    matrix = [((256,), rs, "average", slopes[i], i % 2 == 1, i % 2)
+              for i, rs in enumerate(solvers)]
+    matrix += [((64, 64), rs, r2, slopes[(i + j) % 5], masked,
+                int(masked and j == 6))
+               for i, rs in enumerate(solvers)
+               for j, r2 in enumerate(corners) for masked in (False, True)]
+    matrix += [((16, 16, 16), solvers[j % 5], r2, slopes[j % 5], j % 2 == 0,
+                int(j == 2)) for j, r2 in enumerate(corners)]
+    by_kind = {}
+    for i, (sp, rs, r2, st, masked, npas) in enumerate(matrix):
+        nd = len(sp)
+        cfg = MhdStatic(ndim=nd, riemann=rs, riemann2d=r2, slope_type=st,
+                        npassive=npas)
+        up, bfp, okp, ovr = _mhd_box(sp, 900 + i, masked, dev, npas)
+        dt = torch.tensor(2e-3, dtype=torch.float32, device=dev)
+        dx = (1.0 / sp[0],) * nd
+        got = ct_slab.ct_step_slab(up, bfp, dt, dx, cfg, okp=okp, ovr=ovr)
+        want = ct_slab.ct_step_slab_ref(up, bfp, dt, dx, cfg, okp=okp,
+                                        ovr=ovr)
+        torch.cuda.synchronize()
+        err, ex = _pair_check(got, want)
+        if not (ex <= 0.0 and all(bool(torch.isfinite(g).all())
+                                  for g in got)):
+            raise AssertionError(
+                f"ct_step_slab disagrees with its plain version: {sp} "
+                f"riemann={rs} riemann2d={r2} slope_type={st} npassive="
+                f"{npas} masked={masked}: max abs err {err:.3e}, "
+                f"tolerance excess {ex:.3e}")
+        key = f"{nd}D {rs}/{r2 if nd > 1 else '-'}"
+        by_kind[key] = max(by_kind.get(key, 0.0), err)
+        worst["max_abs_err"] = max(worst["max_abs_err"], err)
+        worst["excess"] = max(worst["excess"], ex)
+        ncase += 1
+        del up, bfp, okp, ovr, got, want
+    _print(f"phase 12 MHD kernel check: {ncase} cases pass (2D 256², 3D "
+           f"64³: llf/hll/hlld × average/llf × slope 1/2/8, half masked "
+           f"with an EMF override; 1D 256 each solver; 2D 64² each of the "
+           f"5 × 7 solver and corner pairs, plain and masked; 3D 16³ each "
+           f"corner and solver; slope types 0/1/2/7/8 in turn, 1 passive "
+           f"scalar in {sum(m[5] for m in matrix)} of them); max abs err "
+           f"{worst['max_abs_err']:.3e}, worst tolerance excess "
+           f"{worst['excess']:.3e}; max abs err by kind "
+           f"{ {k: float(f'{v:.3e}') for k, v in by_kind.items()} }")
+
+    _degenerate_field_check(dev)
 
     # ---- 13. the MHD main path: Orszag-Tang at 2048² ----
     p = load_params(OT_NML, ndim=2)
@@ -1016,45 +1233,8 @@ def _mhd_phases(dev):
     torch.cuda.empty_cache()
 
     # ---- 16. 3D: 128³ with a random solenoidal field ----
-    n3 = 2 ** MHD3D_LEVEL
-    groups = {
-        "run_params": {"hydro": True},
-        "amr_params": {"levelmin": MHD3D_LEVEL, "levelmax": MHD3D_LEVEL,
-                       "boxlen": 1.0},
-        "init_params": {"nregion": 1, "region_type": ["square"],
-                        "x_center": [0.5], "y_center": [0.5],
-                        "z_center": [0.5], "length_x": [10.0],
-                        "length_y": [10.0], "length_z": [10.0],
-                        "exp_region": [10.0], "d_region": [1.0],
-                        "p_region": [1.0], "u_region": [0.5],
-                        "v_region": [-0.3], "w_region": [0.2],
-                        "A_region": [0.3], "B_region": [0.4],
-                        "C_region": [0.5]},
-        "hydro_params": {"gamma": 5.0 / 3.0, "riemann": "hlld",
-                         "riemann2d": "llf", "courant_factor": 0.8},
-        "output_params": {"tend": 1.0},
-    }
-    sim3 = MhdSimulation(params_from_dict(groups, ndim=3))
+    sim3 = _solenoidal_3d(dev, "hlld", "llf")
     dx3 = sim3.dx
-    rng = np.random.default_rng(0)
-    ax, ay, az = rng.standard_normal((3, n3, n3, n3))
-    # faces from a staggered vector potential: solenoidal to roundoff, of
-    # rms ~0.1 beside the uniform field
-    bfx = (np.roll(az, -1, 1) - az) - (np.roll(ay, -1, 2) - ay)
-    bfy = (np.roll(ax, -1, 2) - ax) - (np.roll(az, -1, 0) - az)
-    bfz = (np.roll(ay, -1, 0) - ay) - (np.roll(ax, -1, 1) - ax)
-    bfn3 = sim3.bf.cpu().double().numpy() + 0.05 * np.stack([bfx, bfy, bfz])
-    del ax, ay, az, bfx, bfy, bfz
-    u3 = sim3.u.cpu().double().numpy()
-    bc = [0.5 * (bfn3[c] + np.roll(bfn3[c], -1, axis=c)) for c in range(3)]
-    for c in range(3):
-        u3[IBX + c] = bc[c]
-    u3[IP] = 1.0 / (5.0 / 3.0 - 1.0) + 0.5 * (
-        u3[1] ** 2 + u3[2] ** 2 + u3[3] ** 2) / u3[0] + 0.5 * sum(
-        b ** 2 for b in bc)
-    sim3.u = torch.tensor(u3, dtype=torch.float32, device=dev)
-    sim3.bf = torch.tensor(bfn3, dtype=torch.float32, device=dev)
-    del u3, bfn3, bc
     m0 = float(sim3.totals()["mass"])
     d0 = _divb_rel(sim3)
     torch.cuda.synchronize()
@@ -1100,47 +1280,270 @@ def _mhd_phases(dev):
     del sim3, up3, bfp3
     torch.cuda.empty_cache()
 
-    # ---- 17. BASELINE config 4: tube_mhd.nml through the torch path ----
-    pt = load_params(TUBE_NML, ndim=1)
-    tcfg = MhdStatic.from_params(pt)
-    shape = (2 ** pt.amr.levelmin,)
-    _, bft0 = mhd_condinit(shape, pt.amr.boxlen / shape[0], pt, tcfg)
-    bx0 = torch.tensor(bft0[0], dtype=torch.float32, device=dev)
-    torch.cuda.synchronize()
-    _reset_counts()
-    t0 = time.perf_counter()
-    tube = run_namelist(TUBE_NML, ndim=1, nstepmax=20)
-    torch.cuda.synchronize()
-    wallt = time.perf_counter() - t0
-    lt = _counts()
-    if tube.nstep != 20 or lt != {"fused_muscl": 0, "tile_sweep": 0,
-                                  "oct_sweep": 0, "ct_step_slab": 0}:
-        raise AssertionError(f"tube_mhd ran {tube.nstep} steps, launched "
-                             f"{lt}")
-    if not (bool(torch.isfinite(tube.u).all())
-            and torch.equal(tube.bf[0], bx0)):
-        raise AssertionError("tube_mhd: state not finite or Bx changed")
-    _print(f"phase 17 BASELINE config 4 tube_mhd.nml {tube.grid.shape} "
-           f"(riemann={tube.cfg.riemann}, outflow): {tube.nstep} steps "
-           f"t={tube.t:.6e} on {tube.u.device}, launches {lt}: 1D with Roe "
-           f"lies outside K4's gate (ct_slab.supports), so the torch "
-           f"formulation (step_padded) ran; finite, Bx bitwise unchanged; "
-           f"run_namelist {wallt:.3f} s, evolve {tube.wall_s:.4f} s = "
-           f"{tube.wall_s / tube.nstep * 1e3:.3f} ms/step")
+    # ---- 16b. 3D 128³ with HLLD corners on all three EMF pairs ----
+    rows = [_mhd_variant_3d(dev)]
+    torch.cuda.empty_cache()
+
+    # ---- 16c, 16d. Orszag-Tang 2048² with the HLLD and Roe corners ----
+    for rs, r2, tag in (("hlld", "hlld", "16c"), ("roe", "roe", "16d")):
+        rows.append(_mhd_variant_ot(dev, rs, r2, tag))
+        torch.cuda.empty_cache()
+
+    # ---- 17. BASELINE config 4: tube_mhd.nml through K4 ----
+    rows.append(_tube_phase(dev))
 
     return {
         "name": "ct_step_slab",
         "route": "cuda",
         "source": "ramses_tpu_torch/csrc/mhd_ct.cu",
         "replaces": "ramses_tpu/mhd/pallas_ct.py:126",
-        "launches": k4_launches,
-        "max_abs_err": max(worst["max_abs_err"], err, err3),
+        "launches": k4_launches + sum(r["launches"] for r in rows),
+        "max_abs_err": max([worst["max_abs_err"], err, err3]
+                           + [r["max_abs_err"] for r in rows]),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "variants": [{k: r[k] for k in ("name", "launches", "ms",
+                                          "plain_ms", "bound_ms",
+                                          "bound_by")} for r in rows],
     }
+
+
+def _k4_at(sim, periodic: bool = True, n: int = 30):
+    """K4 against its plain version at an MHD run's state (the next step's
+    dt), cell by cell (``_ct_check``); its device ms a call, the plain
+    version's ms and the bound.  Returns a dict and a line."""
+    import torch
+    from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.mhd import uniform as mu
+    cfg, nd = sim.cfg, sim.cfg.ndim
+    dx = (sim.dx,) * nd
+    up = mu._pad(sim.u, nd, sim.grid.bc_kinds)
+    bfp = mu._pad(sim.bf, nd, sim.grid.bc_kinds, mu.NGHOST + 1)
+    dt = mu.cfl_dt(sim.grid, sim.u, sim.bf)
+
+    def kern():
+        return ct_slab.ct_step_slab(up, bfp, dt, dx, cfg)
+
+    def plain():
+        return ct_slab.ct_step_slab_ref(up, bfp, dt, dx, cfg)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err, _, excess, readings = _ct_check(got, want, nd, periodic)
+    if not excess <= 0.0:
+        raise AssertionError(f"ct_step_slab disagrees with its plain "
+                             f"version at the {cfg.riemann}/"
+                             f"{cfg.riemann2d} {sim.grid.shape} state: "
+                             f"{readings}")
+    del got, want
+    per_call = {1: 4, 2: 6, 3: 9}[nd]   # prim, predict, flux, edge, update
+    ms = _device_ms(kern, "mhd_ct_", n=n, per_call=per_call)
+    plain_ms = _median_ms(plain, reps=5, warm=1)
+    ncell = sim.grid.ncell
+    nbytes = 4 * (5 * up[0].numel() + bfp.numel() + 1 + 8 * ncell
+                  + 3 * ncell)
+    nops = _ct_ops(plain, cfg, up[0].numel(), ncell)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * nops / F32_OPS_PER_S
+    r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+             bound_ms=max(bytes_ms, ops_ms),
+             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    line = (f"ct_step_slab {ms:.4f} ms/call on the device (profiler, "
+            f"{per_call} stage kernels), plain version {plain_ms:.4f} ms, "
+            f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
+            f"({nbytes / 1e9:.5f} GB -> {bytes_ms:.5f} ms; "
+            f"{nops / 1e9:.5f} G ops -> {ops_ms:.5f} ms); against plain: "
+            f"{readings}")
+    return r, line
+
+
+def _evolve_counted(sim, nstep: int):
+    """``sim.evolve(nstepmax=nstep)`` with every launch count at 0 just
+    before; returns (wall s, the counts just after)."""
+    import torch
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim.evolve(nstepmax=nstep)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, _counts()
+
+
+def _k4_only(n: int) -> dict:
+    return {"fused_muscl": 0, "tile_sweep": 0, "oct_sweep": 0,
+            "ct_step_slab": n}
+
+
+def _mhd_variant_ot(dev, riemann: str, riemann2d: str, tag: str) -> dict:
+    """Orszag-Tang at 2048² (phase 13's vortex) with another pair of
+    solvers, 20 steps: K4 once a step, div B, a finite state, mass and
+    energy; then K4 at the final state (``_k4_at``)."""
+    import torch
+    from ramses_tpu_torch.config import load_params
+    from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.mhd.driver import MhdSimulation
+    p = load_params(OT_NML, ndim=2)
+    p.amr.levelmin = p.amr.levelmax = OT_LEVEL
+    p.hydro.riemann, p.hydro.riemann2d = riemann, riemann2d
+    n = 2 ** OT_LEVEL
+    sim = MhdSimulation(p)
+    u0, bf0 = _orszag_tang(n)
+    sim.u = torch.tensor(u0, dtype=torch.float32, device=dev)
+    sim.bf = torch.tensor(bf0, dtype=torch.float32, device=dev)
+    del u0, bf0
+    if not ct_slab.supports(sim.cfg, sim.grid.shape, sim.u.dtype):
+        raise AssertionError(f"outside K4's gate: {sim.cfg}")
+    tot0 = {k: float(v) for k, v in sim.totals().items() if k != "momentum"}
+    wall, launches = _evolve_counted(sim, 20)
+    tot1 = {k: float(v) for k, v in sim.totals().items() if k != "momentum"}
+    divb = _divb_rel(sim)
+    if sim.nstep != 20 or launches != _k4_only(sim.nstep):
+        raise AssertionError(f"Orszag-Tang {riemann}/{riemann2d} ran "
+                             f"{sim.nstep} steps, launched {launches}")
+    if not (bool(torch.isfinite(sim.u).all()) and divb <= DIVB_REL):
+        raise AssertionError(f"Orszag-Tang {riemann}/{riemann2d}: finite "
+                             f"{bool(torch.isfinite(sim.u).all())}, div B "
+                             f"{divb:.3e}")
+    for k in ("mass", "energy"):
+        if abs(tot1[k] - tot0[k]) > 1e-5 * abs(tot0[k]):
+            raise AssertionError(f"Orszag-Tang {riemann}/{riemann2d}: {k} "
+                                 f"{tot0[k]} -> {tot1[k]}")
+    r, line = _k4_at(sim)
+    _print(f"phase {tag} Orszag-Tang {sim.grid.shape} riemann={riemann} "
+           f"riemann2d={riemann2d}: {sim.nstep} steps t={sim.t:.6e}, "
+           f"launches {launches}; max|div B|·dx/max|B| {divb:.3e}; mass "
+           f"{tot0['mass']:.9e} -> {tot1['mass']:.9e}, energy "
+           f"{tot0['energy']:.9e} -> {tot1['energy']:.9e}; evolve "
+           f"{wall:.4f} s = {sim.cell_updates / wall:.4e} cell-updates/s; "
+           f"{line}")
+    r.update(name=f"2048² {riemann}/{riemann2d}",
+             launches=launches["ct_step_slab"])
+    return r
+
+
+def _mhd_variant_3d(dev) -> dict:
+    """Phase 16's 3D run at 128³ with HLLD corners, 10 steps."""
+    import torch
+    sim = _solenoidal_3d(dev, "hlld", "hlld")
+    m0 = float(sim.totals()["mass"])
+    wall, launches = _evolve_counted(sim, 10)
+    m1 = float(sim.totals()["mass"])
+    divb = _divb_rel(sim)
+    if sim.nstep != 10 or launches != _k4_only(10):
+        raise AssertionError(f"3D hlld/hlld ran {sim.nstep} steps, "
+                             f"launched {launches}")
+    if not (bool(torch.isfinite(sim.u).all()) and divb <= DIVB_REL
+            and abs(m1 - m0) <= 1e-5 * abs(m0)):
+        raise AssertionError(f"3D hlld/hlld: finite "
+                             f"{bool(torch.isfinite(sim.u).all())}, div B "
+                             f"{divb:.3e}, mass {m0} -> {m1}")
+    r, line = _k4_at(sim, n=10)
+    _print(f"phase 16b MHD 3D {sim.grid.shape} solenoidal, riemann=hlld "
+           f"riemann2d=hlld: {sim.nstep} steps t={sim.t:.6e}, launches "
+           f"{launches}, max|div B|·dx/max|B| {divb:.3e}, mass {m0:.9e} "
+           f"-> {m1:.9e}; evolve {wall:.4f} s = "
+           f"{sim.cell_updates / wall:.4e} cell-updates/s; {line}")
+    r.update(name="3D 128³ hlld/hlld", launches=launches["ct_step_slab"])
+    return r
+
+
+def _tube_phase(dev) -> dict:
+    """Phase 17: ``BASELINE.json`` config 4, ``namelists/tube_mhd.nml``
+    (1D, 256 cells, Roe, outflow), through K4: 20 steps and K4 against
+    its plain version at that state; the whole run to tend through
+    ``run_namelist``; and the CLI, ``python -m ramses_tpu_torch
+    namelists/tube_mhd.nml --ndim 1``, in this process."""
+    import contextlib
+    import io
+    import re
+    import torch
+    from ramses_tpu_torch import __main__ as cli
+    from ramses_tpu_torch.config import load_params
+    from ramses_tpu_torch.driver import run_namelist
+    from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.mhd import uniform as mu
+    from ramses_tpu_torch.mhd.core import MhdStatic
+    from ramses_tpu_torch.mhd.driver import mhd_condinit
+    pt = load_params(TUBE_NML, ndim=1)
+    tcfg = MhdStatic.from_params(pt)
+    shape = (2 ** pt.amr.levelmin,)
+    if not ct_slab.supports(tcfg, shape, torch.float32):
+        raise AssertionError(f"tube_mhd.nml is outside K4's gate: {tcfg}")
+    _, bft0 = mhd_condinit(shape, pt.amr.boxlen / shape[0], pt, tcfg)
+    bx0 = torch.tensor(bft0[0], dtype=torch.float32, device=dev)
+    tend = pt.output.tout[-1] if pt.output.tout else pt.output.tend
+    # MhdSimulation.evolve issues steps in chunks with one host wait each;
+    # the chunk that reaches tend runs its remaining steps at dt = 0
+    # (masked: the state stays as it is), and each issued step is one
+    # K4 call.  So K4's launches are the steps issued, which exceed the
+    # steps taken by fewer than one chunk, in the last chunk only.
+    issued = []
+    run_steps = mu.run_steps
+
+    def counted_run_steps(grid, u, bf, t, tend_, nsteps, *a, **k):
+        issued.append(nsteps)
+        return run_steps(grid, u, bf, t, tend_, nsteps, *a, **k)
+
+    def check(sim, launches, what):
+        n = sum(issued)
+        if not (launches == _k4_only(n) and sim.nstep <= n
+                and n - sim.nstep < max(issued)):
+            raise AssertionError(f"{what}: {sim.nstep} steps taken, {n} "
+                                 f"issued in chunks {issued}, launched "
+                                 f"{launches}")
+        if not (bool(torch.isfinite(sim.u).all())
+                and torch.equal(sim.bf[0], bx0)):
+            raise AssertionError(f"{what}: state not finite or Bx changed")
+
+    def run(**kw):
+        torch.cuda.synchronize()
+        issued.clear()
+        _reset_counts()
+        t0 = time.perf_counter()
+        sim = run_namelist(TUBE_NML, ndim=1, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(sim, _counts(), "tube_mhd.nml")
+        return sim, wall, sum(issued)
+
+    mu.run_steps = counted_run_steps
+    try:
+        tube, wall20, _ = run(nstepmax=20)
+        if tube.nstep != 20:
+            raise AssertionError(f"tube_mhd ran {tube.nstep} steps, not 20")
+        r, line = _k4_at(tube, periodic=False)
+        full, wall, nissued = run()
+        if not full.t >= tend * (1 - 1e-12):
+            raise AssertionError(f"tube_mhd stopped at t={full.t}, tend "
+                                 f"{tend}")
+        out = io.StringIO()
+        issued.clear()
+        _reset_counts()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([TUBE_NML, "--ndim", "1"])
+        lc = _counts()
+    finally:
+        mu.run_steps = run_steps
+    m = re.search(r"totals: t=(\S+) nstep=(\d+)", out.getvalue())
+    if rc != 0 or m is None or int(m.group(2)) != full.nstep:
+        raise AssertionError(f"the CLI on tube_mhd.nml: rc {rc}, closing "
+                             f"line {m and m.group(0)}")
+    check(full, lc, "the CLI on tube_mhd.nml")
+    _print(f"phase 17 BASELINE config 4 tube_mhd.nml {full.grid.shape} "
+           f"(riemann={full.cfg.riemann}, outflow) through K4: 20 steps "
+           f"({wall20:.3f} s, K4 20 launches), K4 at the step-20 state: "
+           f"{line}; run_namelist to t={full.t:.6e}: {full.nstep} steps "
+           f"taken, {nissued} issued in chunks, K4 {nissued} launches "
+           f"(one an issued step; the last chunk's {nissued - full.nstep} "
+           f"past tend at dt = 0), finite, Bx bitwise unchanged, "
+           f"{wall:.3f} s, evolve {full.wall_s:.4f} s = "
+           f"{full.wall_s / full.nstep * 1e3:.4f} ms/step; the CLI: rc "
+           f"{rc}, {m.group(0)}, K4 {lc['ct_step_slab']} launches")
+    r.update(name="tube_mhd.nml 1D roe", launches=nissued)
+    return r
+
 
 def _ot_amr_params(lmin: int, lmax: int):
     """``namelists/orszag2d.nml`` (gamma 1.6666667, courant 0.8, hlld,

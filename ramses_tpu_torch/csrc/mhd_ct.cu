@@ -3,18 +3,21 @@
 // Replaces the TPU kernel ramses_tpu/mhd/pallas_ct.py::ct_step_slab, whose
 // body is ramses_tpu/mhd/uniform.py::step_padded: ctoprim -> TVD slopes ->
 // conservative Hancock half-step -> half-dt face field -> per-direction
-// LLF/HLL/HLLD face fluxes -> Gardiner-Stone or LLF-corner edge EMFs (with
-// an optional override) -> induction update of the staggered faces and the
-// conservative update of the cells (with an optional refined-cell mask on
-// the cell fluxes).  Every device function computes what the JAX function
-// of the same name computes, in the same f32 arithmetic order, so the
-// kernel and its plain version (mhd/ct_slab.py::ct_step_slab_ref) part only
-// by nvcc's FMA contraction.
+// face fluxes (LLF, HLL, HLLD, Roe, upwind) -> edge EMFs by the
+// Gardiner-Stone average or a 2D corner solver (llf, roe, upwind, hll,
+// hlla, hlld), with an optional override -> induction update of the
+// staggered faces and the conservative update of the cells (with an
+// optional refined-cell mask on the cell fluxes).  1D, 2D and 3D, slope
+// types 0/1/2/7/8, up to MAX_PASSIVE passive scalars, f32.  Every device
+// function computes what the JAX function of the same name computes, in
+// the same f32 arithmetic order, so the kernel and its plain version
+// (mhd/ct_slab.py::ct_step_slab_ref) part only by nvcc's FMA contraction,
+// and for the Roe solvers by the order of the 7x7 solve's sums.
 //
 // Contract (the padded one of step_padded, so that a halo-exchanged slab
-// can be fed as it is): cells up[8][*sp+4] (B slots ignored), low faces
+// can be fed as it is): cells up[nvar][*sp+4] (B slots ignored), low faces
 // bf[3][*sp+6]; per axis a padded cell P has face-box index P+1.  Outputs
-// are the interior only, un[8][*sp] and bfn[3][*sp].
+// are the interior only, un[nvar][*sp] and bfn[3][*sp].
 //
 // Design: stages, not one thread per cell recomputing everything.  The CT
 // pipeline of one cell needs 2*ND face fluxes, each from two Hancock
@@ -27,22 +30,29 @@
 //             primitives q_half, half-dt faces bf_half;
 //   C flux    faces of one direction (one launch each): two reconstructed
 //             states, ctoprim, rotation, the 1D solve;
-//   D edge    edges of one pair (one launch each): the GS average or the
-//             LLF corner, then the override;
+//   D edge    edges of one pair (one launch each, none in 1D): the GS
+//             average or a corner solver, then the override;
 //   E update  interior cells: masked conservative update, the induction
 //             update of each staggered face, also of the first high ghost
 //             face, whose new value the last cell's centred B reads.
 // Only the points the outputs consume are computed; the wrapped junk that
-// JAX's jnp.roll leaves in the ghost margins is never produced.
+// JAX's jnp.roll leaves in the ghost margins is never produced.  Passive
+// scalars ride along in loops over their runtime count, so a box without
+// them pays nothing for them.
 //
-// What bounds it on an H100 (2048^2, 2D): the function must read 8 cell
-// and 3 face arrays and write 11, 0.37 GB, 0.11 ms at 3.35 TB/s; the
-// arithmetic it needs, counted op by op on the plain version
-// (chip_smoke.py), is 11.3 G f32 operations (2.7 k a cell), 0.17 ms at
-// 67 TFLOP/s: operations bound it.  This version takes about 9x that
-// (1.54 ms, PERF.md): the stages write 59 scratch floats a cell (2D) and
-// read them back through their stencils, and the predictor (105
-// registers in 2D, 161 in 3D) and flux stages run at low occupancy.
+// The Roe solver (face and corner) solves R alpha = dW for the wave
+// strengths in each thread: Gaussian elimination with partial pivoting
+// (the first row of largest |pivot|, as LAPACK's getrf picks it) on a 7x7
+// array held in registers, rows swapped by selects so that no index is
+// dynamic.  No library is called.
+//
+// What bounds it on an H100 (2048^2, 2D, hlld/llf): the function must read
+// 8 cell and 3 face arrays and write 11, 0.32 GB, 0.095 ms at 3.35 TB/s;
+// the arithmetic it needs, counted op by op on the plain version
+// (chip_smoke.py), is 10.3 G f32 operations, 0.15 ms at 67 TFLOP/s:
+// operations bound it.  This version takes about 10x that (PERF.md): the
+// stages write ~59 scratch floats a cell (2D) and read them back through
+// their stencils, and the predictor and flux stages run at low occupancy.
 // Fusing the stages through shared-memory tiles is later work.  Offsets
 // are 64-bit throughout.
 
@@ -50,16 +60,20 @@
 
 namespace {
 
-constexpr int NV = 8;            // cell variables
-constexpr float EPS = 1e-30f;    // _EPS of mhd/riemann.py and riemann2d.py
+constexpr int NV = 8;            // MHD cell variables; passives follow
+constexpr int MAX_PASSIVE = 4;   // the passive counts the kernel takes
+constexpr float EPS = 1e-30f;    // _EPS of mhd/riemann.py, roe.py, riemann2d.py
+constexpr float ISQ2 = 0.70710678118654752f;   // roe.py's 1/sqrt(2)
 constexpr int BLOCK = 256;
 
 struct MConsts {
-  float gamma, gm1, smallr, smallc2, pfloor, eint_floor, slope;
+  float gamma, gm1, g2, ig1, smallr, smallc, smallc2, pfloor, eint_floor;
+  float slope;      // the limiter factor of slope types 1, 2, 8
+  int slope_type;   // 0, 1, 2, 7 or 8
   float dx[3];
 };
 
-// Padded-box geometry.  Unused axes (2D) have extent 1 and offset 0.
+// Padded-box geometry.  Unused axes have extent 1 and offset 0.
 struct Geo {
   int e[3];         // padded cell extents n + 4
   int64_t s[3];     // cell strides
@@ -68,15 +82,16 @@ struct Geo {
   int64_t nf;       // face-box points
   int64_t is[3];    // interior strides (extents n)
   int64_t ni;       // interior cells
+  int nv;           // cell variables: 8 + passives
 };
 
 struct Scratch {
-  float* q;     // [8][np]
-  float* dq;    // [ND][8][np]
-  float* duh;   // [8][np]
+  float* q;     // [nv][np]
+  float* dq;    // [ND][nv][np]
+  float* duh;   // [nv][np]
   float* qh;    // [8][np]
   float* bfh;   // [ND][np]
-  float* flx;   // [ND][8][np]
+  float* flx;   // [ND][nv][np]
   float* emf;   // [npair][np]
 };
 
@@ -114,6 +129,23 @@ __device__ __forceinline__ bool in_box(const Geo& g, const int P[3], int lo,
 
 __device__ __forceinline__ float sign0(float x) {  // jnp.sign: sign(0) = 0
   return (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : 0.0f);
+}
+
+// hydro/muscl.uslope: types 1, 2 and 8 are K1's slope(); 0 is no slope;
+// 7 is the van Leer harmonic mean (its guard's + 1e-300 is 0 in f32).
+__device__ __forceinline__ float mslope(float ql, float q, float qr,
+                                        const MConsts& k) {
+  if (k.slope_type == 0) return 0.0f;
+  if (k.slope_type == 7) {
+    float dl = q - ql;
+    float dr = qr - q;
+    float prod = dl * dr;
+    bool mono = prod > 0.0f;
+    float den = mono ? dl + dr : 1.0f;
+    float vl = 2.0f * prod / den;
+    return mono ? vl : 0.0f;
+  }
+  return slope(ql, q, qr, k.slope);
 }
 
 // ---- mhd/core.py ----------------------------------------------------------
@@ -361,13 +393,273 @@ __device__ __forceinline__ void hlld(const float ql[NV], const float qr[NV],
   }
 }
 
+// ---- mhd/roe.py (the same rotated layout; slot 5 unused) ------------------
+
+// Cargo & Gallice (1997) averaged state and wave speeds (roe_mean).
+struct RoeMean {
+  float d, v0, v1, v2, bt1, bt2, a, asq, ca, cf, cs, b1h, b2h, alf, als, s;
+};
+
+__device__ __forceinline__ float roe_hside(const float q[NV], float r, float bn,
+                                           const MConsts& k) {
+  float b2 = (bn * bn + q[6] * q[6]) + q[7] * q[7];
+  float e = (q[4] / k.gm1 + 0.5f * r * ((q[1] * q[1] + q[2] * q[2]) + q[3] * q[3]))
+            + 0.5f * b2;
+  return ((e + q[4]) + 0.5f * b2) / r;
+}
+
+__device__ __forceinline__ RoeMean roe_mean(const float ql[NV],
+                                            const float qr[NV], float bn,
+                                            const MConsts& k) {
+  RoeMean m;
+  const float g1 = k.gm1, g2 = k.g2;
+  const float rl = ql[0], rr = qr[0];
+  const float wl = sqrtf(rl), wr = sqrtf(rr);
+  const float nrm = wl + wr;
+  const float d = wl * wr;
+  m.d = d;
+  m.v0 = (wl * ql[1] + wr * qr[1]) / nrm;
+  m.v1 = (wl * ql[2] + wr * qr[2]) / nrm;
+  m.v2 = (wl * ql[3] + wr * qr[3]) / nrm;
+  const float h = (wl * roe_hside(ql, rl, bn, k) + wr * roe_hside(qr, rr, bn, k))
+                  / nrm;
+  const float bt1 = (wl * qr[6] + wr * ql[6]) / nrm;
+  const float bt2 = (wl * qr[7] + wr * ql[7]) / nrm;
+  m.bt1 = bt1;
+  m.bt2 = bt2;
+  const float d6 = qr[6] - ql[6], d7 = qr[7] - ql[7];
+  const float x = (d6 * d6 + d7 * d7) / (2.0f * (nrm * nrm));
+  const float y = (rl + rr) / (2.0f * d);
+  const float vsq = (m.v0 * m.v0 + m.v1 * m.v1) + m.v2 * m.v2;
+  const float btsq = bt1 * bt1 + bt2 * bt2;
+  const float bt_starsq = (g1 - g2 * y) * btsq;
+  const float vaxsq = bn * bn / d;
+  const float hp = h - (vaxsq + btsq / d);
+  const float asq = fmaxf(g1 * (hp - 0.5f * vsq) - g2 * x, EPS);
+  const float ct2 = bt_starsq / d;
+  const float tsum = (vaxsq + ct2) + asq;
+  const float tdif = (vaxsq + ct2) - asq;
+  const float cf2_cs2 = sqrtf(tdif * tdif + 4.0f * asq * ct2);
+  const float cfsq = 0.5f * (tsum + cf2_cs2);
+  const float cssq = asq * vaxsq / fmaxf(cfsq, EPS);
+  m.asq = asq;
+  m.cf = sqrtf(cfsq);
+  m.cs = sqrtf(cssq);
+  m.a = sqrtf(asq);
+  m.ca = sqrtf(vaxsq);
+  const float bt = sqrtf(fmaxf(btsq, 0.0f));
+  const bool deg_t = bt < 1e-12f * sqrtf(asq * d);   // no transverse field
+  m.b1h = deg_t ? ISQ2 : bt1 / fmaxf(bt, EPS);
+  m.b2h = deg_t ? ISQ2 : bt2 / fmaxf(bt, EPS);
+  // alpha_f / alpha_s with the triple-umbilic conventions
+  const float den = fmaxf(cfsq - cssq, EPS);
+  const float af2 = fminf(fmaxf((asq - cssq) / den, 0.0f), 1.0f);
+  const float as2 = fminf(fmaxf((cfsq - asq) / den, 0.0f), 1.0f);
+  const bool degen = (cfsq - cssq) <= 1e-12f * asq;
+  m.alf = degen ? 1.0f : sqrtf(af2);
+  m.als = degen ? 0.0f : sqrtf(as2);
+  m.s = (bn >= 0.0f) ? 1.0f : -1.0f;
+  return m;
+}
+
+// Roe & Balsara (1996) primitive right eigenvectors R[row][wave], waves in
+// the order fast-, Alfven-, slow-, entropy, slow+, Alfven+, fast+.
+__device__ __forceinline__ void roe_eigenvectors(const RoeMean& m,
+                                                 float R[7][7]) {
+  const float sqd = sqrtf(m.d);
+  const float dbt1 = -m.b2h * sqd, dbt2 = m.b1h * sqd;
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    const float sgn = side ? 1.0f : -1.0f;
+    const int kf = side ? 6 : 0, ka = side ? 5 : 1, ks = side ? 4 : 2;
+    // fast
+    R[0][kf] = m.d * m.alf;
+    R[1][kf] = sgn * m.cf * m.alf;
+    R[2][kf] = -sgn * m.cs * m.als * m.b1h * m.s;
+    R[3][kf] = -sgn * m.cs * m.als * m.b2h * m.s;
+    R[4][kf] = m.d * m.asq * m.alf;
+    R[5][kf] = m.als * sqd * m.a * m.b1h;
+    R[6][kf] = m.als * sqd * m.a * m.b2h;
+    // Alfven
+    R[0][ka] = 0.0f;
+    R[1][ka] = 0.0f;
+    R[2][ka] = -sgn * m.s * dbt1 / sqd;
+    R[3][ka] = -sgn * m.s * dbt2 / sqd;
+    R[4][ka] = 0.0f;
+    R[5][ka] = dbt1;
+    R[6][ka] = dbt2;
+    // slow
+    R[0][ks] = m.d * m.als;
+    R[1][ks] = sgn * m.cs * m.als;
+    R[2][ks] = sgn * m.cf * m.alf * m.b1h * m.s;
+    R[3][ks] = sgn * m.cf * m.alf * m.b2h * m.s;
+    R[4][ks] = m.d * m.asq * m.als;
+    R[5][ks] = -m.alf * sqd * m.a * m.b1h;
+    R[6][ks] = -m.alf * sqd * m.a * m.b2h;
+  }
+#pragma unroll
+  for (int r = 0; r < 7; ++r) R[r][3] = (r == 0) ? 1.0f : 0.0f;   // entropy
+}
+
+// b := A^-1 b by Gaussian elimination with partial pivoting: in column c
+// the first row at or below c of largest |A[r][c]| becomes the pivot.
+// Every index is a compile-time constant; rows swap by selects.
+template <int N>
+__device__ __forceinline__ void solve_pivoted(float A[N][N], float b[N]) {
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    float best = fabsf(A[c][c]);
+    int p = c;
+#pragma unroll
+    for (int r = c + 1; r < N; ++r) {
+      const float x = fabsf(A[r][c]);
+      if (x > best) {
+        best = x;
+        p = r;
+      }
+    }
+#pragma unroll
+    for (int r = c + 1; r < N; ++r) {
+      const bool sw = (r == p);
+#pragma unroll
+      for (int j = c; j < N; ++j) {
+        const float t = A[c][j];
+        A[c][j] = sw ? A[r][j] : t;
+        A[r][j] = sw ? t : A[r][j];
+      }
+      const float t = b[c];
+      b[c] = sw ? b[r] : t;
+      b[r] = sw ? t : b[r];
+    }
+    const float inv = 1.0f / A[c][c];
+#pragma unroll
+    for (int r = c + 1; r < N; ++r) {
+      const float l = A[r][c] * inv;
+#pragma unroll
+      for (int j = c + 1; j < N; ++j) A[r][j] = A[r][j] - l * A[c][j];
+      b[r] = b[r] - l * b[c];
+    }
+  }
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    float x = b[i];
+#pragma unroll
+    for (int j = i + 1; j < N; ++j) x = x - A[i][j] * b[j];
+    b[i] = x / A[i][i];
+  }
+}
+
+// t = R (|lam| alpha) with R alpha = dW: the wave sum of roe_dissipation in
+// primitive rows; the dissipation is 0.5 M t, M the dU/dW Jacobian.
+__device__ __forceinline__ void roe_wave_sum(const float ql[NV],
+                                             const float qr[NV], float bn,
+                                             const MConsts& k, RoeMean& m,
+                                             float t[7]) {
+  m = roe_mean(ql, qr, bn, k);
+  float R[7][7];
+  roe_eigenvectors(m, R);
+  float al[7] = {qr[0] - ql[0], qr[1] - ql[1], qr[2] - ql[2], qr[3] - ql[3],
+                 qr[4] - ql[4], qr[6] - ql[6], qr[7] - ql[7]};
+  solve_pivoted<7>(R, al);
+  const float vn = m.v0;
+  const float lam[7] = {vn - m.cf, vn - m.ca, vn - m.cs, vn,
+                        vn + m.cs, vn + m.ca, vn + m.cf};
+#pragma unroll
+  for (int w = 0; w < 7; ++w) al[w] = fabsf(lam[w]) * al[w];
+  roe_eigenvectors(m, R);   // the elimination overwrote it
+#pragma unroll
+  for (int r = 0; r < 7; ++r) {
+    float x = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 7; ++w) x = x + R[r][w] * al[w];
+    t[r] = x;
+  }
+}
+
+// roe_dissipation (7-row layout): 0.5 M t, M (_cons_of_prim_jac) applied
+// row by row from its sparsity.
+__device__ __forceinline__ void roe_dissipation(const float ql[NV],
+                                                const float qr[NV], float bn,
+                                                const MConsts& k,
+                                                float diss[7]) {
+  RoeMean m;
+  float t[7];
+  roe_wave_sum(ql, qr, bn, k, m, t);
+  const float d = m.d;
+  const float vsq = (m.v0 * m.v0 + m.v1 * m.v1) + m.v2 * m.v2;
+  diss[0] = 0.5f * t[0];
+  diss[1] = 0.5f * (m.v0 * t[0] + d * t[1]);
+  diss[2] = 0.5f * (m.v1 * t[0] + d * t[2]);
+  diss[3] = 0.5f * (m.v2 * t[0] + d * t[3]);
+  diss[4] = 0.5f * ((((((0.5f * vsq) * t[0] + (d * m.v0) * t[1])
+                       + (d * m.v1) * t[2]) + (d * m.v2) * t[3])
+                     + k.ig1 * t[4]) + (m.bt1 * t[5] + m.bt2 * t[6]));
+  diss[5] = 0.5f * t[5];
+  diss[6] = 0.5f * t[6];
+}
+
+// Row 5 (Bt1) of roe_dissipation, all a corner EMF reads: M's row 5 is
+// the identity's.
+__device__ __forceinline__ float roe_dissipation5(const float ql[NV],
+                                                  const float qr[NV],
+                                                  float bn, const MConsts& k) {
+  RoeMean m;
+  float t[7];
+  roe_wave_sum(ql, qr, bn, k, m, t);
+  return 0.5f * t[5];
+}
+
+// roe: centred flux of the floored states minus the Roe dissipation.
+__device__ __forceinline__ void roe(const float ql[NV], const float qr[NV],
+                                    float bn, const MConsts& k,
+                                    float out[NV]) {
+  float qls[NV], qrs[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    qls[v] = ql[v];
+    qrs[v] = qr[v];
+  }
+  qls[0] = fmaxf(ql[0], k.smallr);
+  qrs[0] = fmaxf(qr[0], k.smallr);
+  qls[4] = fmaxf(ql[4], k.pfloor);
+  qrs[4] = fmaxf(qr[4], k.pfloor);
+  float diss[7];
+  roe_dissipation(qls, qrs, bn, k, diss);
+  float fl[NV], fr[NV];
+  flux1d(qls[0], qls[1], qls[2], qls[3], qls[4], bn, qls[6], qls[7], k, fl);
+  flux1d(qrs[0], qrs[1], qrs[2], qrs[3], qrs[4], bn, qrs[6], qrs[7], k, fr);
+  const int row[NV] = {0, 1, 2, 3, 4, -1, 5, 6};   // _expand8
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+    out[v] = (row[v] < 0) ? 0.0f : 0.5f * (fl[v] + fr[v]) - diss[row[v]];
+}
+
+// upwind (godunov_utils.f90:313): centred flux minus |mean vn| times the
+// state jump, on the states as they come (no floors).
+__device__ __forceinline__ void upwind(const float ql[NV], const float qr[NV],
+                                       float bn, const MConsts& k,
+                                       float out[NV]) {
+  float fl[NV], fr[NV], ul[NV], ur[NV];
+  flux1d(ql[0], ql[1], ql[2], ql[3], ql[4], bn, ql[6], ql[7], k, fl);
+  flux1d(qr[0], qr[1], qr[2], qr[3], qr[4], bn, qr[6], qr[7], k, fr);
+  cons1d(ql[0], ql[1], ql[2], ql[3], ql[4], bn, ql[6], ql[7], k, ul);
+  cons1d(qr[0], qr[1], qr[2], qr[3], qr[4], bn, qr[6], qr[7], k, ur);
+  const float vmean = 0.5f * (ql[1] + qr[1]);
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+    out[v] = (v == 5) ? 0.0f
+                      : 0.5f * (fl[v] + fr[v]) - 0.5f * fabsf(vmean) * (ur[v] - ul[v]);
+}
+
 template <int RS>
 __device__ __forceinline__ void riemann1d(const float ql[NV], const float qr[NV],
                                       float bn, const MConsts& k,
                                       float out[NV]) {
   if (RS == 0) llf(ql, qr, bn, k, out);
   else if (RS == 1) hll(ql, qr, bn, k, out);
-  else hlld(ql, qr, bn, k, out);
+  else if (RS == 2) hlld(ql, qr, bn, k, out);
+  else if (RS == 3) roe(ql, qr, bn, k, out);
+  else upwind(ql, qr, bn, k, out);
 }
 
 // Orientation sign of an edge pair: +1 for (0,1), (1,2), (2,0).
@@ -402,6 +694,9 @@ mhd_ct_prim(const float* __restrict__ up, const float* __restrict__ bf,
   ctoprim(u, k, q);
 #pragma unroll
   for (int v = 0; v < NV; ++v) w.q[v * g.np + i] = q[v];
+  const float inv_r = 1.0f / fmaxf(u[0], k.smallr);
+  for (int v = NV; v < g.nv; ++v)
+    w.q[v * g.np + i] = __ldg(up + v * g.np + i) * inv_r;
 }
 
 // ---- stage B: slopes, Hancock predictor, q_half, bf_half -----------------
@@ -450,12 +745,12 @@ mhd_ct_predict(const float* __restrict__ up, const float* __restrict__ bf,
   for (int d = 0; d < ND; ++d)
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
-      dq[d][v] = slope(q[v * g.np + i - g.s[d]], qc[v], q[v * g.np + i + g.s[d]],
-                       k.slope);
-      w.dq[((int64_t)d * NV + v) * g.np + i] = dq[d][v];
+      dq[d][v] = mslope(q[v * g.np + i - g.s[d]], qc[v], q[v * g.np + i + g.s[d]],
+                        k);
+      w.dq[((int64_t)d * g.nv + v) * g.np + i] = dq[d][v];
     }
   // conservative Hancock half-step from the cell's own faces
-  float du[NV];
+  float du[NV], mhi[ND], mlo[ND];
 #pragma unroll
   for (int v = 0; v < NV; ++v) du[v] = 0.0f;
 #pragma unroll
@@ -472,6 +767,22 @@ mhd_ct_predict(const float* __restrict__ up, const float* __restrict__ bf,
     const float c = 0.5f * dt / k.dx[d];
 #pragma unroll
     for (int v = 0; v < NV; ++v) du[v] = du[v] - c * (fhi[v] - flo[v]);
+    mhi[d] = fhi[0];
+    mlo[d] = flo[0];
+  }
+  // passives: slopes and the Hancock half-step (flux = mass flux * q_s)
+  for (int v = NV; v < g.nv; ++v) {
+    const float qs = q[v * g.np + i];
+    float dus = 0.0f;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      const float dqs = mslope(q[v * g.np + i - g.s[d]], qs,
+                               q[v * g.np + i + g.s[d]], k);
+      w.dq[((int64_t)d * g.nv + v) * g.np + i] = dqs;
+      const float c = 0.5f * dt / k.dx[d];
+      dus = dus - c * (mhi[d] * (qs + 0.5f * dqs) - mlo[d] * (qs - 0.5f * dqs));
+    }
+    w.duh[v * g.np + i] = dus;
   }
   // half-step primitives: up (with the face-averaged B of qc) + du_half
   float u2[NV], qh[NV];
@@ -488,7 +799,7 @@ mhd_ct_predict(const float* __restrict__ up, const float* __restrict__ bf,
   float bh[3];
 #pragma unroll
   for (int c = 0; c < ND; ++c) bh[c] = __ldg(bf + c * g.nf + fo);
-  bf_half_pair<ND, 0, 1>(q, g, k, dt, i, bh);
+  if constexpr (ND >= 2) bf_half_pair<ND, 0, 1>(q, g, k, dt, i, bh);
   if constexpr (ND == 3) {
     bf_half_pair<ND, 0, 2>(q, g, k, dt, i, bh);
     bf_half_pair<ND, 1, 2>(q, g, k, dt, i, bh);
@@ -509,6 +820,7 @@ mhd_ct_flux(Scratch w, Geo g, MConsts k) {
   if (!in_box<ND>(g, P, 1, 1) || P[D] < 2) return;
   constexpr int T1 = (D + 1) % 3, T2 = (D + 2) % 3;
   float ql[NV], qr[NV];
+  float rho_f[2], inv_r[2];   // a side's prim_to_cons density, 1/ctoprim's
 #pragma unroll
   for (int side = 0; side < 2; ++side) {
     // left state: the high face of cell P - e_D; right: the low face of P
@@ -517,10 +829,12 @@ mhd_ct_flux(Scratch w, Geo g, MConsts k) {
     float qf[NV], uf[NV];
 #pragma unroll
     for (int v = 0; v < NV; ++v)
-      qf[v] = w.q[v * g.np + o] + half * w.dq[((int64_t)D * NV + v) * g.np + o];
+      qf[v] = w.q[v * g.np + o] + half * w.dq[((int64_t)D * g.nv + v) * g.np + o];
     prim_to_cons(qf, k, uf);
+    rho_f[side] = uf[0];
 #pragma unroll
     for (int v = 0; v < NV; ++v) uf[v] = uf[v] + w.duh[v * g.np + o];
+    inv_r[side] = 1.0f / fmaxf(uf[0], k.smallr);
     ctoprim(uf, k, side ? qr : ql);
   }
   // rotate to (r, vn, vt1, vt2, p, bn, bt1, bt2)
@@ -533,17 +847,41 @@ mhd_ct_flux(Scratch w, Geo g, MConsts k) {
   }
   const float bn = w.bfh[D * g.np + i];
   riemann1d<RS>(qlr, qrr, bn, k, fg);
-  float* f = w.flx + (int64_t)D * NV * g.np + i;
+  float* f = w.flx + (int64_t)D * g.nv * g.np + i;
 #pragma unroll
   for (int v = 0; v < NV; ++v) f[perm[v] * g.np] = fg[v];
+  // passives, upwinded on the sign of the mass flux (riemann.solve)
+  for (int v = NV; v < g.nv; ++v) {
+    float qs[2];
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      const int64_t o = side ? i : i - g.s[D];
+      const float half = side ? -0.5f : 0.5f;
+      const float qf = w.q[v * g.np + o]
+                       + half * w.dq[((int64_t)D * g.nv + v) * g.np + o];
+      qs[side] = (rho_f[side] * qf + w.duh[v * g.np + o]) * inv_r[side];
+    }
+    f[v * g.np] = (fg[0] > 0.0f) ? fg[0] * qs[0] : fg[0] * qs[1];
+  }
 }
 
 // ---- stage D: edge EMFs of pair (D1, D2) ----------------------------------
 
-// The LLF corner solver (riemann2d.corner_emf, kind 'llf') on the four
-// corner states (r, p, u, v, c; w does not reach the result).
+// The corner solvers of mhd/riemann2d.py (corner_emf) on the four corner
+// states around an edge, in its order LB, RB, LT, RT (x = L|R along d1,
+// y = B|T along d2).  A corner state is (r, p, u, v, w, c): density and
+// pressure (floored), the velocities along d1, d2 and the third axis, and
+// the third axis's cell field.  Each returns eps = u B - v A upwinded; the
+// caller applies the pair's orientation sign.
 struct Corner {
-  float r, p, u, v, c;
+  float r, p, u, v, w, c;
+};
+
+// eps of each corner state: A = B_d1 of its y side, B = B_d2 of its x side.
+struct CornerFaces {
+  float A_T, A_B, B_R, B_L;
+  __device__ float A(int q) const { return q < 2 ? A_B : A_T; }
+  __device__ float B(int q) const { return (q & 1) ? B_R : B_L; }
 };
 
 __device__ __forceinline__ float llf_corner(const Corner& LB, const Corner& RB,
@@ -581,6 +919,193 @@ __device__ __forceinline__ float llf_corner(const Corner& LB, const Corner& RB,
   return ebar - dx5 + dy5;
 }
 
+// pack_x / pack_y of corner_emf: the rotated 1D state averaged over two
+// corners, normal velocity u (x-solve) or v (y-solve), field bt on slot 6.
+__device__ __forceinline__ void corner_pack(const Corner& a, const Corner& b,
+                                            bool y_solve, float bt,
+                                            float q[NV]) {
+  q[0] = 0.5f * (a.r + b.r);
+  q[1] = y_solve ? 0.5f * (a.v + b.v) : 0.5f * (a.u + b.u);
+  q[2] = y_solve ? 0.5f * (a.u + b.u) : 0.5f * (a.v + b.v);
+  q[3] = 0.5f * (a.w + b.w);
+  q[4] = 0.5f * (a.p + b.p);
+  q[5] = 0.0f;
+  q[6] = bt;
+  q[7] = 0.5f * (a.c + b.c);
+}
+
+// 'roe' and 'upwind': the quarter-average of the corner EMFs plus the
+// dissipative part (row 5) of an x- and a y-solve on side-averaged states.
+template <bool ROE>
+__device__ __forceinline__ float dissipative_corner(const Corner q[4],
+                                                    const CornerFaces& f,
+                                                    const float eps[4],
+                                                    const MConsts& k) {
+  const float ebar = 0.25f * (eps[0] + eps[1] + eps[2] + eps[3]);
+  float ql[NV], qr[NV];
+  corner_pack(q[0], q[2], false, f.B_L, ql);
+  corner_pack(q[1], q[3], false, f.B_R, qr);
+  const float bn_x = 0.5f * (f.A_T + f.A_B);
+  const float dx5 = ROE ? roe_dissipation5(ql, qr, bn_x, k)
+                        : 0.5f * fabsf(0.5f * (ql[1] + qr[1])) * (qr[6] - ql[6]);
+  corner_pack(q[0], q[1], true, f.A_B, ql);
+  corner_pack(q[2], q[3], true, f.A_T, qr);
+  const float bn_y = 0.5f * (f.B_R + f.B_L);
+  const float dy5 = ROE ? roe_dissipation5(ql, qr, bn_y, k)
+                        : 0.5f * fabsf(0.5f * (ql[1] + qr[1])) * (qr[6] - ql[6]);
+  return ebar - dx5 + dy5;
+}
+
+// 'hll' (fast speeds) and 'hlla' (Alfven speeds): Londrillo & Del Zanna
+// (2004) four-state 2D-HLL average.
+template <bool ALFVEN>
+__device__ __forceinline__ float hll_corner(const Corner q[4],
+                                            const CornerFaces& f,
+                                            const float eps[4],
+                                            const MConsts& k) {
+  float umin = q[0].u, umax = q[0].u, vmin = q[0].v, vmax = q[0].v;
+  float cxmax = 0.0f, cymax = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float A = f.A(j), B = f.B(j);
+    const float cx = ALFVEN ? sqrtf(fmaxf(A * A / q[j].r, k.smallc2))
+                            : fast(q[j].r, q[j].p, A, B, q[j].c, k);
+    const float cy = ALFVEN ? sqrtf(fmaxf(B * B / q[j].r, k.smallc2))
+                            : fast(q[j].r, q[j].p, B, A, q[j].c, k);
+    cxmax = j ? fmaxf(cxmax, cx) : cx;
+    cymax = j ? fmaxf(cymax, cy) : cy;
+    umin = fminf(umin, q[j].u);
+    umax = fmaxf(umax, q[j].u);
+    vmin = fminf(vmin, q[j].v);
+    vmax = fmaxf(vmax, q[j].v);
+  }
+  const float SL = fminf(umin - cxmax, 0.0f);
+  const float SR = fmaxf(umax + cxmax, 0.0f);
+  const float SB = fminf(vmin - cymax, 0.0f);
+  const float ST = fmaxf(vmax + cymax, 0.0f);
+  const float dx_ = SR - SL + EPS;
+  const float dy_ = ST - SB + EPS;
+  return (SL * SB * eps[3] - SL * ST * eps[1] - SR * SB * eps[2]
+          + SR * ST * eps[0]) / (dx_ * dy_)
+         - ST * SB / dy_ * (f.A_T - f.A_B) + SR * SL / dx_ * (f.B_R - f.B_L);
+}
+
+// 'hlld' (_hlld2d): the four-state HLLD with a contact (ustar, vstar), star
+// states per quadrant and Alfven-bounded inner waves.  Every guard of the
+// JAX code is a select on finite values.
+__device__ __forceinline__ float hlld_corner(const Corner q[4],
+                                             const CornerFaces& f,
+                                             const float eps[4],
+                                             const MConsts& k) {
+  float cxm = 0.0f, cym = 0.0f;
+  float umin = q[0].u, umax = q[0].u, vmin = q[0].v, vmax = q[0].v;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float cx = fast(q[j].r, q[j].p, f.A(j), f.B(j), q[j].c, k);
+    const float cy = fast(q[j].r, q[j].p, f.B(j), f.A(j), q[j].c, k);
+    cxm = j ? fmaxf(cxm, cx) : cx;
+    cym = j ? fmaxf(cym, cy) : cy;
+    umin = fminf(umin, q[j].u);
+    umax = fmaxf(umax, q[j].u);
+    vmin = fminf(vmin, q[j].v);
+    vmax = fmaxf(vmax, q[j].v);
+  }
+  const float SL = umin - cxm, SR = umax + cxm;
+  const float SB = vmin - cym, ST = vmax + cym;
+  float ptot[4], rcx[4], rcy[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float A = f.A(j), B = f.B(j);
+    ptot[j] = q[j].p + 0.5f * ((A * A + B * B) + q[j].c * q[j].c);
+    rcx[j] = q[j].r * ((j & 1) ? (SR - q[j].u) : (q[j].u - SL));
+    rcy[j] = q[j].r * ((j < 2) ? (q[j].v - SB) : (ST - q[j].v));
+  }
+  // mass-weighted contact speeds (the reference's ustar / vstar)
+  const float ustar =
+      ((((rcx[0] * q[0].u + rcx[1] * q[1].u) + rcx[2] * q[2].u) + rcx[3] * q[3].u)
+       + (((ptot[0] - ptot[1]) + ptot[2]) - ptot[3]))
+      / ((((rcx[0] + rcx[1]) + rcx[2]) + rcx[3]) + EPS);
+  const float vstar =
+      ((((rcy[0] * q[0].v + rcy[1] * q[1].v) + rcy[2] * q[2].v) + rcy[3] * q[3].v)
+       + (((ptot[0] - ptot[2]) + ptot[1]) - ptot[3]))
+      / ((((rcy[0] + rcy[1]) + rcy[2]) + rcy[3]) + EPS);
+  float rstar_x[4], rstar_y[4], rstar[4], Astar[4], Bstar[4];
+  float Ex[4], Ey[4], Es[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float Sx = (j & 1) ? SR : SL;
+    const float Sy = (j < 2) ? SB : ST;
+    const float fx = (Sx - q[j].u) / (Sx - ustar + ((Sx >= ustar) ? EPS : -EPS));
+    const float fy = (Sy - q[j].v) / (Sy - vstar + ((Sy >= vstar) ? EPS : -EPS));
+    rstar_x[j] = q[j].r * fx;
+    rstar_y[j] = q[j].r * fy;
+    rstar[j] = q[j].r * fx * fy;
+    Bstar[j] = f.B(j) * fx;
+    Astar[j] = f.A(j) * fy;
+    Ex[j] = ustar * Bstar[j] - q[j].v * f.A(j);
+    Ey[j] = q[j].u * f.B(j) - vstar * Astar[j];
+    Es[j] = ustar * Bstar[j] - vstar * Astar[j];
+  }
+  // Alfven speeds of a side: its two quadrants' plain and star fields
+  auto ca_side = [&](int j0, int j1, bool a_field) {
+    float out = k.smallc;
+    const int js[2] = {j0, j1};
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int j = js[n];
+      const float fld = a_field ? f.A(j) : f.B(j);
+      const float fst = a_field ? Astar[j] : Bstar[j];
+      const float rsx = a_field ? rstar_x[j] : rstar_y[j];
+      out = fmaxf(out, fabsf(fld) / sqrtf(fmaxf(rsx, k.smallr)));
+      out = fmaxf(out, fabsf(fst) / sqrtf(fmaxf(rstar[j], k.smallr)));
+    }
+    return out;
+  };
+  const float caL = ca_side(0, 2, true), caR = ca_side(1, 3, true);
+  const float caB = ca_side(0, 1, false), caT = ca_side(2, 3, false);
+  const float SAL = fminf(ustar - caL, 0.0f);
+  const float SAR = fmaxf(ustar + caR, 0.0f);
+  const float SAB = fminf(vstar - caB, 0.0f);
+  const float SAT = fmaxf(vstar + caT, 0.0f);
+  const float dax = SAR - SAL + EPS;
+  const float day = SAT - SAB + EPS;
+  const float AstarT = (SAR * Astar[3] - SAL * Astar[2]) / dax;
+  const float AstarB = (SAR * Astar[1] - SAL * Astar[0]) / dax;
+  const float BstarR = (SAT * Bstar[3] - SAB * Bstar[1]) / day;
+  const float BstarL = (SAT * Bstar[2] - SAB * Bstar[0]) / day;
+  // supersonic rows / columns
+  const float dB = f.B_R - f.B_L, dA = f.A_T - f.A_B;
+  const float e_b = (SL > 0.0f) ? eps[0] : (SR < 0.0f) ? eps[1]
+                  : (SAR * Ex[0] - SAL * Ex[1] + SAR * SAL * dB) / dax;
+  const float e_t = (SL > 0.0f) ? eps[2] : (SR < 0.0f) ? eps[3]
+                  : (SAR * Ex[2] - SAL * Ex[3] + SAR * SAL * dB) / dax;
+  const float e_l = (SAT * Ey[0] - SAB * Ey[2] - SAT * SAB * dA) / day;
+  const float e_r = (SAT * Ey[1] - SAB * Ey[3] - SAT * SAB * dA) / day;
+  const float e_c = (SAL * SAB * Es[3] - SAL * SAT * Es[1] - SAR * SAB * Es[2]
+                     + SAR * SAT * Es[0]) / (dax * day)
+                    - SAT * SAB / day * (AstarT - AstarB)
+                    + SAR * SAL / dax * (BstarR - BstarL);
+  return (SB > 0.0f) ? e_b : (ST < 0.0f) ? e_t : (SL > 0.0f) ? e_l
+       : (SR < 0.0f) ? e_r : e_c;
+}
+
+// corner_emf of kind R2: 1 llf, 2 roe, 3 upwind, 4 hll, 5 hlla, 6 hlld.
+template <int R2>
+__device__ __forceinline__ float corner_emf(const Corner q[4],
+                                            const CornerFaces& f,
+                                            const MConsts& k) {
+  if (R2 == 1)
+    return llf_corner(q[0], q[1], q[2], q[3], f.A_T, f.A_B, f.B_R, f.B_L, k);
+  float eps[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) eps[j] = q[j].u * f.B(j) - q[j].v * f.A(j);
+  if (R2 == 2) return dissipative_corner<true>(q, f, eps, k);
+  if (R2 == 3) return dissipative_corner<false>(q, f, eps, k);
+  if (R2 == 4) return hll_corner<false>(q, f, eps, k);
+  if (R2 == 5) return hll_corner<true>(q, f, eps, k);
+  return hlld_corner(q, f, eps, k);
+}
+
 // Corner state of cell x at (s1, s2) along (D1, D2): q_half + 0.5 (s1 dq_D1
 // + s2 dq_D2), density and pressure floored.
 template <int D1, int D2>
@@ -590,14 +1115,15 @@ __device__ __forceinline__ Corner corner(const Scratch& w, const Geo& g,
   constexpr int DO = 3 - D1 - D2;
   auto at = [&](int v) {
     return w.qh[v * g.np + x]
-           + 0.5f * (s1 * w.dq[((int64_t)D1 * NV + v) * g.np + x]
-                     + s2 * w.dq[((int64_t)D2 * NV + v) * g.np + x]);
+           + 0.5f * (s1 * w.dq[((int64_t)D1 * g.nv + v) * g.np + x]
+                     + s2 * w.dq[((int64_t)D2 * g.nv + v) * g.np + x]);
   };
   Corner c;
   c.r = fmaxf(at(0), k.smallr);
   c.p = fmaxf(at(4), k.pfloor);
   c.u = at(1 + D1);
   c.v = at(1 + D2);
+  c.w = at(1 + DO);
   c.c = at(5 + DO);
   return c;
 }
@@ -620,8 +1146,8 @@ mhd_ct_edge(const float* __restrict__ ovm, const float* __restrict__ ovv,
   const int64_t s1 = g.s[D1], s2 = g.s[D2];
   float e;
   if (R2 == 0) {  // Gardiner & Stone (2005) arithmetic corner average
-    const float* f1 = w.flx + ((int64_t)D1 * NV + 5 + D2) * g.np;
-    const float* f2 = w.flx + ((int64_t)D2 * NV + 5 + D1) * g.np;
+    const float* f1 = w.flx + ((int64_t)D1 * g.nv + 5 + D2) * g.np;
+    const float* f2 = w.flx + ((int64_t)D2 * g.nv + 5 + D1) * g.np;
     auto ec = [&](int64_t o) {
       float v1 = w.qh[(1 + D1) * g.np + o], v2 = w.qh[(1 + D2) * g.np + o];
       float b1 = w.qh[(5 + D1) * g.np + o], b2 = w.qh[(5 + D2) * g.np + o];
@@ -631,14 +1157,17 @@ mhd_ct_edge(const float* __restrict__ ovm, const float* __restrict__ ovv,
     float ef2 = sig * f2[i], ef2l = sig * f2[i - s1];
     e = 0.5f * (ef1 + ef1b + ef2 + ef2l)
         - 0.25f * (ec(i) + ec(i - s1) + ec(i - s2) + ec(i - s1 - s2));
-  } else {        // the LLF corner solver on primitive corner states
-    Corner RT = corner<D1, D2>(w, g, k, i, -1.0f, -1.0f);
-    Corner LT = corner<D1, D2>(w, g, k, i - s1, 1.0f, -1.0f);
-    Corner RB = corner<D1, D2>(w, g, k, i - s2, -1.0f, 1.0f);
-    Corner LB = corner<D1, D2>(w, g, k, i - s1 - s2, 1.0f, 1.0f);
-    float A_T = w.bfh[D1 * g.np + i], A_B = w.bfh[D1 * g.np + i - s2];
-    float B_R = w.bfh[D2 * g.np + i], B_L = w.bfh[D2 * g.np + i - s1];
-    e = -sig * llf_corner(LB, RB, LT, RT, A_T, A_B, B_R, B_L, k);
+  } else {        // a corner solver on primitive corner states
+    const Corner q[4] = {corner<D1, D2>(w, g, k, i - s1 - s2, 1.0f, 1.0f),
+                         corner<D1, D2>(w, g, k, i - s2, -1.0f, 1.0f),
+                         corner<D1, D2>(w, g, k, i - s1, 1.0f, -1.0f),
+                         corner<D1, D2>(w, g, k, i, -1.0f, -1.0f)};
+    CornerFaces f;
+    f.A_T = w.bfh[D1 * g.np + i];
+    f.A_B = w.bfh[D1 * g.np + i - s2];
+    f.B_R = w.bfh[D2 * g.np + i];
+    f.B_L = w.bfh[D2 * g.np + i - s1];
+    e = -sig * corner_emf<R2>(q, f, k);
   }
   constexpr int IP_ = pair_index(D1, D2);
   if (ovm != nullptr && __ldg(ovm + IP_ * g.np + i) > 0.5f)
@@ -718,14 +1247,23 @@ mhd_ct_update(const float* __restrict__ up, const float* __restrict__ bf,
     float x = (v < 5) ? __ldg(up + v * g.np + i) : __ldg(bf + c * g.nf + fo);
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
-      const float* F = w.flx + ((int64_t)d * NV + v) * g.np;
+      const float* F = w.flx + ((int64_t)d * g.nv + v) * g.np;
       x = x + (dt / k.dx[d]) * (F[i] * keep_lo[d] - F[i + g.s[d]] * keep_hi[d]);
     }
     un[v * g.ni + io] = x;
     if (v >= 5) bfn[c * g.ni + io] = x;
   }
+  for (int v = NV; v < g.nv; ++v) {   // passives
+    float x = __ldg(up + v * g.np + i);
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      const float* F = w.flx + ((int64_t)d * g.nv + v) * g.np;
+      x = x + (dt / k.dx[d]) * (F[i] * keep_lo[d] - F[i + g.s[d]] * keep_hi[d]);
+    }
+    un[v * g.ni + io] = x;
+  }
   staggered<ND, 0>(w, g, k, dt, bf, i, fo, io, un, bfn);
-  staggered<ND, 1>(w, g, k, dt, bf, i, fo, io, un, bfn);
+  if constexpr (ND >= 2) staggered<ND, 1>(w, g, k, dt, bf, i, fo, io, un, bfn);
   if constexpr (ND == 3) staggered<ND, 2>(w, g, k, dt, bf, i, fo, io, un, bfn);
 }
 
@@ -740,19 +1278,34 @@ struct Args {
 template <int ND, int D>
 cudaError_t launch_flux(const Args& a, const Scratch& w, const Geo& g,
                         const MConsts& k, dim3 grid, cudaStream_t s) {
-  if (a.riemann == 0) mhd_ct_flux<ND, D, 0><<<grid, BLOCK, 0, s>>>(w, g, k);
-  else if (a.riemann == 1) mhd_ct_flux<ND, D, 1><<<grid, BLOCK, 0, s>>>(w, g, k);
-  else mhd_ct_flux<ND, D, 2><<<grid, BLOCK, 0, s>>>(w, g, k);
+  switch (a.riemann) {
+    case 0: mhd_ct_flux<ND, D, 0><<<grid, BLOCK, 0, s>>>(w, g, k); break;
+    case 1: mhd_ct_flux<ND, D, 1><<<grid, BLOCK, 0, s>>>(w, g, k); break;
+    case 2: mhd_ct_flux<ND, D, 2><<<grid, BLOCK, 0, s>>>(w, g, k); break;
+    case 3: mhd_ct_flux<ND, D, 3><<<grid, BLOCK, 0, s>>>(w, g, k); break;
+    default: mhd_ct_flux<ND, D, 4><<<grid, BLOCK, 0, s>>>(w, g, k); break;
+  }
   return cudaGetLastError();
+}
+
+template <int ND, int D1, int D2, int R2>
+void edge_kernel(const Args& a, const Scratch& w, const Geo& g,
+                 const MConsts& k, dim3 grid, cudaStream_t s) {
+  mhd_ct_edge<ND, D1, D2, R2><<<grid, BLOCK, 0, s>>>(a.ovm, a.ovv, w, g, k);
 }
 
 template <int ND, int D1, int D2>
 cudaError_t launch_edge(const Args& a, const Scratch& w, const Geo& g,
                         const MConsts& k, dim3 grid, cudaStream_t s) {
-  if (a.riemann2d == 0)
-    mhd_ct_edge<ND, D1, D2, 0><<<grid, BLOCK, 0, s>>>(a.ovm, a.ovv, w, g, k);
-  else
-    mhd_ct_edge<ND, D1, D2, 1><<<grid, BLOCK, 0, s>>>(a.ovm, a.ovv, w, g, k);
+  switch (a.riemann2d) {
+    case 0: edge_kernel<ND, D1, D2, 0>(a, w, g, k, grid, s); break;
+    case 1: edge_kernel<ND, D1, D2, 1>(a, w, g, k, grid, s); break;
+    case 2: edge_kernel<ND, D1, D2, 2>(a, w, g, k, grid, s); break;
+    case 3: edge_kernel<ND, D1, D2, 3>(a, w, g, k, grid, s); break;
+    case 4: edge_kernel<ND, D1, D2, 4>(a, w, g, k, grid, s); break;
+    case 5: edge_kernel<ND, D1, D2, 5>(a, w, g, k, grid, s); break;
+    default: edge_kernel<ND, D1, D2, 6>(a, w, g, k, grid, s); break;
+  }
   return cudaGetLastError();
 }
 
@@ -771,9 +1324,9 @@ cudaError_t run(const Args& a, const Scratch& w, const Geo& g,
   mhd_ct_predict<ND><<<grid, BLOCK, 0, s>>>(a.up, a.bf, a.dt, w, g, k);
   RAMSES_CHECK(cudaGetLastError());
   RAMSES_CHECK((launch_flux<ND, 0>(a, w, g, k, grid, s)));
-  RAMSES_CHECK((launch_flux<ND, 1>(a, w, g, k, grid, s)));
+  if constexpr (ND >= 2) RAMSES_CHECK((launch_flux<ND, 1>(a, w, g, k, grid, s)));
   if constexpr (ND == 3) RAMSES_CHECK((launch_flux<ND, 2>(a, w, g, k, grid, s)));
-  RAMSES_CHECK((launch_edge<ND, 0, 1>(a, w, g, k, grid, s)));
+  if constexpr (ND >= 2) RAMSES_CHECK((launch_edge<ND, 0, 1>(a, w, g, k, grid, s)));
   if constexpr (ND == 3) {
     RAMSES_CHECK((launch_edge<ND, 0, 2>(a, w, g, k, grid, s)));
     RAMSES_CHECK((launch_edge<ND, 1, 2>(a, w, g, k, grid, s)));
@@ -785,40 +1338,51 @@ cudaError_t run(const Args& a, const Scratch& w, const Geo& g,
 
 }  // namespace
 
-// Floats of scratch a launch over np padded points needs: primitives,
-// slopes, du_half, q_half, half-dt faces, face fluxes and edge EMFs, in
-// the order ramses_mhd_ct carves them.  The wrapper allocates this many.
-extern "C" int64_t ramses_mhd_ct_scratch_len(int ndim, int64_t np) {
-  const int npair = ndim == 3 ? 3 : 1;
-  return np * (int64_t)(8 + 8 * ndim + 8 + 8 + ndim + 8 * ndim + npair);
+// Floats of scratch a launch over np padded points with nv cell variables
+// needs: primitives, slopes, du_half, q_half, half-dt faces, face fluxes
+// and edge EMFs, in the order ramses_mhd_ct carves them.  The wrapper
+// allocates this many.
+extern "C" int64_t ramses_mhd_ct_scratch_len(int ndim, int64_t np, int nv) {
+  const int npair = ndim == 3 ? 3 : ndim - 1;
+  return np * (int64_t)(nv + nv * ndim + nv + 8 + ndim + nv * ndim + npair);
 }
 
-// up: [8, *sp+4], bf: [3, *sp+6] f32 contiguous; okp: [*sp+4] f32 0/1 or
-// NULL; ovm, ovv: [npair, *sp+4] f32 (mask 0/1, values) or NULL; dt: one
-// f32 on the device; scratch: scratch_len f32, at least
-// ramses_mhd_ct_scratch_len; un: [8, *sp], bfn: [3, *sp].  n2 = 1 in 2D.
-// riemann: 0 llf, 1 hll, 2 hlld; riemann2d: 0 average, 1 llf.  Launches
-// on `stream` without synchronising; returns the first launch error, or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// The largest passive count ramses_mhd_ct takes.
+extern "C" int ramses_mhd_ct_max_passive() { return MAX_PASSIVE; }
+
+// up: [8 + npassive, *sp+4], bf: [3, *sp+6] f32 contiguous; okp: [*sp+4]
+// f32 0/1 or NULL; ovm, ovv: [npair, *sp+4] f32 (mask 0/1, values) or
+// NULL; dt: one f32 on the device; scratch: scratch_len f32, at least
+// ramses_mhd_ct_scratch_len; un: [8 + npassive, *sp], bfn: [3, *sp].
+// n1 = 1 in 1D, n2 = 1 below 3D.  riemann: 0 llf, 1 hll, 2 hlld, 3 roe,
+// 4 upwind; riemann2d: 0 average, 1 llf, 2 roe, 3 upwind, 4 hll, 5 hlla,
+// 6 hlld; slope_type 0, 1, 2, 7 or 8 (slope_factor: 1, 2 or theta).
+// Launches on `stream` without synchronising; returns the first launch
+// error, or cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int ramses_mhd_ct(
     const float* up, const float* bf, const float* okp, const float* ovm,
     const float* ovv, const float* dt, float* scratch, float* un, float* bfn,
-    int64_t scratch_len, int ndim, int n0, int n1, int n2, int riemann,
-    int riemann2d, float slope_factor, float gamma, float gm1, float smallr,
+    int64_t scratch_len, int ndim, int n0, int n1, int n2, int npassive,
+    int riemann, int riemann2d, int slope_type, float slope_factor,
+    float gamma, float gm1, float g2, float ig1, float smallr, float smallc,
     float smallc2, float pfloor, float eint_floor, float dx0, float dx1,
     float dx2, void* stream) {
-  if (ndim != 2 && ndim != 3) return (int)cudaErrorInvalidValue;
-  if (riemann < 0 || riemann > 2 || riemann2d < 0 || riemann2d > 1)
+  if (ndim < 1 || ndim > 3) return (int)cudaErrorInvalidValue;
+  if (riemann < 0 || riemann > 4 || riemann2d < 0 || riemann2d > 6)
+    return (int)cudaErrorInvalidValue;
+  if (npassive < 0 || npassive > MAX_PASSIVE) return (int)cudaErrorInvalidValue;
+  if (slope_type != 0 && slope_type != 1 && slope_type != 2 && slope_type != 7
+      && slope_type != 8)
     return (int)cudaErrorInvalidValue;
   if ((ovm == nullptr) != (ovv == nullptr)) return (int)cudaErrorInvalidValue;
-  const int n[3] = {n0, n1, ndim == 3 ? n2 : 1};
+  const int n[3] = {n0, ndim > 1 ? n1 : 1, ndim == 3 ? n2 : 1};
   Geo g;
+  g.nv = NV + npassive;
   for (int a = 0; a < 3; ++a) {
     if (n[a] < 1) return (int)cudaErrorInvalidValue;
     g.e[a] = (a < ndim) ? n[a] + 4 : 1;
   }
-  const int fe[3] = {ndim > 0 ? n[0] + 6 : 1, ndim > 1 ? n[1] + 6 : 1,
-                     ndim > 2 ? n[2] + 6 : 1};
+  const int fe[3] = {n[0] + 6, ndim > 1 ? n[1] + 6 : 1, ndim > 2 ? n[2] + 6 : 1};
   g.s[2] = 1;
   g.s[1] = g.e[2];
   g.s[0] = (int64_t)g.e[1] * g.e[2];
@@ -842,22 +1406,28 @@ extern "C" int ramses_mhd_ct(
     g.is[0] = n[1];
     g.is[2] = 0;
   }
-  if (scratch_len < ramses_mhd_ct_scratch_len(ndim, g.np))
+  if (scratch_len < ramses_mhd_ct_scratch_len(ndim, g.np, g.nv))
     return (int)cudaErrorInvalidValue;
   if ((g.np + BLOCK - 1) / BLOCK > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int64_t nv = g.nv;
   Scratch w;
   w.q = scratch;
-  w.dq = w.q + 8 * g.np;
-  w.duh = w.dq + (int64_t)8 * ndim * g.np;
-  w.qh = w.duh + 8 * g.np;
+  w.dq = w.q + nv * g.np;
+  w.duh = w.dq + nv * ndim * g.np;
+  w.qh = w.duh + nv * g.np;
   w.bfh = w.qh + 8 * g.np;
   w.flx = w.bfh + (int64_t)ndim * g.np;
-  w.emf = w.flx + (int64_t)8 * ndim * g.np;
+  w.emf = w.flx + nv * ndim * g.np;
   MConsts k;
-  k.gamma = gamma; k.gm1 = gm1; k.smallr = smallr; k.smallc2 = smallc2;
-  k.pfloor = pfloor; k.eint_floor = eint_floor; k.slope = slope_factor;
+  k.gamma = gamma; k.gm1 = gm1; k.g2 = g2; k.ig1 = ig1;
+  k.smallr = smallr; k.smallc = smallc; k.smallc2 = smallc2;
+  k.pfloor = pfloor; k.eint_floor = eint_floor;
+  k.slope = slope_factor; k.slope_type = slope_type;
   k.dx[0] = dx0; k.dx[1] = dx1; k.dx[2] = dx2;
   Args a{up, bf, okp, ovm, ovv, dt, un, bfn, riemann, riemann2d};
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(ndim == 2 ? run<2>(a, w, g, k, s) : run<3>(a, w, g, k, s));
+  const cudaError_t e = ndim == 1 ? run<1>(a, w, g, k, s)
+                        : ndim == 2 ? run<2>(a, w, g, k, s)
+                                    : run<3>(a, w, g, k, s);
+  return (int)e;
 }

@@ -6,7 +6,11 @@ is one VMEM-resident block behind a size gate; here it is the
 hand-written kernel ``csrc/mhd_ct.cu``, a few stage kernels behind one
 wrapper call (primitives; slopes, Hancock predictor and half-dt face
 field; face fluxes; edge EMFs; the cell and face update), with the
-intermediates in device memory.  It takes the padded contract — cells
+intermediates in device memory.  Like the TPU kernel it covers every
+configuration ``step_padded`` takes in f32: 1D/2D/3D, each 1D solver
+(llf, hll, hlld, roe, upwind), each corner solver (average, llf, roe,
+upwind, hll, hlla, hlld), slope types 0/1/2/7/8 and up to
+:data:`MAX_PASSIVE` passive scalars.  It takes the padded contract — cells
 padded by 2, faces by 3, with an optional padded refined mask and EMF
 override — and returns only the interior, which is all any caller keeps.
 
@@ -31,22 +35,28 @@ from ramses_tpu_torch.mhd.core import MhdStatic, NCOMP
 # count was last reset; the plain version does not count.
 launches = 0
 
-_RIEMANN = {"llf": 0, "hll": 1, "hlld": 2}
-_RIEMANN2D = {"average": 0, "llf": 1}
+_RIEMANN = {"llf": 0, "hll": 1, "hlld": 2, "roe": 3, "upwind": 4}
+_RIEMANN2D = {"average": 0, "llf": 1, "roe": 2, "upwind": 3, "hll": 4,
+              "hlla": 5, "hlld": 6}
+_SLOPES = (0, 1, 2, 7, 8)
+# The largest passive count the kernel takes (MAX_PASSIVE in
+# csrc/mhd_ct.cu); more passives run step_padded by configuration.
+MAX_PASSIVE = 4
 NG = mu.NGHOST
 
 
 def supports(cfg: MhdStatic, shape, dtype) -> bool:
-    """True when the kernel covers this configuration: 2D or 3D, f32, no
-    passives, a 1D solver in llf/hll/hlld, the Gardiner-Stone average or
-    the llf corner solver, and the slope types K1's ``slope()`` serves."""
-    if cfg.ndim not in (2, 3) or len(shape) != cfg.ndim:
+    """True when the kernel covers this configuration: 1D, 2D or 3D with a
+    matching shape, f32, the untransposed layout (no trailing batch), any
+    1D and corner solver, slope types 0/1/2/7/8 and at most
+    :data:`MAX_PASSIVE` passives."""
+    if cfg.ndim not in (1, 2, 3) or len(shape) != cfg.ndim:
         return False
-    if cfg.npassive != 0 or cfg.trailing_batch:
+    if not 0 <= cfg.npassive <= MAX_PASSIVE or cfg.trailing_batch:
         return False
     if cfg.riemann not in _RIEMANN or cfg.riemann2d not in _RIEMANN2D:
         return False
-    if cfg.slope_type not in (1, 2, 8) or any(n < 1 for n in shape):
+    if cfg.slope_type not in _SLOPES or any(n < 1 for n in shape):
         return False
     return dtype == torch.float32
 
@@ -75,13 +85,14 @@ def ct_step_slab(up, bfp_ext, dt, dx: Sequence[float], cfg: MhdStatic,
                  okp=None, ovr: Optional[dict] = None):
     """One CT step of a padded box.
 
-    ``up`` [8, \\*sp+4] padded cells (raw B slots, ignored: the cell field
-    is the face average), ``bfp_ext`` [3, \\*sp+6] padded low faces,
-    ``dt`` a 0-d tensor on ``up``'s device (or a float), ``dx`` per-dim
-    cell sizes (or one float), ``okp`` optional padded refined mask
-    [\\*sp+4], ``ovr`` optional dict (d1,d2) → (padded mask, padded
-    values), each [\\*sp+4]; a pair it lacks keeps its computed EMF.
-    Returns the interior ``(un [8, *sp], bfn [3, *sp])``.
+    ``up`` [8 + npassive, \\*sp+4] padded cells (raw B slots, ignored:
+    the cell field is the face average), ``bfp_ext`` [3, \\*sp+6] padded
+    low faces, ``dt`` a 0-d tensor on ``up``'s device (or a float),
+    ``dx`` per-dim cell sizes (or one float), ``okp`` optional padded
+    refined mask [\\*sp+4], ``ovr`` optional dict (d1,d2) → (padded mask,
+    padded values), each [\\*sp+4]; a pair it lacks keeps its computed
+    EMF (1D has no pairs).
+    Returns the interior ``(un [8 + npassive, *sp], bfn [3, *sp])``.
 
     A CPU tensor runs :func:`ct_step_slab_ref`; a CUDA tensor launches the
     kernel or raises (outside :func:`supports` too)."""
@@ -91,20 +102,26 @@ def ct_step_slab(up, bfp_ext, dt, dx: Sequence[float], cfg: MhdStatic,
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int64]
-             + [ctypes.c_int] * 6 + [ctypes.c_float] * 10
+             + [ctypes.c_int] * 8 + [ctypes.c_float] * 13
              + [ctypes.c_void_p])
 
 
 def _library():
     from ramses_tpu_torch import kernels
-    lib = kernels.load("mhd_ct")
+    return bind(kernels.load("mhd_ct"))
+
+
+def bind(lib):
+    """Declare the C entry points' signatures on a loaded build of
+    ``csrc/mhd_ct.cu`` (the tests also load a host build of it)."""
     fn = lib.ramses_mhd_ct
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
         # the kernel's scratch layout lives in the .cu alone
         lib.ramses_mhd_ct_scratch_len.argtypes = [ctypes.c_int,
-                                                  ctypes.c_int64]
+                                                  ctypes.c_int64,
+                                                  ctypes.c_int]
         lib.ramses_mhd_ct_scratch_len.restype = ctypes.c_int64
     return lib
 
@@ -120,10 +137,11 @@ def _launch(up, bfp_ext, dt, dx, cfg, okp, ovr):
         raise ValueError("ct_step_slab: configuration outside the kernel's "
                          f"scope (cfg={cfg}, shape={sp}, dtype={up.dtype})")
     dev = up.device
-    if (up.device.type != "cuda" or up.dim() != nd + 1 or up.shape[0] != 8
-            or not up.is_contiguous()):
+    nvar = cfg.nvar
+    if (up.device.type != "cuda" or up.dim() != nd + 1
+            or up.shape[0] != nvar or not up.is_contiguous()):
         raise ValueError("ct_step_slab: up must be a contiguous "
-                         "[8, *sp+4] CUDA tensor")
+                         f"[{nvar}, *sp+4] CUDA tensor")
     if (tuple(bfp_ext.shape) != (NCOMP,) + tuple(n + 2 * NG + 2 for n in sp)
             or bfp_ext.device != dev or bfp_ext.dtype != up.dtype
             or not bfp_ext.is_contiguous()):
@@ -149,38 +167,56 @@ def _launch(up, bfp_ext, dt, dx, cfg, okp, ovr):
                 raise ValueError(f"ct_step_slab: override {p} must be a "
                                  "pair (d1 < d2) with [*sp+4] mask and "
                                  "values")
-        ovm = torch.stack([ovr[p][0].to(dev, torch.float32) if p in ovr
-                           else zeros for p in pairs]).contiguous()
-        ovv = torch.stack([ovr[p][1].to(dev, torch.float32) if p in ovr
-                           else zeros for p in pairs]).contiguous()
+        if pairs:                       # 1D has no edges to override
+            ovm = torch.stack([ovr[p][0].to(dev, torch.float32) if p in ovr
+                               else zeros for p in pairs]).contiguous()
+            ovv = torch.stack([ovr[p][1].to(dev, torch.float32) if p in ovr
+                               else zeros for p in pairs]).contiguous()
     lib = _library()
+    with torch.cuda.device(dev):
+        out = call(lib, up, bfp_ext, dt, dx, cfg, okf, ovm, ovv,
+                   torch.cuda.current_stream(dev).cuda_stream)
+    launches += 1
+    return out
+
+
+def call(lib, up, bfp_ext, dt, dx, cfg, okf=None, ovm=None, ovv=None,
+         stream=None):
+    """One call of the C entry of ``lib`` (a build of ``csrc/mhd_ct.cu``
+    with :func:`bind` applied) on checked arguments: ``dt`` a 0-d f32
+    tensor, ``okf`` the padded refined mask as f32 0/1, ``ovm``/``ovv``
+    the stacked override [npair, \\*sp+4] in f32, each or None.  Outputs
+    and scratch go on ``up``'s device; raises on an error it returns."""
+    nd = cfg.ndim
+    pshape = tuple(up.shape[1:])
+    sp = tuple(n - 2 * NG for n in pshape)
     npad = 1
     for n in pshape:
         npad *= n
-    nscratch = lib.ramses_mhd_ct_scratch_len(nd, npad)
+    nvar = cfg.nvar
+    dev = up.device
+    nscratch = lib.ramses_mhd_ct_scratch_len(nd, npad, nvar)
     scratch = torch.empty(nscratch, dtype=torch.float32, device=dev)
-    un = torch.empty((8,) + sp, dtype=torch.float32, device=dev)
+    un = torch.empty((nvar,) + sp, dtype=torch.float32, device=dev)
     bfn = torch.empty((NCOMP,) + sp, dtype=torch.float32, device=dev)
     n3 = list(sp) + [1] * (3 - nd)
     dx3 = _dx3(dx, nd)
     g = cfg.gamma
     slope = (float(cfg.slope_type) if cfg.slope_type in (1, 2)
              else float(cfg.slope_theta))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ramses_mhd_ct(
-            up.data_ptr(), bfp_ext.data_ptr(),
-            okf.data_ptr() if okf is not None else None,
-            ovm.data_ptr() if ovm is not None else None,
-            ovv.data_ptr() if ovv is not None else None,
-            dt.data_ptr(), scratch.data_ptr(), un.data_ptr(),
-            bfn.data_ptr(), nscratch, nd, *n3,
-            _RIEMANN[cfg.riemann], _RIEMANN2D[cfg.riemann2d],
-            slope, g, g - 1.0, cfg.smallr, cfg.smallc ** 2,
-            cfg.smallr * cfg.smallc ** 2,
-            cfg.smallc ** 2 / cfg.gamma / (cfg.gamma - 1.0),
-            *dx3, stream)
+    err = lib.ramses_mhd_ct(
+        up.data_ptr(), bfp_ext.data_ptr(),
+        okf.data_ptr() if okf is not None else None,
+        ovm.data_ptr() if ovm is not None else None,
+        ovv.data_ptr() if ovv is not None else None,
+        dt.data_ptr(), scratch.data_ptr(), un.data_ptr(),
+        bfn.data_ptr(), nscratch, nd, *n3, cfg.npassive,
+        _RIEMANN[cfg.riemann], _RIEMANN2D[cfg.riemann2d],
+        cfg.slope_type, slope, g, g - 1.0, g - 2.0, 1.0 / (g - 1.0),
+        cfg.smallr, cfg.smallc, cfg.smallc ** 2,
+        cfg.smallr * cfg.smallc ** 2,
+        cfg.smallc ** 2 / cfg.gamma / (cfg.gamma - 1.0),
+        *dx3, stream)
     if err:
         raise RuntimeError(f"mhd_ct kernel launch failed (cudaError {err})")
-    launches += 1
     return un, bfn

@@ -14,9 +14,9 @@ construction (staggered curl).
 :func:`step` runs each step through the hand-written CUDA kernel
 (:mod:`ramses_tpu_torch.mhd.ct_slab`, the counterpart of the TPU kernel
 ``mhd/pallas_ct.py``) where its ``supports()`` covers the configuration,
-and :func:`step_padded`, this module's formulation, everywhere else (1D,
-Roe/upwind, the remaining corner solvers, passives, f64): a choice made
-by configuration only.  The ensemble variant ``run_steps_batch`` is not
+and :func:`step_padded`, this module's formulation, everywhere else (f64,
+more passives than the kernel takes): a choice made by configuration
+only.  The ensemble variant ``run_steps_batch`` is not
 ported yet.
 """
 

@@ -230,8 +230,9 @@ def test_amr_coarse_step_never_waits_for_the_host(cuda):
 # ---------------------------------------------------------------------------
 # K4: the MHD constrained-transport step (csrc/mhd_ct.cu)
 
-def _mhd_box(sp, seed, masked):
-    """A random padded MHD box on the card: (up, bfp_ext, okp, ovr)."""
+def _mhd_box(sp, seed, masked, npassive=0):
+    """A random padded MHD box on the card: (up, bfp_ext, okp, ovr); 1D
+    has no edge to override."""
     rng = np.random.default_rng(seed)
     nd = len(sp)
     spp = tuple(n + 4 for n in sp)
@@ -252,7 +253,9 @@ def _mhd_box(sp, seed, masked):
         okp = torch.from_numpy(rng.random(spp) < 0.15).to(dev)
         ovr = {(a, b): (torch.from_numpy(rng.random(spp) < 0.2).to(dev),
                         t(0.05 * rng.standard_normal(spp)))
-               for a in range(nd) for b in range(a + 1, nd)}
+               for a in range(nd) for b in range(a + 1, nd)} or None
+    if npassive:
+        up = np.concatenate([up, r * rng.random((npassive,) + spp)])
     return t(up), t(bf), okp, ovr
 
 
@@ -261,14 +264,20 @@ def _mhd_box(sp, seed, masked):
     ((9, 13, 7), "hll", "average", 8, True),
     ((5, 3), "llf", "llf", 2, True),
     ((6, 4, 5), "hlld", "llf", 1, False),
+    ((300,), "roe", "average", 1, True),
+    ((3,), "upwind", "average", 7, False),
+    ((37, 19), "roe", "roe", 1, True),
+    ((21, 8), "hlld", "hlld", 2, False),
+    ((17, 5), "hll", "hlla", 0, True),
+    ((7, 6, 5), "roe", "hlld", 8, True),
 ])
 def test_ct_kernel_matches_plain(cuda, sp, riemann, corner, slope_type,
                                  masked):
     from ramses_tpu_torch.mhd import ct_slab
     from ramses_tpu_torch.mhd.core import MhdStatic
     cfg = MhdStatic(ndim=len(sp), riemann=riemann, riemann2d=corner,
-                    slope_type=slope_type)
-    up, bfp, okp, ovr = _mhd_box(sp, sum(sp), masked)
+                    slope_type=slope_type, npassive=int(masked))
+    up, bfp, okp, ovr = _mhd_box(sp, sum(sp), masked, cfg.npassive)
     dt = torch.tensor(2e-3, dtype=torch.float32, device=cuda)
     dx = (1.0 / 32,) * len(sp)
     got = ct_slab.ct_step_slab(up, bfp, dt, dx, cfg, okp=okp, ovr=ovr)
@@ -280,13 +289,16 @@ def test_ct_kernel_matches_plain(cuda, sp, riemann, corner, slope_type,
 
 def test_scratch_matches_the_kernel_layout(cuda):
     # the layout lives in csrc/mhd_ct.cu alone: q, dq, du_half, q_half,
-    # bf_half, fluxes, edge EMFs
+    # bf_half, fluxes, edge EMFs; the passive maximum there and in the gate
     from ramses_tpu_torch.mhd import ct_slab
     lib = ct_slab._library()
-    assert lib.ramses_mhd_ct_scratch_len(2, 10) == 10 * (
+    assert lib.ramses_mhd_ct_scratch_len(1, 10, 8) == 10 * (
+        8 + 8 + 8 + 8 + 1 + 8 + 0)
+    assert lib.ramses_mhd_ct_scratch_len(2, 10, 8) == 10 * (
         8 + 16 + 8 + 8 + 2 + 16 + 1)
-    assert lib.ramses_mhd_ct_scratch_len(3, 10) == 10 * (
-        8 + 24 + 8 + 8 + 3 + 24 + 3)
+    assert lib.ramses_mhd_ct_scratch_len(3, 10, 9) == 10 * (
+        9 + 27 + 9 + 8 + 3 + 27 + 3)
+    assert lib.ramses_mhd_ct_max_passive() == ct_slab.MAX_PASSIVE
 
 def test_ct_kernel_counts_launches_and_refuses_outside_scope(cuda):
     from ramses_tpu_torch.mhd import ct_slab
@@ -298,13 +310,12 @@ def test_ct_kernel_counts_launches_and_refuses_outside_scope(cuda):
     ct_slab.ct_step_slab(up, bfp, dt, (0.1, 0.1), cfg)
     ct_slab.ct_step_slab_ref(up, bfp, dt, (0.1, 0.1), cfg)
     assert ct_slab.launches == before + 1
-    assert not ct_slab.supports(MhdStatic(ndim=1), (256,), torch.float32)
-    assert not ct_slab.supports(MhdStatic(ndim=2, riemann="roe"), (8, 8),
+    assert not ct_slab.supports(MhdStatic(ndim=2, slope_type=3), (8, 8),
                                 torch.float32)
     assert not ct_slab.supports(cfg, (8, 8), torch.float64)
     with pytest.raises(ValueError):        # no fallback on a CUDA tensor
         ct_slab.ct_step_slab(up, bfp, dt, (0.1, 0.1),
-                             MhdStatic(ndim=2, riemann="roe"))
+                             MhdStatic(ndim=2, slope_type=3))
     with pytest.raises(ValueError):
         ct_slab.ct_step_slab(up.double(), bfp.double(), dt, (0.1, 0.1), cfg)
     with pytest.raises(ValueError):
@@ -352,6 +363,33 @@ def test_mhd_on_cuda_matches_cpu_and_never_waits(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(n) == 2 and bool(torch.isfinite(u).all())
+
+
+def test_tube_mhd_runs_k4_every_step_and_never_waits(cuda):
+    """``namelists/tube_mhd.nml`` (1D, Roe, outflow) as ``run_namelist``
+    runs it: one K4 launch a step, Bx untouched, and steps that issue
+    device work only."""
+    import os
+    from ramses_tpu_torch.driver import run_namelist
+    from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.mhd import uniform as mu
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    nml = os.path.join(root, "namelists", "tube_mhd.nml")
+    before = ct_slab.launches
+    sim = run_namelist(nml, ndim=1, nstepmax=5)
+    assert sim.nstep == 5 and ct_slab.launches - before == 5
+    assert bool(torch.isfinite(sim.u).all())
+    bx = sim.bf[0].clone()
+    t = torch.tensor(sim.t, dtype=torch.float64, device=cuda)
+    tend = torch.tensor(1e9, dtype=torch.float64, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        u, bf, t, n = mu.run_steps(sim.grid, sim.u, sim.bf, t, tend, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(n) == 2 and ct_slab.launches - before == 7
+    assert torch.equal(bf[0], bx) and bool(torch.isfinite(u).all())
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,9 @@
 version of the hand-written kernel ``csrc/mhd_ct.cu``) against
 ``ramses_tpu.mhd.pallas_ct.ct_step_slab`` run in the Pallas interpreter
 on the CPU, called directly as ``tests/test_dma_halo.py`` runs it, on
-seeded random padded boxes: 2D 16² and 3D 8³, plain and with a refined
-mask and an EMF override, in f32 (the table of
+seeded random padded boxes: 1D with each solver, 2D with each corner
+solver, 3D, slope types 0/1/2/7/8 and a passive scalar, plain and with a
+refined mask and an EMF override, in f32 (the table of
 ``tests/test_pallas_kernel.py``: rtol 2e-5 / atol 2e-6) and in f64
 (1e-12).  Also the kernel's gate and the dispatch around it on the CPU,
 where the wrapper runs the plain version and never launches.
@@ -30,9 +31,10 @@ F32_RTOL, F32_ATOL = 2e-5, 2e-6
 F64_RTOL = 1e-12
 
 
-def _box(nd, n, seed, masked, dtype):
-    """A random padded box: (up [8, n+4...], bfp_ext [3, n+6...], okp,
-    ovr) as numpy of ``dtype``."""
+def _box(nd, n, seed, masked, dtype, npassive=0):
+    """A random padded box: (up [8 + npassive, n+4...], bfp_ext [3,
+    n+6...], okp, ovr) as numpy of ``dtype``; 1D has no edge to
+    override."""
     rng = np.random.default_rng(seed)
     sp = (n + 4,) * nd
     spe = (n + 6,) * nd
@@ -48,22 +50,50 @@ def _box(nd, n, seed, masked, dtype):
         okp = rng.random(sp) < 0.2
         ovr = {(a, b): (rng.random(sp) < 0.3,
                         (0.05 * rng.standard_normal(sp)).astype(dtype))
-               for a in range(nd) for b in range(a + 1, nd)}
+               for a in range(nd) for b in range(a + 1, nd)} or None
+    if npassive:
+        up = np.concatenate([up, (r * rng.random((npassive,) + sp))
+                             .astype(dtype)])
     return up, bf.astype(dtype), okp, ovr
 
 
-@pytest.mark.parametrize("nd,n,solver,corner,slope", [
-    (2, 16, "hlld", "llf", 1),
-    (3, 8, "hll", "average", 8),
+def _case(nd, n, solver, corner, slope, npassive=0):
+    name = f"{nd}-{n}-{solver}-{corner}-{slope}"
+    return pytest.param(nd, n, solver, corner, slope, npassive,
+                        id=name + (f"-p{npassive}" if npassive else ""))
+
+
+@pytest.mark.parametrize("nd,n,solver,corner,slope,npassive", [
+    _case(2, 16, "hlld", "llf", 1),
+    _case(3, 8, "hll", "average", 8),
+    # 1D: each solver (no edges: the corner kind is not read)
+    _case(1, 16, "llf", "average", 2),
+    _case(1, 16, "hll", "average", 8),
+    _case(1, 16, "hlld", "average", 1),
+    _case(1, 16, "roe", "average", 1),
+    _case(1, 16, "upwind", "average", 0),
+    # 2D: each corner kind, slope types 0 and 7
+    _case(2, 8, "llf", "average", 7),
+    _case(2, 8, "roe", "roe", 1),
+    _case(2, 8, "llf", "upwind", 2),
+    _case(2, 8, "hll", "hll", 0),
+    _case(2, 8, "hll", "hlla", 7),
+    _case(2, 8, "hlld", "hlld", 1),
+    # 3D and a passive scalar
+    _case(3, 6, "roe", "roe", 1),
+    _case(3, 6, "hlld", "hlla", 8),
+    _case(2, 8, "upwind", "hlld", 1, npassive=1),
 ])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_plain_version_matches_pallas_kernel(nd, n, solver, corner, slope,
-                                             masked, dtype):
+                                             npassive, masked, dtype):
     jc = JMhdStatic(ndim=nd, riemann=solver, riemann2d=corner,
-                    slope_type=slope)
+                    slope_type=slope, npassive=npassive)
     cfg = mhd_static_from(jc)
-    up, bfp, okp, ovr = _box(nd, n, 3 + nd + 10 * masked, masked, dtype)
+    assert ct_slab.supports(cfg, (n,) * nd, torch.float32)
+    up, bfp, okp, ovr = _box(nd, n, 3 + nd + 10 * masked, masked, dtype,
+                             npassive)
     dx = (1.0 / n,) * nd
     dt = dtype(2e-3)
     jun, jbfn = pallas_ct.ct_step_slab(
@@ -81,7 +111,8 @@ def test_plain_version_matches_pallas_kernel(nd, n, solver, corner, slope,
         okp=None if okp is None else torch.tensor(okp),
         ovr=None if ovr is None else {
             k: (torch.tensor(m), torch.tensor(v)) for k, (m, v) in ovr.items()})
-    assert un.dtype == tdt and tuple(un.shape) == (8,) + (n,) * nd
+    assert un.dtype == tdt
+    assert tuple(un.shape) == (8 + npassive,) + (n,) * nd
     assert tuple(bfn.shape) == (3,) + (n,) * nd
     if dtype == np.float32:
         np.testing.assert_allclose(un.numpy(), want_u, rtol=F32_RTOL,
@@ -95,21 +126,30 @@ def test_plain_version_matches_pallas_kernel(nd, n, solver, corner, slope,
 
 
 def test_supports_is_the_kernel_scope():
-    ok = MhdStatic(ndim=2, riemann="hlld", riemann2d="llf", slope_type=1)
-    assert ct_slab.supports(ok, (2048, 2048), torch.float32)
-    assert ct_slab.supports(MhdStatic(ndim=3, riemann="llf",
-                                      riemann2d="average", slope_type=8),
-                            (64, 64, 64), torch.float32)
+    f32 = torch.float32
+    accepted = [
+        (MhdStatic(ndim=2, riemann="hlld", riemann2d="llf"), (2048, 2048)),
+        (MhdStatic(ndim=3, riemann="llf", riemann2d="average",
+                   slope_type=8), (64, 64, 64)),
+        (MhdStatic(ndim=1, riemann="roe"), (256,)),             # the tube
+        (MhdStatic(ndim=1, riemann="upwind", slope_type=0), (16,)),
+        (MhdStatic(ndim=2, riemann="roe", riemann2d="roe"), (16, 16)),
+        (MhdStatic(ndim=2, riemann="upwind", slope_type=7), (16, 16)),
+        (MhdStatic(ndim=2, npassive=1), (16, 16)),
+        (MhdStatic(ndim=3, npassive=ct_slab.MAX_PASSIVE), (8, 8, 8)),
+    ]
+    accepted += [(MhdStatic(ndim=2, riemann2d=kind), (16, 16))
+                 for kind in ("average", "llf", "roe", "upwind", "hll",
+                              "hlla", "hlld")]
+    for cfg, shape in accepted:
+        assert ct_slab.supports(cfg, shape, f32), cfg
     refused = [
-        (MhdStatic(ndim=1), (256,), torch.float32),                # 1D
-        (MhdStatic(ndim=2, riemann="roe"), (16, 16), torch.float32),
-        (MhdStatic(ndim=2, riemann="upwind"), (16, 16), torch.float32),
-        (MhdStatic(ndim=2, riemann2d="hlld"), (16, 16), torch.float32),
-        (MhdStatic(ndim=2, riemann2d="roe"), (16, 16), torch.float32),
-        (MhdStatic(ndim=2, slope_type=7), (16, 16), torch.float32),
-        (MhdStatic(ndim=2, npassive=1), (16, 16), torch.float32),
         (MhdStatic(ndim=2), (16, 16), torch.float64),             # f64
-        (MhdStatic(ndim=3), (16, 16), torch.float32),             # shape
+        (MhdStatic(ndim=3), (16, 16), f32),                       # shape
+        (MhdStatic(ndim=1), (16, 16), f32),
+        (MhdStatic(ndim=2, trailing_batch=True), (16, 16), f32),
+        (MhdStatic(ndim=2, slope_type=3), (16, 16), f32),
+        (MhdStatic(ndim=2, npassive=ct_slab.MAX_PASSIVE + 1), (16, 16), f32),
     ]
     for cfg, shape, dtype in refused:
         assert not ct_slab.supports(cfg, shape, dtype), cfg
@@ -131,8 +171,8 @@ def test_wrapper_runs_the_plain_version_on_cpu():
 @pytest.mark.parametrize("solver", ["hlld", "roe"])
 def test_step_takes_the_kernel_path_by_configuration(solver):
     """``uniform.step`` pads and hands the box to ``ct_step_slab`` inside
-    the gate (on the CPU its plain version) and runs ``step_padded``
-    outside it; both give the same step."""
+    the gate (on the CPU its plain version; f32, both solvers) and runs
+    ``step_padded`` outside it (f64); both give the same step."""
     cfg = MhdStatic(ndim=2, riemann=solver, riemann2d="llf")
     shape = (6, 5)
     grid = mu.MhdGrid(cfg=cfg, shape=shape, dx=0.2,
@@ -142,14 +182,14 @@ def test_step_takes_the_kernel_path_by_configuration(solver):
     u = np.stack([r, 0.1 * r, -0.2 * r, 0.05 * r,
                   2.0 + rng.random(shape), *np.zeros((3,) + shape)])
     bf = 0.3 * rng.standard_normal((3,) + shape)
-    ut = torch.tensor(u, dtype=torch.float32)
-    bft = torch.tensor(bf, dtype=torch.float32)
-    dt = torch.tensor(1e-3, dtype=torch.float32)
-    un, bfn = mu.step(grid, ut, bft, dt)
-    up = mu._pad(ut, 2, grid.bc_kinds)
-    bfp = mu._pad(bft, 2, grid.bc_kinds, 3)
-    wu, wb = mu.step_padded(cfg, (0.2, 0.2), up, bfp, dt)
-    assert torch.equal(un, mu._unpad(wu, 2))
-    assert torch.equal(bfn, torch.stack([mu._unpad(b, 2) for b in wb]))
-    assert ct_slab.supports(cfg, shape, torch.float32) == (solver == "hlld")
-
+    for dtype in (torch.float32, torch.float64):
+        ut = torch.tensor(u, dtype=dtype)
+        bft = torch.tensor(bf, dtype=dtype)
+        dt = torch.tensor(1e-3, dtype=dtype)
+        un, bfn = mu.step(grid, ut, bft, dt)
+        up = mu._pad(ut, 2, grid.bc_kinds)
+        bfp = mu._pad(bft, 2, grid.bc_kinds, 3)
+        wu, wb = mu.step_padded(cfg, (0.2, 0.2), up, bfp, dt)
+        assert torch.equal(un, mu._unpad(wu, 2))
+        assert torch.equal(bfn, torch.stack([mu._unpad(b, 2) for b in wb]))
+        assert ct_slab.supports(cfg, shape, dtype) == (dtype == torch.float32)
