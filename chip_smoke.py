@@ -125,7 +125,36 @@ Phases, each printing its own line; any failure exits non-zero:
    ``chiprun_out/chip_smoke_mhd_amr_trace.json``;
 21. ``namelists/orszag2d.nml`` as the CLI runs it: ``run_namelist(...,
    ndim=2, solver="mhd")`` to t = 0.2, then two 3-coarse-step replays
-   from its final state, bitwise equal.
+   from its final state, bitwise equal;
+22. the flux variants (``want_flux``, the MC gas tracers' face mass
+   fluxes) of K1 (64³, masked with dt_next and unmasked), K3 (shift 1 and
+   2) and K2 against their plain versions on random inputs: du,
+   corrections and phi within rtol 2e-5 / atol 2e-6;
+23. the MC-tracer main path: phase 8's sedov3d AMR with ``tracer=.true.``
+   and ``tracer_per_cell=1.0`` set in code (~2.1 M tracers), ``evolve``
+   for 5 coarse steps (a regrid before each) with every launch count at 0
+   just before ``AmrSim()``: K1 with the fluxes once per coarse step, K3
+   with the fluxes once per partial-level substep, no other kernel; after
+   each step Σ_d (φ_lo − φ_hi) == Δρ on every leaf cell of every level
+   (rtol 2e-4 / atol 2e-6, the JAX package's oracle); the tracer count and
+   ids conserved (periodic box); the tracers on the level 8-9 leaves within
+   5σ of tracer_per_cell · N_leaf · their gas mass share; wall and
+   cell-updates/s;
+24. the flux variants at the tracer path's state, as the path gathers it
+   (K1 on level 7 with its mask, K3 and K2 on levels 8 and 9), each value
+   within ``LOCAL_ATOL + LOCAL_RTOL·M`` of the plain version (for phi, M
+   the density's max over the 5³ stencils of the cells a face touches);
+   device ms a call with and without the fluxes, the plain version's ms,
+   the bound;
+25. one tracer coarse step: host wall by part (regrid, Courant fetch, the
+   step, the phi fetch, ``mc_tracer_amr``) and a profile, trace to
+   ``chiprun_out/chip_smoke_tracer_trace.json``;
+26. the tracer path with ``oct_blocking=.false.`` for 2 coarse steps: K2
+   with the fluxes once per partial-level substep, the mass identity, the
+   tracer count;
+27. ``namelists/detente.nml`` (1D, ``riemann='exact'``) through
+   ``run_namelist`` on the card to tend, against the CPU f64 run (each
+   field within 1e-4 of its max).
 
 The line before the last holds every ported kernel's numbers as one JSON
 object (``{"kernels": [...]}``); the last line is
@@ -175,6 +204,14 @@ MHD3D_LEVEL = 7                # the 3D solenoidal run at 128³
 MHD_CHECK_SHAPES = ((256, 256), (64, 64, 64))
 OT_NML = os.path.join(ROOT, "namelists", "orszag2d.nml")
 TUBE_NML = os.path.join(ROOT, "namelists", "tube_mhd.nml")
+DETENTE_NML = os.path.join(ROOT, "namelists", "detente.nml")
+# the MC-tracer main path: BASELINE config 2 with &RUN_PARAMS tracer and
+# tracer_per_cell=1.0 (the namelist default) set in code, cut to 5 coarse
+# steps (2 with oct_blocking=.false.)
+TRACER_STEPS, TRACER_STENCIL_STEPS = 5, 2
+# Σ_d (φ_lo − φ_hi) == Δρ on the leaf cells: the JAX package's own oracle
+# (tests/test_mc_tracer_amr.py:44-73) and its f32 tolerance
+FLUX_RTOL, FLUX_ATOL = 2e-4, 2e-6
 # max|div B|·dx / max|B| after 20 (2D) or 10 (3D) f32 steps.  CT keeps
 # div B zero in exact arithmetic; in f32 each face update rounds once per
 # pair (0.5 ulp of |B|, 6e-8), four faces meet in one divergence and the
@@ -330,18 +367,26 @@ def _reset_counts():
     from ramses_tpu_torch.hydro import fused_muscl as fm
     from ramses_tpu_torch.hydro import oct_muscl as om
     from ramses_tpu_torch.mhd import ct_slab
-    fm.launches = 0
+    fm.launches = fm.flux_launches = 0
     ct_slab.launches = 0
     for name in om.launches:
         om.launches[name] = 0
 
 
 def _counts() -> dict:
+    """Every kernel's launch count, the flux variants under their own
+    keys (``fused_muscl_flux``, ``tile_sweep_flux``, ``oct_sweep_flux``)."""
     from ramses_tpu_torch.hydro import fused_muscl as fm
     from ramses_tpu_torch.hydro import oct_muscl as om
     from ramses_tpu_torch.mhd import ct_slab
-    return {"fused_muscl": fm.launches, **om.launches,
-            "ct_step_slab": ct_slab.launches}
+    return {"fused_muscl": fm.launches, "fused_muscl_flux": fm.flux_launches,
+            **om.launches, "ct_step_slab": ct_slab.launches}
+
+
+def _want(**n) -> dict:
+    """The counts a path should show: ``n`` for the kernels named, 0 for
+    every other kernel and variant."""
+    return {k: n.get(k, 0) for k in _counts()}
 
 
 def _amr_params(blocked: bool = True):
@@ -413,8 +458,10 @@ def _device_ms(fn, kernel: str, n: int = 50, per_call: int = 1) -> float:
     ``torch.profiler`` over ``n`` calls after a warm-up: the sum over the
     kernels of each one's mean time.  CUDA events around a call of a
     ~10 µs kernel measure the host's dispatch of the call instead.  The
-    trace may miss one launch of a window (it missed one of 180 K4 stage
-    launches once), so each kernel must show n or n - 1 launches."""
+    trace may miss a launch or two of a window (it missed one of 180 K4
+    stage launches once, and two of 50 K3 launches with the fluxes once),
+    which leaves each kernel's mean unchanged, so each kernel must show n
+    - 2 to n launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -429,7 +476,7 @@ def _device_ms(fn, kernel: str, n: int = 50, per_call: int = 1) -> float:
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and kernel in e.key]
     counts = [e.count for e in rows]
-    if len(rows) != per_call or not all(c in (n - 1, n) for c in counts):
+    if len(rows) != per_call or not all(n - 2 <= c <= n for c in counts):
         raise AssertionError(f"profiled launches {counts} of {kernel}, "
                              f"expected {n} of each of {per_call} kernels")
     return sum(e.self_device_time_total / e.count for e in rows) / 1e3
@@ -537,9 +584,9 @@ def _amr_phases(dev):
     wall = time.perf_counter() - t0
     launches = _counts()
     del sim.step_coarse
-    want = {"fused_muscl": len(stepped), "oct_sweep": 0, "ct_step_slab": 0,
-            "tile_sweep": sum(2 ** (l - lmin) for lv in stepped for l in lv
-                              if l > lmin)}
+    want = _want(fused_muscl=len(stepped),
+                 tile_sweep=sum(2 ** (l - lmin) for lv in stepped for l in lv
+                                if l > lmin))
     mass1 = float(sim.totals()["mass"])
     octs = {l: sim.tree.noct(l) for l in sim.levels()}
     every = list(range(p.amr.levelmin, p.amr.levelmax + 1))
@@ -1142,8 +1189,7 @@ def _mhd_phases(dev):
     launches = _counts()
     tot1 = {k: float(v) for k, v in sim.totals().items() if k != "momentum"}
     divb1 = _divb_rel(sim)
-    want = {"fused_muscl": 0, "tile_sweep": 0, "oct_sweep": 0,
-            "ct_step_slab": sim.nstep}
+    want = _want(ct_step_slab=sim.nstep)
     if sim.nstep != 20 or sim.grid.shape != (n, n):
         raise AssertionError(f"MHD main path ran {sim.nstep} steps at "
                              f"{sim.grid.shape}, expected 20 at {n}²")
@@ -1246,8 +1292,7 @@ def _mhd_phases(dev):
     l3 = _counts()
     d1 = _divb_rel(sim3)
     m1 = float(sim3.totals()["mass"])
-    if sim3.nstep != 10 or l3 != {"fused_muscl": 0, "tile_sweep": 0,
-                                  "oct_sweep": 0, "ct_step_slab": 10}:
+    if sim3.nstep != 10 or l3 != _want(ct_step_slab=10):
         raise AssertionError(f"3D MHD ran {sim3.nstep} steps, launched "
                              f"{l3}")
     if not (bool(torch.isfinite(sim3.u).all()) and d1 <= DIVB_REL
@@ -1372,8 +1417,7 @@ def _evolve_counted(sim, nstep: int):
 
 
 def _k4_only(n: int) -> dict:
-    return {"fused_muscl": 0, "tile_sweep": 0, "oct_sweep": 0,
-            "ct_step_slab": n}
+    return _want(ct_step_slab=n)
 
 
 def _mhd_variant_ot(dev, riemann: str, riemann2d: str, tag: str) -> dict:
@@ -1698,8 +1742,7 @@ def _mhd_amr_phases(dev):
     peak = torch.cuda.max_memory_allocated()
     k4_want = sum(2 ** (l - lmin) for spec in stepped
                   for l, c in zip(spec.levels, spec.complete) if c)
-    want = {"fused_muscl": 0, "tile_sweep": 0, "oct_sweep": 0,
-            "ct_step_slab": k4_want}
+    want = _want(ct_step_slab=k4_want)
     tot1 = sim.totals()
     octs = {l: sim.tree.noct(l) for l in sim.levels()}
     complete = [l for l in sim.levels() if sim.maps[l].complete]
@@ -1808,6 +1851,460 @@ def _mhd_amr_phases(dev):
     return launches["ct_step_slab"], err18
 
 
+def _flux_scales(blk, c: int, planes: bool):
+    """The scale of each mass flux a sweep of ``blk`` returns: the largest
+    density over the 5³ stencils of the cells the face touches (K3's
+    planes ``[3, c+1, c, c, N]``), or over the cell's own 5³ stencil,
+    which holds both cells of either face (K2's ``[3, 2, 2, 2, 2, N]``)."""
+    import torch
+    from ramses_tpu_torch.amr import kernels as K
+    s = _block_stencil_scale(blk)[0]
+    if planes:
+        return torch.stack([K._mass_planes(torch.maximum(s, s.roll(1, d)),
+                                           d, 3, c) for d in range(3)])
+    core = s[2:4, 2:4, 2:4]
+    return core.expand((3, 2) + tuple(core.shape))
+
+
+def _leaf_tracers(sim, levels):
+    """How many tracers sit on leaf cells of ``levels`` (each tracer at its
+    finest covering level, as the jumps locate it), and the gas mass share
+    of those leaves."""
+    import numpy as np
+    from ramses_tpu_torch.pm import amr_physics
+    lev = np.full(len(sim.tracer_x), -1)
+    for l in sim.levels():
+        rows = amr_physics.ngp_rows(sim.tree, sim.tracer_x, l, sim.boxlen,
+                                    sim.bc_kinds)
+        lev[rows >= 0] = l
+    mass = {}
+    for l in sim.levels():
+        _, u = sim.leaf_sample(l)
+        mass[l] = float(u[:, 0].sum()) * sim.dx(l) ** 3
+    share = sum(mass[l] for l in levels) / sum(mass.values())
+    return int(np.isin(lev, levels).sum()), share
+
+
+def _mass_identity(tree, u0, u1, phi):
+    """Worst (|Σ_d (φ_lo − φ_hi) − Δρ| − tolerance) over the leaf cells of
+    every level of one coarse step (``tree`` the step's tree, ``u0``/``u1``
+    the state before and after it, ``phi`` its capture), and the worst
+    |difference|."""
+    import torch
+    excess, worst = -1.0, 0.0
+    for l in phi:
+        nc = tree.noct(l) * 8
+        leaf = torch.from_numpy(~tree.refined_mask(l)).to(phi[l].device)
+        drho = (u1[l][:nc, 0] - u0[l][:nc, 0])[leaf]
+        net = (phi[l][:nc, :, 0] - phi[l][:nc, :, 1]).sum(dim=1)[leaf]
+        d = (net - drho).abs()
+        worst = max(worst, float(d.max()))
+        excess = max(excess, float(
+            (d - (FLUX_ATOL + FLUX_RTOL * drho.abs())).max()))
+    return excess, worst
+
+
+def _tracer_run(blocked: bool, nsteps: int) -> dict:
+    """sedov3d AMR at ``AMR_LEVELS`` with ``tracer=.true.`` and
+    ``tracer_per_cell=1.0`` set in code, ``evolve`` for ``nsteps`` coarse
+    steps (a regrid before each) with every launch count at 0 just before
+    ``AmrSim()``; each step's tree, state before and after and capture are
+    kept for the checks."""
+    import torch
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    p = _amr_params(blocked)
+    p.run.tracer = True
+    p.run.tracer_per_cell = 1.0
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim = AmrSim(p)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    steps = []
+    step_coarse, source = sim.step_coarse, sim._source_passes
+
+    def stepped(dt):
+        rec = dict(levels=tuple(sim.levels()), tree=sim.tree,
+                   u0=dict(sim.u))
+        steps.append(rec)
+        step_coarse(dt)
+        rec["u1"] = dict(sim.u)
+
+    def captured(dt):
+        steps[-1]["phi"] = dict(sim._tracer_phi)
+        source(dt)
+    sim.step_coarse, sim._source_passes = stepped, captured
+    n0, ids0 = len(sim.tracer_x), sim.tracer_id.copy()
+    nleaf0 = sim.ncell_leaf()
+    mass0 = float(sim.totals()["mass"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.evolve(p.output.tout[-1], nstepmax=nsteps)
+    sim.drain()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    del sim.step_coarse, sim._source_passes
+    return dict(sim=sim, steps=steps, launches=launches, n0=n0, ids0=ids0,
+                nleaf0=nleaf0, mass0=mass0, wall=wall, init_s=init_s)
+
+
+def _tracer_check(r: dict, kern: str, nsteps: int):
+    """The tracer path's launches (K1 with the fluxes once per coarse
+    step, ``kern`` once per partial-level substep, no other kernel), the
+    capture's mass identity on every leaf cell of every level after each
+    step, the tracer count and ids (periodic box), the leaf mass and a
+    finite state.  Returns the identity's worst |difference|."""
+    import numpy as np
+    import torch
+    sim, lmin = r["sim"], AMR_LEVELS[0]
+    want = _want(fused_muscl_flux=len(r["steps"]), **{
+        kern: sum(2 ** (l - lmin) for rec in r["steps"]
+                  for l in rec["levels"] if l > lmin)})
+    if sim.nstep != nsteps or len(r["steps"]) != nsteps:
+        raise AssertionError(f"tracer path ran {sim.nstep} steps, expected "
+                             f"{nsteps}")
+    if r["launches"] != want or want[kern] == 0:
+        raise AssertionError(f"tracer path launched {r['launches']}, "
+                             f"expected {want}")
+    worst = 0.0
+    for k, rec in enumerate(r["steps"]):
+        ex, w = _mass_identity(rec["tree"], rec["u0"], rec["u1"],
+                               rec["phi"])
+        worst = max(worst, w)
+        if not ex <= 0.0:
+            raise AssertionError(
+                f"step {k}: the captured face fluxes miss the mass update "
+                f"on a leaf cell by {w:.3e} (tolerance excess {ex:.3e})")
+    if len(sim.tracer_x) != r["n0"] or not np.array_equal(sim.tracer_id,
+                                                           r["ids0"]):
+        raise AssertionError(f"tracer count {r['n0']} -> "
+                             f"{len(sim.tracer_x)} in a periodic box")
+    mass1 = float(sim.totals()["mass"])
+    if abs(mass1 - r["mass0"]) > 1e-5 * abs(r["mass0"]):
+        raise AssertionError(f"leaf mass {r['mass0']} -> {mass1}")
+    if not all(bool(torch.isfinite(sim.u[l]).all()) for l in sim.levels()):
+        raise AssertionError("tracer path state is not finite")
+    return worst
+
+
+def _tracer_phases(dev):
+    """Phases 22-26 (the MC-tracer slice); returns the kernels line's rows
+    of K1, K3 and K2 with the face mass fluxes."""
+    import torch
+    from ramses_tpu_torch.amr import kernels as K
+    from ramses_tpu_torch.grid import boundary as bmod
+    from ramses_tpu_torch.hydro import fused_muscl as fm
+    from ramses_tpu_torch.hydro import oct_muscl as om
+    from ramses_tpu_torch.hydro.core import HydroStatic
+    from ramses_tpu_torch.pm import amr_physics
+
+    # ---- 22. the flux variants against their plain versions ----
+    worst = {"fused_muscl_flux": 0.0, "tile_sweep_flux": 0.0,
+             "oct_sweep_flux": 0.0}
+    ncase = 0
+    periodic = bmod.BoundarySpec.periodic(3)
+    for i, (rs, st, masked) in enumerate((("llf", 1, True),
+                                          ("hllc", 2, False),
+                                          ("hllc", 8, True))):
+        cfg = HydroStatic(ndim=3, riemann=rs, slope_type=st)
+        dt = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+        u = torch.from_numpy(_random_state(CHECK_SHAPE, cfg.gamma,
+                                           300 + i)).to(dev)
+        g = torch.Generator(device="cpu").manual_seed(400 + i)
+        ok = ((torch.rand(CHECK_SHAPE, generator=g) < 0.1)
+              & masked).to(dev)
+        got = fm.fused_step(u, dt, cfg, 1.0 / 64, periodic, ok=ok,
+                            courant=masked, want_flux=True)
+        want = fm.fused_step_ref(u, dt, cfg, 1.0 / 64, periodic, ok=ok,
+                                 courant=masked, want_flux=True)
+        torch.cuda.synchronize()
+        err, ex = _pair_check((got[0], got[-1]), (want[0], want[-1]))
+        rel = (abs(float(got[1]) - float(want[1])) / float(want[1])
+               if masked else 0.0)
+        if not (ex <= 0.0 and rel <= DT_REL):
+            raise AssertionError(
+                f"fused_muscl with want_flux disagrees with its plain "
+                f"version: riemann={rs} slope_type={st} masked={masked}: "
+                f"max abs err {err:.3e}, tolerance excess {ex:.3e}, dt rel "
+                f"{rel:.3e}")
+        worst["fused_muscl_flux"] = max(worst["fused_muscl_flux"], err)
+        ncase += 1
+        for name, side, n, shift in (("tile_sweep", 8, 64, 1),
+                                     ("tile_sweep", 12, 64, 2),
+                                     ("oct_sweep", 6, 256, None)):
+            shape = (side,) * 3 + (n,)
+            ub = torch.from_numpy(_random_state(shape, cfg.gamma,
+                                                500 + i)).to(dev)
+            okb = ((torch.rand(shape, generator=g) < 0.15)
+                   & masked).to(dev)
+            extra = (shift,) if shift is not None else ()
+            got = getattr(om, name)(ub, okb, dt, cfg, 1.0 / 64, *extra,
+                                    want_flux=True)
+            want = getattr(om, name + "_ref")(ub, okb, dt, cfg, 1.0 / 64,
+                                              *extra, want_flux=True)
+            torch.cuda.synchronize()
+            err, ex = _pair_check(got, want)
+            if not (ex <= 0.0 and len(got) == 3):
+                raise AssertionError(
+                    f"{name} with want_flux disagrees with its plain "
+                    f"version: riemann={rs} slope_type={st} shape={shape} "
+                    f"masked={masked}: max abs err {err:.3e}, tolerance "
+                    f"excess {ex:.3e}")
+            worst[name + "_flux"] = max(worst[name + "_flux"], err)
+            ncase += 1
+    _print(f"phase 22 flux-variant kernel check: {ncase} cases (K1 64³ "
+           f"masked with dt_next and unmasked; K3 shift 1 and 2, N 64; K2 "
+           f"N 256) pass for du, corrections and phi; max abs err "
+           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+    # ---- 23. the MC-tracer main path ----
+    lmin, lmax = AMR_LEVELS
+    r = _tracer_run(True, TRACER_STEPS)
+    sim = r["sim"]
+    worst_id = _tracer_check(r, "tile_sweep_flux", TRACER_STEPS)
+    n_fine, share = _leaf_tracers(sim, [l for l in sim.levels() if l > lmin])
+    expect = float(sim.params.run.tracer_per_cell) * r["nleaf0"] * share
+    sigma = expect ** 0.5
+    if not abs(n_fine - expect) <= 5.0 * sigma:
+        raise AssertionError(
+            f"{n_fine} tracers on the level {lmin + 1}-{lmax} leaves "
+            f"against {expect:.1f} +- {sigma:.1f} for their gas mass "
+            f"share {share:.6e}")
+    octs = {l: sim.tree.noct(l) for l in sim.levels()}
+    _print(f"phase 23 MC-tracer main path: sedov3d levelmin={lmin} "
+           f"levelmax={lmax} tracer=.true. tracer_per_cell=1.0, "
+           f"{sim.nstep} coarse steps t={sim.t:.6e}, octs per level {octs}, "
+           f"launches {r['launches']}; {len(sim.tracer_x)} tracers, "
+           f"conserved with their ids; on the level {lmin + 1}-{lmax} "
+           f"leaves {n_fine} against tpc * N_leaf * mass share = "
+           f"{expect:.1f} (sigma {sigma:.1f}, share {share:.6e}); mass "
+           f"identity on every leaf cell of every step within rtol "
+           f"{FLUX_RTOL} / atol {FLUX_ATOL} (worst |difference| "
+           f"{worst_id:.3e}); AmrSim() with seeding {r['init_s']:.3f} s, "
+           f"evolve {r['wall']:.3f} s = "
+           f"{sim.cell_updates / r['wall']:.4e} cell-updates/s")
+    del r["steps"]
+    torch.cuda.empty_cache()
+
+    # ---- 24. the flux variants at the path's state, and their times ----
+    cfg = sim.cfg
+    shift = sim._fused_spec().block_shift
+    c_ = 1 << (shift + 1)
+    td = c_ + 4
+    dtc = sim.coarse_dt()
+    rows, lines = {}, []
+    fine = sim.levels()[1:]
+
+    def timing(kern, plain, args, nbytes, keep, base_kern):
+        """Device ms a call with and without the fluxes, the plain
+        version's ms with them, and the bound of the flux variant."""
+        ms = _device_ms(lambda: kern(*args, want_flux=True), base_kern)
+        ms0 = _device_ms(lambda: kern(*args), base_kern)
+        pms = _median_ms(lambda: plain(*args, want_flux=True), reps=10)
+        nops = _count_ops(lambda: plain(*args, want_flux=True)) * keep
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * nops / F32_OPS_PER_S
+        return dict(ms=ms, ms0=ms0, plain_ms=pms,
+                    bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    note=(f"{nbytes / 1e6:.3f} MB -> {bytes_ms:.5f} ms; "
+                          f"{nops / 1e9:.4f} G ops -> {ops_ms:.5f} ms"))
+    for name in ("tile_sweep", "oct_sweep"):
+        for l in fine:
+            d = sim.dev[l]
+            dx = sim.dx(l)
+            dt = torch.tensor(dtc / 2 ** (l - lmin), dtype=torch.float32,
+                              device=dev)
+            if name == "tile_sweep":
+                interp = K.interp_cells(sim.u[l - 1], d["b_interp_cell"],
+                                        d["b_interp_nb"], d["b_interp_sgn"],
+                                        cfg)
+                blk = K._gather_utile(sim.u[l], interp, d["tile_src"],
+                                      d["tile_vsgn"], cfg, td)
+                ok = K._block_mask(d["tile_ok"], td, 3).to(torch.float32)
+                extra, keep, c = (shift,), c_ ** 3 / td ** 3, c_
+            else:
+                interp = K.interp_cells(sim.u[l - 1], d["interp_cell"],
+                                        d["interp_nb"], d["interp_sgn"], cfg)
+                blk = K._gather_uloc(sim.u[l], interp, d["stencil_src"],
+                                     d["vsgn"], cfg)
+                ok = K._block_mask(d["ok_ref"], 6, 3).to(torch.float32)
+                extra, keep, c = (), 8 / 216, 2
+            kern = getattr(om, name)
+            plain = getattr(om, name + "_ref")
+            args = (blk, ok, dt, cfg, dx, *extra)
+            got = kern(*args, want_flux=True)
+            want = plain(*args, want_flux=True)
+            torch.cuda.synchronize()
+            scales = _output_scales(blk, c, name == "tile_sweep") + (
+                _flux_scales(blk, c, name == "tile_sweep"),)
+            err, rel, ex = _local_check(got, want, scales)
+            del scales
+            rel = "/".join(f"{x:.3e}" for x in rel)
+            if not ex <= 0.0:
+                raise AssertionError(f"{name} with want_flux disagrees with "
+                                     f"its plain version on level {l} of "
+                                     f"the tracer path: max abs err "
+                                     f"{err:.3e}, err / M (du/faces/phi) "
+                                     f"{rel}")
+            nbytes = 4 * (blk.numel() + ok.numel() + 1
+                          + sum(x.numel() for x in got))
+            rows[(name, l)] = dict(err=err, **timing(
+                kern, plain, args, nbytes, keep, "sweep_kernel"))
+            t = rows[(name, l)]
+            lines.append(f"{name} with fluxes level {l} N={blk.shape[-1]}: "
+                         f"{t['ms']:.4f} ms/launch (without the fluxes "
+                         f"{t['ms0']:.4f}), plain {t['plain_ms']:.4f} ms, "
+                         f"bound {t['bound_ms']:.5f} ms ({t['note']}), max "
+                         f"abs err {err:.3e}, err / M (du/faces/phi) {rel}")
+    u7 = sim.u[lmin]
+    shape7 = sim.tree.cell_dims(lmin)
+    ud = K._rows_to_vars(u7, None, shape7)
+    ok7 = sim.dev[lmin]["ok_dense"].reshape(shape7)
+    dt7 = torch.tensor(dtc, dtype=torch.float32, device=dev)
+    args7 = (ud, dt7, cfg, sim.dx(lmin), sim.bspec)
+    un, phi = fm.fused_step(*args7, ok=ok7, want_flux=True)
+    ref, pref = fm.fused_step_ref(*args7, ok=ok7, want_flux=True)
+    torch.cuda.synchronize()
+    scale = _stencil_scale(ref)
+    err7, rel7, ex7 = _local_check(
+        (un, phi), (ref, pref),
+        (scale, scale[0].expand((3, 2) + tuple(shape7))))
+    if not ex7 <= 0.0:
+        raise AssertionError(f"fused_muscl with want_flux disagrees with its "
+                             f"plain version on level {lmin} of the tracer "
+                             f"path: max abs err {err7:.3e}, err / M "
+                             f"(un/phi) {rel7}")
+    del un, phi, ref, pref, scale
+    nbytes7 = 4 * (ud.numel() + ok7.numel() + 1 + ud.numel()
+                   + 6 * ok7.numel())
+    k1 = dict(err=err7, **timing(
+        lambda *a, **k: fm.fused_step(*a, ok=ok7, **k),
+        lambda *a, **k: fm.fused_step_ref(*a, ok=ok7, **k),
+        args7, nbytes7, 1.0, "fused_muscl_kernel"))
+    lines.append(f"fused_muscl with fluxes level {lmin} {tuple(shape7)} "
+                 f"with {int(ok7.sum())} refined cells: {k1['ms']:.4f} "
+                 f"ms/launch (without the fluxes {k1['ms0']:.4f}), plain "
+                 f"{k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.5f} ms "
+                 f"({k1['note']}), max abs err {err7:.3e}, err / M (un/phi) "
+                 f"{'/'.join(f'{x:.3e}' for x in rel7)}")
+    del ud
+    _print("phase 24 flux variants at the tracer path's shapes: "
+           + "; ".join(lines) + "; library call: none (no single PyTorch "
+           "call computes a MUSCL sweep)")
+
+    # ---- 25. where one tracer coarse step's time goes ----
+    parts = dict.fromkeys(("regrid", "step", "mc_tracer_amr", "phi fetch"),
+                          0.0)
+
+    def timed(fn, key):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            parts[key] += time.perf_counter() - t0
+            return out
+        return call
+    fetch = amr_physics._fetch
+    sim.regrid = timed(sim.regrid, "regrid")
+    sim._source_passes = timed(sim._source_passes, "mc_tracer_amr")
+    amr_physics._fetch = timed(fetch, "phi fetch")
+    step_coarse = sim.step_coarse
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.regrid()
+        dt = sim.coarse_dt()
+        t1 = time.perf_counter()
+        step_coarse(dt)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        amr_physics._fetch = fetch
+        del sim.regrid, sim._source_passes
+    total = t2 - t0
+    parts["step"] = t2 - t1 - parts["mc_tracer_amr"]
+    parts["mc_tracer_amr"] -= parts["phi fetch"]
+    parts["coarse_dt fetch"] = t1 - t0 - parts["regrid"]
+    prof = _profile(lambda: (sim.regrid(), sim.step_coarse(sim.coarse_dt())),
+                    os.path.join(ROOT, "chiprun_out"),
+                    "chip_smoke_tracer_trace.json", warm=False)
+    _print(f"phase 25 one tracer coarse step ({len(sim.tracer_x)} tracers, "
+           f"octs {[sim.tree.noct(l) for l in sim.levels()]}): total "
+           f"{total:.4f} s, " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                         parts.items())
+           + f"; profiled: {prof}")
+    flux_launches = dict(fused_muscl_flux=r["launches"]["fused_muscl_flux"],
+                         tile_sweep_flux=r["launches"]["tile_sweep_flux"])
+    del r, sim
+    torch.cuda.empty_cache()
+
+    # ---- 26. the stencil variant: oct_blocking=.false. ----
+    r = _tracer_run(False, TRACER_STENCIL_STEPS)
+    worst_st = _tracer_check(r, "oct_sweep_flux", TRACER_STENCIL_STEPS)
+    _print(f"phase 26 MC tracers with oct_blocking=.false.: "
+           f"{r['sim'].nstep} coarse steps, launches {r['launches']}; "
+           f"{len(r['sim'].tracer_x)} tracers conserved; mass identity "
+           f"within rtol {FLUX_RTOL} / atol {FLUX_ATOL} (worst |difference| "
+           f"{worst_st:.3e}); evolve {r['wall']:.3f} s")
+    flux_launches["oct_sweep_flux"] = r["launches"]["oct_sweep_flux"]
+    del r
+    torch.cuda.empty_cache()
+
+    def row(name, src, replaces, t, errs):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": flux_launches[name],
+                "max_abs_err": max(errs), "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None}
+    return [
+        row("fused_muscl_flux", "ramses_tpu_torch/csrc/fused_muscl.cu",
+            "ramses_tpu/hydro/pallas_muscl.py:387", k1,
+            [worst["fused_muscl_flux"], err7]),
+        row("tile_sweep_flux", "ramses_tpu_torch/csrc/oct_muscl.cu",
+            "ramses_tpu/hydro/pallas_oct.py:396", rows[("tile_sweep",
+                                                        fine[-1])],
+            [worst["tile_sweep_flux"]] + [rows[("tile_sweep", l)]["err"]
+                                          for l in fine]),
+        row("oct_sweep_flux", "ramses_tpu_torch/csrc/oct_muscl.cu",
+            "ramses_tpu/hydro/pallas_oct.py:213", rows[("oct_sweep",
+                                                       fine[-1])],
+            [worst["oct_sweep_flux"]] + [rows[("oct_sweep", l)]["err"]
+                                         for l in fine]),
+    ]
+
+
+def _options_phase(dev):
+    """Phase 27: ``namelists/detente.nml`` (1D, ``riemann='exact'``,
+    outflow) through ``run_namelist`` on the card (the general formulation
+    in f32: no kernel covers 1D) to tend, against the same run in f64 on
+    the CPU."""
+    import torch
+    from ramses_tpu_torch.driver import run_namelist
+    t0 = time.perf_counter()
+    gpu = run_namelist(DETENTE_NML, ndim=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cpu = run_namelist(DETENTE_NML, ndim=1, dtype=torch.float64,
+                       device="cpu")
+    got = gpu.state.u.cpu().double()
+    want = cpu.state.u
+    rel = float(((got - want).abs().amax(dim=1)
+                 / want.abs().amax(dim=1)).max())
+    if not (gpu.device.type == "cuda" and gpu.cfg.riemann == "exact"
+            and bool(torch.isfinite(got).all()) and gpu.nstep == cpu.nstep
+            and abs(gpu.t - cpu.t) <= 1e-6 * cpu.t and rel <= 1e-4):
+        raise AssertionError(f"detente.nml on the card: nstep {gpu.nstep} "
+                             f"(CPU f64 {cpu.nstep}), t {gpu.t} ({cpu.t}), "
+                             f"worst field difference {rel:.3e} of its max")
+    _print(f"phase 27 detente.nml (riemann='exact', 1D {gpu.grid.shape}, "
+           f"outflow) through run_namelist on the card: {gpu.nstep} steps "
+           f"to t={gpu.t:.6e} in {wall:.3f} s; against the CPU f64 run, "
+           f"worst field difference {rel:.3e} of its max")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1899,8 +2396,7 @@ def main() -> int:
     if sim.grid.shape != (256, 256, 256) or sim.nstep != 10:
         raise AssertionError(f"main path ran {sim.nstep} steps at "
                              f"{sim.grid.shape}, expected 10 at 256³")
-    if launches != {"fused_muscl": sim.nstep, "tile_sweep": 0,
-                    "oct_sweep": 0, "ct_step_slab": 0}:
+    if launches != _want(fused_muscl=sim.nstep):
         raise AssertionError(f"kernels launched {launches} for "
                              f"{sim.nstep} uniform steps")
     if not bool(torch.isfinite(u).all()):
@@ -1997,7 +2493,13 @@ def main() -> int:
     k4_amr, err18 = _mhd_amr_phases(dev)
     k4["launches"] += k4_amr
     k4["max_abs_err"] = max(k4["max_abs_err"], err18)
-    _print(json.dumps({"kernels": [k1] + oct_rows + [k4]}))
+
+    # ---- 22-26. the MC tracers on the hydro hierarchy ----
+    flux_rows = _tracer_phases(dev)
+
+    # ---- 27. the remaining hydro options: detente.nml ----
+    _options_phase(dev)
+    _print(json.dumps({"kernels": [k1] + oct_rows + [k4] + flux_rows}))
     _print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -20,12 +20,21 @@ Complete levels sweep through K1, blocked partial levels through K3 and
 stencil partial levels (``oct_blocking=.false.``) through K2 where the
 kernels cover the configuration (:mod:`ramses_tpu_torch.amr.kernels`).
 
+``&RUN_PARAMS tracer`` seeds Monte-Carlo gas tracers in proportion to the
+gas mass on the leaf cells.  Each coarse step then captures every level's
+face mass fluxes (the kernels' ``want_flux``, fine boundary fluxes folded
+into the coarse face slots by ``scatter_corr_flux``) and keeps the
+pre-step density; after the step the host fetches both once and makes the
+flux-probability jumps (:func:`ramses_tpu_torch.pm.amr_physics.
+mc_tracer_amr`).  While tracers exist, ``evolve`` steps one coarse step at
+a time, as the JAX package does.
+
 Regrids always take the host prolongation-map migrate; the JAX package's
 ``device_regrid`` (on by default there) is pinned bitwise equal to it by
 its own tests and is not ported.  Gravity, particles, cooling, cosmology,
-tracers, star formation, sinks, RT, movies, load balance, offload, the
-step guard, the watchdog, telemetry, patch hooks, non-cubic roots and
-snapshots are not ported yet: a namelist that turns one on raises
+star formation, sinks, RT, movies, load balance, offload, the step guard,
+the watchdog, telemetry, patch hooks, non-cubic roots and snapshots are
+not ported yet: a namelist that turns one on raises
 ``NotImplementedError`` naming it.
 """
 
@@ -46,6 +55,8 @@ from ramses_tpu_torch.device import resolve_device
 from ramses_tpu_torch.grid import boundary as bmod
 from ramses_tpu_torch.hydro.core import HydroStatic
 from ramses_tpu_torch.init import regions
+from ramses_tpu_torch.pm import amr_physics
+from ramses_tpu_torch.pm.particles import TRACER_ID0
 
 
 class FusedSpec(NamedTuple):
@@ -61,17 +72,25 @@ class FusedSpec(NamedTuple):
     # per-level bool: partial level runs the blocked tile sweep
     blocked: tuple = ()
     block_shift: int = 2
+    # capture per-cell face mass fluxes for the MC gas tracers
+    # (godunov_fine.f90:685-715)
+    want_flux: bool = False
 
 
 def _advance(u, dev, dt, spec: FusedSpec):
     """One coarse step (the recursive subcycled ``amr_step``) as device work
     only: ``u`` maps level → rows, ``dt`` is a 0-d device tensor in the
-    state dtype.  Returns the new state dict; the input tensors are not
+    state dtype.  Returns ``(u, phi)``: the new state dict and, with
+    ``spec.want_flux``, each level's face mass fluxes ``[ncell_pad, ndim,
+    2]`` summed over its substeps (else None).  The input tensors are not
     modified."""
     cfg = spec.cfg
     u = dict(u)
     unew = dict(u)
     levels = spec.levels
+    wf = spec.want_flux
+    phi = ({l: u[l].new_zeros((u[l].shape[0], cfg.ndim, 2))
+            for l in levels} if wf else None)
 
     def dx(l):
         return spec.boxlen / (1 << l)
@@ -85,33 +104,43 @@ def _advance(u, dev, dt, spec: FusedSpec):
             advance(i + 1, 0.5 * dtl)
         corr = None
         if spec.complete[i]:
-            du = K.dense_sweep(u[l], None, None, d["ok_dense"], dtl, dx(l),
-                               (1 << l,) * cfg.ndim, spec.bspec, cfg)
+            out = K.dense_sweep(u[l], None, None, d["ok_dense"], dtl, dx(l),
+                                (1 << l,) * cfg.ndim, spec.bspec, cfg,
+                                ret_flux=wf)
+            du = out[0] if wf else out
         elif spec.blocked and spec.blocked[i]:
             interp = K.interp_cells(u[l - 1], d["b_interp_cell"],
                                     d["b_interp_nb"], d["b_interp_sgn"],
                                     cfg, itype=spec.itype)
-            du, corr = K.tile_sweep(
+            out = K.tile_sweep(
                 u[l], interp, d["tile_src"], d["tile_vsgn"], d["tile_ok"],
                 d["cell_tile"], d["cell_slot"], d["oct_tile"],
-                d["oct_slot"], dtl, dx(l), cfg, spec.block_shift)
+                d["oct_slot"], dtl, dx(l), cfg, spec.block_shift,
+                ret_flux=wf)
+            du, corr = out[0], out[1]
         else:
             interp = K.interp_cells(u[l - 1], d["interp_cell"],
                                     d["interp_nb"], d["interp_sgn"], cfg,
                                     itype=spec.itype)
-            du, corr = K.level_sweep(u[l], interp, d["stencil_src"],
-                                     d["vsgn"], d["ok_ref"], dtl, dx(l), cfg)
+            out = K.level_sweep(u[l], interp, d["stencil_src"], d["vsgn"],
+                                d["ok_ref"], dtl, dx(l), cfg, ret_flux=wf)
+            du, corr = out[0], out[1]
+        if wf:
+            phi[l] = phi[l] + out[-1]
         unew[l] = unew[l] + du
         if corr is not None and l > spec.lmin:
             unew[l - 1] = K.scatter_corrections(unew[l - 1], corr,
                                                 d["corr_plan"], cfg)
+            if wf:
+                phi[l - 1] = K.scatter_corr_flux(phi[l - 1], corr,
+                                                 d["flux_plan"], cfg)
         u[l] = unew[l]
         if i + 1 < len(levels):
             u[l] = K.restrict_upload(u[l], u[levels[i + 1]], d["ref_cell"],
                                      d["son_oct"], cfg)
 
     advance(0, dt)
-    return u
+    return u, phi
 
 
 def _courant(u, dev, spec: FusedSpec):
@@ -124,9 +153,11 @@ def _courant(u, dev, spec: FusedSpec):
 
 def _coarse_step(u, dev, dt, spec: FusedSpec):
     """One coarse step and the NEXT step's Courant dt (a 0-d device
-    tensor), the reference's ``dtnew`` bookkeeping."""
-    u = _advance(u, dev, dt, spec)
-    return u, torch.min(_courant(u, dev, spec))
+    tensor), the reference's ``dtnew`` bookkeeping; with
+    ``spec.want_flux`` also the step's face mass fluxes per level."""
+    u, phi = _advance(u, dev, dt, spec)
+    dtn = torch.min(_courant(u, dev, spec))
+    return (u, dtn, phi) if spec.want_flux else (u, dtn)
 
 
 def _multi_step(u, dev, t, tend, dt0, spec: FusedSpec, nsteps: int):
@@ -156,7 +187,6 @@ def unported_amr_features(params: Params) -> list:
     a, r = params.amr, params.run
     root = [a.nx, a.ny, a.nz][:params.ndim]
     checks = [
-        ("tracers (&RUN_PARAMS tracer)", r.tracer),
         ("load balance (&AMR_PARAMS load_balance)", a.load_balance),
         ("offload (&AMR_PARAMS offload)",
          str(a.offload).strip().lower() != "off"),
@@ -201,7 +231,8 @@ class AmrSim:
 
     def __init__(self, params: Params, dtype=torch.float32, device=None,
                  init_tree: Optional[Octree] = None,
-                 noct_pad: Optional[Dict[int, int]] = None):
+                 noct_pad: Optional[Dict[int, int]] = None,
+                 seed_tracers: bool = True):
         missing = self._unported(params)
         if missing:
             raise NotImplementedError(
@@ -230,24 +261,37 @@ class AmrSim:
         self.blocks: Dict[int, mapmod.BlockMaps] = {}
         # cells × level substeps advanced by evolve (bench.py's count)
         self.cell_updates = 0
+        # MC gas tracers: host positions [ntr, ndim] and stable ids, the
+        # jump generator, and the last step's capture and pre-step density
+        self.tracer_x = None
+        self.tracer_id = None
+        self._tracer_rng = np.random.default_rng(20481)
+        self._tracer_phi = None
+        self._tracer_rho0 = None
         if init_tree is not None:
             self.tree = init_tree
             self._rebuild_maps()
             self._alloc_from_ics()
         else:
             self._init_refine()
+        if bool(params.run.tracer) and seed_tracers:
+            self._seed_tracers()
 
     @classmethod
     def from_state(cls, params: Params, tree_og: Dict[int, np.ndarray],
                    rows: Dict[int, np.ndarray], t: float = 0.0,
                    nstep: int = 0, noct_pad: Optional[Dict[int, int]] = None,
-                   dtype=None, device=None) -> "AmrSim":
+                   dtype=None, device=None, tracer_x=None, tracer_id=None,
+                   tracer_rng=None) -> "AmrSim":
         """Start from a given hierarchy: per-level oct coordinates
         ``tree_og`` and state rows ``rows`` (numpy, e.g. from
         :func:`ramses_tpu_torch.convert.amr_state_from`), the time and the
         step count.  ``noct_pad`` (per level) reproduces another run's
         padding so that arrays compare row for row; the dtype defaults to
-        the rows'."""
+        the rows'.  With ``&RUN_PARAMS tracer`` the tracers are the given
+        ``tracer_x``/``tracer_id`` and the jump generator continues from
+        the bit-generator state ``tracer_rng``, or, without them, are
+        seeded on the given state."""
         tree = Octree(params.ndim, params.amr.levelmin, params.amr.levelmax)
         for l, og in tree_og.items():
             tree.set_level(l, og)
@@ -255,12 +299,53 @@ class AmrSim:
             dtype = (torch.float64 if next(iter(rows.values())).dtype
                      == np.float64 else torch.float32)
         sim = cls(params, dtype=dtype, device=device, init_tree=tree,
-                  noct_pad=noct_pad)
+                  noct_pad=noct_pad, seed_tracers=False)
         for l in sim.levels():
             sim.u[l] = sim._rows_from(sim.u[l], rows[l], l)
         sim.t, sim.nstep = float(t), int(nstep)
         sim._dt_cache = None
+        if bool(params.run.tracer):
+            if tracer_x is None:
+                sim._seed_tracers()
+            else:
+                sim.tracer_x = np.array(tracer_x, dtype=np.float64)
+                sim.tracer_id = np.array(tracer_id, dtype=np.int64)
+                sim._spec = None
+            if tracer_rng is not None:
+                sim._tracer_rng.bit_generator.state = tracer_rng
         return sim
+
+    def _seed_tracers(self):
+        """Seed the gas tracers on the leaf cells (``pm/tracer_utils.f90``
+        initial seeding): Poisson-sampled per cell with mean
+        ``tracer_per_cell · N_leaf · (the cell's share of the gas mass)``,
+        so a refined region is not over-weighted, and jittered inside the
+        cell; ids from ``TRACER_ID0``.  Draws from its own
+        ``default_rng(20480)`` in the JAX package's order."""
+        rng = np.random.default_rng(20480)
+        tpc = float(self.params.run.tracer_per_cell)
+        nd = self.cfg.ndim
+        cen, mass, dxs = [], [], []
+        for l in self.levels():
+            leaf = ~self.tree.refined_mask(l)
+            n = self.tree.noct(l) * 2 ** nd
+            rho = self.u[l][:n, 0].cpu().numpy()[leaf]
+            cen.append(self.tree.cell_centers(l, self.boxlen)[leaf])
+            mass.append(rho * self.dx(l) ** nd)
+            dxs.append(np.full(len(cen[-1]), self.dx(l)))
+        cen = np.concatenate(cen)
+        mass = np.concatenate(mass)
+        dxs = np.concatenate(dxs)
+        lam = tpc * len(cen) * mass / max(mass.sum(), 1e-300)
+        nper = rng.poisson(lam)
+        rep = np.repeat(cen, nper, axis=0)
+        jit = (rng.uniform(-0.5, 0.5, rep.shape)
+               * np.repeat(dxs, nper)[:, None])
+        self.tracer_x = rep + jit if len(rep) else None
+        if self.tracer_x is not None:
+            self.tracer_id = TRACER_ID0 + np.arange(len(self.tracer_x),
+                                                    dtype=np.int64)
+            self._spec = None            # turns the flux capture on
 
     def _rows_from(self, cur: torch.Tensor, r, l: int) -> torch.Tensor:
         """``cur`` (a level's padded rows) with its leading rows replaced by
@@ -381,6 +466,7 @@ class AmrSim:
                 interp_sgn=self._dev(m.interp_sgn, self.dtype),
                 corr_plan=K.corr_plan(m.corr_idx, self.device),
                 valid_cell=valid_cell, **self._restriction_dev(m))
+            self.dev[l]["flux_plan"] = K.flux_plan(m.corr_idx, self.device)
             if self.params.amr.oct_blocking:
                 b = mapmod.build_block_maps(
                     self.tree, l, self.bc_kinds, shift=shift,
@@ -584,7 +670,9 @@ class AmrSim:
                 complete=tuple(self.maps[l].complete for l in lv),
                 itype=int(self.params.refine.interpol_type),
                 blocked=tuple(l in self.blocks for l in lv),
-                block_shift=int(self.params.amr.oct_block_shift))
+                block_shift=int(self.params.amr.oct_block_shift),
+                want_flux=(self.tracer_x is not None
+                           and len(self.tracer_x) > 0))
         return self._spec
 
     def coarse_dt(self) -> float:
@@ -595,19 +683,37 @@ class AmrSim:
                                         self._fused_spec())))
 
     def step_coarse(self, dt: float):
-        self.u, self._dt_cache = _coarse_step(
+        spec = self._fused_spec()
+        if spec.want_flux:
+            # density BEFORE the step: the jump probabilities' denominator
+            # (move_tracer.f90 uses the pre-step cell mass)
+            self._tracer_rho0 = {l: self.u[l][:, 0] for l in spec.levels}
+        out = _coarse_step(
             self.u, self.dev,
             torch.tensor(float(dt), dtype=self.dtype, device=self.device),
-            self._fused_spec())
+            spec)
+        self.u, self._dt_cache = out[0], out[1]
+        if spec.want_flux:
+            self._tracer_phi = out[2]
         self.t += float(dt)
+        self._source_passes(float(dt))
         self.dt_old = float(dt)
         self.nstep += 1
+
+    def _source_passes(self, dt: float):
+        """Coarse-cadence source passes after the step: the MC tracer
+        jumps (``pm/move_tracer.f90``) from this step's capture."""
+        if self.tracer_x is not None and self._tracer_phi is not None:
+            amr_physics.mc_tracer_amr(self)
 
     def step_chunk(self, nsteps: int, tend: float) -> int:
         """Up to ``nsteps`` coarse steps with no host synchronisation in
         between, then one fetch of (t, dt, steps done); callers guarantee
         no regrid is due inside the chunk.  Returns the steps done."""
         spec = self._fused_spec()
+        if spec.want_flux:
+            raise ValueError("step_chunk: the MC tracers move after every "
+                             "coarse step; use step_coarse")
         f64 = dict(dtype=torch.float64, device=self.device)
         dt0 = (self._dt_cache if self._dt_cache is not None
                else torch.min(_courant(self.u, self.dev, spec))).to(**f64)
@@ -642,7 +748,7 @@ class AmrSim:
             lim = min(to_regrid, nstepmax - self.nstep, 64)
             chunk = 1 << (max(lim, 1).bit_length() - 1)
             per = self.updates_per_step()
-            if chunk > 1:
+            if chunk > 1 and self.tracer_x is None:
                 n = self.step_chunk(chunk, tend)
             else:
                 dt = min(self.coarse_dt(), tend - self.t)
@@ -680,8 +786,19 @@ class AmrSim:
                 "energy": tot[1 + nd]}
 
     def status_note(self) -> str:
-        """The CLI's closing note on the run: octs per level."""
-        return f"octs={[self.tree.noct(l) for l in self.levels()]}"
+        """The CLI's closing note on the run: octs per level, and the
+        tracer count when tracers run."""
+        note = f"octs={[self.tree.noct(l) for l in self.levels()]}"
+        if self.tracer_x is not None:
+            note += f" tracers={len(self.tracer_x)}"
+        return note
+
+    def leaf_sample(self, lvl: int):
+        """(centers [n, ndim], u [n, nvar]) of the leaf cells at one level,
+        on the host in f64."""
+        u = self.tree_order_cells(self.u[lvl], lvl)
+        leaf = ~self.tree.refined_mask(lvl)
+        return self.tree.cell_centers(lvl, self.boxlen)[leaf], u[leaf]
 
     def ncell_leaf(self) -> int:
         return sum(int((~self.tree.refined_mask(l)).sum())

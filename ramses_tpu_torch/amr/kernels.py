@@ -21,13 +21,17 @@ Two differences from the JAX functions, both about scatters:
   cell 0 and writes back the old ``u[0]``, which on XLA:CPU's
   last-write-wins scatter overwrites cell 0's restriction whenever that
   cell is refined (ROADMAP §C).
-* :func:`scatter_corrections` adds each coarse cell's corrections in
-  ascending update order through a host-built table
-  (:func:`corr_plan`), the order of XLA:CPU's sequential scatter-add,
-  instead of atomics whose order changes from run to run.
+* :func:`scatter_corrections` and :func:`scatter_corr_flux` add each
+  coarse target's values in ascending update order through host-built
+  tables of the valid targets only (:func:`corr_plan`), the order of
+  XLA:CPU's sequential scatter-add, instead of atomics whose order
+  changes from run to run.
 
-The MC-tracer flux capture (``ret_flux``, ``scatter_corr_flux``) and the
-SRHD dispatch are not ported yet.
+With ``ret_flux`` every sweep also returns the MC gas tracers' capture
+``phi [ncell_pad, ndim, 2]``: the dt/dx-scaled mass flux through each
+cell's (low, high) face, refined faces zeroed, pad rows exactly 0 (the
+kernels' ``want_flux`` output where they run).  The SRHD dispatch is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -182,6 +186,13 @@ def _gather_utile(u_flat, interp_vals, tile_src, tile_vsgn,
     return _gather(u_flat, interp_vals, tile_src, tile_vsgn, cfg, td)
 
 
+def _flat_cells(blk, ndim: int):
+    """``[2..., noct]`` per-cell block → flat ``[noct·2^d]`` row order."""
+    noct = blk.shape[-1]
+    return blk.permute((ndim,) + tuple(range(ndim))).reshape(
+        noct * 2 ** ndim)
+
+
 def _block_mask(ok_rows, side: int, ndim: int):
     """``[nblock, side^d]`` bool rows → ``[side..., nblock]``."""
     return ok_rows.t().reshape((side,) * ndim + (ok_rows.shape[0],))
@@ -209,13 +220,14 @@ def _general_update(ub, okl, dt, dx: float, cfg: HydroStatic, core: int):
 
 
 def level_sweep(u_flat, interp_vals, stencil_src, vsgn, ok_ref, dt,
-                dx: float, cfg: HydroStatic):
+                dx: float, cfg: HydroStatic, ret_flux: bool = False):
     """Full godfine1 for one partial level on per-oct stencils.
 
     Returns ``(du_flat [ncell, nvar], corr [noct, ndim, 2, nvar])``;
     ``corr[:, d, side]`` is the summed boundary flux (already ×dt/dx) to
-    be scattered ∓/2^ndim into unrefined coarse neighbours.  K2 where it
-    covers the configuration.
+    be scattered ∓/2^ndim into unrefined coarse neighbours.  ``ret_flux``
+    appends the per-cell face mass fluxes ``phi [ncell, ndim, 2]``.  K2
+    where it covers the configuration.
     """
     nd, nvar = cfg.ndim, cfg.nvar
     uloc = _gather_uloc(u_flat, interp_vals, stencil_src, vsgn, cfg)
@@ -223,12 +235,17 @@ def level_sweep(u_flat, interp_vals, stencil_src, vsgn, ok_ref, dt,
     okl = _block_mask(ok_ref, 6, nd)
     cells = (nd + 1,) + tuple(range(1, nd + 1)) + (0,)
     if om.supports(cfg, u_flat.dtype):
-        du_k, corr_k = om.oct_sweep(uloc, okl.to(uloc.dtype),
-                                    torch.as_tensor(dt, dtype=uloc.dtype,
-                                                    device=uloc.device),
-                                    cfg, dx)
-        du_flat = du_k.permute(cells).reshape(noct * 2 ** nd, nvar)
-        return du_flat, corr_k.permute(3, 1, 2, 0)
+        out = om.oct_sweep(uloc, okl.to(uloc.dtype),
+                           torch.as_tensor(dt, dtype=uloc.dtype,
+                                           device=uloc.device),
+                           cfg, dx, want_flux=ret_flux)
+        du_flat = out[0].permute(cells).reshape(noct * 2 ** nd, nvar)
+        corr = out[1].permute(3, 1, 2, 0)
+        if not ret_flux:
+            return du_flat, corr
+        # phi [3, 2, 2, 2, 2, N] (d, side, cell) → flat [ncell, 3, 2]
+        return du_flat, corr, out[2].permute(5, 2, 3, 4, 0, 1).reshape(
+            noct * 2 ** nd, nd, 2)
     fluxes, du = _general_update(uloc, okl, dt, dx, cfg, 2)
     du_flat = du.permute(cells).reshape(noct * 2 ** nd, nvar)
     corr = []
@@ -242,7 +259,20 @@ def level_sweep(u_flat, interp_vals, stencil_src, vsgn, ok_ref, dt,
             sides.append(f[ix].sum(dim=red) if nd > 1 else f[ix])
         corr.append(torch.stack(sides, dim=-1))        # [nvar, noct, 2]
     corr = torch.stack(corr, dim=-2)                   # [nvar, noct, nd, 2]
-    return du_flat, torch.movedim(corr, 0, -1)
+    corr = torch.movedim(corr, 0, -1)
+    if not ret_flux:
+        return du_flat, corr
+    # a cell at stencil position i along d has its low face flux at
+    # index i, its high face at i + 1
+    phis = []
+    for d in range(nd):
+        f0 = fluxes[d][0]
+        lo_ix = (slice(2, 4),) * nd
+        hi_ix = tuple(slice(3, 5) if dd == d else slice(2, 4)
+                      for dd in range(nd))
+        phis.append(torch.stack([_flat_cells(f0[lo_ix], nd),
+                                 _flat_cells(f0[hi_ix], nd)], dim=-1))
+    return du_flat, corr, torch.stack(phis, dim=-2)
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +287,14 @@ def _face_planes(fl, d, ndim: int, c: int):
         idx.append(slice(_NG, _NG + c + 1, 2) if dd == d
                    else slice(_NG, _NG + c))
     return torch.movedim(fl[tuple(idx)], 1 + d, 1)
+
+
+def _mass_planes(f0, d, ndim: int, c: int):
+    """All ``c+1`` cell-face planes of the mass flux ``f0 [td...,
+    ntile]`` along d: ``[c+1, c...(transverse), ntile]``."""
+    idx = tuple(slice(_NG, _NG + c + 1) if dd == d else slice(_NG, _NG + c)
+                for dd in range(ndim))
+    return torch.movedim(f0[idx], d, 0)
 
 
 def _corr_from_planes(planes, d, ndim: int, c: int):
@@ -276,12 +314,13 @@ def _corr_from_planes(planes, d, ndim: int, c: int):
 
 def tile_sweep(u_flat, interp_vals, tile_src, tile_vsgn, tile_ok,
                cell_tile, cell_slot, oct_tile, oct_slot, dt, dx: float,
-               cfg: HydroStatic, shift: int):
+               cfg: HydroStatic, shift: int, ret_flux: bool = False):
     """Full godfine1 for one blocked partial level (same returns as
-    :func:`level_sweep`), on the compact ``[nvar, td..., ntile]`` tile
-    batch: K3 where it covers the configuration, the general formulation
-    otherwise.  du/corr come back to flat rows by small gathers; pad cell
-    rows index an appended zero column, so they are exactly 0."""
+    :func:`level_sweep`, ``ret_flux`` included), on the compact ``[nvar,
+    td..., ntile]`` tile batch: K3 where it covers the configuration, the
+    general formulation otherwise.  du/corr/phi come back to flat rows by
+    small gathers; pad cell rows index an appended zero column, so they
+    are exactly 0."""
     nd, nvar = cfg.ndim, cfg.nvar
     c = 1 << (shift + 1)
     td = c + 2 * _NG
@@ -289,14 +328,18 @@ def tile_sweep(u_flat, interp_vals, tile_src, tile_vsgn, tile_ok,
     ntile = ut.shape[-1]
     okl = _block_mask(tile_ok, td, nd)
     if om.supports(cfg, u_flat.dtype) and shift in om.SHIFTS:
-        du_t, corrp = om.tile_sweep(
+        out = om.tile_sweep(
             ut, okl.to(ut.dtype),
             torch.as_tensor(dt, dtype=ut.dtype, device=ut.device), cfg, dx,
-            shift)
-        planes = [corrp[:, d] for d in range(nd)]
+            shift, want_flux=ret_flux)
+        du_t = out[0]
+        planes = [out[1][:, d] for d in range(nd)]
+        mass = [out[2][d] for d in range(nd)] if ret_flux else None
     else:
         fluxes, du_t = _general_update(ut, okl, dt, dx, cfg, c)
         planes = [_face_planes(fluxes[d], d, nd, c) for d in range(nd)]
+        mass = ([_mass_planes(fluxes[d][0], d, nd, c) for d in range(nd)]
+                if ret_flux else None)
     flat_idx = cell_slot.to(torch.int64) * ntile + cell_tile
     du_src = torch.cat([du_t.reshape(nvar, c ** nd * ntile),
                         du_t.new_zeros(nvar, 1)], dim=1)
@@ -307,7 +350,17 @@ def tile_sweep(u_flat, interp_vals, tile_src, tile_vsgn, tile_ok,
         corr.append(torch.stack([lo[:, oct_slot, oct_tile],
                                  hi[:, oct_slot, oct_tile]], dim=-1))
     corr = torch.stack(corr, dim=-2)                   # [nvar, noct, nd, 2]
-    return du_flat, torch.movedim(corr, 0, -1)
+    corr = torch.movedim(corr, 0, -1)
+    if not ret_flux:
+        return du_flat, corr
+
+    def cell_rows(x, d):                               # [c (along d), ...]
+        x = torch.movedim(x, 0, d).reshape(c ** nd * ntile)
+        return torch.cat([x, x.new_zeros(1)])[flat_idx]
+    phi = torch.stack([torch.stack([cell_rows(mass[d][:c], d),
+                                    cell_rows(mass[d][1:], d)], dim=-1)
+                       for d in range(nd)], dim=-2)    # [ncell, nd, 2]
+    return du_flat, corr, phi
 
 
 def tile_refine_flags(u_flat, interp_vals, tile_src, tile_vsgn, cell_tile,
@@ -334,11 +387,12 @@ def tile_refine_flags(u_flat, interp_vals, tile_src, tile_vsgn, cell_tile,
 # ---------------------------------------------------------------------------
 
 def dense_interior_update(up, okp, dt, dx: float, shape: Tuple[int, ...],
-                          cfg: HydroStatic):
+                          cfg: HydroStatic, ret_flux: bool = False):
     """Interior update of a ghost-padded dense level ``up [nvar, *(shape +
     2*NGHOST)]`` in the general formulation; ``okp``: optional refined
     mask over the same padded box in the state dtype.  Returns
-    ``du [nvar, *shape]``."""
+    ``du [nvar, *shape]`` (and with ``ret_flux`` ``phi [*shape, ndim,
+    2]``, each cell's (low, high) face mass flux ×dt/dx)."""
     nd = cfg.ndim
     flux, tmp = muscl.unsplit(up, None, dt, (dx,) * nd, cfg)
     if okp is not None:
@@ -349,8 +403,19 @@ def dense_interior_update(up, okp, dt, dx: float, shape: Tuple[int, ...],
     un = muscl.apply_fluxes(up, flux, cfg)
     if cfg.pressure_fix or cfg.nener:
         un = muscl.dual_energy_fix(up, un, tmp, dt, (dx,) * nd, cfg)
-    return (bmod.unpad(un, nd, muscl.NGHOST)
-            - bmod.unpad(up, nd, muscl.NGHOST))
+    du = (bmod.unpad(un, nd, muscl.NGHOST)
+          - bmod.unpad(up, nd, muscl.NGHOST))
+    if not ret_flux:
+        return du
+    g = muscl.NGHOST
+    phis = []
+    for d in range(nd):
+        f0 = flux[d][0]
+        lo_ix = tuple(slice(g, g + shape[dd]) for dd in range(nd))
+        hi_ix = tuple(slice(g + 1, g + 1 + shape[dd]) if dd == d
+                      else slice(g, g + shape[dd]) for dd in range(nd))
+        phis.append(torch.stack([f0[lo_ix], f0[hi_ix]], dim=-1))
+    return du, torch.stack(phis, dim=-2)
 
 
 def pad_ok_dense(ok_dense, shape: Tuple[int, ...], bc, dtype, ng: int):
@@ -372,24 +437,41 @@ def pad_ok_dense(ok_dense, shape: Tuple[int, ...], bc, dtype, ng: int):
 
 
 def dense_sweep(u_flat, inv_perm, perm, ok_dense, dt, dx: float,
-                shape: Tuple[int, ...], bc, cfg: HydroStatic):
+                shape: Tuple[int, ...], bc, cfg: HydroStatic,
+                ret_flux: bool = False):
     """Sweep of a COMPLETE level (covering the whole box) as a dense grid:
     no ghost interpolation and no coarse corrections; faces next to a
     refined cell get no flux.  K1 where it covers the configuration.
-    Returns du over the flat level rows."""
+    Returns du over the flat level rows, and with ``ret_flux`` also
+    ``phi [nrows, ndim, 2]``, each cell's (low, high) face mass flux
+    ×dt/dx (pad rows 0)."""
+    nd = cfg.ndim
+    nrows = u_flat.shape[0]
     ud = _rows_to_vars(u_flat, inv_perm, shape)        # [nvar, *shape]
+    phid = None
     if fm.supports(cfg, shape, bc.kinds, ud.dtype):
         ok = ok_dense.reshape(shape) if ok_dense is not None else None
-        un = fm.fused_step(ud, torch.as_tensor(dt, dtype=ud.dtype,
-                                               device=ud.device),
-                           cfg, dx, bc, ok=ok)
+        out = fm.fused_step(ud, torch.as_tensor(dt, dtype=ud.dtype,
+                                                device=ud.device),
+                            cfg, dx, bc, ok=ok, want_flux=ret_flux)
+        un, phid = out if ret_flux else (out, None)
         du = un - ud
+        if ret_flux:                                   # [3, 2, *shape]
+            phid = phid.reshape((2 * nd,) + tuple(shape))
     else:
         up = bmod.pad(ud, bc, cfg, muscl.NGHOST)
         okp = (pad_ok_dense(ok_dense, shape, bc, up.dtype, muscl.NGHOST)
                if ok_dense is not None else None)
-        du = dense_interior_update(up, okp, dt, dx, shape, cfg)
-    return _vars_to_rows(du, perm, shape, u_flat.shape[0])
+        out = dense_interior_update(up, okp, dt, dx, shape, cfg,
+                                    ret_flux=ret_flux)
+        du = out[0] if ret_flux else out
+        if ret_flux:                                   # [*shape, nd, 2]
+            phid = out[1].reshape(tuple(shape) + (2 * nd,)).movedim(-1, 0)
+    du_rows = _vars_to_rows(du, perm, shape, nrows)
+    if not ret_flux:
+        return du_rows
+    return du_rows, _vars_to_rows(phid, perm, shape, nrows).reshape(
+        nrows, nd, 2)
 
 
 def dense_refine_flags(u_flat, inv_perm, perm,
@@ -446,6 +528,20 @@ def corr_plan(corr_idx: np.ndarray, device) -> CorrPlan:
                     torch.from_numpy(sign).to(device), len(idx))
 
 
+def flux_plan(corr_idx: np.ndarray, device) -> CorrPlan:
+    """The :class:`CorrPlan` of :func:`scatter_corr_flux`, built on the
+    host from ``corr_idx [noct, ndim, 2]`` once per map build: targets are
+    slots of the coarse capture ``phi.reshape(-1)`` (a fine oct's low face,
+    side 0, is the coarse neighbour's HIGH face slot, and vice versa),
+    updates index ``corr[..., 0].reshape(-1)``; ``sign`` is not read."""
+    idx = np.asarray(corr_idx).astype(np.int64)
+    nd = idx.shape[1]
+    d = np.arange(nd)[None, :, None]
+    slot = np.array([1, 0])[None, None, :]
+    return corr_plan(np.where(idx >= 0, (idx * nd + d) * 2 + slot, -1),
+                     device)
+
+
 def scatter_corrections(unew_coarse, corr, plan: CorrPlan,
                         cfg: HydroStatic):
     """Add ∓flux/2^ndim into the unrefined coarse neighbour cells
@@ -464,6 +560,27 @@ def scatter_corrections(unew_coarse, corr, plan: CorrPlan,
     for k in range(plan.table.shape[1]):
         acc = acc + vals.index_select(0, plan.table[:, k])
     return unew_coarse.index_copy(0, plan.target, acc)
+
+
+def scatter_corr_flux(phi_coarse, corr, plan: CorrPlan, cfg: HydroStatic):
+    """Fold the fine level's boundary mass fluxes into the coarse
+    neighbours' face slots of the MC-tracer capture ``phi [ncell, ndim,
+    2]`` (``plan`` from :func:`flux_plan`).  A fine oct's faces coincide
+    with its parent cell's, so its low-side correction IS the mass flux
+    through the unrefined coarse neighbour's high face (and vice versa),
+    scaled 1/2^ndim into coarse Δρ units as in
+    :func:`scatter_corrections`.  The coarse sweep zeroed those faces
+    (refined-adjacent), so this is their only writer."""
+    if plan.target.numel() == 0:
+        return phi_coarse
+    w = 1.0 / (2 ** cfg.ndim)
+    vals = (corr[..., 0].reshape(-1) * w).to(phi_coarse.dtype)
+    vals = torch.cat([vals, vals.new_zeros(1)])
+    flat = phi_coarse.reshape(-1)
+    acc = flat.index_select(0, plan.target)
+    for k in range(plan.table.shape[1]):
+        acc = acc + vals.index_select(0, plan.table[:, k])
+    return flat.index_copy(0, plan.target, acc).reshape(phi_coarse.shape)
 
 
 def restrict_upload(u_level, u_fine, ref_cell, son_oct, cfg: HydroStatic):

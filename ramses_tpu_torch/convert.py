@@ -62,12 +62,18 @@ def amr_state_from(sim) -> dict:
     ``AmrSim`` or the port's) as numpy arrays: the keyword arguments of
     :meth:`ramses_tpu_torch.amr.hierarchy.AmrSim.from_state` (per-level
     oct coordinates, state rows and padded oct counts, time and step
-    count)."""
+    count; with MC tracers also their positions, ids and the state of the
+    jump generator, so both packages draw the same numbers next)."""
     levels = sim.levels()
-    return dict(tree_og={l: _host(sim.tree.levels[l].og) for l in levels},
-                rows={l: _host(sim.u[l]) for l in levels},
-                noct_pad={l: int(sim.maps[l].noct_pad) for l in levels},
-                t=float(sim.t), nstep=int(sim.nstep))
+    out = dict(tree_og={l: _host(sim.tree.levels[l].og) for l in levels},
+               rows={l: _host(sim.u[l]) for l in levels},
+               noct_pad={l: int(sim.maps[l].noct_pad) for l in levels},
+               t=float(sim.t), nstep=int(sim.nstep))
+    if getattr(sim, "tracer_x", None) is not None:
+        out.update(tracer_x=np.array(sim.tracer_x, dtype=np.float64),
+                   tracer_id=np.array(sim.tracer_id, dtype=np.int64),
+                   tracer_rng=sim._tracer_rng.bit_generator.state)
+    return out
 
 
 def mhd_amr_state_from(sim) -> dict:

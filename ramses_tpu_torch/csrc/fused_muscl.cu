@@ -3,8 +3,10 @@
 // Replaces the TPU kernel ramses_tpu/hydro/pallas_muscl.py::fused_step_padded
 // (body _make_kernel; helpers _slopes, _llf_flux, _hllc_flux): ctoprim ->
 // TVD slopes -> trace3d predictor -> LLF/HLLC face fluxes -> conservative
-// update, with an optional refined-cell mask and the Courant min of the
-// updated state (the next step's dt) from the same launch.  It computes what
+// update, with an optional refined-cell mask, the Courant min of the
+// updated state (the next step's dt) from the same launch and, on request,
+// the dt/dx-scaled mass flux through each cell's low and high faces (the
+// MC-tracer capture, want_flux; pallas_muscl.py:289-291).  It computes what
 // the TPU kernel computes, in the same f32 arithmetic order; it is not a
 // block-by-block copy of it.  The body's device functions (ctoprim, slopes,
 // predictor, face states, floors, LLF/HLLC) are in muscl_common.cuh, shared
@@ -17,7 +19,10 @@
 // operations per cell (one ctoprim, 15 slopes, the predictor, three face
 // solves with each face shared by two cells, the update and the Courant
 // term; compares and selects count): 13.2 G ops, i.e. 0.20 ms at
-// 67 TFLOP/s.  The two bounds nearly coincide; bytes bind by a hair.
+// 67 TFLOP/s.  The two bounds nearly coincide; bytes bind by a hair.  The
+// face mass fluxes add 6 f32 written per cell (with the mask, 17 f32 a
+// cell moved instead of 11), and no arithmetic: each thread already holds
+// its two masked mass fluxes per direction.
 //
 // What this simple design does about it: one thread per output cell, z (the
 // contiguous axis) along threadIdx.x so that neighbouring threads read
@@ -115,19 +120,22 @@ __device__ __forceinline__ float load_ok(const float* __restrict__ ok,
   return __ldg(ok + cell_offset(g, x, y, z, s));
 }
 
-// ok == nullptr: no mask; crt_bits == nullptr: no Courant min.  Both are
-// uniform over the launch, so their branches cost no divergence.
+// ok == nullptr: no mask; crt_bits == nullptr: no Courant min; phi ==
+// nullptr: no face mass fluxes.  All three are uniform over the launch, so
+// their branches cost no divergence.
 template <int RS>
 __global__ void __launch_bounds__(TZ * TY)
 fused_muscl_kernel(const float* __restrict__ u, const float* __restrict__ ok,
                    const float* __restrict__ dt_ptr, float* __restrict__ un,
-                   int* __restrict__ crt_bits, Geom g, Consts k) {
+                   int* __restrict__ crt_bits, float* __restrict__ phi,
+                   Geom g, Consts k) {
   const int z = blockIdx.x * TZ + threadIdx.x;
   const int y = blockIdx.y * TY + threadIdx.y;
   const int x = blockIdx.z;
   const bool inside = z < g.n[2] && y < g.n[1];
   const bool masked = ok != nullptr;
   const bool courant = crt_bits != nullptr;
+  const int64_t o = ((int64_t)x * g.n[1] + y) * g.n[2] + z;
   int key = 0x7fffffff;  // above every non-negative float's bits
   if (inside) {
     const float dt = __ldg(dt_ptr);
@@ -166,13 +174,16 @@ fused_muscl_kernel(const float* __restrict__ u, const float* __restrict__ ok,
           fhi[v] = fhi[v] * keep_hi;
         }
       }
+      if (phi != nullptr) {  // the (low, high) face mass flux, x dt/dx
+        phi[(2 * d) * g.plane + o] = flo[0] * scale;
+        phi[(2 * d + 1) * g.plane + o] = fhi[0] * scale;
+      }
 #pragma unroll
       for (int v = 0; v < 5; ++v) {
         float contrib = (flo[v] - fhi[v]) * scale;
         du[v] = (d == 0) ? contrib : du[v] + contrib;
       }
     }
-    const int64_t o = ((int64_t)x * g.n[1] + y) * g.n[2] + z;
     float w[5];
 #pragma unroll
     for (int v = 0; v < 5; ++v) {
@@ -213,13 +224,14 @@ fused_muscl_kernel(const float* __restrict__ u, const float* __restrict__ ok,
 
 // u, un: [5, nx, ny, nz] f32 contiguous; ok: [nx, ny, nz] f32 0/1 or NULL;
 // dt: one f32 on the device; crt: one f32 on the device, holding +inf on
-// entry, or NULL when the Courant min is not wanted.  bc: per axis (low,
-// high) kind, 0 periodic, 1 reflecting, 2 outflow.  riemann: 0 llf, 1 hllc.
+// entry, or NULL when the Courant min is not wanted; phi: [3, 2, nx, ny, nz]
+// f32 for the face mass fluxes, or NULL.  bc: per axis (low, high) kind,
+// 0 periodic, 1 reflecting, 2 outflow.  riemann: 0 llf, 1 hllc.
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 extern "C" int ramses_fused_muscl(
     const float* u, const float* ok, const float* dt, float* un, float* crt,
-    int nx, int ny, int nz, int bx0, int bx1, int by0, int by1, int bz0,
-    int bz1, int riemann, float slope_factor, float gamma, float gm1,
+    float* phi, int nx, int ny, int nz, int bx0, int bx1, int by0, int by1,
+    int bz0, int bz1, int riemann, float slope_factor, float gamma, float gm1,
     float entho, float smallr, float smallc2, float smallp, float smalle,
     float dx, float fac, void* stream) {
   if (nx > 65535) return (int)cudaErrorInvalidValue;
@@ -238,8 +250,10 @@ extern "C" int ramses_fused_muscl(
   dim3 block(TZ, TY, 1);
   dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, nx);
   if (riemann == 0)
-    fused_muscl_kernel<0><<<grid, block, 0, s>>>(u, ok, dt, un, crt_bits, g, k);
+    fused_muscl_kernel<0><<<grid, block, 0, s>>>(u, ok, dt, un, crt_bits,
+                                                   phi, g, k);
   else
-    fused_muscl_kernel<1><<<grid, block, 0, s>>>(u, ok, dt, un, crt_bits, g, k);
+    fused_muscl_kernel<1><<<grid, block, 0, s>>>(u, ok, dt, un, crt_bits,
+                                                   phi, g, k);
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,11 @@
 //   K2: uloc [5, 6, 6, 6, N], ok [6, 6, 6, N] -> du [5, 2, 2, 2, N] and
 //       corr [5, 3, 2, N]: the low (index 2) and high (index 4) face fluxes
 //       summed over the 2x2 transverse interior, times dt/dx.
+// With want_flux (phi != NULL) each also writes the dt/dx-scaled mass
+// fluxes of the MC-tracer capture: K3 all c+1 cell-face planes along each
+// direction, phip [3, c+1, c, c, N] (pallas_oct.py:345-350); K2 each
+// interior cell's (low, high) faces, phi [3, 2, 2, 2, 2, N] (d, side, cell;
+// pallas_oct.py:164-170).
 // A face next to a refined cell carries no flux: keep = (1-ok_i)(1-ok_{i-1}).
 // Only what the outputs consume is computed; the TPU kernels' roll
 // wrap-around junk in the halo is not reproduced.
@@ -26,7 +31,8 @@
 // The roofline on an H100 is bytes: per tile at shift 2 (td 12, c 8) the
 // sweep must read 6 td^3 floats (state and mask, 41.5 KB) and write
 // 5 c^3 + 15 (c/2+1) c^2 floats (29.4 KB), 21 ns of device memory time per
-// tile at 3.35 TB/s, against ~6 ns for the ~0.8 k f32 operations per
+// tile at 3.35 TB/s (the mass-flux planes add 3 (c+1) c^2 floats, 2.6 KB;
+// K2's add 48 an oct), against ~6 ns for the ~0.8 k f32 operations per
 // interior cell at 67 TFLOP/s.  At the main path's few hundred tiles that
 // is microseconds of work.
 //
@@ -60,11 +66,13 @@ struct BlockLoad {
 
 // C interior cells per side; PLANES: K3's face planes, else K2's per-oct
 // sums (C == 2, blockDim.y == 8: all of an oct's cells in one block).
+// phi == nullptr: no mass-flux output (uniform over the launch).
 template <int C, bool PLANES, int RS>
 __global__ void __launch_bounds__(256)
 sweep_kernel(const float* __restrict__ u, const float* __restrict__ ok,
              const float* __restrict__ dt_ptr, float* __restrict__ du,
-             float* __restrict__ out, int n, Consts k) {
+             float* __restrict__ out, float* __restrict__ phi, int n,
+             Consts k) {
   constexpr int TD = C + 4;
   constexpr int NC = C * C * C;
   constexpr int NP = C / 2 + 1;  // face planes per direction
@@ -115,6 +123,19 @@ sweep_kernel(const float* __restrict__ u, const float* __restrict__ ok,
       }
       const int p = ic[d];                         // interior coordinate on d
       const int t1 = ic[d == 0 ? 1 : 0], t2 = ic[d == 2 ? 1 : 2];
+      if (phi != nullptr) {
+        if constexpr (PLANES) {
+          // plane j is the low face of interior cell j; plane C the high
+          // face of the last cell
+          const int64_t base = (int64_t)d * (C + 1);
+          phi[(((base + p) * C + t1) * C + t2) * n + b] = flo[0] * scale;
+          if (p == C - 1)
+            phi[(((base + C) * C + t1) * C + t2) * n + b] = fhi[0] * scale;
+        } else {
+          phi[((int64_t)(d * 2) * NC + cell) * n + b] = flo[0] * scale;
+          phi[((int64_t)(d * 2 + 1) * NC + cell) * n + b] = fhi[0] * scale;
+        }
+      }
       if constexpr (PLANES) {
         // plane kp sits at face 2 + 2 kp: the low face of interior cell
         // 2 kp, and the last plane the high face of the last cell
@@ -155,15 +176,18 @@ sweep_kernel(const float* __restrict__ u, const float* __restrict__ ok,
 
 template <int C, bool PLANES>
 int launch(const float* u, const float* ok, const float* dt, float* du,
-           float* out, int n, int riemann, const Consts& k, cudaStream_t s) {
+           float* out, float* phi, int n, int riemann, const Consts& k,
+           cudaStream_t s) {
   const int tx = n >= 32 ? 32 : (n >= 16 ? 16 : 8);
   const int ty = PLANES ? 128 / tx : C * C * C;
   dim3 block(tx, ty, 1);
   dim3 grid((n + tx - 1) / tx, (C * C * C + ty - 1) / ty, 1);
   if (riemann == 0)
-    sweep_kernel<C, PLANES, 0><<<grid, block, 0, s>>>(u, ok, dt, du, out, n, k);
+    sweep_kernel<C, PLANES, 0><<<grid, block, 0, s>>>(u, ok, dt, du, out, phi,
+                                                      n, k);
   else
-    sweep_kernel<C, PLANES, 1><<<grid, block, 0, s>>>(u, ok, dt, du, out, n, k);
+    sweep_kernel<C, PLANES, 1><<<grid, block, 0, s>>>(u, ok, dt, du, out, phi,
+                                                      n, k);
   return (int)cudaGetLastError();
 }
 
@@ -180,38 +204,45 @@ Consts make_consts(float slope_factor, float gamma, float gm1, float entho,
 }  // namespace
 
 // All arrays f32, contiguous, on the device; ok is the 0/1 refined mask;
-// dt one f32 on the device.  riemann: 0 llf, 1 hllc.  Each launches on
-// `stream` without synchronising and returns cudaGetLastError().
+// dt one f32 on the device.  riemann: 0 llf, 1 hllc.  phi is the mass-flux
+// output or NULL.  Each launches on `stream` without synchronising and
+// returns cudaGetLastError().
 
 // K3: ut [5, td, td, td, n] -> du [5, c, c, c, n], corrp [5, 3, c/2+1, c, c, n]
-// with c = 2^(shift+1), td = c + 4, shift in 0..3.
+// (and phip [3, c+1, c, c, n]) with c = 2^(shift+1), td = c + 4, shift in
+// 0..3.
 extern "C" int ramses_tile_sweep(
     const float* ut, const float* ok, const float* dt, float* du, float* corrp,
-    int shift, int n, int riemann, float slope_factor, float gamma, float gm1,
-    float entho, float smallr, float smallc2, float smallp, float smalle,
-    float dx, void* stream) {
+    float* phip, int shift, int n, int riemann, float slope_factor,
+    float gamma, float gm1, float entho, float smallr, float smallc2,
+    float smallp, float smalle, float dx, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   const Consts k = make_consts(slope_factor, gamma, gm1, entho, smallr,
                                smallc2, smallp, smalle, dx);
   cudaStream_t s = (cudaStream_t)stream;
   switch (shift) {
-    case 0: return launch<2, true>(ut, ok, dt, du, corrp, n, riemann, k, s);
-    case 1: return launch<4, true>(ut, ok, dt, du, corrp, n, riemann, k, s);
-    case 2: return launch<8, true>(ut, ok, dt, du, corrp, n, riemann, k, s);
-    case 3: return launch<16, true>(ut, ok, dt, du, corrp, n, riemann, k, s);
+    case 0:
+      return launch<2, true>(ut, ok, dt, du, corrp, phip, n, riemann, k, s);
+    case 1:
+      return launch<4, true>(ut, ok, dt, du, corrp, phip, n, riemann, k, s);
+    case 2:
+      return launch<8, true>(ut, ok, dt, du, corrp, phip, n, riemann, k, s);
+    case 3:
+      return launch<16, true>(ut, ok, dt, du, corrp, phip, n, riemann, k, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// K2: uloc [5, 6, 6, 6, n] -> du [5, 2, 2, 2, n], corr [5, 3, 2, n].
+// K2: uloc [5, 6, 6, 6, n] -> du [5, 2, 2, 2, n], corr [5, 3, 2, n]
+// (and phi [3, 2, 2, 2, 2, n]).
 extern "C" int ramses_oct_sweep(
     const float* uloc, const float* ok, const float* dt, float* du,
-    float* corr, int n, int riemann, float slope_factor, float gamma,
-    float gm1, float entho, float smallr, float smallc2, float smallp,
-    float smalle, float dx, void* stream) {
+    float* corr, float* phi, int n, int riemann, float slope_factor,
+    float gamma, float gm1, float entho, float smallr, float smallc2,
+    float smallp, float smalle, float dx, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   const Consts k = make_consts(slope_factor, gamma, gm1, entho, smallr,
                                smallc2, smallp, smalle, dx);
-  return launch<2, false>(uloc, ok, dt, du, corr, n, riemann, k,
+  return launch<2, false>(uloc, ok, dt, du, corr, phi, n, riemann, k,
                           (cudaStream_t)stream);
 }

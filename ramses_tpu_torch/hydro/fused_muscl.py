@@ -5,13 +5,15 @@ whole unsplit update — ctoprim → TVD slopes → trace3d → LLF/HLLC face
 fluxes → conservative update — is one launch of the hand-written kernel
 ``csrc/fused_muscl.cu``, which also returns the Courant dt of the updated
 state (``courant=True``) and zeroes every face next to a refined cell
-when given a mask ``ok``.
+when given a mask ``ok``.  With ``want_flux`` it also returns the dt/dx-scaled
+mass flux through each cell's low and high faces, ``phi [3, 2, nx, ny,
+nz]``: the MC gas tracers' capture (``pallas_muscl.py:289-291``).
 
 :func:`fused_step` launches the kernel for a CUDA tensor and runs
 :func:`fused_step_ref`, the same function in plain PyTorch (the TPU
 kernel's arithmetic, with ``torch.roll`` on a ghost-padded tensor), for a
 CPU tensor.  It never falls back: on a CUDA tensor it launches the kernel
-or raises.  The face mass-flux output (``want_flux``) is not ported yet.
+or raises.
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ from ramses_tpu_torch.hydro.core import HydroStatic
 NG = 2  # ghost cells per side (matches muscl.NGHOST)
 
 # Kernel launches since the count was last reset (the main path's proof
-# that it ran through the kernel); the plain version does not count.
+# that it ran through the kernel), without and with the face mass fluxes;
+# the plain version does not count.
 launches = 0
+flux_launches = 0
 
 _RIEMANN = {"llf": 0, "hllc": 1}
 _COURANT_RATIO = 1e-4              # cmpdt's gravity-off strength ratio
@@ -264,10 +268,16 @@ def flux_update(fluxes, scale):
     return du
 
 
+def _results(un, dt_next, phi, courant: bool, want_flux: bool):
+    out = (un,) + ((dt_next,) if courant else ()) + \
+        ((phi,) if want_flux else ())
+    return out if len(out) > 1 else un
+
+
 def fused_step_ref(u: torch.Tensor, dt: torch.Tensor, cfg: HydroStatic,
                    dx: float, bc: bmod.BoundarySpec,
                    ok: Optional[torch.Tensor] = None, courant: bool = False,
-                   dt_scale: float = 1.0):
+                   dt_scale: float = 1.0, want_flux: bool = False):
     """Plain-PyTorch version of :func:`fused_step` (``_make_kernel``'s
     arithmetic, with ``torch.roll`` on a ghost-padded tensor).  Same
     arguments and results."""
@@ -276,10 +286,18 @@ def fused_step_ref(u: torch.Tensor, dt: torch.Tensor, cfg: HydroStatic,
     up = bmod.pad(u, bc, cfg, NG)
     sl = (slice(NG, NG + nx), slice(NG, NG + ny), slice(NG, NG + nz))
     okf = _pad_mask(ok.to(u.dtype), bc) if ok is not None else None
-    du = flux_update(masked_fluxes(up, dt, cfg, dx, okf), dt / dx)
+    fluxes = masked_fluxes(up, dt, cfg, dx, okf)
+    scale = dt / dx
+    du = flux_update(fluxes, scale)
     un = torch.stack([(up[c] + du[c])[sl] for c in range(5)])
+    phi = None
+    if want_flux:
+        phi = torch.stack([torch.stack([
+            (fluxes[d][0] * scale)[sl],
+            (torch.roll(fluxes[d][0], -1, d) * scale)[sl]])
+            for d in range(3)])
     if not courant:
-        return un
+        return _results(un, None, phi, False, want_flux)
     # Courant min of the UPDATED state (cmpdt, godunov_utils.f90:5-125
     # with gravity off), folded as the kernel folds it
     r2 = torch.clamp(un[0], min=cfg.smallr)
@@ -290,20 +308,26 @@ def fused_step_ref(u: torch.Tensor, dt: torch.Tensor, cfg: HydroStatic,
     c2 = torch.sqrt(cfg.gamma * p2 * ir2)
     ws = 3.0 * c2 + torch.abs(v2[0]) + torch.abs(v2[1]) + torch.abs(v2[2])
     local = torch.min(_rdiv(dx, ws)) * courant_fac(cfg)
-    return un, torch.clamp(local * dt_scale, max=dtmax(cfg, dx))
+    return _results(un, torch.clamp(local * dt_scale, max=dtmax(cfg, dx)),
+                    phi, True, want_flux)
 
 
 # ---------------------------------------------------------------------------
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
              + [ctypes.c_float] * 10 + [ctypes.c_void_p])
 
 
 def _library():
     from ramses_tpu_torch import kernels
-    lib = kernels.load("fused_muscl")
+    return bind(kernels.load("fused_muscl"))
+
+
+def bind(lib):
+    """Declare the C entry point's signature on a loaded build of
+    ``csrc/fused_muscl.cu`` (the tests also load a host build of it)."""
     fn = lib.ramses_fused_muscl
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
@@ -314,7 +338,7 @@ def _library():
 def fused_step(u: torch.Tensor, dt: torch.Tensor, cfg: HydroStatic,
                dx: float, bc: bmod.BoundarySpec,
                ok: Optional[torch.Tensor] = None, courant: bool = False,
-               dt_scale: float = 1.0):
+               dt_scale: float = 1.0, want_flux: bool = False):
     """One fused MUSCL-Hancock step of the unpadded state.
 
     ``u``: ``[5, nx, ny, nz]`` f32, contiguous; ``dt``: a 0-d tensor on
@@ -324,26 +348,29 @@ def fused_step(u: torch.Tensor, dt: torch.Tensor, cfg: HydroStatic,
     ``godunov_fine.f90:718``).  Returns ``un`` or, with ``courant``,
     ``(un, dt_next)``: ``dt_next`` is a 0-d device tensor holding
     ``min(dtmax, dt_scale * Courant min of un)`` (``grid/uniform.py:156``
-    of the JAX package).
+    of the JAX package).  ``want_flux`` appends ``phi [3, 2, nx, ny,
+    nz]``: per direction, the masked mass flux through each cell's low
+    (0) and high (1) face, ×dt/dx.
 
     A CPU tensor runs :func:`fused_step_ref`.  A CUDA tensor launches the
-    kernel (:func:`launch`) or raises.
+    kernel (counted in ``flux_launches`` with ``want_flux``, else in
+    ``launches``) or raises.
     """
     if u.device.type == "cpu":
         return fused_step_ref(u, dt, cfg, dx, bc, ok=ok, courant=courant,
-                              dt_scale=dt_scale)
-    un, crt = _launch(u, dt, cfg, dx, bc, ok, courant)
-    if not courant:
-        return un
-    return un, torch.clamp(crt * dt_scale, max=dtmax(cfg, dx))
+                              dt_scale=dt_scale, want_flux=want_flux)
+    un, crt, phi = _launch(u, dt, cfg, dx, bc, ok, courant, want_flux)
+    dt_next = (torch.clamp(crt * dt_scale, max=dtmax(cfg, dx)) if courant
+               else None)
+    return _results(un, dt_next, phi, courant, want_flux)
 
 
-def _launch(u, dt, cfg, dx, bc, ok, courant):
-    """One launch of the kernel, counted in ``launches``: ``(un, crt)``
-    with ``crt`` the raw Courant min of ``un`` (None without ``courant``).
-    Raises on a configuration outside :func:`supports`, on bad arguments,
-    and when the build or the launch fails."""
-    global launches
+def _launch(u, dt, cfg, dx, bc, ok, courant, want_flux):
+    """One launch of the kernel, counted in ``launches`` (or
+    ``flux_launches``): :func:`call`'s ``(un, crt, phi)``.  Raises on a
+    configuration outside :func:`supports`, on bad arguments, and when the
+    build or the launch fails."""
+    global launches, flux_launches
     if not supports(cfg, tuple(u.shape[1:]), bc.kinds, u.dtype):
         raise ValueError("fused_step: configuration outside the kernel's "
                          f"scope (cfg={cfg}, shape={tuple(u.shape)}, "
@@ -362,23 +389,40 @@ def _launch(u, dt, cfg, dx, bc, ok, courant):
                              "u's device")
         okf = ok.to(torch.float32).contiguous()
     lib = _library()
+    with torch.cuda.device(u.device):
+        out = call(lib, u, okf, dt, cfg, dx, bc, courant, want_flux,
+                   torch.cuda.current_stream(u.device).cuda_stream)
+    if want_flux:
+        flux_launches += 1
+    else:
+        launches += 1
+    return out
+
+
+def call(lib, u, okf, dt, cfg, dx, bc, courant, want_flux, stream=None):
+    """One call of the C entry of ``lib`` (a build of ``csrc/fused_muscl.cu``
+    with :func:`bind` applied) on checked arguments: ``okf`` the refined
+    mask as f32 0/1 or None, ``dt`` a 0-d f32 tensor.  Returns ``(un, crt,
+    phi)``: ``crt`` the raw Courant min of ``un`` (None without
+    ``courant``), ``phi`` the face mass fluxes (None without
+    ``want_flux``); outputs go on ``u``'s device.  Raises on an error it
+    returns."""
     un = torch.empty_like(u)
     crt = (torch.full((), math.inf, dtype=torch.float32, device=u.device)
            if courant else None)
+    phi = u.new_empty((3, 2) + tuple(u.shape[1:])) if want_flux else None
     nx, ny, nz = u.shape[1:]
     kinds = [k for pair in bc.kinds for k in pair]
     g = cfg.gamma
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = lib.ramses_fused_muscl(
-            u.data_ptr(), okf.data_ptr() if okf is not None else None,
-            dt.data_ptr(), un.data_ptr(),
-            crt.data_ptr() if crt is not None else None,
-            nx, ny, nz, *kinds, _RIEMANN[cfg.riemann], _slope_factor(cfg),
-            g, g - 1.0, 1.0 / (g - 1.0), cfg.smallr, cfg.smallc ** 2,
-            cfg.smallp, cfg.smalle, dx, courant_fac(cfg), stream)
+    err = lib.ramses_fused_muscl(
+        u.data_ptr(), okf.data_ptr() if okf is not None else None,
+        dt.data_ptr(), un.data_ptr(),
+        crt.data_ptr() if crt is not None else None,
+        phi.data_ptr() if phi is not None else None,
+        nx, ny, nz, *kinds, _RIEMANN[cfg.riemann], _slope_factor(cfg),
+        g, g - 1.0, 1.0 / (g - 1.0), cfg.smallr, cfg.smallc ** 2,
+        cfg.smallp, cfg.smalle, dx, courant_fac(cfg), stream)
     if err:
         raise RuntimeError(f"fused_muscl kernel launch failed "
                            f"(cudaError {err})")
-    launches += 1
-    return un, crt
+    return un, crt, phi

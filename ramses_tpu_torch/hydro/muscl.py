@@ -4,13 +4,12 @@ Port of ``ramses_tpu/hydro/muscl.py``: the pipeline
 ``ctoprim → uslope → trace → cmpflxm → riemann_*``
 (``hydro/umuscl.f90:22-171,861-1480``) as plain functions on whole
 (ghost-padded) grids of shape ``[nvar, *spatial]``, in the JAX package's
-arithmetic order.  This is the general path of
-:func:`ramses_tpu_torch.grid.uniform.step` (1D, 2D, passives, f64, ...);
-3D f32 runs take the fused kernel of :mod:`ramses_tpu_torch.hydro.fused_muscl`.
-
-Not ported yet (each raises ``NotImplementedError``): the PLMDE predictor
-(``trace_plmde``), positivity slopes (slope_type 3) and the dual-energy
-``pressure_fix`` (``dual_energy_fix``).
+arithmetic order, with the PLMDE predictor (``trace_plmde``), the
+positivity slopes (slope_type 3) and the dual-energy ``pressure_fix`` and
+non-thermal pdV sources (``dual_energy_fix``).  This is the general path
+of :func:`ramses_tpu_torch.grid.uniform.step` (1D, 2D, passives, f64,
+the options above, ...); 3D f32 runs inside its gate take the fused kernel
+of :mod:`ramses_tpu_torch.hydro.fused_muscl`.
 
 Ghost-cell contract: callers pad with ``NGHOST=2`` cells per side.
 Shifted neighbours are taken with ``torch.roll``; wrap-around touches only
@@ -19,6 +18,7 @@ ghost results that the active region never consumes.
 
 from __future__ import annotations
 
+import itertools
 from typing import List, Sequence
 
 import torch
@@ -78,9 +78,7 @@ def uslope(q, cfg: HydroStatic, dt=None, dx=None):
         return torch.zeros((cfg.ndim,) + tuple(q.shape), dtype=q.dtype,
                            device=q.device)
     if st == 3 and cfg.ndim > 1:
-        raise NotImplementedError(
-            "slope_type=3 (positivity slopes) is not ported to "
-            "ramses_tpu_torch yet")
+        return _uslope_positivity(q, cfg)
     dq = []
     for d in range(cfg.ndim):
         ax = _axis(cfg, d, q)
@@ -110,6 +108,36 @@ def uslope(q, cfg: HydroStatic, dt=None, dx=None):
         else:
             raise NotImplementedError(f"slope_type={st}")
     return torch.stack(dq)
+
+
+def _uslope_positivity(q, cfg: HydroStatic):
+    """slope_type=3 positivity-preserving unsplit slopes for 2D/3D
+    (``hydro/umuscl.f90`` 'positivity preserving {2d,3d} unsplit slope'):
+    centred differences per direction, all scaled by one common limiter
+    ``min(1, min(|vmin|, |vmax|)/dff)``, vmin/vmax over the 3^ndim
+    neighbourhood differences and ``dff = 0.5 * sum_d |dcen_d|``."""
+    nd = cfg.ndim
+    axes = [_axis(cfg, d, q) for d in range(nd)]
+    vmin = torch.full_like(q, torch.inf)
+    vmax = torch.full_like(q, -torch.inf)
+    for offs in itertools.product((-1, 0, 1), repeat=nd):
+        qs = q
+        for d, o in enumerate(offs):
+            if o:
+                qs = torch.roll(qs, -o, dims=axes[d])
+        df = qs - q
+        vmin = torch.minimum(vmin, df)
+        vmax = torch.maximum(vmax, df)
+    dcen = [0.5 * (torch.roll(q, -1, dims=axes[d])
+                   - torch.roll(q, 1, dims=axes[d])) for d in range(nd)]
+    dff = 0.5 * sum(torch.abs(dc) for dc in dcen)
+    slop = torch.where(dff > 0.0,
+                       torch.clamp(torch.minimum(torch.abs(vmin),
+                                                 torch.abs(vmax))
+                                   / torch.where(dff > 0.0, dff, 1.0),
+                                   max=1.0),
+                       1.0)
+    return torch.stack([slop * dc for dc in dcen])
 
 
 def trace(q, dq, dt, dx: Sequence[float], cfg: HydroStatic):
@@ -174,9 +202,65 @@ def trace(q, dq, dt, dx: Sequence[float], cfg: HydroStatic):
 
 
 def trace_plmde(q, c, dq, dt, dx: Sequence[float], cfg: HydroStatic):
-    """PLMDE predictor (``hydro/uplmde.f90``): not ported yet."""
-    raise NotImplementedError(
-        "scheme='plmde' (trace_plmde) is not ported to ramses_tpu_torch yet")
+    """PLMDE predictor: per-direction characteristic projection
+    (``hydro/uplmde.f90`` tracex/tracexy/tracexyz unified over ndim).
+
+    Each direction's face states project the (ρ, v_n, P) slopes onto the
+    acoustic characteristics and keep only the waves that reach the face;
+    tangential velocities, non-thermal energies and passives ride the
+    entropy wave.  Returns (qm, qp) in the :func:`trace` convention.
+    """
+    nd = cfg.ndim
+    ip = nd + 1
+    r = q[0]
+    p = q[ip]
+    csq = cfg.gamma * p / torch.clamp(r, min=cfg.smallr)
+    qm, qp = [], []
+    for d in range(nd):
+        dtdx = dt / dx[d]
+        u = q[1 + d]
+        dr = dq[d][0]
+        du = dq[d][1 + d]
+        dp = dq[d][ip]
+        # supersonic fix: strong velocity gradients drop the acoustic
+        # spread (uplmde.f90 'Supersonic fix')
+        ccc = torch.where(torch.abs(du) > 3.0 * c, 0.0, c)
+        alpham = 0.5 * (dp / csq - du * r / c)
+        alphap = 0.5 * (dp / csq + du * r / c)
+        alpha0 = dr - dp / csq
+
+        def face(sgn):
+            # sgn=-1: right state at the LOW face (left-moving waves);
+            # sgn=+1: left state at the HIGH face (right-moving waves)
+            if sgn < 0:
+                spp = torch.where(u + ccc > 0.0, -1.0, (u + ccc) * dtdx)
+                spm = torch.where(u - ccc > 0.0, -1.0, (u - ccc) * dtdx)
+                spz = torch.where(u > 0.0, -1.0, u * dtdx)
+                wp = 0.5 * (-1.0 - spp)
+                wm = 0.5 * (-1.0 - spm)
+                wz = 0.5 * (-1.0 - spz)
+            else:
+                spp = torch.where(u + ccc <= 0.0, 1.0, (u + ccc) * dtdx)
+                spm = torch.where(u - ccc <= 0.0, 1.0, (u - ccc) * dtdx)
+                spz = torch.where(u <= 0.0, 1.0, u * dtdx)
+                wp = 0.5 * (1.0 - spp)
+                wm = 0.5 * (1.0 - spm)
+                wz = 0.5 * (1.0 - spz)
+            ap = wp * alphap
+            am = wm * alpham
+            az = wz * alpha0
+            comps = [None] * q.shape[0]
+            comps[0] = torch.clamp(r + (ap + am + az), min=cfg.smallr)
+            comps[1 + d] = u + (ap - am) * c / r
+            comps[ip] = p + (ap + am) * csq
+            for j in range(q.shape[0]):
+                if comps[j] is None:     # entropy-wave riders
+                    comps[j] = q[j] + wz * dq[d][j]
+            return torch.stack(comps)
+
+        qm.append(face(+1.0))
+        qp.append(face(-1.0))
+    return torch.stack(qm), torch.stack(qp)
 
 
 def _iface_perm(cfg: HydroStatic, d: int) -> List[int]:
@@ -246,13 +330,78 @@ def unsplit(u, grav, dt, dx: Sequence[float], cfg: HydroStatic):
     return flux * scale.reshape(bshape), tmp * scale.reshape(bshape)
 
 
+def eint_of(u, cfg: HydroStatic):
+    """Thermal internal energy density from a conservative state."""
+    r = torch.clamp(u[0], min=cfg.smallr)
+    e = u[cfg.ndim + 1] - sum(0.5 * u[1 + d] ** 2
+                              for d in range(cfg.ndim)) / r
+    for n in range(cfg.nener):
+        e = e - u[cfg.ndim + 2 + n]
+    return e
+
+
 def dual_energy_fix(up, un, tmp, dt, dx: Sequence[float],
                     cfg: HydroStatic, hexp: float = 0.0):
-    """Dual-energy pressure fix + non-thermal pdV sources
-    (``hydro/godunov_fine.f90``): not ported yet."""
-    raise NotImplementedError(
-        "pressure_fix / non-thermal energies (dual_energy_fix) are not "
-        "ported to ramses_tpu_torch yet")
+    """Dual-energy pressure fix + non-thermal pdV sources on a padded
+    block (``pressure_fix`` machinery of ``hydro/godunov_fine.f90``:
+    divu/enew accumulation :735-790, ``add_pdv_source_terms`` :294-430,
+    the set_uold correction :203-226).
+
+    ``up``: padded OLD state; ``un``: padded UPDATED state (same layout);
+    ``tmp``: per-direction [2, ...] (face normal velocity, internal-energy
+    flux), both ×dt/dx as returned by :func:`unsplit`.  Valid on the
+    active interior (ghost results are wrapped garbage, as in
+    :func:`apply_fluxes`).  Returns ``un`` with the corrected total energy
+    and pdV-updated non-thermal energies (a new tensor; ``un`` is not
+    modified).
+    """
+    nd = cfg.ndim
+    ie = nd + 1
+    dt = torch.as_tensor(dt, dtype=up.dtype, device=up.device)
+    r_old = torch.clamp(up[0], min=cfg.smallr)
+    eint_old = eint_of(up, cfg)
+
+    # field arrays ([*sp] / [*sp, batch]) drop the leading nvar axis of
+    # the state layout _axis describes
+    def axf(d):
+        return _axis(cfg, d, up) - 1
+
+    # face-flux accumulation: enew advection + divu (= -div·u·dt)
+    enew = eint_old
+    divu_acc = torch.zeros_like(eint_old)
+    for d in range(nd):
+        ax = axf(d)
+        enew = enew + (tmp[d][1] - torch.roll(tmp[d][1], -1, dims=ax))
+        divu_acc = divu_acc + (tmp[d][0]
+                               - torch.roll(tmp[d][0], -1, dims=ax))
+
+    # centred -pdV source from the OLD velocity field
+    # (add_pdv_source_terms' Trace G over 2dx)
+    divu_c = torch.zeros_like(eint_old)
+    for d in range(nd):
+        ax = axf(d)
+        v = up[1 + d] / r_old
+        divu_c = divu_c + (torch.roll(v, -1, dims=ax)
+                           - torch.roll(v, 1, dims=ax)) / (2.0 * dx[d])
+    enew = enew - (cfg.gamma - 1.0) * eint_old * divu_c * dt
+    rows = list(un.unbind(0))
+    for n in range(cfg.nener):
+        i = nd + 2 + n
+        rows[i] = rows[i] + (-(cfg.gamma_rad[n] - 1.0) * up[i]
+                             * divu_c * dt)
+
+    if cfg.pressure_fix:
+        # truncation test on the UPDATED state
+        r_new = torch.clamp(rows[0], min=cfg.smallr)
+        ekin_new = sum(0.5 * rows[1 + d] ** 2 for d in range(nd)) / r_new
+        for n in range(cfg.nener):
+            ekin_new = ekin_new + rows[nd + 2 + n]
+        e_cons = rows[ie] - ekin_new
+        div = torch.abs(divu_acc) * dx[0] / torch.clamp(dt, min=1e-300)
+        e_trunc = cfg.beta_fix * r_new * torch.clamp(
+            div, min=3.0 * hexp * dx[0]) ** 2
+        rows[ie] = torch.where(e_cons < e_trunc, enew + ekin_new, rows[ie])
+    return torch.stack(rows)
 
 
 def apply_fluxes(u, flux, cfg: HydroStatic):

@@ -11,12 +11,16 @@ level on a gathered batch, whose last axis runs over the batch.
   ``uloc [5, 6, 6, 6, N]`` → ``du [5, 2, 2, 2, N]`` and the per-oct
   boundary-flux sums ``corr [5, 3, 2, N]``, already ×dt/dx.
 
+With ``want_flux`` each also returns the dt/dx-scaled mass fluxes of the
+MC gas tracers' capture: K3 all ``c+1`` cell-face planes along each
+direction, ``phip [3, c+1, c, c, N]``; K2 each interior cell's (low, high)
+faces, ``phi [3, 2, 2, 2, 2, N]`` (direction, side, cell).
+
 Both kernels are ``csrc/oct_muscl.cu`` on K1's body (``csrc/
 muscl_common.cuh``).  A wrapper launches its kernel for a CUDA tensor, or
 raises, and runs its plain version (:func:`tile_sweep_ref`,
 :func:`oct_sweep_ref`: the TPU kernel's arithmetic in PyTorch, with
-``torch.roll``) for a CPU tensor.  The MC-tracer mass-flux output
-(``want_flux``) is not ported yet.
+``torch.roll``) for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -32,8 +36,10 @@ NG = 2                      # block halo width (MUSCL-Hancock stencil)
 SHIFTS = (0, 1, 2, 3)       # tile shifts the K3 build carries (c = 2..16)
 
 # Kernel launches since the counts were last reset (the main path's proof
-# that it ran through each kernel); the plain versions do not count.
-launches = {"tile_sweep": 0, "oct_sweep": 0}
+# that it ran through each kernel), the flux variants under their own
+# keys; the plain versions do not count.
+launches = {"tile_sweep": 0, "oct_sweep": 0, "tile_sweep_flux": 0,
+            "oct_sweep_flux": 0}
 
 
 def supports(cfg: HydroStatic, dtype) -> bool:
@@ -67,22 +73,34 @@ def _interior_update(fl, scale, c: int):
     return torch.stack([x[core] for x in fm.flux_update(fl, scale)])
 
 
-def tile_sweep_ref(ut, ok, dt, cfg: HydroStatic, dx: float, shift: int):
+def _planes(f, d: int, c: int, step: int):
+    """Face values of ``f [td, td, td, N]`` at positions ``NG, NG + step,
+    ..., NG + c`` along d, transverse interior: ``[c/step + 1, c, c, N]``
+    (the transverse axes in increasing order)."""
+    ix = tuple(slice(NG, NG + c + 1, step) if dd == d
+               else slice(NG, NG + c) for dd in range(3))
+    return torch.movedim(f[ix], d, 0)
+
+
+def tile_sweep_ref(ut, ok, dt, cfg: HydroStatic, dx: float, shift: int,
+                   want_flux: bool = False):
     """Plain-PyTorch version of :func:`tile_sweep` (``_make_tile_kernel``'s
     arithmetic).  Same arguments and results."""
     c = 1 << (shift + 1)
     fl, scale = _sweep_fluxes(ut, ok, dt, cfg, dx)
-    planes = []
-    for d in range(3):
-        # faces at positions NG + 2k along d, transverse interior
-        ix = tuple(slice(NG, NG + c + 1, 2) if dd == d
-                   else slice(NG, NG + c) for dd in range(3))
-        planes.append(torch.stack([torch.movedim((f * scale)[ix], d, 0)
-                                   for f in fl[d]]))
-    return _interior_update(fl, scale, c), torch.stack(planes, dim=1)
+    # per-oct faces: positions NG + 2k along d
+    planes = [torch.stack([_planes(f * scale, d, c, 2) for f in fl[d]])
+              for d in range(3)]
+    out = (_interior_update(fl, scale, c), torch.stack(planes, dim=1))
+    if want_flux:
+        # every cell face: positions NG + j, j = 0..c
+        out += (torch.stack([_planes(fl[d][0] * scale, d, c, 1)
+                             for d in range(3)]),)
+    return out
 
 
-def oct_sweep_ref(uloc, ok, dt, cfg: HydroStatic, dx: float):
+def oct_sweep_ref(uloc, ok, dt, cfg: HydroStatic, dx: float,
+                  want_flux: bool = False):
     """Plain-PyTorch version of :func:`oct_sweep` (``_make_kernel``'s
     arithmetic).  Same arguments and results."""
     fl, scale = _sweep_fluxes(uloc, ok, dt, cfg, dx)
@@ -94,7 +112,16 @@ def oct_sweep_ref(uloc, ok, dt, cfg: HydroStatic, dx: float):
                        for dd in range(3))
             for v in range(5):
                 corr[v, d, side] = fl[d][v][ix].sum(dim=(0, 1)) * scale
-    return _interior_update(fl, scale, 2), corr
+    out = (_interior_update(fl, scale, 2), corr)
+    if want_flux:
+        # a cell's low face sits at its own slot, its high face at the
+        # next slot along d
+        core = (slice(NG, NG + 2),) * 3
+        out += (torch.stack([torch.stack([
+            (fl[d][0] * scale)[core],
+            (torch.roll(fl[d][0], -1, d) * scale)[core]])
+            for d in range(3)]),)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -103,14 +130,19 @@ def oct_sweep_ref(uloc, ok, dt, cfg: HydroStatic, dx: float):
 
 _CONSTS = [ctypes.c_float] * 9 + [ctypes.c_void_p]
 _ARGTYPES = {
-    "ramses_tile_sweep": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + _CONSTS,
-    "ramses_oct_sweep": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + _CONSTS,
+    "ramses_tile_sweep": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + _CONSTS,
+    "ramses_oct_sweep": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + _CONSTS,
 }
 
 
 def _library():
     from ramses_tpu_torch import kernels
-    lib = kernels.load("oct_muscl")
+    return bind(kernels.load("oct_muscl"))
+
+
+def bind(lib):
+    """Declare the C entry points' signatures on a loaded build of
+    ``csrc/oct_muscl.cu`` (the tests also load a host build of it)."""
     for name, argtypes in _ARGTYPES.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
@@ -144,16 +176,41 @@ def _consts(cfg: HydroStatic, dx: float):
             cfg.smallc ** 2, cfg.smallp, cfg.smalle, dx)
 
 
-def _run(name, fn, u, ok, dt, outs, ints, cfg, dx):
-    okf = ok.to(torch.float32).contiguous()
+def _run(name, u, ok, dt, cfg, dx, shift, want_flux):
+    """One launch, counted under ``name`` or ``name + "_flux"``."""
+    lib = _library()
     with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = fn(u.data_ptr(), okf.data_ptr(), dt.data_ptr(),
-                 outs[0].data_ptr(), outs[1].data_ptr(), *ints,
-                 fm._RIEMANN[cfg.riemann], *_consts(cfg, dx), stream)
+        outs = call(lib, u, ok.to(torch.float32).contiguous(), dt, cfg, dx,
+                    shift, want_flux,
+                    torch.cuda.current_stream(u.device).cuda_stream)
+    launches[name + ("_flux" if want_flux else "")] += 1
+    return outs
+
+
+def call(lib, u, okf, dt, cfg, dx, shift, want_flux, stream=None):
+    """One call of K3 (``shift`` an int) or K2 (``shift`` None) in ``lib``
+    (a build of ``csrc/oct_muscl.cu`` with :func:`bind` applied) on checked
+    arguments: ``okf`` the refined mask as f32 0/1, ``dt`` a 0-d f32
+    tensor.  Returns ``(du, corr)``, with ``want_flux`` ``(du, corr,
+    phi)``; outputs go on ``u``'s device.  Raises on an error it returns."""
+    n = u.shape[-1]
+    if shift is None:
+        outs = (u.new_empty((5, 2, 2, 2, n)), u.new_empty((5, 3, 2, n)))
+        if want_flux:
+            outs += (u.new_empty((3, 2, 2, 2, 2, n)),)
+        fn, ints, name = lib.ramses_oct_sweep, (n,), "oct_sweep"
+    else:
+        c = 1 << (shift + 1)
+        outs = (u.new_empty((5, c, c, c, n)),
+                u.new_empty((5, 3, c // 2 + 1, c, c, n)))
+        if want_flux:
+            outs += (u.new_empty((3, c + 1, c, c, n)),)
+        fn, ints, name = lib.ramses_tile_sweep, (shift, n), "tile_sweep"
+    err = fn(u.data_ptr(), okf.data_ptr(), dt.data_ptr(), outs[0].data_ptr(),
+             outs[1].data_ptr(), outs[2].data_ptr() if want_flux else None,
+             *ints, fm._RIEMANN[cfg.riemann], *_consts(cfg, dx), stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
-    launches[name] += 1
     return outs
 
 
@@ -165,23 +222,17 @@ def tile_sweep(ut, ok, dt, cfg: HydroStatic, dx: float, shift: int,
     4``); ``ok``: ``[td, td, td, N]`` refined-cell mask (0/1); ``dt``: a
     0-d tensor on ``ut``'s device, read by the kernel through a pointer.
     Returns ``(du [5, c, c, c, N], corrp [5, 3, c//2+1, c, c, N])``, fluxes
-    ×dt/dx.  A CPU tensor runs :func:`tile_sweep_ref`; a CUDA tensor
-    launches the kernel (counted in ``launches["tile_sweep"]``) or raises.
+    ×dt/dx, and with ``want_flux`` also ``phip [3, c+1, c, c, N]``.  A CPU
+    tensor runs :func:`tile_sweep_ref`; a CUDA tensor launches the kernel
+    (counted in ``launches["tile_sweep"]``, or ``["tile_sweep_flux"]``)
+    or raises.
     """
-    if want_flux:
-        raise NotImplementedError("tile_sweep: the MC-tracer face mass "
-                                  "fluxes (want_flux) are not ported yet")
     if ut.device.type == "cpu":
-        return tile_sweep_ref(ut, ok, dt, cfg, dx, shift)
+        return tile_sweep_ref(ut, ok, dt, cfg, dx, shift, want_flux)
     if shift not in SHIFTS:
         raise ValueError(f"tile_sweep: shift {shift} outside {SHIFTS}")
-    c = 1 << (shift + 1)
-    _check("tile_sweep", ut, ok, dt, cfg, c + 2 * NG)
-    n = ut.shape[-1]
-    outs = (ut.new_empty((5, c, c, c, n)),
-            ut.new_empty((5, 3, c // 2 + 1, c, c, n)))
-    return _run("tile_sweep", _library().ramses_tile_sweep, ut, ok, dt, outs,
-                (shift, n), cfg, dx)
+    _check("tile_sweep", ut, ok, dt, cfg, (1 << (shift + 1)) + 2 * NG)
+    return _run("tile_sweep", ut, ok, dt, cfg, dx, shift, want_flux)
 
 
 def oct_sweep(uloc, ok, dt, cfg: HydroStatic, dx: float,
@@ -190,17 +241,12 @@ def oct_sweep(uloc, ok, dt, cfg: HydroStatic, dx: float,
 
     ``uloc``: ``[5, 6, 6, 6, N]`` f32 contiguous; ``ok``: ``[6, 6, 6, N]``
     refined-cell mask (0/1); ``dt``: a 0-d tensor on ``uloc``'s device.
-    Returns ``(du [5, 2, 2, 2, N], corr [5, 3, 2, N])``, fluxes ×dt/dx.
-    A CPU tensor runs :func:`oct_sweep_ref`; a CUDA tensor launches the
-    kernel (counted in ``launches["oct_sweep"]``) or raises.
+    Returns ``(du [5, 2, 2, 2, N], corr [5, 3, 2, N])``, fluxes ×dt/dx, and
+    with ``want_flux`` also ``phi [3, 2, 2, 2, 2, N]``.  A CPU tensor runs
+    :func:`oct_sweep_ref`; a CUDA tensor launches the kernel (counted in
+    ``launches["oct_sweep"]``, or ``["oct_sweep_flux"]``) or raises.
     """
-    if want_flux:
-        raise NotImplementedError("oct_sweep: the MC-tracer face mass "
-                                  "fluxes (want_flux) are not ported yet")
     if uloc.device.type == "cpu":
-        return oct_sweep_ref(uloc, ok, dt, cfg, dx)
+        return oct_sweep_ref(uloc, ok, dt, cfg, dx, want_flux)
     _check("oct_sweep", uloc, ok, dt, cfg, 6)
-    n = uloc.shape[-1]
-    outs = (uloc.new_empty((5, 2, 2, 2, n)), uloc.new_empty((5, 3, 2, n)))
-    return _run("oct_sweep", _library().ramses_oct_sweep, uloc, ok, dt, outs,
-                (n,), cfg, dx)
+    return _run("oct_sweep", uloc, ok, dt, cfg, dx, None, want_flux)

@@ -87,8 +87,10 @@ def unported_mhd_features(params: Params) -> list:
     levelmin`` the hierarchy :class:`ramses_tpu_torch.mhd.amr.MhdAmrSim`
     (beyond what :func:`ramses_tpu_torch.driver.unported_features` and, on
     the hierarchy, :func:`ramses_tpu_torch.amr.hierarchy.
-    unported_amr_features` list: gravity, particles, tracers, offload, patch
-    hooks and the rest)."""
+    unported_amr_features` list: gravity, particles, offload, patch hooks
+    and the rest).  The hierarchy refuses tracers too: the JAX package
+    moves them there as CIC velocity tracers, which need the particle
+    layer."""
     from ramses_tpu_torch.amr.hierarchy import unported_amr_features
     from ramses_tpu_torch.driver import unported_features
     r = params.run
@@ -103,6 +105,8 @@ def unported_mhd_features(params: Params) -> list:
         ("telemetry (&OUTPUT_PARAMS telemetry)",
          bool(str(params.output.telemetry or "").strip("'\" "))),
         ("restart (&RUN_PARAMS nrestart)", r.nrestart > 0),
+        ("tracers (&RUN_PARAMS tracer) on the MHD hierarchy",
+         r.tracer and amr),
     ]
     out = (unported_amr_features if amr else unported_features)(params)
     return out + [n for n, on in checks if on and n not in out]

@@ -303,6 +303,117 @@ def test_scatter_restrict_courant_match(level5):
         _close(got, want)
 
 
+FLUX_RTOL = 1e-12
+
+
+def _flux_inputs(level5, f32):
+    """The level-5 sweeps' inputs with a random velocity field added (the
+    initial blast is at rest, where the mass fluxes vanish), in f32 (the
+    plain versions of K1, K3 and K2 on CPU tensors) or f64 (the general
+    formulation)."""
+    jsim, d, state0, interp, binterp = level5
+    dt = np.float32 if f32 else np.float64
+    rng = np.random.default_rng(11)
+
+    def moving(u):
+        u = u.copy()
+        mom = 0.3 * u[:, :1] * rng.standard_normal((u.shape[0], 3))
+        u[:, 4] += 0.5 * (mom ** 2).sum(axis=1) / u[:, 0]
+        u[:, 1:4] += mom
+        return u.astype(dt)
+    u4, u5 = moving(state0[4]), moving(state0[5])
+    ints = [JK.interp_cells(jnp.asarray(u4.astype(np.float64)),
+                            d[pre + "interp_cell"], d[pre + "interp_nb"],
+                            d[pre + "interp_sgn"], jsim.cfg)
+            for pre in ("", "b_")]
+    return (jsim, d, u4, u5, *[np.asarray(x).astype(dt) for x in ints])
+
+
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("kind", ["dense", "level", "tile"])
+def test_sweep_ret_flux_matches(level5, kind, f32):
+    """``ret_flux``: each sweep's per-cell (low, high) face mass fluxes
+    ``phi [ncell_pad, ndim, 2]`` against the JAX package's, f64 at rtol
+    1e-12; in f32 through the kernels' plain versions (the layouts the
+    CUDA kernels' outputs are read back in) against JAX's XLA path, to
+    the f32 table.  The du and corrections are unchanged by it, and pad
+    rows are 0."""
+    jsim, d, u4, u5, interp, binterp = _flux_inputs(level5, f32)
+    cfg = hydro_static_from(jsim.cfg)
+    jdt = jnp.float32(DT) if f32 else DT
+    if kind == "dense":
+        d4 = jsim.dev[4]
+        shape = jsim.tree.cell_dims(4)
+        want = JK.dense_sweep(jnp.asarray(u4), None, None, d4["ok_dense"],
+                              jdt, jsim.dx(4), shape, jsim.bspec, jsim.cfg,
+                              ret_flux=True)
+        pbc = bmod.BoundarySpec.from_params(pparams(_text(), ndim=3))
+        args = (_t(u4), None, None, _t(d4["ok_dense"]), DT, jsim.dx(4),
+                shape, pbc, cfg)
+        got = PK.dense_sweep(*args, ret_flux=True)
+        plain = PK.dense_sweep(*args)
+        nreal = jsim.tree.noct(4) * 8
+    elif kind == "level":
+        want = JK.level_sweep(jnp.asarray(u5), jnp.asarray(interp),
+                              d["stencil_src"], d["vsgn"], d["ok_ref"], None,
+                              jdt, jsim.dx(5), jsim.cfg, ret_flux=True)
+        args = (_t(u5), _t(interp), _t(d["stencil_src"]), None,
+                _t(d["ok_ref"]), DT, jsim.dx(5), cfg)
+        got = PK.level_sweep(*args, ret_flux=True)
+        plain = PK.level_sweep(*args)
+        nreal = jsim.tree.noct(5) * 8
+    else:
+        names = ("tile_src", "tile_vsgn", "tile_ok", "cell_tile",
+                 "cell_slot", "oct_tile", "oct_slot")
+        want = JK.tile_sweep(jnp.asarray(u5), jnp.asarray(binterp),
+                             *[d[a] for a in names], jdt, jsim.dx(5),
+                             jsim.cfg, 2, ret_flux=True, pallas_ok=False)
+        args = (_t(u5), _t(binterp),
+                *[None if d[a] is None else _t(d[a]) for a in names],
+                DT, jsim.dx(5), cfg, 2)
+        got = PK.tile_sweep(*args, ret_flux=True)
+        plain = PK.tile_sweep(*args)
+        nreal = jsim.tree.noct(5) * 8
+    phi = got[-1]
+    assert phi.dtype == (torch.float32 if f32 else torch.float64)
+    assert tuple(phi.shape) == (u4.shape[0] if kind == "dense"
+                                else u5.shape[0], 3, 2)
+    assert not phi[nreal:].any()
+    assert phi[:nreal].abs().max() > 0
+    if kind == "dense":
+        assert torch.equal(got[0], plain)
+    else:
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+    if f32:
+        _close(phi, want[-1], rtol=2e-5, atol=2e-6)
+    else:
+        _close(phi, want[-1], rtol=FLUX_RTOL)
+
+
+def test_scatter_corr_flux_matches(level5):
+    """The fine level's boundary mass fluxes into the coarse face slots of
+    the capture, through the host-built plan of valid targets, against
+    the JAX package's masked scatter-add (f64, rtol 1e-12); the slots no
+    fine face reaches stay as they were."""
+    jsim, d, state0, interp, _ = level5
+    cfg = hydro_static_from(jsim.cfg)
+    _, corr = JK.level_sweep(jnp.asarray(state0[5]), interp,
+                             d["stencil_src"], d["vsgn"], d["ok_ref"], None,
+                             DT, jsim.dx(5), jsim.cfg)
+    corr_idx = np.asarray(d["corr_idx"])
+    rng = np.random.default_rng(5)
+    phi4 = rng.standard_normal((state0[4].shape[0], 3, 2))
+    want = JK.scatter_corr_flux(jnp.asarray(phi4), corr, corr_idx, jsim.cfg)
+    plan = PK.flux_plan(corr_idx, "cpu")
+    got = PK.scatter_corr_flux(_t(phi4), _t(corr), plan, cfg)
+    _close(got, want, rtol=FLUX_RTOL)
+    touched = np.zeros(phi4.size, dtype=bool)
+    touched[plan.target.numpy()] = True
+    assert touched.any()
+    assert np.array_equal(got.numpy().reshape(-1)[~touched],
+                          phi4.reshape(-1)[~touched])
+
+
 def test_refine_flags_match(level5):
     jsim, d, state0, interp, binterp = level5
     cfg = hydro_static_from(jsim.cfg)

@@ -58,18 +58,18 @@ def _jax_bc(kinds):
         (jbmod.FaceBC(kind=lo), jbmod.FaceBC(kind=hi)) for lo, hi in kinds))
 
 
-def _both(cfg, u, dt, kinds, ok=None, courant=False):
+def _both(cfg, u, dt, kinds, ok=None, courant=False, want_flux=False):
     dx = 1.0 / SHAPE[0]
     up, okp = pk.pad_xy(jnp.asarray(u), _jax_bc(kinds), cfg,
                         ok=None if ok is None else jnp.asarray(ok))
     want = pk.fused_step_padded(up, jnp.asarray(dt, jnp.float32), cfg, dx,
                                 SHAPE, ok_pad=okp, courant=courant,
-                                interpret=True)
+                                interpret=True, want_flux=want_flux)
     got = fm.fused_step(torch.from_numpy(u),
                         torch.tensor(dt, dtype=torch.float32),
                         hydro_static_from(cfg), dx, _port_bc(kinds),
                         ok=None if ok is None else torch.from_numpy(ok),
-                        courant=courant)
+                        courant=courant, want_flux=want_flux)
     return want, got
 
 
@@ -137,6 +137,38 @@ def test_fused_step_ref_outflow_x():
     want, got = _both(cfg, u, 5e-4, kinds)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("riemann,kinds,masked,courant", [
+    ("llf", PERIODIC, True, True),
+    ("hllc", PERIODIC, False, False),
+    ("hllc", ((1, 1), (2, 2), (0, 0)), True, False),
+])
+def test_fused_step_ref_want_flux_matches_pallas(riemann, kinds, masked,
+                                                 courant):
+    """The face mass fluxes (the MC-tracer capture) beside the step, in
+    the kernel's output order: un, (dt_next,) phi [3, 2, *shape]."""
+    cfg = _cfg(riemann, 2)
+    u = _state(cfg, seed=9)
+    ok = (np.random.default_rng(12).random(SHAPE) < 0.1) if masked else None
+    want, got = _both(cfg, u, 5e-4, kinds, ok=ok, courant=courant,
+                      want_flux=True)
+    assert len(got) == len(want) == 2 + courant
+    assert tuple(got[-1].shape) == (3, 2) + SHAPE
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(got[-1].numpy(), np.asarray(want[-1]),
+                               rtol=2e-5, atol=2e-6)
+    # the same step as without the fluxes, and each cell's mass update is
+    # its net face flux
+    plain = fm.fused_step_ref(torch.from_numpy(u), torch.tensor(5e-4),
+                              hydro_static_from(cfg), 1.0 / SHAPE[0],
+                              _port_bc(kinds),
+                              ok=None if ok is None else torch.from_numpy(ok))
+    assert torch.equal(got[0], plain)
+    net = (got[-1][:, 0] - got[-1][:, 1]).sum(dim=0)
+    torch.testing.assert_close(got[0][0] - torch.from_numpy(u[0]), net,
+                               rtol=1e-4, atol=2e-6)
 
 
 def test_supports_scope():

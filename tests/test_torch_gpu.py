@@ -203,6 +203,104 @@ def test_amr_on_cuda_matches_cpu(cuda):
             assert (np.abs(got - want) <= 1e-4 * scale).all(), (blocked, l)
 
 
+@pytest.mark.parametrize("shape,kinds,masked,courant", [
+    ((12, 10, 40), ((0, 0), (0, 0), (0, 0)), True, True),
+    ((5, 7, 33), ((1, 2), (2, 1), (1, 1)), False, False),
+])
+def test_fused_kernel_want_flux_matches_plain(cuda, shape, kinds, masked,
+                                              courant):
+    """K1's face mass fluxes (the MC-tracer capture) beside the step,
+    counted under their own key."""
+    cfg = HydroStatic(ndim=3, riemann="hllc", slope_type=2)
+    u = torch.from_numpy(_state(shape, cfg.gamma, 7)).to(cuda)
+    ok = None
+    if masked:
+        rng = np.random.default_rng(2)
+        ok = torch.from_numpy(rng.random(shape) < 0.2).to(cuda)
+    dt = torch.tensor(2e-3, dtype=torch.float32, device=cuda)
+    bc = _bc(kinds)
+    before = (fm.launches, fm.flux_launches)
+    got = fm.fused_step(u, dt, cfg, 0.05, bc, ok=ok, courant=courant,
+                        want_flux=True)
+    assert (fm.launches, fm.flux_launches) == (before[0], before[1] + 1)
+    want = fm.fused_step_ref(u, dt, cfg, 0.05, bc, ok=ok, courant=courant,
+                             want_flux=True)
+    assert len(got) == len(want) == 2 + courant
+    assert tuple(got[-1].shape) == (3, 2) + shape
+    torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(got[-1], want[-1], rtol=2e-5, atol=2e-6)
+    if courant:
+        assert float(got[1]) == pytest.approx(float(want[1]), rel=3e-3)
+
+
+@pytest.mark.parametrize("shift,n", [(0, 5), (1, 33), (2, 70), (3, 9),
+                                     (None, 13), (None, 200)])
+def test_oct_kernels_want_flux_match_plain(cuda, shift, n):
+    """K3's mass-flux planes and K2's per-cell face fluxes, counted under
+    their own keys."""
+    from ramses_tpu_torch.hydro import oct_muscl as om
+    cfg = HydroStatic(ndim=3, riemann="llf", slope_type=8)
+    block = 6 if shift is None else (1 << (shift + 1)) + 4
+    u, ok = _batch(block, n, cfg.gamma, n + 1)
+    u, ok = torch.from_numpy(u).to(cuda), torch.from_numpy(ok).to(cuda)
+    dt = torch.tensor(2e-3, dtype=torch.float32, device=cuda)
+    name = "oct_sweep" if shift is None else "tile_sweep"
+    extra = () if shift is None else (shift,)
+    before = dict(om.launches)
+    got = getattr(om, name)(u, ok, dt, cfg, 0.05, *extra, want_flux=True)
+    want = getattr(om, name + "_ref")(u, ok, dt, cfg, 0.05, *extra,
+                                      want_flux=True)
+    assert om.launches[name + "_flux"] == before[name + "_flux"] + 1
+    assert om.launches[name] == before[name]
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+
+
+def test_amr_tracers_on_cuda_match_cpu(cuda):
+    """The tracer path at levelmin 4, levelmax 5: K1 and K3 with the face
+    mass fluxes on the card (K2 with oct_blocking off), the capture's mass
+    identity on every leaf cell, and the tracer count conserved."""
+    import os
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.hydro import oct_muscl as om
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for blocked, name in ((True, "tile_sweep_flux"),
+                          (False, "oct_sweep_flux")):
+        p = load_params(os.path.join(root, "namelists", "sedov3d.nml"),
+                        ndim=3)
+        p.amr.levelmin, p.amr.levelmax = 4, 5
+        p.amr.oct_blocking = blocked
+        p.refine.err_grad_d = p.refine.err_grad_p = 0.1
+        p.run.tracer = True
+        sim = AmrSim(p)
+        n0 = len(sim.tracer_x)
+        k1, kn = fm.flux_launches, om.launches[name]
+        for _ in range(2):
+            sim.regrid()
+            u0 = {l: sim.u[l].clone() for l in sim.levels()}
+            captured = {}
+            real = sim._source_passes
+
+            def grab(dt):
+                captured.update({l: v.clone()
+                                 for l, v in sim._tracer_phi.items()})
+                real(dt)
+            sim._source_passes = grab
+            sim.step_coarse(sim.coarse_dt())
+            del sim._source_passes
+            for l in sim.levels():
+                nc = sim.tree.noct(l) * 8
+                leaf = torch.from_numpy(~sim.tree.refined_mask(l)).to(cuda)
+                drho = (sim.u[l] - u0[l])[:nc, 0][leaf]
+                phi = captured[l][:nc][leaf]
+                net = (phi[:, :, 0] - phi[:, :, 1]).sum(dim=1)
+                torch.testing.assert_close(net, drho, rtol=2e-4, atol=2e-6)
+        assert fm.flux_launches > k1 and om.launches[name] > kn
+        assert len(sim.tracer_x) == n0
+
+
 def test_amr_coarse_step_never_waits_for_the_host(cuda):
     """One coarse step (K1, K3, interpolation, corrections, restriction,
     the next Courant dt) issues device work only: no synchronisation."""

@@ -77,10 +77,17 @@ def test_riemann_matches_jax(solver, ndim):
 
 @pytest.mark.parametrize("solver", ["exact", "acoustic"])
 def test_riemann_unported_raise(solver):
-    cfg = hydro_static_from(_cfg(1, riemann=solver))
-    q = torch.ones(3, 4, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        riemann.solve(q, q, cfg)
+    """The two solvers the port refused until it ported them: they no
+    longer raise, and match the JAX package's (also on exactly
+    degenerate faces)."""
+    cfg = _cfg(1, riemann=solver)
+    ql = _iface_state(1, 64, seed=30)
+    qr = _iface_state(1, 64, seed=31)
+    ql[:, :4] = qr[:, :4]
+    want = jriemann.SOLVERS[solver](jnp.asarray(ql), jnp.asarray(qr), cfg)
+    got = riemann.solve(torch.from_numpy(ql), torch.from_numpy(qr),
+                        hydro_static_from(cfg))
+    _close(got, want, atol=1e-14)
 
 
 @pytest.mark.parametrize("ndim", [1, 2, 3])
@@ -108,14 +115,28 @@ def test_unsplit_apply_fluxes_matches_jax(ndim, riemann_name, slope_type):
 
 
 def test_muscl_unported_raise():
-    cfg = hydro_static_from(_cfg(2, slope_type=3))
-    q = torch.ones((4, 6, 6), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        muscl.uslope(q, cfg)
-    with pytest.raises(NotImplementedError):
-        muscl.trace_plmde(q, q[0], None, 0.1, (0.1, 0.1), cfg)
-    with pytest.raises(NotImplementedError):
-        muscl.dual_energy_fix(q, q, None, 0.1, (0.1, 0.1), cfg)
+    """The options the port refused until it ported them (positivity
+    slopes, the PLMDE predictor, the dual-energy fix): they no longer
+    raise, and match the JAX package's on a 2D state."""
+    jc = _cfg(2, slope_type=3, pressure_fix=True)
+    cfg = hydro_static_from(jc)
+    u = _state(jc, SHAPES[2], seed=40)
+    q, c = jmuscl.ctoprim(jnp.asarray(u), None, 0.1, jc)
+    tq, tc = muscl.ctoprim(torch.from_numpy(u), None, 0.1, cfg)
+    dq = jmuscl.uslope(q, jc)
+    tdq = muscl.uslope(tq, cfg)
+    _close(tdq, dq, atol=1e-15)
+    want = jmuscl.trace_plmde(q, c, dq, 0.1, (0.1, 0.1), jc)
+    got = muscl.trace_plmde(tq, tc, tdq, 0.1, (0.1, 0.1), cfg)
+    for g, w in zip(got, want):
+        _close(g, w, atol=1e-15)
+    tmp = np.random.default_rng(41).standard_normal((2, 2) + SHAPES[2])
+    want = jmuscl.dual_energy_fix(jnp.asarray(u), jnp.asarray(u) * 1.01,
+                                  jnp.asarray(tmp), 0.1, (0.1, 0.1), jc)
+    got = muscl.dual_energy_fix(torch.from_numpy(u),
+                                torch.from_numpy(u) * 1.01,
+                                torch.from_numpy(tmp), 0.1, (0.1, 0.1), cfg)
+    _close(got, want, atol=1e-14)
 
 
 @pytest.mark.parametrize("ndim", [1, 2, 3])

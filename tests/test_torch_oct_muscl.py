@@ -91,20 +91,68 @@ def test_oct_sweep_ref_matches_pallas(riemann, slope_type):
     _close(got[1], want[1])
 
 
-def test_plain_versions_are_no_launch_and_refuse_want_flux():
+@pytest.mark.parametrize("shift,riemann,masked", [
+    (1, "hllc", True), (2, "llf", False)])
+def test_tile_sweep_ref_want_flux_matches_pallas(shift, riemann, masked):
+    """phip [3, c+1, c, c, N]: every cell-face mass-flux plane."""
+    jcfg = _cfg(riemann, 2)
+    td = (1 << (shift + 1)) + 4
+    u, ok = _batch(td, 8, jcfg.gamma, 40 + shift, masked)
+    dt = 2e-3
+    want = pallas_oct.tile_sweep(jnp.asarray(u), jnp.asarray(ok),
+                                 jnp.float32(dt), jcfg, DX, shift,
+                                 interpret=True, want_flux=True)
+    got = om.tile_sweep(torch.from_numpy(u), torch.from_numpy(ok),
+                        torch.tensor(dt, dtype=torch.float32),
+                        hydro_static_from(jcfg), DX, shift, want_flux=True)
+    c = 1 << (shift + 1)
+    assert tuple(got[2].shape) == (3, c + 1, c, c, 8)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("riemann,masked", [("llf", True), ("hllc", False)])
+def test_oct_sweep_ref_want_flux_matches_pallas(riemann, masked):
+    """phi [3, 2, 2, 2, 2, N]: each interior cell's (low, high) faces."""
+    jcfg = _cfg(riemann, 1)
+    u, ok = _batch(6, 128, jcfg.gamma, 50, masked)
+    dt = 2e-3
+    want = pallas_oct.oct_sweep(jnp.asarray(u), jnp.asarray(ok),
+                                jnp.float32(dt), jcfg, DX, interpret=True,
+                                want_flux=True)
+    got = om.oct_sweep(torch.from_numpy(u), torch.from_numpy(ok),
+                       torch.tensor(dt, dtype=torch.float32),
+                       hydro_static_from(jcfg), DX, want_flux=True)
+    assert tuple(got[2].shape) == (3, 2, 2, 2, 2, 128)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+def test_plain_versions_are_no_launch_and_return_want_flux():
+    """On the CPU the wrappers run the plain versions, which never count a
+    launch; with ``want_flux`` they return the mass fluxes too, of the
+    kernels' shapes, beside the same du and corrections."""
     cfg = hydro_static_from(_cfg("llf", 1))
     u, ok = _batch(6, 8, cfg.gamma, 0, True)
     args = (torch.from_numpy(u), torch.from_numpy(ok), torch.tensor(1e-3))
     before = dict(om.launches)
     du, corr = om.oct_sweep(*args, cfg, DX)
     assert torch.isfinite(du).all() and torch.isfinite(corr).all()
-    du, planes = om.tile_sweep(*args, cfg, DX, 0)
+    du_t, planes = om.tile_sweep(*args, cfg, DX, 0)
     assert tuple(planes.shape) == (5, 3, 2, 2, 2, 8)
+    du_tf, planes_f, phip = om.tile_sweep(*args, cfg, DX, 0, want_flux=True)
+    assert tuple(phip.shape) == (3, 3, 2, 2, 8)
+    du_f, corr_f, phi = om.oct_sweep(*args, cfg, DX, want_flux=True)
+    assert tuple(phi.shape) == (3, 2, 2, 2, 2, 8)
+    assert torch.equal(du_f, du) and torch.equal(corr_f, corr)
+    assert torch.equal(du_tf, du_t) and torch.equal(planes_f, planes)
     assert om.launches == before
-    with pytest.raises(NotImplementedError, match="want_flux"):
-        om.tile_sweep(*args, cfg, DX, 0, want_flux=True)
-    with pytest.raises(NotImplementedError, match="want_flux"):
-        om.oct_sweep(*args, cfg, DX, want_flux=True)
+    # shift 0: the tile's planes 0 and 2 are the oct's per-oct faces (the
+    # mass column of the correction planes), and each cell's net face
+    # flux is its mass update
+    torch.testing.assert_close(phip[:, ::2], planes[0])
+    net = (phi[:, 0] - phi[:, 1]).sum(dim=0)
+    torch.testing.assert_close(du[0], net, rtol=1e-5, atol=1e-7)
 
 
 def test_supports_is_the_physics_scope():
