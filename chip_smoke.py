@@ -154,7 +154,31 @@ Phases, each printing its own line; any failure exits non-zero:
    tracer count;
 27. ``namelists/detente.nml`` (1D, ``riemann='exact'``) through
    ``run_namelist`` on the card to tend, against the CPU f64 run (each
-   field within 1e-4 of its max).
+   field within 1e-4 of its max);
+28. K5 (``halo_exchange``, ``csrc/halo_exchange.cu``) against its plain
+   version: ring exchanges of random slabs on 2, 4 and 8 shards, f32 and
+   f64, cut along each axis, 1 and 2 deep, into fresh tensors and into
+   ghost regions, bitwise, one launch each; K5's device time at the
+   uniform path's exchange (16 slabs of ``[5, 2, 260, 260]`` f32) against
+   its byte bound, the plain version's and ``torch._foreach_copy_``'s
+   times; its time at the AMR level-7 z exchange;
+29. uniform sedov3d at 256³ (phase 4's state) through ``run_steps_halo``
+   on 8 shards of the card (``halo_backend='auto'`` → K5, the overlap
+   split), 10 steps with every count at 0 just before: K5 once a step,
+   K1's padded entry 3 times a shard a step, nothing else; a finite state,
+   mass to rel 1e-5; bitwise equal to the single-device ``run_steps`` from
+   the same state (else each cell within ``LOCAL_ATOL + LOCAL_RTOL·M``,
+   reported); cell-updates/s, halo bytes a step and a profile (trace to
+   ``chiprun_out/chip_smoke_halo_trace.json``); K1's padded entry against
+   its plain version at a shard's interior call, timed against its bound;
+30. phase 8's sedov3d AMR (levelmin=7, levelmax=9, 10 coarse steps) on
+   ``ShardedAmrSim`` with 8 shards, every count at 0 just before
+   ``ShardedAmrSim()``: level 7 through ``dense_sweep_slab`` (K5 once per
+   cut axis a sweep and a flag pass, the mask in the same launches; K1's
+   padded entry 3 times a shard a sweep), K3 as in phase 8; bitwise equal
+   to a single-device ``AmrSim`` run on every level (else within
+   ``AMR_REL`` of each field's max, reported), leaf mass to rel 1e-5;
+   cell-updates/s and one coarse step's profile.
 
 The line before the last holds every ported kernel's numbers as one JSON
 object (``{"kernels": [...]}``); the last line is
@@ -354,7 +378,8 @@ def _profile(run, out_dir: str, name: str = "chip_smoke_trace.json",
         f"{sum(us for us, _, k in rows if kern in k) / 1e3:.3f} ms "
         f"({100 * sum(us for us, _, k in rows if kern in k) / busy_us:.1f} "
         f"% of busy)"
-        for kern in ("fused_muscl_kernel", "sweep_kernel", "mhd_ct_")
+        for kern in ("fused_muscl_kernel", "sweep_kernel", "mhd_ct_",
+                     "halo_exchange_kernel")
         if any(kern in k for _, _, k in rows))
     return (f"device busy {busy_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms "
             f"wall ({100 * busy_us / 1e6 / wall:.1f} %), "
@@ -367,20 +392,27 @@ def _reset_counts():
     from ramses_tpu_torch.hydro import fused_muscl as fm
     from ramses_tpu_torch.hydro import oct_muscl as om
     from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.parallel import dma_halo
     fm.launches = fm.flux_launches = 0
-    ct_slab.launches = 0
+    fm.padded_launches = fm.padded_flux_launches = 0
+    ct_slab.launches = dma_halo.launches = 0
     for name in om.launches:
         om.launches[name] = 0
 
 
 def _counts() -> dict:
     """Every kernel's launch count, the flux variants under their own
-    keys (``fused_muscl_flux``, ``tile_sweep_flux``, ``oct_sweep_flux``)."""
+    keys (``fused_muscl_flux``, ``tile_sweep_flux``, ``oct_sweep_flux``)
+    and K1's padded entry under ``fused_muscl_padded(_flux)``."""
     from ramses_tpu_torch.hydro import fused_muscl as fm
     from ramses_tpu_torch.hydro import oct_muscl as om
     from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.parallel import dma_halo
     return {"fused_muscl": fm.launches, "fused_muscl_flux": fm.flux_launches,
-            **om.launches, "ct_step_slab": ct_slab.launches}
+            "fused_muscl_padded": fm.padded_launches,
+            "fused_muscl_padded_flux": fm.padded_flux_launches,
+            **om.launches, "ct_step_slab": ct_slab.launches,
+            "halo_exchange": dma_halo.launches}
 
 
 def _want(**n) -> dict:
@@ -452,34 +484,38 @@ def _local_check(got, want, scales):
     return err, rels, excess
 
 
-def _device_ms(fn, kernel: str, n: int = 50, per_call: int = 1) -> float:
+def _device_ms(fn, kernel: str, n: int = 50, per_call: int = 1,
+               tries: int = 3) -> float:
     """Device time per call of ``fn`` of the kernels whose name holds
     ``kernel`` (``per_call`` distinct kernels a call), from
     ``torch.profiler`` over ``n`` calls after a warm-up: the sum over the
     kernels of each one's mean time.  CUDA events around a call of a
     ~10 µs kernel measure the host's dispatch of the call instead.  The
     trace may miss a launch or two of a window (it missed one of 180 K4
-    stage launches once, and two of 50 K3 launches with the fluxes once),
-    which leaves each kernel's mean unchanged, so each kernel must show n
-    - 2 to n launches."""
+    stage launches once, two and three of 50 K3 launches with the fluxes
+    once each), which leaves each kernel's mean unchanged, so each kernel
+    must show n - 2 to n launches; a window that shows fewer is traced
+    again, up to ``tries`` windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
-    counts = [e.count for e in rows]
-    if len(rows) != per_call or not all(n - 2 <= c <= n for c in counts):
-        raise AssertionError(f"profiled launches {counts} of {kernel}, "
-                             f"expected {n} of each of {per_call} kernels")
-    return sum(e.self_device_time_total / e.count for e in rows) / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
+        counts = [e.count for e in rows]
+        if len(rows) == per_call and all(n - 2 <= c <= n for c in counts):
+            return sum(e.self_device_time_total / e.count for e in rows) / 1e3
+    raise AssertionError(f"profiled launches {counts} of {kernel} in each "
+                         f"of {tries} windows, expected {n} of each of "
+                         f"{per_call} kernels")
 
 
 def _host_breakdown(sim, run, parts=("_flag_and_tree", "_rebuild_maps",
@@ -2305,6 +2341,390 @@ def _options_phase(dev):
            f"worst field difference {rel:.3e} of its max")
 
 
+# the slab-sharded paths: 8 shards of the one card, as the JAX package's
+# tests run 8 virtual devices of one CPU
+NSHARD = 8
+K5_CASES = ((2, 4, 8), (5, 6, 10, 13))     # shard counts, block shape
+
+
+def _queued_ms(fn, n: int = 50) -> float:
+    """Device ms a call of ``fn``: CUDA events around ``n`` calls queued
+    behind a sleeping kernel, so that the card runs them back to back and
+    the window holds their device time and the gaps between them, not the
+    host's dispatch.  The profiler's count of a window can miss launches
+    (phase 24, and K5 in a long run), which this does not depend on."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e8))   # ~0.1 s, longer than issuing the calls
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def _ring_pairs(blocks, ax: int, ng: int, ghost_region: bool = False):
+    """Every shard's high slab along ``ax`` to its +1 neighbour and its low
+    slab to its -1 neighbour, as the ``(src, dst)`` pairs of
+    :func:`dma_halo.halo_exchange` (one K5 launch): into fresh contiguous
+    tensors, as ``exchange_slabs`` has them, or into the ghost regions of
+    the receivers' blocks extended along ``ax``."""
+    import torch
+    n = len(blocks)
+    pairs = []
+    for s, b in enumerate(blocks):
+        for src, off in ((b.narrow(ax, b.shape[ax] - ng, ng), 0),
+                         (b.narrow(ax, 0, ng), b.shape[ax] + ng)):
+            if ghost_region:
+                shape = list(b.shape)
+                shape[ax] += 2 * ng
+                dst = b.new_zeros(shape).narrow(ax, off, ng)
+            else:
+                dst = torch.empty_like(src,
+                                       memory_format=torch.contiguous_format)
+            pairs.append((src, dst))
+    return pairs
+
+
+def _k5_check(pairs, what: str) -> float:
+    """K5 over ``pairs`` into its destinations, NaN-filled first, against
+    its plain version into NaN-filled copies of them: raises unless they
+    are bitwise equal and K5 launched exactly once.  Returns the max abs
+    error."""
+    import torch
+    from ramses_tpu_torch.parallel import dma_halo
+    for _, d in pairs:
+        d.fill_(float("nan"))
+    ref = [(s, torch.full_like(d, float("nan"))) for s, d in pairs]
+    n0 = dma_halo.launches
+    dma_halo.halo_exchange(pairs)
+    n = dma_halo.launches - n0
+    dma_halo.halo_exchange_ref(ref)
+    torch.cuda.synchronize()
+    if n != 1 or not all(torch.equal(d, r) for (_, d), (_, r)
+                         in zip(pairs, ref)):
+        raise AssertionError(f"halo_exchange disagrees with its plain "
+                             f"version (or launched {n} times): {what}")
+    return max(float((d - r).abs().max()) for (_, d), (_, r)
+               in zip(pairs, ref))
+
+
+def _valid_scale(up):
+    """Max of ``|up|`` over each interior cell's 5³ stencil in a block
+    padded by 2 on every axis, per field: the magnitudes the cell's step
+    reads."""
+    import torch.nn.functional as F
+    return F.max_pool3d(up.abs()[None], 5, stride=1)[0]
+
+
+def _parallel_phases(dev):
+    """Phases 28-30 (the slab-sharded slice); returns the kernels line's
+    rows of K5 and of K1's padded entry."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.config import load_params
+    from ramses_tpu_torch.driver import Simulation
+    from ramses_tpu_torch.grid import uniform
+    from ramses_tpu_torch.hydro import fused_muscl as fm
+    from ramses_tpu_torch.parallel import dense_slab, dma_halo
+    from ramses_tpu_torch.parallel.amr_sharded import ShardedAmrSim
+    from ramses_tpu_torch.parallel.halo import _pad_rest
+    from ramses_tpu_torch.parallel.halo import run_steps_halo
+    from ramses_tpu_torch.parallel.mesh import ShardMesh
+
+    # ---- 28. K5 against its plain version, and its time ----
+    ncase = 0
+    for nshard in K5_CASES[0]:
+        for dtype in (torch.float32, torch.float64):
+            g = torch.Generator(device="cpu").manual_seed(nshard)
+            blocks = [torch.randn(K5_CASES[1], generator=g, dtype=dtype)
+                      .to(dev) for _ in range(nshard)]
+            for ax in (1, 2, 3):
+                for ng, ghost_region in ((2, False), (2, True), (1, False)):
+                    _k5_check(_ring_pairs(blocks, ax, ng, ghost_region),
+                              f"{nshard} shards, {dtype}, axis {ax}, ng {ng}, "
+                              f"ghost region {ghost_region}")
+                    ncase += 1
+    # at the uniform path's exchange: 8 shards of 256³ rest-padded, 16 slabs
+    # of [5, 2, 260, 260] f32
+    g = torch.Generator(device=dev).manual_seed(28)
+    upr = [torch.rand((5, 32, 260, 260), generator=g, device=dev)
+           for _ in range(NSHARD)]
+    pairs = _ring_pairs(upr, 1, 2)
+    slab_bytes = sum(s.numel() * s.element_size() for s, _ in pairs)
+    k5_err = _k5_check(pairs, f"the uniform path's {len(pairs)} slabs")
+    k5_ms = _queued_ms(lambda: dma_halo.halo_exchange(pairs))
+    k5_plain_ms = _queued_ms(lambda: dma_halo.halo_exchange_ref(pairs))
+    dsts, srcs = [d for _, d in pairs], [s for s, _ in pairs]
+    k5_lib_ms = _queued_ms(lambda: torch._foreach_copy_(dsts, srcs))
+    torch.cuda.synchronize()
+    if not all(torch.equal(s, d) for s, d in pairs):
+        raise AssertionError("torch._foreach_copy_ moved other bytes")
+    k5_bound = 1e3 * 2 * slab_bytes / HBM_BYTES_PER_S
+    del upr, pairs, dsts, srcs
+    # at the AMR level-7 sweep's z exchange: 8 shards of 64³ extended on x
+    # and y, the state and its mask, 32 slabs
+    blk = [torch.rand((5, 68, 68, 64), generator=g, device=dev)
+           for _ in range(NSHARD)]
+    msk = [torch.rand((68, 68, 64), generator=g, device=dev)
+           for _ in range(NSHARD)]
+    amr_pairs = _ring_pairs(blk, 3, 2) + _ring_pairs(msk, 2, 2)
+    amr_bytes = sum(s.numel() * 4 for s, _ in amr_pairs)
+    k5_err = max(k5_err, _k5_check(amr_pairs, f"the AMR level-7 z "
+                                   f"exchange's {len(amr_pairs)} slabs"))
+    k5_amr_ms = _queued_ms(lambda: dma_halo.halo_exchange(amr_pairs))
+    del blk, msk, amr_pairs
+    torch.cuda.empty_cache()
+    _print(f"phase 28 halo_exchange (K5) check: {ncase} cases ({K5_CASES[0]}"
+           f" shards of {K5_CASES[1]}, f32 and f64, each axis, depth 1 and "
+           f"2, fresh and ghost-region destinations) bitwise equal to the "
+           f"plain version, one launch each; uniform path's exchange "
+           f"({2 * NSHARD} slabs of [5, 2, 260, 260] f32, "
+           f"{slab_bytes / 1e6:.3f} MB, bitwise equal to the plain version, "
+           f"one launch): {k5_ms:.4f} ms/launch, plain {k5_plain_ms:.4f} ms, "
+           f"torch._foreach_copy_ {k5_lib_ms:.4f} ms (each on the device: "
+           f"queued CUDA events), bound {k5_bound:.5f} ms by bytes "
+           f"({2 * slab_bytes / 1e6:.3f} MB read and written); AMR level-7 "
+           f"z exchange (state and mask, {4 * NSHARD} slabs, "
+           f"{amr_bytes / 1e6:.3f} MB, bitwise equal to the plain version, "
+           f"one launch): {k5_amr_ms:.4f} ms/launch, bound "
+           f"{1e3 * 2 * amr_bytes / HBM_BYTES_PER_S:.5f} ms")
+
+    # ---- 29. uniform sedov3d 256³ through run_steps_halo on 8 shards ----
+    p = load_params(NML, ndim=3)
+    sim = Simulation(p)
+    grid, cfg = sim.grid, sim.cfg
+    u0 = sim.state.u
+    tend = sim.tend
+    nsteps = p.run.nstepmax
+    mesh = ShardMesh([dev] * NSHARD)
+    mass0 = float(uniform.totals(u0, cfg, grid.dx)["mass"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ur, tr, nr = uniform.run_steps(grid, u0, 0.0, tend, nsteps)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    _reset_counts()
+    dma_halo.reset_traffic()
+    t0 = time.perf_counter()
+    uh, th, nh = run_steps_halo(grid, mesh, u0, 0.0, tend, nsteps)
+    torch.cuda.synchronize()
+    wall8 = time.perf_counter() - t0
+    launches29 = _counts()
+    halo_bytes = dma_halo.TRAFFIC["bytes"] / nsteps
+    overlap = dma_halo.TRAFFIC["overlap_frac"]
+    # the overlap split: an interior call and two strips a shard a step
+    per = 3 if grid.shape[0] // NSHARD > 4 else 1
+    want = _want(halo_exchange=nsteps,
+                 fused_muscl_padded=per * NSHARD * nsteps)
+    if launches29 != want or int(nh) != nsteps:
+        raise AssertionError(f"run_steps_halo launched {launches29} in "
+                             f"{int(nh)} steps, expected {want}")
+    mass1 = float(uniform.totals(uh, cfg, grid.dx)["mass"])
+    if not bool(torch.isfinite(uh).all()):
+        raise AssertionError("run_steps_halo state is not finite")
+    if abs(mass1 - mass0) > 1e-5 * abs(mass0):
+        raise AssertionError(f"run_steps_halo mass not conserved: {mass0} "
+                             f"-> {mass1}")
+    if torch.equal(uh, ur) and float(th) == float(tr):
+        same = "bitwise equal to the single-device run_steps"
+    else:
+        err = (uh - ur).abs()
+        scale = _stencil_scale(ur)
+        excess = float((err - (LOCAL_ATOL + LOCAL_RTOL * scale)).max())
+        rel = [float((err[c] / scale[c]).nan_to_num(nan=0.0).max())
+               for c in range(5)]
+        same = (f"NOT bitwise equal to the single-device run_steps: max abs "
+                f"err {float(err.max()):.3e}, err / stencil max per field "
+                f"{[f'{x:.3e}' for x in rel]}, t {float(th)!r} against "
+                f"{float(tr)!r}")
+        if not excess <= 0.0 or abs(float(th) - float(tr)) > 1e-6 * float(tr):
+            raise AssertionError(f"run_steps_halo parts from run_steps: "
+                                 f"{same}")
+        del err, scale
+    steady_ms = _median_ms(lambda: run_steps_halo(grid, mesh, u0, 0.0, tend,
+                                                  nsteps), reps=3, warm=1)
+    prof = _profile(lambda: run_steps_halo(grid, mesh, u0, 0.0, tend,
+                                           nsteps),
+                    os.path.join(ROOT, "chiprun_out"),
+                    "chip_smoke_halo_trace.json")
+    # K1's padded entry at the path's shapes on the final state: shard 0's
+    # interior call of the split (without the split, its whole block)
+    nloc = grid.shape[0] // NSHARD
+    blk = uh[:, :nloc] if per == 3 else torch.roll(uh, 2, 1)[:, :nloc + 4]
+    upr = _pad_rest(blk.contiguous(), 3, 2)
+    dt = uniform.cfl_dt(grid, uh).to(torch.float32)
+    args = (upr, dt, cfg, grid.dx)
+    got, dtn = fm.fused_step_padded(*args, courant=True)
+    ref, dtr = fm.fused_step_padded_ref(*args, courant=True)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    scale = _valid_scale(upr)
+    excess = float((err - (LOCAL_ATOL + LOCAL_RTOL * scale)).max())
+    k1p_err = float(err.max())
+    k1p_rel = [float((err[c] / scale[c]).nan_to_num(nan=0.0).max())
+               for c in range(5)]
+    dt_rel = abs(float(dtn) - float(dtr)) / float(dtr)
+    if not (excess <= 0.0 and dt_rel <= DT_REL):
+        raise AssertionError(f"fused_muscl_padded disagrees with its plain "
+                             f"version at {tuple(upr.shape)}: max abs err "
+                             f"{k1p_err:.3e}, err / stencil max per field "
+                             f"{k1p_rel}, dt rel {dt_rel:.3e}")
+    del err, scale
+    k1p_ms = _queued_ms(lambda: fm.fused_step_padded(*args, courant=True),
+                        n=20)
+    k1p_plain_ms = _median_ms(lambda: fm.fused_step_padded_ref(
+        *args, courant=True), reps=5)
+    keep = got[0].numel() / upr[0].numel()
+    nops = _count_ops(lambda: fm.fused_step_padded_ref(*args,
+                                                       courant=True)) * keep
+    nbytes = 4 * (upr.numel() + got.numel() + 2)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * nops / F32_OPS_PER_S
+    k1p_bound = max(bytes_ms, ops_ms)
+    k1p_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    ncell = grid.ncell
+    _print(f"phase 29 uniform sedov3d {grid.shape} through run_steps_halo on "
+           f"{NSHARD} shards of the card (halo_backend auto -> dma, overlap "
+           f"split {overlap:.4f} of a shard's planes): {int(nh)} steps "
+           f"t={float(th):.6e}, launches {launches29} (expected {want}); "
+           f"{same}; mass {mass0:.9e} -> {mass1:.9e}; halo "
+           f"{halo_bytes / 1e6:.3f} MB a step; first run {wall8:.4f} s = "
+           f"{ncell * nsteps / wall8:.4e} cell-updates/s, steady "
+           f"{steady_ms:.3f} ms = {ncell * nsteps / steady_ms * 1e3:.4e} "
+           f"cell-updates/s (single-device run_steps {wall1:.4f} s); "
+           f"profiled: {prof}; fused_muscl_padded at shard 0's call "
+           f"{tuple(upr.shape)} -> {tuple(got.shape)}: {k1p_ms:.4f} "
+           f"ms/launch (queued CUDA events), plain {k1p_plain_ms:.4f} ms, "
+           f"bound "
+           f"{k1p_bound:.4f} ms by {k1p_by} ({nbytes / 1e9:.4f} GB -> "
+           f"{bytes_ms:.4f} ms; {nops / 1e9:.4f} G ops -> {ops_ms:.4f} ms), "
+           f"max abs err {k1p_err:.3e}, err / stencil max per field "
+           f"{[f'{x:.3e}' for x in k1p_rel]}, dt rel {dt_rel:.3e}")
+    del sim, u0, ur, uh, blk, upr, got, ref, args
+    torch.cuda.empty_cache()
+
+    # ---- 30. sedov3d AMR levelmin=7, levelmax=9 on ShardedAmrSim ----
+    p = _amr_params()
+    lmin = AMR_LEVELS[0]
+    tend = p.output.tout[-1] if p.output.tout else p.output.tend
+    s1 = AmrSim(p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s1.evolve(tend, nstepmax=p.run.nstepmax)
+    s1.drain()
+    s1_rate = s1.cell_updates / (time.perf_counter() - t0)
+    calls = {"sweep": 0, "flags": 0}
+    sweep, flags = dense_slab.dense_sweep_slab, dense_slab.dense_flags_slab
+
+    def counted(fn, key):
+        def call(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return call
+    dense_slab.dense_sweep_slab = counted(sweep, "sweep")
+    dense_slab.dense_flags_slab = counted(flags, "flags")
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        s8 = ShardedAmrSim(p, devices=mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        mass0 = float(s8.totals()["mass"])
+        stepped = []
+        step_coarse = s8.step_coarse
+        s8.step_coarse = lambda dt: (stepped.append(tuple(s8.levels())),
+                                     step_coarse(dt))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s8.evolve(tend, nstepmax=p.run.nstepmax)
+        s8.drain()
+        wall = time.perf_counter() - t0
+        launches30 = _counts()
+        del s8.step_coarse
+    finally:
+        dense_slab.dense_sweep_slab, dense_slab.dense_flags_slab = \
+            sweep, flags
+    spec7 = s8._fused_spec().slab[0]
+    ncut = sum(pm is not None for pm in spec7.perms)
+    per = 3 if dense_slab._split_axis(spec7, 2) is not None else 1
+    want = _want(halo_exchange=ncut * (calls["sweep"] + calls["flags"]),
+                 fused_muscl_padded=per * NSHARD * calls["sweep"],
+                 tile_sweep=sum(2 ** (l - lmin) for lv in stepped for l in lv
+                                if l > lmin))
+    if (spec7 is None or spec7.backend != "dma" or spec7.grid != (2, 2, 2)
+            or calls["sweep"] != len(stepped) or s8.nstep != 10):
+        raise AssertionError(f"ShardedAmrSim did not sweep level {lmin} by "
+                             f"slabs each coarse step: {spec7}, {calls}, "
+                             f"{len(stepped)} steps, nstep {s8.nstep}")
+    if launches30 != want:
+        raise AssertionError(f"ShardedAmrSim launched {launches30}, "
+                             f"expected {want}")
+    mass1 = float(s8.totals()["mass"])
+    if abs(mass1 - mass0) > 1e-5 * abs(mass0):
+        raise AssertionError(f"ShardedAmrSim leaf mass not conserved: "
+                             f"{mass0} -> {mass1}")
+    if s8.levels() != s1.levels() or not all(
+            np.array_equal(s8.tree.levels[l].keys, s1.tree.levels[l].keys)
+            for l in s1.levels()):
+        raise AssertionError("ShardedAmrSim and AmrSim trees differ")
+    if all(torch.equal(s8.u[l], s1.u[l]) for l in s1.levels()):
+        same30 = "bitwise equal to AmrSim on every level"
+    else:
+        worst = 0.0
+        for l in s1.levels():
+            n = s1.tree.noct(l) * 8
+            a, b = s1.u[l][:n], s8.u[l][:n]
+            worst = max(worst, float(((b - a).abs()
+                                      / a.abs().amax(dim=0)).max()))
+        same30 = (f"NOT bitwise equal to AmrSim: worst |difference| / field "
+                  f"max {worst:.3e}")
+        if not worst <= AMR_REL:
+            raise AssertionError(f"ShardedAmrSim parts from AmrSim: "
+                                 f"{same30}")
+    octs = {l: s8.tree.noct(l) for l in s8.levels()}
+    nstep30, t30 = s8.nstep, s8.t
+    prof30 = _profile(lambda: (s8.regrid(), s8.step_coarse(s8.coarse_dt())),
+                      os.path.join(ROOT, "chiprun_out"),
+                      "chip_smoke_sharded_amr_trace.json", warm=False)
+    _print(f"phase 30 sedov3d AMR levelmin={lmin} levelmax={AMR_LEVELS[1]} on "
+           f"ShardedAmrSim, {NSHARD} shards of the card (level {lmin}: shard "
+           f"grid {spec7.grid}, local box {spec7.loc}, {spec7.backend}): "
+           f"{nstep30} coarse steps t={t30:.6e}, octs {octs}, "
+           f"{calls['sweep']} slab sweeps and {calls['flags']} slab flag "
+           f"passes, launches {launches30} (expected {want}); {same30}; leaf "
+           f"mass {mass0:.9e} -> {mass1:.9e}; ShardedAmrSim() {init_s:.3f} "
+           f"s, evolve {wall:.3f} s = {s8.cell_updates / wall:.4e} "
+           f"cell-updates/s (AmrSim, the same run: {s1_rate:.4e}); one "
+           f"more coarse step profiled: {prof30}")
+    del s1, s8
+    torch.cuda.empty_cache()
+
+    k5 = {"name": "halo_exchange", "route": "cuda",
+          "source": "ramses_tpu_torch/csrc/halo_exchange.cu",
+          "replaces": "ramses_tpu/parallel/dma_halo.py:209",
+          "launches": launches29["halo_exchange"]
+          + launches30["halo_exchange"],
+          "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
+          "bound_ms": k5_bound, "bound_by": "bytes",
+          "library_ms": k5_lib_ms}
+    k1p = {"name": "fused_muscl_padded", "route": "cuda",
+           "source": "ramses_tpu_torch/csrc/fused_muscl.cu",
+           "replaces": "ramses_tpu/hydro/pallas_muscl.py:387",
+           "launches": launches29["fused_muscl_padded"]
+           + launches30["fused_muscl_padded"],
+           "max_abs_err": k1p_err, "ms": k1p_ms, "plain_ms": k1p_plain_ms,
+           "bound_ms": k1p_bound, "bound_by": k1p_by, "library_ms": None}
+    return [k5, k1p]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2499,7 +2919,11 @@ def main() -> int:
 
     # ---- 27. the remaining hydro options: detente.nml ----
     _options_phase(dev)
-    _print(json.dumps({"kernels": [k1] + oct_rows + [k4] + flux_rows}))
+
+    # ---- 28-30. the slab-sharded paths: K5 and K1's padded entry ----
+    parallel_rows = _parallel_phases(dev)
+    _print(json.dumps({"kernels": [k1] + oct_rows + [k4] + flux_rows
+                       + parallel_rows}))
     _print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

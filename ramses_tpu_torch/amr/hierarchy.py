@@ -19,6 +19,9 @@ the Courant dt once per coarse step.
 Complete levels sweep through K1, blocked partial levels through K3 and
 stencil partial levels (``oct_blocking=.false.``) through K2 where the
 kernels cover the configuration (:mod:`ramses_tpu_torch.amr.kernels`).
+On :class:`ramses_tpu_torch.parallel.amr_sharded.ShardedAmrSim` a complete
+level sweeps and flags shard by shard instead (``FusedSpec.slab``,
+:mod:`ramses_tpu_torch.parallel.dense_slab`).
 
 ``&RUN_PARAMS tracer`` seeds Monte-Carlo gas tracers in proportion to the
 gas mass on the leaf cells.  Each coarse step then captures every level's
@@ -75,6 +78,10 @@ class FusedSpec(NamedTuple):
     # capture per-cell face mass fluxes for the MC gas tracers
     # (godunov_fine.f90:685-715)
     want_flux: bool = False
+    # per-level SlabSpec of a complete level's slab-sharded sweep
+    # (parallel/dense_slab.py), None for the single-device sweep; empty on
+    # the single-device AmrSim
+    slab: tuple = ()
 
 
 def _advance(u, dev, dt, spec: FusedSpec):
@@ -104,9 +111,18 @@ def _advance(u, dev, dt, spec: FusedSpec):
             advance(i + 1, 0.5 * dtl)
         corr = None
         if spec.complete[i]:
-            out = K.dense_sweep(u[l], None, None, d["ok_dense"], dtl, dx(l),
-                                (1 << l,) * cfg.ndim, spec.bspec, cfg,
-                                ret_flux=wf)
+            sl = spec.slab[i] if spec.slab else None
+            if sl is not None:
+                # the explicit slab-sharded formulation: shard-local
+                # bitperm + ring halos (parallel/dense_slab.py, dma_halo.py)
+                from ramses_tpu_torch.parallel import dense_slab
+                out = dense_slab.dense_sweep_slab(
+                    u[l], d.get("ok_flat"), dtl, dx(l), sl, cfg,
+                    ret_flux=wf)
+            else:
+                out = K.dense_sweep(u[l], None, None, d["ok_dense"], dtl,
+                                    dx(l), (1 << l,) * cfg.ndim, spec.bspec,
+                                    cfg, ret_flux=wf)
             du = out[0] if wf else out
         elif spec.blocked and spec.blocked[i]:
             interp = K.interp_cells(u[l - 1], d["b_interp_cell"],
@@ -282,7 +298,7 @@ class AmrSim:
                    rows: Dict[int, np.ndarray], t: float = 0.0,
                    nstep: int = 0, noct_pad: Optional[Dict[int, int]] = None,
                    dtype=None, device=None, tracer_x=None, tracer_id=None,
-                   tracer_rng=None) -> "AmrSim":
+                   tracer_rng=None, **kwargs) -> "AmrSim":
         """Start from a given hierarchy: per-level oct coordinates
         ``tree_og`` and state rows ``rows`` (numpy, e.g. from
         :func:`ramses_tpu_torch.convert.amr_state_from`), the time and the
@@ -291,7 +307,8 @@ class AmrSim:
         the rows'.  With ``&RUN_PARAMS tracer`` the tracers are the given
         ``tracer_x``/``tracer_id`` and the jump generator continues from
         the bit-generator state ``tracer_rng``, or, without them, are
-        seeded on the given state."""
+        seeded on the given state.  ``kwargs`` go to the constructor (a
+        subclass's own arguments, such as a shard mesh)."""
         tree = Octree(params.ndim, params.amr.levelmin, params.amr.levelmax)
         for l, og in tree_og.items():
             tree.set_level(l, og)
@@ -299,7 +316,7 @@ class AmrSim:
             dtype = (torch.float64 if next(iter(rows.values())).dtype
                      == np.float64 else torch.float32)
         sim = cls(params, dtype=dtype, device=device, init_tree=tree,
-                  noct_pad=noct_pad, seed_tracers=False)
+                  noct_pad=noct_pad, seed_tracers=False, **kwargs)
         for l in sim.levels():
             sim.u[l] = sim._rows_from(sim.u[l], rows[l], l)
         sim.t, sim.nstep = float(t), int(nstep)
@@ -541,6 +558,14 @@ class AmrSim:
         for i, l in enumerate(spec.levels):
             d = self.dev[l]
             if spec.complete[i]:
+                sl = spec.slab[i] if spec.slab else None
+                if sl is not None:
+                    from ramses_tpu_torch.parallel import dense_slab
+                    out.append(dense_slab.dense_flags_slab(
+                        self.u[l], sl,
+                        lambda up: K._grad_flags(up, eg, fls, 0, cfg),
+                        2 ** cfg.ndim))
+                    continue
                 out.append(K.dense_refine_flags(
                     self.u[l], None, None, eg, fls, self.tree.cell_dims(l),
                     self.bspec, cfg))
@@ -673,7 +698,18 @@ class AmrSim:
                 block_shift=int(self.params.amr.oct_block_shift),
                 want_flux=(self.tracer_x is not None
                            and len(self.tracer_x) > 0))
+            slab = tuple(self._slab_spec(l) if self.maps[l].complete
+                         else None for l in lv)
+            if any(sl is not None for sl in slab):
+                self._spec = self._spec._replace(slab=slab)
         return self._spec
+
+    def _slab_spec(self, l: int):
+        """SlabSpec of a complete level's slab-sharded sweep, or None for
+        the single-device sweep.  The single-device sim has no mesh:
+        :class:`ramses_tpu_torch.parallel.amr_sharded.ShardedAmrSim`
+        overrides this."""
+        return None
 
     def coarse_dt(self) -> float:
         """The coarse step's CFL dt: the one device→host fetch of a step."""

@@ -84,3 +84,17 @@ def mhd_amr_state_from(sim) -> dict:
     counts, time and step count)."""
     return dict(amr_state_from(sim),
                 bfs={l: _host(sim.bfs[l]) for l in sim.levels()})
+
+
+def shards_from_numpy(u, mesh, axis: int, dtype=None) -> list:
+    """A global state as numpy (e.g. ``np.asarray`` of a JAX array sharded
+    over a mesh) as the port's per-shard tensors on ``mesh`` (a
+    :class:`ramses_tpu_torch.parallel.mesh.ShardMesh`): equal contiguous
+    pieces along ``axis``, shard ``s`` the ``s``-th, each a copy."""
+    return mesh.shard(np.asarray(u), axis, dtype=dtype)
+
+
+def gather_shards(shards, axis: int) -> np.ndarray:
+    """The port's per-shard tensors back as one numpy array, concatenated
+    along ``axis`` (the JAX package's global view)."""
+    return np.concatenate([_host(s) for s in shards], axis=axis)

@@ -35,12 +35,18 @@
 // cell's primitives and slopes are computed once per block, and
 // cp.async/TMA staging are later work.
 //
-// Ghost cells are not materialized: each axis maps an out-of-range index
+// Two entries, one kernel.  ramses_fused_muscl takes the unpadded state and
+// does not materialize ghost cells: each axis maps an out-of-range index
 // itself (0 periodic wrap, 1 reflect with the normal momentum negated,
 // 2 outflow clamp), which composes over axes exactly like the dim-by-dim
-// ghost padding of grid/boundary.pad.  Offsets are 64-bit: a 512^3 state
-// is 2.7 GB, past 2^31 bytes, and at 1024^3 the element offsets of the
-// last variables pass 2^31 too.
+// ghost padding of grid/boundary.pad.  ramses_fused_muscl_padded takes the
+// TPU kernel's own contract, a state (and mask) with 2 ghost cells on every
+// side, read as given: a shard of a slab-sharded sweep gets its ghosts from
+// its neighbours (ramses_tpu_torch/parallel).  The entries differ only in
+// cell_offset, at run time, so the per-cell arithmetic is one instruction
+// stream and a shard's step is bitwise that of the whole box.  Offsets are
+// 64-bit: a 512^3 state is 2.7 GB, past 2^31 bytes, and at 1024^3 the
+// element offsets of the last variables pass 2^31 too.
 //
 // The Courant min: blocks run concurrently, so each block reduces its cells'
 // dx/ws, multiplies by fac (folded on the host as at pallas_muscl.py:312-315)
@@ -56,10 +62,16 @@ namespace {
 constexpr int TZ = 32;  // threads along z (contiguous)
 constexpr int TY = 4;   // threads along y
 
+// n: the updated cells per axis; plane: nx * ny * nz, the output's variable
+// stride.  pad 0: the input is the unpadded grid (in_* as the output's) and
+// ghosts are mapped through bc; pad 2: the input carries pad ghost cells on
+// every side ([5, nx+4, ny+4, nz+4]) and is read as given.
 struct Geom {
   int n[3];
   int bc[3][2];
-  int64_t plane;  // nx * ny * nz
+  int pad;
+  int64_t plane;
+  int64_t in_sy, in_sx, in_plane;  // input strides of y, x and a variable
 };
 
 // Map a possibly ghost index along one axis into [0, n); flips *sgn for a
@@ -79,13 +91,25 @@ __device__ __forceinline__ int map_index(int i, int n, int lo, int hi,
   return i;
 }
 
+// Input offset of cell (x, y, z) of the updated box, ghosts included, and
+// the sign each velocity takes there.  The two entries differ only here, at
+// run time: the signs stay values the compiler cannot fold, so both compile
+// to one instruction stream and round alike (a shard's padded step is
+// bitwise the unpadded step of the whole box).
 __device__ __forceinline__ int64_t cell_offset(const Geom& g, int x, int y,
                                                int z, float s[3]) {
   s[0] = s[1] = s[2] = 1.0f;
-  int mx = map_index(x, g.n[0], g.bc[0][0], g.bc[0][1], &s[0]);
-  int my = map_index(y, g.n[1], g.bc[1][0], g.bc[1][1], &s[1]);
-  int mz = map_index(z, g.n[2], g.bc[2][0], g.bc[2][1], &s[2]);
-  return ((int64_t)mx * g.n[1] + my) * g.n[2] + mz;
+  int mx, my, mz;
+  if (g.pad) {
+    mx = x + g.pad;
+    my = y + g.pad;
+    mz = z + g.pad;
+  } else {
+    mx = map_index(x, g.n[0], g.bc[0][0], g.bc[0][1], &s[0]);
+    my = map_index(y, g.n[1], g.bc[1][0], g.bc[1][1], &s[1]);
+    mz = map_index(z, g.n[2], g.bc[2][0], g.bc[2][1], &s[2]);
+  }
+  return (int64_t)mx * g.in_sx + (int64_t)my * g.in_sy + mz;
 }
 
 // Primitive state (r, vx, vy, vz, p) of a (possibly ghost) cell, and 1/r.
@@ -95,9 +119,9 @@ __device__ __forceinline__ void load_prim(const float* __restrict__ u,
                                           float* ir_out) {
   float s[3];
   int64_t o = cell_offset(g, x, y, z, s);
-  cons_to_prim(__ldg(u + o), __ldg(u + g.plane + o),
-               __ldg(u + 2 * g.plane + o), __ldg(u + 3 * g.plane + o),
-               __ldg(u + 4 * g.plane + o), k, q, ir_out);
+  cons_to_prim(__ldg(u + o), __ldg(u + g.in_plane + o),
+               __ldg(u + 2 * g.in_plane + o), __ldg(u + 3 * g.in_plane + o),
+               __ldg(u + 4 * g.in_plane + o), k, q, ir_out);
   q[1] *= s[0];
   q[2] *= s[1];
   q[3] *= s[2];
@@ -185,9 +209,11 @@ fused_muscl_kernel(const float* __restrict__ u, const float* __restrict__ ok,
       }
     }
     float w[5];
+    float sc[3];
+    const int64_t oi = cell_offset(g, x, y, z, sc);
 #pragma unroll
     for (int v = 0; v < 5; ++v) {
-      w[v] = __ldg(u + v * g.plane + o) + du[v];
+      w[v] = __ldg(u + v * g.in_plane + oi) + du[v];
       un[v * g.plane + o] = w[v];
     }
     if (courant) {  // cmpdt of the updated state (pallas_muscl.py:303-315)
@@ -222,24 +248,15 @@ fused_muscl_kernel(const float* __restrict__ u, const float* __restrict__ ok,
 
 }  // namespace
 
-// u, un: [5, nx, ny, nz] f32 contiguous; ok: [nx, ny, nz] f32 0/1 or NULL;
-// dt: one f32 on the device; crt: one f32 on the device, holding +inf on
-// entry, or NULL when the Courant min is not wanted; phi: [3, 2, nx, ny, nz]
-// f32 for the face mass fluxes, or NULL.  bc: per axis (low, high) kind,
-// 0 periodic, 1 reflecting, 2 outflow.  riemann: 0 llf, 1 hllc.
-// Launches on `stream` without synchronising; returns cudaGetLastError().
-extern "C" int ramses_fused_muscl(
-    const float* u, const float* ok, const float* dt, float* un, float* crt,
-    float* phi, int nx, int ny, int nz, int bx0, int bx1, int by0, int by1,
-    int bz0, int bz1, int riemann, float slope_factor, float gamma, float gm1,
-    float entho, float smallr, float smallc2, float smallp, float smalle,
-    float dx, float fac, void* stream) {
-  if (nx > 65535) return (int)cudaErrorInvalidValue;
-  Geom g;
-  g.n[0] = nx; g.n[1] = ny; g.n[2] = nz;
-  g.bc[0][0] = bx0; g.bc[0][1] = bx1;
-  g.bc[1][0] = by0; g.bc[1][1] = by1;
-  g.bc[2][0] = bz0; g.bc[2][1] = bz1;
+namespace {
+
+int launch(const float* u, const float* ok, const float* dt, float* un,
+           float* crt, float* phi, Geom g, int riemann, float slope_factor,
+           float gamma, float gm1, float entho, float smallr, float smallc2,
+           float smallp, float smalle, float dx, float fac, void* stream) {
+  const int nx = g.n[0], ny = g.n[1], nz = g.n[2];
+  if (nx > 65535 || nx < 1 || ny < 1 || nz < 1)
+    return (int)cudaErrorInvalidValue;
   g.plane = (int64_t)nx * ny * nz;
   Consts k;
   k.gamma = gamma; k.gm1 = gm1; k.entho = entho; k.smallr = smallr;
@@ -256,4 +273,54 @@ extern "C" int ramses_fused_muscl(
     fused_muscl_kernel<1><<<grid, block, 0, s>>>(u, ok, dt, un, crt_bits,
                                                    phi, g, k);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// u, un: [5, nx, ny, nz] f32 contiguous; ok: [nx, ny, nz] f32 0/1 or NULL;
+// dt: one f32 on the device; crt: one f32 on the device, holding +inf on
+// entry, or NULL when the Courant min is not wanted; phi: [3, 2, nx, ny, nz]
+// f32 for the face mass fluxes, or NULL.  bc: per axis (low, high) kind,
+// 0 periodic, 1 reflecting, 2 outflow.  riemann: 0 llf, 1 hllc.
+// Launches on `stream` without synchronising; returns cudaGetLastError().
+extern "C" int ramses_fused_muscl(
+    const float* u, const float* ok, const float* dt, float* un, float* crt,
+    float* phi, int nx, int ny, int nz, int bx0, int bx1, int by0, int by1,
+    int bz0, int bz1, int riemann, float slope_factor, float gamma, float gm1,
+    float entho, float smallr, float smallc2, float smallp, float smalle,
+    float dx, float fac, void* stream) {
+  Geom g;
+  g.n[0] = nx; g.n[1] = ny; g.n[2] = nz;
+  g.bc[0][0] = bx0; g.bc[0][1] = bx1;
+  g.bc[1][0] = by0; g.bc[1][1] = by1;
+  g.bc[2][0] = bz0; g.bc[2][1] = bz1;
+  g.pad = 0;
+  g.in_sy = nz;
+  g.in_sx = (int64_t)ny * nz;
+  g.in_plane = (int64_t)nx * ny * nz;
+  return launch(u, ok, dt, un, crt, phi, g, riemann, slope_factor, gamma,
+                gm1, entho, smallr, smallc2, smallp, smalle, dx, fac, stream);
+}
+
+// The ghost-padded entry (pallas_muscl.py fused_step_padded's contract,
+// with the same ghost depth on all three axes): u_pad [5, nx+4, ny+4, nz+4]
+// f32 contiguous, read as given (a shard's ghosts come from its
+// neighbours); ok_pad: [nx+4, ny+4, nz+4] f32 0/1 or NULL, read as given;
+// un [5, nx, ny, nz], crt and phi as above.
+extern "C" int ramses_fused_muscl_padded(
+    const float* u_pad, const float* ok_pad, const float* dt, float* un,
+    float* crt, float* phi, int nx, int ny, int nz, int riemann,
+    float slope_factor, float gamma, float gm1, float entho, float smallr,
+    float smallc2, float smallp, float smalle, float dx, float fac,
+    void* stream) {
+  Geom g;
+  g.n[0] = nx; g.n[1] = ny; g.n[2] = nz;
+  for (int d = 0; d < 3; ++d) g.bc[d][0] = g.bc[d][1] = 0;
+  g.pad = 2;
+  g.in_sy = (int64_t)nz + 4;
+  g.in_sx = ((int64_t)ny + 4) * g.in_sy;
+  g.in_plane = ((int64_t)nx + 4) * g.in_sx;
+  return launch(u_pad, ok_pad, dt, un, crt, phi, g, riemann, slope_factor,
+                gamma, gm1, entho, smallr, smallc2, smallp, smalle, dx, fac,
+                stream);
 }

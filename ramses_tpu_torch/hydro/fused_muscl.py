@@ -9,11 +9,22 @@ when given a mask ``ok``.  With ``want_flux`` it also returns the dt/dx-scaled
 mass flux through each cell's low and high faces, ``phi [3, 2, nx, ny,
 nz]``: the MC gas tracers' capture (``pallas_muscl.py:289-291``).
 
-:func:`fused_step` launches the kernel for a CUDA tensor and runs
-:func:`fused_step_ref`, the same function in plain PyTorch (the TPU
-kernel's arithmetic, with ``torch.roll`` on a ghost-padded tensor), for a
-CPU tensor.  It never falls back: on a CUDA tensor it launches the kernel
-or raises.
+Two entries of one kernel: :func:`fused_step` takes the unpadded state and
+maps its ghosts through the boundary kinds; :func:`fused_step_padded`
+takes the TPU kernel's own contract, a state (and mask) with ``NG`` ghost
+cells on every side, read as given, which is what a shard of a
+slab-sharded sweep holds (:mod:`ramses_tpu_torch.parallel`).  Both run
+the same per-cell code, so a shard's update is bitwise that of the whole
+box.  The JAX package's per-shard call (``pallas_muscl.fused_step_shard``
+with ``shard_axes``) relabels axes so that an uncut one takes the TPU
+kernel's lane role; this kernel has no lane axis, so the port calls the
+padded entry on the shard's block as it is.
+
+Each entry launches the kernel for a CUDA tensor and runs its plain
+version, :func:`fused_step_ref` / :func:`fused_step_padded_ref` (the TPU
+kernel's arithmetic in plain PyTorch, with ``torch.roll`` on a
+ghost-padded tensor), for a CPU tensor.  Neither falls back: on a CUDA
+tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -30,10 +41,12 @@ from ramses_tpu_torch.hydro.core import HydroStatic
 NG = 2  # ghost cells per side (matches muscl.NGHOST)
 
 # Kernel launches since the count was last reset (the main path's proof
-# that it ran through the kernel), without and with the face mass fluxes;
-# the plain version does not count.
+# that it ran through the kernel), without and with the face mass fluxes,
+# by the unpadded and the padded entry; the plain versions do not count.
 launches = 0
 flux_launches = 0
+padded_launches = 0
+padded_flux_launches = 0
 
 _RIEMANN = {"llf": 0, "hllc": 1}
 _COURANT_RATIO = 1e-4              # cmpdt's gravity-off strength ratio
@@ -46,6 +59,16 @@ def supports(cfg: HydroStatic, shape, bc_kinds, dtype) -> bool:
 
     ``bc_kinds``: per-dim (low, high) boundary kinds (grid.boundary codes).
     """
+    if len(shape) != 3 or any(n < NG for n in shape) or shape[0] > 65535:
+        return False
+    if any(k not in (0, 1, 2) for pair in bc_kinds for k in pair):
+        return False
+    return supports_padded(cfg, dtype)
+
+
+def supports_padded(cfg: HydroStatic, dtype) -> bool:
+    """True when the padded entry covers this configuration: the physics
+    scope of :func:`supports` (any block shape; the ghosts are given)."""
     if getattr(cfg, "physics", "hydro") != "hydro":
         return False
     if cfg.ndim != 3 or cfg.nener != 0 or cfg.npassive != 0:
@@ -53,10 +76,6 @@ def supports(cfg: HydroStatic, shape, bc_kinds, dtype) -> bool:
     if cfg.scheme != "muscl" or cfg.slope_type not in (1, 2, 8):
         return False
     if cfg.pressure_fix or cfg.riemann not in _RIEMANN:
-        return False
-    if len(shape) != 3 or any(n < NG for n in shape) or shape[0] > 65535:
-        return False
-    if any(k not in (0, 1, 2) for pair in bc_kinds for k in pair):
         return False
     return dtype == torch.float32
 
@@ -281,11 +300,30 @@ def fused_step_ref(u: torch.Tensor, dt: torch.Tensor, cfg: HydroStatic,
     """Plain-PyTorch version of :func:`fused_step` (``_make_kernel``'s
     arithmetic, with ``torch.roll`` on a ghost-padded tensor).  Same
     arguments and results."""
-    nx, ny, nz = u.shape[1:]
-    dt = torch.as_tensor(dt, dtype=u.dtype, device=u.device)
-    up = bmod.pad(u, bc, cfg, NG)
-    sl = (slice(NG, NG + nx), slice(NG, NG + ny), slice(NG, NG + nz))
     okf = _pad_mask(ok.to(u.dtype), bc) if ok is not None else None
+    return _padded_ref(bmod.pad(u, bc, cfg, NG), dt, cfg, dx, okf, courant,
+                       dt_scale, want_flux)
+
+
+def fused_step_padded_ref(u_pad: torch.Tensor, dt: torch.Tensor,
+                          cfg: HydroStatic, dx: float,
+                          ok_pad: Optional[torch.Tensor] = None,
+                          courant: bool = False, dt_scale: float = 1.0,
+                          want_flux: bool = False):
+    """Plain-PyTorch version of :func:`fused_step_padded`.  Same arguments
+    and results."""
+    okf = ok_pad.to(u_pad.dtype) if ok_pad is not None else None
+    return _padded_ref(u_pad, dt, cfg, dx, okf, courant, dt_scale,
+                       want_flux)
+
+
+def _padded_ref(up, dt, cfg: HydroStatic, dx: float, okf, courant: bool,
+                dt_scale: float, want_flux: bool):
+    """Both plain versions' body on the ghost-padded state ``up`` and mask
+    ``okf`` (in ``up``'s dtype, or None)."""
+    nx, ny, nz = (n - 2 * NG for n in up.shape[1:])
+    dt = torch.as_tensor(dt, dtype=up.dtype, device=up.device)
+    sl = (slice(NG, NG + nx), slice(NG, NG + ny), slice(NG, NG + nz))
     fluxes = masked_fluxes(up, dt, cfg, dx, okf)
     scale = dt / dx
     du = flux_update(fluxes, scale)
@@ -318,6 +356,8 @@ def fused_step_ref(u: torch.Tensor, dt: torch.Tensor, cfg: HydroStatic,
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
              + [ctypes.c_float] * 10 + [ctypes.c_void_p])
+_PADDED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                    + [ctypes.c_float] * 10 + [ctypes.c_void_p])
 
 
 def _library():
@@ -326,12 +366,14 @@ def _library():
 
 
 def bind(lib):
-    """Declare the C entry point's signature on a loaded build of
+    """Declare the C entry points' signatures on a loaded build of
     ``csrc/fused_muscl.cu`` (the tests also load a host build of it)."""
-    fn = lib.ramses_fused_muscl
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    for name, types in (("ramses_fused_muscl", _ARGTYPES),
+                        ("ramses_fused_muscl_padded", _PADDED_ARGTYPES)):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -365,34 +407,75 @@ def fused_step(u: torch.Tensor, dt: torch.Tensor, cfg: HydroStatic,
     return _results(un, dt_next, phi, courant, want_flux)
 
 
+def fused_step_padded(u_pad: torch.Tensor, dt: torch.Tensor,
+                      cfg: HydroStatic, dx: float,
+                      ok_pad: Optional[torch.Tensor] = None,
+                      courant: bool = False, dt_scale: float = 1.0,
+                      want_flux: bool = False):
+    """One fused MUSCL-Hancock step of a ghost-padded block
+    (``pallas_muscl.fused_step_padded``'s contract with ``NG`` ghosts on
+    every axis).
+
+    ``u_pad``: ``[5, nx+4, ny+4, nz+4]`` f32, contiguous, ghosts read as
+    given; ``ok_pad``: optional refined-cell mask over the same padded box
+    (0/1 in any dtype), read as given.  Returns the updated interior
+    ``[5, nx, ny, nz]`` and, as :func:`fused_step` does, ``dt_next`` with
+    ``courant`` and ``phi`` with ``want_flux``.
+
+    A CPU tensor runs :func:`fused_step_padded_ref`.  A CUDA tensor
+    launches the kernel (counted in ``padded_flux_launches`` with
+    ``want_flux``, else in ``padded_launches``) or raises.
+    """
+    if u_pad.device.type == "cpu":
+        return fused_step_padded_ref(u_pad, dt, cfg, dx, ok_pad=ok_pad,
+                                     courant=courant, dt_scale=dt_scale,
+                                     want_flux=want_flux)
+    un, crt, phi = _launch(u_pad, dt, cfg, dx, None, ok_pad, courant,
+                           want_flux)
+    dt_next = (torch.clamp(crt * dt_scale, max=dtmax(cfg, dx)) if courant
+               else None)
+    return _results(un, dt_next, phi, courant, want_flux)
+
+
 def _launch(u, dt, cfg, dx, bc, ok, courant, want_flux):
     """One launch of the kernel, counted in ``launches`` (or
-    ``flux_launches``): :func:`call`'s ``(un, crt, phi)``.  Raises on a
-    configuration outside :func:`supports`, on bad arguments, and when the
-    build or the launch fails."""
-    global launches, flux_launches
-    if not supports(cfg, tuple(u.shape[1:]), bc.kinds, u.dtype):
-        raise ValueError("fused_step: configuration outside the kernel's "
+    ``flux_launches``; ``padded_*`` for the padded entry, ``bc`` None):
+    :func:`call`'s ``(un, crt, phi)``.  Raises on a configuration outside
+    :func:`supports` / :func:`supports_padded`, on bad arguments, and when
+    the build or the launch fails."""
+    global launches, flux_launches, padded_launches, padded_flux_launches
+    padded = bc is None
+    name = "fused_step_padded" if padded else "fused_step"
+    ok_scope = (supports_padded(cfg, u.dtype) and u.dim() == 4
+                and all(n > 2 * NG for n in u.shape[1:])) if padded else \
+        supports(cfg, tuple(u.shape[1:]), bc.kinds, u.dtype)
+    if not ok_scope:
+        raise ValueError(f"{name}: configuration outside the kernel's "
                          f"scope (cfg={cfg}, shape={tuple(u.shape)}, "
-                         f"bc={bc.kinds}, dtype={u.dtype})")
+                         f"bc={None if padded else bc.kinds}, "
+                         f"dtype={u.dtype})")
     if u.device.type != "cuda" or u.shape[0] != 5 or not u.is_contiguous():
-        raise ValueError("fused_step: u must be a contiguous [5, nx, ny, nz] "
+        raise ValueError(f"{name}: u must be a contiguous [5, nx, ny, nz] "
                          "CUDA tensor")
     if not (torch.is_tensor(dt) and dt.dim() == 0 and dt.device == u.device
             and dt.dtype == torch.float32):
-        raise ValueError("fused_step: dt must be a 0-d f32 tensor on "
+        raise ValueError(f"{name}: dt must be a 0-d f32 tensor on "
                          "u's device")
     okf = None
     if ok is not None:
         if tuple(ok.shape) != tuple(u.shape[1:]) or ok.device != u.device:
-            raise ValueError("fused_step: ok must be [nx, ny, nz] on "
-                             "u's device")
+            raise ValueError(f"{name}: ok must cover u's cells on u's "
+                             "device")
         okf = ok.to(torch.float32).contiguous()
     lib = _library()
     with torch.cuda.device(u.device):
         out = call(lib, u, okf, dt, cfg, dx, bc, courant, want_flux,
                    torch.cuda.current_stream(u.device).cuda_stream)
-    if want_flux:
+    if padded and want_flux:
+        padded_flux_launches += 1
+    elif padded:
+        padded_launches += 1
+    elif want_flux:
         flux_launches += 1
     else:
         launches += 1
@@ -400,28 +483,34 @@ def _launch(u, dt, cfg, dx, bc, ok, courant, want_flux):
 
 
 def call(lib, u, okf, dt, cfg, dx, bc, courant, want_flux, stream=None):
-    """One call of the C entry of ``lib`` (a build of ``csrc/fused_muscl.cu``
-    with :func:`bind` applied) on checked arguments: ``okf`` the refined
-    mask as f32 0/1 or None, ``dt`` a 0-d f32 tensor.  Returns ``(un, crt,
+    """One call of a C entry of ``lib`` (a build of ``csrc/fused_muscl.cu``
+    with :func:`bind` applied) on checked arguments: the unpadded entry
+    with boundary spec ``bc``, or with ``bc`` None the padded entry (``u``
+    and ``okf`` then carry ``NG`` ghosts a side); ``okf`` the refined mask
+    as f32 0/1 or None, ``dt`` a 0-d f32 tensor.  Returns ``(un, crt,
     phi)``: ``crt`` the raw Courant min of ``un`` (None without
     ``courant``), ``phi`` the face mass fluxes (None without
     ``want_flux``); outputs go on ``u``'s device.  Raises on an error it
     returns."""
-    un = torch.empty_like(u)
+    pad = 2 * NG if bc is None else 0
+    shape = tuple(n - pad for n in u.shape[1:])
+    un = u.new_empty((5,) + shape)
     crt = (torch.full((), math.inf, dtype=torch.float32, device=u.device)
            if courant else None)
-    phi = u.new_empty((3, 2) + tuple(u.shape[1:])) if want_flux else None
-    nx, ny, nz = u.shape[1:]
-    kinds = [k for pair in bc.kinds for k in pair]
+    phi = u.new_empty((3, 2) + shape) if want_flux else None
     g = cfg.gamma
-    err = lib.ramses_fused_muscl(
-        u.data_ptr(), okf.data_ptr() if okf is not None else None,
-        dt.data_ptr(), un.data_ptr(),
-        crt.data_ptr() if crt is not None else None,
-        phi.data_ptr() if phi is not None else None,
-        nx, ny, nz, *kinds, _RIEMANN[cfg.riemann], _slope_factor(cfg),
-        g, g - 1.0, 1.0 / (g - 1.0), cfg.smallr, cfg.smallc ** 2,
-        cfg.smallp, cfg.smalle, dx, courant_fac(cfg), stream)
+    ptrs = (u.data_ptr(), okf.data_ptr() if okf is not None else None,
+            dt.data_ptr(), un.data_ptr(),
+            crt.data_ptr() if crt is not None else None,
+            phi.data_ptr() if phi is not None else None)
+    consts = (_RIEMANN[cfg.riemann], _slope_factor(cfg), g, g - 1.0,
+              1.0 / (g - 1.0), cfg.smallr, cfg.smallc ** 2, cfg.smallp,
+              cfg.smalle, dx, courant_fac(cfg), stream)
+    if bc is None:
+        err = lib.ramses_fused_muscl_padded(*ptrs, *shape, *consts)
+    else:
+        kinds = [k for pair in bc.kinds for k in pair]
+        err = lib.ramses_fused_muscl(*ptrs, *shape, *kinds, *consts)
     if err:
         raise RuntimeError(f"fused_muscl kernel launch failed "
                            f"(cudaError {err})")

@@ -586,3 +586,123 @@ def test_mhd_amr_coarse_step_never_waits_for_the_host(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert float(dtn) > 0.0
     assert all(bool(torch.isfinite(u[l]).all()) for l in u)
+
+
+# ---------------------------------------------------------------------------
+# K5: the ring halo exchange (csrc/halo_exchange.cu) and K1's padded entry
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nshard", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_halo_kernel_matches_plain(cuda, nshard, dtype):
+    """Every slab of every shard in one launch, bitwise the plain copy: the
+    three cut axes, both depths, into fresh tensors and into the ghost
+    regions of extended blocks."""
+    from ramses_tpu_torch.parallel import dma_halo
+    g = torch.Generator(device="cpu").manual_seed(nshard)
+    blocks = [torch.randn((5, 6, 10, 13), generator=g, dtype=dtype)
+              .to(cuda) for _ in range(nshard)]
+    for ax in (1, 2, 3):
+        for ng in (1, 2):
+            eshape = list(blocks[0].shape)
+            eshape[ax] += 2 * ng
+            ext = [torch.zeros(eshape, dtype=dtype, device=cuda)
+                   for _ in range(nshard)]
+            pairs = []
+            for s in range(nshard):
+                d = (s + 1) % nshard
+                pairs.append((blocks[s].narrow(ax, blocks[s].shape[ax] - ng,
+                                               ng),
+                              ext[d].narrow(ax, 0, ng)))
+                pairs.append((blocks[s].narrow(ax, 0, ng),
+                              torch.empty_like(blocks[d].narrow(ax, 0, ng),
+                                               memory_format=torch.
+                                               contiguous_format)))
+            want = [torch.zeros_like(e) for e in ext]
+            want_fresh = [torch.empty_like(p[1]) for p in pairs[1::2]]
+            ref_pairs = []
+            for i, (src, _) in enumerate(pairs):
+                dst = (want[(i // 2 + 1) % nshard].narrow(ax, 0, ng)
+                       if i % 2 == 0 else want_fresh[i // 2])
+                ref_pairs.append((src, dst))
+            before = dma_halo.launches
+            dma_halo.halo_exchange(pairs)
+            dma_halo.halo_exchange_ref(ref_pairs)
+            torch.cuda.synchronize()
+            assert dma_halo.launches == before + 1
+            for a, b in zip(ext, want):
+                assert torch.equal(a, b)
+            for (_, a), b in zip(pairs[1::2], want_fresh):
+                assert torch.equal(a, b)
+
+
+def test_halo_kernel_refuses_what_it_does_not_take(cuda):
+    from ramses_tpu_torch.parallel import dma_halo
+    a = torch.zeros(4, 5, 6, device=cuda)
+    with pytest.raises(ValueError):
+        dma_halo.halo_exchange([(a[:, 1:3, 2:4], torch.zeros(4, 2, 2,
+                                                             device=cuda))])
+    with pytest.raises(NotImplementedError):
+        dma_halo.halo_exchange([(a, torch.zeros(4, 5, 6))])
+
+
+@pytest.mark.parametrize("shape,masked,want_flux", [
+    ((12, 10, 40), False, False), ((2, 7, 33), True, True),
+    ((9, 6, 3), True, False)])
+def test_fused_padded_entry_is_the_unpadded_one(cuda, shape, masked,
+                                                want_flux):
+    """The padded entry on a periodic box padded by the plain ``pad`` is
+    bitwise the unpadded entry (one kernel, one instruction stream), and
+    within the table of its own plain version."""
+    cfg = HydroStatic(ndim=3, riemann="hllc", slope_type=2)
+    u = torch.from_numpy(_state(shape, cfg.gamma, 3)).to(cuda)
+    bc = bmod.BoundarySpec.periodic(3)
+    ok = (torch.from_numpy(np.random.default_rng(2).random(shape) < 0.2)
+          .to(cuda) if masked else None)
+    dt = torch.tensor(2e-3, dtype=torch.float32, device=cuda)
+    up = bmod.pad(u, bc, cfg, fm.NG).contiguous()
+    okp = fm._pad_mask(ok.float(), bc) if masked else None
+    before = fm.padded_flux_launches if want_flux else fm.padded_launches
+    got = fm.fused_step_padded(up, dt, cfg, 0.05, ok_pad=okp, courant=True,
+                               want_flux=want_flux)
+    after = fm.padded_flux_launches if want_flux else fm.padded_launches
+    assert after == before + 1
+    want = fm.fused_step(u, dt, cfg, 0.05, bc, ok=ok, courant=True,
+                         want_flux=want_flux)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    ref = fm.fused_step_padded_ref(up, dt, cfg, 0.05, ok_pad=okp,
+                                   courant=True, want_flux=want_flux)
+    torch.testing.assert_close(got[0], ref[0], rtol=2e-5, atol=2e-6)
+    assert float(got[1]) == pytest.approx(float(ref[1]), rel=3e-3)
+
+
+def test_slab_paths_on_cuda_are_the_single_device_ones(cuda):
+    """8 shards on the card: run_steps_halo (split on, K5 once a step, K1's
+    padded entry 3 times a shard a step) and ShardedAmrSim bitwise equal to
+    the single-device runs."""
+    import os
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.parallel import dma_halo
+    from ramses_tpu_torch.parallel.amr_sharded import ShardedAmrSim
+    from ramses_tpu_torch.parallel.halo import run_steps_halo
+    from ramses_tpu_torch.parallel.mesh import ShardMesh
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = load_params(os.path.join(root, "namelists", "sedov3d.nml"), ndim=3)
+    p.amr.levelmin = p.amr.levelmax = 6
+    sim = Simulation(p)
+    mesh = ShardMesh([cuda] * 8)
+    k5, k1p = dma_halo.launches, fm.padded_launches
+    uh, th, nh = run_steps_halo(sim.grid, mesh, sim.state.u, 0.0, 1e9, 3)
+    assert dma_halo.launches - k5 == 3 and fm.padded_launches - k1p == 72
+    ur, tr, nr = uniform.run_steps(sim.grid, sim.state.u, 0.0, 1e9, 3)
+    assert float(th) == float(tr) and torch.equal(uh, ur)
+    p.amr.levelmin, p.amr.levelmax = 5, 6
+    p.refine.err_grad_d = p.refine.err_grad_p = 0.1
+    s8 = ShardedAmrSim(p, devices=mesh)
+    s1 = AmrSim(p)
+    assert s8._fused_spec().slab[0].backend == "dma"
+    s8.evolve(1e9, nstepmax=3)
+    s1.evolve(1e9, nstepmax=3)
+    for l in s1.levels():
+        assert torch.equal(s8.u[l], s1.u[l])

@@ -49,7 +49,8 @@ def test_build_is_keyed_on_source_and_flags(tmp_path, build_dir,
     nvcc = _fake_nvcc(tmp_path, 'while [ "$1" != "-o" ]; do shift; done; '
                                 'echo built > "$2"')
     monkeypatch.setattr(kernels, "nvcc_path", lambda: nvcc)
-    assert kernels.sources() == ["fused_muscl", "mhd_ct", "oct_muscl"]
+    assert kernels.sources() == ["fused_muscl", "halo_exchange", "mhd_ct",
+                                 "oct_muscl"]
     kernels.build(kernels.sources())        # the compilers run together
     targets = [kernels.library_path(n) for n in kernels.sources()]
     for target in targets:
@@ -70,7 +71,7 @@ def test_build_is_keyed_on_source_and_flags(tmp_path, build_dir,
     assert kernels.library_path("fused_muscl") != target
     monkeypatch.setattr(kernels, "NVCC_FLAGS",
                         kernels.NVCC_FLAGS + ("-lineinfo",))
-    assert kernels.library_path("oct_muscl") != targets[2]
+    assert kernels.library_path("oct_muscl") != targets[3]
 
 
 def test_no_nvcc_raises(monkeypatch):

@@ -14,7 +14,8 @@ versions do, so the step, the coarse corrections and the MC-tracer face
 mass fluxes (``want_flux``) are held against ``fused_step_ref``,
 ``tile_sweep_ref`` and ``oct_sweep_ref`` here on the CPU (within the table
 of ``tests/test_pallas_kernel.py``: rtol 2e-5 / atol 2e-6), through the
-wrappers' own ``call``.  K1's Courant min (warp reductions and an atomic)
+wrappers' own ``call``; K1's ghost-padded entry is held bitwise to its
+unpadded entry on a periodic box padded by the plain ``pad``.  K1's Courant min (warp reductions and an atomic)
 is not emulated: the card's build is held against the plain versions,
 that min included, by ``chip_smoke.py`` and ``tests/test_torch_gpu.py``.
 Skips without ``g++``.
@@ -186,3 +187,37 @@ def test_k2_host_build_matches_plain_version(host_libs, riemann, slope,
     want = om.oct_sweep_ref(u, ok, dt, cfg, 1.0 / 32, want_flux)
     assert len(got) == len(want) == 2 + want_flux
     _close(got, want)
+
+
+@pytest.mark.parametrize("riemann,slope,masked,want_flux,shape", [
+    ("llf", 1, False, False, (6, 7, 40)),
+    ("hllc", 2, True, True, (2, 9, 33)),
+    ("llf", 8, True, True, (5, 2, 3)),
+])
+def test_k1_padded_entry_is_the_unpadded_one(host_libs, riemann, slope,
+                                             masked, want_flux, shape):
+    """The padded entry (a shard's contract: ghosts read as given) on a
+    periodic box padded by the plain ``pad`` is bitwise the unpadded entry
+    on the box, mask and face fluxes included, and within the table of its
+    own plain version."""
+    cfg = HydroStatic(ndim=3, riemann=riemann, slope_type=slope)
+    u = _state(shape, cfg.gamma, 40 + slope)
+    bc = bmod.BoundarySpec.periodic(3)
+    ok = (torch.from_numpy(np.random.default_rng(slope).random(shape)
+                           < 0.2).to(torch.float32) if masked else None)
+    dt = torch.tensor(2e-3, dtype=torch.float32)
+    dx = 1.0 / 40
+    un, _, phi = fm.call(host_libs[0], u, ok, dt, cfg, dx, bc, False,
+                         want_flux)
+    u_pad = bmod.pad(u, bc, cfg, fm.NG).contiguous()
+    ok_pad = fm._pad_mask(ok, bc).contiguous() if masked else None
+    unp, _, phip = fm.call(host_libs[0], u_pad, ok_pad, dt, cfg, dx, None,
+                           False, want_flux)
+    assert torch.equal(unp, un)
+    assert (phip is None) == (not want_flux)
+    if want_flux:
+        assert torch.equal(phip, phi)
+    want = fm.fused_step_padded_ref(u_pad, dt, cfg, dx, ok_pad=ok_pad,
+                                    want_flux=want_flux)
+    _close((unp, phip) if want_flux else (unp,),
+           want if want_flux else (want,))
