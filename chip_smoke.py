@@ -11,7 +11,9 @@ Phases, each printing its own line; any failure exits non-zero:
    with each kernel's registers and spill bytes from ptxas;
 3. kernel check: the fused MUSCL kernel against its plain PyTorch version
    on random 64³ states (llf/hllc × slope 1/2/8, a masked case, a
-   reflecting/outflow case): ``un`` within rtol 2e-5 / atol 2e-6,
+   reflecting/outflow case) and on boxes ragged against its tiles and
+   chunks, thin, and with 2-cell periodic axes (every boundary kind, masked
+   and not): ``un`` within rtol 2e-5 / atol 2e-6,
    ``dt_next`` within rel 3e-3 (the table of tests/test_pallas_kernel.py);
 4. main path: ``run_namelist("namelists/sedov3d.nml", ndim=3)`` at 256³
    (``nstepmax=10``) on the card, with every kernel launch counter set to
@@ -22,8 +24,9 @@ Phases, each printing its own line; any failure exits non-zero:
    ``LOCAL_ATOL + LOCAL_RTOL * M`` where M is the max of the field's
    magnitude over the cell's 5³ stencil (``dt_next`` within rel 3e-3),
    both timed (median of CUDA-event times after warm-up), the bound
-   (bytes over 3.35 TB/s, operations over 67 TFLOP/s f32), the steady
-   step rate of ``run_steps``;
+   (bytes over 3.35 TB/s, operations over 67 TFLOP/s f32) and the share
+   of it the kernel reaches, the launch's shared memory, resident blocks
+   an SM, registers and spill, the steady step rate of ``run_steps``;
 6. profile: 10 ``run_steps`` steps at 256³ under ``torch.profiler``: the
    device's busy share of the window and the time of each kernel; the
    trace goes to ``chiprun_out/chip_smoke_trace.json``;
@@ -49,8 +52,9 @@ Phases, each printing its own line; any failure exits non-zero:
    K2; over the cells a face touches for a face flux, over the four faces
    for K2's per-oct sums).  Each is timed on the device per launch
    (``torch.profiler``); K3 and K2 also by the wall of one wrapper call
-   (CUDA events), with their plain versions' times and bounds; the
-   level-7 flat↔dense gather against the 22-dimensional bit-axis permute
+   (CUDA events), with their plain versions' times and bounds; K1
+   beside its bound (u, mask and update moved once); the level-7
+   flat↔dense gather against the 22-dimensional bit-axis permute
    it replaces;
 11. profile: one AMR coarse step (regrid, Courant fetch, step) under
    ``torch.profiler``, trace to ``chiprun_out/chip_smoke_amr_trace.json``;
@@ -790,10 +794,19 @@ def _amr_phases(dev):
     del un, ref, err, scale
     ms7 = _device_ms(lambda: fm.fused_step(*args7, ok=ok7),
                      "fused_muscl_kernel")
+    # u and the mask read once, un written once, dt
+    nbytes7 = 4 * (2 * ud.numel() + ok7.numel() + 1)
+    nops7 = _count_ops(lambda: fm.fused_step_ref(*args7, ok=ok7))
+    b7, o7 = 1e3 * nbytes7 / HBM_BYTES_PER_S, 1e3 * nops7 / F32_OPS_PER_S
     lines.append(f"fused_muscl level {lmin} {tuple(shape7)} with "
                  f"{int(ok7.sum())} refined cells: {ms7:.4f} ms/launch on "
-                 f"the device (profiler), max abs err {err7:.3e}, err / "
-                 f"stencil max per field {[f'{x:.3e}' for x in rel7]}")
+                 f"the device (profiler), bound {max(b7, o7):.4f} ms by "
+                 f"{'bytes' if b7 >= o7 else 'operations'} "
+                 f"({nbytes7 / 1e6:.3f} MB -> {b7:.4f} ms; "
+                 f"{nops7 / 1e9:.4f} G ops -> {o7:.4f} ms), "
+                 f"{100 * max(b7, o7) / ms7:.1f} % of the bound, max abs err "
+                 f"{err7:.3e}, err / stencil max per field "
+                 f"{[f'{x:.3e}' for x in rel7]}")
     del ud
     gather_ms = _median_ms(lambda: K._rows_to_vars(u7, None, shape7))
     seq = bitperm._bit_seq(lmin, 3)
@@ -2770,17 +2783,30 @@ def main() -> int:
     walls = bmod.BoundarySpec(faces=(
         (bmod.FaceBC(1), bmod.FaceBC(1)), (bmod.FaceBC(2), bmod.FaceBC(1)),
         (bmod.FaceBC(1), bmod.FaceBC(2))))
-    cases = [(rs, st, periodic, False) for rs in ("llf", "hllc")
+    mixed = bmod.BoundarySpec(faces=(
+        (bmod.FaceBC(0), bmod.FaceBC(0)), (bmod.FaceBC(1), bmod.FaceBC(1)),
+        (bmod.FaceBC(2), bmod.FaceBC(2))))
+    cases = [(rs, st, periodic, False, CHECK_SHAPE) for rs in ("llf", "hllc")
              for st in (1, 2, 8)]
-    cases += [("llf", 1, periodic, True), ("hllc", 2, walls, True)]
+    cases += [("llf", 1, periodic, True, CHECK_SHAPE),
+              ("hllc", 2, walls, True, CHECK_SHAPE)]
+    # ragged against K1's 32 x 8 tiles and 16-plane chunks, thin axes, and
+    # 2-cell periodic axes whose ring wraps onto the tile itself
+    cases += [("hllc", 2, periodic, True, (19, 13, 37)),
+              ("llf", 8, walls, False, (19, 13, 37)),
+              ("llf", 1, mixed, True, (2, 16, 16)),
+              ("hllc", 8, walls, True, (16, 3, 33)),
+              ("llf", 2, periodic, False, (2, 2, 2)),
+              ("hllc", 1, periodic, True, (2, 2, 34)),
+              ("llf", 2, mixed, True, (67, 45, 70))]
     worst = {"excess": -1.0, "max_abs_err": 0.0, "dt_rel": 0.0}
-    for i, (rs, st, bc, masked) in enumerate(cases):
+    for i, (rs, st, bc, masked, shape) in enumerate(cases):
         cfg = HydroStatic(ndim=3, riemann=rs, slope_type=st)
-        u = torch.from_numpy(_random_state(CHECK_SHAPE, cfg.gamma, i)).to(dev)
+        u = torch.from_numpy(_random_state(shape, cfg.gamma, i)).to(dev)
         ok = None
         if masked:
             g = torch.Generator(device="cpu").manual_seed(100 + i)
-            ok = (torch.rand(CHECK_SHAPE, generator=g) < 0.1).to(dev)
+            ok = (torch.rand(shape, generator=g) < 0.1).to(dev)
         dt = torch.tensor(1e-3, dtype=torch.float32, device=dev)
         un, dtn = fm.fused_step(u, dt, cfg, dx, bc, ok=ok, courant=True)
         ref, dtr = fm.fused_step_ref(u, dt, cfg, dx, bc, ok=ok, courant=True)
@@ -2791,12 +2817,14 @@ def main() -> int:
         if not (ex <= 0.0 and rel <= DT_REL and torch.isfinite(un).all()):
             raise AssertionError(
                 f"fused_muscl disagrees with its plain version: riemann={rs} "
-                f"slope_type={st} bc={bc.kinds} masked={masked}: max abs "
+                f"slope_type={st} bc={bc.kinds} masked={masked} shape="
+                f"{shape}: max abs "
                 f"err {err:.3e}, tolerance excess {ex:.3e}, dt rel {rel:.3e}")
         worst["excess"] = max(worst["excess"], ex)
         worst["max_abs_err"] = max(worst["max_abs_err"], err)
         worst["dt_rel"] = max(worst["dt_rel"], rel)
-    _print(f"phase 3 kernel check: {len(cases)} cases at {CHECK_SHAPE} pass "
+    _print(f"phase 3 kernel check: {len(cases)} cases at "
+           f"{sorted({c[-1] for c in cases})} pass "
            f"(max abs err {worst['max_abs_err']:.3e}, worst tolerance "
            f"excess {worst['excess']:.3e}, worst dt rel err "
            f"{worst['dt_rel']:.3e})")
@@ -2867,6 +2895,7 @@ def main() -> int:
     ops_ms = 1e3 * nops / F32_OPS_PER_S
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    info = fm.launch_info(cfg.riemann)
     nsteps = 20
     t = torch.tensor(sim.t, dtype=torch.float64, device=dev)
     run = lambda: run_steps(sim.grid, u, t, 1e30, nsteps)  # noqa: E731
@@ -2875,7 +2904,12 @@ def main() -> int:
            f"{ms:.4f} ms/launch, plain version {plain_ms:.4f} ms (same "
            f"shape, peak {plain_peak / 2**30:.2f} GiB), bound {bound_ms:.4f} "
            f"ms by {bound_by} ({nbytes / 1e9:.4f} GB -> {bytes_ms:.4f} ms; "
-           f"{nops / 1e9:.4f} G ops -> {ops_ms:.4f} ms); against plain: "
+           f"{nops / 1e9:.4f} G ops -> {ops_ms:.4f} ms), "
+           f"{100 * bound_ms / ms:.1f} % of the bound; launch: "
+           f"{info['smem_bytes']} B dynamic shared memory a block, "
+           f"{info['blocks_per_sm']} blocks an SM resident, "
+           f"{info['registers']} registers, {info['local_bytes']} B local a "
+           f"thread; against plain: "
            f"{readings}; "
            f"run_steps x{nsteps}: {step_ms:.4f} ms/step = "
            f"{ncell / (step_ms * 1e-3):.4e} cell-updates/s; library call: "

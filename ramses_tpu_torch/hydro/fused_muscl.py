@@ -369,12 +369,28 @@ def bind(lib):
     """Declare the C entry points' signatures on a loaded build of
     ``csrc/fused_muscl.cu`` (the tests also load a host build of it)."""
     for name, types in (("ramses_fused_muscl", _ARGTYPES),
-                        ("ramses_fused_muscl_padded", _PADDED_ARGTYPES)):
+                        ("ramses_fused_muscl_padded", _PADDED_ARGTYPES),
+                        ("ramses_fused_muscl_info",
+                         [ctypes.c_int, ctypes.c_void_p])):
         fn = getattr(lib, name)
         if fn.argtypes is None:
             fn.argtypes = types
             fn.restype = ctypes.c_int
     return lib
+
+
+def launch_info(riemann: str = "llf", lib=None) -> dict:
+    """The kernel's resources on the current CUDA device (or in ``lib``, a
+    bound build): resident blocks an SM, dynamic shared memory a block
+    (bytes), registers and local (spill) bytes a thread."""
+    lib = _library() if lib is None else lib
+    out = (ctypes.c_int * 4)()
+    err = lib.ramses_fused_muscl_info(_RIEMANN[riemann], out)
+    if err:
+        raise RuntimeError(f"fused_muscl info query failed (cudaError "
+                           f"{err})")
+    return dict(zip(("blocks_per_sm", "smem_bytes", "registers",
+                     "local_bytes"), out))
 
 
 def fused_step(u: torch.Tensor, dt: torch.Tensor, cfg: HydroStatic,

@@ -5,7 +5,8 @@ On a machine with a card, run them without the JAX package's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-Shapes are ragged against the kernel's 32 x 4 thread blocks and the
+Shapes are ragged against K1's 32 x 8 column tiles and 16-plane x chunks
+(and thin: axes of 2-3 cells whose periodic ring wraps onto the tile), and the
 boundaries mix every kind the kernel maps itself, which ``chip_smoke.py``
 (64³ and 256³, mostly periodic) does not reach.  Tolerances are the table
 of ``tests/test_pallas_kernel.py``: rtol 2e-5 / atol 2e-6 for the state,
@@ -54,6 +55,11 @@ def _bc(kinds):
     ((5, 7, 33), ((1, 2), (2, 1), (1, 1)), "hllc", 2, False),
     ((9, 6, 35), ((2, 2), (1, 0), (0, 2)), "hllc", 8, True),
     ((2, 3, 2), ((1, 1), (0, 0), (2, 2)), "llf", 2, True),
+    ((19, 13, 37), ((0, 0), (0, 0), (0, 0)), "hllc", 2, True),
+    ((2, 16, 16), ((0, 0), (1, 1), (2, 2)), "llf", 8, False),
+    ((16, 3, 33), ((2, 2), (0, 0), (1, 0)), "hllc", 1, True),
+    ((3, 2, 2), ((0, 0), (0, 0), (0, 0)), "llf", 2, False),
+    ((40, 17, 70), ((1, 2), (2, 1), (0, 0)), "hllc", 8, True),
 ])
 def test_fused_kernel_matches_plain(cuda, shape, kinds, riemann, slope_type,
                                     masked):
@@ -648,7 +654,8 @@ def test_halo_kernel_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.parametrize("shape,masked,want_flux", [
     ((12, 10, 40), False, False), ((2, 7, 33), True, True),
-    ((9, 6, 3), True, False)])
+    ((9, 6, 3), True, False), ((19, 13, 37), True, True),
+    ((3, 16, 33), False, True)])
 def test_fused_padded_entry_is_the_unpadded_one(cuda, shape, masked,
                                                 want_flux):
     """The padded entry on a periodic box padded by the plain ``pad`` is
@@ -675,6 +682,37 @@ def test_fused_padded_entry_is_the_unpadded_one(cuda, shape, masked,
                                    courant=True, want_flux=want_flux)
     torch.testing.assert_close(got[0], ref[0], rtol=2e-5, atol=2e-6)
     assert float(got[1]) == pytest.approx(float(ref[1]), rel=3e-3)
+
+
+@pytest.mark.parametrize("shape,cuts,riemann,masked", [
+    ((20, 9, 35), ((0, 1, 3, 4, 20), (0, 2, 18, 19, 20)), "hllc", True),
+    ((40, 33, 70), ((0, 16, 17, 19, 40), (0, 1, 33, 35, 40)), "llf", True),
+    ((17, 5, 33), ((0, 16, 17), (0, 1, 17)), "llf", False),
+])
+def test_fused_padded_slabs_are_the_whole_box(cuda, shape, cuts, riemann,
+                                              masked):
+    """A periodic box cut into x slabs (1- and 2-plane slabs among them)
+    swept slab by slab through the padded entry, ghosts from the box padded
+    by the plain ``pad``: update, face fluxes and Courant dt bitwise those
+    of the unpadded entry on the whole box, at two cuts."""
+    cfg = HydroStatic(ndim=3, riemann=riemann, slope_type=2)
+    u = torch.from_numpy(_state(shape, cfg.gamma, 5)).to(cuda)
+    bc = bmod.BoundarySpec.periodic(3)
+    ok = (torch.from_numpy(np.random.default_rng(4).random(shape) < 0.2)
+          .to(cuda) if masked else None)
+    dt = torch.tensor(2e-3, dtype=torch.float32, device=cuda)
+    un, dtn, phi = fm.fused_step(u, dt, cfg, 0.05, bc, ok=ok, courant=True,
+                                 want_flux=True)
+    up = bmod.pad(u, bc, cfg, fm.NG)
+    okp = fm._pad_mask(ok.float(), bc) if masked else None
+    for cut in cuts:
+        got = [fm.fused_step_padded(
+            up[:, a:b + 4].contiguous(), dt, cfg, 0.05,
+            ok_pad=okp[a:b + 4].contiguous() if masked else None,
+            courant=True, want_flux=True) for a, b in zip(cut[:-1], cut[1:])]
+        assert torch.equal(torch.cat([g[0] for g in got], 1), un)
+        assert torch.equal(torch.stack([g[1] for g in got]).min(), dtn)
+        assert torch.equal(torch.cat([g[2] for g in got], 2), phi)
 
 
 def test_slab_paths_on_cuda_are_the_single_device_ones(cuda):

@@ -3,21 +3,25 @@ plain versions.
 
 ``ramses_tpu_torch/csrc/fused_muscl.cu`` (K1) and ``csrc/oct_muscl.cu``
 (K3 and K2) are compiled with ``g++`` into shared libraries: a small
-header stands in for the CUDA runtime (the qualifiers are empty,
-``__ldg`` is a load, ``__shared__`` arrays are static) and each
-``<<<grid, block>>>`` launch becomes loops over blocks and threads, in
-order.  Each block's threads run twice, so that what a thread reads after
-``__syncthreads()`` (K2's per-oct sums) was written by every thread of its
-block in the first round; the second round writes the same values again.
-Built with ``-ffp-contract=off``, the device functions round as the plain
-versions do, so the step, the coarse corrections and the MC-tracer face
-mass fluxes (``want_flux``) are held against ``fused_step_ref``,
-``tile_sweep_ref`` and ``oct_sweep_ref`` here on the CPU (within the table
-of ``tests/test_pallas_kernel.py``: rtol 2e-5 / atol 2e-6), through the
-wrappers' own ``call``; K1's ghost-padded entry is held bitwise to its
-unpadded entry on a periodic box padded by the plain ``pad``.  K1's Courant min (warp reductions and an atomic)
-is not emulated: the card's build is held against the plain versions,
-that min included, by ``chip_smoke.py`` and ``tests/test_torch_gpu.py``.
+header stands in for the CUDA runtime.  Each ``<<<grid, block, smem>>>``
+launch runs every thread of a block as a real thread (``std::thread``);
+the blocks run one after another, and the threads meet at a per-block
+``std::barrier`` for ``__syncthreads()`` and at a per-warp one for
+``__reduce_min_sync``.  ``__shared__`` arrays are static, so one buffer
+serves the running block, and ``extern __shared__`` is a buffer of the
+launch's dynamic size.  ``cp.async``'s copy, commit and wait are plain
+copies (the header defines ``RAMSES_HOST_STUBS`` and the helpers), and
+``cudaFuncSetAttribute`` and the occupancy queries are stubs.  So K1's
+staged march (several barriers a plane), K2's per-oct sums through shared
+memory and K1's Courant min (warp and block reductions, one atomic a
+block) run as written.  Built with ``-ffp-contract=off``, the device
+functions round as the plain versions do, so the step, the Courant dt, the
+coarse corrections and the MC-tracer face mass fluxes (``want_flux``) are
+held against ``fused_step_ref``, ``tile_sweep_ref`` and ``oct_sweep_ref``
+here on the CPU (within the table of ``tests/test_pallas_kernel.py``:
+rtol 2e-5 / atol 2e-6, rel 3e-3 for the dt), through the wrappers' own
+``call``; K1's ghost-padded entry is held bitwise to its unpadded entry on
+a periodic box padded by the plain ``pad``, whole and cut into x slabs.
 Skips without ``g++``.
 """
 
@@ -41,44 +45,115 @@ from ramses_tpu_torch.hydro.core import HydroStatic  # noqa: E402
 RUNTIME = """
 #pragma once
 #include <math.h>
+#include <stddef.h>
 #include <stdint.h>
 #include <string.h>
+#include <barrier>
+#include <memory>
+#include <thread>
+#include <vector>
+#define RAMSES_HOST_STUBS 1
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-static dim3 blockIdx, threadIdx, blockDim;
+static thread_local dim3 blockIdx, threadIdx, blockDim, gridDim;
 #define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 #define __shared__ static
-#define __syncthreads()
+#define __align__(n)
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
+// the running launch: its block barrier, warp barriers and dynamic buffer
+struct HostLaunch {
+  std::unique_ptr<std::barrier<>> block;
+  std::vector<std::unique_ptr<std::barrier<>>> warp;
+  std::vector<int> slot;
+  std::vector<float> dyn;
+  int nthread;
+};
+static HostLaunch* host_launch_;
+inline int host_tid() {
+  return (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
+}
+inline void __syncthreads() { host_launch_->block->arrive_and_wait(); }
+inline int __reduce_min_sync(unsigned, int v) {
+  HostLaunch& h = *host_launch_;
+  const int t = host_tid(), w = t / 32;
+  const int nw = min(32, h.nthread - 32 * w);
+  h.slot[t] = v;
+  h.warp[w]->arrive_and_wait();
+  int m = v;
+  for (int i = 0; i < nw; ++i) m = min(m, h.slot[32 * w + i]);
+  h.warp[w]->arrive_and_wait();
+  return m;
+}
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
-inline int __reduce_min_sync(unsigned, int v) { return v; }
-inline int min(int a, int b) { return a < b ? a : b; }
 inline int atomicMin(int* p, int v) { int o = *p; if (v < o) *p = v; return o; }
+inline void cp_async_f32(float* s, const float* g) { *s = *g; }
+inline void cp_async_commit() {}
+template <int N> inline void cp_async_wait() {}
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+template <class F>
+inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
+  a->numRegs = 0; a->localSizeBytes = 0; return 0;
+}
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, F, int, size_t) { *n = 1; return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 typedef void* cudaStream_t;
+// one launch: every thread of a block is a thread; blocks in order, each
+// closed by the block barrier before the next one starts
+template <class F>
+inline void host_launch(dim3 grid, dim3 block, size_t smem, F body) {
+  HostLaunch h;
+  h.nthread = block.x * block.y * block.z;
+  h.block.reset(new std::barrier<>(h.nthread));
+  for (int w = 0; 32 * w < h.nthread; ++w)
+    h.warp.emplace_back(new std::barrier<>(min(32, h.nthread - 32 * w)));
+  h.slot.resize(h.nthread);
+  h.dyn.resize(smem / sizeof(float) + 1);
+  host_launch_ = &h;
+  std::vector<std::thread> ts;
+  for (int t = 0; t < h.nthread; ++t)
+    ts.emplace_back([&, t] {
+      blockDim = block;
+      gridDim = grid;
+      threadIdx = dim3(t % block.x, (t / block.x) % block.y,
+                       t / (block.x * block.y));
+      for (unsigned bz = 0; bz < grid.z; ++bz)
+        for (unsigned by = 0; by < grid.y; ++by)
+          for (unsigned bx = 0; bx < grid.x; ++bx) {
+            blockIdx = dim3(bx, by, bz);
+            body();
+            h.block->arrive_and_wait();
+          }
+    });
+  for (auto& th : ts) th.join();
+  host_launch_ = nullptr;
+}
 """
 
-LAUNCH = re.compile(r"(\w+<[^;<>]*>)<<<grid, block, 0, s>>>\(([^;]*)\);")
+LAUNCH = re.compile(
+    r"(\w+<[^;<>]*>)<<<grid, block, (\w+), s>>>\(([^;]*)\);")
+DYN_SMEM = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?float (\w+)\[\];")
 
 
-def _as_loop(m):
-    return ("for (unsigned bz_ = 0; bz_ < grid.z; ++bz_) "
-            "for (unsigned by_ = 0; by_ < grid.y; ++by_) "
-            "for (unsigned bx_ = 0; bx_ < grid.x; ++bx_) "
-            "for (int round_ = 0; round_ < 2; ++round_) "
-            "for (unsigned ty_ = 0; ty_ < block.y; ++ty_) "
-            "for (unsigned tx_ = 0; tx_ < block.x; ++tx_) "
-            "{ blockIdx = dim3(bx_, by_, bz_); threadIdx = dim3(tx_, ty_, 0); "
-            f"blockDim = block; {m.group(1)}({m.group(2)}); }}")
+def _as_launch(m):
+    return (f"host_launch(grid, block, {m.group(2)}, [&] "
+            f"{{ {m.group(1)}({m.group(3)}); }});")
 
 
 def _host_build(out, name):
@@ -86,11 +161,13 @@ def _host_build(out, name):
     common = (kernels.CSRC / "muscl_common.cuh").read_text()
     (out / "muscl_common.cuh").write_text(
         common.replace("#include <cuda_runtime.h>", '#include "cuda_host.h"'))
-    src, n = LAUNCH.subn(_as_loop, (kernels.CSRC / f"{name}.cu").read_text())
+    src, n = LAUNCH.subn(_as_launch, (kernels.CSRC / f"{name}.cu").read_text())
     assert n > 0 and "<<<" not in src
+    src = DYN_SMEM.sub(r"float* \1 = host_launch_->dyn.data();", src)
+    assert "extern __shared__" not in src
     (out / f"{name}.cpp").write_text('#include "cuda_host.h"\n' + src)
     lib_path = out / f"lib{name}_host.so"
-    subprocess.run([shutil.which("g++"), "-std=c++17", "-O1",
+    subprocess.run([shutil.which("g++"), "-std=c++20", "-O1", "-pthread",
                     "-ffp-contract=off", "-shared", "-fPIC", "-w", "-o",
                     str(lib_path), str(out / f"{name}.cpp")], check=True,
                    capture_output=True)
@@ -221,3 +298,93 @@ def test_k1_padded_entry_is_the_unpadded_one(host_libs, riemann, slope,
                                     want_flux=want_flux)
     _close((unp, phip) if want_flux else (unp,),
            want if want_flux else (want,))
+
+
+def _kinds_bc(kinds):
+    return bmod.BoundarySpec(faces=tuple(
+        (bmod.FaceBC(kind=lo), bmod.FaceBC(kind=hi)) for lo, hi in kinds))
+
+
+@pytest.mark.parametrize("shape,kinds,riemann,slope,masked,want_flux", [
+    ((19, 13, 37), ((0, 0), (0, 0), (0, 0)), "hllc", 2, True, True),
+    ((19, 13, 37), ((1, 2), (2, 1), (1, 0)), "llf", 8, False, True),
+    ((2, 16, 16), ((0, 0), (1, 1), (2, 2)), "llf", 1, True, False),
+    ((2, 16, 16), ((1, 1), (0, 0), (0, 0)), "hllc", 8, False, True),
+    ((16, 3, 33), ((2, 2), (0, 0), (1, 1)), "hllc", 1, True, True),
+    ((16, 3, 33), ((0, 1), (1, 2), (2, 0)), "llf", 2, False, False),
+    ((3, 2, 2), ((0, 0), (0, 0), (0, 0)), "llf", 2, True, True),
+    ((33, 9, 3), ((1, 1), (2, 2), (0, 0)), "hllc", 2, True, False),
+])
+def test_k1_host_build_on_ragged_and_thin_boxes(host_libs, shape, kinds,
+                                                riemann, slope, masked,
+                                                want_flux):
+    """Tiles (32 x 8) and x chunks (16 planes) that do not divide the box,
+    axes of 2-3 cells whose periodic ring wraps onto the tile itself, every
+    boundary kind; the Courant dt of the same launch within rel 3e-3."""
+    cfg = HydroStatic(ndim=3, riemann=riemann, slope_type=slope)
+    u = _state(shape, cfg.gamma, sum(shape) + slope)
+    ok = (torch.from_numpy(np.random.default_rng(sum(shape)).random(shape)
+                           < 0.15) if masked else None)
+    bc = _kinds_bc(kinds)
+    dt = torch.tensor(2e-3, dtype=torch.float32)
+    dx = 1.0 / 40
+    un, crt, phi = fm.call(host_libs[0], u, None if ok is None
+                           else ok.to(torch.float32), dt, cfg, dx, bc,
+                           True, want_flux)
+    want = fm.fused_step_ref(u, dt, cfg, dx, bc, ok=ok, courant=True,
+                             want_flux=want_flux)
+    _close((un, phi) if want_flux else (un,),
+           (want[0], want[2]) if want_flux else (want[0],))
+    dt_next = torch.clamp(crt, max=fm.dtmax(cfg, dx))
+    assert float(dt_next) == pytest.approx(float(want[1]), rel=3e-3)
+
+
+@pytest.mark.parametrize("shape,cuts,riemann,masked,want_flux", [
+    ((20, 9, 35), ((0, 1, 3, 4, 20), (0, 2, 18, 19, 20)), "hllc", True,
+     True),
+    ((7, 10, 6), ((0, 2, 3, 7), (0, 1, 5, 7)), "llf", False, True),
+    ((17, 5, 33), ((0, 16, 17), (0, 1, 17)), "llf", True, False),
+])
+def test_k1_padded_slabs_are_the_whole_box(host_libs, shape, cuts, riemann,
+                                           masked, want_flux):
+    """A periodic box cut into x slabs, each slab's ghosts taken from the
+    box padded by the plain ``pad`` and swept by the padded entry: the
+    slabs' updates, face fluxes and Courant min are bitwise the unpadded
+    entry's on the whole box, at two cuts with slabs of 1 and 2 planes
+    (a cell is a chunk's warm-up plane in one cut, a steady one in the
+    other)."""
+    cfg = HydroStatic(ndim=3, riemann=riemann, slope_type=2)
+    u = _state(shape, cfg.gamma, 60 + len(cuts[0]))
+    bc = bmod.BoundarySpec.periodic(3)
+    ok = (torch.from_numpy(np.random.default_rng(7).random(shape)
+                           < 0.2).to(torch.float32) if masked else None)
+    dt = torch.tensor(2e-3, dtype=torch.float32)
+    dx = 1.0 / 40
+    un, crt, phi = fm.call(host_libs[0], u, ok, dt, cfg, dx, bc, True,
+                           want_flux)
+    u_pad = bmod.pad(u, bc, cfg, fm.NG)
+    ok_pad = fm._pad_mask(ok, bc) if masked else None
+    for cut in cuts:
+        parts, crts, phis = [], [], []
+        for a, b in zip(cut[:-1], cut[1:]):
+            okp = ok_pad[a:b + 4].contiguous() if masked else None
+            us, cs, ps = fm.call(host_libs[0],
+                                 u_pad[:, a:b + 4].contiguous(), okp, dt,
+                                 cfg, dx, None, True, want_flux)
+            parts.append(us)
+            crts.append(cs)
+            phis.append(ps)
+        assert torch.equal(torch.cat(parts, 1), un)
+        assert torch.equal(torch.stack(crts).min(), crt)
+        if want_flux:
+            assert torch.equal(torch.cat(phis, 2), phi)
+
+
+def test_k1_host_build_reports_its_shared_memory(host_libs):
+    """The info entry answers through the wrapper's binding: the staged
+    tiles' dynamic shared memory (2 raw and 4 primitive planes of 36 x 12
+    cells x 6 floats, and the y and z face states)."""
+    info = fm.launch_info("hllc", host_libs[0])
+    assert info["smem_bytes"] == 4 * (6 * 6 * 36 * 12 + 10 * 9 * 32
+                                      + 10 * 8 * 33)
+    assert info["blocks_per_sm"] >= 1
