@@ -64,8 +64,11 @@ Phases, each printing its own line; any failure exits non-zero:
    mask and EMF override, then its whole scope: 1D 256 with each of the
    five solvers, 2D 64² with each of the 5 × 7 (riemann, riemann2d)
    pairs plain and masked, 3D 16³ with each corner and solver, slope
-   types 0/1/2/7/8 in turn and a passive scalar in some; every case
-   within rtol 2e-5 / atol 2e-6; 12b: at the Roe mean's degenerate field
+   types 0/1/2/7/8 in turn and a passive scalar in some, then boxes
+   ragged against K4's tiles and row chunks on every axis and crossing
+   two or more of them (2D 70 x 131, 3D 34 x 13 x 20, masked with an
+   override and 2 passives; bitwise the same at row chunks of 3 and 7
+   rows); every case within rtol 2e-5 / atol 2e-6; 12b: at the Roe mean's degenerate field
    limits (no field; Bx alone), where the f32 formulation itself reads
    ~1e-5 from f64, K4 against the plain f32 and f64 versions and R's
    condition number at the worst cell, reported (finite required);
@@ -80,8 +83,9 @@ Phases, each printing its own line; any failure exits non-zero:
    plain cell by cell within ``LOCAL_ATOL + LOCAL_RTOL·M`` (M the largest
    magnitude of any field over the cell's 5² stencil; for a face, over
    the two cells it touches), the kernel's device time per call
-   (``torch.profiler``, all its stage kernels), the plain version's time
-   and the bound: the least bytes (the five hydro fields of the padded
+   (``torch.profiler``, its one launch a call) beside its launch (threads,
+   shared memory, blocks an SM, registers, spill), the plain version's
+   time and the bound: the least bytes (the five hydro fields of the padded
    cells, the padded faces and dt in, 8 + 3 interior fields out) and the
    operations (the plain version's traced count less the HLLD regions it
    evaluates and does not select);
@@ -382,7 +386,7 @@ def _profile(run, out_dir: str, name: str = "chip_smoke_trace.json",
         f"{sum(us for us, _, k in rows if kern in k) / 1e3:.3f} ms "
         f"({100 * sum(us for us, _, k in rows if kern in k) / busy_us:.1f} "
         f"% of busy)"
-        for kern in ("fused_muscl_kernel", "sweep_kernel", "mhd_ct_",
+        for kern in ("fused_muscl_kernel", "sweep_kernel", "mhd_ct_fused",
                      "halo_exchange_kernel")
         if any(kern in k for _, _, k in rows))
     return (f"device busy {busy_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms "
@@ -488,18 +492,15 @@ def _local_check(got, want, scales):
     return err, rels, excess
 
 
-def _device_ms(fn, kernel: str, n: int = 50, per_call: int = 1,
-               tries: int = 3) -> float:
-    """Device time per call of ``fn`` of the kernels whose name holds
-    ``kernel`` (``per_call`` distinct kernels a call), from
-    ``torch.profiler`` over ``n`` calls after a warm-up: the sum over the
-    kernels of each one's mean time.  CUDA events around a call of a
-    ~10 µs kernel measure the host's dispatch of the call instead.  The
-    trace may miss a launch or two of a window (it missed one of 180 K4
-    stage launches once, two and three of 50 K3 launches with the fluxes
-    once each), which leaves each kernel's mean unchanged, so each kernel
-    must show n - 2 to n launches; a window that shows fewer is traced
-    again, up to ``tries`` windows."""
+def _device_ms(fn, kernel: str, n: int = 50, tries: int = 3) -> float:
+    """Device time per call of ``fn`` of the one kernel whose name holds
+    ``kernel``, from ``torch.profiler`` over ``n`` calls after a warm-up:
+    its mean time.  CUDA events around a call of a ~10 µs kernel measure
+    the host's dispatch of the call instead.  The trace may miss a launch
+    or two of a window (it missed one of 180 K4 launches once, two and
+    three of 50 K3 launches with the fluxes once each), which leaves the
+    mean unchanged, so the kernel must show n - 2 to n launches; a window
+    that shows fewer is traced again, up to ``tries`` windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -515,11 +516,10 @@ def _device_ms(fn, kernel: str, n: int = 50, per_call: int = 1,
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and kernel in e.key]
         counts = [e.count for e in rows]
-        if len(rows) == per_call and all(n - 2 <= c <= n for c in counts):
-            return sum(e.self_device_time_total / e.count for e in rows) / 1e3
+        if len(rows) == 1 and n - 2 <= counts[0] <= n:
+            return rows[0].self_device_time_total / counts[0] / 1e3
     raise AssertionError(f"profiled launches {counts} of {kernel} in each "
-                         f"of {tries} windows, expected {n} of each of "
-                         f"{per_call} kernels")
+                         f"of {tries} windows, expected {n} of one kernel")
 
 
 def _host_breakdown(sim, run, parts=("_flag_and_tree", "_rebuild_maps",
@@ -1175,6 +1175,11 @@ def _mhd_phases(dev):
                for j, r2 in enumerate(corners) for masked in (False, True)]
     matrix += [((16, 16, 16), solvers[j % 5], r2, slopes[j % 5], j % 2 == 0,
                 int(j == 2)) for j, r2 in enumerate(corners)]
+    # ragged against K4's tiles (2D 126 columns, 3D 12 x 16 columns) on
+    # every axis, two or more of them an axis; their row chunks below
+    ragged = [((70, 131), "hlld", "hlld", 1, True, 2),
+              ((34, 13, 20), "roe", "llf", 2, True, 2)]
+    matrix += ragged
     by_kind = {}
     for i, (sp, rs, r2, st, masked, npas) in enumerate(matrix):
         nd = len(sp)
@@ -1195,6 +1200,20 @@ def _mhd_phases(dev):
                 f"riemann={rs} riemann2d={r2} slope_type={st} npassive="
                 f"{npas} masked={masked}: max abs err {err:.3e}, "
                 f"tolerance excess {ex:.3e}")
+        if (sp, rs, r2, st, masked, npas) in ragged:
+            # rows chunked against the box through the C entry: the same
+            # bits as the kernel's own chunk
+            pairs = sorted(ovr)
+            args = (okp.to(torch.float32),
+                    torch.stack([ovr[p][0].to(torch.float32) for p in pairs]),
+                    torch.stack([ovr[p][1] for p in pairs]),
+                    torch.cuda.current_stream().cuda_stream)
+            for chunk in (3, 7):
+                again = ct_slab.call(ct_slab._library(), up, bfp, dt, dx, cfg,
+                                     *args, chunk)
+                if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                    raise AssertionError(f"ct_step_slab {sp} {rs}/{r2}: "
+                                         f"chunk {chunk} changes the bits")
         key = f"{nd}D {rs}/{r2 if nd > 1 else '-'}"
         by_kind[key] = max(by_kind.get(key, 0.0), err)
         worst["max_abs_err"] = max(worst["max_abs_err"], err)
@@ -1205,8 +1224,10 @@ def _mhd_phases(dev):
            f"64³: llf/hll/hlld × average/llf × slope 1/2/8, half masked "
            f"with an EMF override; 1D 256 each solver; 2D 64² each of the "
            f"5 × 7 solver and corner pairs, plain and masked; 3D 16³ each "
-           f"corner and solver; slope types 0/1/2/7/8 in turn, 1 passive "
-           f"scalar in {sum(m[5] for m in matrix)} of them); max abs err "
+           f"corner and solver; 2D 70 x 131 and 3D 34 x 13 x 20, ragged "
+           f"against the tiles, bitwise at row chunks of 3 and 7; slope "
+           f"types 0/1/2/7/8 in turn, passive "
+           f"scalars in {sum(m[5] > 0 for m in matrix)} of them); max abs err "
            f"{worst['max_abs_err']:.3e}, worst tolerance excess "
            f"{worst['excess']:.3e}; max abs err by kind "
            f"{ {k: float(f'{v:.3e}') for k, v in by_kind.items()} }")
@@ -1291,8 +1312,7 @@ def _mhd_phases(dev):
     del got, want
     kern = lambda: ct_slab.ct_step_slab(up, bfp, dt, dx, cfg)  # noqa: E731
     plain = lambda: ct_slab.ct_step_slab_ref(up, bfp, dt, dx, cfg)  # noqa
-    per_call = 6           # prim, predict, 2 flux, 1 edge, update kernels
-    ms = _device_ms(kern, "mhd_ct_", n=30, per_call=per_call)
+    ms = _device_ms(kern, "mhd_ct_fused", n=30)
     call_ms = _median_ms(kern, reps=30)
     torch.cuda.reset_peak_memory_stats()
     plain_ms = _median_ms(plain, reps=10)
@@ -1308,9 +1328,10 @@ def _mhd_phases(dev):
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     _print(f"phase 14 K4 at the main path's data {tuple(u.shape[1:])}: "
-           f"ct_step_slab {ms:.4f} ms/call on the device (profiler, "
-           f"{per_call} stage kernels), {call_ms:.4f} ms a wrapper call "
-           f"(CUDA events), plain version {plain_ms:.4f} ms (peak "
+           f"ct_step_slab {ms:.4f} ms/call on the device (profiler, one "
+           f"kernel a call), {call_ms:.4f} ms a wrapper call (CUDA "
+           f"events), {100 * bound_ms / ms:.1f} % of the bound; "
+           f"{_k4_launch(cfg)}; plain version {plain_ms:.4f} ms (peak "
            f"{plain_peak / 2**30:.2f} GiB), bound {bound_ms:.4f} ms by "
            f"{bound_by} ({nbytes / 1e9:.4f} GB -> {bytes_ms:.4f} ms; "
            f"{nops / 1e9:.4f} G ops -> {ops_ms:.4f} ms); against plain: "
@@ -1362,15 +1383,15 @@ def _mhd_phases(dev):
         raise AssertionError(f"ct_step_slab disagrees with its plain "
                              f"version on the 3D state: {readings3}")
     ms3 = _device_ms(lambda: ct_slab.ct_step_slab(
-        up3, bfp3, dt3, (dx3,) * 3, sim3.cfg), "mhd_ct_", n=10,
-        per_call=9)
+        up3, bfp3, dt3, (dx3,) * 3, sim3.cfg), "mhd_ct_fused", n=10)
     _print(f"phase 16 MHD 3D {sim3.grid.shape} solenoidal (hlld, llf "
            f"corners): {sim3.nstep} steps t={sim3.t:.6e}, launches {l3}, "
            f"max|div B|·dx/max|B| {d0:.3e} -> {d1:.3e}, mass {m0:.9e} -> "
            f"{m1:.9e}; evolve {wall3:.4f} s = "
            f"{sim3.cell_updates / wall3:.4e} cell-updates/s; "
-           f"ct_step_slab {ms3:.4f} ms/call on the device; against plain "
-           f"on the final state: {readings3}")
+           f"ct_step_slab {ms3:.4f} ms/call on the device (one kernel a "
+           f"call; {_k4_launch(sim3.cfg)}); against plain on the final "
+           f"state: {readings3}")
     del sim3, up3, bfp3
     torch.cuda.empty_cache()
 
@@ -1432,8 +1453,7 @@ def _k4_at(sim, periodic: bool = True, n: int = 30):
                              f"{cfg.riemann2d} {sim.grid.shape} state: "
                              f"{readings}")
     del got, want
-    per_call = {1: 4, 2: 6, 3: 9}[nd]   # prim, predict, flux, edge, update
-    ms = _device_ms(kern, "mhd_ct_", n=n, per_call=per_call)
+    ms = _device_ms(kern, "mhd_ct_fused", n=n)
     plain_ms = _median_ms(plain, reps=5, warm=1)
     ncell = sim.grid.ncell
     nbytes = 4 * (5 * up[0].numel() + bfp.numel() + 1 + 8 * ncell
@@ -1444,8 +1464,9 @@ def _k4_at(sim, periodic: bool = True, n: int = 30):
     r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
              bound_ms=max(bytes_ms, ops_ms),
              bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-    line = (f"ct_step_slab {ms:.4f} ms/call on the device (profiler, "
-            f"{per_call} stage kernels), plain version {plain_ms:.4f} ms, "
+    line = (f"ct_step_slab {ms:.4f} ms/call on the device (profiler, one "
+            f"kernel a call), {100 * r['bound_ms'] / ms:.1f} % of the bound; "
+            f"{_k4_launch(cfg)}; plain version {plain_ms:.4f} ms, "
             f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
             f"({nbytes / 1e9:.5f} GB -> {bytes_ms:.5f} ms; "
             f"{nops / 1e9:.5f} G ops -> {ops_ms:.5f} ms); against plain: "
@@ -1467,6 +1488,17 @@ def _evolve_counted(sim, nstep: int):
 
 def _k4_only(n: int) -> dict:
     return _want(ct_step_slab=n)
+
+
+def _k4_launch(cfg) -> str:
+    """K4's launch for ``cfg``: threads and dynamic shared memory a block,
+    blocks an SM resident, registers and local (spill) bytes a thread."""
+    from ramses_tpu_torch.mhd import ct_slab
+    i = ct_slab.launch_info(cfg)
+    return (f"launch {i['threads']} threads, {i['smem_bytes']} B dynamic "
+            f"shared memory a block, {i['blocks_per_sm']} blocks an SM, "
+            f"{i['registers']} registers, {i['local_bytes']} B local a "
+            f"thread")
 
 
 def _mhd_variant_ot(dev, riemann: str, riemann2d: str, tag: str) -> dict:
@@ -1751,7 +1783,7 @@ def _mhd_amr_phases(dev):
     del got, want
     sp = tuple(int(n) - 4 for n in up.shape[1:])
     ncell = sp[0] * sp[1]
-    ms18 = _device_ms(lambda: kernel(*a, **k), "mhd_ct_", n=30, per_call=6)
+    ms18 = _device_ms(lambda: kernel(*a, **k), "mhd_ct_fused", n=30)
     plain18 = _median_ms(lambda: ct_slab.ct_step_slab_ref(*a, **k), reps=10)
     nbytes = 4 * (5 * up[0].numel() + bfp.numel() + 1 + 8 * ncell
                   + 3 * ncell + okp.numel() + 2 * up[0].numel())
@@ -1763,7 +1795,9 @@ def _mhd_amr_phases(dev):
            f"levelmin={lmin} levelmax={lmax}, the second coarse step; "
            f"{len(calls)} K4 calls in the step, {len(with_ovr)} with an EMF "
            f"override): refined mask {n_ok} cells, override {n_ovr} corners; "
-           f"ct_step_slab {ms18:.4f} ms/call on the device (profiler), plain "
+           f"ct_step_slab {ms18:.4f} ms/call on the device (profiler, one "
+           f"kernel a call), {100 * max(bytes_ms, ops_ms) / ms18:.1f} % of "
+           f"the bound; {_k4_launch(cfg)}; plain "
            f"version {plain18:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
            f"by {'bytes' if bytes_ms >= ops_ms else 'operations'} "
            f"({nbytes / 1e9:.4f} GB -> {bytes_ms:.4f} ms; {nops / 1e9:.4f} G "

@@ -19,42 +19,71 @@
 // bf[3][*sp+6]; per axis a padded cell P has face-box index P+1.  Outputs
 // are the interior only, un[nvar][*sp] and bfn[3][*sp].
 //
-// Design: stages, not one thread per cell recomputing everything.  The CT
-// pipeline of one cell needs 2*ND face fluxes, each from two Hancock
-// states, and each edge EMF needs four fluxes or four corner states; K1's
-// recompute-everything design already costs it 26x its bound.  So each
-// stage is its own kernel over the padded box, one thread per point, and
-// hands its results to the next through scratch in device memory:
-//   A prim    all padded cells: face-averaged B, primitives q;
-//   B predict cells [1, n+2]: slopes dq, Hancock du_half, half-step
-//             primitives q_half, half-dt faces bf_half;
-//   C flux    faces of one direction (one launch each): two reconstructed
-//             states, ctoprim, rotation, the 1D solve;
-//   D edge    edges of one pair (one launch each, none in 1D): the GS
-//             average or a corner solver, then the override;
-//   E update  interior cells: masked conservative update, the induction
-//             update of each staggered face, also of the first high ghost
-//             face, whose new value the last cell's centred B reads.
-// Only the points the outputs consume are computed; the wrapped junk that
-// JAX's jnp.roll leaves in the ghost margins is never produced.  Passive
-// scalars ride along in loops over their runtime count, so a box without
-// them pays nothing for them.
+// What bounds it on an H100 (2048^2, 2D, hlld/llf): the function must read
+// 8 cell and 3 face arrays and write 11, 0.32 GB, 0.095 ms at 3.35 TB/s;
+// the arithmetic it needs, counted op by op on the plain version
+// (chip_smoke.py), is 10.3 G f32 operations, 0.15 ms at 67 TFLOP/s:
+// operations bound it.
+//
+// The fused design: one launch a step, every intermediate in shared
+// memory or registers, each primitive, slope, predicted cell, face flux
+// and edge EMF computed once per block that needs it.  A block owns a tile
+// of columns and marches along axis 0 (the slow axis) over a chunk of rows
+// (2D) or planes (3D); 1D is the same kernel with a single row whose
+// columns are axis 0.  Tiles (Tile<ND>): 2D 126 columns of axis 1, 128
+// threads; 3D 12 x 16 columns of axes 1 x 2, 384 threads; 1D 126 cells,
+// 128 threads.  The chunk is chosen at launch from the box and the card
+// (run(): 16 rows at 2048^2, 8 at 512^2).  The per-row work is laid over
+// a "predicted grid" of the tile plus one column of halo on each side (QA
+// x QB, for 2D 128 = the block's threads); primitives need one more (PA x
+// PB).  At row t of the march, between three barriers:
+//   A  each thread's own cell: the conservative and induction update of
+//      row t-2 (of row t-1 in 1D) from the fluxes of faces t-2 and t-1
+//      and the EMFs of edge rows t-2 and t-1, and the column fluxes'
+//      update terms of row t-1; then the predicted cells of row t:
+//      slopes in every direction, the Hancock half-step du_half, the
+//      half-step primitives q_half and the half-dt faces bf_half (edge0
+//      quarter-sums from the primitives) of every cell of the predicted
+//      grid;
+//   B  face fluxes: along the marching axis through face t (between rows
+//      t-1 and t), and along each column axis in row t;
+//   C  edge EMFs: the pairs with the marching axis on edge row t, the
+//      (1,2) pair in row t (3D), then the override; the primitives of
+//      row t+2 (for A of row t+1).
+// Rings in shared memory (dynamic, sized from the passive count): 3 rows
+// of primitives, 2 of predicted cells (slopes, du_half, q_half, bf_half),
+// the marching flux components the EMFs read, a row of column fluxes and
+// 2 of their component 5, 2 rows of passive fluxes a direction, 2 of EMFs
+// a pair.  The rest of the fluxes stays in registers of the thread whose
+// cell it updates (Rings).  A chunk starts with its first 3 rows of
+// primitives and one warm-up row of predicted cells and column fluxes.
+// Device memory sees the padded inputs (read by the primitive, predictor
+// and update passes; the neighbouring tiles' halo again) and the interior
+// outputs once: no scratch tensor.  2D, 8 variables: 53,952 B a block, 4
+// blocks an SM (3 for the Roe kernels); 3D: 145,632 B (217,440 with 4
+// passives), one block of 384 threads an SM, at most 170 registers (the
+// Roe kernels spill).  The kernel is bound by latency, not by bytes or
+// operations: fewer resident warps an SM slow it markedly (PERF.md), so
+// the layout spends shared memory and registers to keep more warps.
+//
+// The bitwise rule.  A predicted cell, face flux or edge EMF in a tile's
+// halo is computed by two blocks, and a row is a warm-up row in one chunk
+// and a steady row in the next; a staggered face's new value is computed
+// by the cells on both of its sides (each writes its centred B from it).
+// Each such quantity must come out with the same bits wherever it is
+// computed, or div B and the centred-B identity break at tile edges on
+// the card, where nvcc contracts a*b+c into FMAs call site by call site.
+// So every stage is one `#pragma unroll 1` loop body with one call site of
+// its device function (one 1D solver, one corner solver, one induction a
+// face component), run alike for halo and tile items, warm-up and steady
+// rows; what differs between them is run-time data (directions, pairs,
+// offsets, which results are kept).
 //
 // The Roe solver (face and corner) solves R alpha = dW for the wave
 // strengths in each thread: Gaussian elimination with partial pivoting
 // (the first row of largest |pivot|, as LAPACK's getrf picks it) on a 7x7
 // array held in registers, rows swapped by selects so that no index is
-// dynamic.  No library is called.
-//
-// What bounds it on an H100 (2048^2, 2D, hlld/llf): the function must read
-// 8 cell and 3 face arrays and write 11, 0.32 GB, 0.095 ms at 3.35 TB/s;
-// the arithmetic it needs, counted op by op on the plain version
-// (chip_smoke.py), is 10.3 G f32 operations, 0.15 ms at 67 TFLOP/s:
-// operations bound it.  This version takes about 10x that (PERF.md): the
-// stages write ~59 scratch floats a cell (2D) and read them back through
-// their stencils, and the predictor and flux stages run at low occupancy.
-// Fusing the stages through shared-memory tiles is later work.  Offsets
-// are 64-bit throughout.
+// dynamic.  No library is called.  Offsets into device memory are 64-bit.
 
 #include "muscl_common.cuh"   // slope(): K1's TVD limiter
 
@@ -64,7 +93,6 @@ constexpr int NV = 8;            // MHD cell variables; passives follow
 constexpr int MAX_PASSIVE = 4;   // the passive counts the kernel takes
 constexpr float EPS = 1e-30f;    // _EPS of mhd/riemann.py, roe.py, riemann2d.py
 constexpr float ISQ2 = 0.70710678118654752f;   // roe.py's 1/sqrt(2)
-constexpr int BLOCK = 256;
 
 struct MConsts {
   float gamma, gm1, g2, ig1, smallr, smallc, smallc2, pfloor, eint_floor;
@@ -73,7 +101,8 @@ struct MConsts {
   float dx[3];
 };
 
-// Padded-box geometry.  Unused axes have extent 1 and offset 0.
+// Padded-box geometry by physical axis.  Unused axes have extent 1 and
+// stride 0.
 struct Geo {
   int e[3];         // padded cell extents n + 4
   int64_t s[3];     // cell strides
@@ -83,49 +112,8 @@ struct Geo {
   int64_t is[3];    // interior strides (extents n)
   int64_t ni;       // interior cells
   int nv;           // cell variables: 8 + passives
+  int ch;           // rows of axis 0 a block updates
 };
-
-struct Scratch {
-  float* q;     // [nv][np]
-  float* dq;    // [ND][nv][np]
-  float* duh;   // [nv][np]
-  float* qh;    // [8][np]
-  float* bfh;   // [ND][np]
-  float* flx;   // [ND][nv][np]
-  float* emf;   // [npair][np]
-};
-
-template <int ND>
-__device__ __forceinline__ void coords(const Geo& g, int64_t i, int P[3]) {
-  P[0] = (int)(i / g.s[0]);
-  int64_t r = i - (int64_t)P[0] * g.s[0];
-  if (ND == 3) {
-    P[1] = (int)(r / g.s[1]);
-    P[2] = (int)(r - (int64_t)P[1] * g.s[1]);
-  } else {
-    P[1] = (int)r;
-    P[2] = 0;
-  }
-}
-
-// Face-box offset of the low faces of padded cell P.
-template <int ND>
-__device__ __forceinline__ int64_t face_off(const Geo& g, const int P[3]) {
-  int64_t o = 0;
-#pragma unroll
-  for (int a = 0; a < ND; ++a) o += (int64_t)(P[a] + 1) * g.fs[a];
-  return o;
-}
-
-// True when lo <= P[a] <= e[a] - 1 - hi on every used axis.
-template <int ND>
-__device__ __forceinline__ bool in_box(const Geo& g, const int P[3], int lo,
-                                       int hi) {
-#pragma unroll
-  for (int a = 0; a < ND; ++a)
-    if (P[a] < lo || P[a] > g.e[a] - 1 - hi) return false;
-  return true;
-}
 
 __device__ __forceinline__ float sign0(float x) {  // jnp.sign: sign(0) = 0
   return (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : 0.0f);
@@ -672,200 +660,7 @@ __device__ __forceinline__ constexpr int pair_index(int d1, int d2) {
   return d1 == 0 ? d2 - 1 : 2;   // (0,1) -> 0, (0,2) -> 1, (1,2) -> 2
 }
 
-// ---- stage A: face-averaged cell B and primitives ------------------------
-
-template <int ND>
-__global__ void __launch_bounds__(BLOCK)
-mhd_ct_prim(const float* __restrict__ up, const float* __restrict__ bf,
-            Scratch w, Geo g, MConsts k) {
-  const int64_t i = blockIdx.x * (int64_t)BLOCK + threadIdx.x;
-  if (i >= g.np) return;
-  int P[3];
-  coords<ND>(g, i, P);
-  const int64_t fo = face_off<ND>(g, P);
-  float u[NV], q[NV];
-#pragma unroll
-  for (int v = 0; v < 5; ++v) u[v] = __ldg(up + v * g.np + i);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float lo = __ldg(bf + c * g.nf + fo);
-    u[5 + c] = (c < ND) ? 0.5f * (lo + __ldg(bf + c * g.nf + fo + g.fs[c])) : lo;
-  }
-  ctoprim(u, k, q);
-#pragma unroll
-  for (int v = 0; v < NV; ++v) w.q[v * g.np + i] = q[v];
-  const float inv_r = 1.0f / fmaxf(u[0], k.smallr);
-  for (int v = NV; v < g.nv; ++v)
-    w.q[v * g.np + i] = __ldg(up + v * g.np + i) * inv_r;
-}
-
-// ---- stage B: slopes, Hancock predictor, q_half, bf_half -----------------
-
-// e_edge0 of pair (d1, d2) at cell offset x: the quarter-sum of the cell
-// EMFs of the four cells around the edge, from the primitives.
-template <int D1, int D2>
-__device__ __forceinline__ float edge0(const float* __restrict__ q,
-                                       const Geo& g, int64_t x) {
-  const float sig = pair_sig(D1, D2);
-  auto ec = [&](int64_t o) {
-    float v1 = q[(1 + D1) * g.np + o], v2 = q[(1 + D2) * g.np + o];
-    float b1 = q[(5 + D1) * g.np + o], b2 = q[(5 + D2) * g.np + o];
-    return sig * (v2 * b1 - v1 * b2);
-  };
-  return 0.25f * (ec(x) + ec(x - g.s[D1]) + ec(x - g.s[D2])
-                  + ec(x - g.s[D1] - g.s[D2]));
-}
-
-template <int ND, int D1, int D2>
-__device__ __forceinline__ void bf_half_pair(const float* __restrict__ q,
-                                             const Geo& g, const MConsts& k,
-                                             float dt, int64_t i, float bh[3]) {
-  const float sig = pair_sig(D1, D2);
-  const float e0 = edge0<D1, D2>(q, g, i);
-  bh[D1] = bh[D1] - sig * (0.5f * dt / k.dx[D2]) * (edge0<D1, D2>(q, g, i + g.s[D2]) - e0);
-  bh[D2] = bh[D2] + sig * (0.5f * dt / k.dx[D1]) * (edge0<D1, D2>(q, g, i + g.s[D1]) - e0);
-}
-
-template <int ND>
-__global__ void __launch_bounds__(BLOCK)
-mhd_ct_predict(const float* __restrict__ up, const float* __restrict__ bf,
-               const float* __restrict__ dt_ptr, Scratch w, Geo g, MConsts k) {
-  const int64_t i = blockIdx.x * (int64_t)BLOCK + threadIdx.x;
-  if (i >= g.np) return;
-  int P[3];
-  coords<ND>(g, i, P);
-  if (!in_box<ND>(g, P, 1, 1)) return;
-  const float dt = __ldg(dt_ptr);
-  const float* q = w.q;
-  float qc[NV];
-#pragma unroll
-  for (int v = 0; v < NV; ++v) qc[v] = q[v * g.np + i];
-  float dq[ND][NV];
-#pragma unroll
-  for (int d = 0; d < ND; ++d)
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      dq[d][v] = mslope(q[v * g.np + i - g.s[d]], qc[v], q[v * g.np + i + g.s[d]],
-                        k);
-      w.dq[((int64_t)d * g.nv + v) * g.np + i] = dq[d][v];
-    }
-  // conservative Hancock half-step from the cell's own faces
-  float du[NV], mhi[ND], mlo[ND];
-#pragma unroll
-  for (int v = 0; v < NV; ++v) du[v] = 0.0f;
-#pragma unroll
-  for (int d = 0; d < ND; ++d) {
-    float qhi[NV], qlo[NV], fhi[NV], flo[NV];
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      qhi[v] = qc[v] + 0.5f * dq[d][v];
-      qlo[v] = qc[v] - 0.5f * dq[d][v];
-    }
-    if (d == 0) { flux_along<0>(qhi, k, fhi); flux_along<0>(qlo, k, flo); }
-    else if (d == 1) { flux_along<1>(qhi, k, fhi); flux_along<1>(qlo, k, flo); }
-    else { flux_along<2>(qhi, k, fhi); flux_along<2>(qlo, k, flo); }
-    const float c = 0.5f * dt / k.dx[d];
-#pragma unroll
-    for (int v = 0; v < NV; ++v) du[v] = du[v] - c * (fhi[v] - flo[v]);
-    mhi[d] = fhi[0];
-    mlo[d] = flo[0];
-  }
-  // passives: slopes and the Hancock half-step (flux = mass flux * q_s)
-  for (int v = NV; v < g.nv; ++v) {
-    const float qs = q[v * g.np + i];
-    float dus = 0.0f;
-#pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      const float dqs = mslope(q[v * g.np + i - g.s[d]], qs,
-                               q[v * g.np + i + g.s[d]], k);
-      w.dq[((int64_t)d * g.nv + v) * g.np + i] = dqs;
-      const float c = 0.5f * dt / k.dx[d];
-      dus = dus - c * (mhi[d] * (qs + 0.5f * dqs) - mlo[d] * (qs - 0.5f * dqs));
-    }
-    w.duh[v * g.np + i] = dus;
-  }
-  // half-step primitives: up (with the face-averaged B of qc) + du_half
-  float u2[NV], qh[NV];
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    w.duh[v * g.np + i] = du[v];
-    u2[v] = ((v < 5) ? __ldg(up + v * g.np + i) : qc[v]) + du[v];
-  }
-  ctoprim(u2, k, qh);
-#pragma unroll
-  for (int v = 0; v < NV; ++v) w.qh[v * g.np + i] = qh[v];
-  // half-dt face field, pairs in the order (0,1), (0,2), (1,2)
-  const int64_t fo = face_off<ND>(g, P);
-  float bh[3];
-#pragma unroll
-  for (int c = 0; c < ND; ++c) bh[c] = __ldg(bf + c * g.nf + fo);
-  if constexpr (ND >= 2) bf_half_pair<ND, 0, 1>(q, g, k, dt, i, bh);
-  if constexpr (ND == 3) {
-    bf_half_pair<ND, 0, 2>(q, g, k, dt, i, bh);
-    bf_half_pair<ND, 1, 2>(q, g, k, dt, i, bh);
-  }
-#pragma unroll
-  for (int c = 0; c < ND; ++c) w.bfh[c * g.np + i] = bh[c];
-}
-
-// ---- stage C: face fluxes of direction D ----------------------------------
-
-template <int ND, int D, int RS>
-__global__ void __launch_bounds__(BLOCK)
-mhd_ct_flux(Scratch w, Geo g, MConsts k) {
-  const int64_t i = blockIdx.x * (int64_t)BLOCK + threadIdx.x;
-  if (i >= g.np) return;
-  int P[3];
-  coords<ND>(g, i, P);
-  if (!in_box<ND>(g, P, 1, 1) || P[D] < 2) return;
-  constexpr int T1 = (D + 1) % 3, T2 = (D + 2) % 3;
-  float ql[NV], qr[NV];
-  float rho_f[2], inv_r[2];   // a side's prim_to_cons density, 1/ctoprim's
-#pragma unroll
-  for (int side = 0; side < 2; ++side) {
-    // left state: the high face of cell P - e_D; right: the low face of P
-    const int64_t o = side ? i : i - g.s[D];
-    const float half = side ? -0.5f : 0.5f;
-    float qf[NV], uf[NV];
-#pragma unroll
-    for (int v = 0; v < NV; ++v)
-      qf[v] = w.q[v * g.np + o] + half * w.dq[((int64_t)D * g.nv + v) * g.np + o];
-    prim_to_cons(qf, k, uf);
-    rho_f[side] = uf[0];
-#pragma unroll
-    for (int v = 0; v < NV; ++v) uf[v] = uf[v] + w.duh[v * g.np + o];
-    inv_r[side] = 1.0f / fmaxf(uf[0], k.smallr);
-    ctoprim(uf, k, side ? qr : ql);
-  }
-  // rotate to (r, vn, vt1, vt2, p, bn, bt1, bt2)
-  const int perm[NV] = {0, 1 + D, 1 + T1, 1 + T2, 4, 5 + D, 5 + T1, 5 + T2};
-  float qlr[NV], qrr[NV], fg[NV];
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    qlr[v] = ql[perm[v]];
-    qrr[v] = qr[perm[v]];
-  }
-  const float bn = w.bfh[D * g.np + i];
-  riemann1d<RS>(qlr, qrr, bn, k, fg);
-  float* f = w.flx + (int64_t)D * g.nv * g.np + i;
-#pragma unroll
-  for (int v = 0; v < NV; ++v) f[perm[v] * g.np] = fg[v];
-  // passives, upwinded on the sign of the mass flux (riemann.solve)
-  for (int v = NV; v < g.nv; ++v) {
-    float qs[2];
-#pragma unroll
-    for (int side = 0; side < 2; ++side) {
-      const int64_t o = side ? i : i - g.s[D];
-      const float half = side ? -0.5f : 0.5f;
-      const float qf = w.q[v * g.np + o]
-                       + half * w.dq[((int64_t)D * g.nv + v) * g.np + o];
-      qs[side] = (rho_f[side] * qf + w.duh[v * g.np + o]) * inv_r[side];
-    }
-    f[v * g.np] = (fg[0] > 0.0f) ? fg[0] * qs[0] : fg[0] * qs[1];
-  }
-}
-
-// ---- stage D: edge EMFs of pair (D1, D2) ----------------------------------
+// ---- mhd/riemann2d.py: the corner solvers ----------------------------------
 
 // The corner solvers of mhd/riemann2d.py (corner_emf) on the four corner
 // states around an edge, in its order LB, RB, LT, RT (x = L|R along d1,
@@ -1106,17 +901,376 @@ __device__ __forceinline__ float corner_emf(const Corner q[4],
   return hlld_corner(q, f, eps, k);
 }
 
-// Corner state of cell x at (s1, s2) along (D1, D2): q_half + 0.5 (s1 dq_D1
-// + s2 dq_D2), density and pressure floored.
-template <int D1, int D2>
-__device__ __forceinline__ Corner corner(const Scratch& w, const Geo& g,
-                                         const MConsts& k, int64_t x, float s1,
+// ---- the fused step: tiles, rings, positions ------------------------------
+
+// A block's tile: T0 x T1 updated columns (T1 = 1 below 3D; HB = 1 where
+// the second column axis has a halo) and a chunk of Geo::ch rows along
+// the marching axis, NT threads, MINB blocks an SM that the shared memory
+// allows (the launch bounds' second argument: without it nvcc trades a
+// few spills for register counts that would fit more blocks than the
+// shared memory does).  2D: the predicted grid (T0 + 2 columns) is NT
+// items, so the predictor and the marching fluxes are one item a thread.
+template <int ND> struct Tile;
+template <> struct Tile<1> {
+  static constexpr int NT = 128, T0 = 126, T1 = 1, HB = 0, MINB = 1;
+};
+template <> struct Tile<2> {
+  static constexpr int NT = 128, T0 = 126, T1 = 1, HB = 0, MINB = 4;
+};
+template <> struct Tile<3> {
+  static constexpr int NT = 384, T0 = 12, T1 = 16, HB = 1, MINB = 1;
+};
+
+// The Roe solvers (face or corner) keep a 7x7 matrix in registers: their
+// kernels are held to at most 3 blocks an SM (170 registers).
+template <int ND, int RS, int R2>
+struct MinBlocks {
+  static constexpr int value =
+      ((RS == 3 || R2 == 2) && Tile<ND>::MINB > 3) ? 3 : Tile<ND>::MINB;
+};
+
+template <int ND>
+struct Lay : Tile<ND> {
+  using T = Tile<ND>;
+  // the predicted grid: the tile and one halo column a side (QB fastest);
+  // every face flux and edge EMF of a row lies on it too
+  static constexpr int QA = T::T0 + 2, QB = T::T1 + 2 * T::HB, QG = QA * QB;
+  // the primitive grid: two halo columns a side
+  static constexpr int PA = T::T0 + 4, PB = T::T1 + 4 * T::HB, PG = PA * PB;
+  static constexpr int NPAIR = ND == 3 ? 3 : ND - 1;
+  static constexpr int NCA = ND == 3 ? 2 : 1;   // column axes
+  static constexpr int NM = ND >= 2 ? NCA : 0;  // marching components kept
+};
+
+// Dynamic shared memory of a launch with nv cell variables (bytes): the
+// rings of Rings, in its order.
+template <int ND>
+int smem_bytes(int nv) {
+  using L = Lay<ND>;
+  const int pf = (ND + 1) * nv + 8 + ND;
+  return (int)sizeof(float)
+         * (3 * nv * L::PG + 2 * pf * L::QG + L::NM * L::QG
+            + L::NCA * (NV + 2) * L::QG + 2 * ND * (nv - NV) * L::QG
+            + 2 * L::NPAIR * L::QG);
+}
+
+struct Pos {
+  int r, i;   // a row of the march and an index into a row's grid
+};
+
+// One step of s (+-1) along physical axis d on a grid whose rows are B
+// long: the marching axis moves the row, column axis 0 (axis 0 in 1D,
+// axis 1 above) the index by B, column axis 1 (axis 2) by 1.
+template <int ND>
+__device__ __forceinline__ Pos step(Pos x, int d, int s, int B) {
+  if (ND >= 2 && d == 0) return Pos{x.r + s, x.i};
+  return Pos{x.r, x.i + s * ((ND == 1 || d == 1) ? B : 1)};
+}
+
+// The rings in shared memory, each variable-major.  The face fluxes of
+// the MHD variables that only the update reads live in registers: the
+// marching flux through face t in the thread of its column (which updates
+// that column's cell of row t-1 next, and of row t after), the column
+// fluxes' update terms of row t in the thread of the cell (which updates
+// it a row later).  Shared memory keeps what other threads read.
+template <int ND>
+struct Rings {
+  float* prim;  // [3][nv][PG]  primitives of row r at slot r % 3
+  float* pred;  // [2][pf][QG]  predicted cells of row r at slot r & 1
+  float* fm;    // [NM][QG]     component 5 + d of the marching flux through
+                //              face t (for the edges of pair (0, d))
+  float* fc;    // [NCA][8][QG] the column fluxes of row t, MHD variables
+  float* fc5;   // [NCA][2][QG] their component 5, row r at slot r & 1
+  float* fp;    // [ND][2][nv-8][QG] passive fluxes by direction; a marching
+                //              face between rows r-1 and r is row r
+  float* emf;   // [NPAIR][2][QG]  edge EMFs by pair; a marching edge as
+                //                  its face
+  int nv, pf;
+  __device__ float& P(Pos x, int v) const {
+    return prim[((x.r % 3) * nv + v) * Lay<ND>::PG + x.i];
+  }
+  __device__ float& Q(Pos x, int f) const {
+    return pred[((x.r & 1) * pf + f) * Lay<ND>::QG + x.i];
+  }
+  // d a physical axis; a column axis's index is d - 1 above 1D
+  __device__ float& FM(int d, Pos x) const {
+    return fm[(d - 1) * Lay<ND>::QG + x.i];
+  }
+  __device__ float& FC(int d, int v, Pos x) const {
+    return fc[((ND == 1 ? 0 : d - 1) * NV + v) * Lay<ND>::QG + x.i];
+  }
+  __device__ float& FC5(int d, Pos x) const {
+    return fc5[((ND == 1 ? 0 : d - 1) * 2 + (x.r & 1)) * Lay<ND>::QG + x.i];
+  }
+  __device__ float& FP(int d, Pos x, int s) const {
+    return fp[((d * 2 + (x.r & 1)) * (nv - NV) + s) * Lay<ND>::QG + x.i];
+  }
+  __device__ float& E(int pr, Pos x) const {
+    return emf[(pr * 2 + (x.r & 1)) * Lay<ND>::QG + x.i];
+  }
+  // the fields of a predicted cell: slopes, du_half, q_half, bf_half
+  __device__ int DQ(int d, int v) const { return d * nv + v; }
+  __device__ int DUH(int v) const { return ND * nv + v; }
+  __device__ int QH(int v) const { return (ND + 1) * nv + v; }
+  __device__ int BFH(int c) const { return (ND + 1) * nv + 8 + c; }
+  __device__ Pos qstep(Pos x, int d, int s) const {
+    return step<ND>(x, d, s, Lay<ND>::QB);
+  }
+  __device__ Pos pstep(Pos x, int d, int s) const {
+    return step<ND>(x, d, s, Lay<ND>::PB);
+  }
+};
+
+// Physical padded coordinates of (row, column 0, column 1) and their
+// offsets into the cell, face and interior boxes.
+template <int ND>
+__device__ __forceinline__ void phys(int row, int pa, int pb, int P[3]) {
+  P[0] = ND == 1 ? pa : row;
+  P[1] = ND == 1 ? 0 : pa;
+  P[2] = ND == 3 ? pb : 0;
+}
+
+template <int ND>
+__device__ __forceinline__ int64_t cell_off(const Geo& g, const int P[3]) {
+  int64_t o = 0;
+#pragma unroll
+  for (int a = 0; a < ND; ++a) o += (int64_t)P[a] * g.s[a];
+  return o;
+}
+
+template <int ND>
+__device__ __forceinline__ int64_t face_off(const Geo& g, const int P[3]) {
+  int64_t o = 0;
+#pragma unroll
+  for (int a = 0; a < ND; ++a) o += (int64_t)(P[a] + 1) * g.fs[a];
+  return o;
+}
+
+template <int ND>
+__device__ __forceinline__ int64_t int_off(const Geo& g, const int P[3]) {
+  int64_t o = 0;
+#pragma unroll
+  for (int a = 0; a < ND; ++a) o += (int64_t)(P[a] - 2) * g.is[a];
+  return o;
+}
+
+// The rotated layout (r, vn, vt1, vt2, p, bn, bt1, bt2) of a state along
+// axis D (vt1, vt2 along (D+1)%3, (D+2)%3), and its inverse, by selects.
+__device__ __forceinline__ float sel3(int D, float a, float b, float c) {
+  return D == 0 ? a : (D == 1 ? b : c);
+}
+
+__device__ __forceinline__ void rotate(const float q[NV], int D, float o[NV]) {
+  o[0] = q[0];
+  o[1] = sel3(D, q[1], q[2], q[3]);
+  o[2] = sel3(D, q[2], q[3], q[1]);
+  o[3] = sel3(D, q[3], q[1], q[2]);
+  o[4] = q[4];
+  o[5] = sel3(D, q[5], q[6], q[7]);
+  o[6] = sel3(D, q[6], q[7], q[5]);
+  o[7] = sel3(D, q[7], q[5], q[6]);
+}
+
+__device__ __forceinline__ void unrotate(const float f[NV], int D,
+                                         float o[NV]) {
+  o[0] = f[0];
+  o[1] = sel3(D, f[1], f[3], f[2]);
+  o[2] = sel3(D, f[2], f[1], f[3]);
+  o[3] = sel3(D, f[3], f[2], f[1]);
+  o[4] = f[4];
+  o[5] = sel3(D, f[5], f[7], f[6]);
+  o[6] = sel3(D, f[6], f[5], f[7]);
+  o[7] = sel3(D, f[7], f[6], f[5]);
+}
+
+// ---- primitives: face-averaged cell B, ctoprim ---------------------------
+
+template <int ND>
+__device__ __forceinline__ void prim_cell(const Rings<ND>& w, const Geo& g,
+                                          const MConsts& k,
+                                          const float* __restrict__ up,
+                                          const float* __restrict__ bf,
+                                          Pos x, int64_t i, int64_t fo) {
+  float u[NV], q[NV];
+#pragma unroll
+  for (int v = 0; v < 5; ++v) u[v] = __ldg(up + v * g.np + i);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float lo = __ldg(bf + c * g.nf + fo);
+    u[5 + c] = (c < ND) ? 0.5f * (lo + __ldg(bf + c * g.nf + fo + g.fs[c])) : lo;
+  }
+  ctoprim(u, k, q);
+#pragma unroll
+  for (int v = 0; v < NV; ++v) w.P(x, v) = q[v];
+  const float inv_r = 1.0f / fmaxf(u[0], k.smallr);
+  for (int v = NV; v < g.nv; ++v) w.P(x, v) = __ldg(up + v * g.np + i) * inv_r;
+}
+
+// ---- A: slopes, Hancock predictor, q_half, bf_half -----------------------
+
+// e_edge0 of pair (D1, D2) at primitive position x: the quarter-sum of the
+// cell EMFs of the four cells around the edge.
+template <int D1, int D2, int ND>
+__device__ __forceinline__ float edge0(const Rings<ND>& w, Pos x) {
+  const float sig = pair_sig(D1, D2);
+  auto ec = [&](Pos o) {
+    const float v1 = w.P(o, 1 + D1), v2 = w.P(o, 1 + D2);
+    const float b1 = w.P(o, 5 + D1), b2 = w.P(o, 5 + D2);
+    return sig * (v2 * b1 - v1 * b2);
+  };
+  const Pos x1 = w.pstep(x, D1, -1);
+  return 0.25f * (ec(x) + ec(x1) + ec(w.pstep(x, D2, -1))
+                  + ec(w.pstep(x1, D2, -1)));
+}
+
+template <int D1, int D2, int ND>
+__device__ __forceinline__ void bf_half_pair(const Rings<ND>& w,
+                                             const MConsts& k, float dt,
+                                             Pos x, float bh[3]) {
+  const float sig = pair_sig(D1, D2);
+  const float e0 = edge0<D1, D2>(w, x);
+  bh[D1] = bh[D1] - sig * (0.5f * dt / k.dx[D2])
+                        * (edge0<D1, D2>(w, w.pstep(x, D2, 1)) - e0);
+  bh[D2] = bh[D2] + sig * (0.5f * dt / k.dx[D1])
+                        * (edge0<D1, D2>(w, w.pstep(x, D1, 1)) - e0);
+}
+
+// The predicted cell at primitive position xp, stored at xq.
+template <int ND>
+__device__ __forceinline__ void predict_cell(const Rings<ND>& w,
+                                             const Geo& g, const MConsts& k,
+                                             const float* __restrict__ up,
+                                             const float* __restrict__ bf,
+                                             float dt, Pos xp, Pos xq,
+                                             int64_t i, int64_t fo) {
+  float qc[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) qc[v] = w.P(xp, v);
+  float dq[ND][NV];
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    const Pos m = w.pstep(xp, d, -1), p = w.pstep(xp, d, 1);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      dq[d][v] = mslope(w.P(m, v), qc[v], w.P(p, v), k);
+      w.Q(xq, w.DQ(d, v)) = dq[d][v];
+    }
+  }
+  // conservative Hancock half-step from the cell's own faces
+  float du[NV], mhi[ND], mlo[ND];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) du[v] = 0.0f;
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    float qhi[NV], qlo[NV], fhi[NV], flo[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      qhi[v] = qc[v] + 0.5f * dq[d][v];
+      qlo[v] = qc[v] - 0.5f * dq[d][v];
+    }
+    if (d == 0) { flux_along<0>(qhi, k, fhi); flux_along<0>(qlo, k, flo); }
+    else if (d == 1) { flux_along<1>(qhi, k, fhi); flux_along<1>(qlo, k, flo); }
+    else { flux_along<2>(qhi, k, fhi); flux_along<2>(qlo, k, flo); }
+    const float c = 0.5f * dt / k.dx[d];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) du[v] = du[v] - c * (fhi[v] - flo[v]);
+    mhi[d] = fhi[0];
+    mlo[d] = flo[0];
+  }
+  // passives: slopes and the Hancock half-step (flux = mass flux * q_s)
+  for (int v = NV; v < g.nv; ++v) {
+    const float qs = w.P(xp, v);
+    float dus = 0.0f;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      const float dqs = mslope(w.P(w.pstep(xp, d, -1), v), qs,
+                               w.P(w.pstep(xp, d, 1), v), k);
+      w.Q(xq, w.DQ(d, v)) = dqs;
+      const float c = 0.5f * dt / k.dx[d];
+      dus = dus - c * (mhi[d] * (qs + 0.5f * dqs) - mlo[d] * (qs - 0.5f * dqs));
+    }
+    w.Q(xq, w.DUH(v)) = dus;
+  }
+  // half-step primitives: up (with the face-averaged B of qc) + du_half
+  float u2[NV], qh[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    w.Q(xq, w.DUH(v)) = du[v];
+    u2[v] = ((v < 5) ? __ldg(up + v * g.np + i) : qc[v]) + du[v];
+  }
+  ctoprim(u2, k, qh);
+#pragma unroll
+  for (int v = 0; v < NV; ++v) w.Q(xq, w.QH(v)) = qh[v];
+  // half-dt face field, pairs in the order (0,1), (0,2), (1,2)
+  float bh[3];
+#pragma unroll
+  for (int c = 0; c < ND; ++c) bh[c] = __ldg(bf + c * g.nf + fo);
+  if constexpr (ND >= 2) bf_half_pair<0, 1>(w, k, dt, xp, bh);
+  if constexpr (ND == 3) {
+    bf_half_pair<0, 2>(w, k, dt, xp, bh);
+    bf_half_pair<1, 2>(w, k, dt, xp, bh);
+  }
+#pragma unroll
+  for (int c = 0; c < ND; ++c) w.Q(xq, w.BFH(c)) = bh[c];
+}
+
+// ---- B: the flux through the low face along D of the cell at (rq, rp) -----
+
+// The MHD variables' flux goes to f; the passives' to their ring.
+template <int ND, int RS>
+__device__ __forceinline__ void face_flux(const Rings<ND>& w, const Geo& g,
+                                          const MConsts& k, int D, Pos rq,
+                                          Pos rp, float f[NV]) {
+  // left state: the high face of the cell below; right: the low face of
+  // this one
+  const Pos lq = w.qstep(rq, D, -1), lp = w.pstep(rp, D, -1);
+  float ql[NV], qr[NV];
+  float rho_f[2], inv_r[2];   // a side's prim_to_cons density, 1/ctoprim's
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    const Pos cq = side ? rq : lq, cp = side ? rp : lp;
+    const float half = side ? -0.5f : 0.5f;
+    float qf[NV], uf[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) qf[v] = w.P(cp, v) + half * w.Q(cq, w.DQ(D, v));
+    prim_to_cons(qf, k, uf);
+    rho_f[side] = uf[0];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) uf[v] = uf[v] + w.Q(cq, w.DUH(v));
+    inv_r[side] = 1.0f / fmaxf(uf[0], k.smallr);
+    ctoprim(uf, k, side ? qr : ql);
+  }
+  float qlr[NV], qrr[NV], fg[NV];
+  rotate(ql, D, qlr);
+  rotate(qr, D, qrr);
+  riemann1d<RS>(qlr, qrr, w.Q(rq, w.BFH(D)), k, fg);
+  unrotate(fg, D, f);
+  // passives, upwinded on the sign of the mass flux (riemann.solve)
+  for (int v = NV; v < g.nv; ++v) {
+    float qs[2];
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      const Pos cq = side ? rq : lq, cp = side ? rp : lp;
+      const float half = side ? -0.5f : 0.5f;
+      const float qf = w.P(cp, v) + half * w.Q(cq, w.DQ(D, v));
+      qs[side] = (rho_f[side] * qf + w.Q(cq, w.DUH(v))) * inv_r[side];
+    }
+    w.FP(D, rq, v - NV) = (fg[0] > 0.0f) ? fg[0] * qs[0] : fg[0] * qs[1];
+  }
+}
+
+// ---- C: the EMF of pair (D1, D2) on the edge at the low corner of x ------
+
+// Corner state of the predicted cell x at (s1, s2) along (D1, D2): q_half
+// + 0.5 (s1 dq_D1 + s2 dq_D2), density and pressure floored.
+template <int ND>
+__device__ __forceinline__ Corner corner(const Rings<ND>& w, const MConsts& k,
+                                         int D1, int D2, Pos x, float s1,
                                          float s2) {
-  constexpr int DO = 3 - D1 - D2;
+  const int DO = 3 - D1 - D2;
   auto at = [&](int v) {
-    return w.qh[v * g.np + x]
-           + 0.5f * (s1 * w.dq[((int64_t)D1 * g.nv + v) * g.np + x]
-                     + s2 * w.dq[((int64_t)D2 * g.nv + v) * g.np + x]);
+    return w.Q(x, w.QH(v))
+           + 0.5f * (s1 * w.Q(x, w.DQ(D1, v)) + s2 * w.Q(x, w.DQ(D2, v)));
   };
   Corner c;
   c.r = fmaxf(at(0), k.smallr);
@@ -1128,62 +1282,67 @@ __device__ __forceinline__ Corner corner(const Scratch& w, const Geo& g,
   return c;
 }
 
-template <int ND, int D1, int D2, int R2>
-__global__ void __launch_bounds__(BLOCK)
-mhd_ct_edge(const float* __restrict__ ovm, const float* __restrict__ ovv,
-            Scratch w, Geo g, MConsts k) {
-  const int64_t i = blockIdx.x * (int64_t)BLOCK + threadIdx.x;
-  if (i >= g.np) return;
-  int P[3];
-  coords<ND>(g, i, P);
-  // edges along D1 and D2 from 2 to n+2; the third axis over the interior
-  if (!in_box<ND>(g, P, 2, 1)) return;
-  if constexpr (ND == 3) {
-    constexpr int DO = 3 - D1 - D2;
-    if (P[DO] > g.e[DO] - 3) return;
-  }
+template <int ND, int R2>
+__device__ __forceinline__ void edge_emf(const Rings<ND>& w, const Geo& g,
+                                         const MConsts& k, int D1, int D2,
+                                         Pos x, const float* __restrict__ ovm,
+                                         const float* __restrict__ ovv,
+                                         int64_t i) {
   const float sig = pair_sig(D1, D2);
-  const int64_t s1 = g.s[D1], s2 = g.s[D2];
+  const Pos x1 = w.qstep(x, D1, -1), x2 = w.qstep(x, D2, -1);
+  const Pos x12 = w.qstep(x1, D2, -1);
   float e;
   if (R2 == 0) {  // Gardiner & Stone (2005) arithmetic corner average
-    const float* f1 = w.flx + ((int64_t)D1 * g.nv + 5 + D2) * g.np;
-    const float* f2 = w.flx + ((int64_t)D2 * g.nv + 5 + D1) * g.np;
-    auto ec = [&](int64_t o) {
-      float v1 = w.qh[(1 + D1) * g.np + o], v2 = w.qh[(1 + D2) * g.np + o];
-      float b1 = w.qh[(5 + D1) * g.np + o], b2 = w.qh[(5 + D2) * g.np + o];
+    auto ec = [&](Pos o) {
+      const float v1 = w.Q(o, w.QH(1 + D1)), v2 = w.Q(o, w.QH(1 + D2));
+      const float b1 = w.Q(o, w.QH(5 + D1)), b2 = w.Q(o, w.QH(5 + D2));
       return sig * (v2 * b1 - v1 * b2);
     };
-    float ef1 = -sig * f1[i], ef1b = -sig * f1[i - s2];
-    float ef2 = sig * f2[i], ef2l = sig * f2[i - s1];
+    // f1: the flux along D1, component 5 + D2, at x and x2; f2: along
+    // D2, component 5 + D1, at x and x1 (x1 is row t-1 for D1 = 0)
+    float f1, f1b, f2, f2l;
+    if (ND >= 2 && D1 == 0) {
+      f1 = w.FM(D2, x);
+      f1b = w.FM(D2, x2);
+      f2 = w.FC5(D2, x);
+      f2l = w.FC5(D2, x1);
+    } else {
+      f1 = w.FC(D1, 5 + D2, x);
+      f1b = w.FC(D1, 5 + D2, x2);
+      f2 = w.FC(D2, 5 + D1, x);
+      f2l = w.FC(D2, 5 + D1, x1);
+    }
+    const float ef1 = -sig * f1, ef1b = -sig * f1b;
+    const float ef2 = sig * f2, ef2l = sig * f2l;
     e = 0.5f * (ef1 + ef1b + ef2 + ef2l)
-        - 0.25f * (ec(i) + ec(i - s1) + ec(i - s2) + ec(i - s1 - s2));
+        - 0.25f * (ec(x) + ec(x1) + ec(x2) + ec(x12));
   } else {        // a corner solver on primitive corner states
-    const Corner q[4] = {corner<D1, D2>(w, g, k, i - s1 - s2, 1.0f, 1.0f),
-                         corner<D1, D2>(w, g, k, i - s2, -1.0f, 1.0f),
-                         corner<D1, D2>(w, g, k, i - s1, 1.0f, -1.0f),
-                         corner<D1, D2>(w, g, k, i, -1.0f, -1.0f)};
+    const Corner q[4] = {corner<ND>(w, k, D1, D2, x12, 1.0f, 1.0f),
+                         corner<ND>(w, k, D1, D2, x2, -1.0f, 1.0f),
+                         corner<ND>(w, k, D1, D2, x1, 1.0f, -1.0f),
+                         corner<ND>(w, k, D1, D2, x, -1.0f, -1.0f)};
     CornerFaces f;
-    f.A_T = w.bfh[D1 * g.np + i];
-    f.A_B = w.bfh[D1 * g.np + i - s2];
-    f.B_R = w.bfh[D2 * g.np + i];
-    f.B_L = w.bfh[D2 * g.np + i - s1];
+    f.A_T = w.Q(x, w.BFH(D1));
+    f.A_B = w.Q(x2, w.BFH(D1));
+    f.B_R = w.Q(x, w.BFH(D2));
+    f.B_L = w.Q(x1, w.BFH(D2));
     e = -sig * corner_emf<R2>(q, f, k);
   }
-  constexpr int IP_ = pair_index(D1, D2);
-  if (ovm != nullptr && __ldg(ovm + IP_ * g.np + i) > 0.5f)
-    e = __ldg(ovv + IP_ * g.np + i);
-  w.emf[IP_ * g.np + i] = e;
+  const int pr = pair_index(D1, D2);
+  if (ovm != nullptr && __ldg(ovm + pr * g.np + i) > 0.5f)
+    e = __ldg(ovv + pr * g.np + i);
+  w.E(pr, x) = e;
 }
 
-// ---- stage E: conservative update, induction, centred B -------------------
+// ---- A: conservative update, induction, centred B -------------------------
 
-// The new low face of component C at padded cell offset x (face offset fo):
-// the stored face plus the curl of the edge EMFs, pairs in order.
+// The new low face of component C of the cell at x (face offset fo): the
+// stored face plus the curl of the edge EMFs, pairs in order.
 template <int ND, int C>
-__device__ __forceinline__ float induct(const Scratch& w, const Geo& g,
+__device__ __forceinline__ float induct(const Rings<ND>& w, const Geo& g,
                                         const MConsts& k, float dt,
-                                        const float* __restrict__ bf,
-                                        int64_t x, int64_t fo) {
+                                        const float* __restrict__ bf, Pos x,
+                                        int64_t fo) {
   float b = __ldg(bf + C * g.nf + fo);
 #pragma unroll
   for (int d1 = 0; d1 < ND; ++d1)
@@ -1191,42 +1350,75 @@ __device__ __forceinline__ float induct(const Scratch& w, const Geo& g,
     for (int d2 = d1 + 1; d2 < ND; ++d2) {
       if (C != d1 && C != d2) continue;
       const float sig = pair_sig(d1, d2);
-      const float* E = w.emf + (int64_t)pair_index(d1, d2) * g.np;
-      if (C == d1) b = b - sig * (dt / k.dx[d2]) * (E[x + g.s[d2]] - E[x]);
-      else b = b + sig * (dt / k.dx[d1]) * (E[x + g.s[d1]] - E[x]);
+      const int pr = pair_index(d1, d2);
+      if (C == d1)
+        b = b - sig * (dt / k.dx[d2]) * (w.E(pr, w.qstep(x, d2, 1)) - w.E(pr, x));
+      else
+        b = b + sig * (dt / k.dx[d1]) * (w.E(pr, w.qstep(x, d1, 1)) - w.E(pr, x));
     }
   return b;
 }
 
+// Face C of the cell at x, low (h = 0) and high (h = 1), through one call
+// site: the high face's bits are those its upper neighbour stores.
 template <int ND, int C>
-__device__ __forceinline__ void staggered(const Scratch& w, const Geo& g,
+__device__ __forceinline__ void staggered(const Rings<ND>& w, const Geo& g,
                                           const MConsts& k, float dt,
-                                          const float* __restrict__ bf,
-                                          int64_t i, int64_t fo, int64_t io,
+                                          const float* __restrict__ bf, Pos x,
+                                          int64_t fo, int64_t io,
                                           float* __restrict__ un,
                                           float* __restrict__ bfn) {
-  float b0 = induct<ND, C>(w, g, k, dt, bf, i, fo);
-  float b1 = induct<ND, C>(w, g, k, dt, bf, i + g.s[C], fo + g.fs[C]);
+  float b0 = 0.0f, b1 = 0.0f;
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    const float b = induct<ND, C>(w, g, k, dt, bf, h ? w.qstep(x, C, 1) : x,
+                                  h ? fo + g.fs[C] : fo);
+    b0 = h ? b0 : b;
+    b1 = h ? b : b1;
+  }
   bfn[C * g.ni + io] = b0;
   un[(5 + C) * g.ni + io] = 0.5f * (b0 + b1);
 }
 
+// The update terms of the column fluxes of the cell at x (row t), one per
+// column axis and MHD variable: (dt/dx_d) (F_lo keep_lo - F_hi keep_hi),
+// as the update adds them after the marching axis's.
 template <int ND>
-__global__ void __launch_bounds__(BLOCK)
-mhd_ct_update(const float* __restrict__ up, const float* __restrict__ bf,
-              const float* __restrict__ okp, const float* __restrict__ dt_ptr,
-              Scratch w, Geo g, MConsts k, float* __restrict__ un,
-              float* __restrict__ bfn) {
-  const int64_t i = blockIdx.x * (int64_t)BLOCK + threadIdx.x;
-  if (i >= g.np) return;
-  int P[3];
-  coords<ND>(g, i, P);
-  if (!in_box<ND>(g, P, 2, 2)) return;
-  const float dt = __ldg(dt_ptr);
-  const int64_t fo = face_off<ND>(g, P);
-  int64_t io = 0;
+__device__ __forceinline__ void column_terms(const Rings<ND>& w, const Geo& g,
+                                             const MConsts& k, float dt,
+                                             const float* __restrict__ okp,
+                                             Pos x, const int P[3],
+                                             float ct[Lay<ND>::NCA][NV]) {
+  const int64_t i = cell_off<ND>(g, P);
 #pragma unroll
-  for (int a = 0; a < ND; ++a) io += (int64_t)(P[a] - 2) * g.is[a];
+  for (int c = 0; c < Lay<ND>::NCA; ++c) {
+    const int d = ND == 1 ? 0 : c + 1;
+    float keep_lo = 1.0f, keep_hi = 1.0f;
+    if (okp != nullptr) {
+      const bool o = __ldg(okp + i) > 0.5f;
+      keep_lo = (o || __ldg(okp + i - g.s[d]) > 0.5f) ? 0.0f : 1.0f;
+      keep_hi = (o || __ldg(okp + i + g.s[d]) > 0.5f) ? 0.0f : 1.0f;
+    }
+    const Pos hi = w.qstep(x, d, 1);
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      ct[c][v] = (dt / k.dx[d]) * (w.FC(d, v, x) * keep_lo
+                                   - w.FC(d, v, hi) * keep_hi);
+  }
+}
+
+// The cell at x (row u): f0lo, f0hi its marching fluxes through faces u
+// and u+1 (2D, 3D), ct its column terms.
+template <int ND>
+__device__ __forceinline__ void update_cell(
+    const Rings<ND>& w, const Geo& g, const MConsts& k, float dt,
+    const float* __restrict__ up, const float* __restrict__ bf,
+    const float* __restrict__ okp, Pos x, const int P[3],
+    const float f0lo[NV], const float f0hi[NV],
+    const float ct[Lay<ND>::NCA][NV], float* __restrict__ un,
+    float* __restrict__ bfn) {
+  const int64_t i = cell_off<ND>(g, P), fo = face_off<ND>(g, P);
+  const int64_t io = int_off<ND>(g, P);
   // face keep factors: a face next to a refined cell carries no cell flux
   float keep_lo[3], keep_hi[3];
 #pragma unroll
@@ -1239,134 +1431,341 @@ mhd_ct_update(const float* __restrict__ up, const float* __restrict__ bf,
       keep_lo[d] = keep_hi[d] = 1.0f;
     }
   }
-  // variables 0-4 and the degenerate B components take the flux update
+  // variables 0-4 and the degenerate B components take the flux update,
+  // the axes in order
 #pragma unroll
   for (int v = 0; v < NV; ++v) {
     const int c = v - 5;
     if (v >= 5 && c < ND) continue;   // staggered: from the new faces below
-    float x = (v < 5) ? __ldg(up + v * g.np + i) : __ldg(bf + c * g.nf + fo);
+    float y = (v < 5) ? __ldg(up + v * g.np + i) : __ldg(bf + c * g.nf + fo);
+    if constexpr (ND >= 2)
+      y = y + (dt / k.dx[0]) * (f0lo[v] * keep_lo[0] - f0hi[v] * keep_hi[0]);
 #pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      const float* F = w.flx + ((int64_t)d * g.nv + v) * g.np;
-      x = x + (dt / k.dx[d]) * (F[i] * keep_lo[d] - F[i + g.s[d]] * keep_hi[d]);
-    }
-    un[v * g.ni + io] = x;
-    if (v >= 5) bfn[c * g.ni + io] = x;
+    for (int a = 0; a < Lay<ND>::NCA; ++a) y = y + ct[a][v];
+    un[v * g.ni + io] = y;
+    if (v >= 5) bfn[c * g.ni + io] = y;
   }
   for (int v = NV; v < g.nv; ++v) {   // passives
-    float x = __ldg(up + v * g.np + i);
+    float y = __ldg(up + v * g.np + i);
 #pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      const float* F = w.flx + ((int64_t)d * g.nv + v) * g.np;
-      x = x + (dt / k.dx[d]) * (F[i] * keep_lo[d] - F[i + g.s[d]] * keep_hi[d]);
-    }
-    un[v * g.ni + io] = x;
+    for (int d = 0; d < ND; ++d)
+      y = y + (dt / k.dx[d]) * (w.FP(d, x, v - NV) * keep_lo[d]
+                                - w.FP(d, w.qstep(x, d, 1), v - NV) * keep_hi[d]);
+    un[v * g.ni + io] = y;
   }
-  staggered<ND, 0>(w, g, k, dt, bf, i, fo, io, un, bfn);
-  if constexpr (ND >= 2) staggered<ND, 1>(w, g, k, dt, bf, i, fo, io, un, bfn);
-  if constexpr (ND == 3) staggered<ND, 2>(w, g, k, dt, bf, i, fo, io, un, bfn);
+  staggered<ND, 0>(w, g, k, dt, bf, x, fo, io, un, bfn);
+  if constexpr (ND >= 2) staggered<ND, 1>(w, g, k, dt, bf, x, fo, io, un, bfn);
+  if constexpr (ND == 3) staggered<ND, 2>(w, g, k, dt, bf, x, fo, io, un, bfn);
+}
+
+// ---- the kernel ----------------------------------------------------------
+
+// One block: the tile (blockIdx.x along column axis 0, blockIdx.y along
+// column axis 1) and the chunk of rows blockIdx.z.  Every item loop is one
+// call site of its stage; all branches on t are uniform over the block,
+// so every thread meets every barrier.
+template <int ND, int RS, int R2>
+__global__ void __launch_bounds__(Tile<ND>::NT, MinBlocks<ND, RS, R2>::value)
+mhd_ct_fused(const float* __restrict__ up, const float* __restrict__ bf,
+             const float* __restrict__ okp, const float* __restrict__ ovm,
+             const float* __restrict__ ovv, const float* __restrict__ dt_ptr,
+             float* __restrict__ un, float* __restrict__ bfn, Geo g,
+             MConsts k) {
+  using L = Lay<ND>;
+  extern __shared__ __align__(16) float smem[];
+  Rings<ND> w;
+  w.nv = g.nv;
+  w.pf = (ND + 1) * g.nv + 8 + ND;
+  w.prim = smem;
+  w.pred = w.prim + 3 * g.nv * L::PG;
+  w.fm = w.pred + 2 * w.pf * L::QG;
+  w.fc = w.fm + L::NM * L::QG;
+  w.fc5 = w.fc + L::NCA * NV * L::QG;
+  w.fp = w.fc5 + L::NCA * 2 * L::QG;
+  w.emf = w.fp + 2 * ND * (g.nv - NV) * L::QG;
+  const int tid = threadIdx.x;
+  const float dt = __ldg(dt_ptr);
+  const int ca0 = ND == 1 ? 0 : 1;   // the physical axis of column axis 0
+  const int ec0 = g.e[ca0], ec1 = g.e[2];
+  const int A0 = 2 + blockIdx.x * L::T0;            // padded column a = 0
+  const int B0 = ND == 3 ? 2 + blockIdx.y * L::T1 : 0;
+  // rows: updated [R0, R1), predicted [R0 - W, R1], primitives
+  // [R0 - 2W, R1 + W]; 1D has the one row 0
+  constexpr int W = ND >= 2 ? 1 : 0;
+  constexpr int LEAD = ND >= 2 ? 2 : 1;   // primitives run this far ahead
+  const int R0 = ND >= 2 ? 2 + blockIdx.z * g.ch : 0;
+  const int R1 = ND >= 2 ? min(R0 + g.ch, g.e[0] - 2) : 0;
+  constexpr int NC0 = (L::T0 + 1) * L::QB;   // column-0 faces of a row
+  constexpr int NC1 = ND == 3 ? L::QA * (L::T1 + 1) : 0;
+  constexpr int NE0 = (L::T0 + 1) * L::T1;   // edges of pair (0, 1)
+  constexpr int NE1 = ND == 3 ? L::T0 * (L::T1 + 1) : 0;        // (0, 2)
+  constexpr int NE2 = ND == 3 ? (L::T0 + 1) * (L::T1 + 1) : 0;  // (1, 2)
+  // this thread's own cell: the predicted-grid point tid, updated by it
+  const int ao = tid / L::QB - 1, bo = tid % L::QB - L::HB;
+  const bool own = tid < L::QG && ao >= 0 && ao < L::T0 && bo >= 0
+                   && bo < L::T1 && A0 + ao <= ec0 - 3
+                   && (ND < 3 || B0 + bo <= ec1 - 3);
+  // its marching fluxes through faces t-1 and t, and its column terms
+  float f0lo[NV], f0hi[NV], ct[L::NCA][NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    f0lo[v] = f0hi[v] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < L::NCA; ++c) ct[c][v] = 0.0f;
+  }
+
+  // rows this block updates: [R0, RU)
+  const int RU = ND >= 2 ? R1 : 1;
+
+#pragma unroll 1
+  for (int t = R0 - LEAD; t <= RU + W; ++t) {
+    __syncthreads();
+    // ---- A: this thread's cell (the update of row t-1-W, the column
+    // terms of row t-1), then the predicted cells of row t ----
+    if (own) {
+      const int ur = t - 1 - W, cr = t - 1;
+      int P[3];
+      if constexpr (ND == 1) {
+        if (cr >= R0 && cr < RU) {
+          phys<ND>(cr, A0 + ao, B0 + bo, P);
+          column_terms<ND>(w, g, k, dt, okp, Pos{cr, tid}, P, ct);
+        }
+      }
+      if (ur >= R0 && ur < RU) {
+        phys<ND>(ur, A0 + ao, B0 + bo, P);
+        update_cell<ND>(w, g, k, dt, up, bf, okp, Pos{ur, tid}, P, f0lo,
+                        f0hi, ct, un, bfn);
+      }
+      if constexpr (ND >= 2) {
+        if (cr >= R0 && cr < RU) {
+          phys<ND>(cr, A0 + ao, B0 + bo, P);
+          column_terms<ND>(w, g, k, dt, okp, Pos{cr, tid}, P, ct);
+        }
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v) f0lo[v] = f0hi[v];
+    const bool row_on = t >= R0 - W && t <= R1;   // predicted rows
+    const int npred = row_on ? L::QG : 0;
+#pragma unroll 1
+    for (int it = tid; it < npred; it += L::NT) {
+      const int a = it / L::QB - 1, b = it % L::QB - L::HB;
+      const int pa = A0 + a, pb = B0 + b;
+      if (pa > ec0 - 2 || (ND == 3 && pb > ec1 - 2)) continue;
+      int P[3];
+      phys<ND>(t, pa, pb, P);
+      predict_cell<ND>(w, g, k, up, bf, dt,
+                       Pos{t, (a + 2) * L::PB + b + 2 * L::HB}, Pos{t, it},
+                       cell_off<ND>(g, P), face_off<ND>(g, P));
+    }
+    __syncthreads();
+    // ---- B: marching face t (from row R0), column faces of row t ----
+    const bool march_on = ND >= 2 && t >= R0 && t <= R1;
+    const int nm = march_on ? L::QG : 0;
+    const int nflux = row_on ? nm + NC0 + NC1 : 0;
+#pragma unroll 1
+    for (int it = tid; it < nflux; it += L::NT) {
+      int D, a, b;
+      if (it < nm) {
+        D = 0;
+        a = it / L::QB - 1;
+        b = it % L::QB - L::HB;
+      } else if (it < nm + NC0) {
+        const int j = it - nm;
+        D = ca0;
+        a = j / L::QB;
+        b = j % L::QB - L::HB;
+      } else {
+        const int j = it - nm - NC0;
+        D = 2;
+        a = j / (L::T1 + 1) - 1;
+        b = j % (L::T1 + 1);
+      }
+      if (A0 + a > ec0 - 2 || (ND == 3 && B0 + b > ec1 - 2)) continue;
+      const Pos x{t, (a + 1) * L::QB + b + L::HB};
+      float f[NV];
+      face_flux<ND, RS>(w, g, k, D, x, Pos{t, (a + 2) * L::PB + b + 2 * L::HB},
+                        f);
+      if (it < nm) {    // a marching face: item it is this thread's column
+#pragma unroll
+        for (int v = 0; v < NV; ++v) f0hi[v] = f[v];
+#pragma unroll
+        for (int c = 1; c <= L::NM; ++c) w.FM(c, x) = f[5 + c];
+      } else {
+#pragma unroll
+        for (int v = 0; v < NV; ++v) w.FC(D, v, x) = f[v];
+        w.FC5(D, x) = f[5];
+      }
+    }
+    __syncthreads();
+    // ---- C: edges of row t with the marching axis and (1,2) in row t;
+    // the primitives of the rows A needs next ----
+    if constexpr (ND >= 2) {
+      const int nme = march_on ? NE0 + NE1 : 0;
+      const int nemf = nme + ((ND == 3 && t >= R0 && t < R1) ? NE2 : 0);
+#pragma unroll 1
+      for (int it = tid; it < nemf; it += L::NT) {
+        int D1, D2, a, b;
+        if (it < nme && it < NE0) {
+          D1 = 0;
+          D2 = 1;
+          a = it / L::T1;
+          b = it % L::T1;
+        } else {
+          const int j = it < nme ? it - NE0 : it - nme;
+          D1 = it < nme ? 0 : 1;
+          D2 = 2;
+          a = j / (L::T1 + 1);
+          b = j % (L::T1 + 1);
+        }
+        const int pa = A0 + a, pb = B0 + b;
+        if (pa > ec0 - 2 || (ND == 3 && pb > ec1 - 2)) continue;
+        int P[3];
+        phys<ND>(t, pa, pb, P);
+        edge_emf<ND, R2>(w, g, k, D1, D2, Pos{t, (a + 1) * L::QB + b + L::HB},
+                         ovm, ovv, cell_off<ND>(g, P));
+      }
+    }
+    const int plo = t == R0 - LEAD ? R0 - 2 * W : t + LEAD;
+    const int phi = min(t + LEAD, R1 + W);
+    const int nprim = phi >= plo ? (phi - plo + 1) * L::PG : 0;
+#pragma unroll 1
+    for (int it = tid; it < nprim; it += L::NT) {
+      const int c = it % L::PG, row = plo + it / L::PG;
+      const int a = c / L::PB - 2, b = c % L::PB - 2 * L::HB;
+      const int pa = A0 + a, pb = B0 + b;
+      if (pa > ec0 - 1 || (ND == 3 && pb > ec1 - 1)) continue;
+      int P[3];
+      phys<ND>(row, pa, pb, P);
+      prim_cell<ND>(w, g, k, up, bf, Pos{row, c}, cell_off<ND>(g, P),
+                    face_off<ND>(g, P));
+    }
+  }
 }
 
 // ---- host side -------------------------------------------------------------
 
-struct Args {
+struct Call {
   const float *up, *bf, *okp, *ovm, *ovv, *dt;
   float *un, *bfn;
-  int riemann, riemann2d;
+  Geo g;        // g.ch 0: choose the chunk at launch
+  MConsts k;
+  cudaStream_t s;
+  int* info;    // non-null: report the launch's resources, launch nothing
 };
 
-template <int ND, int D>
-cudaError_t launch_flux(const Args& a, const Scratch& w, const Geo& g,
-                        const MConsts& k, dim3 grid, cudaStream_t s) {
-  switch (a.riemann) {
-    case 0: mhd_ct_flux<ND, D, 0><<<grid, BLOCK, 0, s>>>(w, g, k); break;
-    case 1: mhd_ct_flux<ND, D, 1><<<grid, BLOCK, 0, s>>>(w, g, k); break;
-    case 2: mhd_ct_flux<ND, D, 2><<<grid, BLOCK, 0, s>>>(w, g, k); break;
-    case 3: mhd_ct_flux<ND, D, 3><<<grid, BLOCK, 0, s>>>(w, g, k); break;
-    default: mhd_ct_flux<ND, D, 4><<<grid, BLOCK, 0, s>>>(w, g, k); break;
+// cudaFuncSetAttribute once per instantiation and device: the dynamic
+// shared memory of the largest passive count.  Returns its error.
+template <int ND, int RS, int R2>
+int prepare() {
+  static unsigned long long done = 0;  // one bit a device
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done & bit) return 0;
+  err = (int)cudaFuncSetAttribute(mhd_ct_fused<ND, RS, R2>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem_bytes<ND>(NV + MAX_PASSIVE));
+  if (!err) done |= bit;
+  return err;
+}
+
+template <int ND, int RS, int R2>
+int run(const Call& c) {
+  using L = Lay<ND>;
+  int err = prepare<ND, RS, R2>();
+  if (err) return err;
+  const int smem = smem_bytes<ND>(c.g.nv);
+  if (c.info != nullptr) {
+    cudaFuncAttributes a;
+    err = (int)cudaFuncGetAttributes(&a, mhd_ct_fused<ND, RS, R2>);
+    if (err) return err;
+    int nblk = 0;
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &nblk, mhd_ct_fused<ND, RS, R2>, L::NT, smem);
+    c.info[0] = nblk;
+    c.info[1] = smem;
+    c.info[2] = a.numRegs;
+    c.info[3] = (int)a.localSizeBytes;
+    return err;
   }
-  return cudaGetLastError();
-}
-
-template <int ND, int D1, int D2, int R2>
-void edge_kernel(const Args& a, const Scratch& w, const Geo& g,
-                 const MConsts& k, dim3 grid, cudaStream_t s) {
-  mhd_ct_edge<ND, D1, D2, R2><<<grid, BLOCK, 0, s>>>(a.ovm, a.ovv, w, g, k);
-}
-
-template <int ND, int D1, int D2>
-cudaError_t launch_edge(const Args& a, const Scratch& w, const Geo& g,
-                        const MConsts& k, dim3 grid, cudaStream_t s) {
-  switch (a.riemann2d) {
-    case 0: edge_kernel<ND, D1, D2, 0>(a, w, g, k, grid, s); break;
-    case 1: edge_kernel<ND, D1, D2, 1>(a, w, g, k, grid, s); break;
-    case 2: edge_kernel<ND, D1, D2, 2>(a, w, g, k, grid, s); break;
-    case 3: edge_kernel<ND, D1, D2, 3>(a, w, g, k, grid, s); break;
-    case 4: edge_kernel<ND, D1, D2, 4>(a, w, g, k, grid, s); break;
-    case 5: edge_kernel<ND, D1, D2, 5>(a, w, g, k, grid, s); break;
-    default: edge_kernel<ND, D1, D2, 6>(a, w, g, k, grid, s); break;
+  const int ca0 = ND == 1 ? 0 : 1;
+  const int64_t tiles = (int64_t)((c.g.e[ca0] - 4 + L::T0 - 1) / L::T0)
+                        * (ND == 3 ? (c.g.e[2] - 4 + L::T1 - 1) / L::T1 : 1);
+  const int n0 = c.g.e[0] - 4;
+  Geo g = c.g;
+  if (ND == 1) {
+    g.ch = 1;
+  } else if (g.ch == 0) {
+    // The chunk of rows a block marches: each costs its rows, a warm-up
+    // row and two more rows of primitives, and a launch takes as many
+    // such steps as it has waves of resident blocks; the fewest steps
+    // win, the longer chunk on a tie (2048^2: 16 rows; 512^2: 8).
+    int dev = 0, nsm = 0, nblk = 0;
+    err = (int)cudaGetDevice(&dev);
+    if (!err)
+      err = (int)cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
+                                        dev);
+    if (!err)
+      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &nblk, mhd_ct_fused<ND, RS, R2>, L::NT, smem);
+    if (err) return err;
+    const int64_t slots =
+        (int64_t)(nblk > 0 ? nblk : 1) * (nsm > 0 ? nsm : 1);
+    int64_t best = -1;
+    for (int ch = 64; ch >= 2; ch /= 2) {
+      const int64_t blocks = tiles * ((n0 + ch - 1) / ch);
+      const int64_t cost = (blocks + slots - 1) / slots * (ch + 3);
+      if (best < 0 || cost < best) {
+        best = cost;
+        g.ch = ch;
+      }
+    }
   }
-  return cudaGetLastError();
+  if (ND >= 2 && (n0 + g.ch - 1) / g.ch > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((c.g.e[ca0] - 4 + L::T0 - 1) / L::T0,
+                  ND == 3 ? (c.g.e[2] - 4 + L::T1 - 1) / L::T1 : 1,
+                  ND >= 2 ? (n0 + g.ch - 1) / g.ch : 1);
+  const dim3 block(L::NT);
+  const cudaStream_t s = c.s;
+  mhd_ct_fused<ND, RS, R2><<<grid, block, smem, s>>>(
+      c.up, c.bf, c.okp, c.ovm, c.ovv, c.dt, c.un, c.bfn, g, c.k);
+  return (int)cudaGetLastError();
 }
 
-#define RAMSES_CHECK(x)                 \
-  do {                                  \
-    cudaError_t e_ = (x);               \
-    if (e_ != cudaSuccess) return e_;   \
-  } while (0)
+template <int ND, int RS>
+int by_corner(const Call& c, int riemann2d) {
+  if constexpr (ND == 1) {
+    return run<1, RS, 0>(c);   // no edges in 1D
+  } else {
+    switch (riemann2d) {
+      case 0: return run<ND, RS, 0>(c);
+      case 1: return run<ND, RS, 1>(c);
+      case 2: return run<ND, RS, 2>(c);
+      case 3: return run<ND, RS, 3>(c);
+      case 4: return run<ND, RS, 4>(c);
+      case 5: return run<ND, RS, 5>(c);
+      default: return run<ND, RS, 6>(c);
+    }
+  }
+}
 
 template <int ND>
-cudaError_t run(const Args& a, const Scratch& w, const Geo& g,
-                const MConsts& k, cudaStream_t s) {
-  const dim3 grid((unsigned)((g.np + BLOCK - 1) / BLOCK));
-  mhd_ct_prim<ND><<<grid, BLOCK, 0, s>>>(a.up, a.bf, w, g, k);
-  RAMSES_CHECK(cudaGetLastError());
-  mhd_ct_predict<ND><<<grid, BLOCK, 0, s>>>(a.up, a.bf, a.dt, w, g, k);
-  RAMSES_CHECK(cudaGetLastError());
-  RAMSES_CHECK((launch_flux<ND, 0>(a, w, g, k, grid, s)));
-  if constexpr (ND >= 2) RAMSES_CHECK((launch_flux<ND, 1>(a, w, g, k, grid, s)));
-  if constexpr (ND == 3) RAMSES_CHECK((launch_flux<ND, 2>(a, w, g, k, grid, s)));
-  if constexpr (ND >= 2) RAMSES_CHECK((launch_edge<ND, 0, 1>(a, w, g, k, grid, s)));
-  if constexpr (ND == 3) {
-    RAMSES_CHECK((launch_edge<ND, 0, 2>(a, w, g, k, grid, s)));
-    RAMSES_CHECK((launch_edge<ND, 1, 2>(a, w, g, k, grid, s)));
+int by_solver(const Call& c, int riemann, int riemann2d) {
+  switch (riemann) {
+    case 0: return by_corner<ND, 0>(c, riemann2d);
+    case 1: return by_corner<ND, 1>(c, riemann2d);
+    case 2: return by_corner<ND, 2>(c, riemann2d);
+    case 3: return by_corner<ND, 3>(c, riemann2d);
+    default: return by_corner<ND, 4>(c, riemann2d);
   }
-  mhd_ct_update<ND><<<grid, BLOCK, 0, s>>>(a.up, a.bf, a.okp, a.dt, w, g, k,
-                                           a.un, a.bfn);
-  return cudaGetLastError();
 }
 
-}  // namespace
-
-// Floats of scratch a launch over np padded points with nv cell variables
-// needs: primitives, slopes, du_half, q_half, half-dt faces, face fluxes
-// and edge EMFs, in the order ramses_mhd_ct carves them.  The wrapper
-// allocates this many.
-extern "C" int64_t ramses_mhd_ct_scratch_len(int ndim, int64_t np, int nv) {
-  const int npair = ndim == 3 ? 3 : ndim - 1;
-  return np * (int64_t)(nv + nv * ndim + nv + 8 + ndim + nv * ndim + npair);
-}
-
-// The largest passive count ramses_mhd_ct takes.
-extern "C" int ramses_mhd_ct_max_passive() { return MAX_PASSIVE; }
-
-// up: [8 + npassive, *sp+4], bf: [3, *sp+6] f32 contiguous; okp: [*sp+4]
-// f32 0/1 or NULL; ovm, ovv: [npair, *sp+4] f32 (mask 0/1, values) or
-// NULL; dt: one f32 on the device; scratch: scratch_len f32, at least
-// ramses_mhd_ct_scratch_len; un: [8 + npassive, *sp], bfn: [3, *sp].
-// n1 = 1 in 1D, n2 = 1 below 3D.  riemann: 0 llf, 1 hll, 2 hlld, 3 roe,
-// 4 upwind; riemann2d: 0 average, 1 llf, 2 roe, 3 upwind, 4 hll, 5 hlla,
-// 6 hlld; slope_type 0, 1, 2, 7 or 8 (slope_factor: 1, 2 or theta).
-// Launches on `stream` without synchronising; returns the first launch
-// error, or cudaErrorInvalidValue for arguments the kernel does not take.
-extern "C" int ramses_mhd_ct(
-    const float* up, const float* bf, const float* okp, const float* ovm,
-    const float* ovv, const float* dt, float* scratch, float* un, float* bfn,
-    int64_t scratch_len, int ndim, int n0, int n1, int n2, int npassive,
-    int riemann, int riemann2d, int slope_type, float slope_factor,
-    float gamma, float gm1, float g2, float ig1, float smallr, float smallc,
-    float smallc2, float pfloor, float eint_floor, float dx0, float dx1,
-    float dx2, void* stream) {
+// The box and the configuration into c.g, c.k; cudaErrorInvalidValue for
+// what the kernel does not take.
+int configure(Call& c, int ndim, int n0, int n1, int n2, int npassive,
+              int riemann, int riemann2d, int slope_type, int chunk) {
   if (ndim < 1 || ndim > 3) return (int)cudaErrorInvalidValue;
   if (riemann < 0 || riemann > 4 || riemann2d < 0 || riemann2d > 6)
     return (int)cudaErrorInvalidValue;
@@ -1374,14 +1773,18 @@ extern "C" int ramses_mhd_ct(
   if (slope_type != 0 && slope_type != 1 && slope_type != 2 && slope_type != 7
       && slope_type != 8)
     return (int)cudaErrorInvalidValue;
-  if ((ovm == nullptr) != (ovv == nullptr)) return (int)cudaErrorInvalidValue;
   const int n[3] = {n0, ndim > 1 ? n1 : 1, ndim == 3 ? n2 : 1};
-  Geo g;
+  Geo& g = c.g;
   g.nv = NV + npassive;
   for (int a = 0; a < 3; ++a) {
-    if (n[a] < 1) return (int)cudaErrorInvalidValue;
+    if (n[a] < 1 || n[a] > (1 << 28)) return (int)cudaErrorInvalidValue;
     g.e[a] = (a < ndim) ? n[a] + 4 : 1;
   }
+  if (chunk < 0) return (int)cudaErrorInvalidValue;
+  g.ch = chunk;
+  // grid.y is at most 65535 blocks (grid.z is checked at launch)
+  if (ndim == 3 && (n[2] + Tile<3>::T1 - 1) / Tile<3>::T1 > 65535)
+    return (int)cudaErrorInvalidValue;
   const int fe[3] = {n[0] + 6, ndim > 1 ? n[1] + 6 : 1, ndim > 2 ? n[2] + 6 : 1};
   g.s[2] = 1;
   g.s[1] = g.e[2];
@@ -1406,28 +1809,68 @@ extern "C" int ramses_mhd_ct(
     g.is[0] = n[1];
     g.is[2] = 0;
   }
-  if (scratch_len < ramses_mhd_ct_scratch_len(ndim, g.np, g.nv))
-    return (int)cudaErrorInvalidValue;
-  if ((g.np + BLOCK - 1) / BLOCK > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int64_t nv = g.nv;
-  Scratch w;
-  w.q = scratch;
-  w.dq = w.q + nv * g.np;
-  w.duh = w.dq + nv * ndim * g.np;
-  w.qh = w.duh + nv * g.np;
-  w.bfh = w.qh + 8 * g.np;
-  w.flx = w.bfh + (int64_t)ndim * g.np;
-  w.emf = w.flx + nv * ndim * g.np;
-  MConsts k;
+  return 0;
+}
+
+int dispatch(const Call& c, int ndim, int riemann, int riemann2d) {
+  return ndim == 1 ? by_solver<1>(c, riemann, riemann2d)
+         : ndim == 2 ? by_solver<2>(c, riemann, riemann2d)
+                     : by_solver<3>(c, riemann, riemann2d);
+}
+
+}  // namespace
+
+// The largest passive count ramses_mhd_ct takes.
+extern "C" int ramses_mhd_ct_max_passive() { return MAX_PASSIVE; }
+
+// up: [8 + npassive, *sp+4], bf: [3, *sp+6] f32 contiguous; okp: [*sp+4]
+// f32 0/1 or NULL; ovm, ovv: [npair, *sp+4] f32 (mask 0/1, values) or
+// NULL; dt: one f32 on the device; un: [8 + npassive, *sp], bfn: [3, *sp].
+// n1 = 1 in 1D, n2 = 1 below 3D.  riemann: 0 llf, 1 hll, 2 hlld, 3 roe,
+// 4 upwind; riemann2d: 0 average, 1 llf, 2 roe, 3 upwind, 4 hll, 5 hlla,
+// 6 hlld; slope_type 0, 1, 2, 7 or 8 (slope_factor: 1, 2 or theta).
+// chunk: rows of axis 0 a block updates (2D, 3D), or 0 to choose them from
+// the box and the card; the result does not depend on it.
+// One launch on `stream`, no synchronisation, nothing allocated; returns
+// the error of cudaFuncSetAttribute or of the launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+extern "C" int ramses_mhd_ct(
+    const float* up, const float* bf, const float* okp, const float* ovm,
+    const float* ovv, const float* dt, float* un, float* bfn, int ndim,
+    int n0, int n1, int n2, int npassive, int riemann, int riemann2d,
+    int slope_type, float slope_factor, float gamma, float gm1, float g2,
+    float ig1, float smallr, float smallc, float smallc2, float pfloor,
+    float eint_floor, float dx0, float dx1, float dx2, int chunk,
+    void* stream) {
+  if ((ovm == nullptr) != (ovv == nullptr)) return (int)cudaErrorInvalidValue;
+  Call c;
+  int err = configure(c, ndim, n0, n1, n2, npassive, riemann, riemann2d,
+                      slope_type, chunk);
+  if (err) return err;
+  c.up = up; c.bf = bf; c.okp = okp; c.ovm = ovm; c.ovv = ovv; c.dt = dt;
+  c.un = un; c.bfn = bfn;
+  c.s = (cudaStream_t)stream;
+  c.info = nullptr;
+  MConsts& k = c.k;
   k.gamma = gamma; k.gm1 = gm1; k.g2 = g2; k.ig1 = ig1;
   k.smallr = smallr; k.smallc = smallc; k.smallc2 = smallc2;
   k.pfloor = pfloor; k.eint_floor = eint_floor;
   k.slope = slope_factor; k.slope_type = slope_type;
   k.dx[0] = dx0; k.dx[1] = dx1; k.dx[2] = dx2;
-  Args a{up, bf, okp, ovm, ovv, dt, un, bfn, riemann, riemann2d};
-  cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e = ndim == 1 ? run<1>(a, w, g, k, s)
-                        : ndim == 2 ? run<2>(a, w, g, k, s)
-                                    : run<3>(a, w, g, k, s);
-  return (int)e;
+  return dispatch(c, ndim, riemann, riemann2d);
+}
+
+// The launch's resources on the current device for (ndim, riemann,
+// riemann2d, npassive), codes as ramses_mhd_ct's: out[0] resident blocks an
+// SM, out[1] dynamic shared memory a block (bytes), out[2] registers a
+// thread, out[3] local memory a thread (bytes; spills), out[4] threads a
+// block.  Returns the first CUDA error.
+extern "C" int ramses_mhd_ct_info(int ndim, int riemann, int riemann2d,
+                                  int npassive, int* out) {
+  Call c;
+  int err = configure(c, ndim, 8, 8, 8, npassive, riemann, riemann2d, 1, 0);
+  if (err) return err;
+  c.info = out;
+  out[4] = ndim == 1 ? Tile<1>::NT : ndim == 2 ? Tile<2>::NT : Tile<3>::NT;
+  return dispatch(c, ndim, riemann, riemann2d);
 }

@@ -3,10 +3,11 @@
 Port of ``ramses_tpu/mhd/pallas_ct.py`` (``ct_step_slab``): one whole CT
 step — ``mhd/uniform.step_padded`` — on a ghost-padded box.  On the TPU it
 is one VMEM-resident block behind a size gate; here it is the
-hand-written kernel ``csrc/mhd_ct.cu``, a few stage kernels behind one
-wrapper call (primitives; slopes, Hancock predictor and half-dt face
-field; face fluxes; edge EMFs; the cell and face update), with the
-intermediates in device memory.  Like the TPU kernel it covers every
+hand-written kernel ``csrc/mhd_ct.cu``, one launch a call: each block
+marches a tile of columns along axis 0 and keeps every intermediate
+(primitives; slopes, Hancock predictor and half-dt face field; face
+fluxes; edge EMFs) in shared memory or registers, so device memory sees
+the padded inputs and the interior outputs only.  Like the TPU kernel it covers every
 configuration ``step_padded`` takes in f32: 1D/2D/3D, each 1D solver
 (llf, hll, hlld, roe, upwind), each corner solver (average, llf, roe,
 upwind, hll, hlla, hlld), slope types 0/1/2/7/8 and up to
@@ -31,8 +32,8 @@ import torch
 from ramses_tpu_torch.mhd import uniform as mu
 from ramses_tpu_torch.mhd.core import MhdStatic, NCOMP
 
-# Kernel launches (wrapper calls that launched the stage kernels) since the
-# count was last reset; the plain version does not count.
+# Kernel launches (wrapper calls that launched the kernel) since the count
+# was last reset; the plain version does not count.
 launches = 0
 
 _RIEMANN = {"llf": 0, "hll": 1, "hlld": 2, "roe": 3, "upwind": 4}
@@ -101,9 +102,8 @@ def ct_step_slab(up, bfp_ext, dt, dx: Sequence[float], cfg: MhdStatic,
     return _launch(up, bfp_ext, dt, dx, cfg, okp, ovr)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int64]
-             + [ctypes.c_int] * 8 + [ctypes.c_float] * 13
-             + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+             + [ctypes.c_float] * 13 + [ctypes.c_int] + [ctypes.c_void_p])
 
 
 def _library():
@@ -118,12 +118,24 @@ def bind(lib):
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        # the kernel's scratch layout lives in the .cu alone
-        lib.ramses_mhd_ct_scratch_len.argtypes = [ctypes.c_int,
-                                                  ctypes.c_int64,
-                                                  ctypes.c_int]
-        lib.ramses_mhd_ct_scratch_len.restype = ctypes.c_int64
+        lib.ramses_mhd_ct_info.argtypes = ([ctypes.c_int] * 4
+                                           + [ctypes.POINTER(ctypes.c_int)])
+        lib.ramses_mhd_ct_info.restype = ctypes.c_int
     return lib
+
+
+def launch_info(cfg: MhdStatic, lib=None) -> dict:
+    """The kernel's launch for ``cfg`` on the current device: threads and
+    dynamic shared memory a block, blocks an SM resident, registers and
+    local (spill) bytes a thread.  ``lib`` defaults to the card's build."""
+    lib = _library() if lib is None else bind(lib)
+    out = (ctypes.c_int * 5)()
+    err = lib.ramses_mhd_ct_info(cfg.ndim, _RIEMANN[cfg.riemann],
+                                 _RIEMANN2D[cfg.riemann2d], cfg.npassive, out)
+    if err:
+        raise RuntimeError(f"mhd_ct launch info failed (cudaError {err})")
+    return {"blocks_per_sm": out[0], "smem_bytes": out[1],
+            "registers": out[2], "local_bytes": out[3], "threads": out[4]}
 
 
 def _launch(up, bfp_ext, dt, dx, cfg, okp, ovr):
@@ -181,22 +193,19 @@ def _launch(up, bfp_ext, dt, dx, cfg, okp, ovr):
 
 
 def call(lib, up, bfp_ext, dt, dx, cfg, okf=None, ovm=None, ovv=None,
-         stream=None):
+         stream=None, chunk: int = 0):
     """One call of the C entry of ``lib`` (a build of ``csrc/mhd_ct.cu``
     with :func:`bind` applied) on checked arguments: ``dt`` a 0-d f32
     tensor, ``okf`` the padded refined mask as f32 0/1, ``ovm``/``ovv``
-    the stacked override [npair, \\*sp+4] in f32, each or None.  Outputs
-    and scratch go on ``up``'s device; raises on an error it returns."""
+    the stacked override [npair, \\*sp+4] in f32, each or None.
+    ``chunk``: the rows of axis 0 a block updates, 0 to let the kernel
+    choose them from the box and the card; the result does not depend on
+    it.  Outputs go on ``up``'s device; raises on an error it returns."""
     nd = cfg.ndim
     pshape = tuple(up.shape[1:])
     sp = tuple(n - 2 * NG for n in pshape)
-    npad = 1
-    for n in pshape:
-        npad *= n
     nvar = cfg.nvar
     dev = up.device
-    nscratch = lib.ramses_mhd_ct_scratch_len(nd, npad, nvar)
-    scratch = torch.empty(nscratch, dtype=torch.float32, device=dev)
     un = torch.empty((nvar,) + sp, dtype=torch.float32, device=dev)
     bfn = torch.empty((NCOMP,) + sp, dtype=torch.float32, device=dev)
     n3 = list(sp) + [1] * (3 - nd)
@@ -209,14 +218,14 @@ def call(lib, up, bfp_ext, dt, dx, cfg, okf=None, ovm=None, ovv=None,
         okf.data_ptr() if okf is not None else None,
         ovm.data_ptr() if ovm is not None else None,
         ovv.data_ptr() if ovv is not None else None,
-        dt.data_ptr(), scratch.data_ptr(), un.data_ptr(),
-        bfn.data_ptr(), nscratch, nd, *n3, cfg.npassive,
+        dt.data_ptr(), un.data_ptr(), bfn.data_ptr(), nd, *n3,
+        cfg.npassive,
         _RIEMANN[cfg.riemann], _RIEMANN2D[cfg.riemann2d],
         cfg.slope_type, slope, g, g - 1.0, g - 2.0, 1.0 / (g - 1.0),
         cfg.smallr, cfg.smallc, cfg.smallc ** 2,
         cfg.smallr * cfg.smallc ** 2,
         cfg.smallc ** 2 / cfg.gamma / (cfg.gamma - 1.0),
-        *dx3, stream)
+        *dx3, chunk, stream)
     if err:
         raise RuntimeError(f"mhd_ct kernel launch failed (cudaError {err})")
     return un, bfn

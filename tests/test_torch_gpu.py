@@ -392,17 +392,27 @@ def test_ct_kernel_matches_plain(cuda, sp, riemann, corner, slope_type,
 
 
 def test_scratch_matches_the_kernel_layout(cuda):
-    # the layout lives in csrc/mhd_ct.cu alone: q, dq, du_half, q_half,
-    # bf_half, fluxes, edge EMFs; the passive maximum there and in the gate
+    # the fused kernel keeps every intermediate in shared memory: no
+    # scratch entry, and the launch's rings sized from the passive count;
+    # the passive maximum there and in the gate; no spill for the llf,
+    # hll and hlld solvers with average, llf and hlld corners
     from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.mhd.core import MhdStatic
     lib = ct_slab._library()
-    assert lib.ramses_mhd_ct_scratch_len(1, 10, 8) == 10 * (
-        8 + 8 + 8 + 8 + 1 + 8 + 0)
-    assert lib.ramses_mhd_ct_scratch_len(2, 10, 8) == 10 * (
-        8 + 16 + 8 + 8 + 2 + 16 + 1)
-    assert lib.ramses_mhd_ct_scratch_len(3, 10, 9) == 10 * (
-        9 + 27 + 9 + 8 + 3 + 27 + 3)
+    assert not hasattr(lib, "ramses_mhd_ct_scratch_len")
     assert lib.ramses_mhd_ct_max_passive() == ct_slab.MAX_PASSIVE
+    for nd in (2, 3):
+        for rs in ("llf", "hll", "hlld"):
+            for r2 in ("average", "llf", "hlld"):
+                info = ct_slab.launch_info(MhdStatic(ndim=nd, riemann=rs,
+                                                     riemann2d=r2))
+                assert info["local_bytes"] == 0, (nd, rs, r2, info)
+                assert info["blocks_per_sm"] >= 1
+    small = ct_slab.launch_info(MhdStatic(ndim=3, riemann="hlld"))
+    big = ct_slab.launch_info(MhdStatic(ndim=3, riemann="hlld",
+                                        npassive=ct_slab.MAX_PASSIVE))
+    assert 0 < small["smem_bytes"] < big["smem_bytes"] <= 232448
+
 
 def test_ct_kernel_counts_launches_and_refuses_outside_scope(cuda):
     from ramses_tpu_torch.mhd import ct_slab
@@ -425,6 +435,135 @@ def test_ct_kernel_counts_launches_and_refuses_outside_scope(cuda):
     with pytest.raises(ValueError):
         ct_slab.ct_step_slab(up, bfp[:, 1:], dt, (0.1, 0.1), cfg)
     assert ct_slab.launches == before + 1
+
+
+# Ragged against K4's tiles (2D: 126 columns; 3D: 12 x 16 columns; 1D: 126
+# cells) on every axis, crossing at least two of them
+CT_RAGGED = [((300,), "hlld", "average", 1, True, 2),
+             ((70, 131), "hlld", "llf", 1, True, 0),
+             ((70, 131), "roe", "hlld", 2, True, 2),
+             ((34, 13, 20), "hlld", "hlld", 8, True, 0),
+             ((34, 13, 20), "roe", "roe", 2, True, 1)]
+
+
+@pytest.mark.parametrize("sp,riemann,corner,slope_type,masked,npassive",
+                         CT_RAGGED)
+def test_ct_kernel_on_ragged_multi_tile_boxes(cuda, sp, riemann, corner,
+                                              slope_type, masked, npassive):
+    from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.mhd.core import MhdStatic
+    cfg = MhdStatic(ndim=len(sp), riemann=riemann, riemann2d=corner,
+                    slope_type=slope_type, npassive=npassive)
+    up, bfp, okp, ovr = _mhd_box(sp, 3 + sum(sp), masked, npassive)
+    dt = torch.tensor(2e-3, dtype=torch.float32, device=cuda)
+    dx = (1.0 / sp[0],) * len(sp)
+    got = ct_slab.ct_step_slab(up, bfp, dt, dx, cfg, okp=okp, ovr=ovr)
+    want = ct_slab.ct_step_slab_ref(up, bfp, dt, dx, cfg, okp=okp, ovr=ovr)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("sp,riemann,corner", [
+    ((70, 131), "hlld", "llf"),
+    ((34, 13, 20), "roe", "hlld"),
+])
+def test_ct_kernel_row_chunks_are_bitwise(cuda, sp, riemann, corner):
+    """Chunks of rows ragged against the box (a row a warm-up row in one
+    cut, a steady one in another) give the same bits as the kernel's own
+    choice, with the mask, the override and passives."""
+    from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.mhd.core import MhdStatic
+    cfg = MhdStatic(ndim=len(sp), riemann=riemann, riemann2d=corner,
+                    npassive=2)
+    up, bfp, okp, ovr = _mhd_box(sp, 17, True, 2)
+    okf = okp.to(torch.float32)
+    pairs = sorted(ovr)
+    ovm = torch.stack([ovr[p][0].to(torch.float32) for p in pairs])
+    ovv = torch.stack([ovr[p][1] for p in pairs])
+    dt = torch.tensor(2e-3, dtype=torch.float32, device=cuda)
+    dx = (1.0 / sp[0],) * len(sp)
+    lib = ct_slab._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    ref = ct_slab.call(lib, up, bfp, dt, dx, cfg, okf, ovm, ovv, stream)
+    for chunk in (1, 3, 5, 32):
+        got = ct_slab.call(lib, up, bfp, dt, dx, cfg, okf, ovm, ovv, stream,
+                           chunk)
+        for g, w in zip(got, ref):
+            assert torch.equal(g, w), chunk
+    want = ct_slab.ct_step_slab_ref(up, bfp, dt, dx, cfg, okp=okp, ovr=ovr)
+    for g, w in zip(ref, want):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("sp,shift,riemann,corner", [
+    ((300,), (77,), "roe", "average"),
+    ((70, 131), (13, 57), "hlld", "llf"),
+    ((40, 130), (21, 101), "roe", "roe"),
+    ((34, 13, 20), (5, 3, 7), "hlld", "hlld"),
+])
+def test_ct_kernel_is_roll_invariant_on_the_card(cuda, sp, shift, riemann,
+                                                 corner):
+    """On a periodic box the step of the rolled state is the rolled step,
+    bitwise, with nvcc's FMA contraction on: a value that two blocks
+    compute (halo items, warm-up rows) has the same bits in both, and the
+    centred B is its two new faces' mean."""
+    from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.mhd import uniform as mu
+    from ramses_tpu_torch.mhd.core import MhdStatic
+    nd = len(sp)
+    cfg = MhdStatic(ndim=nd, riemann=riemann, riemann2d=corner)
+    up, bfp, _, _ = _mhd_box(sp, 11 + sum(sp), False)
+    inner = (slice(None),) + tuple(slice(2, -2) for _ in sp)
+    u = up[inner].contiguous()
+    bf = bfp[(slice(None),) + tuple(slice(3, -3) for _ in sp)].contiguous()
+    kinds = ((bmod.PERIODIC, bmod.PERIODIC),) * nd
+    dt = torch.tensor(2e-3, dtype=torch.float32, device=cuda)
+    dx = (1.0 / sp[0],) * nd
+    dims = tuple(range(1, nd + 1))
+
+    def step(u, bf):
+        return ct_slab.ct_step_slab(mu._pad(u, nd, kinds).contiguous(),
+                                    mu._pad(bf, nd, kinds,
+                                            mu.NGHOST + 1).contiguous(),
+                                    dt, dx, cfg)
+    ref = step(u, bf)
+    got = step(torch.roll(u, shift, dims), torch.roll(bf, shift, dims))
+    for g, w in zip(got, ref):
+        assert torch.equal(g, torch.roll(w, shift, dims)), \
+            float((g - torch.roll(w, shift, dims)).abs().max())
+    un, bfn = ref
+    for c in range(nd):
+        n = sp[c] - 1
+        mean = 0.5 * (bfn[c].narrow(c, 0, n) + bfn[c].narrow(c, 1, n))
+        assert torch.equal(un[5 + c].narrow(c, 0, n), mean)
+
+
+@pytest.mark.parametrize("sp", [(300,), (70, 131), (34, 13, 20)])
+def test_ct_kernel_is_one_launch_a_call(cuda, sp):
+    """One count and one CUDA kernel a call in a profiler trace: the stages
+    are fused, and the wrapper allocates only the outputs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.mhd.core import MhdStatic
+    cfg = MhdStatic(ndim=len(sp), riemann="hlld", riemann2d="llf")
+    up, bfp, _, _ = _mhd_box(sp, 5, False)
+    dt = torch.tensor(1e-3, dtype=torch.float32, device=cuda)
+    dx = (1.0 / sp[0],) * len(sp)
+    ct_slab.ct_step_slab(up, bfp, dt, dx, cfg)
+    torch.cuda.synchronize()
+    before = ct_slab.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ct_slab.ct_step_slab(up, bfp, dt, dx, cfg)
+        torch.cuda.synchronize()
+    assert ct_slab.launches == before + 3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    assert [e.count for e in rows] == [3], [(e.key, e.count) for e in rows]
+    assert "mhd_ct_fused" in rows[0].key
 
 
 def test_mhd_on_cuda_matches_cpu_and_never_waits(cuda):

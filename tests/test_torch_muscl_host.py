@@ -112,6 +112,11 @@ template <class F>
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
     int* n, F, int, size_t) { *n = 1; return 0; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+// one SM: the emulation runs one block at a time
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 1; return 0;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 typedef void* cudaStream_t;
 // one launch: every thread of a block is a thread; blocks in order, each
