@@ -30,9 +30,11 @@ Phases, each printing its own line; any failure exits non-zero:
 6. profile: 10 ``run_steps`` steps at 256³ under ``torch.profiler``: the
    device's busy share of the window and the time of each kernel; the
    trace goes to ``chiprun_out/chip_smoke_trace.json``;
-7. AMR kernel check: K3 (``tile_sweep``, shift 1 and 2) and K2
-   (``oct_sweep``, N = 256) against their plain versions on random batches
-   (llf/hllc × slope 1/2/8, half of them masked), within the same table;
+7. AMR kernel check: K3 (``tile_sweep`` on tile-major batches ``[5, N,
+   td, td, td]``: shift 1 and 2 at N = 64, shift 3, ragged N of 1, 3 and
+   33, ``K3_CASES``) and K2 (``oct_sweep``, N = 256) against their plain
+   versions on random batches (llf/hllc × slope 1/2/8, half of them
+   masked), within the same table;
 8. AMR main path: ``AmrSim(params).evolve(tend, nstepmax=10)`` on
    ``namelists/sedov3d.nml`` at levelmin=7, levelmax=9 with
    ``err_grad_d = err_grad_p = 0.1`` set in code (``bench.py``'s AMR
@@ -52,7 +54,11 @@ Phases, each printing its own line; any failure exits non-zero:
    K2; over the cells a face touches for a face flux, over the four faces
    for K2's per-oct sums).  Each is timed on the device per launch
    (``torch.profiler``); K3 and K2 also by the wall of one wrapper call
-   (CUDA events), with their plain versions' times and bounds; K1
+   (CUDA events), with their plain versions' times and bounds; K3 with
+   N, its launch (the chunk of x planes a block takes, blocks, shared
+   memory, blocks an SM, registers, spill) and every other chunk that fits
+   a block, each bitwise equal to the launch's own and timed, and the
+   same for random tiles at the ``K3_CHOICE_N`` batch sizes; K1
    beside its bound (u, mask and update moved once); the level-7
    flat↔dense gather against the 22-dimensional bit-axis permute
    it replaces;
@@ -169,7 +175,12 @@ Phases, each printing its own line; any failure exits non-zero:
    ghost regions, bitwise, one launch each; K5's device time at the
    uniform path's exchange (16 slabs of ``[5, 2, 260, 260]`` f32) against
    its byte bound, the plain version's and ``torch._foreach_copy_``'s
-   times; its time at the AMR level-7 z exchange;
+   times (the kernels line's ``halo_exchange`` row); its time at each of
+   phase 30's level-7 exchanges (the sweep's x, y and z with the mask, the
+   flag pass's x, y and z), bitwise, against each bound, and the plain
+   version's and ``torch._foreach_copy_``'s times at the sweep's z
+   exchange (the row ``halo_exchange_amr_z``), and K5's time there from
+   contiguous copies of its sources;
 29. uniform sedov3d at 256³ (phase 4's state) through ``run_steps_halo``
    on 8 shards of the card (``halo_backend='auto'`` → K5, the overlap
    split), 10 steps with every count at 0 just before: K5 once a step,
@@ -227,6 +238,15 @@ LOCAL_RTOL, LOCAL_ATOL = 1e-6, 1e-10
 # level.  The kernels' own per-value checks are phases 7 and 10.
 AMR_REL = 1e-5
 AMR_LEVELS = (7, 9)            # levelmin, levelmax of BASELINE config 2
+# phase 7's K3 batches (name, td, N, shift), alternating by case: the
+# main path's shift 2 and shift 1 at N 64, shift 3, and ragged N (1, 3, 33)
+K3_CASES = ((("tile_sweep", 8, 64, 1), ("tile_sweep", 12, 64, 2),
+             ("tile_sweep", 20, 3, 3), ("tile_sweep", 6, 33, 0)),
+            (("tile_sweep", 12, 1, 2), ("tile_sweep", 8, 33, 1),
+             ("tile_sweep", 20, 1, 3), ("tile_sweep", 12, 64, 2)))
+# phase 10's batches of random tiles at shift 2 past the main path's N:
+# K3's chunk choice beside every chunk's time
+K3_CHOICE_N = (128, 256, 1024)
 OT_LEVEL = 11                  # Orszag-Tang at 2048²
 # Orszag-Tang on the hierarchy: 512² complete, 2048² effective (PR 3's
 # uniform run), cut to 10 coarse steps
@@ -475,6 +495,38 @@ def _output_scales(blk, c: int, planes: bool):
     return du, torch.stack(faces, dim=1)
 
 
+def _batch_last(outs):
+    """K3's tile-major arrays (``[5, N, td...]``, ``du [5, N, ...]``,
+    ``corrp [5, 3, N, ...]``, ``phip [3, N, ...]``) as batch-last views,
+    the layout of the JAX package and of the scales here."""
+    return tuple(o.movedim(2 if i == 1 else 1, -1)
+                 for i, o in enumerate(outs))
+
+
+def _k3_chunks(blk, ok, dt, cfg, dx: float, shift: int, want) -> str:
+    """K3 at every x chunk of a tile that fits a block (as the launch
+    reports them): bitwise equal to ``want`` (the launch's own choice) or
+    raise; each one's device ms."""
+    import torch
+    from ramses_tpu_torch.hydro import oct_muscl as om
+    lib = om._library()
+    parts = []
+    for cx in om.launch_info(shift, blk.shape[1], cfg.riemann)["chunks"]:
+        info = om.launch_info(shift, blk.shape[1], cfg.riemann, cx)
+
+        def run():
+            return om.call(lib, blk, ok, dt, cfg, dx, shift, False,
+                           torch.cuda.current_stream().cuda_stream, chunk=cx)
+        got = run()
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"tile_sweep at chunk {cx} is not bitwise "
+                                 f"the launch's own chunk")
+        parts.append(f"{cx}: {_device_ms(run, 'sweep_kernel'):.4f} ms "
+                     f"({info['blocks_per_sm']}/SM)")
+    return "bitwise equal, " + ", ".join(parts)
+
+
 def _local_check(got, want, scales):
     """(max abs err, worst err / M of each output, tolerance excess) with
     each value held to ``LOCAL_ATOL + LOCAL_RTOL * M``, M its entry of
@@ -492,34 +544,71 @@ def _local_check(got, want, scales):
     return err, rels, excess
 
 
-def _device_ms(fn, kernel: str, n: int = 50, tries: int = 3) -> float:
+# kernels whose device time came from queued CUDA events because the
+# profiler lost their records in every window (see _device_ms)
+PROFILER_LOST = []
+
+
+def _device_ms(fn, kernel: str, n: int = 50, tries: int = 5,
+               launched=None, lost: int = 2) -> float:
     """Device time per call of ``fn`` of the one kernel whose name holds
     ``kernel``, from ``torch.profiler`` over ``n`` calls after a warm-up:
     its mean time.  CUDA events around a call of a ~10 µs kernel measure
     the host's dispatch of the call instead.  The trace may miss a launch
     or two of a window (it missed one of 180 K4 launches once, two and
     three of 50 K3 launches with the fluxes once each), which leaves the
-    mean unchanged, so the kernel must show n - 2 to n launches; a window
-    that shows fewer is traced again, up to ``tries`` windows."""
+    mean unchanged, so the kernel must show n - ``lost`` to n launches; a
+    window that shows fewer is traced again, up to ``tries`` windows.
+    The trace drops the records of the first launches of a window (more
+    of them late in a run: phase 24 saw 47 of 50 in every window), so each
+    window opens with 20 untimed elementwise kernels and a
+    synchronisation, and the timed calls come after them.  The trace has
+    also lost every kernel record of a window (and of three windows in a
+    row) while it held all n launch calls; where no window passes, the
+    time is taken by :func:`_queued_ms` (the kernel's time and the gaps
+    between launches) and the kernel is listed in ``PROFILER_LOST``,
+    which ``main`` prints.  ``launched``, where given,
+    reads the wrapper's launch count: the host must then have launched
+    exactly n times in the window, so that what the trace lacks is the
+    trace's loss, not a call that launched nothing."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
         fn()
+    lead = torch.zeros(16, device="cuda")
     torch.cuda.synchronize()
+    seen = []
     for _ in range(tries):
+        before = launched() if launched else None
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                lead.add_(1.0)
+            torch.cuda.synchronize()
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
+        if launched and launched() - before != n:
+            raise AssertionError(f"{launched() - before} launches of "
+                                 f"{kernel} in a window of {n} calls")
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and kernel in e.key]
         counts = [e.count for e in rows]
-        if len(rows) == 1 and n - 2 <= counts[0] <= n:
+        if len(rows) > 1:
+            raise AssertionError(f"{len(rows)} kernels hold {kernel} in "
+                                 f"their names, expected one")
+        if rows and n - lost <= counts[0] <= n:
             return rows[0].self_device_time_total / counts[0] / 1e3
-    raise AssertionError(f"profiled launches {counts} of {kernel} in each "
-                         f"of {tries} windows, expected {n} of one kernel")
+        seen.append(counts[0] if rows else 0)
+    before = launched() if launched else None
+    ms = _queued_ms(fn, n)
+    if launched and launched() - before != n + 3:
+        raise AssertionError(f"{launched() - before} launches of {kernel} "
+                             f"in {n + 3} calls")
+    PROFILER_LOST.append(f"{kernel} (records of {n} launches seen: "
+                         f"{seen}; queued events {ms:.4f} ms)")
+    return ms
 
 
 def _host_breakdown(sim, run, parts=("_flag_and_tree", "_rebuild_maps",
@@ -577,10 +666,12 @@ def _amr_phases(dev):
                                  for st in (1, 2, 8)):
         cfg = HydroStatic(ndim=3, riemann=rs, slope_type=st)
         masked = i % 2 == 0
-        for name, side, n, shift in (("tile_sweep", 8, 64, 1),
-                                     ("tile_sweep", 12, 64, 2),
-                                     ("oct_sweep", 6, 256, None)):
-            shape = (side,) * 3 + (n,)
+        for name, side, n, shift in K3_CASES[i % 2] + (
+                ("oct_sweep", 6, 256, None),):
+            # K3 takes the tile-major batch [5, N, td, td, td], K2 the
+            # batch-last [5, 6, 6, 6, N]
+            shape = ((n,) + (side,) * 3 if shift is not None
+                     else (side,) * 3 + (n,))
             u = torch.from_numpy(_random_state(shape, cfg.gamma, 7 + i))
             u = u.to(dev)
             g = torch.Generator(device="cpu").manual_seed(200 + i)
@@ -598,8 +689,9 @@ def _amr_phases(dev):
                     f"err {err:.3e}, tolerance excess {ex:.3e}")
             worst[name] = max(worst[name], err)
             ncase += 1
-    _print(f"phase 7 AMR kernel check: {ncase} cases (K3 shift 1 and 2, N "
-           f"64; K2 N 256) pass; max abs err tile_sweep "
+    _print(f"phase 7 AMR kernel check: {ncase} cases (K3 (shift, N) "
+           f"{sorted({(c[3], c[2]) for k in K3_CASES for c in k})}; K2 N "
+           f"256) pass; max abs err tile_sweep "
            f"{worst['tile_sweep']:.3e}, oct_sweep {worst['oct_sweep']:.3e}")
 
     # ---- 8. the AMR main path: sedov3d levelmin=7, levelmax=9 ----
@@ -713,10 +805,11 @@ def _amr_phases(dev):
                 interp = K.interp_cells(sim.u[l - 1], d["b_interp_cell"],
                                         d["b_interp_nb"], d["b_interp_sgn"],
                                         cfg)
-                blk = K._gather_utile(sim.u[l], interp, d["tile_src"],
+                blk = K._gather_tiles(sim.u[l], interp, d["tile_src"],
                                       d["tile_vsgn"], cfg, td)
-                ok = K._block_mask(d["tile_ok"], td, 3).to(torch.float32)
+                ok = d["tile_ok"].reshape(blk.shape[1:]).to(torch.float32)
                 extra, keep = (shift,), c_ ** 3 / td ** 3
+                n, as_last = blk.shape[1], _batch_last
             else:
                 interp = K.interp_cells(sim.u[l - 1], d["interp_cell"],
                                         d["interp_nb"], d["interp_sgn"], cfg)
@@ -724,14 +817,16 @@ def _amr_phases(dev):
                                      d["vsgn"], cfg)
                 ok = K._block_mask(d["ok_ref"], 6, 3).to(torch.float32)
                 extra, keep = (), 8 / 216
+                n, as_last = blk.shape[-1], tuple
             kern = getattr(om, name)
             plain = getattr(om, name + "_ref")
             got = kern(blk, ok, dt, cfg, dx, *extra)
             want = plain(blk, ok, dt, cfg, dx, *extra)
             torch.cuda.synchronize()
-            scales = _output_scales(blk, c_ if name == "tile_sweep" else 2,
+            scales = _output_scales(as_last((blk,))[0],
+                                    c_ if name == "tile_sweep" else 2,
                                     name == "tile_sweep")
-            err, rel, ex = _local_check(got, want, scales)
+            err, rel, ex = _local_check(as_last(got), as_last(want), scales)
             del scales
             rel = "/".join(f"{x:.3e}" for x in rel)
             if not ex <= 0.0:
@@ -753,15 +848,24 @@ def _amr_phases(dev):
                 * keep
             bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
             ops_ms = 1e3 * nops / F32_OPS_PER_S
-            n = blk.shape[-1]
-            tx = 32 if n >= 32 else 16 if n >= 16 else 8   # the launcher's
-            nblock = -(-n // tx) * (-(-c_ ** 3 // (128 // tx))
-                                    if name == "tile_sweep" else 1)
+            if name == "tile_sweep":
+                info = om.launch_info(shift, n, cfg.riemann)
+                launch = (f"{n * c_ // info['chunk']} blocks of "
+                          f"{info['threads']} threads, chunk "
+                          f"{info['chunk']} of {c_} planes, "
+                          f"{info['smem_bytes']} B shared, "
+                          f"{info['blocks_per_sm']} blocks/SM, "
+                          f"{info['registers']} registers, "
+                          f"{info['local_bytes']} B local; every chunk "
+                          + _k3_chunks(blk, ok, dt, cfg, dx, shift, got))
+            else:
+                tx = 32 if n >= 32 else 16 if n >= 16 else 8  # the launcher's
+                launch = f"{-(-n // tx)} blocks of {8 * tx} threads"
             rows[(name, l)] = dict(ms=ms, plain_ms=pms, err=err,
                                    bound_ms=max(bytes_ms, ops_ms),
                                    bound_by=("bytes" if bytes_ms >= ops_ms
                                              else "operations"))
-            lines.append(f"{name} level {l} N={n} ({nblock} blocks): "
+            lines.append(f"{name} level {l} N={n} ({launch}): "
                          f"{ms:.4f} ms/launch on the device (profiler), "
                          f"{call_ms:.4f} ms a wrapper call (CUDA events), "
                          f"plain {pms:.4f} ms, bound "
@@ -769,6 +873,22 @@ def _amr_phases(dev):
                          f" MB -> {bytes_ms:.5f} ms; {nops / 1e9:.4f} G ops "
                          f"-> {ops_ms:.5f} ms), max abs err {err:.3e}, err / "
                          f"stencil max (du/faces) {rel}")
+    # K3's chunk choice at larger batches: random tiles, a fifth refined
+    rng = np.random.default_rng(10)
+    for n in K3_CHOICE_N:
+        blk = torch.from_numpy(_random_state((n,) + (td,) * 3, cfg.gamma,
+                                             100 + n)).to(dev)
+        ok = torch.from_numpy((rng.random((n,) + (td,) * 3) < 0.2)
+                              .astype(np.float32)).to(dev)
+        dt = torch.tensor(dtc / 4, dtype=torch.float32, device=dev)
+        got = om.tile_sweep(blk, ok, dt, cfg, sim.dx(lmin + 2), shift)
+        torch.cuda.synchronize()
+        chunk = om.launch_info(shift, n, cfg.riemann)["chunk"]
+        lines.append(f"tile_sweep on {n} random tiles: the launch takes "
+                     f"chunk {chunk}; every chunk "
+                     + _k3_chunks(blk, ok, dt, cfg, sim.dx(lmin + 2), shift,
+                                  got))
+    del blk, ok, got
     # K1 on level 7 as dense_sweep hands it over: the dense gather of the
     # flat rows, the refined-cell mask, the coarse dt
     u7 = sim.u[lmin]
@@ -2116,7 +2236,8 @@ def _tracer_phases(dev):
         for name, side, n, shift in (("tile_sweep", 8, 64, 1),
                                      ("tile_sweep", 12, 64, 2),
                                      ("oct_sweep", 6, 256, None)):
-            shape = (side,) * 3 + (n,)
+            shape = ((n,) + (side,) * 3 if shift is not None
+                     else (side,) * 3 + (n,))
             ub = torch.from_numpy(_random_state(shape, cfg.gamma,
                                                 500 + i)).to(dev)
             okb = ((torch.rand(shape, generator=g) < 0.15)
@@ -2179,11 +2300,16 @@ def _tracer_phases(dev):
     rows, lines = {}, []
     fine = sim.levels()[1:]
 
-    def timing(kern, plain, args, nbytes, keep, base_kern):
+    def timing(kern, plain, args, nbytes, keep, base_kern, name=None):
         """Device ms a call with and without the fluxes, the plain
-        version's ms with them, and the bound of the flux variant."""
-        ms = _device_ms(lambda: kern(*args, want_flux=True), base_kern)
-        ms0 = _device_ms(lambda: kern(*args), base_kern)
+        version's ms with them, and the bound of the flux variant.  The
+        wrapper's count must show every launch of a timed window."""
+        def counter(key):
+            return None if name is None else lambda: om.launches[key]
+        ms = _device_ms(lambda: kern(*args, want_flux=True), base_kern,
+                        launched=counter(f"{name}_flux"))
+        ms0 = _device_ms(lambda: kern(*args), base_kern,
+                         launched=counter(name))
         pms = _median_ms(lambda: plain(*args, want_flux=True), reps=10)
         nops = _count_ops(lambda: plain(*args, want_flux=True)) * keep
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
@@ -2203,10 +2329,11 @@ def _tracer_phases(dev):
                 interp = K.interp_cells(sim.u[l - 1], d["b_interp_cell"],
                                         d["b_interp_nb"], d["b_interp_sgn"],
                                         cfg)
-                blk = K._gather_utile(sim.u[l], interp, d["tile_src"],
+                blk = K._gather_tiles(sim.u[l], interp, d["tile_src"],
                                       d["tile_vsgn"], cfg, td)
-                ok = K._block_mask(d["tile_ok"], td, 3).to(torch.float32)
+                ok = d["tile_ok"].reshape(blk.shape[1:]).to(torch.float32)
                 extra, keep, c = (shift,), c_ ** 3 / td ** 3, c_
+                n, as_last = blk.shape[1], _batch_last
             else:
                 interp = K.interp_cells(sim.u[l - 1], d["interp_cell"],
                                         d["interp_nb"], d["interp_sgn"], cfg)
@@ -2214,15 +2341,17 @@ def _tracer_phases(dev):
                                      d["vsgn"], cfg)
                 ok = K._block_mask(d["ok_ref"], 6, 3).to(torch.float32)
                 extra, keep, c = (), 8 / 216, 2
+                n, as_last = blk.shape[-1], tuple
             kern = getattr(om, name)
             plain = getattr(om, name + "_ref")
             args = (blk, ok, dt, cfg, dx, *extra)
             got = kern(*args, want_flux=True)
             want = plain(*args, want_flux=True)
             torch.cuda.synchronize()
-            scales = _output_scales(blk, c, name == "tile_sweep") + (
-                _flux_scales(blk, c, name == "tile_sweep"),)
-            err, rel, ex = _local_check(got, want, scales)
+            blk_last = as_last((blk,))[0]
+            scales = _output_scales(blk_last, c, name == "tile_sweep") + (
+                _flux_scales(blk_last, c, name == "tile_sweep"),)
+            err, rel, ex = _local_check(as_last(got), as_last(want), scales)
             del scales
             rel = "/".join(f"{x:.3e}" for x in rel)
             if not ex <= 0.0:
@@ -2234,9 +2363,9 @@ def _tracer_phases(dev):
             nbytes = 4 * (blk.numel() + ok.numel() + 1
                           + sum(x.numel() for x in got))
             rows[(name, l)] = dict(err=err, **timing(
-                kern, plain, args, nbytes, keep, "sweep_kernel"))
+                kern, plain, args, nbytes, keep, "sweep_kernel", name))
             t = rows[(name, l)]
-            lines.append(f"{name} with fluxes level {l} N={blk.shape[-1]}: "
+            lines.append(f"{name} with fluxes level {l} N={n}: "
                          f"{t['ms']:.4f} ms/launch (without the fluxes "
                          f"{t['ms0']:.4f}), plain {t['plain_ms']:.4f} ms, "
                          f"bound {t['bound_ms']:.5f} ms ({t['note']}), max "
@@ -2471,7 +2600,8 @@ def _valid_scale(up):
 
 def _parallel_phases(dev):
     """Phases 28-30 (the slab-sharded slice); returns the kernels line's
-    rows of K5 and of K1's padded entry."""
+    rows of K5 (at the uniform exchange, and at the AMR sweep's z
+    exchange) and of K1's padded entry."""
     import numpy as np
     import torch
     from ramses_tpu_torch.amr.hierarchy import AmrSim
@@ -2515,19 +2645,55 @@ def _parallel_phases(dev):
         raise AssertionError("torch._foreach_copy_ moved other bytes")
     k5_bound = 1e3 * 2 * slab_bytes / HBM_BYTES_PER_S
     del upr, pairs, dsts, srcs
-    # at the AMR level-7 sweep's z exchange: 8 shards of 64³ extended on x
-    # and y, the state and its mask, 32 slabs
-    blk = [torch.rand((5, 68, 68, 64), generator=g, device=dev)
-           for _ in range(NSHARD)]
-    msk = [torch.rand((68, 68, 64), generator=g, device=dev)
-           for _ in range(NSHARD)]
-    amr_pairs = _ring_pairs(blk, 3, 2) + _ring_pairs(msk, 2, 2)
-    amr_bytes = sum(s.numel() * 4 for s, _ in amr_pairs)
-    k5_err = max(k5_err, _k5_check(amr_pairs, f"the AMR level-7 z "
-                                   f"exchange's {len(amr_pairs)} slabs"))
-    k5_amr_ms = _queued_ms(lambda: dma_halo.halo_exchange(amr_pairs))
-    del blk, msk, amr_pairs
+    # at the AMR level-7 exchanges of phase 30: 8 shards of 64³, the x
+    # exchange on the box, y on the box extended along x, z on the box
+    # extended along x and y; the sweep's carry the state and its mask
+    # (ng 2), the flag pass's the state alone (ng 1)
+    amr, amr_err = {}, 0.0
+    for kind, ng, masked in (("sweep", 2, True), ("flags", 1, False)):
+        for ax, name in enumerate("xyz"):
+            sp = [64 + 2 * ng if a < ax else 64 for a in range(3)]
+            blk = [torch.rand([5] + sp, generator=g, device=dev)
+                   for _ in range(NSHARD)]
+            pairs = _ring_pairs(blk, 1 + ax, ng)
+            if masked:
+                msk = [torch.rand(sp, generator=g, device=dev)
+                       for _ in range(NSHARD)]
+                pairs += _ring_pairs(msk, ax, ng)
+            nbytes = sum(s.numel() * 4 for s, _ in pairs)
+            row = pairs[0][0].shape[-1] * 4 if ax == 2 else None
+            amr_err = max(amr_err, _k5_check(
+                pairs, f"the AMR level-7 {kind} {name} exchange's "
+                f"{len(pairs)} slabs"))
+            amr[(kind, name)] = dict(
+                ms=_queued_ms(lambda: dma_halo.halo_exchange(pairs)),
+                bytes=nbytes, n=len(pairs), row=row)
+            if (kind, name) == ("sweep", "z"):
+                # the case the kernels line reports: the most launches
+                dsts, srcs = [d for _, d in pairs], [s for s, _ in pairs]
+                amr_lib_ms = _queued_ms(
+                    lambda: torch._foreach_copy_(dsts, srcs))
+                amr_plain_ms = _queued_ms(
+                    lambda: dma_halo.halo_exchange_ref(pairs))
+                # the same bytes from contiguous sources: what the 8-byte
+                # rows every 256 bytes cost
+                flat = [(s.contiguous(), d) for s, d in pairs]
+                amr_flat_ms = _queued_ms(
+                    lambda: dma_halo.halo_exchange(flat))
+                del dsts, srcs, flat
+            del blk, pairs
+            if masked:
+                del msk
     torch.cuda.empty_cache()
+    k5_err = max(k5_err, amr_err)
+    z = amr[("sweep", "z")]
+    amr_bound = 1e3 * 2 * z["bytes"] / HBM_BYTES_PER_S
+    amr_line = "; ".join(
+        f"{kind} {name} ({v['n']} slabs, {v['bytes'] / 1e6:.3f} MB"
+        + (f", {v['row']}-byte rows" if v["row"] else "")
+        + f"): {v['ms']:.4f} ms/launch, bound "
+        f"{1e3 * 2 * v['bytes'] / HBM_BYTES_PER_S:.5f} ms"
+        for (kind, name), v in amr.items())
     _print(f"phase 28 halo_exchange (K5) check: {ncase} cases ({K5_CASES[0]}"
            f" shards of {K5_CASES[1]}, f32 and f64, each axis, depth 1 and "
            f"2, fresh and ghost-region destinations) bitwise equal to the "
@@ -2537,11 +2703,12 @@ def _parallel_phases(dev):
            f"one launch): {k5_ms:.4f} ms/launch, plain {k5_plain_ms:.4f} ms, "
            f"torch._foreach_copy_ {k5_lib_ms:.4f} ms (each on the device: "
            f"queued CUDA events), bound {k5_bound:.5f} ms by bytes "
-           f"({2 * slab_bytes / 1e6:.3f} MB read and written); AMR level-7 "
-           f"z exchange (state and mask, {4 * NSHARD} slabs, "
-           f"{amr_bytes / 1e6:.3f} MB, bitwise equal to the plain version, "
-           f"one launch): {k5_amr_ms:.4f} ms/launch, bound "
-           f"{1e3 * 2 * amr_bytes / HBM_BYTES_PER_S:.5f} ms")
+           f"({2 * slab_bytes / 1e6:.3f} MB read and written); the AMR "
+           f"level-7 exchanges of phase 30, each bitwise equal to the plain "
+           f"version in one launch: {amr_line}; at the sweep's z exchange "
+           f"plain {amr_plain_ms:.4f} ms, torch._foreach_copy_ "
+           f"{amr_lib_ms:.4f} ms, K5 from contiguous copies of its sources "
+           f"{amr_flat_ms:.4f} ms")
 
     # ---- 29. uniform sedov3d 256³ through run_steps_halo on 8 shards ----
     p = load_params(NML, ndim=3)
@@ -2762,6 +2929,13 @@ def _parallel_phases(dev):
           "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
           "bound_ms": k5_bound, "bound_by": "bytes",
           "library_ms": k5_lib_ms}
+    # the same kernel at the AMR sweep's z exchange, where phase 30 spends
+    # most of its K5 time: a row of its own, so that each row keeps one
+    # shape from run to run
+    k5z = dict(k5, name="halo_exchange_amr_z",
+               launches=launches30["halo_exchange"], max_abs_err=amr_err,
+               ms=z["ms"], plain_ms=amr_plain_ms, bound_ms=amr_bound,
+               library_ms=amr_lib_ms)
     k1p = {"name": "fused_muscl_padded", "route": "cuda",
            "source": "ramses_tpu_torch/csrc/fused_muscl.cu",
            "replaces": "ramses_tpu/hydro/pallas_muscl.py:387",
@@ -2769,7 +2943,7 @@ def _parallel_phases(dev):
            + launches30["fused_muscl_padded"],
            "max_abs_err": k1p_err, "ms": k1p_ms, "plain_ms": k1p_plain_ms,
            "bound_ms": k1p_bound, "bound_by": k1p_by, "library_ms": None}
-    return [k5, k1p]
+    return [k5, k5z, k1p]
 
 
 def main() -> int:
@@ -2990,6 +3164,10 @@ def main() -> int:
 
     # ---- 28-30. the slab-sharded paths: K5 and K1's padded entry ----
     parallel_rows = _parallel_phases(dev)
+    if PROFILER_LOST:
+        _print("timing: the profiler lost these kernels' records in every "
+               "window; their ms are queued CUDA events: "
+               + "; ".join(PROFILER_LOST))
     _print(json.dumps({"kernels": [k1] + oct_rows + [k4] + flux_rows
                        + parallel_rows}))
     _print(json.dumps({"ok": True, "device": {

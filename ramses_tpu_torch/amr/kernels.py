@@ -159,20 +159,26 @@ def interp_cells(u_coarse, cell_idx, nb_idx, sgn, cfg: HydroStatic,
     return out
 
 
-def _gather(u_flat, interp_vals, src_idx, vsgn, cfg: HydroStatic, side: int):
+def _gather(u_flat, interp_vals, src_idx, vsgn, cfg: HydroStatic, side: int,
+            batch_first: bool = False):
     """``[nvar, side^d..., nblock]`` batch from flat cells + interps + one
-    zero trash row; ``src_idx``/``vsgn``: ``[nblock, side^d]``."""
+    zero trash row, or with ``batch_first`` ``[nvar, nblock, side^d...]``
+    (K3's tile-major layout), each written in that order by one gather;
+    ``src_idx``/``vsgn``: ``[nblock, side^d]``."""
     trash = u_flat.new_zeros((1, cfg.nvar))
     src = torch.cat([u_flat, interp_vals.to(u_flat.dtype), trash])
-    # [nvar, side^d, nb], contiguous as the kernels take it
-    ul = src.t()[:, src_idx.t()].contiguous()
+    idx = src_idx if batch_first else src_idx.t()
+    ul = src.t().index_select(1, idx.reshape(-1)).reshape(
+        (cfg.nvar,) + tuple(idx.shape))
     if vsgn is not None:
         # reflecting boundaries: flip mirrored velocity components
-        vt = vsgn.t().to(torch.int64)
+        vt = (vsgn if batch_first else vsgn.t()).to(torch.int64)
         for d in range(cfg.ndim):
             flip = ((vt >> d) & 1).to(u_flat.dtype)
             ul[1 + d] = ul[1 + d] * (1.0 - 2.0 * flip)
-    return ul.reshape((cfg.nvar,) + (side,) * cfg.ndim + (src_idx.shape[0],))
+    nb, cells = src_idx.shape[0], (side,) * cfg.ndim
+    return ul.reshape((cfg.nvar,) + ((nb,) + cells if batch_first
+                                     else cells + (nb,)))
 
 
 def _gather_uloc(u_flat, interp_vals, stencil_src, vsgn, cfg: HydroStatic):
@@ -184,6 +190,14 @@ def _gather_utile(u_flat, interp_vals, tile_src, tile_vsgn,
                   cfg: HydroStatic, td: int):
     """The compact blocked tile batch ``[nvar, td..., ntile]``."""
     return _gather(u_flat, interp_vals, tile_src, tile_vsgn, cfg, td)
+
+
+def _gather_tiles(u_flat, interp_vals, tile_src, tile_vsgn,
+                  cfg: HydroStatic, td: int):
+    """K3's tile batch ``[nvar, ntile, td...]``: :func:`_gather_utile`'s
+    values with the batch axis just before the cell axes."""
+    return _gather(u_flat, interp_vals, tile_src, tile_vsgn, cfg, td,
+                   batch_first=True)
 
 
 def _flat_cells(blk, ndim: int):
@@ -298,67 +312,73 @@ def _mass_planes(f0, d, ndim: int, c: int):
 
 
 def _corr_from_planes(planes, d, ndim: int, c: int):
-    """Per-oct boundary-flux sums from face planes: (lo, hi), each
-    ``[nvar, (c//2)^ndim, ntile]`` in global dim order."""
+    """Per-oct boundary-flux sums from tile-major face planes ``[nvar,
+    ntile, c//2+1, c...(transverse)]``: (lo, hi), each ``[nvar, ntile,
+    (c//2)^ndim]`` in global dim order."""
     o = c // 2
-    nvar, ntile = planes.shape[0], planes.shape[-1]
-    g = planes.reshape([nvar, o + 1] + [o, 2] * (ndim - 1) + [ntile])
-    g = torch.movedim(g, [3 + 2 * i for i in range(ndim - 1)],
-                      list(range(1, ndim)))
-    s = g.sum(dim=tuple(range(1, ndim))) if ndim > 1 else g
+    nvar, ntile = planes.shape[:2]
+    g = planes.reshape([nvar, ntile, o + 1] + [o, 2] * (ndim - 1))
+    g = torch.movedim(g, [4 + 2 * i for i in range(ndim - 1)],
+                      list(range(2, ndim + 1)))
+    s = g.sum(dim=tuple(range(2, ndim + 1))) if ndim > 1 else g
 
     def oct_rows(x):
-        return torch.movedim(x, 1, 1 + d).reshape(nvar, o ** ndim, ntile)
-    return oct_rows(s[:, :o]), oct_rows(s[:, 1:])
+        return torch.movedim(x, 2, 2 + d).reshape(nvar, ntile, o ** ndim)
+    return oct_rows(s[:, :, :o]), oct_rows(s[:, :, 1:])
 
 
 def tile_sweep(u_flat, interp_vals, tile_src, tile_vsgn, tile_ok,
                cell_tile, cell_slot, oct_tile, oct_slot, dt, dx: float,
                cfg: HydroStatic, shift: int, ret_flux: bool = False):
     """Full godfine1 for one blocked partial level (same returns as
-    :func:`level_sweep`, ``ret_flux`` included), on the compact ``[nvar,
-    td..., ntile]`` tile batch: K3 where it covers the configuration, the
-    general formulation otherwise.  du/corr/phi come back to flat rows by
-    small gathers; pad cell rows index an appended zero column, so they
-    are exactly 0."""
+    :func:`level_sweep`, ``ret_flux`` included): K3 on the tile-major batch
+    ``[nvar, ntile, td...]`` where it covers the configuration, the general
+    formulation on the batch-last ``[nvar, td..., ntile]`` otherwise.
+    du/corr/phi come back to flat rows by small gathers; pad cell rows
+    index an appended zero column, so they are exactly 0."""
     nd, nvar = cfg.ndim, cfg.nvar
     c = 1 << (shift + 1)
     td = c + 2 * _NG
-    ut = _gather_utile(u_flat, interp_vals, tile_src, tile_vsgn, cfg, td)
-    ntile = ut.shape[-1]
-    okl = _block_mask(tile_ok, td, nd)
+    ntile = tile_src.shape[0]
     if om.supports(cfg, u_flat.dtype) and shift in om.SHIFTS:
+        ut = _gather_tiles(u_flat, interp_vals, tile_src, tile_vsgn, cfg, td)
         out = om.tile_sweep(
-            ut, okl.to(ut.dtype),
+            ut, tile_ok.reshape((ntile,) + (td,) * nd).to(ut.dtype),
             torch.as_tensor(dt, dtype=ut.dtype, device=ut.device), cfg, dx,
             shift, want_flux=ret_flux)
-        du_t = out[0]
+        du_t = out[0]                                  # [nvar, ntile, c...]
         planes = [out[1][:, d] for d in range(nd)]
         mass = [out[2][d] for d in range(nd)] if ret_flux else None
     else:
+        ut = _gather_utile(u_flat, interp_vals, tile_src, tile_vsgn, cfg, td)
+        okl = _block_mask(tile_ok, td, nd)
         fluxes, du_t = _general_update(ut, okl, dt, dx, cfg, c)
-        planes = [_face_planes(fluxes[d], d, nd, c) for d in range(nd)]
-        mass = ([_mass_planes(fluxes[d][0], d, nd, c) for d in range(nd)]
-                if ret_flux else None)
-    flat_idx = cell_slot.to(torch.int64) * ntile + cell_tile
-    du_src = torch.cat([du_t.reshape(nvar, c ** nd * ntile),
+        du_t = du_t.movedim(-1, 1)
+        planes = [_face_planes(fluxes[d], d, nd, c).movedim(-1, 1)
+                  for d in range(nd)]
+        mass = ([_mass_planes(fluxes[d][0], d, nd, c).movedim(-1, 0)
+                 for d in range(nd)] if ret_flux else None)
+    # pad rows (slot c^nd) index the appended zero column
+    flat_idx = torch.where(cell_slot == c ** nd, ntile * c ** nd,
+                           cell_tile.to(torch.int64) * c ** nd + cell_slot)
+    du_src = torch.cat([du_t.reshape(nvar, ntile * c ** nd),
                         du_t.new_zeros(nvar, 1)], dim=1)
     du_flat = du_src[:, flat_idx].t()                  # [ncell_pad, nvar]
     corr = []
     for d in range(nd):
         lo, hi = _corr_from_planes(planes[d], d, nd, c)
-        corr.append(torch.stack([lo[:, oct_slot, oct_tile],
-                                 hi[:, oct_slot, oct_tile]], dim=-1))
+        corr.append(torch.stack([lo[:, oct_tile, oct_slot],
+                                 hi[:, oct_tile, oct_slot]], dim=-1))
     corr = torch.stack(corr, dim=-2)                   # [nvar, noct, nd, 2]
     corr = torch.movedim(corr, 0, -1)
     if not ret_flux:
         return du_flat, corr
 
-    def cell_rows(x, d):                               # [c (along d), ...]
-        x = torch.movedim(x, 0, d).reshape(c ** nd * ntile)
+    def cell_rows(x, d):                       # [ntile, c (along d), ...]
+        x = torch.movedim(x, 1, 1 + d).reshape(ntile * c ** nd)
         return torch.cat([x, x.new_zeros(1)])[flat_idx]
-    phi = torch.stack([torch.stack([cell_rows(mass[d][:c], d),
-                                    cell_rows(mass[d][1:], d)], dim=-1)
+    phi = torch.stack([torch.stack([cell_rows(mass[d][:, :c], d),
+                                    cell_rows(mass[d][:, 1:], d)], dim=-1)
                        for d in range(nd)], dim=-2)    # [ncell, nd, 2]
     return du_flat, corr, phi
 

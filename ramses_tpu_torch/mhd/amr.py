@@ -296,9 +296,9 @@ def mhd_tile_sweep(u_flat, interp_u, bf_flat, interp_bf, tile_src, tile_ok,
     corr = []
     for d in range(nd):
         planes = K._face_planes(fl_cell[d] * (dt / dx), d, nd, c)
-        lo, hi = K._corr_from_planes(planes, d, nd, c)
-        corr.append(torch.stack([lo[:, oct_slot, oct_tile],
-                                 hi[:, oct_slot, oct_tile]], dim=-1))
+        lo, hi = K._corr_from_planes(planes.movedim(-1, 1), d, nd, c)
+        corr.append(torch.stack([lo[:, oct_tile, oct_slot],
+                                 hi[:, oct_tile, oct_slot]], dim=-1))
     corr = torch.movedim(torch.stack(corr, dim=-2), 0, -1)
 
     def _flat_cells(a):

@@ -135,16 +135,19 @@ def copy_layout(src: torch.Tensor, dst: torch.Tensor):
 
 class _Entry(ctypes.Structure):
     _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
-                ("nrows", ctypes.c_longlong), ("row_bytes", ctypes.c_longlong),
                 ("src_stride", ctypes.c_longlong),
-                ("dst_stride", ctypes.c_longlong)]
+                ("dst_stride", ctypes.c_longlong),
+                ("units", ctypes.c_int), ("per_row", ctypes.c_int),
+                ("first_block", ctypes.c_int), ("lg_unit", ctypes.c_int)]
 
 
 MAX_ENTRIES = 80                   # csrc/halo_exchange.cu kMaxEntries
+BLOCK_UNITS = 256 * 4              # kBlockUnits: kThreads * kUnroll
 
 
 class _Table(ctypes.Structure):
-    _fields_ = [("e", _Entry * MAX_ENTRIES), ("n", ctypes.c_int)]
+    _fields_ = [("e", _Entry * MAX_ENTRIES), ("n", ctypes.c_int),
+                ("nblocks", ctypes.c_int)]
 
 
 def halo_exchange_ref(pairs):
@@ -158,6 +161,30 @@ def halo_exchange_ref(pairs):
         d.copy_(src.as_strided((nrows, row), (ss, 1), src.storage_offset()))
 
 
+def plan(rows):
+    """K5's launch plan over copy rows ``(src, dst, nrows, row_bytes,
+    src_stride, dst_stride)`` (addresses and strides in bytes): per entry
+    ``(src, dst, src_stride, dst_stride, units, per_row, first_block,
+    lg_unit)`` and the launch's block count.  The unit is the widest of 16,
+    8, 4, 2 and 1 bytes that divides both addresses, the row length and
+    both strides; each entry gets its own ``ceil(units / BLOCK_UNITS)``
+    blocks, after the blocks of the entries before it."""
+    entries, first = [], 0
+    for src, dst, nrows, row_bytes, ss, ds in rows:
+        a = src | dst | row_bytes | ss | ds
+        lg = next(k for k in (4, 3, 2, 1, 0) if a % (1 << k) == 0)
+        per_row = row_bytes >> lg
+        units = nrows * per_row
+        if units >= 1 << 31:
+            raise ValueError(f"halo copy of {units} units of {1 << lg} bytes:"
+                             " an entry takes fewer than 2^31")
+        entries.append((src, dst, ss, ds, units, per_row, first, lg))
+        first += -(-units // BLOCK_UNITS)
+    if first >= 1 << 31:
+        raise ValueError(f"halo exchange of {first} blocks in one launch")
+    return entries, first
+
+
 def _library():
     from ramses_tpu_torch import kernels
     return bind(kernels.load("halo_exchange"))
@@ -168,19 +195,22 @@ def bind(lib):
     ``csrc/halo_exchange.cu`` (the tests also load a host build of it)."""
     fn = lib.ramses_halo_exchange
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.POINTER(_Table), ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.POINTER(_Table), ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.ramses_halo_max_entries.restype = ctypes.c_int
+        lib.ramses_halo_block_units.restype = ctypes.c_int
     return lib
 
 
 def call(lib, pairs, stream=None) -> int:
     """The C entry of ``lib`` (a build of ``csrc/halo_exchange.cu`` with
     :func:`bind` applied) over the ``(src, dst)`` pairs, at most
-    :data:`MAX_ENTRIES` a launch; returns the number of launches.  Raises on
-    an error it returns, and when the build's table size differs."""
-    if lib.ramses_halo_max_entries() != MAX_ENTRIES:
-        raise RuntimeError("halo_exchange build disagrees on the table size")
+    :data:`MAX_ENTRIES` a launch, each launch planned by :func:`plan`;
+    returns the number of launches.  Raises on an error it returns, and
+    when the build's table size or block size differs."""
+    if (lib.ramses_halo_max_entries() != MAX_ENTRIES
+            or lib.ramses_halo_block_units() != BLOCK_UNITS):
+        raise RuntimeError("halo_exchange build disagrees on the table")
     rows = []
     for src, dst in pairs:
         nrows, row, ss, ds = copy_layout(src, dst)
@@ -192,17 +222,14 @@ def call(lib, pairs, stream=None) -> int:
     n = 0
     for i in range(0, len(rows), MAX_ENTRIES):
         chunk = rows[i:i + MAX_ENTRIES]
+        entries, nblocks = plan(chunk)
         table = _Table()
-        table.n = len(chunk)
-        for j, r in enumerate(chunk):
-            table.e[j] = _Entry(*r)
-        nbytes = sum(r[2] * r[3] for r in chunk)
-        # enough 256-thread blocks for one 16-byte unit each of the largest
-        # entry, at most 16 a streaming multiprocessor of an H100
-        units = max(r[2] * r[3] for r in chunk) // 16
-        nblocks = int(min(max(1, -(-units // 256)), 132 * 16))
-        err = lib.ramses_halo_exchange(ctypes.byref(table), nblocks, stream)
+        table.n, table.nblocks = len(entries), nblocks
+        for j, e in enumerate(entries):
+            table.e[j] = _Entry(*e)
+        err = lib.ramses_halo_exchange(ctypes.byref(table), stream)
         if err:
+            nbytes = sum(r[2] * r[3] for r in chunk)
             raise RuntimeError(f"halo_exchange kernel launch failed "
                                f"(cudaError {err}, {nbytes} bytes)")
         n += 1

@@ -45,6 +45,7 @@ from ramses_tpu_torch.convert import amr_state_from  # noqa: E402
 from ramses_tpu_torch.convert import hydro_static_from  # noqa: E402
 from ramses_tpu_torch.grid import boundary as bmod  # noqa: E402
 from ramses_tpu_torch.hydro import oct_muscl as om  # noqa: E402
+from ramses_tpu_torch.hydro.core import HydroStatic  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NML = os.path.join(ROOT, "namelists", "sedov3d.nml")
@@ -254,10 +255,15 @@ def test_tile_sweep_matches(level5):
     # pad rows come out exactly zero
     nreal = jsim.tree.noct(5) * 8
     assert not got[0][nreal:].any()
-    # the gathered batch is laid out as the kernel takes it
-    ut = PK._gather_utile(_t(state0[5]), _t(binterp), _t(d["tile_src"]),
+    # the gathered batch is laid out as the kernel takes it: tile-major,
+    # the batch-last gather's values
+    ut = PK._gather_tiles(_t(state0[5]), _t(binterp), _t(d["tile_src"]),
                           None, hydro_static_from(jsim.cfg), 12)
-    assert ut.shape[:4] == (5, 12, 12, 12) and ut.is_contiguous()
+    ntile = d["tile_src"].shape[0]
+    assert tuple(ut.shape) == (5, ntile, 12, 12, 12) and ut.is_contiguous()
+    assert torch.equal(ut, PK._gather_utile(
+        _t(state0[5]), _t(binterp), _t(d["tile_src"]), None,
+        hydro_static_from(jsim.cfg), 12).movedim(-1, 1))
 
 
 def test_dense_sweep_with_mask_matches(level5):
@@ -388,6 +394,96 @@ def test_sweep_ret_flux_matches(level5, kind, f32):
         _close(phi, want[-1], rtol=2e-5, atol=2e-6)
     else:
         _close(phi, want[-1], rtol=FLUX_RTOL)
+
+
+def _tile_sweep_before(u_flat, interp_vals, tile_src, tile_vsgn, tile_ok,
+                       cell_tile, cell_slot, oct_tile, oct_slot, dt, dx,
+                       cfg, shift, ret_flux=False):
+    """``amr/kernels.tile_sweep`` as it was while K3 took the batch-last
+    layout ``[5, td, td, td, N]``: the batch-last gather, the plain version
+    on exactly those arrays, and the reindexing of its batch-last outputs."""
+    nd, nvar = cfg.ndim, cfg.nvar
+    c = 1 << (shift + 1)
+    td = c + 4
+    ut = PK._gather_utile(u_flat, interp_vals, tile_src, tile_vsgn, cfg, td)
+    ntile = ut.shape[-1]
+    okl = PK._block_mask(tile_ok, td, nd)
+    if om.supports(cfg, u_flat.dtype):
+        out = om.tile_sweep_ref(
+            ut.movedim(-1, 1), okl.to(ut.dtype).movedim(-1, 0),
+            torch.as_tensor(dt, dtype=ut.dtype), cfg, dx, shift,
+            want_flux=ret_flux)
+        du_t = out[0].movedim(1, -1)
+        planes = [out[1][:, d].movedim(1, -1) for d in range(nd)]
+        mass = ([out[2][d].movedim(0, -1) for d in range(nd)]
+                if ret_flux else None)
+    else:
+        fluxes, du_t = PK._general_update(ut, okl, dt, dx, cfg, c)
+        planes = [PK._face_planes(fluxes[d], d, nd, c) for d in range(nd)]
+        mass = ([PK._mass_planes(fluxes[d][0], d, nd, c) for d in range(nd)]
+                if ret_flux else None)
+    flat_idx = cell_slot.to(torch.int64) * ntile + cell_tile
+    du_src = torch.cat([du_t.reshape(nvar, c ** nd * ntile),
+                        du_t.new_zeros(nvar, 1)], dim=1)
+    du_flat = du_src[:, flat_idx].t()
+    corr = []
+    o = c // 2
+    for d in range(nd):
+        # the per-oct sums of the batch-last planes [nvar, o+1, c..., ntile]
+        g = planes[d].reshape([nvar, o + 1] + [o, 2] * (nd - 1) + [ntile])
+        g = torch.movedim(g, [3 + 2 * i for i in range(nd - 1)],
+                          list(range(1, nd)))
+        sm = g.sum(dim=tuple(range(1, nd)))
+        lo, hi = (torch.movedim(x, 1, 1 + d).reshape(nvar, o ** nd, ntile)
+                  for x in (sm[:, :o], sm[:, 1:]))
+        corr.append(torch.stack([lo[:, oct_slot, oct_tile],
+                                 hi[:, oct_slot, oct_tile]], dim=-1))
+    corr = torch.movedim(torch.stack(corr, dim=-2), 0, -1)
+    if not ret_flux:
+        return du_flat, corr
+
+    def cell_rows(x, d):
+        x = torch.movedim(x, 0, d).reshape(c ** nd * ntile)
+        return torch.cat([x, x.new_zeros(1)])[flat_idx]
+    phi = torch.stack([torch.stack([cell_rows(mass[d][:c], d),
+                                    cell_rows(mass[d][1:], d)], dim=-1)
+                       for d in range(nd)], dim=-2)
+    return du_flat, corr, phi
+
+
+@pytest.mark.parametrize("f32,ret_flux", [(True, False), (True, True),
+                                          (False, True)])
+def test_tile_sweep_bitwise_as_before(level5, f32, ret_flux):
+    """The tile-major batch (K3's layout) changes no bit of what
+    ``tile_sweep`` returns: du, the coarse corrections and the mass fluxes
+    equal the batch-last formulation's, through K3's plain version (f32)
+    and the general formulation (f64)."""
+    jsim, d, _, u5, _, binterp = _flux_inputs(level5, f32)
+    cfg = hydro_static_from(jsim.cfg)
+    names = ("tile_src", "tile_vsgn", "tile_ok", "cell_tile", "cell_slot",
+             "oct_tile", "oct_slot")
+    args = (_t(u5), _t(binterp),
+            *[None if d[a] is None else _t(d[a]) for a in names],
+            DT, jsim.dx(5), cfg, 2)
+    got = PK.tile_sweep(*args, ret_flux=ret_flux)
+    want = _tile_sweep_before(*args, ret_flux=ret_flux)
+    assert len(got) == len(want) == 2 + ret_flux
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_tile_gather_flips_reflected_velocities_as_before():
+    """With reflecting boundaries the tile-major gather flips the mirrored
+    velocity components of exactly the cells the batch-last one does."""
+    rng = np.random.default_rng(5)
+    cfg = HydroStatic(ndim=3)
+    u = torch.from_numpy(rng.standard_normal((40, 5)))
+    interp = torch.from_numpy(rng.standard_normal((9, 5)))
+    src = torch.from_numpy(rng.integers(0, 50, (3, 8 ** 3)))
+    vsgn = torch.from_numpy(rng.integers(0, 8, (3, 8 ** 3)).astype(np.int8))
+    want = PK._gather_utile(u, interp, src, vsgn, cfg, 8).movedim(-1, 1)
+    got = PK._gather_tiles(u, interp, src, vsgn, cfg, 8)
+    assert torch.equal(got, want) and got.is_contiguous()
 
 
 def test_scatter_corr_flux_matches(level5):

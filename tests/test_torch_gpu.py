@@ -129,6 +129,13 @@ def _batch(block, n, gamma, seed):
     return u, ok
 
 
+def _tiles(block, n, gamma, seed, dev):
+    """:func:`_batch` in K3's tile-major layout, on ``dev``."""
+    u, ok = _batch(block, n, gamma, seed)
+    return (torch.from_numpy(u).movedim(-1, 1).contiguous().to(dev),
+            torch.from_numpy(ok).movedim(-1, 0).contiguous().to(dev))
+
+
 @pytest.mark.parametrize("shift,n,riemann,slope_type", [
     (0, 5, "llf", 1), (1, 33, "hllc", 2), (2, 70, "hllc", 8),
     (2, 8, "llf", 2), (3, 9, "hllc", 1),
@@ -137,13 +144,31 @@ def test_tile_sweep_kernel_matches_plain(cuda, shift, n, riemann,
                                          slope_type):
     from ramses_tpu_torch.hydro import oct_muscl as om
     cfg = HydroStatic(ndim=3, riemann=riemann, slope_type=slope_type)
-    u, ok = _batch((1 << (shift + 1)) + 4, n, cfg.gamma, n)
-    u, ok = torch.from_numpy(u).to(cuda), torch.from_numpy(ok).to(cuda)
+    u, ok = _tiles((1 << (shift + 1)) + 4, n, cfg.gamma, n, cuda)
     dt = torch.tensor(2e-3, dtype=torch.float32, device=cuda)
     got = om.tile_sweep(u, ok, dt, cfg, 0.05, shift)
     want = om.tile_sweep_ref(u, ok, dt, cfg, 0.05, shift)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("shift,n", [(1, 3), (2, 64), (3, 5)])
+def test_tile_sweep_chunk_cuts_are_bitwise(cuda, shift, n):
+    """Every x chunk of a tile that a block can take gives the same bits
+    as the chunk the launch chooses."""
+    from ramses_tpu_torch.hydro import oct_muscl as om
+    cfg = HydroStatic(ndim=3, riemann="hllc", slope_type=2)
+    u, ok = _tiles((1 << (shift + 1)) + 4, n, cfg.gamma, 3 * n, cuda)
+    dt = torch.tensor(2e-3, dtype=torch.float32, device=cuda)
+    lib = om._library()
+    want = om.call(lib, u, ok, dt, cfg, 0.05, shift, True)
+    chunks = om.launch_info(shift, n, "hllc")["chunks"]
+    # every chunk up to the tile, but at shift 3 past 2 planes the shared
+    # memory
+    assert chunks == {1: [1, 2, 4], 2: [1, 2, 4, 8], 3: [1, 2]}[shift]
+    for cx in chunks:
+        got = om.call(lib, u, ok, dt, cfg, 0.05, shift, True, chunk=cx)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), cx
 
 
 @pytest.mark.parametrize("n,riemann,slope_type", [
@@ -163,8 +188,7 @@ def test_oct_sweep_kernel_matches_plain(cuda, n, riemann, slope_type):
 def test_oct_kernels_count_launches_and_refuse_outside_scope(cuda):
     from ramses_tpu_torch.hydro import oct_muscl as om
     cfg = HydroStatic(ndim=3)
-    u, ok = _batch(8, 8, cfg.gamma, 0)
-    u, ok = torch.from_numpy(u).to(cuda), torch.from_numpy(ok).to(cuda)
+    u, ok = _tiles(8, 8, cfg.gamma, 0, cuda)
     dt = torch.tensor(1e-3, dtype=torch.float32, device=cuda)
     before = dict(om.launches)
     om.tile_sweep(u, ok, dt, cfg, 0.1, 1)
@@ -177,6 +201,8 @@ def test_oct_kernels_count_launches_and_refuse_outside_scope(cuda):
         om.tile_sweep(u, ok, dt, cfg, 0.1, 2)        # td 8 is shift 1
     with pytest.raises(ValueError):
         om.tile_sweep(u, ok, 1e-3, cfg, 0.1, 1)
+    with pytest.raises(ValueError):
+        om.tile_sweep(u.movedim(1, -1), ok.movedim(0, -1), dt, cfg, 0.1, 1)
     with pytest.raises(ValueError):
         om.oct_sweep(u, ok, dt, cfg, 0.1)            # not a 6^3 stencil
 
@@ -246,9 +272,11 @@ def test_oct_kernels_want_flux_match_plain(cuda, shift, n):
     their own keys."""
     from ramses_tpu_torch.hydro import oct_muscl as om
     cfg = HydroStatic(ndim=3, riemann="llf", slope_type=8)
-    block = 6 if shift is None else (1 << (shift + 1)) + 4
-    u, ok = _batch(block, n, cfg.gamma, n + 1)
-    u, ok = torch.from_numpy(u).to(cuda), torch.from_numpy(ok).to(cuda)
+    if shift is None:
+        u, ok = _batch(6, n, cfg.gamma, n + 1)
+        u, ok = torch.from_numpy(u).to(cuda), torch.from_numpy(ok).to(cuda)
+    else:
+        u, ok = _tiles((1 << (shift + 1)) + 4, n, cfg.gamma, n + 1, cuda)
     dt = torch.tensor(2e-3, dtype=torch.float32, device=cuda)
     name = "oct_sweep" if shift is None else "tile_sweep"
     extra = () if shift is None else (shift,)

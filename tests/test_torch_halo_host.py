@@ -5,10 +5,13 @@ shared library: a small header stands in for the CUDA runtime (the
 qualifiers are empty, the vector types are aligned structs) and the
 ``<<<grid, block>>>`` launch becomes loops over blocks and threads, in
 order.  Each launch then copies exactly what the card's would, so the
-copy table (:func:`ramses_tpu_torch.parallel.dma_halo.call`), the unit
-choice by alignment and the grid-stride walk are held bitwise to
+copy table and its launch plan (:func:`ramses_tpu_torch.parallel.
+dma_halo.call`, :func:`~ramses_tpu_torch.parallel.dma_halo.plan`: a range
+of blocks an entry, the unit chosen by alignment), the block's search for
+its entry and each thread's loads in flight are held bitwise to
 :func:`ramses_tpu_torch.parallel.dma_halo.halo_exchange_ref` here on the
-CPU, before any chip run.  Skips without ``g++``.
+CPU, before any chip run.  Skips without ``g++``; the plan's coverage test
+needs no compiler.
 """
 
 import ctypes
@@ -126,3 +129,123 @@ def test_k5_host_build_splits_a_long_table(host_lib):
     assert dma_halo.call(host_lib, pairs) == 2
     for src, dst in pairs:
         assert torch.equal(src, dst)
+
+
+def _held(host_lib, pairs, launches=1):
+    """K5's host build over ``pairs`` (destinations filled with 77 first)
+    against the plain version into copies filled the same way: bitwise,
+    nothing written outside the destinations."""
+    def base(t):
+        return t._base if t._base is not None else t
+    ref = []
+    for s, d in pairs:
+        base(d).fill_(77)
+        rb = torch.full_like(base(d), 77)
+        ref.append((s, rb.as_strided(d.shape, d.stride(),
+                                     d.storage_offset())))
+    assert dma_halo.call(host_lib, pairs) == launches
+    dma_halo.halo_exchange_ref(ref)
+    for (s, d), (_, r) in zip(pairs, ref):
+        assert torch.equal(base(d), base(r)) and torch.equal(d, s)
+
+
+def _ring(blocks, ax, ng):
+    """Every shard's high slab along ``ax`` to shard +1, its low slab to
+    shard -1, into fresh tensors: one direction after the other, as
+    ``exchange_slabs`` orders a field's sends."""
+    n = len(blocks)
+    hi = [(b.narrow(ax, b.shape[ax] - ng, ng), (s + 1) % n)
+          for s, b in enumerate(blocks)]
+    lo = [(b.narrow(ax, 0, ng), (s - 1) % n) for s, b in enumerate(blocks)]
+    return [(src, torch.empty_like(src, memory_format=torch.contiguous_format))
+            for src, _ in hi + lo]
+
+
+@pytest.mark.parametrize("ng,masked", [(2, True), (1, False)])
+def test_k5_host_build_at_the_amr_exchanges(host_lib, ng, masked):
+    """The sharded AMR level's exchanges at a small size: 8 shards of a
+    6^3 box, the state ``[5, ...]`` and (the sweep, ng 2) its mask, the x
+    exchange on the box, y on the box extended along x, z on the box
+    extended along x and y (rows of 2 and 1 f32, 8 and 4 bytes), one launch
+    an exchange as ``halo_extend`` makes them."""
+    rng = np.random.default_rng(ng)
+    loc = 6
+    for axis in range(3):
+        shape = [loc + 2 * ng if a < axis else loc for a in range(3)]
+        state = [torch.from_numpy(rng.standard_normal([5] + shape)).float()
+                 for _ in range(8)]
+        pairs = _ring(state, 1 + axis, ng)
+        if masked:
+            mask = [torch.from_numpy(rng.random(shape) < 0.3).float()
+                    for _ in range(8)]
+            pairs += _ring(mask, axis, ng)
+        _held(host_lib, pairs)
+
+
+def test_k5_host_build_small_entries_beside_large_ones(host_lib):
+    """Entries of 1 unit up to several blocks' worth in one launch, in an
+    order that puts small ones between large ones, with every unit width
+    among them: each entry's block range is its own."""
+    rng = np.random.default_rng(11)
+    pairs = []
+    for k, (shape, dtype, ax, ng) in enumerate([
+            ((5, 40, 30, 9), torch.float32, 1, 2),     # 16-byte units, wide
+            ((3, 4, 5), torch.float32, 2, 1),          # one 4-byte unit a row
+            ((2, 3), torch.uint8, 1, 1),               # 1-byte units
+            ((5, 30, 41, 20), torch.float32, 3, 2),    # 8-byte rows
+            ((4, 2, 6), torch.int16, 2, 1),            # 2-byte units
+            ((1, 1, 4), torch.float64, 2, 2),          # one 16-byte row
+            ((7, 33, 65), torch.float64, 1, 2),        # 16-byte units
+            ((9,), torch.float32, 0, 3),               # a 12-byte row
+    ]):
+        b = torch.from_numpy(rng.standard_normal(shape) * 50).to(dtype)
+        for src in (b.narrow(ax, b.shape[ax] - ng, ng), b.narrow(ax, 0, ng)):
+            pairs.append((src, torch.empty_like(
+                src, memory_format=torch.contiguous_format)))
+    _held(host_lib, pairs)
+
+
+def _covered(entries, nblocks):
+    """How many times each unit of each entry is copied by a launch of
+    ``nblocks`` blocks of K5's plan: the kernel's block -> entry search and
+    each thread's units, over every block and thread."""
+    firsts = np.array([e[6] for e in entries])
+    hits = [np.zeros(e[4], dtype=np.int64) for e in entries]
+    t = np.arange(256)
+    for b in range(nblocks):
+        k = int(np.searchsorted(firsts, b, side="right")) - 1
+        units = entries[k][4]
+        first = (b - firsts[k]) * dma_halo.BLOCK_UNITS + t
+        for j in range(4):
+            i = first + j * 256
+            np.add.at(hits[k], i[i < units], 1)
+    return hits
+
+
+@pytest.mark.parametrize("sizes", [
+    [(1, 8)], [(3000, 8), (1, 4), (5, 16), (2049, 4)],
+    [(1024, 16), (1023, 16), (1025, 16)],
+    [(7, 1)] * 5 + [(100, 12)] + [(1, 2)] * 3])
+def test_k5_plan_covers_every_unit_once(sizes):
+    """The plan's block ranges cover each unit of every entry exactly once
+    (rows, row bytes; addresses 16-aligned)."""
+    rows = [(1 << 20, 1 << 24, n, rb, rb, rb) for n, rb in sizes]
+    entries, nblocks = dma_halo.plan(rows)
+    assert [e[6] for e in entries] == sorted(e[6] for e in entries)
+    for e, (n, rb) in zip(entries, sizes):
+        assert e[4] == n * rb >> e[7] and rb % (1 << e[7]) == 0
+    for h in _covered(entries, nblocks):
+        assert h.size and bool((h == 1).all())
+
+
+def test_k5_plan_unit_width_follows_alignment():
+    """16-byte units only where both addresses, the row and both strides
+    are multiples of 16; an odd address falls to single bytes."""
+    def lg(src, dst, rb, ss, ds):
+        return dma_halo.plan([(src, dst, 3, rb, ss, ds)])[0][0][7]
+    assert lg(0, 0, 32, 64, 32) == 4
+    assert lg(8, 0, 32, 64, 32) == 3
+    assert lg(0, 0, 8, 256, 8) == 3
+    assert lg(0, 4, 8, 256, 8) == 2
+    assert lg(0, 0, 6, 12, 6) == 1
+    assert lg(1, 0, 32, 64, 32) == 0

@@ -60,11 +60,13 @@ struct dim3 {
 static thread_local dim3 blockIdx, threadIdx, blockDim, gridDim;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__
 #define __shared__ static
 #define __align__(n)
+struct alignas(16) float4 { float x, y, z, w; };
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 // the running launch: its block barrier, warp barriers and dynamic buffer
@@ -230,6 +232,16 @@ def test_k1_host_build_matches_plain_version(host_libs, riemann, slope,
            want if want_flux else (want,))
 
 
+def _tiles(shift, n, gamma, seed, masked):
+    """A random tile batch ``[5, n, td, td, td]`` and its mask ``[n, td,
+    td, td]`` (15 % refined, or none)."""
+    td = (1 << (shift + 1)) + 4
+    u = _state((td,) * 3 + (n,), gamma, seed).movedim(-1, 1).contiguous()
+    ok = torch.from_numpy(np.random.default_rng(seed).random((n,) + (td,) * 3)
+                          < (0.15 if masked else 0.0)).to(torch.float32)
+    return u, ok
+
+
 @pytest.mark.parametrize("shift,riemann,slope,want_flux", [
     (0, "llf", 1, True),
     (1, "hllc", 2, False),
@@ -240,17 +252,78 @@ def test_k1_host_build_matches_plain_version(host_libs, riemann, slope,
 def test_k3_host_build_matches_plain_version(host_libs, shift, riemann,
                                              slope, want_flux):
     cfg = HydroStatic(ndim=3, riemann=riemann, slope_type=slope)
-    td = (1 << (shift + 1)) + 4
-    n = 40 if shift < 3 else 3
-    shape = (td,) * 3 + (n,)
-    u = _state(shape, cfg.gamma, 20 + shift)
-    ok = (torch.from_numpy(np.random.default_rng(shift).random(shape) < 0.15)
-          .to(torch.float32))
+    u, ok = _tiles(shift, 40 if shift < 3 else 3, cfg.gamma, 20 + shift,
+                   True)
     dt = torch.tensor(2e-3, dtype=torch.float32)
     got = om.call(host_libs[1], u, ok, dt, cfg, 1.0 / 32, shift, want_flux)
     want = om.tile_sweep_ref(u, ok, dt, cfg, 1.0 / 32, shift, want_flux)
     assert len(got) == len(want) == 2 + want_flux
     _close(got, want)
+
+
+@pytest.mark.parametrize("shift,n,riemann,slope,masked,want_flux", [
+    (0, 1, "llf", 1, True, True),
+    (0, 33, "hllc", 2, False, False),
+    (1, 3, "llf", 8, True, True),
+    (1, 64, "hllc", 1, False, True),
+    (2, 1, "hllc", 2, True, False),
+    (2, 33, "llf", 1, True, True),
+    (2, 64, "hllc", 8, True, True),
+    (3, 1, "hllc", 8, True, False),
+    (3, 3, "llf", 1, False, True),
+])
+def test_k3_host_build_on_ragged_batches(host_libs, shift, n, riemann, slope,
+                                         masked, want_flux):
+    """Batches of 1, 3, 33 and 64 tiles at every shift, masked and not,
+    each solver and slope: the staged block (one tile's x chunk a block,
+    the chunk chosen by the launch) within the table of the plain
+    version."""
+    cfg = HydroStatic(ndim=3, riemann=riemann, slope_type=slope)
+    u, ok = _tiles(shift, n, cfg.gamma, 50 + n + shift, masked)
+    dt = torch.tensor(2e-3, dtype=torch.float32)
+    got = om.call(host_libs[1], u, ok, dt, cfg, 1.0 / 32, shift, want_flux)
+    want = om.tile_sweep_ref(u, ok, dt, cfg, 1.0 / 32, shift, want_flux)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("shift,riemann,want_flux", [
+    (0, "hllc", True), (1, "llf", True), (2, "hllc", True),
+    (3, "llf", False)])
+def test_k3_host_build_chunk_cuts_are_bitwise(host_libs, shift, riemann,
+                                              want_flux):
+    """Every x chunk that fits the shared memory (1 plane a block up to the
+    whole tile) gives the same bits: halo planes and the x faces between
+    chunks are recomputed by the same instructions."""
+    c = 1 << (shift + 1)
+    cfg = HydroStatic(ndim=3, riemann=riemann, slope_type=2)
+    u, ok = _tiles(shift, 5 if shift < 3 else 2, cfg.gamma, 70 + shift, True)
+    dt = torch.tensor(2e-3, dtype=torch.float32)
+    chunks = om.launch_info(shift, 1, riemann, lib=host_libs[1])["chunks"]
+    assert chunks[:2] == [1, 2] and chunks[-1] <= c
+    for cx in (1, 2, 4, 8, 16)[:shift + 2]:
+        if cx not in chunks:         # past an H100 block's shared memory
+            with pytest.raises(RuntimeError):
+                om.launch_info(shift, 1, riemann, cx, host_libs[1])
+    outs = [om.call(host_libs[1], u, ok, dt, cfg, 1.0 / 32, shift,
+                    want_flux, chunk=cx) for cx in chunks]
+    for other in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], other))
+
+
+def test_k3_host_build_reports_its_launch(host_libs):
+    """The info entry answers through the wrapper's binding: the chunk the
+    launch takes (on the host's one SM, the whole tile where it fits) and
+    its shared memory (primitives and mask of the staged planes, 20
+    floats of slopes and sources a box cell, the parked fluxes)."""
+    info = om.launch_info(2, 64, "hllc", lib=host_libs[1])
+    assert info["chunk"] == 8 and info["threads"] == 256
+    assert info["smem_bytes"] == 4 * (6 * 12 * 144 + 20 * 10 * 100
+                                      + 5 * (9 * 64 + 2 * 8 * 9 * 8))
+    assert info["chunks"] == [1, 2, 4, 8]
+    info3 = om.launch_info(3, 64, "llf", lib=host_libs[1])
+    assert info3["chunk"] == 2 and info3["chunks"] == [1, 2]
+    with pytest.raises(RuntimeError):
+        om.launch_info(2, 64, "llf", chunk=3, lib=host_libs[1])
 
 
 @pytest.mark.parametrize("riemann,slope,want_flux", [

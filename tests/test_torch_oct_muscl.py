@@ -3,7 +3,8 @@
 The JAX side runs ``pallas_oct.tile_sweep`` and ``pallas_oct.oct_sweep`` in
 Pallas interpreter mode, as ``tests/test_oct_blocking.py`` does; the
 port's side runs ``tile_sweep`` / ``oct_sweep`` on CPU tensors, which are
-their plain versions ``tile_sweep_ref`` / ``oct_sweep_ref``.  The CUDA
+their plain versions ``tile_sweep_ref`` / ``oct_sweep_ref`` (K3's batch
+axis just before the cell axes, ``movedim`` of the JAX package's last).  The CUDA
 kernels are held against the same plain versions on the card by
 ``chip_smoke.py`` and ``tests/test_torch_gpu.py``.  Tolerances are the
 table of ``tests/test_pallas_kernel.py``: rtol 2e-5 / atol 2e-6 for
@@ -52,6 +53,17 @@ def _close(got, want):
                                atol=ATOL)
 
 
+def _tiles(u, ok):
+    """K3's tile-major layout of a batch-last batch."""
+    return (torch.from_numpy(u).movedim(-1, 1),
+            torch.from_numpy(ok).movedim(-1, 0))
+
+
+def _batch_last(outs):
+    """K3's results in the JAX package's layout, batch last."""
+    return [o.movedim(2 if i == 1 else 1, -1) for i, o in enumerate(outs)]
+
+
 @pytest.mark.parametrize("shift,riemann,slope_type,masked", [
     (1, "llf", 1, True),
     (1, "hllc", 8, False),
@@ -66,12 +78,13 @@ def test_tile_sweep_ref_matches_pallas(shift, riemann, slope_type, masked):
     want = pallas_oct.tile_sweep(jnp.asarray(u), jnp.asarray(ok),
                                  jnp.float32(dt), jcfg, DX, shift,
                                  interpret=True)
-    got = om.tile_sweep(torch.from_numpy(u), torch.from_numpy(ok),
+    got = om.tile_sweep(*_tiles(u, ok),
                         torch.tensor(dt, dtype=torch.float32),
                         hydro_static_from(jcfg), DX, shift)
     c = 1 << (shift + 1)
-    assert tuple(got[0].shape) == (5, c, c, c, 8)
-    assert tuple(got[1].shape) == (5, 3, c // 2 + 1, c, c, 8)
+    assert tuple(got[0].shape) == (5, 8, c, c, c)
+    assert tuple(got[1].shape) == (5, 3, 8, c // 2 + 1, c, c)
+    got = _batch_last(got)
     _close(got[0], want[0])
     _close(got[1], want[1])
 
@@ -94,7 +107,7 @@ def test_oct_sweep_ref_matches_pallas(riemann, slope_type):
 @pytest.mark.parametrize("shift,riemann,masked", [
     (1, "hllc", True), (2, "llf", False)])
 def test_tile_sweep_ref_want_flux_matches_pallas(shift, riemann, masked):
-    """phip [3, c+1, c, c, N]: every cell-face mass-flux plane."""
+    """phip [3, N, c+1, c, c]: every cell-face mass-flux plane."""
     jcfg = _cfg(riemann, 2)
     td = (1 << (shift + 1)) + 4
     u, ok = _batch(td, 8, jcfg.gamma, 40 + shift, masked)
@@ -102,12 +115,12 @@ def test_tile_sweep_ref_want_flux_matches_pallas(shift, riemann, masked):
     want = pallas_oct.tile_sweep(jnp.asarray(u), jnp.asarray(ok),
                                  jnp.float32(dt), jcfg, DX, shift,
                                  interpret=True, want_flux=True)
-    got = om.tile_sweep(torch.from_numpy(u), torch.from_numpy(ok),
+    got = om.tile_sweep(*_tiles(u, ok),
                         torch.tensor(dt, dtype=torch.float32),
                         hydro_static_from(jcfg), DX, shift, want_flux=True)
     c = 1 << (shift + 1)
-    assert tuple(got[2].shape) == (3, c + 1, c, c, 8)
-    for g, w in zip(got, want):
+    assert tuple(got[2].shape) == (3, 8, c + 1, c, c)
+    for g, w in zip(_batch_last(got), want):
         _close(g, w)
 
 
@@ -138,10 +151,11 @@ def test_plain_versions_are_no_launch_and_return_want_flux():
     before = dict(om.launches)
     du, corr = om.oct_sweep(*args, cfg, DX)
     assert torch.isfinite(du).all() and torch.isfinite(corr).all()
-    du_t, planes = om.tile_sweep(*args, cfg, DX, 0)
-    assert tuple(planes.shape) == (5, 3, 2, 2, 2, 8)
-    du_tf, planes_f, phip = om.tile_sweep(*args, cfg, DX, 0, want_flux=True)
-    assert tuple(phip.shape) == (3, 3, 2, 2, 8)
+    targs = _tiles(u, ok) + args[2:]
+    du_t, planes = om.tile_sweep(*targs, cfg, DX, 0)
+    assert tuple(planes.shape) == (5, 3, 8, 2, 2, 2)
+    du_tf, planes_f, phip = om.tile_sweep(*targs, cfg, DX, 0, want_flux=True)
+    assert tuple(phip.shape) == (3, 8, 3, 2, 2)
     du_f, corr_f, phi = om.oct_sweep(*args, cfg, DX, want_flux=True)
     assert tuple(phi.shape) == (3, 2, 2, 2, 2, 8)
     assert torch.equal(du_f, du) and torch.equal(corr_f, corr)
@@ -150,7 +164,7 @@ def test_plain_versions_are_no_launch_and_return_want_flux():
     # shift 0: the tile's planes 0 and 2 are the oct's per-oct faces (the
     # mass column of the correction planes), and each cell's net face
     # flux is its mass update
-    torch.testing.assert_close(phip[:, ::2], planes[0])
+    torch.testing.assert_close(phip[:, :, ::2], planes[0])
     net = (phi[:, 0] - phi[:, 1]).sum(dim=0)
     torch.testing.assert_close(du[0], net, rtol=1e-5, atol=1e-7)
 
@@ -173,8 +187,10 @@ def test_shift0_tile_sweep_equals_oct_sweep_on_one_oct_tiles():
     u, ok = _batch(6, 16, cfg.gamma, 3, True)
     args = (torch.from_numpy(u).double(), torch.from_numpy(ok).double(),
             torch.tensor(1e-3, dtype=torch.float64))
-    du_t, planes = om.tile_sweep_ref(*args, cfg, DX, 0)
+    du_t, planes = om.tile_sweep_ref(args[0].movedim(-1, 1),
+                                     args[1].movedim(-1, 0), args[2], cfg,
+                                     DX, 0)
     du_o, corr = om.oct_sweep_ref(*args, cfg, DX)
-    torch.testing.assert_close(du_t, du_o, rtol=0, atol=0)
-    torch.testing.assert_close(planes.sum(dim=(3, 4)), corr, rtol=1e-14,
-                               atol=1e-16)
+    torch.testing.assert_close(du_t.movedim(1, -1), du_o, rtol=0, atol=0)
+    torch.testing.assert_close(planes.sum(dim=(4, 5)).movedim(2, -1), corr,
+                               rtol=1e-14, atol=1e-16)
