@@ -32,9 +32,11 @@ Phases, each printing its own line; any failure exits non-zero:
    trace goes to ``chiprun_out/chip_smoke_trace.json``;
 7. AMR kernel check: K3 (``tile_sweep`` on tile-major batches ``[5, N,
    td, td, td]``: shift 1 and 2 at N = 64, shift 3, ragged N of 1, 3 and
-   33, ``K3_CASES``) and K2 (``oct_sweep``, N = 256) against their plain
-   versions on random batches (llf/hllc × slope 1/2/8, half of them
-   masked), within the same table;
+   33, ``K3_CASES``) and K2 (``oct_sweep`` at N = 1, 7, 45, 300, 2048 and
+   256, ``K2_N``) against their plain versions on random batches
+   (llf/hllc × slope 1/2/8, half of them masked), within the same table;
+   K2 at every count of octs a block that fits (``launch_info``), each
+   bitwise equal to the launch's own choice;
 8. AMR main path: ``AmrSim(params).evolve(tend, nstepmax=10)`` on
    ``namelists/sedov3d.nml`` at levelmin=7, levelmax=9 with
    ``err_grad_d = err_grad_p = 0.1`` set in code (``bench.py``'s AMR
@@ -58,7 +60,13 @@ Phases, each printing its own line; any failure exits non-zero:
    N, its launch (the chunk of x planes a block takes, blocks, shared
    memory, blocks an SM, registers, spill) and every other chunk that fits
    a block, each bitwise equal to the launch's own and timed, and the
-   same for random tiles at the ``K3_CHOICE_N`` batch sizes; K1
+   same for random tiles at the ``K3_CHOICE_N`` batch sizes; K2 with
+   its launch (the octs a block takes, blocks, shared memory, blocks an
+   SM, registers, spill) and every other count of octs a block, each
+   bitwise equal to the launch's own and timed; K2 with the mass fluxes on
+   each level's octs bitwise K3 at shift 0 on the same octs laid out
+   tile-major (du and phi; corr the sum of K3's four face planes in K2's
+   order, ``oct_muscl.oct_from_tiles``); K1
    beside its bound (u, mask and update moved once); the level-7
    flat↔dense gather against the 22-dimensional bit-axis permute
    it replaces;
@@ -244,6 +252,9 @@ K3_CASES = ((("tile_sweep", 8, 64, 1), ("tile_sweep", 12, 64, 2),
              ("tile_sweep", 20, 3, 3), ("tile_sweep", 6, 33, 0)),
             (("tile_sweep", 12, 1, 2), ("tile_sweep", 8, 33, 1),
              ("tile_sweep", 20, 1, 3), ("tile_sweep", 12, 64, 2)))
+# phase 7's K2 batches, one a case: ragged against the octs a block
+# takes, and the main path's level-9 N
+K2_N = (1, 7, 45, 300, 2048, 256)
 # phase 10's batches of random tiles at shift 2 past the main path's N:
 # K3's chunk choice beside every chunk's time
 K3_CHOICE_N = (128, 256, 1024)
@@ -343,6 +354,20 @@ def _ptxas_report(log: str) -> str:
     spills = re.findall(r"(\d+) bytes spill stores", log)
     return "; ".join(f"{n}: {r} registers, {sp} B spill stores"
                      for n, r, sp in zip(names, regs, spills))
+
+
+def _sweep_bytes(c: int, n: int, outs) -> int:
+    """Bytes a K3 or K2 call must move for ``n`` blocks of ``(c+4)^3``
+    stencil cells (K2: c = 2): each output written once, the 0-d dt, and
+    only the stencil cells its outputs read.  A face reads the state, the
+    slopes and the mask of the cells beside it (those one step past the
+    c^3 interior, summed over the axes), and their slopes read the state of
+    the cells two steps past it; no output reads the rest (at c = 2, 80
+    cells' state and 32 cells' mask of 216)."""
+    band = [max(2 - x, x - c - 1, 0) for x in range(c + 4)]
+    far = [a + b + e for a in band for b in band for e in band]
+    state, mask = sum(a <= 2 for a in far), sum(a <= 1 for a in far)
+    return 4 * (n * (5 * state + mask) + 1 + sum(x.numel() for x in outs))
 
 
 def _count_ops(fn) -> int:
@@ -503,28 +528,52 @@ def _batch_last(outs):
                  for i, o in enumerate(outs))
 
 
-def _k3_chunks(blk, ok, dt, cfg, dx: float, shift: int, want) -> str:
-    """K3 at every x chunk of a tile that fits a block (as the launch
+def _chunks(blk, ok, dt, cfg, dx: float, shift, want,
+            timed: bool = True) -> str:
+    """K3 (``shift`` an int) at every x chunk of a tile, or K2 (``shift``
+    None) at every count of octs a block, that fits a block (as the launch
     reports them): bitwise equal to ``want`` (the launch's own choice) or
-    raise; each one's device ms."""
+    raise; with ``timed`` each one's device ms."""
     import torch
     from ramses_tpu_torch.hydro import oct_muscl as om
     lib = om._library()
+    n = blk.shape[1 if shift is not None else -1]
+    okf = ok.to(torch.float32).contiguous()
+    name = "tile_sweep" if shift is not None else "oct_sweep"
     parts = []
-    for cx in om.launch_info(shift, blk.shape[1], cfg.riemann)["chunks"]:
-        info = om.launch_info(shift, blk.shape[1], cfg.riemann, cx)
-
+    for cx in om.launch_info(shift, n, cfg.riemann)["chunks"]:
         def run():
-            return om.call(lib, blk, ok, dt, cfg, dx, shift, False,
+            return om.call(lib, blk, okf, dt, cfg, dx, shift, False,
                            torch.cuda.current_stream().cuda_stream, chunk=cx)
         got = run()
         torch.cuda.synchronize()
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"tile_sweep at chunk {cx} is not bitwise "
-                                 f"the launch's own chunk")
-        parts.append(f"{cx}: {_device_ms(run, 'sweep_kernel'):.4f} ms "
-                     f"({info['blocks_per_sm']}/SM)")
-    return "bitwise equal, " + ", ".join(parts)
+            raise AssertionError(f"{name} at chunk {cx} is not bitwise the "
+                                 f"launch's own chunk (N {n})")
+        if timed:
+            info = om.launch_info(shift, n, cfg.riemann, cx)
+            parts.append(f"{cx}: {_device_ms(run, 'sweep_kernel'):.4f} ms "
+                         f"({info['blocks_per_sm']}/SM)")
+    return "bitwise equal" + (", " + ", ".join(parts) if parts else "")
+
+
+def _k2_is_k3(blk, ok, dt, cfg, dx: float) -> str:
+    """K2 with the mass fluxes on the octs ``blk [5, 6, 6, 6, N]`` against
+    K3 at shift 0 on the same octs laid out tile-major: du and phi bitwise,
+    corr bitwise the sum of K3's four face planes in K2's order (the
+    kernels share their stage code), or raise."""
+    from ramses_tpu_torch.hydro import oct_muscl as om
+    got = om.oct_sweep(blk, ok, dt, cfg, dx, want_flux=True)
+    want = om.oct_from_tiles(om.tile_sweep(
+        blk.movedim(-1, 1).contiguous(), ok.movedim(-1, 0).contiguous(), dt,
+        cfg, dx, 0, want_flux=True))
+    for name, g, w in zip(("du", "corr", "phi"), got, want):
+        if not (g.shape == w.shape and bool((g == w).all())):
+            raise AssertionError(
+                f"oct_sweep's {name} is not bitwise tile_sweep's at shift 0 "
+                f"on the same octs: max abs difference "
+                f"{float((g - w).abs().max()):.3e}")
+    return "du, corr and phi bitwise K3 at shift 0 on the same octs"
 
 
 def _local_check(got, want, scales):
@@ -662,12 +711,14 @@ def _amr_phases(dev):
     # ---- 7. K3 and K2 against their plain versions, random batches ----
     worst = {"tile_sweep": 0.0, "oct_sweep": 0.0}
     ncase = 0
+    k2_octs = {}                       # N -> (the launch's octs a block,
+                                       #       the counts that fit)
     for i, (rs, st) in enumerate((rs, st) for rs in ("llf", "hllc")
                                  for st in (1, 2, 8)):
         cfg = HydroStatic(ndim=3, riemann=rs, slope_type=st)
         masked = i % 2 == 0
         for name, side, n, shift in K3_CASES[i % 2] + (
-                ("oct_sweep", 6, 256, None),):
+                ("oct_sweep", 6, K2_N[i], None),):
             # K3 takes the tile-major batch [5, N, td, td, td], K2 the
             # batch-last [5, 6, 6, 6, N]
             shape = ((n,) + (side,) * 3 if shift is not None
@@ -689,10 +740,16 @@ def _amr_phases(dev):
                     f"err {err:.3e}, tolerance excess {ex:.3e}")
             worst[name] = max(worst[name], err)
             ncase += 1
+            if shift is None:
+                info = om.launch_info(None, n, rs)
+                _chunks(u, ok, dt, cfg, 1.0 / 64, None, got, False)
+                k2_octs[n] = (info["chunk"], len(info["chunks"]))
     _print(f"phase 7 AMR kernel check: {ncase} cases (K3 (shift, N) "
            f"{sorted({(c[3], c[2]) for k in K3_CASES for c in k})}; K2 N "
-           f"256) pass; max abs err tile_sweep "
-           f"{worst['tile_sweep']:.3e}, oct_sweep {worst['oct_sweep']:.3e}")
+           f"{list(K2_N)}) pass; max abs err tile_sweep "
+           f"{worst['tile_sweep']:.3e}, oct_sweep {worst['oct_sweep']:.3e}; "
+           f"K2 bitwise at every count of octs a block that fits (N: the "
+           f"launch's count, the counts that fit) {k2_octs}")
 
     # ---- 8. the AMR main path: sedov3d levelmin=7, levelmax=9 ----
     p = _amr_params()
@@ -840,8 +897,7 @@ def _amr_phases(dev):
                                  reps=200, warm=50)
             pms = _median_ms(lambda: plain(blk, ok, dt, cfg, dx, *extra),
                              reps=10)
-            nbytes = 4 * (blk.numel() + ok.numel() + 1
-                          + sum(x.numel() for x in got))
+            nbytes = _sweep_bytes(c_ if name == "tile_sweep" else 2, n, got)
             # the plain version computes on the whole block; the kernel's
             # work is the interior's share of it
             nops = _count_ops(lambda: plain(blk, ok, dt, cfg, dx, *extra)) \
@@ -850,17 +906,26 @@ def _amr_phases(dev):
             ops_ms = 1e3 * nops / F32_OPS_PER_S
             if name == "tile_sweep":
                 info = om.launch_info(shift, n, cfg.riemann)
-                launch = (f"{n * c_ // info['chunk']} blocks of "
+                launch = (f"{info['blocks']} blocks of "
                           f"{info['threads']} threads, chunk "
                           f"{info['chunk']} of {c_} planes, "
                           f"{info['smem_bytes']} B shared, "
                           f"{info['blocks_per_sm']} blocks/SM, "
                           f"{info['registers']} registers, "
                           f"{info['local_bytes']} B local; every chunk "
-                          + _k3_chunks(blk, ok, dt, cfg, dx, shift, got))
+                          + _chunks(blk, ok, dt, cfg, dx, shift, got))
             else:
-                tx = 32 if n >= 32 else 16 if n >= 16 else 8  # the launcher's
-                launch = f"{-(-n // tx)} blocks of {8 * tx} threads"
+                info = om.launch_info(None, n, cfg.riemann)
+                launch = (f"{info['blocks']} blocks of {info['threads']} "
+                          f"threads, {info['chunk']} octs a block, "
+                          f"{info['smem_bytes']} B shared, "
+                          f"{info['blocks_per_sm']} blocks/SM, "
+                          f"{info['registers']} registers, "
+                          f"{info['local_bytes']} B local; every count of "
+                          f"octs a block "
+                          + _chunks(blk, ok, dt, cfg, dx, None, got)
+                          + "; with the mass fluxes "
+                          + _k2_is_k3(blk, ok, dt, cfg, dx))
             rows[(name, l)] = dict(ms=ms, plain_ms=pms, err=err,
                                    bound_ms=max(bytes_ms, ops_ms),
                                    bound_by=("bytes" if bytes_ms >= ops_ms
@@ -886,7 +951,7 @@ def _amr_phases(dev):
         chunk = om.launch_info(shift, n, cfg.riemann)["chunk"]
         lines.append(f"tile_sweep on {n} random tiles: the launch takes "
                      f"chunk {chunk}; every chunk "
-                     + _k3_chunks(blk, ok, dt, cfg, sim.dx(lmin + 2), shift,
+                     + _chunks(blk, ok, dt, cfg, sim.dx(lmin + 2), shift,
                                   got))
     del blk, ok, got
     # K1 on level 7 as dense_sweep hands it over: the dense gather of the
@@ -2360,8 +2425,7 @@ def _tracer_phases(dev):
                                      f"the tracer path: max abs err "
                                      f"{err:.3e}, err / M (du/faces/phi) "
                                      f"{rel}")
-            nbytes = 4 * (blk.numel() + ok.numel() + 1
-                          + sum(x.numel() for x in got))
+            nbytes = _sweep_bytes(c, n, got)
             rows[(name, l)] = dict(err=err, **timing(
                 kern, plain, args, nbytes, keep, "sweep_kernel", name))
             t = rows[(name, l)]

@@ -198,21 +198,15 @@ def _multi_step(u, dev, t, tend, dt0, spec: FusedSpec, nsteps: int):
 
 def unported_amr_features(params: Params) -> list:
     """Names of the namelist's features the port's AMR hierarchy does not
-    run yet."""
+    run yet: :func:`ramses_tpu_torch.driver.unported_features` and the
+    hierarchy's own."""
     from ramses_tpu_torch.driver import unported_features
-    a, r = params.amr, params.run
+    a = params.amr
     root = [a.nx, a.ny, a.nz][:params.ndim]
     checks = [
         ("load balance (&AMR_PARAMS load_balance)", a.load_balance),
         ("offload (&AMR_PARAMS offload)",
          str(a.offload).strip().lower() != "off"),
-        ("step guard (&RUN_PARAMS max_step_retries)",
-         r.max_step_retries > 0),
-        ("watchdog (&RUN_PARAMS *_deadline_s)",
-         max(r.compile_deadline_s, r.step_deadline_s, r.io_deadline_s) > 0),
-        ("telemetry (&OUTPUT_PARAMS telemetry)",
-         bool(str(params.output.telemetry or "").strip("'\" "))),
-        ("restart (&RUN_PARAMS nrestart)", r.nrestart > 0),
         ("non-cubic coarse grid (&AMR_PARAMS nx, ny, nz)",
          any(int(n) != 1 for n in root)),
     ]

@@ -11,7 +11,8 @@
 //       increasing order;
 //   K2: uloc [5, 6, 6, 6, N], ok [6, 6, 6, N] -> du [5, 2, 2, 2, N] and
 //       corr [5, 3, 2, N]: the low (index 2) and high (index 4) face fluxes
-//       summed over the 2x2 transverse interior, times dt/dx.
+//       times dt/dx, summed over the 2x2 transverse interior in the order
+//       ((f00 + f01) + f10) + f11.
 // With want_flux (phi != NULL) each also writes the dt/dx-scaled mass
 // fluxes of the MC-tracer capture: K3 all c+1 cell-face planes along each
 // direction, phip [3, N, c+1, c, c] (pallas_oct.py:345-350); K2 each
@@ -25,160 +26,65 @@
 // just before the cell axes, so that one tile's variable is a contiguous
 // td^3 run (6.9 KB at shift 2) that a block reads with 16-byte loads; the
 // port's gather (amr/kernels.py) writes it directly.  K2 keeps the batch
-// axis minor: its threads take consecutive octs at one cell.
+// axis minor: a block's consecutive octs at one cell are consecutive floats.
 //
 // The roofline on an H100 is bytes: per tile at shift 2 (td 12, c 8) the
-// sweep must read 6 td^3 floats (state and mask, 41.5 KB) and write
-// 5 c^3 + 15 (c/2+1) c^2 floats (29.4 KB), 21 ns of device memory time per
-// tile at 3.35 TB/s (the mass-flux planes add 3 (c+1) c^2 floats, 2.6 KB;
-// K2's add 48 an oct), against ~6 ns for the ~0.8 k f32 operations per
-// interior cell at 67 TFLOP/s.  At the main path's ~64 tiles that is a
-// microsecond or two of work, so what sets the time is how much
+// sweep must read the cells its outputs read (1,376 cells' state and 896
+// cells' mask of td^3 = 1,728: 31.1 KB) and write 5 c^3 + 15 (c/2+1) c^2
+// floats (29.4 KB), 18 ns of device memory time per tile at 3.35 TB/s (the
+// mass-flux planes add 3 (c+1) c^2 floats, 2.6 KB);
+// K2's inputs are 1,296 floats an oct, of which its outputs read 432 (80
+// cells' state, 32 cells' mask, OCT_CELLS), and it writes 70 (48 more with
+// the mass fluxes), 0.6 ns an oct; against ~6 ns for the ~0.8 k f32
+// operations per interior cell at 67 TFLOP/s.  At the main path's ~64 tiles or ~2 k octs
+// that is a microsecond or a few of work, so what sets the time is how much
 // independent work is in flight and how long each chain is.
 //
-// K3: one block takes one x-chunk of one tile (chunk cx of its c interior
-// planes, with 2-plane halos), in stages separated by barriers:
-//   1. each thread loads 4 staged cells' state and mask with 16-byte loads
-//      and writes their primitives to shared memory (every staged cell
-//      once);
-//   2. the slopes and trace sources of every cell a face reads (the
-//      (cx+2) x (c+2)^2 box less its edges), once each;
-//   3. every face the chunk's cells touch, one direction at a time: its
-//      two face states from shared memory, one Riemann solve, the keep
-//      mask; it writes corrp/phip and parks the flux in shared memory;
-//   4. each interior cell's du from its six parked fluxes, in K1's order.
-// A tile's cuts recompute only the halo planes and the x-faces between
-// chunks.  The launch picks cx from the occupancy query and the SM count
-// (ramses_tile_sweep's chunk 0, tile_chunk), so that a small batch still
-// puts blocks on every SM.  Same bits whatever the chunk: every stage is one
-// `#pragma unroll 1` loop (one per direction in stage 3) whose body is the
-// only code that computes its value, and a cell's lane within a 16-byte
-// load does not depend on the chunk (td^2 is a multiple of 4), so a value
-// recomputed by two blocks is computed by the same instructions on the
-// same inputs.
-//
-// K2: one thread per (interior cell, batch entry), neighbours' primitives
-// and slopes recomputed in registers (about 7x the arithmetic), so
-// instructions and latency set its time; the per-oct sums need the four
-// cells of a face: each thread parks its face flux in shared memory and,
-// after one barrier, the oct's eight threads add them in a fixed order, so
-// the sums are the same from run to run.
+// Both run the same four stages through shared memory, separated by
+// barriers, on the same stage bodies below:
+//   1. the conserved state and mask of every staged cell (K2: every cell
+//      an output reads), loaded once, and its primitives written to shared
+//      memory;
+//   2. the slopes and trace sources of every cell a face reads, once each;
+//   3. every face, one direction at a time: its two face states from shared
+//      memory, one Riemann solve, the keep mask; the flux is parked in
+//      shared memory and the face outputs written;
+//   4. each interior cell's du from its six parked fluxes, in K1's order
+//      (K2 also its 30 per-oct sums from the parked fluxes).
+// A block's staged arrays hold nb <= sb batch entries side by side (entry o
+// of element e at [e * sb + o]):
+//   K3: one block takes one x-chunk of one tile (chunk cx of its c interior
+//       planes, with 2-plane halos), sb = 1; a tile's cuts recompute only
+//       the halo planes and the x-faces between chunks.  The launch picks cx
+//       from the occupancy query and the SM count (ramses_tile_sweep's chunk
+//       0, tile_chunk), so that a small batch still puts blocks on every SM.
+//   K2: one block takes sb consecutive octs (c = cx = 2, the whole 6^3
+//       stencil), each thread an (element, oct) pair with the oct minor, so
+//       at 8 octs a warp's loads and stores cover whole 32-byte sectors; the
+//       three directions' faces start on different threads, so they share
+//       one pass.  The launch picks sb the same way (ramses_oct_sweep's
+//       chunk 0, oct_chunk).  tools/k2_stages.py times the stages.
+// Same bits whatever the chunk or sb, and K2 bitwise K3 at shift 0 on the
+// same octs: every stage is one `#pragma unroll 1` loop (one per direction
+// in stage 3) whose body is the only code that computes its value, so a
+// value is computed by the same instructions on the same inputs; K3's cell
+// lane within a 16-byte load does not depend on the chunk (td^2 is a
+// multiple of 4), and K2 stages its loads raw and converts them in one
+// loop.  K2's per-oct sums add the rounded products flux * dt/dx
+// (__fmul_rn: no contraction), which are K3's corrp values.
 
 #include "muscl_common.cuh"
 
 namespace {
-
-constexpr int MAX_TX = 32;  // batch entries per K2 block (threadIdx.x)
-
-// make_cell's loader on a gathered block: batch entry b of a td^3 block.
-struct BlockLoad {
-  const float* __restrict__ u;
-  const Consts* k;
-  int64_t vs;  // one variable's stride, td^3 * n
-  int td, n, b;
-  __device__ __forceinline__ void operator()(int x, int y, int z, float q[5],
-                                             float* ir) const {
-    const int64_t o = (int64_t)((x * td + y) * td + z) * n + b;
-    cons_to_prim(__ldg(u + o), __ldg(u + vs + o), __ldg(u + 2 * vs + o),
-                 __ldg(u + 3 * vs + o), __ldg(u + 4 * vs + o), *k, q, ir);
-  }
-};
-
-// K2: per-oct sums (blockDim.y == 8: all of an oct's cells in one block).
-// phi == nullptr: no mass-flux output (uniform over the launch).
-template <int RS>
-__global__ void __launch_bounds__(256)
-oct_sweep_kernel(const float* __restrict__ u, const float* __restrict__ ok,
-                 const float* __restrict__ dt_ptr, float* __restrict__ du,
-                 float* __restrict__ out, float* __restrict__ phi, int n,
-                 Consts k) {
-  constexpr int C = 2;
-  constexpr int TD = C + 4;
-  constexpr int NC = C * C * C;
-  __shared__ float part[3 * 2 * 5 * 4 * MAX_TX];
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int cell = blockIdx.y * blockDim.y + threadIdx.y;
-  const int ic[3] = {cell / (C * C), (cell / C) % C, cell % C};
-  const float dt = __ldg(dt_ptr);
-  const float dtdx2 = 0.5f * dt / k.dx;
-  const float scale = dt / k.dx;
-  if (b < n && cell < NC) {
-    const int64_t nslot = (int64_t)TD * TD * TD;
-    const BlockLoad load{u, &k, nslot * n, TD, n, b};
-    auto ok_at = [&](int x, int y, int z) {
-      return __ldg(ok + (int64_t)((x * TD + y) * TD + z) * n + b);
-    };
-    const int x = ic[0] + 2, y = ic[1] + 2, z = ic[2] + 2;
-    Cell cc;
-    make_cell(load, k, x, y, z, cc);
-    const float okc = ok_at(x, y, z);
-    float dsum[5];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const int e0 = d == 0, e1 = d == 1, e2 = d == 2;
-      float ql[5], qr[5], flo[5], fhi[5];
-      {  // low face: left = high face of cell - e_d, right = low face of cell
-        Cell cn;
-        make_cell(load, k, x - e0, y - e1, z - e2, cn);
-        face_state(cn, k, d, 0.5f, dtdx2, ql);
-      }
-      face_state(cc, k, d, -0.5f, dtdx2, qr);
-      solve<RS>(ql, qr, d, k, flo);
-      {  // high face: left = high face of cell, right = low face of cell + e_d
-        Cell cn;
-        make_cell(load, k, x + e0, y + e1, z + e2, cn);
-        face_state(cn, k, d, -0.5f, dtdx2, qr);
-      }
-      face_state(cc, k, d, 0.5f, dtdx2, ql);
-      solve<RS>(ql, qr, d, k, fhi);
-      const float keep_lo = (1.0f - okc) * (1.0f - ok_at(x - e0, y - e1, z - e2));
-      const float keep_hi = (1.0f - ok_at(x + e0, y + e1, z + e2)) * (1.0f - okc);
-#pragma unroll
-      for (int v = 0; v < 5; ++v) {
-        flo[v] = flo[v] * keep_lo;
-        fhi[v] = fhi[v] * keep_hi;
-        const float contrib = (flo[v] - fhi[v]) * scale;
-        dsum[v] = (d == 0) ? contrib : dsum[v] + contrib;
-      }
-      const int p = ic[d];                         // interior coordinate on d
-      const int t1 = ic[d == 0 ? 1 : 0], t2 = ic[d == 2 ? 1 : 2];
-      if (phi != nullptr) {
-        phi[((int64_t)(d * 2) * NC + cell) * n + b] = flo[0] * scale;
-        phi[((int64_t)(d * 2 + 1) * NC + cell) * n + b] = fhi[0] * scale;
-      }
-      // side 0: face 2 (low face of interior cell 0); side 1: face 4
-      // (high face of interior cell 1)
-#pragma unroll
-      for (int v = 0; v < 5; ++v)
-        part[(((d * 2 + p) * 5 + v) * 4 + t1 * 2 + t2) * MAX_TX + threadIdx.x] =
-            p ? fhi[v] : flo[v];
-    }
-#pragma unroll
-    for (int v = 0; v < 5; ++v)
-      du[((((int64_t)v * C + ic[0]) * C + ic[1]) * C + ic[2]) * n + b] = dsum[v];
-  }
-  __syncthreads();
-  if (b < n) {
-    // j = (v * 3 + d) * 2 + side is also corr's flat [5, 3, 2] index
-    for (int j = threadIdx.y; j < 30; j += blockDim.y) {
-      const int side = j & 1, d = (j >> 1) % 3, v = j / 6;
-      const float* f = part + ((d * 2 + side) * 5 + v) * 4 * MAX_TX + threadIdx.x;
-      const float s = ((f[0] + f[MAX_TX]) + f[2 * MAX_TX]) + f[3 * MAX_TX];
-      out[(int64_t)j * n + b] = s * scale;
-    }
-  }
-}
-
-// ---- K3 --------------------------------------------------------------------
 
 constexpr int TILE_THREADS = 256;
 constexpr int CELL_F = 20;  // a slope cell's staged floats: dq[3][5], sr0,
                             // sp0, sv0[3]
 constexpr int SMEM_LIMIT = 232448;  // an H100 block's dynamic shared memory
 
-// Floats of shared memory one K3 block uses at tile side c and chunk cx:
-// primitives and mask of the (cx+4) td^2 staged cells, the slope box, and
-// the parked fluxes of the three directions.
+// Floats of shared memory one staged block uses at tile side c and chunk
+// cx, a batch entry: primitives and mask of the (cx+4) td^2 staged cells,
+// the slope box, and the parked fluxes of the three directions.
 __host__ __device__ constexpr int tile_nq(int c, int cx) {
   return (cx + 4) * (c + 4) * (c + 4);
 }
@@ -193,38 +99,109 @@ __host__ __device__ constexpr int tile_smem_floats(int c, int cx) {
          + 5 * (tile_nface(c, cx, 0) + 2 * tile_nface(c, cx, 1));
 }
 
+// K2: an oct is a shift-0 tile taken whole (c = cx = 2); the most octs a
+// block's shared memory holds.
+constexpr int OCT_FLOATS = tile_smem_floats(2, 2);
+constexpr int OCT_MAX = SMEM_LIMIT / (4 * OCT_FLOATS);
+
+// The cells of an oct's 6^3 stencil that its outputs read.  With a the
+// distance of a coordinate from the centre planes {2, 3} (0, 1 or 2): the
+// cells with a_x + a_y + a_z <= 2, first the 32 with a sum of at most 1
+// (the cells beside a face, whose slopes and mask the faces read), then
+// the 48 that only those slopes read.  No output reads the other 136, so
+// K2 loads 80 cells' state and 32 cells' mask an oct.
+constexpr int OCT_NLOAD = 80, OCT_NMASK = 32;
+constexpr int OCT_UNROLL = 4;  // stage 1: a thread's cells loaded together
+struct OctCells {
+  unsigned char at[OCT_NLOAD];  // staged index (x * 6 + y) * 6 + z
+};
+__host__ __device__ constexpr int band(int x) {
+  return x < 2 ? 2 - x : (x > 3 ? x - 3 : 0);
+}
+__host__ __device__ constexpr OctCells oct_cells() {
+  OctCells c{};
+  int m = 0;
+  for (int pass = 0; pass < 2; ++pass)
+    for (int i = 0; i < 216; ++i) {
+      const int a = band(i / 36) + band(i / 6 % 6) + band(i % 6);
+      if (pass == 0 ? a <= 1 : a == 2) c.at[m++] = (unsigned char)i;
+    }
+  return c;
+}
+__constant__ OctCells OCT_CELLS = oct_cells();
+
+// x / d for 0 <= x < 2^31 / d by one multiply-high (m = ceil(2^31 / d)):
+// a block's items decoded into (element, entry) without an integer
+// division each.
+struct DivBy {
+  unsigned m;
+  __device__ __forceinline__ explicit DivBy(int d)
+      : m((0x80000000u + d - 1) / d) {}
+  __device__ __forceinline__ int operator()(int x) const {
+    return (int)__umulhi((unsigned)x << 1, m);
+  }
+};
+// K3's batch of one entry a block
+struct DivByOne {
+  __device__ __forceinline__ int operator()(int x) const { return x; }
+};
+
 __device__ __forceinline__ float lane4(const float4& a, int j) {
   return j == 0 ? a.x : (j == 1 ? a.y : (j == 2 ? a.z : a.w));
 }
 
-// make_cell's loader on the staged primitives (1/r from r: cons_to_prim's
-// own division, so the same bits).
+// make_cell's loader on the staged primitives of batch entry o (1/r from
+// r: cons_to_prim's own division, so the same bits).
 struct SmemLoad {
   const float* q;
-  int nq, td;
+  int nq, td, sb, o;
   __device__ __forceinline__ void operator()(int x, int y, int z, float qv[5],
                                              float* ir) const {
     const int i = (x * td + y) * td + z;
 #pragma unroll
-    for (int v = 0; v < 5; ++v) qv[v] = q[v * nq + i];
+    for (int v = 0; v < 5; ++v) qv[v] = q[(v * nq + i) * sb + o];
     *ir = 1.0f / qv[0];
   }
 };
 
-// Stage 3 for direction D: every face along D that the chunk's cells touch.
-// Face index p in 0..C along D (the low face of interior cell p; C the high
-// face of the last), transverse interior (t1, t2) in increasing axis order;
-// for D = 0, p runs over x0..x0+cx and the chunk owns the outputs of
-// p < x0 + cx (and of p = C), for D = 1, 2 t1 is x in x0..x0+cx-1.
-template <int C, int RS, int D>
+// Stage 2's body: slopes and trace sources of the slope-box cell (xs, ys,
+// zs) (staged coordinates less 1) of batch entry o, stored at box slot i.
+template <int TD>
+__device__ __forceinline__ void slope_cell(const float* q, float* cel, int nq,
+                                           int ncell, int sb, int o, int xs,
+                                           int ys, int zs, int i,
+                                           const Consts& k) {
+  const SmemLoad load{q, nq, TD, sb, o};
+  Cell c;
+  make_cell(load, k, xs + 1, ys + 1, zs + 1, c);
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int v = 0; v < 5; ++v)
+      cel[((d * 5 + v) * ncell + i) * sb + o] = c.dq[d][v];
+  cel[(15 * ncell + i) * sb + o] = c.sr0;
+  cel[(16 * ncell + i) * sb + o] = c.sp0;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) cel[((17 + j) * ncell + i) * sb + o] = c.sv0[j];
+}
+
+// Stage 3 for direction D: every face along D that the chunk's cells touch,
+// for the nb batch entries, items `first`, `first` + TILE_THREADS, ...
+// (entry minor).  Face index p in 0..C along D (the low face of interior
+// cell p; C the high face of the last), transverse interior (t1, t2) in
+// increasing axis order; for D = 0, p runs over x0..x0+cx, for D = 1, 2 t1
+// is x in x0..x0+cx-1.  Each flux is parked in f and handed to the writer.
+// div divides by nb.
+template <int C, int RS, int D, class W, class Div>
 __device__ __forceinline__ void tile_faces(
     const float* q, const float* okm, const float* cel, float* f, int nq,
-    int ncell, int x0, int cx, int b, int n, float dtdx2, float scale,
-    float* __restrict__ corrp, float* __restrict__ phip, const Consts& k) {
-  constexpr int TD = C + 4, S = C + 2, NP = C / 2 + 1;
+    int ncell, int x0, int cx, int sb, int nb, const Div& div, int first,
+    float dtdx2, float scale, const W& w, const Consts& k) {
+  constexpr int TD = C + 4, S = C + 2;
   const int count = tile_nface(C, cx, D);
 #pragma unroll 1
-  for (int i = threadIdx.x; i < count; i += TILE_THREADS) {
+  for (int it = first; it < nb * count; it += TILE_THREADS) {
+    const int i = div(it), o = it - i * nb;
     int p, t1, t2;
     if (D == 0) {
       p = x0 + i / (C * C);
@@ -250,13 +227,14 @@ __device__ __forceinline__ void tile_faces(
       Cell c;
 #pragma unroll
       for (int v = 0; v < 5; ++v) {
-        c.q[v] = q[v * nq + qi];
-        c.dq[D][v] = cel[(D * 5 + v) * ncell + ci];
+        c.q[v] = q[(v * nq + qi) * sb + o];
+        c.dq[D][v] = cel[((D * 5 + v) * ncell + ci) * sb + o];
       }
-      c.sr0 = cel[15 * ncell + ci];
-      c.sp0 = cel[16 * ncell + ci];
+      c.sr0 = cel[(15 * ncell + ci) * sb + o];
+      c.sp0 = cel[(16 * ncell + ci) * sb + o];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) c.sv0[j] = cel[(17 + j) * ncell + ci];
+      for (int j = 0; j < 3; ++j)
+        c.sv0[j] = cel[((17 + j) * ncell + ci) * sb + o];
       // left cell: its high face; right cell: its low face
       face_state(c, k, D, side == 0 ? 0.5f : -0.5f, dtdx2,
                  side == 0 ? ql : qr);
@@ -264,13 +242,53 @@ __device__ __forceinline__ void tile_faces(
     solve<RS>(ql, qr, D, k, fl);
     const int qr_i = ((X - x0) * TD + Y) * TD + Z;
     const int ql_i = qr_i - (D == 0 ? TD * TD : (D == 1 ? TD : 1));
-    const float keep = (1.0f - okm[qr_i]) * (1.0f - okm[ql_i]);
+    const float keep =
+        (1.0f - okm[qr_i * sb + o]) * (1.0f - okm[ql_i * sb + o]);
 #pragma unroll
     for (int v = 0; v < 5; ++v) {
       fl[v] = fl[v] * keep;
-      f[v * count + i] = fl[v];
+      f[(v * count + i) * sb + o] = fl[v];
     }
-    if (D == 0 && p >= x0 + cx && p != C) continue;  // the next chunk's face
+    w.template face<D>(o, p, t1, t2, fl, scale);
+  }
+}
+
+// Stage 4's body: du of interior cell (xl, y, z) of the chunk (xl from the
+// chunk's first plane) of batch entry o: (low - high) flux of each
+// direction, in K1's order.
+template <int C>
+__device__ __forceinline__ void cell_du(const float* f0, const float* f1,
+                                        const float* f2, int cx, int sb,
+                                        int o, int xl, int y, int z,
+                                        float scale, float dsum[5]) {
+  const int lo[3] = {(xl * C + y) * C + z, (xl * (C + 1) + y) * C + z,
+                     (xl * (C + 1) + z) * C + y};
+  const int step[3] = {C * C, C, C};
+  const float* fd[3] = {f0, f1, f2};
+  const int nf[3] = {tile_nface(C, cx, 0), tile_nface(C, cx, 1),
+                     tile_nface(C, cx, 1)};
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int v = 0; v < 5; ++v) {
+      const int e = v * nf[d] + lo[d];
+      const float contrib =
+          (fd[d][e * sb + o] - fd[d][(e + step[d]) * sb + o]) * scale;
+      dsum[v] = (d == 0) ? contrib : dsum[v] + contrib;
+    }
+}
+
+// K3's face outputs: corrp at the octs' faces, phip at every face.
+template <int C>
+struct TileOut {
+  float* corrp;
+  float* phip;
+  int n, b, x0, cx;
+  template <int D>
+  __device__ __forceinline__ void face(int, int p, int t1, int t2,
+                                       const float fl[5], float scale) const {
+    constexpr int NP = C / 2 + 1;
+    if (D == 0 && p >= x0 + cx && p != C) return;  // the next chunk's face
     const int64_t pl = (int64_t)t1 * C + t2;
     if (phip != nullptr)
       phip[((int64_t)(D * n + b) * (C + 1) + p) * C * C + pl] = fl[0] * scale;
@@ -281,7 +299,49 @@ __device__ __forceinline__ void tile_faces(
             fl[v] * scale;
     }
   }
+};
+
+// K2's face outputs: the mass flux into phi [3, 2, 2, 2, 2, n], as the low
+// face (side 0) of the interior cell at p along D and the high face (side
+// 1) of the one at p - 1.
+struct OctOut {
+  float* phi;
+  int n, b0;
+  template <int D>
+  __device__ __forceinline__ void face(int o, int p, int t1, int t2,
+                                       const float fl[5], float scale) const {
+    if (phi == nullptr) return;
+    const float m = fl[0] * scale;
+    // the cell at coordinate 0 along D, and the cell stride along D
+    const int base =
+        D == 0 ? t1 * 2 + t2 : (D == 1 ? t1 * 4 + t2 : (t1 * 2 + t2) * 2);
+    const int st = D == 0 ? 4 : (D == 1 ? 2 : 1);
+    const int64_t b = (int64_t)b0 + o;
+    if (p < 2) phi[(int64_t)(D * 16 + base + p * st) * n + b] = m;
+    if (p > 0) phi[(int64_t)(D * 16 + 8 + base + (p - 1) * st) * n + b] = m;
+  }
+};
+
+// K2's per-oct sum j = (v * 3 + d) * 2 + side (corr's flat [5, 3, 2] index)
+// of batch entry o: the four parked fluxes of face p = 2 side along d, each
+// times dt/dx and rounded (K3's corrp values), added in a fixed order.
+__device__ __forceinline__ float oct_corr(const float* f0, const float* f1,
+                                          const float* f2, int sb, int o,
+                                          int j, float scale) {
+  constexpr int NF = tile_nface(2, 2, 0);
+  const int side = j & 1, d = (j >> 1) % 3, v = j / 6, p = 2 * side;
+  const float* f = d == 0 ? f0 : (d == 1 ? f1 : f2);
+  float a[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int t1 = t >> 1, t2 = t & 1;
+    const int i = d == 0 ? (p * 2 + t1) * 2 + t2 : (t1 * 3 + p) * 2 + t2;
+    a[t] = __fmul_rn(f[(v * NF + i) * sb + o], scale);
+  }
+  return ((a[0] + a[1]) + a[2]) + a[3];
 }
+
+// ---- K3 --------------------------------------------------------------------
 
 template <int C, int RS>
 __global__ void __launch_bounds__(TILE_THREADS)
@@ -337,88 +397,204 @@ tile_sweep_kernel(const float* __restrict__ u, const float* __restrict__ ok,
   // 2. slopes and trace sources of the box (cx+2) x (c+2)^2 around the
   // chunk's cells, less the cells on two or more of its faces (no face
   // reads them)
-  {
-    const SmemLoad load{q, nq, TD};
 #pragma unroll 1
-    for (int i = threadIdx.x; i < ncell; i += TILE_THREADS) {
-      const int xs = i / (S * S), ys = (i / S) % S, zs = i % S;
-      const int edge = (xs == 0 || xs == cx + 1) + (ys == 0 || ys == S - 1)
-                       + (zs == 0 || zs == S - 1);
-      if (edge >= 2) continue;
-      Cell c;
-      make_cell(load, k, xs + 1, ys + 1, zs + 1, c);
-#pragma unroll
-      for (int d = 0; d < 3; ++d)
-#pragma unroll
-        for (int v = 0; v < 5; ++v) cel[(d * 5 + v) * ncell + i] = c.dq[d][v];
-      cel[15 * ncell + i] = c.sr0;
-      cel[16 * ncell + i] = c.sp0;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) cel[(17 + j) * ncell + i] = c.sv0[j];
-    }
+  for (int i = threadIdx.x; i < ncell; i += TILE_THREADS) {
+    const int xs = i / (S * S), ys = (i / S) % S, zs = i % S;
+    const int edge = (xs == 0 || xs == cx + 1) + (ys == 0 || ys == S - 1)
+                     + (zs == 0 || zs == S - 1);
+    if (edge >= 2) continue;
+    slope_cell<TD>(q, cel, nq, ncell, 1, 0, xs, ys, zs, i, k);
   }
   __syncthreads();
 
   // 3. the faces, one direction at a time
-  tile_faces<C, RS, 0>(q, okm, cel, f0, nq, ncell, x0, cx, b, n, dtdx2, scale,
-                       corrp, phip, k);
-  tile_faces<C, RS, 1>(q, okm, cel, f1, nq, ncell, x0, cx, b, n, dtdx2, scale,
-                       corrp, phip, k);
-  tile_faces<C, RS, 2>(q, okm, cel, f2, nq, ncell, x0, cx, b, n, dtdx2, scale,
-                       corrp, phip, k);
+  const TileOut<C> w{corrp, phip, n, b, x0, cx};
+  tile_faces<C, RS, 0>(q, okm, cel, f0, nq, ncell, x0, cx, 1, 1, DivByOne{},
+                       threadIdx.x, dtdx2, scale, w, k);
+  tile_faces<C, RS, 1>(q, okm, cel, f1, nq, ncell, x0, cx, 1, 1, DivByOne{},
+                       threadIdx.x, dtdx2, scale, w, k);
+  tile_faces<C, RS, 2>(q, okm, cel, f2, nq, ncell, x0, cx, 1, 1, DivByOne{},
+                       threadIdx.x, dtdx2, scale, w, k);
   __syncthreads();
 
-  // 4. du of the chunk's cells: (low - high) flux of each direction, in
-  // K1's order
-  {
-    const int nx = tile_nface(C, cx, 0), ny = tile_nface(C, cx, 1);
+  // 4. du of the chunk's cells
 #pragma unroll 1
-    for (int i = threadIdx.x; i < cx * C * C; i += TILE_THREADS) {
-      const int xl = i / (C * C), y = (i / C) % C, z = i % C;
-      const int lo[3] = {(xl * C + y) * C + z, (xl * (C + 1) + y) * C + z,
-                         (xl * (C + 1) + z) * C + y};
-      const int step[3] = {C * C, C, C};
-      const float* fd[3] = {f0, f1, f2};
-      const int nf[3] = {nx, ny, ny};
-      float dsum[5];
+  for (int i = threadIdx.x; i < cx * C * C; i += TILE_THREADS) {
+    const int xl = i / (C * C), y = (i / C) % C, z = i % C;
+    float dsum[5];
+    cell_du<C>(f0, f1, f2, cx, 1, 0, xl, y, z, scale, dsum);
+    const int64_t cell = ((int64_t)(x0 + xl) * C + y) * C + z;
 #pragma unroll
-      for (int d = 0; d < 3; ++d)
+    for (int v = 0; v < 5; ++v)
+      du[((int64_t)v * n + b) * C * C * C + cell] = dsum[v];
+  }
+}
+
+// ---- K2 --------------------------------------------------------------------
+
+template <int RS>
+__global__ void __launch_bounds__(TILE_THREADS)
+oct_sweep_kernel(const float* __restrict__ u, const float* __restrict__ ok,
+                 const float* __restrict__ dt_ptr, float* __restrict__ du,
+                 float* __restrict__ corr, float* __restrict__ phi, int n,
+                 int sb, Consts k) {
+  constexpr int C = 2, TD = C + 4, NQ = tile_nq(C, C);
+  constexpr int NCELL = tile_ncell(C, C), NF = tile_nface(C, C, 0);
+  extern __shared__ __align__(16) float smem[];
+  const int b0 = blockIdx.x * sb;
+  const int nb = min(sb, n - b0);    // the block's octs
+  const DivBy div(nb);
+  float* q = smem;                   // [5][NQ][sb] primitives
+  float* okm = q + 5 * NQ * sb;      // [NQ][sb] refined mask
+  float* cel = okm + NQ * sb;        // [CELL_F][NCELL][sb] slopes, sources
+  float* f0 = cel + CELL_F * NCELL * sb;  // [5][NF][sb] parked fluxes
+  float* f1 = f0 + 5 * NF * sb;
+  float* f2 = f1 + 5 * NF * sb;
+  const float dt = __ldg(dt_ptr);
+  const float dtdx2 = 0.5f * dt / k.dx;
+  const float scale = dt / k.dx;
+  const int t = threadIdx.x;
+
+  // 1. the octs' cells that an output reads (OCT_CELLS): OCT_UNROLL items'
+  // state and mask loaded a thread, staged raw, then their primitives
+  // written in place by the same thread
+  {
+    const int total = nb * OCT_NLOAD;
+    const int64_t vs = (int64_t)NQ * n;
+#pragma unroll 1
+    for (int j = t; j < total; j += OCT_UNROLL * TILE_THREADS) {
+      float w[OCT_UNROLL][6];
 #pragma unroll
-        for (int v = 0; v < 5; ++v) {
-          const float* fv = fd[d] + v * nf[d] + lo[d];
-          const float contrib = (fv[0] - fv[step[d]]) * scale;
-          dsum[v] = (d == 0) ? contrib : dsum[v] + contrib;
+      for (int s = 0; s < OCT_UNROLL; ++s) {
+        const int it = j + s * TILE_THREADS;
+        if (it < total) {
+          const int c = div(it);
+          const int64_t g =
+              (int64_t)OCT_CELLS.at[c] * n + b0 + (it - c * nb);
+#pragma unroll
+          for (int v = 0; v < 5; ++v) w[s][v] = __ldg(u + v * vs + g);
+          if (c < OCT_NMASK) w[s][5] = __ldg(ok + g);
         }
-      const int64_t cell = ((int64_t)(x0 + xl) * C + y) * C + z;
+      }
 #pragma unroll
-      for (int v = 0; v < 5; ++v)
-        du[((int64_t)v * n + b) * C * C * C + cell] = dsum[v];
+      for (int s = 0; s < OCT_UNROLL; ++s) {
+        const int it = j + s * TILE_THREADS;
+        if (it < total) {
+          const int c = div(it);
+          const int e = OCT_CELLS.at[c] * sb + (it - c * nb);
+#pragma unroll
+          for (int v = 0; v < 5; ++v) q[v * NQ * sb + e] = w[s][v];
+          if (c < OCT_NMASK) okm[e] = w[s][5];
+        }
+      }
+#pragma unroll 1
+      for (int s = 0; s < OCT_UNROLL; ++s) {
+        const int it = j + s * TILE_THREADS;
+        if (it >= total) break;
+        const int c = div(it);
+        const int e = OCT_CELLS.at[c] * sb + (it - c * nb);
+        float qq[5], ir;
+        cons_to_prim(q[e], q[NQ * sb + e], q[2 * NQ * sb + e],
+                     q[3 * NQ * sb + e], q[4 * NQ * sb + e], k, qq, &ir);
+#pragma unroll
+        for (int v = 0; v < 5; ++v) q[v * NQ * sb + e] = qq[v];
+      }
     }
+  }
+  __syncthreads();
+
+  // 2. slopes of the 32 cells beside a face (the 4^3 box less its edges)
+#pragma unroll 1
+  for (int it = t; it < nb * OCT_NMASK; it += TILE_THREADS) {
+    const int j = div(it), o = it - j * nb;
+    const int i = OCT_CELLS.at[j];
+    const int xs = i / 36 - 1, ys = i / 6 % 6 - 1, zs = i % 6 - 1;
+    slope_cell<TD>(q, cel, NQ, NCELL, sb, o, xs, ys, zs,
+                   (xs * 4 + ys) * 4 + zs, k);
+  }
+  __syncthreads();
+
+  // 3. the faces: each direction's items start where the previous
+  // direction's end, so the three share the block's threads
+  const OctOut w{phi, n, b0};
+  const int nd = nb * NF;
+  tile_faces<C, RS, 0>(q, okm, cel, f0, NQ, NCELL, 0, C, sb, nb, div, t,
+                       dtdx2, scale, w, k);
+  tile_faces<C, RS, 1>(q, okm, cel, f1, NQ, NCELL, 0, C, sb, nb, div,
+                       (t + TILE_THREADS - nd % TILE_THREADS) % TILE_THREADS,
+                       dtdx2, scale, w, k);
+  tile_faces<C, RS, 2>(q, okm, cel, f2, NQ, NCELL, 0, C, sb, nb, div,
+                       (t + TILE_THREADS - (2 * nd) % TILE_THREADS)
+                           % TILE_THREADS,
+                       dtdx2, scale, w, k);
+  __syncthreads();
+
+  // 4. du of the octs' cells from the low threads, the per-oct sums from
+  // the high ones
+#pragma unroll 1
+  for (int it = t; it < nb * 8; it += TILE_THREADS) {
+    const int cell = div(it), o = it - cell * nb;
+    float dsum[5];
+    cell_du<C>(f0, f1, f2, C, sb, o, cell >> 2, (cell >> 1) & 1, cell & 1,
+               scale, dsum);
+#pragma unroll
+    for (int v = 0; v < 5; ++v)
+      du[(int64_t)(v * 8 + cell) * n + b0 + o] = dsum[v];
+  }
+#pragma unroll 1
+  for (int it = TILE_THREADS - 1 - t; it < nb * 30; it += TILE_THREADS) {
+    const int j = div(it), o = it - j * nb;
+    corr[(int64_t)j * n + b0 + o] = oct_corr(f0, f1, f2, sb, o, j, scale);
   }
 }
 
 // ---- host side -------------------------------------------------------------
 
-// cudaFuncSetAttribute once per instantiation and device: the shared memory
-// of the largest chunk that fits.  Returns its error.
-template <int C, int RS>
-int tile_prepare() {
-  static unsigned long long done = 0;  // one bit a device
+// cudaFuncSetAttribute once per kernel and device: `bytes` of dynamic
+// shared memory.  Returns its error.
+template <class F>
+int prepare(F kernel, int bytes, unsigned long long* done) {
   int dev = 0;
   int err = (int)cudaGetDevice(&dev);
   if (err) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done & bit) return 0;
+  const unsigned long long bit = 1ull << (dev & 63);  // one bit a device
+  if (*done & bit) return 0;
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (!err) *done |= bit;
+  return err;
+}
+
+// The shared memory of K3's largest chunk that fits.
+template <int C, int RS>
+int tile_prepare() {
+  static unsigned long long done = 0;
   int most = 0;
   for (int cx = 1; cx <= C; cx *= 2) {
     const int bytes = 4 * tile_smem_floats(C, cx);
     if (bytes <= SMEM_LIMIT && bytes > most) most = bytes;
   }
-  err = (int)cudaFuncSetAttribute(tile_sweep_kernel<C, RS>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  most);
-  if (!err) done |= bit;
+  return prepare(tile_sweep_kernel<C, RS>, most, &done);
+}
+
+template <int RS>
+int oct_prepare() {
+  static unsigned long long done = 0;
+  return prepare(oct_sweep_kernel<RS>, 4 * OCT_FLOATS * OCT_MAX, &done);
+}
+
+int sm_count(int* nsm) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(nsm, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (*nsm < 1) *nsm = 1;
   return err;
+}
+
+int64_t passes(int64_t items) {
+  return (items + TILE_THREADS - 1) / TILE_THREADS;
 }
 
 // The chunk of x planes a K3 block takes for n tiles.  A block's time is
@@ -430,16 +606,9 @@ int tile_prepare() {
 // tiles at shift 2: 2 planes; level 8, 32 tiles: 2).
 template <int C, int RS>
 int tile_chunk(int n, int* chunk) {
-  int dev = 0, nsm = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (!err)
-    err = (int)cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
-                                      dev);
+  int nsm = 0;
+  int err = sm_count(&nsm);
   if (err) return err;
-  if (nsm < 1) nsm = 1;
-  auto passes = [](int64_t items) {
-    return (items + TILE_THREADS - 1) / TILE_THREADS;
-  };
   *chunk = 0;
   int64_t best = 0;
   for (int cx = C; cx >= 1; cx /= 2) {
@@ -465,6 +634,75 @@ int tile_chunk(int n, int* chunk) {
   return *chunk ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// The octs a K2 block takes for n octs, by tile_chunk's rule: the depth of
+// sb octs is the passes of stage 1 (OCT_UNROLL cells a thread), stage 2 (32
+// cells an oct), stage 3 (36 faces an oct, the directions sharing the
+// threads) and stage 4 (8 cells and 30 sums an oct); the most octs on a
+// tie.  A stage-1 pass is a round trip to device memory and counts twice,
+// times the 32-byte sectors a warp's loads touch for each one they use:
+// 8 / gcd(sb, 8), as the batch axis is minor.  Fitted to an H100's times
+// (every count at N 512, 1024 and 2048): 8 octs a block, the fastest or
+// tied at all three.  The resident blocks an SM of each count are queried
+// once a device and kept: the launches are on host-bound paths.
+template <int RS>
+int oct_chunk(int n, int* chunk) {
+  static int resident_sm[64][OCT_MAX + 1];  // 0 until queried
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  int* bpsb = resident_sm[dev & 63];
+  if (bpsb[1] == 0) {
+    for (int sb = OCT_MAX; sb >= 1; --sb) {
+      int bps = 0;
+      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &bps, oct_sweep_kernel<RS>, TILE_THREADS, 4 * OCT_FLOATS * sb);
+      if (err) return err;
+      bpsb[sb] = bps < 1 ? 1 : bps;
+    }
+  }
+  int nsm = 0;
+  err = sm_count(&nsm);
+  if (err) return err;
+  *chunk = 0;
+  int64_t best = 0;
+  for (int sb = OCT_MAX; sb >= 1; --sb) {
+    const int bps = bpsb[sb];
+    const int64_t sectors =
+        sb % 8 == 0 ? 1 : (sb % 4 == 0 ? 2 : (sb % 2 == 0 ? 4 : 8));
+    const int64_t depth =
+        2 * sectors * passes((int64_t)sb * OCT_NLOAD / OCT_UNROLL)
+        + passes(sb * OCT_NMASK) + passes(sb * 36) + passes(sb * 38);
+    const int64_t resident = (int64_t)bps * nsm;
+    const int64_t blocks = ((int64_t)n + sb - 1) / sb;
+    const int64_t cost = (blocks + resident - 1) / resident * depth;
+    if (*chunk == 0 || cost < best) {
+      best = cost;
+      *chunk = sb;
+    }
+  }
+  return 0;
+}
+
+// info: out[0] the chunk, out[1] resident blocks an SM, out[2] dynamic
+// shared memory a block, out[3] registers, out[4] local bytes, out[5]
+// threads; out[6] is the caller's.
+template <class F>
+int launch_attrs(F kernel, int chunk, int smem, int* info) {
+  cudaFuncAttributes a;
+  int err = (int)cudaFuncGetAttributes(&a, kernel);
+  if (err) return err;
+  int nblk = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &nblk, kernel, TILE_THREADS, smem);
+  info[0] = chunk;
+  info[1] = nblk;
+  info[2] = smem;
+  info[3] = a.numRegs;
+  info[4] = (int)a.localSizeBytes;
+  info[5] = TILE_THREADS;
+  return err;
+}
+
 template <int C, int RS>
 int tile_launch(const float* u, const float* ok, const float* dt, float* du,
                 float* corrp, float* phip, int n, int chunk, const Consts& k,
@@ -478,22 +716,10 @@ int tile_launch(const float* u, const float* ok, const float* dt, float* du,
     return (int)cudaErrorInvalidValue;
   const int smem = 4 * tile_smem_floats(C, chunk);
   if (info != nullptr) {
-    cudaFuncAttributes a;
-    err = (int)cudaFuncGetAttributes(&a, tile_sweep_kernel<C, RS>);
-    if (err) return err;
-    int nblk = 0;
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &nblk, tile_sweep_kernel<C, RS>, TILE_THREADS, smem);
-    info[0] = chunk;
-    info[1] = nblk;
-    info[2] = smem;
-    info[3] = a.numRegs;
-    info[4] = (int)a.localSizeBytes;
-    info[5] = TILE_THREADS;
     info[6] = 0;
     for (int cx = 1; cx <= C; cx *= 2)
       if (4 * tile_smem_floats(C, cx) <= SMEM_LIMIT) info[6] |= cx;
-    return err;
+    return launch_attrs(tile_sweep_kernel<C, RS>, chunk, smem, info);
   }
   if ((reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(ok)) & 15)
     return (int)cudaErrorInvalidValue;  // 16-byte loads
@@ -535,19 +761,33 @@ int tile_dispatch(int shift, int riemann, const float* u, const float* ok,
   }
 }
 
+template <int RS>
 int oct_launch(const float* u, const float* ok, const float* dt, float* du,
-               float* out, float* phi, int n, int riemann, const Consts& k,
-               cudaStream_t s) {
-  constexpr int C = 2;
-  const int tx = n >= 32 ? 32 : (n >= 16 ? 16 : 8);
-  const int ty = C * C * C;
-  dim3 block(tx, ty, 1);
-  dim3 grid((n + tx - 1) / tx, 1, 1);
-  if (riemann == 0)
-    oct_sweep_kernel<0><<<grid, block, 0, s>>>(u, ok, dt, du, out, phi, n, k);
-  else
-    oct_sweep_kernel<1><<<grid, block, 0, s>>>(u, ok, dt, du, out, phi, n, k);
+               float* corr, float* phi, int n, int chunk, const Consts& k,
+               cudaStream_t s, int* info) {
+  int err = oct_prepare<RS>();
+  if (err) return err;
+  if (chunk == 0) err = oct_chunk<RS>(n, &chunk);
+  if (err) return err;
+  if (chunk < 1 || chunk > OCT_MAX) return (int)cudaErrorInvalidValue;
+  const int smem = 4 * OCT_FLOATS * chunk;
+  if (info != nullptr) {
+    info[6] = (1 << OCT_MAX) - 1;  // bit sb - 1: sb octs fit
+    return launch_attrs(oct_sweep_kernel<RS>, chunk, smem, info);
+  }
+  dim3 grid((unsigned)((n + chunk - 1) / chunk), 1, 1);
+  dim3 block(TILE_THREADS, 1, 1);
+  oct_sweep_kernel<RS><<<grid, block, smem, s>>>(u, ok, dt, du, corr, phi, n,
+                                                 chunk, k);
   return (int)cudaGetLastError();
+}
+
+int oct_dispatch(int riemann, const float* u, const float* ok,
+                 const float* dt, float* du, float* corr, float* phi, int n,
+                 int chunk, const Consts& k, cudaStream_t s, int* info) {
+  return riemann == 0
+             ? oct_launch<0>(u, ok, dt, du, corr, phi, n, chunk, k, s, info)
+             : oct_launch<1>(u, ok, dt, du, corr, phi, n, chunk, k, s, info);
 }
 
 Consts make_consts(float slope_factor, float gamma, float gm1, float entho,
@@ -558,6 +798,12 @@ Consts make_consts(float slope_factor, float gamma, float gm1, float entho,
   k.smallc2 = smallc2; k.smallp = smallp; k.smalle = smalle;
   k.slope = slope_factor; k.dx = dx; k.fac = 0.0f;
   return k;
+}
+
+// The constants of an info call (the launch does not depend on them).
+Consts info_consts() {
+  return make_consts(1.0f, 1.4f, 0.4f, 2.5f, 1e-10f, 1e-20f, 1e-10f, 1e-10f,
+                     1.0f);
 }
 
 }  // namespace
@@ -595,22 +841,34 @@ extern "C" int ramses_tile_sweep(
 extern "C" int ramses_tile_sweep_info(int shift, int n, int riemann, int chunk,
                                       int* out) {
   if (n <= 0 || chunk < 0) return (int)cudaErrorInvalidValue;
-  const Consts k = make_consts(1.0f, 1.4f, 0.4f, 2.5f, 1e-10f, 1e-20f,
-                               1e-10f, 1e-10f, 1.0f);
   return tile_dispatch(shift, riemann, nullptr, nullptr, nullptr, nullptr,
-                       nullptr, nullptr, n, chunk, k, nullptr, out);
+                       nullptr, nullptr, n, chunk, info_consts(), nullptr,
+                       out);
 }
 
-// K2: uloc [5, 6, 6, 6, n] -> du [5, 2, 2, 2, n], corr [5, 3, 2, n]
-// (and phi [3, 2, 2, 2, 2, n]).
+// K2: uloc [5, 6, 6, 6, n] -> du [5, 2, 2, 2, n], corr [5, 3, 2, n] (and
+// phi [3, 2, 2, 2, 2, n]).  chunk: the octs a block takes (1 up to what a
+// block's shared memory holds), or 0 to choose them from n and the card;
+// the result does not depend on it.
 extern "C" int ramses_oct_sweep(
     const float* uloc, const float* ok, const float* dt, float* du,
-    float* corr, float* phi, int n, int riemann, float slope_factor,
-    float gamma, float gm1, float entho, float smallr, float smallc2,
-    float smallp, float smalle, float dx, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+    float* corr, float* phi, int n, int riemann, int chunk,
+    float slope_factor, float gamma, float gm1, float entho, float smallr,
+    float smallc2, float smallp, float smalle, float dx, void* stream) {
+  if (n <= 0 || chunk < 0) return (int)cudaErrorInvalidValue;
   const Consts k = make_consts(slope_factor, gamma, gm1, entho, smallr,
                                smallc2, smallp, smalle, dx);
-  return oct_launch(uloc, ok, dt, du, corr, phi, n, riemann, k,
-                    (cudaStream_t)stream);
+  return oct_dispatch(riemann, uloc, ok, dt, du, corr, phi, n, chunk, k,
+                      (cudaStream_t)stream, nullptr);
+}
+
+// K2's launch for (n octs, riemann, chunk) on the current device: out[0]
+// the octs a block takes (chosen when chunk is 0), out[1..5] as K3's,
+// out[6] the octs a block can take (bit sb - 1 set when sb octs fit a
+// block's shared memory).  Launches nothing; returns the first CUDA error.
+extern "C" int ramses_oct_sweep_info(int n, int riemann, int chunk,
+                                     int* out) {
+  if (n <= 0 || chunk < 0) return (int)cudaErrorInvalidValue;
+  return oct_dispatch(riemann, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, n, chunk, info_consts(), nullptr, out);
 }

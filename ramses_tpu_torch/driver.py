@@ -55,7 +55,7 @@ def unported_features(params: Params) -> list:
     runs uniform (:class:`ramses_tpu_torch.mhd.driver.MhdSimulation`) and on
     the hierarchy (:class:`ramses_tpu_torch.mhd.amr.MhdAmrSim`), with the
     refusals of :func:`ramses_tpu_torch.mhd.driver.unported_mhd_features`."""
-    raw = params.raw or {}
+    raw, r = params.raw or {}, params.run
 
     def on(group, key):
         v = raw.get(group, {}).get(key, False)
@@ -76,9 +76,18 @@ def unported_features(params: Params) -> list:
         ("ensemble (&ENSEMBLE_PARAMS nmember > 1)",
          params.ensemble.nmember > 1),
         ("supervised restart (&RUN_PARAMS auto_resume / nrestart=-1)",
-         params.run.auto_resume or params.run.nrestart == -1),
+         r.auto_resume or r.nrestart == -1),
+        ("restart (&RUN_PARAMS nrestart)", r.nrestart > 0),
+        ("step guard (&RUN_PARAMS max_step_retries)",
+         r.max_step_retries > 0),
+        ("watchdog (&RUN_PARAMS *_deadline_s)",
+         max(r.compile_deadline_s, r.step_deadline_s, r.io_deadline_s) > 0),
+        ("fault injection (&RUN_PARAMS fault_inject)",
+         bool(str(r.fault_inject or "").strip("'\" "))),
+        ("telemetry (&OUTPUT_PARAMS telemetry)",
+         bool(str(params.output.telemetry or "").strip("'\" "))),
         ("patch hooks (&RUN_PARAMS patch)",
-         bool(str(params.run.patch or "").strip("'\" "))),
+         bool(str(r.patch or "").strip("'\" "))),
     ]
     return [name for name, enabled in checks if enabled]
 

@@ -130,6 +130,25 @@ def oct_sweep_ref(uloc, ok, dt, cfg: HydroStatic, dx: float,
     return out
 
 
+def oct_from_tiles(outs):
+    """K3's results at shift 0 (:func:`tile_sweep` on one-oct tiles ``[5,
+    N, 6, 6, 6]``) in K2's layout: ``du [5, 2, 2, 2, N]``, ``corr [5, 3, 2,
+    N]`` as the sums of corrp's four faces in K2's order ((f00 + f01) +
+    f10) + f11, and with ``phip`` ``phi [3, 2, 2, 2, 2, N]``.  The kernels
+    share their stage code, so on the same octs K2's results are these
+    bits."""
+    du, corrp = outs[0].movedim(1, -1), outs[1]
+    f = [corrp[..., i, j] for i in (0, 1) for j in (0, 1)]  # [5, 3, N, 2]
+    out = (du, (((f[0] + f[1]) + f[2]) + f[3]).movedim(2, -1))
+    if len(outs) > 2:
+        # phip [3, N, p, t1, t2]: face p along d is the low face (side 0)
+        # of the cell at p and the high face (side 1) of the one at p - 1
+        out += (torch.stack([torch.stack([
+            outs[2][d, :, lo:lo + 2].movedim(1, 1 + d).movedim(0, -1)
+            for lo in (0, 1)]) for d in range(3)]),)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -137,8 +156,9 @@ def oct_sweep_ref(uloc, ok, dt, cfg: HydroStatic, dx: float,
 _CONSTS = [ctypes.c_float] * 9 + [ctypes.c_void_p]
 _ARGTYPES = {
     "ramses_tile_sweep": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + _CONSTS,
-    "ramses_oct_sweep": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + _CONSTS,
+    "ramses_oct_sweep": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + _CONSTS,
     "ramses_tile_sweep_info": [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "ramses_oct_sweep_info": [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 
 
@@ -197,23 +217,36 @@ def _run(name, u, ok, dt, cfg, dx, shift, want_flux):
     return outs
 
 
-def launch_info(shift: int, n: int, riemann: str = "llf", chunk: int = 0,
+def launch_info(shift, n: int, riemann: str = "llf", chunk: int = 0,
                 lib=None) -> dict:
-    """K3's launch on the current device for ``n`` tiles at ``shift``: the
-    x planes of a tile a block takes (``chunk``, chosen by the kernel when
-    0), blocks an SM resident, dynamic shared memory, registers and local
-    (spill) bytes a thread, threads a block, and every chunk that fits a
-    block's shared memory (``chunks``; a chunk that does not fit raises).
-    ``lib`` defaults to the card's build."""
+    """The launch on the current device of K3 for ``n`` tiles at ``shift``
+    (an int), or of K2 for ``n`` octs (``shift`` None): ``chunk``, what a
+    block takes (K3: the x planes of a tile; K2: octs), chosen by the
+    kernel when 0; the launch's ``blocks``; blocks an SM resident, dynamic
+    shared memory, registers and local (spill) bytes a thread, threads a
+    block; and every chunk that fits a block's shared memory (``chunks``; a
+    chunk that does not fit raises).  ``lib`` defaults to the card's
+    build."""
     lib = _library() if lib is None else bind(lib)
     out = (ctypes.c_int * 7)()
-    err = lib.ramses_tile_sweep_info(shift, n, fm._RIEMANN[riemann], chunk,
-                                     out)
+    rs = fm._RIEMANN[riemann]
+    if shift is None:
+        name = "oct_sweep"
+        err = lib.ramses_oct_sweep_info(n, rs, chunk, out)
+    else:
+        name = "tile_sweep"
+        err = lib.ramses_tile_sweep_info(shift, n, rs, chunk, out)
     if err:
-        raise RuntimeError(f"tile_sweep launch info failed (cudaError {err})")
-    return {"chunk": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2],
-            "registers": out[3], "local_bytes": out[4], "threads": out[5],
-            "chunks": [cx for cx in (1, 2, 4, 8, 16) if out[6] & cx]}
+        raise RuntimeError(f"{name} launch info failed (cudaError {err})")
+    if shift is None:
+        chunks = [b for b in range(1, 32) if out[6] >> (b - 1) & 1]
+        blocks = -(-n // out[0])
+    else:
+        chunks = [cx for cx in (1, 2, 4, 8, 16) if out[6] & cx]
+        blocks = n * (2 << shift) // out[0]
+    return {"chunk": out[0], "blocks": blocks, "blocks_per_sm": out[1],
+            "smem_bytes": out[2], "registers": out[3],
+            "local_bytes": out[4], "threads": out[5], "chunks": chunks}
 
 
 def call(lib, u, okf, dt, cfg, dx, shift, want_flux, stream=None,
@@ -221,9 +254,9 @@ def call(lib, u, okf, dt, cfg, dx, shift, want_flux, stream=None,
     """One call of K3 (``shift`` an int) or K2 (``shift`` None) in ``lib``
     (a build of ``csrc/oct_muscl.cu`` with :func:`bind` applied) on checked
     arguments: ``okf`` the refined mask as f32 0/1, ``dt`` a 0-d f32
-    tensor.  ``chunk`` (K3): the x planes of a tile a block updates, 0 to
-    let the kernel choose them from N and the card; the result does not
-    depend on it.  Returns ``(du, corr)``, with ``want_flux`` ``(du, corr,
+    tensor.  ``chunk``: what a block takes (K3: the x planes of a tile;
+    K2: octs), 0 to let the kernel choose from N and the card; the result
+    does not depend on it.  Returns ``(du, corr)``, with ``want_flux`` ``(du, corr,
     phi)``; outputs go on ``u``'s device.  Raises on an error it returns."""
     riemann = fm._RIEMANN[cfg.riemann]
     if shift is None:
@@ -231,7 +264,8 @@ def call(lib, u, okf, dt, cfg, dx, shift, want_flux, stream=None,
         outs = (u.new_empty((5, 2, 2, 2, n)), u.new_empty((5, 3, 2, n)))
         if want_flux:
             outs += (u.new_empty((3, 2, 2, 2, 2, n)),)
-        fn, ints, name = lib.ramses_oct_sweep, (n, riemann), "oct_sweep"
+        fn, name = lib.ramses_oct_sweep, "oct_sweep"
+        ints = (n, riemann, chunk)
     else:
         n = u.shape[1]
         c = 1 << (shift + 1)

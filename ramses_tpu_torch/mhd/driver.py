@@ -87,29 +87,17 @@ def unported_mhd_features(params: Params) -> list:
     levelmin`` the hierarchy :class:`ramses_tpu_torch.mhd.amr.MhdAmrSim`
     (beyond what :func:`ramses_tpu_torch.driver.unported_features` and, on
     the hierarchy, :func:`ramses_tpu_torch.amr.hierarchy.
-    unported_amr_features` list: gravity, particles, offload, patch hooks
-    and the rest).  The hierarchy refuses tracers too: the JAX package
+    unported_amr_features` list: gravity, particles, restart, the step
+    guard, telemetry, offload and the rest).  The hierarchy refuses tracers too: the JAX package
     moves them there as CIC velocity tracers, which need the particle
     layer."""
     from ramses_tpu_torch.amr.hierarchy import unported_amr_features
     from ramses_tpu_torch.driver import unported_features
-    r = params.run
     amr = params.amr.levelmax > params.amr.levelmin
-    checks = [
-        ("step guard (&RUN_PARAMS max_step_retries)",
-         r.max_step_retries > 0),
-        ("watchdog (&RUN_PARAMS *_deadline_s)",
-         max(r.compile_deadline_s, r.step_deadline_s, r.io_deadline_s) > 0),
-        ("fault injection (&RUN_PARAMS fault_inject)",
-         bool(str(r.fault_inject or "").strip("'\" "))),
-        ("telemetry (&OUTPUT_PARAMS telemetry)",
-         bool(str(params.output.telemetry or "").strip("'\" "))),
-        ("restart (&RUN_PARAMS nrestart)", r.nrestart > 0),
-        ("tracers (&RUN_PARAMS tracer) on the MHD hierarchy",
-         r.tracer and amr),
-    ]
     out = (unported_amr_features if amr else unported_features)(params)
-    return out + [n for n, on in checks if on and n not in out]
+    if params.run.tracer and amr:
+        out.append("tracers (&RUN_PARAMS tracer) on the MHD hierarchy")
+    return out
 
 
 class MhdSimulation:

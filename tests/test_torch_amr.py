@@ -685,6 +685,21 @@ def test_unported_amr_features_raise():
         AmrSim(p, device="cpu")
 
 
+@pytest.mark.parametrize("key,value,name", [
+    ("fault_inject", "nan@3", "fault injection"),
+    ("nrestart", 2, "restart"),
+    ("max_step_retries", 2, "step guard"),
+    ("step_deadline_s", 5.0, "watchdog"),
+])
+def test_amr_run_control_features_raise(key, value, name):
+    from ramses_tpu_torch.amr.hierarchy import unported_amr_features
+    p = pparams(_text(), ndim=3)
+    setattr(p.run, key, value)
+    with pytest.raises(NotImplementedError, match=name):
+        AmrSim(p, device="cpu")
+    assert [n for n in unported_amr_features(p) if name in n] != []
+
+
 def test_cli_runs_amr_on_cpu(tmp_path):
     text = (open(NML).read().replace("levelmin=8", "levelmin=4")
             .replace("levelmax=8", "levelmax=5")

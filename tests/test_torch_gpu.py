@@ -172,7 +172,8 @@ def test_tile_sweep_chunk_cuts_are_bitwise(cuda, shift, n):
 
 
 @pytest.mark.parametrize("n,riemann,slope_type", [
-    (13, "llf", 1), (200, "hllc", 8), (256, "hllc", 2)])
+    (1, "hllc", 2), (7, "llf", 8), (13, "llf", 1), (45, "hllc", 1),
+    (200, "hllc", 8), (256, "hllc", 2), (300, "llf", 2), (2048, "llf", 1)])
 def test_oct_sweep_kernel_matches_plain(cuda, n, riemann, slope_type):
     from ramses_tpu_torch.hydro import oct_muscl as om
     cfg = HydroStatic(ndim=3, riemann=riemann, slope_type=slope_type)
@@ -183,6 +184,64 @@ def test_oct_sweep_kernel_matches_plain(cuda, n, riemann, slope_type):
     want = om.oct_sweep_ref(u, ok, dt, cfg, 0.05)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+
+
+def _octs(n, gamma, seed, dev):
+    u, ok = _batch(6, n, gamma, seed)
+    return torch.from_numpy(u).to(dev), torch.from_numpy(ok).to(dev)
+
+
+@pytest.mark.parametrize("n,riemann,want_flux", [
+    (7, "llf", True), (300, "hllc", True), (2048, "llf", False)])
+def test_oct_sweep_octs_a_block_are_bitwise(cuda, n, riemann, want_flux):
+    """Every count of octs a block that fits the shared memory gives the
+    bits of one oct a block and of the launch's own choice."""
+    from ramses_tpu_torch.hydro import oct_muscl as om
+    cfg = HydroStatic(ndim=3, riemann=riemann, slope_type=2)
+    u, ok = _octs(n, cfg.gamma, 5 * n, cuda)
+    dt = torch.tensor(2e-3, dtype=torch.float32, device=cuda)
+    lib = om._library()
+    want = om.call(lib, u, ok, dt, cfg, 0.05, None, want_flux)
+    chunks = om.launch_info(None, n, riemann)["chunks"]
+    assert chunks == list(range(1, len(chunks) + 1)) and len(chunks) > 8
+    for b in [1] + chunks:
+        got = om.call(lib, u, ok, dt, cfg, 0.05, None, want_flux, chunk=b)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), b
+
+
+def test_oct_sweep_reports_its_launch(cuda):
+    """K2's launch: the octs a block takes, its blocks, shared memory (11,024
+    bytes an oct), resident blocks, registers and spill; a count of octs
+    past the shared memory raises."""
+    from ramses_tpu_torch.hydro import oct_muscl as om
+    for n in (1, 45, 2048):
+        info = om.launch_info(None, n, "hllc")
+        assert info["chunk"] in info["chunks"] and info["threads"] == 256
+        assert info["smem_bytes"] == 11024 * info["chunk"]
+        assert info["blocks"] == -(-n // info["chunk"])
+        assert info["blocks_per_sm"] >= 1 and info["registers"] > 0
+    with pytest.raises(RuntimeError):
+        om.launch_info(None, 64, "llf", chunk=info["chunks"][-1] + 1)
+
+
+@pytest.mark.parametrize("n,riemann,slope_type,want_flux", [
+    (9, "hllc", 2, True), (300, "llf", 8, True), (2048, "llf", 1, False)])
+def test_oct_sweep_is_tile_sweep_at_shift_0(cuda, n, riemann, slope_type,
+                                            want_flux):
+    """K2 and K3 share their stage code: on the same octs K2's du and mass
+    fluxes are bitwise K3's at shift 0, and its per-oct sums are K3's face
+    planes added in K2's fixed order."""
+    from ramses_tpu_torch.hydro import oct_muscl as om
+    cfg = HydroStatic(ndim=3, riemann=riemann, slope_type=slope_type)
+    u, ok = _octs(n, cfg.gamma, 7 * n, cuda)
+    dt = torch.tensor(2e-3, dtype=torch.float32, device=cuda)
+    got = om.oct_sweep(u, ok, dt, cfg, 0.05, want_flux=want_flux)
+    want = om.oct_from_tiles(om.tile_sweep(
+        u.movedim(-1, 1).contiguous(), ok.movedim(-1, 0).contiguous(), dt,
+        cfg, 0.05, 0, want_flux=want_flux))
+    assert len(got) == len(want) == 2 + want_flux
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
 
 
 def test_oct_kernels_count_launches_and_refuse_outside_scope(cuda):

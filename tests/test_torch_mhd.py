@@ -463,6 +463,25 @@ def test_solver_dispatch_and_refusals():
         MhdSimulation(p, device="cpu")
 
 
+@pytest.mark.parametrize("levelmax", [None, 9], ids=["uniform", "amr"])
+def test_mhd_refusals_listed_once(levelmax):
+    from ramses_tpu_torch.mhd.driver import unported_mhd_features
+    p = load_params(TUBE, ndim=1)
+    if levelmax is not None:
+        p.amr.levelmax = levelmax
+    r = p.run
+    r.poisson = r.tracer = True
+    r.nrestart = r.max_step_retries = 2
+    r.step_deadline_s, r.fault_inject = 5.0, "nan@3"
+    p.output.telemetry = "jsonl"
+    names = unported_mhd_features(p)
+    assert len(names) == len(set(names)), names
+    for name in ("gravity", "restart (", "step guard", "watchdog",
+                 "fault injection", "telemetry"):
+        assert sum(name in n for n in names) == 1, (name, names)
+    assert any("tracers" in n for n in names) == (levelmax is not None)
+
+
 def test_mhd_entry_points_require_cuda_or_cpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the no-GPU error cannot occur")

@@ -48,6 +48,7 @@ RUNTIME = """
 #include <stddef.h>
 #include <stdint.h>
 #include <string.h>
+#include <algorithm>
 #include <barrier>
 #include <memory>
 #include <thread>
@@ -65,6 +66,7 @@ static thread_local dim3 blockIdx, threadIdx, blockDim, gridDim;
 #define __launch_bounds__(...)
 #define __restrict__
 #define __shared__ static
+#define __constant__
 #define __align__(n)
 struct alignas(16) float4 { float x, y, z, w; };
 inline int min(int a, int b) { return a < b ? a : b; }
@@ -97,6 +99,10 @@ template <class T> inline T __ldg(const T* p) { return *p; }
 inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
 inline int atomicMin(int* p, int v) { int o = *p; if (v < o) *p = v; return o; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return (unsigned)(((unsigned long long)a * b) >> 32);
+}
 inline void cp_async_f32(float* s, const float* g) { *s = *g; }
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
@@ -143,6 +149,10 @@ inline void host_launch(dim3 grid, dim3 block, size_t smem, F body) {
       for (unsigned bz = 0; bz < grid.z; ++bz)
         for (unsigned by = 0; by < grid.y; ++by)
           for (unsigned bx = 0; bx < grid.x; ++bx) {
+            // shared memory starts as NaN: a read of what the block did
+            // not write reaches its outputs
+            if (t == 0) std::fill(h.dyn.begin(), h.dyn.end(), NAN);
+            h.block->arrive_and_wait();
             blockIdx = dim3(bx, by, bz);
             body();
             h.block->arrive_and_wait();
@@ -326,22 +336,93 @@ def test_k3_host_build_reports_its_launch(host_libs):
         om.launch_info(2, 64, "llf", chunk=3, lib=host_libs[1])
 
 
-@pytest.mark.parametrize("riemann,slope,want_flux", [
-    ("llf", 1, False), ("hllc", 2, True), ("llf", 8, True)])
-def test_k2_host_build_matches_plain_version(host_libs, riemann, slope,
+def _octs(n, gamma, seed, mask_seed=None):
+    """A random per-oct stencil batch ``[5, 6, 6, 6, n]`` and its mask (15 %
+    refined; drawn from ``mask_seed``, by default ``seed``)."""
+    shape = (6, 6, 6, n)
+    u = _state(shape, gamma, seed)
+    rng = np.random.default_rng(seed if mask_seed is None else mask_seed)
+    ok = torch.from_numpy(rng.random(shape) < 0.15).to(torch.float32)
+    return u, ok
+
+
+@pytest.mark.parametrize("n,riemann,slope,want_flux", [
+    (1, "llf", 1, False), (1, "hllc", 8, True),
+    (7, "hllc", 2, True), (7, "llf", 1, False),
+    (45, "llf", 1, False), (45, "hllc", 2, True), (45, "llf", 8, True),
+    (300, "hllc", 1, False), (300, "llf", 2, True),
+])
+def test_k2_host_build_matches_plain_version(host_libs, n, riemann, slope,
                                              want_flux):
-    """K2's per-oct sums go through shared memory and a barrier: the
-    emulation's two rounds per block exercise the same layout."""
+    """The staged K2 (several octs a block, the block's octs chosen by the
+    launch) on ragged batches, with and without the mass fluxes: its
+    per-oct sums come from the fluxes parked in shared memory."""
     cfg = HydroStatic(ndim=3, riemann=riemann, slope_type=slope)
-    shape = (6, 6, 6, 45)              # one and a half blocks of 32 octs
-    u = _state(shape, cfg.gamma, 30 + slope)
-    ok = (torch.from_numpy(np.random.default_rng(slope).random(shape) < 0.15)
-          .to(torch.float32))
+    u, ok = _octs(n, cfg.gamma, 30 + slope, mask_seed=slope)
     dt = torch.tensor(2e-3, dtype=torch.float32)
     got = om.call(host_libs[1], u, ok, dt, cfg, 1.0 / 32, None, want_flux)
     want = om.oct_sweep_ref(u, ok, dt, cfg, 1.0 / 32, want_flux)
     assert len(got) == len(want) == 2 + want_flux
     _close(got, want)
+
+
+@pytest.mark.parametrize("n,riemann,want_flux", [
+    (45, "hllc", True), (23, "llf", False)])
+def test_k2_host_build_octs_a_block_are_bitwise(host_libs, n, riemann,
+                                                want_flux):
+    """Every count of octs a block that fits the shared memory gives the
+    bits of one oct a block and of the launch's own choice."""
+    cfg = HydroStatic(ndim=3, riemann=riemann, slope_type=2)
+    u, ok = _octs(n, cfg.gamma, 80 + n)
+    dt = torch.tensor(2e-3, dtype=torch.float32)
+    want = om.call(host_libs[1], u, ok, dt, cfg, 1.0 / 32, None, want_flux)
+    chunks = om.launch_info(None, n, riemann, lib=host_libs[1])["chunks"]
+    assert chunks[0] == 1 and len(chunks) > 8
+    for b in chunks:
+        got = om.call(host_libs[1], u, ok, dt, cfg, 1.0 / 32, None,
+                      want_flux, chunk=b)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), b
+
+
+def test_k2_host_build_reports_its_launch(host_libs):
+    """K2's info entry: the octs a block takes (on the host's one SM, fewest
+    blocks times stage passes), the blocks, the shared memory (K3's at
+    shift 0 and a whole tile, an oct) and every count that fits; a count
+    past the shared memory raises."""
+    info = om.launch_info(None, 64, "hllc", lib=host_libs[1])
+    per_oct = 4 * (6 * 216 + 20 * 64 + 5 * (12 + 2 * 12))
+    assert per_oct == 11024
+    assert info["chunks"] == list(range(1, 232448 // per_oct + 1))
+    assert info["chunk"] in info["chunks"] and info["threads"] == 256
+    assert info["smem_bytes"] == per_oct * info["chunk"]
+    assert info["blocks"] == -(-64 // info["chunk"])
+    assert om.launch_info(None, 64, "llf", chunk=3,
+                          lib=host_libs[1])["smem_bytes"] == 3 * per_oct
+    with pytest.raises(RuntimeError):
+        om.launch_info(None, 64, "llf", chunk=info["chunks"][-1] + 1,
+                       lib=host_libs[1])
+    with pytest.raises(RuntimeError):
+        om.launch_info(None, 0, "llf", lib=host_libs[1])
+
+
+@pytest.mark.parametrize("n,riemann,slope,want_flux", [
+    (9, "hllc", 2, True), (40, "llf", 8, True), (3, "llf", 1, False)])
+def test_k2_host_build_is_k3_at_shift_0(host_libs, n, riemann, slope,
+                                        want_flux):
+    """K2 and K3 share their stage code: on the same octs, K2's du and
+    mass fluxes are bitwise K3's at shift 0 (one-oct tiles), and its
+    per-oct sums are K3's face planes added in K2's fixed order."""
+    cfg = HydroStatic(ndim=3, riemann=riemann, slope_type=slope)
+    u, ok = _octs(n, cfg.gamma, 90 + n)
+    dt = torch.tensor(2e-3, dtype=torch.float32)
+    got = om.call(host_libs[1], u, ok, dt, cfg, 1.0 / 32, None, want_flux)
+    tiles = om.call(host_libs[1], u.movedim(-1, 1).contiguous(),
+                    ok.movedim(-1, 0).contiguous(), dt, cfg, 1.0 / 32, 0,
+                    want_flux)
+    want = om.oct_from_tiles(tiles)
+    assert len(got) == len(want) == 2 + want_flux
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("riemann,slope,masked,want_flux,shape", [

@@ -194,3 +194,22 @@ def test_shift0_tile_sweep_equals_oct_sweep_on_one_oct_tiles():
     torch.testing.assert_close(du_t.movedim(1, -1), du_o, rtol=0, atol=0)
     torch.testing.assert_close(planes.sum(dim=(4, 5)).movedim(2, -1), corr,
                                rtol=1e-14, atol=1e-16)
+
+
+@pytest.mark.parametrize("riemann,masked", [("llf", True), ("hllc", False)])
+def test_oct_from_tiles_is_the_oct_sweep_layout(riemann, masked):
+    """``oct_from_tiles`` puts K3's shift-0 results (du, face planes, mass
+    flux planes) in K2's layout: du and phi are K2's values, corr the
+    per-oct sums of the planes in K2's order."""
+    cfg = hydro_static_from(_cfg(riemann, 2))
+    u, ok = _batch(6, 9, cfg.gamma, 5, masked)
+    args = (torch.from_numpy(u).double(), torch.from_numpy(ok).double(),
+            torch.tensor(1e-3, dtype=torch.float64))
+    got = om.oct_from_tiles(om.tile_sweep_ref(
+        args[0].movedim(-1, 1), args[1].movedim(-1, 0), args[2], cfg, DX,
+        0, want_flux=True))
+    want = om.oct_sweep_ref(*args, cfg, DX, want_flux=True)
+    assert [g.shape for g in got] == [w.shape for w in want]
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-14, atol=1e-16)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)

@@ -161,6 +161,43 @@ def test_unported_features_raise():
         run_namelist(NML, ndim=3, max_attempts=2, device="cpu")
 
 
+# the uniform driver's refusals of the JAX driver's run-control layer
+# (ramses_tpu/driver.py:239-252): (namelist line, the Params field it
+# sets, its value, the name the refusal gives)
+RUN_CONTROL = [
+    ("nrestart=2", "run", "nrestart", 2, "restart"),
+    ("max_step_retries=2", "run", "max_step_retries", 2, "step guard"),
+    ("step_deadline_s=5.0", "run", "step_deadline_s", 5.0, "watchdog"),
+    ("fault_inject='nan@3'", "run", "fault_inject", "nan@3",
+     "fault injection"),
+    (None, "output", "telemetry", "events.jsonl", "telemetry"),
+]
+
+
+@pytest.mark.parametrize("line,group,key,value,name", RUN_CONTROL,
+                         ids=[c[2] for c in RUN_CONTROL])
+def test_run_control_features_raise(tmp_path, line, group, key, value,
+                                    name):
+    from ramses_tpu_torch.__main__ import main
+    p = _params(load_params, level=3)
+    setattr(getattr(p, group), key, value)
+    with pytest.raises(NotImplementedError, match=name):
+        Simulation(p, device="cpu")
+    # sedov3d_telemetry.nml (telemetry on), with the key added to
+    # &RUN_PARAMS: each set key is named
+    text = open(os.path.join(ROOT, "namelists",
+                             "sedov3d_telemetry.nml")).read()
+    if line is not None:
+        text = text.replace("&RUN_PARAMS\n", f"&RUN_PARAMS\n{line}\n")
+    nml = tmp_path / "run.nml"
+    nml.write_text(text)
+    for run in (lambda: run_namelist(str(nml), ndim=3, device="cpu"),
+                lambda: main([str(nml), "--ndim", "3", "--device", "cpu"])):
+        with pytest.raises(NotImplementedError, match=name) as err:
+            run()
+        assert "telemetry (&OUTPUT_PARAMS telemetry)" in str(err.value)
+
+
 def test_cli_runs_on_cpu(tmp_path):
     text = open(NML).read().replace("levelmin=8", "levelmin=4") \
                            .replace("levelmax=8", "levelmax=4")
