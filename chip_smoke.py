@@ -205,7 +205,31 @@ Phases, each printing its own line; any failure exits non-zero:
    padded entry 3 times a shard a sweep), K3 as in phase 8; bitwise equal
    to a single-device ``AmrSim`` run on every level (else within
    ``AMR_REL`` of each field's max, reported), leaf mass to rel 1e-5;
-   cell-updates/s and one coarse step's profile.
+   cell-updates/s and one coarse step's profile;
+31. config 3 as ``bench.py``'s ``bench_mg``: ``poisson/solver.mg_solve``
+   at 128³ f32 (rhs ``default_rng(0).standard_normal``, mean removed),
+   10 V-cycles a solve, each solve fed the last one's result times 0,
+   repeated until the window is 1 s: V-cycles/s, the relative residual
+   (limit 1e-6), ``mg_solve`` against ``fft_solve`` (limit 1e-4 of
+   max|φ|), launches a V-cycle and the busy share from the profiler; no
+   port kernel;
+32. ``namelists/pointmass.nml`` at 128³ f32 through ``Simulation``
+   (FFT self-gravity, the general hydro formulation): 5 steps, a finite
+   state, mass to rel 1e-5, no port kernel launched, the initial force
+   within 1e-4 of max|f| of the same set-up in f64 on the CPU, the
+   point-mass law (median |f_r r²/M − 1| under 0.2 on 0.2 < r < 0.3, the
+   judge of ``tests/test_amr_gravity.py``), ms a step and a profile;
+33. config 2 with self-gravity as ``bench.py``'s ``bench_amr_poisson``
+   (``poisson=.true.``): 6 warm coarse steps, then 4 timed, each a regrid
+   and a coarse step: PCG iterations/s, iterations a step, cell-updates/s;
+   K1 and K3 exactly as the levels stepped require, leaf mass to rel 1e-5,
+   every level's phi, fg and u finite; a coarse step's host seconds by
+   part with ``solve_gravity`` as one; the finest level's PCG cut to 0 and
+   10 iterations under the profiler (launches an iteration, busy share);
+   3 coarse steps twice from one state, bitwise (u, phi, fg, iterations);
+34. ``namelists/pointmass.nml`` (levelmin=4, levelmax=7, ``nstepmax=4``)
+   through ``run_namelist`` as the CLI runs it: K1 and K3 as the levels
+   stepped require, finite, mass to rel 1e-5.
 
 The line before the last holds every ported kernel's numbers as one JSON
 object (``{"kernels": [...]}``); the last line is
@@ -400,10 +424,12 @@ def _count_ops(fn) -> int:
 
 
 def _profile(run, out_dir: str, name: str = "chip_smoke_trace.json",
-             warm: bool = True) -> str:
+             warm: bool = True, stats: dict = None) -> str:
     """One traced run of ``run`` (after one untraced run when ``warm``):
     device kernel time by name and the device's busy share of the window;
-    the trace goes to ``out_dir/name``."""
+    the trace goes to ``out_dir/name`` (not kept when ``name`` is None).
+    ``stats``, when given, receives the busy microseconds, the wall
+    seconds and the kernel launches of the window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -416,8 +442,9 @@ def _profile(run, out_dir: str, name: str = "chip_smoke_trace.json",
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, name))
+    if name is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, name))
     # kernels only: an aten op's own row repeats its kernels' device time
     rows = sorted(((e.self_device_time_total, e.count,
                     e.key.replace("void ", "").replace(
@@ -425,6 +452,9 @@ def _profile(run, out_dir: str, name: str = "chip_smoke_trace.json",
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
     busy_us = sum(r[0] for r in rows)
+    if stats is not None:
+        stats.update(busy_us=busy_us, wall_s=wall,
+                     launches=sum(n for _, n, _ in rows))
     top = "; ".join(f"{k} x{n} {us / 1e3:.3f} ms" for us, n, k in rows[:8])
     ours = "; ".join(
         f"{kern} x{sum(n for _, n, k in rows if kern in k)} "
@@ -2581,6 +2611,326 @@ def _options_phase(dev):
            f"worst field difference {rel:.3e} of its max")
 
 
+POINTMASS_NML = os.path.join(ROOT, "namelists", "pointmass.nml")
+MG_N = 128                     # bench.py's bench_mg: 128³ f32, 10 V-cycles
+MG_NCYCLE = 10
+MG_RESIDUAL = 1e-6             # JAX: 4.871e-7 (TPU, BENCH_r02), 5.106e-7 (CPU)
+MG_FFT_REL = 1e-4              # JAX on the CPU: 7.97e-6
+GRAV_UNIFORM_LEVEL = 7         # pointmass.nml at 128³
+GRAV_UNIFORM_STEPS = 5
+GRAV_WARM, GRAV_TIMED = 6, 4   # bench.py's bench_amr_poisson
+
+
+def _force_law(f, shape, dx: float, rho):
+    """Median over the shell 0.2 < r < 0.3 around the box centre of
+    |f_r / (M_c / r²) − 1|, M_c the mass above the background: the judge
+    of ``tests/test_amr_gravity.py::test_point_mass_force_law_3d``."""
+    import numpy as np
+    x = (np.indices(shape).reshape(3, -1).T + 0.5) * dx - 0.5
+    r = np.sqrt((x ** 2).sum(1))
+    f = f.reshape(3, -1).T
+    fr = -(f * x).sum(1) / np.maximum(r, 1e-12)
+    rho = rho.reshape(-1)
+    mass_c = ((rho - rho.min()) * dx ** 3).sum()
+    shell = (r > 0.2) & (r < 0.3)
+    return float(np.median(np.abs(fr[shell] / (mass_c / r[shell] ** 2)
+                                  - 1.0)))
+
+
+def _gravity_phases(dev, card: str):
+    """Phases 31-34: self-gravity (BASELINE config 3 and config 2 with
+    self-gravity).  The Poisson layer is the torch formulation (the JAX
+    package has no Pallas kernel there): the hydro kernels K1 and K3 run
+    on the hierarchy's sweeps, nothing else.  ``card`` (``nvidia-smi``'s
+    name and power limit) goes beside each rate."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.amr import kernels as K
+    from ramses_tpu_torch.amr.hierarchy import AmrSim, _Cfg1
+    from ramses_tpu_torch.config import load_params
+    from ramses_tpu_torch.convert import amr_state_from
+    from ramses_tpu_torch.driver import Simulation, run_namelist
+    from ramses_tpu_torch.pm.coupling import run_steps_pm
+    from ramses_tpu_torch.poisson import amr_solve as gs
+    from ramses_tpu_torch.poisson import solver
+
+    # ---- 31. config 3: uniform multigrid as bench.py's bench_mg ----
+    n = MG_N
+    rhs = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (n, n, n))).to(dev, torch.float32)
+    rhs = rhs - torch.mean(rhs)
+    dx = 1.0 / n
+    _reset_counts()
+    phi = solver.mg_solve(rhs, dx, phi0=rhs * 0.0, ncycle=MG_NCYCLE)
+    torch.cuda.synchronize()
+
+    def run(reps):
+        p = phi
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            p = solver.mg_solve(rhs, dx, phi0=p * 0.0, ncycle=MG_NCYCLE)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, p
+    reps = 3
+    wall, phi = run(reps)
+    while wall < 1.0 and reps < 8192:
+        reps = min(8192, max(reps * 2, int(reps * 1.3 / max(wall, 1e-3))))
+        wall, phi = run(reps)
+    if _counts() != _want():
+        raise AssertionError(f"mg_solve launched port kernels {_counts()}")
+    vps = MG_NCYCLE * reps / wall
+    rel = float(torch.linalg.norm(solver.residual(phi, rhs, dx))
+                / torch.linalg.norm(rhs))
+    phi_fft = solver.fft_solve(rhs, dx)
+    fft_rel = float((phi - phi_fft).abs().max() / phi_fft.abs().max())
+    if not (bool(torch.isfinite(phi).all()) and rel <= MG_RESIDUAL
+            and fft_rel <= MG_FFT_REL):
+        raise AssertionError(
+            f"mg_solve at {n}³ f32: relative residual {rel:.3e} (limit "
+            f"{MG_RESIDUAL:.0e}), max|mg - fft|/max|fft| {fft_rel:.3e} "
+            f"(limit {MG_FFT_REL:.0e})")
+    one, ten = {}, {}
+    _profile(lambda: solver.mg_solve(rhs, dx, phi0=phi * 0.0, ncycle=1),
+             None, None, stats=one)
+    prof = _profile(lambda: solver.mg_solve(rhs, dx, phi0=phi * 0.0,
+                                            ncycle=MG_NCYCLE),
+                    None, None, stats=ten)
+    per_cycle = (ten["launches"] - one["launches"]) / (MG_NCYCLE - 1)
+    fft_ms = _median_ms(lambda: solver.fft_solve(rhs, dx), reps=20)
+    nlev = solver._mg_levels(tuple(rhs.shape))
+    _print(f"phase 31 config 3 multigrid on {card}: {n}³ f32 ({nlev} "
+           f"coarsenings, "
+           f"2+2 red-black sweeps, 32 on the coarsest): "
+           f"{reps} solves of {MG_NCYCLE} V-cycles in {wall:.4f} s = "
+           f"{vps:.4f} V-cycles/s; relative residual after {MG_NCYCLE} "
+           f"V-cycles {rel:.4e}; max|mg - fft|/max|fft| {fft_rel:.4e}; "
+           f"{per_cycle:.1f} kernel launches a V-cycle; one solve "
+           f"profiled: {prof}; fft_solve {fft_ms:.4f} ms")
+    del rhs, phi, phi_fft
+    torch.cuda.empty_cache()
+
+    # ---- 32. uniform self-gravity hydro: pointmass.nml at 128³ f32 ----
+    p = load_params(POINTMASS_NML, ndim=3)
+    p.amr.levelmin = p.amr.levelmax = GRAV_UNIFORM_LEVEL
+    p.run.nstepmax = GRAV_UNIFORM_STEPS
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim = Simulation(p)
+    mass0 = float(sim.totals()["mass"])
+    f_card = sim.state.f.double().cpu()
+    sim.evolve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    mass1 = float(sim.totals()["mass"])
+    u, f = sim.state.u, sim.state.f
+    shape = sim.grid.shape
+    # the initial force against the same set-up in f64 on the CPU
+    f_cpu = Simulation(p, dtype=torch.float64, device="cpu").state.f
+    f_rel = float((f_card - f_cpu).abs().max() / f_cpu.abs().max())
+    law = _force_law(f.double().cpu().numpy(), shape, sim.dx,
+                     u[0].double().cpu().numpy())
+    if not (sim.nstep == GRAV_UNIFORM_STEPS and bool(torch.isfinite(u).all())
+            and bool(torch.isfinite(f).all())
+            and abs(mass1 - mass0) <= 1e-5 * abs(mass0)
+            and launches == _want() and f_rel <= 1e-4 and law < 0.2):
+        raise AssertionError(
+            f"pointmass.nml at {shape}: {sim.nstep} steps, mass {mass0} -> "
+            f"{mass1}, launches {launches}, initial force against the CPU "
+            f"f64 solve {f_rel:.3e} of max|f| (limit 1e-4), force law "
+            f"median |f_r r²/M - 1| {law:.3f} (limit 0.2)")
+    t = torch.tensor(sim.t, dtype=torch.float64, device=dev)
+    tend = torch.tensor(1e30, dtype=torch.float64, device=dev)
+
+    def steps():
+        return run_steps_pm(sim.grid, sim.gspec, sim.pspec, u, f, t, tend, 2)
+    step_ms = _median_ms(steps, reps=5, warm=1) / 2
+    prof = _profile(steps, None, None)
+    _print(f"phase 32 uniform self-gravity on {card}: pointmass.nml "
+           f"{shape} f32 "
+           f"through Simulation (FFT solve, the general hydro formulation): "
+           f"{sim.nstep} steps t={sim.t:.6e} in {wall:.3f} s (incl. set-up "
+           f"and the initial solve); mass {mass0:.9e} -> {mass1:.9e}; port "
+           f"kernels launched {launches}; initial force against the CPU f64 "
+           f"solve {f_rel:.3e} of max|f|; point-mass law median "
+           f"|f_r r²/M - 1| on 0.2 < r < 0.3: {law:.4f}; run_steps_pm x2: "
+           f"{step_ms:.4f} ms/step = "
+           f"{sim.grid.ncell / (step_ms * 1e-3):.4e} cell-updates/s; "
+           f"profiled 2 steps: {prof}")
+    del sim, u, f, f_card, f_cpu
+    torch.cuda.empty_cache()
+
+    # ---- 33. config 2 with self-gravity, as bench.py's bench_amr_poisson ----
+    p = _amr_params()
+    p.run.poisson = True
+    lmin = p.amr.levelmin
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim = AmrSim(p)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mass0 = float(sim.totals()["mass"])
+    stepped = []
+    step_coarse = sim.step_coarse
+    sim.step_coarse = lambda dt: (stepped.append(tuple(sim.levels())),
+                                  step_coarse(dt))
+    t0 = time.perf_counter()
+    sim.evolve(1e9, nstepmax=GRAV_WARM)
+    sim.drain()
+    warm_s = time.perf_counter() - t0
+    iters, updates = 0, 0
+    per_step = []
+    t0 = time.perf_counter()
+    for _ in range(GRAV_TIMED):
+        sim.regrid()
+        updates += sim.updates_per_step()
+        sim.step_coarse(sim.coarse_dt())
+        it = {l: int(v) for l, v in sim.poisson_iters.items()}
+        per_step.append(it)
+        iters += sum(it.values())
+    sim.drain()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    del sim.step_coarse
+    want = _want(fused_muscl=len(stepped),
+                 tile_sweep=sum(2 ** (l - lmin) for lv in stepped for l in lv
+                                if l > lmin))
+    mass1 = float(sim.totals()["mass"])
+    finite = all(bool(torch.isfinite(sim.phi[l]).all())
+                 and bool(torch.isfinite(sim.fg[l]).all())
+                 and bool(torch.isfinite(sim.u[l]).all())
+                 for l in sim.levels())
+    if not (sim.nstep == GRAV_WARM + GRAV_TIMED
+            and len(stepped) == sim.nstep and launches == want and finite
+            and set(sim.fg) == set(sim.levels())
+            and abs(mass1 - mass0) <= 1e-5 * abs(mass0)):
+        raise AssertionError(
+            f"config 2 with self-gravity: {sim.nstep} steps on "
+            f"{sim.levels()}, launches {launches} (expected {want}), "
+            f"phi/fg/u finite {finite}, fg levels {sorted(sim.fg)}, leaf "
+            f"mass {mass0} -> {mass1}")
+    octs = {l: sim.tree.noct(l) for l in sim.levels()}
+    ladder = {l: len(sim.dev[l].get("g_mg", ())) for l in sim.levels()}
+    _print(f"phase 33 config 2 with self-gravity on {card}: sedov3d "
+           f"levelmin={lmin} "
+           f"levelmax={p.amr.levelmax} poisson=.true., AmrSim() "
+           f"{init_s:.3f} s, {GRAV_WARM} warm coarse steps {warm_s:.3f} s, "
+           f"then {GRAV_TIMED} timed (regrid + coarse step each) in "
+           f"{wall:.4f} s: {iters / wall:.4f} PCG iterations/s, "
+           f"{iters / GRAV_TIMED:.2f} iterations a step (per step and "
+           f"level {per_step}), {updates / wall:.4e} cell-updates/s; octs "
+           f"per level {octs}, multigrid ladder depth per partial level "
+           f"{ladder}; launches {launches} (expected {want}); leaf mass "
+           f"{mass0:.9e} -> {mass1:.9e}; phi, fg and u finite on every "
+           f"level")
+
+    # where a coarse step's time goes, with the solve as a part
+    def coarse_step():
+        sim.regrid()
+        sim.step_coarse(sim.coarse_dt())
+    walls, _ = _host_breakdown(
+        sim, coarse_step, parts=("_flag_and_tree", "_rebuild_maps",
+                                 "_migrate_level", "_restrict_all",
+                                 "coarse_dt", "step_coarse",
+                                 "solve_gravity"),
+        nested=("solve_gravity",))
+    # a PCG solve's launches and busy share: the finest level's solve cut
+    # to 0 and to 10 iterations (a whole solve runs 200)
+    lf = sim.levels()[-1]
+    d = sim.dev[lf]
+    rhs_l = sim.grav_coeff() * (sim.u[lf][:, 0] - float(
+        sim.totals()["mass"]) / sim.boxlen ** 3)
+    ghosts = K.interp_cells(sim.phi[lf - 1][:, None], d["g_cell"],
+                            d["g_gnb"], d["g_sgn"], _Cfg1(3), itype=1)[:, 0]
+
+    def pcg(k):
+        return lambda: gs.pcg_level(
+            rhs_l, ghosts, d["g_nb"], d["g_octnb"], sim.dx(lf),
+            d["g_valid"], 3, tol=float(p.poisson.epsilon), iters=k,
+            phi0=sim.phi[lf], mg=d["g_mg"])
+    zero, ten = {}, {}
+    _profile(pcg(0), None, None, stats=zero)
+    prof = _profile(pcg(10), None, None, stats=ten)
+    per_iter = (ten["launches"] - zero["launches"]) / 10
+    _print(f"phase 33 where a coarse step's time goes (octs "
+           f"{[sim.tree.noct(l) for l in sim.levels()]}): wall by part, "
+           f"each synchronised: {walls}; the level-{lf} PCG "
+           f"({sim.tree.noct(lf)} octs): {per_iter:.1f} kernel launches "
+           f"an iteration, 10 iterations profiled: {prof}")
+
+    # replay: 3 coarse steps twice from one state, bitwise
+    state = amr_state_from(sim)
+
+    def three_steps():
+        s = AmrSim.from_state(p, **state)
+        s.evolve(1e9, nstepmax=s.nstep + 3)
+        s.drain()
+        return s
+    a, b = three_steps(), three_steps()
+    for l in a.levels():
+        same = (np.array_equal(a.tree.levels[l].keys, b.tree.levels[l].keys)
+                and torch.equal(a.u[l], b.u[l])
+                and torch.equal(a.phi[l], b.phi[l])
+                and torch.equal(a.fg[l], b.fg[l]))
+        if not same:
+            raise AssertionError(f"self-gravity replay of 3 AMR steps is "
+                                 f"not bitwise equal on level {l}")
+    if {l: int(v) for l, v in a.poisson_iters.items()} != \
+            {l: int(v) for l, v in b.poisson_iters.items()}:
+        raise AssertionError("self-gravity replay: PCG iteration counts "
+                             "differ")
+    _print(f"phase 33 replay: 3 coarse steps with self-gravity twice from "
+           f"one state, bitwise equal (u, phi, fg, trees, PCG iterations "
+           f"{ {l: int(v) for l, v in a.poisson_iters.items()} })")
+    del sim, a, b, state
+    torch.cuda.empty_cache()
+
+    # ---- 34. namelists/pointmass.nml as the CLI runs it ----
+    p = load_params(POINTMASS_NML, ndim=3)
+    mass0 = float(AmrSim(p).totals()["mass"])
+    stepped = []
+    step_coarse = AmrSim.step_coarse
+
+    def counted(self, dt):
+        stepped.append(tuple(self.levels()))
+        return step_coarse(self, dt)
+    AmrSim.step_coarse = counted
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        sim = run_namelist(POINTMASS_NML, ndim=3)
+        sim.drain()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        AmrSim.step_coarse = step_coarse
+    lmin = p.amr.levelmin
+    want = _want(fused_muscl=len(stepped),
+                 tile_sweep=sum(2 ** (l - lmin) for lv in stepped for l in lv
+                                if l > lmin))
+    mass1 = float(sim.totals()["mass"])
+    if not (isinstance(sim, AmrSim) and sim.nstep == p.run.nstepmax
+            and launches == want
+            and all(bool(torch.isfinite(sim.u[l]).all())
+                    and bool(torch.isfinite(sim.fg[l]).all())
+                    for l in sim.levels())
+            and abs(mass1 - mass0) <= 1e-5 * abs(mass0)):
+        raise AssertionError(
+            f"pointmass.nml through run_namelist: {sim.nstep} steps, "
+            f"launches {launches} (expected {want}), mass {mass0} -> "
+            f"{mass1}")
+    _print(f"phase 34 pointmass.nml through run_namelist (levelmin="
+           f"{p.amr.levelmin}, levelmax={p.amr.levelmax}): {sim.nstep} "
+           f"coarse steps t={sim.t:.6e} in {wall:.3f} s, octs "
+           f"{[sim.tree.noct(l) for l in sim.levels()]}, PCG iterations "
+           f"{ {l: int(v) for l, v in sim.poisson_iters.items()} }, "
+           f"launches {launches} (expected {want}), mass {mass0:.9e} -> "
+           f"{mass1:.9e}")
+
+
 # the slab-sharded paths: 8 shards of the one card, as the JAX package's
 # tests run 8 virtual devices of one CPU
 NSHARD = 8
@@ -3228,6 +3578,9 @@ def main() -> int:
 
     # ---- 28-30. the slab-sharded paths: K5 and K1's padded entry ----
     parallel_rows = _parallel_phases(dev)
+
+    # ---- 31-34. self-gravity: config 3 and config 2 with gravity ----
+    _gravity_phases(dev, card)
     if PROFILER_LOST:
         _print("timing: the profiler lost these kernels' records in every "
                "window; their ms are queued CUDA events: "

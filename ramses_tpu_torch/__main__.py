@@ -1,9 +1,10 @@
 """Command-line entry point: ``python -m ramses_tpu_torch run.nml``.
 
-Runs a namelist on the GPU (``--device cpu`` for the CPU): pure hydro,
-or with ``--solver mhd`` (the default when &INIT_PARAMS sets a region
-field, as in the JAX CLI) constrained-transport MHD, each on a uniform grid
-or, with ``levelmax > levelmin``, on the AMR hierarchy of one device.
+Runs a namelist on the GPU (``--device cpu`` for the CPU): hydro (with
+self-gravity under ``&RUN_PARAMS poisson``), or with ``--solver mhd`` (the
+default when &INIT_PARAMS sets a region field, as in the JAX CLI)
+constrained-transport MHD, each on a uniform grid or, with ``levelmax >
+levelmin``, on the AMR hierarchy of one device.
 Prints one line per chunk of steps (per coarse step on the hierarchy) and
 the final conservation totals; MHD on the hierarchy closes with the JAX
 CLI's ``mhd-amr t=… nstep=… max|divB|/max|B|*dx=…`` line.  Snapshot output
@@ -19,8 +20,8 @@ import sys
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="ramses_tpu_torch",
-        description="PyTorch/CUDA port of ramses_tpu (pure hydro and "
-                    "CT MHD, uniform or AMR on one device)")
+        description="PyTorch/CUDA port of ramses_tpu (hydro with gravity "
+                    "and CT MHD, uniform or AMR on one device)")
     ap.add_argument("namelist", help="Fortran-namelist runtime config")
     ap.add_argument("--ndim", type=int, default=3,
                     help="spatial dimensions (compile-time in the reference)")

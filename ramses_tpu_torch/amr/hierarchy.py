@@ -32,13 +32,22 @@ flux-probability jumps (:func:`ramses_tpu_torch.pm.amr_physics.
 mc_tracer_amr`).  While tracers exist, ``evolve`` steps one coarse step at
 a time, as the JAX package does.
 
+``&RUN_PARAMS poisson`` adds the per-level Poisson solve before each coarse
+step (:meth:`AmrSim.solve_gravity`: the exact FFT on complete levels, the
+isolated multipole-Dirichlet solve on an open box, PCG with coarse ghosts
+on partial levels) and a half kick of each level before and after its
+sweep (:func:`ramses_tpu_torch.poisson.amr_solve.kick_flat`); the sweep
+itself goes through the same kernels.  The solve's one host fetch is the
+mean density of a periodic box (:meth:`AmrSim.totals`); ``evolve`` then
+steps one coarse step at a time, as the JAX package does.
+
 Regrids always take the host prolongation-map migrate; the JAX package's
 ``device_regrid`` (on by default there) is pinned bitwise equal to it by
-its own tests and is not ported.  Gravity, particles, cooling, cosmology,
-star formation, sinks, RT, movies, load balance, offload, the step guard,
-the watchdog, telemetry, patch hooks, non-cubic roots and snapshots are
-not ported yet: a namelist that turns one on raises
-``NotImplementedError`` naming it.
+its own tests and is not ported.  Particles, cooling, cosmology, star
+formation, sinks, RT, movies, load balance, offload, the step guard, the
+watchdog, telemetry, patch hooks, non-cubic roots and snapshots are not
+ported yet: a namelist that turns one on raises ``NotImplementedError``
+naming it.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from ramses_tpu_torch.hydro.core import HydroStatic
 from ramses_tpu_torch.init import regions
 from ramses_tpu_torch.pm import amr_physics
 from ramses_tpu_torch.pm.particles import TRACER_ID0
+from ramses_tpu_torch.poisson import amr_solve as gs
 
 
 class FusedSpec(NamedTuple):
@@ -82,15 +92,25 @@ class FusedSpec(NamedTuple):
     # (parallel/dense_slab.py), None for the single-device sweep; empty on
     # the single-device AmrSim
     slab: tuple = ()
+    # self-gravity: a half kick of each level before and after its sweep
+    gravity: bool = False
 
 
-def _advance(u, dev, dt, spec: FusedSpec):
+class _Cfg1:
+    """Minimal cfg shim for interp_cells on a single-column array."""
+
+    def __init__(self, ndim: int):
+        self.ndim = ndim
+
+
+def _advance(u, dev, dt, spec: FusedSpec, fg=None):
     """One coarse step (the recursive subcycled ``amr_step``) as device work
     only: ``u`` maps level → rows, ``dt`` is a 0-d device tensor in the
-    state dtype.  Returns ``(u, phi)``: the new state dict and, with
-    ``spec.want_flux``, each level's face mass fluxes ``[ncell_pad, ndim,
-    2]`` summed over its substeps (else None).  The input tensors are not
-    modified."""
+    state dtype, ``fg`` (with ``spec.gravity``) level → the force rows
+    ``[ncell_pad, ndim]``.  Returns ``(u, phi)``: the new state dict and,
+    with ``spec.want_flux``, each level's face mass fluxes ``[ncell_pad,
+    ndim, 2]`` summed over its substeps (else None).  The input tensors are
+    not modified."""
     cfg = spec.cfg
     u = dict(u)
     unew = dict(u)
@@ -105,6 +125,8 @@ def _advance(u, dev, dt, spec: FusedSpec):
     def advance(i, dtl):
         l = levels[i]
         d = dev[l]
+        if spec.gravity:
+            u[l] = gs.kick_flat(u[l], fg[l], 0.5 * dtl, cfg.ndim, cfg.smallr)
         unew[l] = u[l]
         if i + 1 < len(levels):
             advance(i + 1, 0.5 * dtl)
@@ -151,6 +173,8 @@ def _advance(u, dev, dt, spec: FusedSpec):
                 phi[l - 1] = K.scatter_corr_flux(phi[l - 1], corr,
                                                  d["flux_plan"], cfg)
         u[l] = unew[l]
+        if spec.gravity:
+            u[l] = gs.kick_flat(u[l], fg[l], 0.5 * dtl, cfg.ndim, cfg.smallr)
         if i + 1 < len(levels):
             u[l] = K.restrict_upload(u[l], u[levels[i + 1]], d["ref_cell"],
                                      d["son_oct"], cfg)
@@ -159,20 +183,24 @@ def _advance(u, dev, dt, spec: FusedSpec):
     return u, phi
 
 
-def _courant(u, dev, spec: FusedSpec):
-    """All levels' CFL dts as coarse-step equivalents ``[nlevel]``."""
+def _courant(u, dev, spec: FusedSpec, fg=None):
+    """All levels' CFL dts as coarse-step equivalents ``[nlevel]``.
+    ``fg`` (level → force rows) adds the gravity-strength correction on
+    the levels it holds (one solve stale, as the reference's
+    ``courant_fine`` reads the last force)."""
     return torch.stack([
         K.level_courant(u[l], dev[l]["valid_cell"], spec.boxlen / (1 << l),
-                        spec.cfg) * (2.0 ** (l - spec.lmin))
+                        spec.cfg, fg.get(l) if fg else None)
+        * (2.0 ** (l - spec.lmin))
         for l in spec.levels])
 
 
-def _coarse_step(u, dev, dt, spec: FusedSpec):
+def _coarse_step(u, dev, dt, spec: FusedSpec, fg=None):
     """One coarse step and the NEXT step's Courant dt (a 0-d device
     tensor), the reference's ``dtnew`` bookkeeping; with
     ``spec.want_flux`` also the step's face mass fluxes per level."""
-    u, phi = _advance(u, dev, dt, spec)
-    dtn = torch.min(_courant(u, dev, spec))
+    u, phi = _advance(u, dev, dt, spec, fg)
+    dtn = torch.min(_courant(u, dev, spec, fg if spec.gravity else None))
     return (u, dtn, phi) if spec.want_flux else (u, dtn)
 
 
@@ -232,7 +260,7 @@ class AmrSim:
     @classmethod
     def _unported(cls, params: Params) -> list:
         """The namelist's features this hierarchy does not run (subclass
-        hook): pure hydro here, so a namelist with a region field too."""
+        hook): hydro here, so a namelist with a region field too."""
         from ramses_tpu_torch.driver import is_mhd
         mhd = ["magnetic fields (&INIT_PARAMS A/B/C_region; MHD runs "
                "through ramses_tpu_torch.mhd.amr.MhdAmrSim)"]
@@ -278,6 +306,24 @@ class AmrSim:
         self._tracer_rng = np.random.default_rng(20481)
         self._tracer_phi = None
         self._tracer_rho0 = None
+        # self-gravity (per-level Poisson): periodic boxes solve the
+        # zero-mean problem; any non-periodic face switches complete levels
+        # to the isolated multipole-Dirichlet solve (poisson/isolated.py)
+        self.gravity = bool(params.run.poisson)
+        self.grav_periodic = all(k == bmod.PERIODIC
+                                 for pair in self.bc_kinds for k in pair)
+        if self.gravity and any(k == bmod.REFLECTING
+                                for pair in self.bc_kinds for k in pair):
+            # mirror walls need image masses, which the isolated multipole
+            # solve does not provide
+            raise NotImplementedError(
+                "self-gravity with reflecting walls is unsupported "
+                "(isolated solve covers outflow/inflow boxes)")
+        # per level: the potential and the force rows, and the PCG's live
+        # iteration count (0-d device tensors) of partial levels
+        self.phi: Dict[int, torch.Tensor] = {}
+        self.fg: Dict[int, torch.Tensor] = {}
+        self.poisson_iters: Dict[int, torch.Tensor] = {}
         if init_tree is not None:
             self.tree = init_tree
             self._rebuild_maps()
@@ -292,7 +338,8 @@ class AmrSim:
                    rows: Dict[int, np.ndarray], t: float = 0.0,
                    nstep: int = 0, noct_pad: Optional[Dict[int, int]] = None,
                    dtype=None, device=None, tracer_x=None, tracer_id=None,
-                   tracer_rng=None, **kwargs) -> "AmrSim":
+                   tracer_rng=None, phi=None, fg=None, poisson_iters=None,
+                   **kwargs) -> "AmrSim":
         """Start from a given hierarchy: per-level oct coordinates
         ``tree_og`` and state rows ``rows`` (numpy, e.g. from
         :func:`ramses_tpu_torch.convert.amr_state_from`), the time and the
@@ -301,8 +348,11 @@ class AmrSim:
         the rows'.  With ``&RUN_PARAMS tracer`` the tracers are the given
         ``tracer_x``/``tracer_id`` and the jump generator continues from
         the bit-generator state ``tracer_rng``, or, without them, are
-        seeded on the given state.  ``kwargs`` go to the constructor (a
-        subclass's own arguments, such as a shard mesh)."""
+        seeded on the given state.  With gravity, ``phi``, ``fg`` and
+        ``poisson_iters`` (per level) carry the last solve: its force for
+        the Courant dt and its potential as the next PCG's warm start.
+        ``kwargs`` go to the constructor (a subclass's own arguments, such
+        as a shard mesh)."""
         tree = Octree(params.ndim, params.amr.levelmin, params.amr.levelmax)
         for l, og in tree_og.items():
             tree.set_level(l, og)
@@ -315,6 +365,14 @@ class AmrSim:
             sim.u[l] = sim._rows_from(sim.u[l], rows[l], l)
         sim.t, sim.nstep = float(t), int(nstep)
         sim._dt_cache = None
+        for name, arrs in (("phi", phi), ("fg", fg)):
+            getattr(sim, name).update(
+                {l: torch.tensor(np.asarray(a), dtype=sim.dtype,
+                                 device=sim.device)
+                 for l, a in (arrs or {}).items()})
+        sim.poisson_iters.update(
+            {l: torch.tensor(int(n), dtype=torch.int32, device=sim.device)
+             for l, n in (poisson_iters or {}).items()})
         if bool(params.run.tracer):
             if tracer_x is None:
                 sim._seed_tracers()
@@ -497,6 +555,26 @@ class AmrSim:
                     b_interp_cell=self._dev(b.interp_cell),
                     b_interp_nb=self._dev(b.interp_nb),
                     b_interp_sgn=self._dev(b.interp_sgn, self.dtype))
+            if self.gravity:
+                self.dev[l].update(self._gravity_dev(
+                    mapmod.build_gravity_maps(self.tree, l, self.bc_kinds,
+                                              noct_pad=m.noct_pad)))
+
+    def _gravity_dev(self, g: mapmod.GravityMaps) -> dict:
+        """A partial level's gravity maps on the device; each depth of the
+        multigrid ladder as ``(nb, par, kids)``, ``kids`` the child table
+        of its restriction (:func:`mapmod.mg_children`)."""
+        mg = tuple((self._dev(nb_j, torch.int64),
+                    self._dev(par_j, torch.int64),
+                    self._dev(mapmod.mg_children(par_j, nb_j.shape[0])))
+                   for nb_j, par_j, _n in g.mg)
+        return dict(g_nb=self._dev(g.nb, torch.int64),
+                    g_cell=self._dev(g.g_cell, torch.int64),
+                    g_gnb=self._dev(g.g_nb, torch.int64),
+                    g_sgn=self._dev(g.g_sgn, self.dtype),
+                    g_octnb=self._dev(g.oct_nb, torch.int64),
+                    g_valid=self._dev(g.valid_cell),
+                    g_mg=mg)
 
     def _ic_state(self, lvl: int) -> torch.Tensor:
         """Analytic conservative ICs on this level's (padded) rows."""
@@ -637,6 +715,14 @@ class AmrSim:
             new_u[l] = self._migrate_level(old_u.get(l), new_u[l - 1],
                                            m.ncell_pad, *pmaps)
         self.u = new_u
+        # prune stale gravity state: a level whose bucketed size changed or
+        # that vanished must not seed the next solve's warm start
+        for l in list(self.phi):
+            if (l not in self.maps
+                    or self.phi[l].shape[0] != self.maps[l].ncell_pad):
+                self.phi.pop(l, None)
+                self.fg.pop(l, None)
+                self.poisson_iters.pop(l, None)
         self._restrict_all()
         self._dt_cache = None
 
@@ -691,7 +777,8 @@ class AmrSim:
                 blocked=tuple(l in self.blocks for l in lv),
                 block_shift=int(self.params.amr.oct_block_shift),
                 want_flux=(self.tracer_x is not None
-                           and len(self.tracer_x) > 0))
+                           and len(self.tracer_x) > 0),
+                gravity=self.gravity)
             slab = tuple(self._slab_spec(l) if self.maps[l].complete
                          else None for l in lv)
             if any(sl is not None for sl in slab):
@@ -709,10 +796,77 @@ class AmrSim:
         """The coarse step's CFL dt: the one device→host fetch of a step."""
         if self._dt_cache is not None:
             return float(self._dt_cache)
-        return float(torch.min(_courant(self.u, self.dev,
-                                        self._fused_spec())))
+        return float(torch.min(_courant(
+            self.u, self.dev, self._fused_spec(),
+            self.fg if (self.gravity and self.fg) else None)))
+
+    def grav_coeff(self) -> float:
+        """Poisson source coefficient 4π (``poisson/multigrid_fine_commons.
+        f90`` rhs; the supercomoving coefficient comes with cosmology,
+        which is refused)."""
+        return 4.0 * np.pi
+
+    def solve_gravity(self):
+        """Per-level Poisson solve, coarse→fine one-way interface
+        (``multigrid_fine``): the exact periodic FFT on any complete level
+        (the isolated multipole-Dirichlet CG when the box is open),
+        Dirichlet-ghost PCG on partial levels warm-started from the last
+        solve's potential; then the gradient force.  A periodic box's mean
+        density is the solve's one host fetch."""
+        from ramses_tpu_torch.poisson.isolated import (grad_isolated,
+                                                       isolated_solve)
+        from ramses_tpu_torch.poisson.solver import fft_solve
+        nd = self.cfg.ndim
+        coeff = self.grav_coeff()
+        eps = float(self.params.poisson.epsilon)
+        if self.grav_periodic:
+            rho_mean = (float(self.totals()["mass"])
+                        / (self.boxlen ** nd * np.prod(self.tree.root)))
+        else:
+            rho_mean = 0.0       # the isolated problem is well-posed as is
+        for l in self.levels():
+            m = self.maps[l]
+            d = self.dev[l]
+            dx = self.dx(l)
+            rhs = coeff * (self.u[l][:, 0] - rho_mean)
+            if m.complete:
+                ncell = m.noct * (1 << nd)
+                shp = self.tree.cell_dims(l)
+                dense = K.rows_to_dense(rhs, None, shp)
+                if self.grav_periodic:
+                    phi_dense = fft_solve(dense, dx)
+                    fg_rows = K.dense_to_rows(
+                        gs.grad_dense(phi_dense, dx, nd), None, shp)
+                else:
+                    phi_dense, gh = isolated_solve(dense / coeff, dx, coeff,
+                                                   iters=300, tol=eps)
+                    fg_rows = K.dense_to_rows(torch.movedim(
+                        grad_isolated(phi_dense, gh, dx), 0, -1), None, shp)
+                phi = K.dense_to_rows(phi_dense, None, shp).to(rhs.dtype)
+                if m.ncell_pad > ncell:
+                    phi = torch.cat([phi, phi.new_zeros(m.ncell_pad - ncell)])
+                    fg_rows = torch.cat([fg_rows, fg_rows.new_zeros(
+                        m.ncell_pad - ncell, nd)])
+                self.phi[l] = phi
+                self.fg[l] = fg_rows.to(self.dtype)
+                continue
+            ghosts = K.interp_cells(self.phi[l - 1][:, None], d["g_cell"],
+                                    d["g_gnb"], d["g_sgn"], _Cfg1(nd),
+                                    itype=1)[:, 0]
+            phi, nit = gs.pcg_level(
+                rhs, ghosts, d["g_nb"], d["g_octnb"], dx, d["g_valid"], nd,
+                tol=eps, iters=200, phi0=self.phi.get(l), mg=d["g_mg"])
+            self.poisson_iters[l] = nit
+            self.phi[l] = phi
+            self.fg[l] = gs.grad_phi(phi, ghosts, d["g_nb"], dx, d["g_valid"],
+                                     nd).to(self.dtype)
 
     def step_coarse(self, dt: float):
+        if self.gravity:
+            # the gravity half of the JAX package's _grav_pm_pre: the force
+            # at the start of the step (the particle kick comes with the
+            # particle layer)
+            self.solve_gravity()
         spec = self._fused_spec()
         if spec.want_flux:
             # density BEFORE the step: the jump probabilities' denominator
@@ -721,7 +875,7 @@ class AmrSim:
         out = _coarse_step(
             self.u, self.dev,
             torch.tensor(float(dt), dtype=self.dtype, device=self.device),
-            spec)
+            spec, self.fg if self.gravity else None)
         self.u, self._dt_cache = out[0], out[1]
         if spec.want_flux:
             self._tracer_phi = out[2]
@@ -741,9 +895,10 @@ class AmrSim:
         between, then one fetch of (t, dt, steps done); callers guarantee
         no regrid is due inside the chunk.  Returns the steps done."""
         spec = self._fused_spec()
-        if spec.want_flux:
-            raise ValueError("step_chunk: the MC tracers move after every "
-                             "coarse step; use step_coarse")
+        if spec.want_flux or self.gravity:
+            raise ValueError("step_chunk: the MC tracers move and the "
+                             "gravity solve runs before every coarse step; "
+                             "use step_coarse")
         f64 = dict(dtype=torch.float64, device=self.device)
         dt0 = (self._dt_cache if self._dt_cache is not None
                else torch.min(_courant(self.u, self.dev, spec))).to(**f64)
@@ -778,7 +933,7 @@ class AmrSim:
             lim = min(to_regrid, nstepmax - self.nstep, 64)
             chunk = 1 << (max(lim, 1).bit_length() - 1)
             per = self.updates_per_step()
-            if chunk > 1 and self.tracer_x is None:
+            if chunk > 1 and self.tracer_x is None and not self.gravity:
                 n = self.step_chunk(chunk, tend)
             else:
                 dt = min(self.coarse_dt(), tend - self.t)
@@ -804,12 +959,16 @@ class AmrSim:
 
     def totals(self) -> dict:
         """Conservation audit over leaf cells (``check_cons``): the volume
-        integrals of mass, momentum and energy, summed in f64 on the host,
-        keyed as :meth:`ramses_tpu_torch.driver.Simulation.totals`."""
+        integrals of mass, momentum and energy, summed in f64 on the host
+        from one fetch of every level's rows, keyed as
+        :meth:`ramses_tpu_torch.driver.Simulation.totals`."""
         nd = self.cfg.ndim
         tot = np.zeros(self.cfg.nvar)
-        for l in self.levels():
-            u = self.tree_order_cells(self.u[l], l)
+        levels = self.levels()
+        n = [self.tree.noct(l) * (1 << self.tree.ndim) for l in levels]
+        rows = torch.cat([self.u[l][:k] for l, k in zip(levels, n)]) \
+            .to(torch.float64).cpu().numpy()
+        for l, u in zip(levels, np.split(rows, np.cumsum(n)[:-1])):
             leaf = ~self.tree.refined_mask(l)
             tot += u[leaf].sum(axis=0) * self.dx(l) ** nd
         return {"mass": tot[0], "momentum": list(tot[1:1 + nd]),

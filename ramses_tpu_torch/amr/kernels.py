@@ -619,10 +619,14 @@ def restrict_upload(u_level, u_fine, ref_cell, son_oct, cfg: HydroStatic):
                               mean.to(u_level.dtype))
 
 
-def level_courant(u_flat, valid_cell, dx: float, cfg: HydroStatic):
+def level_courant(u_flat, valid_cell, dx: float, cfg: HydroStatic,
+                  fg=None):
     """Min CFL dt over the level's valid cells — ``courant_fine`` (0-d
-    device tensor, capped by ``dtmax``)."""
-    dtc = cell_dt(u_flat.t(), None, dx, cfg)
+    device tensor, capped by ``dtmax``).  ``fg [ncell, ndim]``, the
+    gravitational acceleration, enables the gravity-strength correction of
+    ``cmpdt`` (``hydro/godunov_utils.f90:100-110``)."""
+    grav = [fg[:, d] for d in range(cfg.ndim)] if fg is not None else None
+    dtc = cell_dt(u_flat.t(), grav, dx, cfg)
     dtc = torch.where(valid_cell, dtc, torch.inf)
     return torch.clamp(torch.min(dtc),
                        max=cfg.courant_factor * dx / cfg.smallc)

@@ -1,7 +1,8 @@
 """Per-level gather/scatter index maps (host, numpy).
 
-The port's own copy of ``ramses_tpu/amr/maps.py`` up to the prolongation
-maps; the gravity maps are not ported yet.
+The port's own copy of ``ramses_tpu/amr/maps.py``, with the gravity maps'
+child tables (:func:`mg_children`) added for a restriction without
+atomics.
 
 These are the TPU equivalents of the reference's per-step tree walks: the
 6^ndim stencil gather of ``godfine1`` (``hydro/godunov_fine.f90:553-676``),
@@ -651,3 +652,230 @@ def build_prolong_maps(tree_new: Octree, tree_old: Octree, lvl: int,
     return copy_dst, copy_src, new_octs.astype(np.int32), f_cell, nb
 
 
+
+
+@dataclass
+class GravityMaps:
+    """Face-neighbour maps for the per-level Poisson solve
+    (``poisson/multigrid_fine_*`` machinery reduced to index maps).
+
+    ``nb[:, d, side]`` rows index concat(φ_cells [ncell_pad],
+    ghosts [ng_pad], zero [1]); ghosts are fine cells whose neighbour
+    lives on the coarser level (the Dirichlet BC ring of
+    ``make_fine_bc_rhs``), filled by interpolating coarse φ.
+    """
+    lvl: int
+    ncell: int
+    ncell_pad: int
+    ng: int
+    ng_pad: int
+    nb: np.ndarray           # [ncell_pad, ndim, 2] int32
+    g_cell: np.ndarray       # [ng_pad] int32 coarse flat cell
+    g_nb: np.ndarray         # [ng_pad, ndim, 2] int32 coarse neighbours
+    g_sgn: np.ndarray        # [ng_pad, ndim] int8 child offset signs
+    valid_cell: np.ndarray   # [ncell_pad] bool
+    # oct-lattice adjacency (the level's own coarse grid, spacing 2*dx):
+    # rows index concat(octs [noct_pad], zero [1]) — the coarse half of
+    # the two-level preconditioner (multigrid_fine's coarse MG levels)
+    oct_nb: Optional[np.ndarray] = None   # [noct_pad, ndim, 2] int32
+    # deeper coarsened lattices of the SAME masked domain — the full
+    # masked-multigrid ladder (multigrid_fine's levels below ifinelevel)
+    # as tuple of (nb [n_j, ndim, 2], par_prev [n_{j-1}|noct_pad], n_j)
+    mg: tuple = ()
+
+
+def build_mg_lattices(og: np.ndarray, lvl: int, bc_kinds: List[tuple],
+                      noct: int, noct_pad: int,
+                      min_n: int = 32, root=None) -> tuple:
+    """Coarsened lattices of a partial level's oct set for the masked
+    multigrid V-cycle (``poisson/multigrid_fine_fine.f90`` level
+    ladder): depth ``j`` holds the unique ``og >> j`` coords with
+    face-neighbour maps (sentinel ``n_j`` = outside the mask, Dirichlet
+    zero for the error equation) and the parent map from depth ``j-1``
+    (depth 0 = the oct lattice itself, padded rows -> sentinel).
+    Coarsening stops at ``min_n`` cells or a one-cell-wide box."""
+    ndim = og.shape[1]
+    root = tuple(root or (1,) * ndim)
+    out = []
+    prev_coords = og[:noct]
+    prev_pad = noct_pad
+    j = 1
+    while True:
+        shift = lvl - 1 - j
+        sides = tuple(r << max(shift, 0) for r in root)
+        # stop once another halving would merge ROOT cells (shift < 1):
+        # the lattice below the root grid has no consistent topology
+        if len(prev_coords) <= min_n or shift < 1:
+            break
+        coords = prev_coords >> 1
+        keys = kmod.encode(coords, ndim)
+        ukeys, inv = np.unique(keys, return_inverse=True)
+        n = len(ukeys)
+        if n == len(prev_coords):      # no coarsening progress: stop
+            break
+        ucoords = kmod.decode(ukeys, ndim)
+        # bucket-padded shapes: jit signatures of the Poisson solve
+        # stay stable across regrids (sentinel = n_pad, the zeros row)
+        n_pad = bucket(n, 64)
+        par = np.full(prev_pad, n_pad, dtype=np.int32)   # pads drop
+        par[:len(inv)] = inv
+        nb = np.full((n_pad, ndim, 2), n_pad, dtype=np.int32)
+        for d in range(ndim):
+            lo_k, hi_k = bc_kinds[d]
+            for s_i, s in ((0, -1), (1, +1)):
+                q = ucoords.copy()
+                q[:, d] += s
+                if lo_k == 0 and hi_k == 0:
+                    q[:, d] = np.mod(q[:, d], sides[d])
+                    inside = np.ones(n, dtype=bool)
+                else:
+                    inside = (q[:, d] >= 0) & (q[:, d] < sides[d])
+                    q[:, d] = np.clip(q[:, d], 0, sides[d] - 1)
+                qk = kmod.encode(q, ndim)
+                pos = np.searchsorted(ukeys, qk)
+                pos = np.clip(pos, 0, n - 1)
+                hit = (ukeys[pos] == qk) & inside
+                nb[:n, d, s_i] = np.where(hit, pos, n_pad).astype(
+                    np.int32)
+        out.append((nb, par, n))
+        prev_coords = ucoords
+        prev_pad = n_pad
+        j += 1
+    return tuple(out)
+
+
+def build_gravity_maps(tree: Octree, lvl: int, bc_kinds: List[tuple],
+                       noct_pad: Optional[int] = None) -> GravityMaps:
+    """Build the 2·ndim face-neighbour map of a level's cells with
+    coarse-ghost requests where the neighbour is unrefined."""
+    ndim = tree.ndim
+    twotondim = 1 << ndim
+    lev = tree.levels[lvl]
+    noct = lev.noct
+    noct_pad = noct_pad or bucket(noct)
+    ncell = noct * twotondim
+    ncell_pad = noct_pad * twotondim
+
+    cc = tree.cell_coords(lvl)                    # [ncell, ndim]
+    nb_rows = np.zeros((ncell, ndim, 2), dtype=np.int64)
+    miss_coords = []
+    miss_where = []
+    for d in range(ndim):
+        for side, s in ((0, -1), (1, +1)):
+            nc = cc.copy()
+            nc[:, d] += s
+            ncm, _refl = map_coords(nc, lvl, bc_kinds, ndim,
+                                    dims=tree.cell_dims(lvl))
+            oct_idx = tree.lookup(lvl, ncm >> 1)
+            off = np.zeros(len(ncm), dtype=np.int64)
+            for d2 in range(ndim):
+                off = off * 2 + (ncm[:, d2] & 1)
+            flat = oct_idx * twotondim + off
+            ok = oct_idx >= 0
+            nb_rows[:, d, side] = np.where(ok, flat, -1)
+            if (~ok).any():
+                miss_coords.append(ncm[~ok])
+                miss_where.append((d, side, np.where(~ok)[0]))
+
+    # unique ghost cells
+    if miss_coords:
+        allmiss = np.concatenate(miss_coords)
+        keys = kmod.encode(allmiss, ndim)
+        uniq, inv = np.unique(keys, return_inverse=True)
+        ucoords = kmod.decode(uniq, ndim)
+        ng = len(uniq)
+        # interp requests from lvl-1 (same construction as hydro ghosts)
+        ccoarse = ucoords >> 1
+        f_oct = tree.lookup(lvl - 1, ccoarse >> 1)
+        if (f_oct < 0).any():
+            raise RuntimeError(f"gradedness violated at level {lvl}")
+        f_off = np.zeros(ng, dtype=np.int64)
+        for d in range(ndim):
+            f_off = f_off * 2 + (ccoarse[:, d] & 1)
+        g_cell = (f_oct * twotondim + f_off).astype(np.int32)
+        g_sgn = ((ucoords & 1) * 2 - 1).astype(np.int8)
+        g_nb = np.empty((ng, ndim, 2), dtype=np.int32)
+        for d in range(ndim):
+            for side, s in ((0, -1), (1, +1)):
+                nc2 = ccoarse.copy()
+                nc2[:, d] += s
+                ncm2, nrefl = map_coords(nc2, lvl - 1, bc_kinds, ndim,
+                                         dims=tree.cell_dims(lvl - 1))
+                n_oct = tree.lookup(lvl - 1, ncm2 >> 1)
+                n_off = np.zeros(ng, dtype=np.int64)
+                for d2 in range(ndim):
+                    n_off = n_off * 2 + (ncm2[:, d2] & 1)
+                flat2 = n_oct * twotondim + n_off
+                bad = (n_oct < 0) | nrefl.any(axis=1)
+                g_nb[:, d, side] = np.where(bad, g_cell,
+                                            flat2).astype(np.int32)
+        # patch nb_rows with ghost slots
+        pos = 0
+        for chunk, (d, side, rows) in zip(miss_coords, miss_where):
+            n = len(chunk)
+            nb_rows[rows, d, side] = ncell_pad + inv[pos:pos + n]
+            pos += n
+    else:
+        ng = 0
+        g_cell = np.zeros(0, dtype=np.int32)
+        g_sgn = np.zeros((0, ndim), dtype=np.int8)
+        g_nb = np.zeros((0, ndim, 2), dtype=np.int32)
+
+    ng_pad = bucket(ng, 8) if ng > 0 else 8
+    zero_row = ncell_pad + ng_pad
+    nb_rows[nb_rows < 0] = zero_row
+
+    def _padg(a, n, fill=0):
+        out = np.full((n,) + a.shape[1:], fill, dtype=a.dtype)
+        out[:len(a)] = a
+        return out
+
+    nb = np.full((ncell_pad, ndim, 2), zero_row, dtype=np.int64)
+    nb[:ncell] = nb_rows
+    valid = np.zeros(ncell_pad, dtype=bool)
+    valid[:ncell] = True
+
+    # oct-lattice adjacency for the coarse preconditioner level
+    oct_nb = np.full((noct_pad, ndim, 2), noct_pad, dtype=np.int32)
+    for d in range(ndim):
+        n_oct_lat = tree.oct_dims(lvl)[d]
+        lo_k, hi_k = bc_kinds[d]
+        for side, s in ((0, -1), (1, +1)):
+            oc = lev.og.copy()
+            oc[:, d] += s
+            if lo_k == 0 and hi_k == 0:
+                oc[:, d] = np.mod(oc[:, d], n_oct_lat)
+                inside = np.ones(noct, dtype=bool)
+            else:
+                inside = (oc[:, d] >= 0) & (oc[:, d] < n_oct_lat)
+                oc[:, d] = np.clip(oc[:, d], 0, n_oct_lat - 1)
+            idx = tree.lookup(lvl, oc)
+            found = (idx >= 0) & inside
+            oct_nb[:noct, d, side] = np.where(found, idx,
+                                              noct_pad).astype(np.int32)
+
+    return GravityMaps(
+        lvl=lvl, ncell=ncell, ncell_pad=ncell_pad, ng=ng, ng_pad=ng_pad,
+        nb=nb.astype(np.int32),
+        g_cell=_padg(g_cell, ng_pad), g_nb=_padg(g_nb, ng_pad),
+        g_sgn=_padg(g_sgn, ng_pad), valid_cell=valid, oct_nb=oct_nb,
+        mg=build_mg_lattices(lev.og, lvl, bc_kinds, noct,
+                             noct_pad, root=tree.root))
+
+
+def mg_children(par: np.ndarray, n_next: int) -> np.ndarray:
+    """The children of each row of a coarser lattice: ``[n_next, k]`` int64,
+    row ``p`` the rows ``c`` of the finer lattice with ``par[c] == p`` in
+    ascending order, padded with ``len(par)`` (an appended zero row).  The
+    preconditioner's restriction sums them in this order, so it adds in
+    the order of a sequential scatter-add without one."""
+    c = np.nonzero(par < n_next)[0]
+    p = par[c].astype(np.int64)
+    order = np.lexsort((c, p))
+    c, p = c[order], p[order]
+    counts = np.bincount(p, minlength=n_next)
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    tab = np.full((n_next, max(1, int(counts.max(initial=0)))), len(par),
+                  dtype=np.int64)
+    tab[p, np.arange(len(c)) - start[p]] = c
+    return tab

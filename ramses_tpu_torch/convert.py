@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ramses_tpu_torch.amr.maps import GravityMaps
 from ramses_tpu_torch.hydro.core import HydroStatic
 from ramses_tpu_torch.mhd.core import MhdStatic
 
@@ -63,7 +64,9 @@ def amr_state_from(sim) -> dict:
     :meth:`ramses_tpu_torch.amr.hierarchy.AmrSim.from_state` (per-level
     oct coordinates, state rows and padded oct counts, time and step
     count; with MC tracers also their positions, ids and the state of the
-    jump generator, so both packages draw the same numbers next)."""
+    jump generator, so both packages draw the same numbers next; with
+    gravity the last solve's ``phi``, ``fg`` and ``poisson_iters`` per
+    level)."""
     levels = sim.levels()
     out = dict(tree_og={l: _host(sim.tree.levels[l].og) for l in levels},
                rows={l: _host(sim.u[l]) for l in levels},
@@ -73,7 +76,18 @@ def amr_state_from(sim) -> dict:
         out.update(tracer_x=np.array(sim.tracer_x, dtype=np.float64),
                    tracer_id=np.array(sim.tracer_id, dtype=np.int64),
                    tracer_rng=sim._tracer_rng.bit_generator.state)
+    if getattr(sim, "gravity", False) and sim.phi:
+        out.update(phi={l: _host(v) for l, v in sim.phi.items()},
+                   fg={l: _host(v) for l, v in sim.fg.items()},
+                   poisson_iters={l: int(v)
+                                  for l, v in sim.poisson_iters.items()})
     return out
+
+
+def gravity_maps_from(obj) -> GravityMaps:
+    """The port's :class:`GravityMaps` built field by field from any object
+    with the same attributes (such as the JAX package's host-built maps)."""
+    return _static_from(GravityMaps, obj)
 
 
 def mhd_amr_state_from(sim) -> dict:

@@ -8,9 +8,13 @@ the device advances in fused multi-step chunks of
 synchronisation per chunk.  Time is integrated in f64 whatever the state
 dtype.
 
+With ``&RUN_PARAMS poisson`` the uniform driver steps through
+:func:`ramses_tpu_torch.pm.coupling.run_steps_pm` (self-gravity or an
+analytic field, the general hydro formulation), as the JAX driver does.
+
 Runs on CUDA unless the caller passes ``device="cpu"``; without a GPU a
 run that did not ask for the CPU raises.  Every feature of the JAX driver
-beyond pure hydro and MHD (uniform, or AMR on one device) raises
+beyond hydro with gravity and MHD (uniform, or AMR on one device) raises
 ``NotImplementedError`` naming it.
 """
 
@@ -30,6 +34,8 @@ from ramses_tpu_torch.grid.uniform import UniformGrid, run_steps
 from ramses_tpu_torch.grid.uniform import totals as _totals
 from ramses_tpu_torch.hydro.core import HydroStatic
 from ramses_tpu_torch.init.regions import condinit
+from ramses_tpu_torch.pm.coupling import PMSpec, run_steps_pm, total_density
+from ramses_tpu_torch.poisson.coupling import GravitySpec, gravity_field
 
 
 @dataclass
@@ -38,6 +44,7 @@ class SimState:
     t: float = 0.0
     nstep: int = 0
     iout: int = 1  # next output slot (1-based, like the reference)
+    f: Optional[torch.Tensor] = None  # gravity field [ndim, *sp] (poisson)
 
 
 def is_mhd(params: Params) -> bool:
@@ -62,7 +69,6 @@ def unported_features(params: Params) -> list:
         return bool(v[0] if isinstance(v, list) else v)
 
     checks = [
-        ("gravity (&RUN_PARAMS poisson)", params.run.poisson),
         ("particles (&RUN_PARAMS pic)", params.run.pic),
         ("cosmology (&RUN_PARAMS cosmo)", params.run.cosmo),
         ("radiative transfer (&RUN_PARAMS rt)", params.run.rt),
@@ -130,10 +136,29 @@ class Simulation:
         u0 = condinit(shape, self.dx, params, self.cfg)
         self.state = SimState(u=torch.as_tensor(u0, dtype=dtype,
                                                 device=self.device))
+        self.pspec = PMSpec.from_params(params)
+        self.gspec = GravitySpec.from_params(params)
+        if (self.gspec.enabled and self.gspec.gravity_type == 0
+                and any(f.kind == bmod.REFLECTING
+                        for pair in self.bc.faces for f in pair)):
+            # mirror walls need image masses, which the isolated multipole
+            # solve does not provide
+            raise NotImplementedError(
+                "self-gravity with reflecting walls is unsupported "
+                "(isolated solve covers outflow/inflow boxes)")
+        if self.gspec.enabled:
+            self._initial_force()
         self.output_times = list(params.output.tout[:params.output.noutput])
         # perf accounting (mus/pt of adaptive_loop.f90:204-212)
         self.cell_updates = 0
         self.wall_s = 0.0
+
+    def _initial_force(self):
+        """The force of the current state, so that the first -0.5 dt
+        un-kick cancels exactly (the reference's nstep==0 save_phi_old,
+        ``amr/amr_step.f90:260``)."""
+        self.state.f = gravity_field(
+            self.gspec, total_density(self.pspec, self.state.u), self.dx)
 
     @classmethod
     def from_state(cls, params: Params, u, t: float, nstep: int,
@@ -150,6 +175,8 @@ class Simulation:
             raise ValueError(f"state shape {arr.shape} != "
                              f"{(sim.cfg.nvar,) + sim.grid.shape}")
         sim.state.u = state_from_numpy(arr, sim.device, dtype)
+        if sim.gspec.enabled:
+            sim._initial_force()
         sim.state.t = float(t)
         sim.state.nstep = int(nstep)
         sim.state.iout = 1 + sum(
@@ -174,7 +201,8 @@ class Simulation:
     def evolve(self, chunk: int = 16, verbose: bool = False):
         """Run through each output time in turn up to the last (or
         ``nstepmax``).  One host synchronisation per chunk of ``chunk``
-        steps.  Snapshot output at the output times is not ported yet."""
+        steps (with gravity, :func:`run_steps_pm`, which also carries the
+        force).  Snapshot output at the output times is not ported yet."""
         st = self.state
         nstepmax = self.params.run.nstepmax
         for tout in self.output_times[st.iout - 1:]:
@@ -183,7 +211,14 @@ class Simulation:
                 n = min(chunk, nstepmax - st.nstep)
                 t_before = st.t
                 t0 = time.perf_counter()
-                u, t, ndone = run_steps(self.grid, st.u, st.t, tout, n)
+                if self.gspec.enabled:
+                    f64 = dict(dtype=torch.float64, device=self.device)
+                    u, st.f, t, ndone = run_steps_pm(
+                        self.grid, self.gspec, self.pspec, st.u, st.f,
+                        torch.tensor(st.t, **f64),
+                        torch.tensor(tout, **f64), n)
+                else:
+                    u, t, ndone = run_steps(self.grid, st.u, st.t, tout, n)
                 # the chunk's one synchronisation: fetch (t, ndone)
                 t_host, ndone = (float(v) for v in
                                  torch.stack([t, ndone.to(t.dtype)]).cpu())

@@ -19,6 +19,7 @@ ghost results that the active region never consumes.
 from __future__ import annotations
 
 import itertools
+from functools import lru_cache
 from typing import List, Sequence
 
 import torch
@@ -275,6 +276,14 @@ def _iface_perm(cfg: HydroStatic, d: int) -> List[int]:
     return perm
 
 
+@lru_cache(maxsize=None)
+def _iface_index(cfg: HydroStatic, d: int, device: str) -> torch.Tensor:
+    """:func:`_iface_perm` as an index tensor on ``device``, built once: an
+    index list would be copied from the host at every call, a copy that
+    waits for the device."""
+    return torch.tensor(_iface_perm(cfg, d), device=device)
+
+
 def face_fluxes(qm, qp, cfg: HydroStatic):
     """Godunov fluxes on all faces of every direction (``cmpflxm``).
 
@@ -286,9 +295,9 @@ def face_fluxes(qm, qp, cfg: HydroStatic):
     fluxes, tmps = [], []
     for d in range(cfg.ndim):
         ax = _axis(cfg, d, qm[d])
-        perm = _iface_perm(cfg, d)
-        ql = torch.roll(qm[d], 1, dims=ax)[perm]
-        qr = qp[d][perm]
+        perm = _iface_index(cfg, d, str(qm.device))
+        ql = torch.roll(qm[d], 1, dims=ax).index_select(0, perm)
+        qr = qp[d].index_select(0, perm)
         fg = rsolve.solve(ql, qr, cfg)
         # scatter flux back to state layout: fg = [mass, mom_n, E, tang...,
         # nener..., passives..., eint]

@@ -87,14 +87,17 @@ def unported_mhd_features(params: Params) -> list:
     levelmin`` the hierarchy :class:`ramses_tpu_torch.mhd.amr.MhdAmrSim`
     (beyond what :func:`ramses_tpu_torch.driver.unported_features` and, on
     the hierarchy, :func:`ramses_tpu_torch.amr.hierarchy.
-    unported_amr_features` list: gravity, particles, restart, the step
-    guard, telemetry, offload and the rest).  The hierarchy refuses tracers too: the JAX package
+    unported_amr_features` list: particles, restart, the step guard,
+    telemetry, offload and the rest), and gravity, which the hydro drivers
+    run.  The hierarchy refuses tracers too: the JAX package
     moves them there as CIC velocity tracers, which need the particle
     layer."""
     from ramses_tpu_torch.amr.hierarchy import unported_amr_features
     from ramses_tpu_torch.driver import unported_features
     amr = params.amr.levelmax > params.amr.levelmin
     out = (unported_amr_features if amr else unported_features)(params)
+    if params.run.poisson:
+        out.append("gravity on the MHD drivers (&RUN_PARAMS poisson)")
     if params.run.tracer and amr:
         out.append("tracers (&RUN_PARAMS tracer) on the MHD hierarchy")
     return out

@@ -18,8 +18,9 @@ communication: the same arithmetic on the same rows, not a fallback.
 
 Not ported yet, and refused by name: the explicit partial-level schedules
 (``explicit_comm=True``, ``parallel/amr_comm``), load balance, a mesh
-across several cards and MHD on a mesh (``ShardedMhdAmrSim`` with
-``dense_slab.mhd_ct_slab``); ROADMAP A8 holds them.
+across several cards, MHD on a mesh (``ShardedMhdAmrSim`` with
+``dense_slab.mhd_ct_slab``) and self-gravity (``&RUN_PARAMS poisson``,
+which the single-device hierarchy runs); ROADMAP A8 holds them.
 """
 
 from __future__ import annotations
@@ -44,7 +45,9 @@ class ShardedAmrSim(AmrSim):
         from ramses_tpu_torch.driver import is_mhd
         mhd = ["MHD on a shard mesh (ShardedMhdAmrSim, dense_slab."
                "mhd_ct_slab; ROADMAP A8)"]
-        return super()._unported(params) + (mhd if is_mhd(params) else [])
+        grav = ["gravity on ShardedAmrSim (&RUN_PARAMS poisson; ROADMAP A8)"]
+        return (super()._unported(params) + (mhd if is_mhd(params) else [])
+                + (grav if params.run.poisson else []))
 
     def __init__(self, params: Params, devices=None, dtype=torch.float32,
                  device=None, init_tree=None,

@@ -680,8 +680,8 @@ def test_unported_amr_features_raise():
     with pytest.raises(NotImplementedError, match="load balance"):
         AmrSim(p, device="cpu")
     p = pparams(_text(), ndim=3)
-    p.run.poisson = True
-    with pytest.raises(NotImplementedError, match="gravity"):
+    p.run.pic = True
+    with pytest.raises(NotImplementedError, match="particles"):
         AmrSim(p, device="cpu")
 
 

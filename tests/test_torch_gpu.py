@@ -970,3 +970,98 @@ def test_slab_paths_on_cuda_are_the_single_device_ones(cuda):
     s1.evolve(1e9, nstepmax=3)
     for l in s1.levels():
         assert torch.equal(s8.u[l], s1.u[l])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_mg_solve_on_cuda_matches_its_cpu_run(cuda, dtype, tol):
+    """Config 3's solver at 32³: 4 V-cycles on the card against the same
+    on the CPU, within ``tol`` of max|phi|."""
+    from ramses_tpu_torch.poisson import solver
+    rhs = np.random.default_rng(0).standard_normal((32, 32, 32))
+    rhs = torch.from_numpy(rhs - rhs.mean()).to(dtype)
+    want = solver.mg_solve(rhs, 1.0 / 32, ncycle=4)
+    got = solver.mg_solve(rhs.to(cuda), 1.0 / 32, ncycle=4).cpu()
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+def test_pcg_level_on_cuda_matches_its_cpu_run(cuda):
+    """The hierarchy's solve of a 2D blob (levelmin 4, levelmax 5) in f64 on
+    the card and on the CPU: the same PCG iteration count, phi within 1e-9
+    of its scale, and the card's solve bitwise equal to itself."""
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.config import params_from_dict
+    g = {"run_params": {"hydro": True, "poisson": True},
+         "amr_params": {"levelmin": 4, "levelmax": 5, "boxlen": 1.0},
+         "init_params": {"nregion": 2, "region_type": ["square", "square"],
+                         "x_center": [0.5, 0.5], "y_center": [0.5, 0.5],
+                         "length_x": [10.0, 0.25], "length_y": [10.0, 0.25],
+                         "exp_region": [10.0, 2.0], "d_region": [1.0, 50.0],
+                         "p_region": [10.0, 10.0]},
+         "hydro_params": {"gamma": 1.4, "courant_factor": 0.5,
+                          "riemann": "hllc"},
+         "refine_params": {"err_grad_d": 0.2}}
+    sims = [AmrSim(params_from_dict(g, ndim=2), dtype=torch.float64,
+                   device=dev) for dev in ("cpu", cuda)]
+    for s in sims:
+        s.solve_gravity()
+    cpu, card = sims
+    assert int(card.poisson_iters[5]) == int(cpu.poisson_iters[5]) > 0
+    scale = float(cpu.phi[5].abs().max())
+    assert float((card.phi[5].cpu() - cpu.phi[5]).abs().max()) <= 1e-9 * scale
+    phi = card.phi[5].clone()
+    card.phi.pop(5)
+    card.solve_gravity()
+    assert torch.equal(card.phi[5], phi)
+
+
+def test_solves_on_cuda_never_wait_on_the_host(cuda):
+    """With the card's sync debug mode at "error" (a call that waits on the
+    device raises): ``mg_solve``, ``cg_solve``, ``fft_solve``, the uniform
+    gravity steps and the hierarchy's PCG, each after a first call that
+    puts its cached tables on the card."""
+    from ramses_tpu_torch.amr import kernels as K
+    from ramses_tpu_torch.amr.hierarchy import AmrSim, _Cfg1
+    from ramses_tpu_torch.config import params_from_dict
+    from ramses_tpu_torch.pm.coupling import run_steps_pm
+    from ramses_tpu_torch.poisson import amr_solve as gs
+    from ramses_tpu_torch.poisson import solver
+    g = {"run_params": {"hydro": True, "poisson": True},
+         "amr_params": {"levelmin": 4, "levelmax": 5, "boxlen": 1.0},
+         "init_params": {"nregion": 2, "region_type": ["square", "square"],
+                         "x_center": [0.5, 0.5], "y_center": [0.5, 0.5],
+                         "z_center": [0.5, 0.5],
+                         "length_x": [10.0, 0.25], "length_y": [10.0, 0.25],
+                         "length_z": [10.0, 0.25],
+                         "exp_region": [10.0, 2.0], "d_region": [1.0, 50.0],
+                         "p_region": [10.0, 10.0]},
+         "refine_params": {"err_grad_d": 0.2}}
+    sim = AmrSim(params_from_dict(g, ndim=3), device=cuda)
+    sim.solve_gravity()
+    d = sim.dev[5]
+    ghosts = K.interp_cells(sim.phi[4][:, None], d["g_cell"], d["g_gnb"],
+                            d["g_sgn"], _Cfg1(3), itype=1)[:, 0]
+    rhs = 4.0 * torch.pi * (sim.u[5][:, 0] - 1.0)
+    g["amr_params"]["levelmax"] = 4
+    usim = Simulation(params_from_dict(g, ndim=3), device=cuda)
+    t = torch.zeros((), dtype=torch.float64, device=cuda)
+    tend = torch.full((), 1.0, dtype=torch.float64, device=cuda)
+
+    def calls():
+        r = torch.randn(16, 16, 16, device=cuda)
+        solver.mg_solve(r, 1.0 / 16, ncycle=2)
+        solver.cg_solve(r, 1.0 / 16, iters=5, tol=1e-6)
+        solver.fft_solve(r, 1.0 / 16)
+        run_steps_pm(usim.grid, usim.gspec, usim.pspec, usim.state.u,
+                     usim.state.f, t, tend, 2)
+        gs.pcg_level(rhs, ghosts, d["g_nb"], d["g_octnb"], sim.dx(5),
+                     d["g_valid"], 3, iters=5, phi0=sim.phi[5],
+                     mg=d["g_mg"])
+    calls()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        calls()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

@@ -150,8 +150,8 @@ def test_entry_points_require_cuda_or_cpu():
 
 def test_unported_features_raise():
     p = _params(load_params, level=3)
-    p.run.poisson = True
-    with pytest.raises(NotImplementedError, match="gravity"):
+    p.run.pic = True
+    with pytest.raises(NotImplementedError, match="particles"):
         Simulation(p, device="cpu")
     p = _params(load_params, level=3)
     p.amr.levelmax = 4
