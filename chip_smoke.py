@@ -229,7 +229,36 @@ Phases, each printing its own line; any failure exits non-zero:
    3 coarse steps twice from one state, bitwise (u, phi, fg, iterations);
 34. ``namelists/pointmass.nml`` (levelmin=4, levelmax=7, ``nstepmax=4``)
    through ``run_namelist`` as the CLI runs it: K1 and K3 as the levels
-   stepped require, finite, mass to rel 1e-5.
+   stepped require, finite, mass to rel 1e-5;
+35. config 1 (sedov3d 256³ f32) restarted: 10 steps straight, then from a
+   fresh start 5 steps, ``dump`` (an emergency number, 900, so that the
+   restore resumes the output schedule), ``Simulation.from_snapshot`` and 5
+   more steps (K1 5 launches after the restore, counts at 0 just before);
+   the dump validates, the restored state is within the f32 round trip
+   (each value within one ulp of the dumped one), mass to rel 1e-5; the
+   dump's bytes and seconds by stage (device→host, to primitives, the
+   octs and levels, writing, hash and fsync), GB/s, the restore's
+   seconds, and max |Δ| / (1e-10 + M) against the straight run (M as in
+   phase 5) within ``RESTART_DRIFT``;
+36. config 2 (levelmin 7, levelmax 9) restarted: 5 coarse steps, a dump,
+   the same dump through ``AsyncDumper`` beside the next coarse step,
+   ``AmrSim.from_snapshot`` of the first and 5 more coarse steps (K1 and
+   K3 as the levels stepped require); octs per level equal after the
+   restore, each level's rows within the round trip, both dumps validate,
+   leaf mass to rel 1e-5; the dump and restore seconds, the wall of the
+   coarse step beside the asynchronous write; the same tree as 10
+   straight coarse steps and the same rows, bitwise;
+37. Orszag-Tang 2048² (K4) restarted: 5 steps, dump,
+   ``MhdSimulation.from_snapshot``, 5 steps (K4 5 launches after the
+   restore); faces bitwise, cells within the round trip, mass and energy
+   to rel 1e-5, div B; cells and faces bitwise 10 straight steps';
+38. the CLI in a subprocess on a copy of sedov3d.nml whose output time
+   the run reaches after ``CLI_STEPS`` steps, ``--max-attempts 3``: a
+   SIGTERM after its first step line stops it with ``output_00900``, the
+   supervisor resumes from it, and ``output_00001`` validates; a second
+   CLI run of the namelist with ``nrestart=1`` and a second output time
+   continues from it and writes a valid ``output_00002``.  Phases 35-38
+   write under a ``tempfile.mkdtemp`` directory, removed at the end.
 
 The line before the last holds every ported kernel's numbers as one JSON
 object (``{"kernels": [...]}``); the last line is
@@ -1794,10 +1823,16 @@ def _tube_phase(dev) -> dict:
     (1D, 256 cells, Roe, outflow), through K4: 20 steps and K4 against
     its plain version at that state; the whole run to tend through
     ``run_namelist``; and the CLI, ``python -m ramses_tpu_torch
-    namelists/tube_mhd.nml --ndim 1``, in this process."""
+    namelists/tube_mhd.nml --ndim 1``, in this process, in a scratch
+    directory (it writes ``output_00001/`` there) with the signal handlers
+    its guard installs put back after it."""
     import contextlib
     import io
     import re
+    import shutil
+    import signal
+    import tempfile
+
     import torch
     from ramses_tpu_torch import __main__ as cli
     from ramses_tpu_torch.config import load_params
@@ -1860,16 +1895,30 @@ def _tube_phase(dev) -> dict:
                                  f"{tend}")
         out = io.StringIO()
         issued.clear()
-        _reset_counts()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main([TUBE_NML, "--ndim", "1"])
-        lc = _counts()
+        cwd, here = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_cli_")
+        handlers = {s: signal.getsignal(s) for s in
+                    (signal.SIGTERM, signal.SIGINT, signal.SIGUSR1)}
+        try:
+            os.chdir(here)
+            _reset_counts()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main([TUBE_NML, "--ndim", "1"])
+            lc = _counts()
+            from ramses_tpu_torch.resilience import checkpoint as ckpt
+            written = ckpt.validate_checkpoint("output_00001")
+        finally:
+            os.chdir(cwd)
+            for sig, h in handlers.items():
+                signal.signal(sig, h)
+            shutil.rmtree(here, ignore_errors=True)
     finally:
         mu.run_steps = run_steps
     m = re.search(r"totals: t=(\S+) nstep=(\d+)", out.getvalue())
-    if rc != 0 or m is None or int(m.group(2)) != full.nstep:
+    if rc != 0 or m is None or int(m.group(2)) != full.nstep or \
+            not written[0]:
         raise AssertionError(f"the CLI on tube_mhd.nml: rc {rc}, closing "
-                             f"line {m and m.group(0)}")
+                             f"line {m and m.group(0)}, output_00001 "
+                             f"{written[1]}")
     check(full, lc, "the CLI on tube_mhd.nml")
     _print(f"phase 17 BASELINE config 4 tube_mhd.nml {full.grid.shape} "
            f"(riemann={full.cfg.riemann}, outflow) through K4: 20 steps "
@@ -1880,7 +1929,8 @@ def _tube_phase(dev) -> dict:
            f"past tend at dt = 0), finite, Bx bitwise unchanged, "
            f"{wall:.3f} s, evolve {full.wall_s:.4f} s = "
            f"{full.wall_s / full.nstep * 1e3:.4f} ms/step; the CLI: rc "
-           f"{rc}, {m.group(0)}, K4 {lc['ct_step_slab']} launches")
+           f"{rc}, {m.group(0)}, K4 {lc['ct_step_slab']} launches, "
+           f"output_00001 validates")
     r.update(name="tube_mhd.nml 1D roe", launches=nissued)
     return r
 
@@ -3360,6 +3410,455 @@ def _parallel_phases(dev):
     return [k5, k5z, k1p]
 
 
+# ---------------------------------------------------------------------------
+# phases 35-38: snapshots, restarts and supervised runs
+# ---------------------------------------------------------------------------
+
+# phase 38's CLI run: the copy of sedov3d.nml reaches its output time after
+# CLI_STEPS steps (measured in process first), its continuation CLI_MORE
+# steps later
+CLI_STEPS, CLI_MORE = 400, 50
+CLI_TIMEOUT = 600
+# phase 35: the restarted config 1 against 10 straight steps, max |Δ| /
+# (1e-10 + M).  Not 0: the uniform driver recomputes the Courant dt at a
+# chunk's start (``cfl_dt``) where a chunk goes on with K1's in-kernel dt,
+# and a restart starts a chunk; 2.648e-5 in every run measured
+RESTART_DRIFT = 5e-5
+
+
+def _timed_dump(dump):
+    """Run ``dump()`` (it returns the output directory) with the snapshot
+    writer's stages timed by wrapping them: the device→host fetch
+    (``host64``), the conversion to primitives (``cons_to_prim_out``), the
+    assembly of the octs and levels (the rest of the snapshot's build),
+    the writing of the files (``dump_all`` less the manifest) and the hash
+    and fsync of every file (``write_manifest``).  Returns (path, wall s,
+    bytes written, seconds by stage)."""
+    import torch
+    from ramses_tpu_torch.io import snapshot as snapmod
+    from ramses_tpu_torch.resilience import checkpoint as ckpt
+    acc = {"d2h": 0.0, "to_primitive": 0.0, "dump_all": 0.0,
+           "hash_fsync": 0.0}
+    saved = []
+    for mod, name, key in ((snapmod, "host64", "d2h"),
+                           (snapmod, "cons_to_prim_out", "to_primitive"),
+                           (snapmod, "dump_all", "dump_all"),
+                           (ckpt, "write_manifest", "hash_fsync")):
+        real = getattr(mod, name)
+
+        def timed(*a, _real=real, _key=key, **k):
+            t0 = time.perf_counter()
+            try:
+                return _real(*a, **k)
+            finally:
+                acc[_key] += time.perf_counter() - t0
+        saved.append((mod, name, real))
+        setattr(mod, name, timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dump()
+        wall = time.perf_counter() - t0
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+    nbytes = sum(os.path.getsize(os.path.join(out, f))
+                 for f in os.listdir(out))
+    parts = {"d2h": acc["d2h"], "to_primitive": acc["to_primitive"],
+             "assemble": wall - acc["dump_all"] - acc["d2h"]
+             - acc["to_primitive"],
+             "write": acc["dump_all"] - acc["hash_fsync"],
+             "hash_fsync": acc["hash_fsync"]}
+    return out, wall, nbytes, parts
+
+
+def _dump_line(wall, nbytes, parts) -> str:
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
+    return (f"{nbytes} bytes in {wall:.3f} s ({nbytes / wall / 1e9:.3f} "
+            f"GB/s; {nbytes / max(parts['write'], 1e-9) / 1e9:.3f} GB/s "
+            f"while writing): {split}")
+
+
+def _round_trip(got, want, axis: int):
+    """A restored f32 state against the one dumped: (worst |Δ| in ulps of
+    each value, worst |Δ| over its field's max, pass).  Each value passes
+    within one ulp of itself (the file holds f64 primitives and E is
+    rebuilt from them; every restore measured so far is bitwise)."""
+    import torch
+    d = (got - want).abs()
+    a = want.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    dims = [i for i in range(want.dim()) if i != axis % want.dim()]
+    fmax = a.amax(dim=dims, keepdim=True)
+    ulps = d / ulp
+    rel = (d / fmax).nan_to_num(nan=0.0)
+    return float(ulps.max()), float(rel.max()), bool((ulps <= 1.0).all())
+
+
+def _restart_phases(dev, card: str):
+    """Phases 35-38 in a scratch directory that is removed at the end."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_restart_")
+    try:
+        _restart_uniform(dev, tmp)
+        _restart_amr(dev, tmp)
+        _restart_mhd(dev, tmp)
+        _restart_cli(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _print(f"phases 35-38 on {card}")
+
+
+def _restart_uniform(dev, tmp: str):
+    """Phase 35: config 1 at 256³, 10 steps straight against 5, dump,
+    restore, 5."""
+    import torch
+    from ramses_tpu_torch.config import load_params
+    from ramses_tpu_torch.driver import Simulation
+    from ramses_tpu_torch.resilience import checkpoint as ckpt
+    p10 = load_params(NML, ndim=3)
+    straight = Simulation(p10)
+    mass0 = float(straight.totals()["mass"])
+    straight.evolve()
+    u_straight = straight.state.u
+    del straight
+    p5 = load_params(NML, ndim=3)
+    p5.run.nstepmax = 5
+    sim = Simulation(p5)
+    sim.evolve()
+    # mid-run, before the output time: an emergency checkpoint's number
+    # (900 on, as OpsGuard's), so that the restore resumes the schedule
+    out, wall, nbytes, parts = _timed_dump(
+        lambda: sim.dump(900, os.path.join(tmp, "uniform")))
+    ok, reason = ckpt.validate_checkpoint(out)
+    if not ok:
+        raise AssertionError(f"phase 35 dump does not validate: {reason}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = Simulation.from_snapshot(load_params(NML, ndim=3), out)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    ulps, rel, rt_ok = _round_trip(back.state.u, sim.state.u, axis=0)
+    mass_r = float(back.totals()["mass"])
+    if not (rt_ok and back.nstep == 5 and back.t == sim.t
+            and abs(mass_r - mass0) <= 1e-5 * abs(mass0)):
+        raise AssertionError(
+            f"phase 35 restore: nstep {back.nstep}, t {back.t} vs {sim.t}, "
+            f"{ulps:.2f} ulps / {rel:.3e} of a field max, mass {mass0} -> "
+            f"{mass_r}")
+    del sim
+    torch.cuda.synchronize()
+    _reset_counts()
+    back.evolve()
+    torch.cuda.synchronize()
+    launches = _counts()
+    mass1 = float(back.totals()["mass"])
+    if (back.nstep != 10 or launches != _want(fused_muscl=5)
+            or not bool(torch.isfinite(back.state.u).all())
+            or abs(mass1 - mass0) > 1e-5 * abs(mass0)):
+        raise AssertionError(f"phase 35 after the restore: {back.nstep} "
+                             f"steps, launches {launches}, mass {mass0} -> "
+                             f"{mass1}")
+    diff = float(((back.state.u - u_straight).abs()
+                  / (LOCAL_ATOL + _stencil_scale(u_straight))).max())
+    if not diff <= RESTART_DRIFT:
+        raise AssertionError(f"phase 35 against 10 straight steps: max "
+                             f"|Δ| / (1e-10 + M) {diff:.3e} > "
+                             f"{RESTART_DRIFT}")
+    _print(f"phase 35 restart of config 1 (sedov3d 256³ f32): 5 steps, "
+           f"dump {_dump_line(wall, nbytes, parts)}; validates; restore "
+           f"{restore_s:.3f} s, state within {ulps:.2f} ulps of each value "
+           f"(worst {rel:.3e} of a field max); 5 more steps, launches "
+           f"{launches}; mass {mass0:.9e} -> {mass1:.9e}; against 10 "
+           f"straight steps max |Δ| / (1e-10 + M) {diff:.3e} (M the "
+           f"field's max over the cell's 5³ stencil)")
+
+
+def _restart_amr(dev, tmp: str):
+    """Phase 36: config 2 (levelmin 7, levelmax 9), 10 coarse steps
+    straight against 5, a synchronous and an asynchronous dump, restore,
+    5."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.io.async_writer import AsyncDumper
+    from ramses_tpu_torch.resilience import checkpoint as ckpt
+    p = _amr_params()
+    lmin = p.amr.levelmin
+    tend = p.output.tout[-1] if p.output.tout else p.output.tend
+    straight = AmrSim(p)
+    mass0 = float(straight.totals()["mass"])
+    straight.evolve(tend, nstepmax=10)
+    ref = {l: (straight.tree.levels[l].keys,
+               straight.u[l][:straight.tree.noct(l) * 8])
+           for l in straight.levels()}
+    del straight
+    sim = AmrSim(_amr_params())
+    sim.evolve(tend, nstepmax=4)
+    sim.drain()
+    t0 = time.perf_counter()
+    sim.evolve(tend, nstepmax=5)
+    sim.drain()
+    step_s = time.perf_counter() - t0
+    octs = {l: sim.tree.noct(l) for l in sim.levels()}
+    rows = {l: sim.u[l][:n * 8].clone() for l, n in octs.items()}
+    out, wall, nbytes, parts = _timed_dump(
+        lambda: sim.dump(1, os.path.join(tmp, "amr")))
+    ok, reason = ckpt.validate_checkpoint(out)
+    if not ok:
+        raise AssertionError(f"phase 36 dump does not validate: {reason}")
+    # the same state through the writer's thread, the next coarse step
+    # beside it
+    dumper = AsyncDumper()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out2 = sim.dump(2, os.path.join(tmp, "amr"), dumper=dumper)
+    submit_s = time.perf_counter() - t0
+    sim.evolve(tend, nstepmax=6)
+    sim.drain()
+    overlap_s = time.perf_counter() - t0 - submit_s
+    dumper.wait()
+    async_s = time.perf_counter() - t0
+    dumper.close()
+    ok, reason = ckpt.validate_checkpoint(out2)
+    if not ok:
+        raise AssertionError(f"phase 36 async dump does not validate: "
+                             f"{reason}")
+    del sim
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = AmrSim.from_snapshot(_amr_params(), out)
+    back.drain()
+    restore_s = time.perf_counter() - t0
+    worst_ulps, worst_rel = 0.0, 0.0
+    for l, n in octs.items():
+        if back.tree.noct(l) != n:
+            raise AssertionError(f"phase 36 restore: level {l} has "
+                                 f"{back.tree.noct(l)} octs, dumped {n}")
+        ulps, rel, rt_ok = _round_trip(back.u[l][:n * 8], rows[l], axis=1)
+        worst_ulps, worst_rel = max(worst_ulps, ulps), max(worst_rel, rel)
+        if not rt_ok:
+            raise AssertionError(f"phase 36 restore: level {l} off by "
+                                 f"{ulps:.2f} ulps, {rel:.3e} of a field "
+                                 f"max")
+    if sorted(octs) != back.levels() or back.nstep != 5:
+        raise AssertionError(f"phase 36 restore: levels {back.levels()}, "
+                             f"nstep {back.nstep}")
+    stepped = []
+    step_coarse = back.step_coarse
+    back.step_coarse = lambda dt: (stepped.append(tuple(back.levels())),
+                                   step_coarse(dt))
+    torch.cuda.synchronize()
+    _reset_counts()
+    back.evolve(tend, nstepmax=10)
+    back.drain()
+    launches = _counts()
+    del back.step_coarse
+    want = _want(fused_muscl=len(stepped),
+                 tile_sweep=sum(2 ** (l - lmin) for lv in stepped for l in lv
+                                if l > lmin))
+    mass1 = float(back.totals()["mass"])
+    if (back.nstep != 10 or launches != want or launches["tile_sweep"] == 0
+            or not all(bool(torch.isfinite(back.u[l]).all())
+                       for l in back.levels())
+            or abs(mass1 - mass0) > 1e-5 * abs(mass0)):
+        raise AssertionError(f"phase 36 after the restore: {back.nstep} "
+                             f"steps, launches {launches} (expected {want}), "
+                             f"mass {mass0} -> {mass1}")
+    # the restore brings back the next dt (the file's dtnew), so the
+    # restarted run is the straight one, bitwise
+    same_tree = sorted(ref) == back.levels() and all(
+        np.array_equal(ref[l][0], back.tree.levels[l].keys) for l in ref)
+    if not same_tree:
+        raise AssertionError(
+            f"phase 36: the tree differs from 10 straight steps' (octs "
+            f"{[back.tree.noct(l) for l in back.levels()]} against "
+            f"{[len(ref[l][0]) for l in sorted(ref)]})")
+    diff = max(float(((back.u[l][:len(k) * 8] - u).abs()
+                      / (1e-10 + u.abs().amax(dim=0))).max())
+               for l, (k, u) in ref.items())
+    if diff != 0.0:
+        raise AssertionError(f"phase 36: not bitwise 10 straight steps, max "
+                             f"|Δ| / (1e-10 + the field's max on the "
+                             f"level) {diff:.3e}")
+    vs = "same tree as 10 straight steps, bitwise"
+    _print(f"phase 36 restart of config 2 (levelmin=7, levelmax=9): 5 "
+           f"coarse steps (the 5th {step_s:.3f} s), octs {octs}; dump "
+           f"{_dump_line(wall, nbytes, parts)}; validates; through "
+           f"AsyncDumper: submit {submit_s:.3f} s, the next coarse step "
+           f"beside the write {overlap_s:.3f} s, on disk after {async_s:.3f} "
+           f"s, validates; restore {restore_s:.3f} s, octs equal, rows "
+           f"within {worst_ulps:.2f} ulps (worst {worst_rel:.3e} of a field "
+           f"max); 5 more coarse steps, launches {launches} (expected "
+           f"{want}); leaf mass {mass0:.9e} -> {mass1:.9e}; {vs}")
+
+
+def _restart_mhd(dev, tmp: str):
+    """Phase 37: Orszag-Tang at 2048² (K4), 5 steps, dump, restore, 5."""
+    import torch
+    from ramses_tpu_torch.config import load_params
+    from ramses_tpu_torch.mhd.driver import MhdSimulation
+    from ramses_tpu_torch.resilience import checkpoint as ckpt
+    p = load_params(OT_NML, ndim=2)
+    p.amr.levelmin = p.amr.levelmax = OT_LEVEL
+    n = 2 ** OT_LEVEL
+    u0, bf0 = _orszag_tang(n)
+
+    def fresh():
+        s = MhdSimulation(p)
+        s.u = torch.tensor(u0, dtype=torch.float32, device=dev)
+        s.bf = torch.tensor(bf0, dtype=torch.float32, device=dev)
+        return s
+
+    straight = fresh()
+    tot0 = {k: float(v) for k, v in straight.totals().items()
+            if k != "momentum"}
+    straight.evolve(nstepmax=10)
+    u_straight, bf_straight = straight.u, straight.bf
+    del straight
+    sim = fresh()
+    sim.evolve(nstepmax=5)
+    out, wall, nbytes, parts = _timed_dump(
+        lambda: sim.dump(1, os.path.join(tmp, "mhd")))
+    ok, reason = ckpt.validate_checkpoint(out)
+    if not ok:
+        raise AssertionError(f"phase 37 dump does not validate: {reason}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = MhdSimulation.from_snapshot(p, out)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    ulps, rel, rt_ok = _round_trip(back.u, sim.u, axis=0)
+    if not (torch.equal(back.bf, sim.bf) and rt_ok and back.nstep == 5
+            and back.t == sim.t):
+        raise AssertionError(
+            f"phase 37 restore: faces bitwise {torch.equal(back.bf, sim.bf)}"
+            f", cells {ulps:.2f} ulps / {rel:.3e} of a field max, nstep "
+            f"{back.nstep}, t {back.t} vs {sim.t}")
+    del sim
+    torch.cuda.synchronize()
+    _reset_counts()
+    back.evolve(nstepmax=10)
+    torch.cuda.synchronize()
+    launches = _counts()
+    tot1 = {k: float(v) for k, v in back.totals().items() if k != "momentum"}
+    if (back.nstep != 10 or launches != _want(ct_step_slab=5)
+            or not bool(torch.isfinite(back.u).all())
+            or any(abs(tot1[k] - tot0[k]) > 1e-5 * abs(tot0[k])
+                   for k in ("mass", "energy"))
+            or not _divb_rel(back) <= DIVB_REL):
+        raise AssertionError(f"phase 37 after the restore: {back.nstep} "
+                             f"steps, launches {launches}, totals {tot0} -> "
+                             f"{tot1}, div B {_divb_rel(back):.3e}")
+    diff = float(((back.u - u_straight).abs()
+                  / (LOCAL_ATOL + _stencil_scale(u_straight, nd=2))).max())
+    if diff != 0.0 or not torch.equal(back.bf, bf_straight):
+        raise AssertionError(f"phase 37: not bitwise 10 straight steps, max "
+                             f"|Δ| / (1e-10 + M) {diff:.3e}, faces equal "
+                             f"{torch.equal(back.bf, bf_straight)}")
+    _print(f"phase 37 restart of Orszag-Tang 2048² (K4): 5 steps, dump "
+           f"{_dump_line(wall, nbytes, parts)}; validates; restore "
+           f"{restore_s:.3f} s, faces bitwise, cells within {ulps:.2f} ulps "
+           f"(worst {rel:.3e} of a field max); 5 more steps, launches "
+           f"{launches}; mass and energy to 1e-5, max|div B|·dx/max|B| "
+           f"{_divb_rel(back):.3e}; against 10 straight steps bitwise")
+
+
+def _restart_cli(tmp: str):
+    """Phase 38: the CLI in a subprocess on a copy of sedov3d.nml whose
+    output time the run reaches, ``--max-attempts 3``, stopped by a SIGTERM
+    once it has printed a step and resumed by the supervisor; then a second
+    CLI run with ``nrestart=1`` continues to a second output time."""
+    import signal
+
+    import torch
+    from ramses_tpu_torch.config import load_params
+    from ramses_tpu_torch.driver import Simulation
+    from ramses_tpu_torch.resilience import checkpoint as ckpt
+    # the output times: where an uninterrupted run stands after CLI_STEPS
+    # and CLI_STEPS + CLI_MORE steps
+    p = load_params(NML, ndim=3)
+    p.run.nstepmax = CLI_STEPS
+    probe = Simulation(p)
+    probe.output_times = [1e30]
+    probe.evolve()
+    t1 = probe.t
+    probe.params.run.nstepmax = CLI_STEPS + CLI_MORE
+    probe.evolve()
+    t2 = probe.t
+    del probe
+    torch.cuda.empty_cache()
+    text = open(NML).read().replace("nstepmax=10", "nstepmax=100000")
+    run_dir = os.path.join(tmp, "cli")
+    os.makedirs(run_dir)
+    first = os.path.join(run_dir, "first.nml")
+    with open(first, "w") as f:
+        f.write(text.replace("tout=1.0", f"tout={t1!r}"))
+    second = os.path.join(run_dir, "second.nml")
+    with open(second, "w") as f:
+        f.write(text.replace("noutput=1\ntout=1.0",
+                             f"noutput=2\ntout={t1!r},{t2!r}")
+                .replace("nstepmax=100000", "nstepmax=100000\nnrestart=1"))
+    # unbuffered: the step lines must reach this process as they are made
+    env = dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1")
+    cmd = [sys.executable, "-m", "ramses_tpu_torch", first, "--ndim", "3",
+           "--max-attempts", "3"]
+    t0 = time.perf_counter()
+    with open(os.path.join(run_dir, "first.err"), "w") as err:
+        proc = subprocess.Popen(cmd, cwd=run_dir, env=env, text=True,
+                                stdout=subprocess.PIPE, stderr=err)
+        try:
+            lines = []
+            for line in proc.stdout:
+                lines.append(line.rstrip())
+                if line.startswith("step "):
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            rest, _ = proc.communicate(timeout=CLI_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    lines += rest.splitlines()
+    errs = open(os.path.join(run_dir, "first.err")).read()
+    resumed = [ln for ln in lines if "resuming from" in ln]
+    stops = [ln for ln in lines if ln.startswith("ops: stop signal")]
+    out1 = os.path.join(run_dir, "output_00001")
+    ok, reason = (ckpt.validate_checkpoint(out1) if os.path.isdir(out1)
+                  else (False, "missing"))
+    if proc.returncode != 0 or not resumed or not stops or not ok:
+        raise AssertionError(
+            f"phase 38 CLI: rc {proc.returncode}, stop {stops}, resume "
+            f"{resumed}, output_00001 {reason}; stdout tail {lines[-8:]}; "
+            f"stderr tail {errs[-2000:]}")
+    meta1 = ckpt.read_manifest_meta(out1)
+    t0 = time.perf_counter()
+    cont = subprocess.run(
+        [sys.executable, "-m", "ramses_tpu_torch", second, "--ndim", "3"],
+        cwd=run_dir, env=env, text=True, capture_output=True,
+        timeout=CLI_TIMEOUT)
+    wall2 = time.perf_counter() - t0
+    out2 = os.path.join(run_dir, "output_00002")
+    ok2, reason2 = (ckpt.validate_checkpoint(out2) if os.path.isdir(out2)
+                    else (False, "missing"))
+    meta2 = ckpt.read_manifest_meta(out2) if ok2 else {}
+    if cont.returncode != 0 or not ok2 or \
+            not meta2.get("nstep", 0) > meta1["nstep"] or \
+            not abs(meta2.get("t", 0.0) - t2) <= 1e-12 * (abs(t2) + 1.0):
+        raise AssertionError(
+            f"phase 38 nrestart=1: rc {cont.returncode}, output_00002 "
+            f"{reason2} {meta2}; stdout tail {cont.stdout[-1500:]}; stderr "
+            f"tail {cont.stderr[-1500:]}")
+    _print(f"phase 38 CLI sedov3d 256³ --max-attempts 3 to tout={t1!r} "
+           f"({CLI_STEPS} steps): SIGTERM after its first step line; "
+           f"{stops[0]}; {resumed[0]}; rc 0 in {wall:.1f} s, output_00001 "
+           f"validates (nstep {meta1['nstep']}, t {meta1['t']!r}); the "
+           f"second run with nrestart=1 to tout={t2!r}: rc 0 in {wall2:.1f} "
+           f"s, output_00002 validates (nstep {meta2['nstep']})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3581,6 +4080,9 @@ def main() -> int:
 
     # ---- 31-34. self-gravity: config 3 and config 2 with gravity ----
     _gravity_phases(dev, card)
+
+    # ---- 35-38. snapshots, restarts and supervised runs ----
+    _restart_phases(dev, card)
     if PROFILER_LOST:
         _print("timing: the profiler lost these kernels' records in every "
                "window; their ms are queued CUDA events: "

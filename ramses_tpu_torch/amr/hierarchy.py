@@ -41,17 +41,25 @@ itself goes through the same kernels.  The solve's one host fetch is the
 mean density of a periodic box (:meth:`AmrSim.totals`); ``evolve`` then
 steps one coarse step at a time, as the JAX package does.
 
+``AmrSim.dump`` writes a reference-format ``output_NNNNN/`` (every level's
+rows fetched once, the file writing optionally on an
+:class:`ramses_tpu_torch.io.async_writer.AsyncDumper`'s thread) and
+``from_snapshot`` restores one onto a tree rebuilt from the file's oct
+coordinates (:func:`restore_amr_scaffold`), any domain count onto one
+device.
+
 Regrids always take the host prolongation-map migrate; the JAX package's
 ``device_regrid`` (on by default there) is pinned bitwise equal to it by
 its own tests and is not ported.  Particles, cooling, cosmology, star
 formation, sinks, RT, movies, load balance, offload, the step guard, the
-watchdog, telemetry, patch hooks, non-cubic roots and snapshots are not
-ported yet: a namelist that turns one on raises ``NotImplementedError``
-naming it.
+watchdog, telemetry, patch hooks, non-cubic roots and elastic sharded
+checkpoints are not ported yet: a namelist that turns one on raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, NamedTuple, Optional
 
@@ -241,6 +249,95 @@ def unported_amr_features(params: Params) -> list:
     return unported_features(params) + [n for n, on in checks if on]
 
 
+def restore_amr_scaffold(cls, params: Params, outdir: str, dtype, to_cons,
+                         place_level, device=None, **kw):
+    """The restart scaffold (the ``nrestart`` path) of the hydro and MHD
+    hierarchies, as the JAX package's: rebuild the octree from the file's
+    oct coordinates, construct the sim on it (``kw`` to the constructor),
+    place each level's restored rows (re-mapped through the rebuilt tree's
+    key order), then restrict.  ``to_cons(q_rows)`` converts the file's
+    output columns to the solver's stored rows; ``place_level(sim, l, rows,
+    og, order)`` writes them into the sim state.  The MC gas tracers come
+    back from the part file's family-0 rows; restarts never re-seed them.
+    Returns the sim."""
+    from ramses_tpu_torch.io.restart import (refuse_particles,
+                                             restore_tree_state)
+    from ramses_tpu_torch.pm.particles import FAM_GAS_TRACER
+    tree_og, rows_lv, meta, parts = restore_tree_state(
+        outdir, None, params.amr.levelmin, to_cons=to_cons)
+    tree = Octree(params.ndim, params.amr.levelmin, params.amr.levelmax)
+    for l, og in tree_og.items():
+        tree.set_level(l, og)
+    tracer_x = None
+    tracer_id = None
+    if parts:
+        # gas tracers ride the part files as massless family-0 rows:
+        # split them back out (they are host positions, not lanes)
+        fam = parts.get("family")
+        if fam is not None and (fam == FAM_GAS_TRACER).any():
+            sel = fam == FAM_GAS_TRACER
+            dims = "xyz"[:params.ndim]
+            tracer_x = np.stack(
+                [parts[f"position_{d}"][sel] for d in dims], axis=1)
+            tracer_id = parts["identity"][sel].astype(np.int64)
+            npart = len(fam)
+            parts = {k: (v[~sel] if isinstance(v, np.ndarray)
+                         and len(v) == npart else v)
+                     for k, v in parts.items()}
+        refuse_particles(parts)
+    # restarts never re-seed tracers: the restored population is the
+    # truth, INCLUDING the empty one (e.g. every tracer escaped an open
+    # box) — resurrecting a fresh population would fabricate trajectories
+    sim = cls(params, dtype=dtype, device=device, init_tree=tree,
+              seed_tracers=False, **kw)
+    if tracer_x is not None:
+        sim.tracer_x = tracer_x
+        sim.tracer_id = tracer_id
+        sim._spec = None               # enable the MC flux capture
+    elif bool(params.run.tracer):
+        sim.tracer_x = np.zeros((0, params.ndim))
+        sim.tracer_id = np.zeros(0, dtype=np.int64)
+        sim._spec = None
+    for l, rows in rows_lv.items():
+        og = tree_og[l]
+        pos = tree.lookup(l, og)
+        place_level(sim, l, rows, og, np.argsort(pos))
+    sim._restrict_all()
+    sim._dt_cache = None
+    sim.t = float(meta["t"])
+    sim.nstep = int(meta["nstep"])
+    # the stored dtnew makes the restart take the SAME next step a
+    # continuous run would (its cached CFL dt included the gravity term
+    # the fresh sim's empty force field cannot reproduce)
+    lm = params.amr.levelmin
+    dtold = np.atleast_1d(np.asarray(meta.get("dtold", 0.0)))
+    if len(dtold) >= lm:
+        sim.dt_old = float(dtold[lm - 1])
+    dtnew = np.atleast_1d(np.asarray(meta.get("dtnew", 0.0)))
+    if len(dtnew) >= lm and dtnew[lm - 1] > 0.0:
+        sim._dt_cache = torch.tensor(float(dtnew[lm - 1]),
+                                     dtype=torch.float64, device=sim.device)
+    if sim.gravity:
+        # prime the force field so that the first post-restart coarse_dt
+        # carries the same gravity term (and the PCG the same warm start)
+        # a continuous run would
+        sim.solve_gravity()
+    return sim
+
+
+def _place_u_rows(sim, l: int, rows: np.ndarray, og: np.ndarray,
+                  order: np.ndarray):
+    """Default row placement: the cell-state rows only (hydro); a level's
+    real rows are its leading rows, in tree order."""
+    nvar = sim.cfg.nvar
+    ttd = 2 ** sim.cfg.ndim
+    out = sim.u[l].clone()
+    out[:len(og) * ttd] = torch.as_tensor(
+        rows.reshape(len(og), ttd, nvar)[order].reshape(-1, nvar),
+        dtype=sim.dtype, device=sim.device)
+    sim.u[l] = out
+
+
 def _mig_consts(ndim: int):
     offs = cell_offsets(ndim)
     return (offs * 2 - 1).astype(np.float64), np.arange(1 << ndim)
@@ -339,6 +436,7 @@ class AmrSim:
                    nstep: int = 0, noct_pad: Optional[Dict[int, int]] = None,
                    dtype=None, device=None, tracer_x=None, tracer_id=None,
                    tracer_rng=None, phi=None, fg=None, poisson_iters=None,
+                   dt_old: float = 0.0, dt_next: Optional[float] = None,
                    **kwargs) -> "AmrSim":
         """Start from a given hierarchy: per-level oct coordinates
         ``tree_og`` and state rows ``rows`` (numpy, e.g. from
@@ -351,6 +449,8 @@ class AmrSim:
         seeded on the given state.  With gravity, ``phi``, ``fg`` and
         ``poisson_iters`` (per level) carry the last solve: its force for
         the Courant dt and its potential as the next PCG's warm start.
+        ``dt_old`` is the last coarse step and ``dt_next`` (or None) the
+        cached Courant dt of the next one, as a snapshot records them.
         ``kwargs`` go to the constructor (a subclass's own arguments, such
         as a shard mesh)."""
         tree = Octree(params.ndim, params.amr.levelmin, params.amr.levelmax)
@@ -363,8 +463,9 @@ class AmrSim:
                   noct_pad=noct_pad, seed_tracers=False, **kwargs)
         for l in sim.levels():
             sim.u[l] = sim._rows_from(sim.u[l], rows[l], l)
-        sim.t, sim.nstep = float(t), int(nstep)
-        sim._dt_cache = None
+        sim.t, sim.nstep, sim.dt_old = float(t), int(nstep), float(dt_old)
+        sim._dt_cache = (None if dt_next is None else torch.tensor(
+            float(dt_next), dtype=torch.float64, device=sim.device))
         for name, arrs in (("phi", phi), ("fg", fg)):
             getattr(sim, name).update(
                 {l: torch.tensor(np.asarray(a), dtype=sim.dtype,
@@ -920,11 +1021,16 @@ class AmrSim:
                    for l in self.levels())
 
     def evolve(self, tend: float, nstepmax: int = 10 ** 9,
-               verbose: bool = False):
+               verbose: bool = False, guard=None):
         """Advance to ``tend`` or ``nstepmax``: a regrid every
         ``regrid_interval`` coarse steps, and between regrids chunks of
-        power-of-two length without host synchronisation."""
+        power-of-two length without host synchronisation.  ``guard``:
+        optional :class:`ramses_tpu_torch.utils.ops.OpsGuard` (signal
+        dumps, stop_run file, walltime watchdog), checked before each
+        chunk."""
         while self.t < tend * (1 - 1e-12) and self.nstep < nstepmax:
+            if guard is not None and not guard.check():
+                break
             t0 = time.perf_counter()
             if self.nstep % self.regrid_interval == 0:
                 self.regrid()
@@ -992,3 +1098,55 @@ class AmrSim:
     def ncell_leaf(self) -> int:
         return sum(int((~self.tree.refined_mask(l)).sum())
                    for l in self.levels())
+
+    # ------------------------------------------------------------------
+    # snapshot / restart
+    # ------------------------------------------------------------------
+    def dump(self, iout: int = 1, base_dir: str = ".",
+             namelist_path: Optional[str] = None, ncpu: int = 1,
+             dumper=None) -> str:
+        """Write a reference-format ``output_NNNNN/`` snapshot (``ncpu >
+        1``: one file set per domain, restorable onto any shard count) and
+        return its path.
+
+        ``dumper``: optional :class:`ramses_tpu_torch.io.async_writer.
+        AsyncDumper`; the host snapshot is assembled here (every level's
+        rows fetched once), the files are written on its thread."""
+        from ramses_tpu_torch.io import snapshot as snapmod
+        snap = snapmod.snapshot_from_amr(self, iout)
+        keep = int(self.params.output.checkpoint_keep)
+        if dumper is not None:
+            dumper.submit(snap, iout, base_dir,
+                          namelist_path=namelist_path, ncpu=ncpu,
+                          keep_last=keep)
+            return os.path.join(base_dir, f"output_{iout:05d}")
+        return snapmod.dump_all(snap, iout, base_dir,
+                                namelist_path=namelist_path, ncpu=ncpu,
+                                keep_last=keep)
+
+    @classmethod
+    def from_snapshot(cls, params: Params, outdir: str, dtype=torch.float32,
+                      device=None, **kw) -> "AmrSim":
+        """Resume from a snapshot directory (the ``nrestart`` path); ``kw``
+        go to the constructor (a subclass's own arguments, such as a shard
+        mesh)."""
+        from ramses_tpu_torch.io.snapshot import prim_out_to_cons
+        cfg = HydroStatic.from_params(params)
+        return restore_amr_scaffold(
+            cls, params, outdir, dtype,
+            to_cons=lambda q: prim_out_to_cons(q, cfg),
+            place_level=_place_u_rows, device=device, **kw)
+
+    @classmethod
+    def from_checkpoint_dir(cls, params: Params, outdir: str,
+                            dtype=torch.float32, device=None,
+                            **kw) -> "AmrSim":
+        """Restore from a checkpoint directory: ``output_NNNNN`` through
+        :meth:`from_snapshot`; the JAX package's elastic sharded
+        ``pario_NNNNN`` dumps are refused by name (ROADMAP A7)."""
+        if os.path.basename(os.path.normpath(outdir)).startswith("pario_"):
+            raise NotImplementedError(
+                "not ported to ramses_tpu_torch yet: elastic sharded "
+                f"checkpoints (&OUTPUT_PARAMS pario): {outdir}")
+        return cls.from_snapshot(params, outdir, dtype=dtype, device=device,
+                                 **kw)

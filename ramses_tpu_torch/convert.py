@@ -63,15 +63,17 @@ def amr_state_from(sim) -> dict:
     ``AmrSim`` or the port's) as numpy arrays: the keyword arguments of
     :meth:`ramses_tpu_torch.amr.hierarchy.AmrSim.from_state` (per-level
     oct coordinates, state rows and padded oct counts, time and step
-    count; with MC tracers also their positions, ids and the state of the
-    jump generator, so both packages draw the same numbers next; with
-    gravity the last solve's ``phi``, ``fg`` and ``poisson_iters`` per
-    level)."""
+    count, the last coarse step ``dt_old``; with MC tracers also their
+    positions, ids and the state of the jump generator, so both packages
+    draw the same numbers next; with gravity the last solve's ``phi``,
+    ``fg`` and ``poisson_iters`` per level).  The cached Courant dt of the
+    next coarse step is not carried: the new sim computes its own."""
     levels = sim.levels()
     out = dict(tree_og={l: _host(sim.tree.levels[l].og) for l in levels},
                rows={l: _host(sim.u[l]) for l in levels},
                noct_pad={l: int(sim.maps[l].noct_pad) for l in levels},
-               t=float(sim.t), nstep=int(sim.nstep))
+               t=float(sim.t), nstep=int(sim.nstep),
+               dt_old=float(sim.dt_old))
     if getattr(sim, "tracer_x", None) is not None:
         out.update(tracer_x=np.array(sim.tracer_x, dtype=np.float64),
                    tracer_id=np.array(sim.tracer_id, dtype=np.int64),

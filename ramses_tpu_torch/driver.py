@@ -1,4 +1,5 @@
-"""Simulation driver: config → initial state → time loop (PyTorch).
+"""Simulation driver: config → initial state → time loop → outputs
+(PyTorch).
 
 Port of the uniform, pure-hydro branch of ``ramses_tpu/driver.py`` (and
 the dispatch of ``ramses_tpu/__main__.py`` to the AMR hierarchies and to
@@ -7,6 +8,15 @@ the device advances in fused multi-step chunks of
 :func:`ramses_tpu_torch.grid.uniform.run_steps`, with one host
 synchronisation per chunk.  Time is integrated in f64 whatever the state
 dtype.
+
+``Simulation.dump`` writes a reference-format ``output_NNNNN/``
+(:mod:`ramses_tpu_torch.io.snapshot`: staged, hashed into
+``manifest.json``, renamed atomically) and ``from_snapshot`` restores one;
+:func:`run_namelist` runs every driver through the supervisor
+(:mod:`ramses_tpu_torch.resilience.supervisor`), which resolves
+``&RUN_PARAMS nrestart``/``auto_resume`` and resumes an interrupted
+attempt from the newest manifest-valid checkpoint; the CLI adds the
+outputs and the run guard.
 
 With ``&RUN_PARAMS poisson`` the uniform driver steps through
 :func:`ramses_tpu_torch.pm.coupling.run_steps_pm` (self-gravity or an
@@ -22,7 +32,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -45,6 +55,7 @@ class SimState:
     nstep: int = 0
     iout: int = 1  # next output slot (1-based, like the reference)
     f: Optional[torch.Tensor] = None  # gravity field [ndim, *sp] (poisson)
+    dt_old: float = 0.0  # mean step of the last chunk (OpsGuard's dt probe)
 
 
 def is_mhd(params: Params) -> bool:
@@ -81,9 +92,8 @@ def unported_features(params: Params) -> list:
         ("movies (&MOVIE_PARAMS movie)", on("movie_params", "movie")),
         ("ensemble (&ENSEMBLE_PARAMS nmember > 1)",
          params.ensemble.nmember > 1),
-        ("supervised restart (&RUN_PARAMS auto_resume / nrestart=-1)",
-         r.auto_resume or r.nrestart == -1),
-        ("restart (&RUN_PARAMS nrestart)", r.nrestart > 0),
+        ("elastic sharded checkpoints (&OUTPUT_PARAMS pario)",
+         params.output.pario),
         ("step guard (&RUN_PARAMS max_step_retries)",
          r.max_step_retries > 0),
         ("watchdog (&RUN_PARAMS *_deadline_s)",
@@ -149,6 +159,9 @@ class Simulation:
         if self.gspec.enabled:
             self._initial_force()
         self.output_times = list(params.output.tout[:params.output.noutput])
+        # called as on_output(sim, iout) at each output time reached (the
+        # CLI dumps there); None writes nothing
+        self.on_output: Optional[Callable] = None
         # perf accounting (mus/pt of adaptive_loop.f90:204-212)
         self.cell_updates = 0
         self.wall_s = 0.0
@@ -198,16 +211,25 @@ class Simulation:
             return self.output_times[-1]
         return float("inf")
 
-    def evolve(self, chunk: int = 16, verbose: bool = False):
+    @property
+    def dt_old(self) -> float:
+        return float(self.state.dt_old)
+
+    def evolve(self, chunk: int = 16, verbose: bool = False, guard=None):
         """Run through each output time in turn up to the last (or
-        ``nstepmax``).  One host synchronisation per chunk of ``chunk``
-        steps (with gravity, :func:`run_steps_pm`, which also carries the
-        force).  Snapshot output at the output times is not ported yet."""
+        ``nstepmax``), calling ``on_output(self, iout)`` at each output time
+        reached.  One host synchronisation per chunk of ``chunk`` steps
+        (with gravity, :func:`run_steps_pm`, which also carries the
+        force).  ``guard``: optional :class:`ramses_tpu_torch.utils.ops.
+        OpsGuard` (signal dumps, stop_run file, walltime watchdog), checked
+        before each chunk."""
         st = self.state
         nstepmax = self.params.run.nstepmax
         for tout in self.output_times[st.iout - 1:]:
             ttol = 1e-12 * (abs(tout) + 1.0)
             while st.t < tout - ttol and st.nstep < nstepmax:
+                if guard is not None and not guard.check():
+                    return st
                 n = min(chunk, nstepmax - st.nstep)
                 t_before = st.t
                 t0 = time.perf_counter()
@@ -226,6 +248,8 @@ class Simulation:
                 wall = time.perf_counter() - t0
                 self.wall_s += wall
                 st.u, st.t, st.nstep = u, t_host, st.nstep + ndone
+                if ndone:
+                    st.dt_old = (st.t - t_before) / ndone
                 self.cell_updates += ndone * self.grid.ncell
                 if verbose:
                     print(self.step_line((st.t - t_before) / ndone
@@ -233,7 +257,9 @@ class Simulation:
                 if ndone == 0:
                     break
             if st.t < tout - ttol:
-                break  # budget exhausted before this output time
+                break  # budget exhausted before this output time: no dump
+            if self.on_output is not None:
+                self.on_output(self, st.iout)
             st.iout += 1
         return st
 
@@ -260,46 +286,141 @@ class Simulation:
         update."""
         return f"mus/pt={self.mus_per_cell_update():.4f}"
 
+    # ------------------------------------------------------------------
+    # snapshot / restart
+    # ------------------------------------------------------------------
+    def dump(self, iout: Optional[int] = None, base_dir: Optional[str] = None,
+             namelist_path: Optional[str] = None) -> str:
+        """Write a reference-format ``output_NNNNN/`` snapshot (the state
+        is fetched once) and return its path."""
+        from ramses_tpu_torch.io import snapshot as snapmod
+        iout = iout if iout is not None else self.state.iout
+        snap = snapmod.snapshot_from_uniform(self, iout)
+        return snapmod.dump_all(
+            snap, iout, base_dir or self.params.output.output_dir,
+            namelist_path=namelist_path,
+            keep_last=int(self.params.output.checkpoint_keep))
+
+    @classmethod
+    def from_snapshot(cls, params: Params, outdir: str, dtype=torch.float32,
+                      device=None) -> "Simulation":
+        """Resume from a snapshot directory (the ``nrestart`` path).  The
+        file holds f64 primitives, so an f32 state comes back within an
+        ulp or two of the dumped one (E is rebuilt from them)."""
+        from ramses_tpu_torch.io.restart import (refuse_particles,
+                                                 restore_uniform)
+        dense, meta, parts = restore_uniform(
+            outdir, params, HydroStatic.from_params(params))
+        refuse_particles(parts)
+        sim = cls(params, dtype=dtype, device=device)
+        sim.state.u = torch.as_tensor(dense, dtype=dtype, device=sim.device)
+        sim.state.t = float(meta["t"])
+        sim.state.nstep = int(meta["nstep"])
+        iout_meta = int(meta["iout"])
+        if iout_meta < 900:
+            sim.state.iout = max(iout_meta, 1) + 1
+        else:
+            # emergency checkpoint (OpsGuard's 900+): its iout is NOT an
+            # output-schedule index, so the next pending output comes from
+            # the restored time
+            sim.state.iout = 1 + sum(
+                1 for tt in sim.output_times
+                if sim.state.t >= tt - 1e-12 * (abs(tt) + 1.0))
+        if sim.gspec.enabled:
+            sim._initial_force()       # the force of the restored density
+        return sim
+
+
+def namelist_driver(params: Params, solver: Optional[str] = None):
+    """``(cls, tend)``: the driver class a namelist runs on, as
+    ``ramses_tpu/__main__.py`` dispatches, and the time the hierarchies
+    evolve to (None on the uniform drivers, which follow the output
+    times).  ``solver`` "hydro" or "mhd" (default: :func:`is_mhd`): hydro
+    runs the uniform :class:`Simulation` or, with ``levelmax > levelmin``,
+    :class:`ramses_tpu_torch.amr.hierarchy.AmrSim`; MHD the uniform
+    :class:`ramses_tpu_torch.mhd.driver.MhdSimulation` or
+    :class:`ramses_tpu_torch.mhd.amr.MhdAmrSim`."""
+    if solver is None:
+        solver = "mhd" if is_mhd(params) else "hydro"
+    if solver not in ("hydro", "mhd"):
+        raise ValueError(f"solver must be 'hydro' or 'mhd', not {solver!r}")
+    out = params.output
+    if params.amr.levelmax > params.amr.levelmin:
+        if solver == "mhd":
+            from ramses_tpu_torch.mhd.amr import MhdAmrSim as cls
+        else:
+            from ramses_tpu_torch.amr.hierarchy import AmrSim as cls
+        return cls, (out.tout[-1] if out.tout else out.tend)
+    if solver == "mhd":
+        from ramses_tpu_torch.mhd.driver import MhdSimulation
+        return MhdSimulation, None
+    return Simulation, None
+
+
+def build_namelist_sim(cls, params: Params, restart: Optional[str],
+                       dtype=torch.float32, device=None):
+    """A fresh ``cls`` on ``params``, or, with a ``restart`` directory, the
+    one restored from it (the hierarchies through ``from_checkpoint_dir``,
+    the uniform drivers through ``from_snapshot``)."""
+    if restart is None:
+        return cls(params, dtype=dtype, device=device)
+    restore = getattr(cls, "from_checkpoint_dir", cls.from_snapshot)
+    return restore(params, restart, dtype=dtype, device=device)
+
+
+def evolve_namelist(sim, params: Params, tend: Optional[float],
+                    verbose: bool = False, guard=None) -> None:
+    """Evolve a sim of :func:`namelist_driver`'s class to its end: a
+    hierarchy to ``tend`` or ``nstepmax``, the uniform drivers through
+    their output times (``guard`` an :class:`ramses_tpu_torch.utils.ops.
+    OpsGuard` checked once a chunk, or None)."""
+    if tend is not None:
+        sim.evolve(tend, nstepmax=params.run.nstepmax, verbose=verbose,
+                   guard=guard)
+    elif isinstance(sim, Simulation):
+        sim.evolve(verbose=verbose, guard=guard)
+    else:
+        sim.evolve(nstepmax=params.run.nstepmax, verbose=verbose,
+                   guard=guard)
+
+
+def supervise_namelist(params: Params, build: Callable, drive: Callable,
+                       max_attempts: int = 1, tend: Optional[float] = None):
+    """``drive(build(restart_dir))`` through :func:`ramses_tpu_torch.
+    resilience.supervisor.supervise`: the first attempt restores
+    ``output_<nrestart>`` when ``&RUN_PARAMS nrestart > 0``, or the newest
+    manifest-valid checkpoint under ``auto_resume`` or ``nrestart=-1``.
+    With ``max_attempts > 1``, ``auto_resume`` or ``nrestart=-1`` the run
+    is supervised (at least two attempts): an interrupted or failed
+    attempt resumes from the newest valid checkpoint, with exponential
+    backoff in between.  Returns the final sim."""
+    from ramses_tpu_torch.resilience import supervisor as rsup
+    r = params.run
+    supervised = max_attempts > 1 or r.auto_resume or r.nrestart == -1
+    return rsup.supervise(build, drive, params,
+                          base_dir=params.output.output_dir,
+                          max_attempts=(max(2, int(max_attempts))
+                                        if supervised else 1), tend=tend)
+
 
 def run_namelist(path: str, ndim: int = 3, dtype=torch.float32,
                  verbose: bool = False, max_attempts: int = 1,
                  device=None, solver: Optional[str] = None,
                  nstepmax: Optional[int] = None):
     """Build-and-evolve from a namelist to the last output time or
-    ``nstepmax`` (the namelist's unless given here).  ``solver`` "hydro"
-    or "mhd" (default: :func:`is_mhd`, the JAX CLI's choice): hydro runs
-    the uniform :class:`Simulation` or, with ``levelmax > levelmin``, the
-    AMR hierarchy (:class:`ramses_tpu_torch.amr.hierarchy.AmrSim`); MHD
-    runs the uniform :class:`ramses_tpu_torch.mhd.driver.MhdSimulation`
-    or, with ``levelmax > levelmin``, the MHD hierarchy
-    (:class:`ramses_tpu_torch.mhd.amr.MhdAmrSim`), as
-    ``ramses_tpu/__main__.py`` dispatches.  ``max_attempts > 1``, a
-    supervised run, is not ported yet."""
-    if max_attempts > 1:
-        raise NotImplementedError("not ported to ramses_tpu_torch yet: "
-                                  "supervised restart (max_attempts > 1)")
+    ``nstepmax`` (the namelist's unless given here), on the driver
+    :func:`namelist_driver` picks (``solver`` as there), through
+    :func:`supervise_namelist` (``nrestart``, ``auto_resume`` and
+    ``max_attempts``).  Writes nothing unless a restore or the caller
+    asks: the CLI (``ramses_tpu_torch/__main__.py``) adds the outputs and
+    the :class:`ramses_tpu_torch.utils.ops.OpsGuard`."""
     params = load_params(path, ndim=ndim)
     if nstepmax is not None:
         params.run.nstepmax = int(nstepmax)
-    if solver is None:
-        solver = "mhd" if is_mhd(params) else "hydro"
-    if solver not in ("hydro", "mhd"):
-        raise ValueError(f"solver must be 'hydro' or 'mhd', not {solver!r}")
-    if params.amr.levelmax > params.amr.levelmin:
-        if solver == "mhd":
-            from ramses_tpu_torch.mhd.amr import MhdAmrSim as cls
-        else:
-            from ramses_tpu_torch.amr.hierarchy import AmrSim as cls
-        sim = cls(params, dtype=dtype, device=device)
-        out = params.output
-        sim.evolve(out.tout[-1] if out.tout else out.tend,
-                   nstepmax=params.run.nstepmax, verbose=verbose)
-        return sim
-    if solver == "mhd":
-        from ramses_tpu_torch.mhd.driver import MhdSimulation
-        sim = MhdSimulation(params, dtype=dtype, device=device)
-        sim.evolve(nstepmax=params.run.nstepmax, verbose=verbose)
-        return sim
-    sim = Simulation(params, dtype=dtype, device=device)
-    sim.evolve(verbose=verbose)
-    return sim
+    cls, tend = namelist_driver(params, solver)
+    return supervise_namelist(
+        params,
+        lambda restart: build_namelist_sim(cls, params, restart, dtype,
+                                           device),
+        lambda sim: evolve_namelist(sim, params, tend, verbose=verbose),
+        max_attempts=max_attempts, tend=tend)

@@ -31,9 +31,14 @@ every scatter writes distinct rows and its result is the same on every run.
 Restriction takes the valid prefix of its map, as
 :func:`ramses_tpu_torch.amr.kernels.restrict_upload` does (ROADMAP §C).
 
-Gravity, particles, tracers, snapshots and checkpoints, patch hooks,
-offload and the multi-device slab and explicit-comm paths are not ported:
-a namelist that turns one on raises ``NotImplementedError`` naming it.
+``dump`` writes the reference MHD column set (density, velocity, the
+B_left/B_right faces, pressure) and ``from_snapshot`` restores it through
+the hydro hierarchy's restart scaffold: the face fields come back verbatim
+from the left and right columns, the centred B as their mean.
+
+Gravity, particles, tracers, patch hooks, offload and the multi-device
+slab and explicit-comm paths are not ported: a namelist that turns one on
+raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -1018,6 +1023,45 @@ class MhdAmrSim(AmrSim):
         leaves step from next to refined cells drift from its own, and
         faces migrated below it inherit the mismatch (ROADMAP §C3)."""
         return max(self.divb_levels().values())
+
+    # ---- snapshot / restart --------------------------------------------
+    def dump(self, iout: int = 1, base_dir: str = ".", namelist_path=None,
+             ncpu: int = 1) -> str:
+        """Reference-format snapshot with the MHD column set (density,
+        velocity, B_left/right faces, pressure —
+        ``mhd/output_hydro.f90:82-150``); the duplicated staggered faces
+        round-trip exactly."""
+        from ramses_tpu_torch.io import snapshot as snapmod
+        snap = snapmod.snapshot_from_mhd_amr(self, iout)
+        return snapmod.dump_all(snap, iout, base_dir,
+                                namelist_path=namelist_path, ncpu=ncpu)
+
+    @classmethod
+    def from_snapshot(cls, params: Params, outdir: str, dtype=torch.float32,
+                      device=None, **kw) -> "MhdAmrSim":
+        """Resume from an MHD snapshot (``mhd/init_hydro.f90`` restart
+        read: the face fields come back verbatim, the cell-centred B is
+        their mean)."""
+        from ramses_tpu_torch.amr.hierarchy import restore_amr_scaffold
+        from ramses_tpu_torch.io.snapshot import mhd_out_to_state
+        mcfg = MhdStatic.from_params(params)
+        ttd = 2 ** params.ndim
+
+        def place(sim, l, q, og, order):
+            u_rows, bf_rows = mhd_out_to_state(q, mcfg)
+            n = len(og) * ttd
+            u_out, bf_out = sim.u[l].clone(), sim.bfs[l].clone()
+            u_out[:n] = torch.as_tensor(
+                u_rows.reshape(len(og), ttd, mcfg.nvar)[order]
+                .reshape(-1, mcfg.nvar), dtype=sim.dtype, device=sim.device)
+            bf_out[:n] = torch.as_tensor(
+                bf_rows.reshape(len(og), ttd, 3, 2)[order]
+                .reshape(-1, 3, 2), dtype=sim.dtype, device=sim.device)
+            sim.u[l], sim.bfs[l] = u_out, bf_out
+
+        return restore_amr_scaffold(cls, params, outdir, dtype,
+                                    to_cons=lambda q: q, place_level=place,
+                                    device=device, **kw)
 
     def max_face_gap(self) -> float:
         """Largest |difference| between the two stored copies of a face

@@ -8,16 +8,18 @@ The host keeps the output-time bookkeeping and the device advances in
 chunks of :func:`ramses_tpu_torch.mhd.uniform.run_steps`, one host
 synchronisation per chunk.
 
+``dump`` writes the reference MHD snapshot layout (B as left/right face
+columns) and ``from_snapshot`` restores it, the staggered faces verbatim.
+
 Runs on CUDA unless the caller passes ``device="cpu"``.  Not ported yet,
 each raising ``NotImplementedError`` naming it when the namelist turns it
-on: snapshots (``dump``/``from_snapshot``), the step guard, the watchdog,
-fault injection and telemetry.
+on: the step guard, the watchdog, fault injection and telemetry.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -144,6 +146,8 @@ class MhdSimulation:
         self.bf = torch.tensor(bf0, dtype=dtype, device=self.device)
         self.t = 0.0
         self.nstep = 0
+        self.iout = 1
+        self.dt_old = 0.0  # mean step of the last chunk (OpsGuard's probe)
         self.cell_updates = 0
         self.wall_s = 0.0
 
@@ -174,14 +178,18 @@ class MhdSimulation:
         return 1e6 * self.wall_s / max(self.cell_updates, 1)
 
     def evolve(self, tend: Optional[float] = None, chunk: int = 16,
-               nstepmax: int = 10 ** 9, verbose: bool = False):
+               nstepmax: int = 10 ** 9, verbose: bool = False, guard=None):
         """Advance to ``tend`` (default: the last output time, else
         ``tend`` of the namelist) or ``nstepmax`` steps, in chunks of
-        ``chunk`` steps with one host synchronisation each."""
+        ``chunk`` steps with one host synchronisation each.  ``guard``:
+        optional :class:`ramses_tpu_torch.utils.ops.OpsGuard`, checked
+        before each chunk."""
         p = self.params
         tend = tend if tend is not None else (
             p.output.tout[-1] if p.output.tout else p.output.tend)
         while self.t < tend * (1.0 - 1e-12) and self.nstep < nstepmax:
+            if guard is not None and not guard.check():
+                break
             n = min(chunk, nstepmax - self.nstep)
             t0 = time.perf_counter()
             t_before = self.t
@@ -195,6 +203,8 @@ class MhdSimulation:
             self.wall_s += wall
             self.u, self.bf, self.t = u, bf, t_host
             self.nstep += ndone
+            if ndone:
+                self.dt_old = (self.t - t_before) / ndone
             self.cell_updates += ndone * self.grid.ncell
             if verbose:
                 dt = (self.t - t_before) / ndone if ndone else None
@@ -227,3 +237,122 @@ class MhdSimulation:
         divergence of B."""
         return (f"mus/pt={self.mus_per_cell_update():.4f} "
                 f"max|divB|={float(self.max_divb()):.3e}")
+
+    # ------------------------------------------------------------------
+    # snapshot output (reference MHD layout: B left/right columns,
+    # mhd/output_hydro.f90:88-149)
+    # ------------------------------------------------------------------
+    def var_names(self) -> List[str]:
+        dims = "xyz"
+        names = ["density"]
+        names += [f"velocity_{dims[d]}" for d in range(self.cfg.ndim)]
+        names += [f"B_{dims[c]}_left" for c in range(3)]
+        names += [f"B_{dims[c]}_right" for c in range(3)]
+        names += ["pressure"]
+        names += [f"scalar_{i:02d}" for i in range(self.cfg.npassive)]
+        return names
+
+    def output_vars(self) -> np.ndarray:
+        """[*sp, nvar_out] float64 in var_names() order (the state and the
+        faces fetched once each)."""
+        from ramses_tpu_torch.io.snapshot import host64
+        cfg = self.cfg
+        u = host64(self.u)
+        bf = host64(self.bf)
+        rho = np.maximum(u[0], cfg.smallr)
+        cols = [u[0]]
+        cols += [u[1 + d] / rho for d in range(cfg.ndim)]
+        b_left, b_right = [], []
+        for c in range(3):
+            if c < cfg.ndim:
+                b_left.append(bf[c])
+                br = np.roll(bf[c], -1, axis=c)
+                if self.grid.bc_kinds[c][1] != bmod.PERIODIC:
+                    # outflow: the wrap would import the opposite edge;
+                    # replicate the local edge face instead (zero-gradient)
+                    idx = [slice(None)] * cfg.ndim
+                    idx[c] = -1
+                    br[tuple(idx)] = bf[c][tuple(idx)]
+                b_right.append(br)
+            else:
+                b_left.append(u[IBX + c])
+                b_right.append(u[IBX + c])
+        cols += b_left + b_right
+        ek = 0.5 * sum(u[1 + c] ** 2 for c in range(NCOMP)) / rho
+        em = 0.5 * sum((0.5 * (bl + br)) ** 2
+                       for bl, br in zip(b_left, b_right))
+        cols.append((cfg.gamma - 1.0) * (u[IP] - ek - em))
+        for s in range(cfg.npassive):
+            cols.append(u[8 + s] / rho)
+        return np.stack(cols, axis=-1)
+
+    def dump(self, iout: int = 1, base_dir: str = ".",
+             namelist_path: Optional[str] = None) -> str:
+        """Write a reference-format ``output_NNNNN/`` snapshot and return
+        its path."""
+        from ramses_tpu_torch.io import snapshot as sm
+        from ramses_tpu_torch.units import units as units_fn
+        params = self.params
+        lmin = params.amr.levelmin
+        ndim = self.cfg.ndim
+        dense = self.output_vars()
+        levels = sm.uniform_levels_from_dense(dense, lmin, ndim)
+        snap = sm.Snapshot(
+            ndim=ndim, nlevelmax=max(params.amr.levelmax, lmin),
+            levels=levels, boxlen=float(params.amr.boxlen), t=float(self.t),
+            gamma=self.cfg.gamma, var_names=self.var_names(),
+            units=units_fn(params), levelmin=lmin, nstep=self.nstep,
+            nstep_coarse=self.nstep, tout=[params.output.tend or 0.0])
+        return sm.dump_all(snap, iout, base_dir,
+                           namelist_path=namelist_path,
+                           keep_last=int(params.output.checkpoint_keep))
+
+    @classmethod
+    def from_snapshot(cls, params: Params, outdir: str, dtype=torch.float32,
+                      device=None) -> "MhdSimulation":
+        """Rebuild from a :meth:`dump` directory (the restart path).
+
+        The MHD columns store B as left/right face pairs: the staggered
+        ``bf`` comes straight back from the left columns and the
+        cell-centred field from their average, so dump→restore round
+        trips exactly at file precision.  Velocity components beyond
+        ndim are not written by :meth:`output_vars` and restore as zero.
+        """
+        from ramses_tpu_torch.amr.tree import cell_offsets
+        from ramses_tpu_torch.io.restart import restore_tree_state
+        cfg = MhdStatic.from_params(params)
+        lmin = params.amr.levelmin
+        tree_og, rows_lv, meta, _parts = restore_tree_state(
+            outdir, cfg, lmin, to_cons=lambda q: q)   # raw output rows
+        if lmin not in rows_lv:
+            raise ValueError(f"snapshot has no level {lmin} data")
+        ndim = cfg.ndim
+        n = 1 << lmin
+        og = tree_og[lmin]
+        offs = cell_offsets(ndim)
+        cc = (2 * og[:, None, :] + offs[None, :, :]).reshape(-1, ndim)
+        rows = rows_lv[lmin]                          # [ncell, nvar_out]
+        dense = np.zeros((rows.shape[1],) + (n,) * ndim)
+        idx = tuple(cc[:, d] for d in range(ndim))
+        for iv in range(rows.shape[1]):
+            dense[iv][idx] = rows[:, iv]
+        ib = 1 + ndim                                 # first B_left column
+        bl = dense[ib:ib + 3]
+        br = dense[ib + 3:ib + 6]
+        q = np.zeros((cfg.nvar,) + (n,) * ndim)
+        q[0] = dense[0]
+        for d in range(ndim):
+            q[1 + d] = dense[1 + d]
+        for c in range(NCOMP):
+            q[IBX + c] = 0.5 * (bl[c] + br[c])
+        q[IP] = dense[ib + 6]
+        for s in range(cfg.npassive):
+            q[8 + s] = dense[ib + 7 + s]              # per-mass scalar
+        sim = cls(params, dtype=dtype, device=device)
+        sim.u = torch.as_tensor(core.prim_to_cons(torch.from_numpy(q), cfg),
+                                dtype=dtype, device=sim.device)
+        sim.bf = torch.as_tensor(bl, dtype=dtype, device=sim.device)
+        sim.t = float(meta["t"])
+        sim.nstep = int(meta["nstep"])
+        sim.iout = max(int(meta["iout"]), 0) + 1
+        return sim

@@ -16,6 +16,10 @@ Partial levels keep the single-device sweeps (K3, K2).  All shards of a
 mesh share one device here, so the global view those sweeps take needs no
 communication: the same arithmetic on the same rows, not a fallback.
 
+``dump`` writes one file set per shard (``ncpu`` = the shard count), as
+the JAX package's does; :meth:`AmrSim.from_snapshot` restores it onto any
+shard count.
+
 Not ported yet, and refused by name: the explicit partial-level schedules
 (``explicit_comm=True``, ``parallel/amr_comm``), load balance, a mesh
 across several cards, MHD on a mesh (``ShardedMhdAmrSim`` with
@@ -69,6 +73,15 @@ class ShardedAmrSim(AmrSim):
         super().__init__(params, dtype=dtype, device=mesh.device,
                          init_tree=init_tree, noct_pad=noct_pad,
                          seed_tracers=seed_tracers)
+
+    def dump(self, iout: int = 1, base_dir: str = ".", namelist_path=None,
+             ncpu: Optional[int] = None, dumper=None) -> str:
+        """One file set per shard by default (``ncpu`` = the shard count:
+        each domain is its shard's contiguous rows), restorable onto any
+        shard count through :meth:`AmrSim.from_snapshot`."""
+        return super().dump(iout, base_dir, namelist_path=namelist_path,
+                            ncpu=self.ndev if ncpu is None else ncpu,
+                            dumper=dumper)
 
     def _slab_spec(self, lvl: int):
         """Slab decomposition of a complete level, or None when the level

@@ -2,7 +2,8 @@
 ``ramses_tpu/pm/particles.py`` the gas tracers and the gravity stepper
 use).
 
-Only the gas-tracer id base and :func:`freefall_dt` are ported so far;
+Only the gas-tracer id base and family code and :func:`freefall_dt` are
+ported so far;
 particle storage and the particle-mesh operations come with the particle
 slice.
 """
@@ -15,6 +16,9 @@ import torch
 # package): assigned once at seeding, stable across dumps, clear of the
 # incremental star/DM id space
 TRACER_ID0 = 1 << 30
+# the gas tracers' particle family (``pm/pm_commons.f90:84-87``): snapshots
+# write them as massless rows of this family
+FAM_GAS_TRACER = 0
 
 
 def freefall_dt(rho_max, courant_factor: float, fourpi: float):

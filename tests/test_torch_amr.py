@@ -687,7 +687,6 @@ def test_unported_amr_features_raise():
 
 @pytest.mark.parametrize("key,value,name", [
     ("fault_inject", "nan@3", "fault injection"),
-    ("nrestart", 2, "restart"),
     ("max_step_retries", 2, "step guard"),
     ("step_deadline_s", 5.0, "watchdog"),
 ])

@@ -471,12 +471,12 @@ def test_mhd_refusals_listed_once(levelmax):
         p.amr.levelmax = levelmax
     r = p.run
     r.poisson = r.tracer = True
-    r.nrestart = r.max_step_retries = 2
+    r.max_step_retries = 2
     r.step_deadline_s, r.fault_inject = 5.0, "nan@3"
     p.output.telemetry = "jsonl"
     names = unported_mhd_features(p)
     assert len(names) == len(set(names)), names
-    for name in ("gravity", "restart (", "step guard", "watchdog",
+    for name in ("gravity", "step guard", "watchdog",
                  "fault injection", "telemetry"):
         assert sum(name in n for n in names) == 1, (name, names)
     assert any("tracers" in n for n in names) == (levelmax is not None)

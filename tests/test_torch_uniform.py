@@ -157,15 +157,25 @@ def test_unported_features_raise():
     p.amr.levelmax = 4
     with pytest.raises(NotImplementedError, match="AMR"):
         Simulation(p, device="cpu")
-    with pytest.raises(NotImplementedError, match="supervised"):
-        run_namelist(NML, ndim=3, max_attempts=2, device="cpu")
+
+def test_supervised_run_namelist_completes(tmp_path, monkeypatch):
+    """max_attempts > 1 runs under the supervisor: one attempt reaches
+    nstepmax and returns; nothing is written without ``outputs``."""
+    monkeypatch.chdir(tmp_path)
+    text = open(NML).read().replace("levelmin=8", "levelmin=3") \
+                           .replace("levelmax=8", "levelmax=3")
+    nml = tmp_path / "sedov3d_8.nml"
+    nml.write_text(text)
+    sim = run_namelist(str(nml), ndim=3, max_attempts=2, device="cpu",
+                       nstepmax=3)
+    assert isinstance(sim, Simulation) and sim.nstep == 3
+    assert not [n for n in os.listdir(tmp_path) if n.startswith("output_")]
 
 
 # the uniform driver's refusals of the JAX driver's run-control layer
 # (ramses_tpu/driver.py:239-252): (namelist line, the Params field it
 # sets, its value, the name the refusal gives)
 RUN_CONTROL = [
-    ("nrestart=2", "run", "nrestart", 2, "restart"),
     ("max_step_retries=2", "run", "max_step_retries", 2, "step guard"),
     ("step_deadline_s=5.0", "run", "step_deadline_s", 5.0, "watchdog"),
     ("fault_inject='nan@3'", "run", "fault_inject", "nan@3",
