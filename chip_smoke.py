@@ -258,7 +258,42 @@ Phases, each printing its own line; any failure exits non-zero:
    supervisor resumes from it, and ``output_00001`` validates; a second
    CLI run of the namelist with ``nrestart=1`` and a second output time
    continues from it and writes a valid ``output_00002``.  Phases 35-38
-   write under a ``tempfile.mkdtemp`` directory, removed at the end.
+   write under a ``tempfile.mkdtemp`` directory, removed at the end;
+39. ``BASELINE.json`` config 5: ``namelists/cosmo.nml`` at levelmin=7,
+   levelmax=9 (``nremap=1``, ``smallc=1e-6`` and level 8's ``m_refine``
+   set in code, see ``COSMO_NREMAP``), its ICs a Gaussian random δ (P(k) ∝ k⁻²,
+   ``default_rng(1)``, 0.2 rms a cell) written with the port's
+   ``write_zeldovich_ics`` (2,097,152 particles and the baryons), built
+   through ``build_namelist_sim`` with every launch count at 0 just
+   before, 20 coarse steps through ``evolve`` (a regrid each): K1 and K3
+   exactly as the levels stepped require, levels 8 and 9 reached, the leaf
+   gas mass (rel 1e-5), the particle count and mass kept, u, phi, fg and
+   the particles finite, aexp rising; octs per level, the steps' walls and
+   dts, s a coarse step and cell-updates/s; then one more coarse step's
+   host seconds by part (regrid, maps, solve, gather and kick, the K1/K3
+   sweep, drift, Courant fetch);
+40. 3 coarse steps twice from phase 39's state after 15 steps
+   (``from_state`` with the particles; level 8 present, level 9 made by
+   the first regrid): u, phi, fg, particle x and v, trees and PCG
+   iterations bitwise;
+41. linear growth, the JAX package's oracles: the uniform ``Simulation``
+   on the single mode at 128³ (N-body, FFT) to a = 0.06, growth ∝ a within
+   12 %; the hierarchy at ``test_cosmo_amr_growth``'s size (16³, levelmax
+   5, m_refine 4) to a = 0.05 within 20 %;
+42. config 5 restarted: 5 coarse steps from the ICs, a dump with the
+   particles (validates, 2,097,152 part rows), ``AmrSim.from_snapshot``
+   (particles bitwise, cells within the round trip) and 5 more: against
+   phase 39's first 10 steps bitwise where the first restored dt equals
+   the straight run's and no partial level's PCG ran (the restore primes a
+   solve, so a PCG warm-starts from it), else both dts and the deviations
+   reported;
+43. ``python -m ramses_tpu_torch`` on a copy of cosmo.nml (its own
+   levelmin 6: 64³ ICs written beside it, ``nstepmax=3``): rc 0, the
+   ``cosmo-amr aexp=… nstep=3 octs=[…]`` line, an ``output_00001`` that
+   validates with 262,144 particle rows.  Phases 39-43 write under a
+   ``tempfile.mkdtemp`` directory, removed at the end.  Config 5's K1 and
+   K3 launches join the kernels line's ``fused_muscl`` and ``tile_sweep``
+   rows.
 
 The line before the last holds every ported kernel's numbers as one JSON
 object (``{"kernels": [...]}``); the last line is
@@ -2794,7 +2829,8 @@ def _gravity_phases(dev, card: str):
     tend = torch.tensor(1e30, dtype=torch.float64, device=dev)
 
     def steps():
-        return run_steps_pm(sim.grid, sim.gspec, sim.pspec, u, f, t, tend, 2)
+        return run_steps_pm(sim.grid, sim.gspec, sim.pspec, u, None, f, t,
+                            tend, t.new_zeros(()), 2)
     step_ms = _median_ms(steps, reps=5, warm=1) / 2
     prof = _profile(steps, None, None)
     _print(f"phase 32 uniform self-gravity on {card}: pointmass.nml "
@@ -3859,6 +3895,669 @@ def _restart_cli(tmp: str):
            f"s, output_00002 validates (nstep {meta2['nstep']})")
 
 
+# ---------------------------------------------------------------------------
+# phases 39-43: particles and cosmology, BASELINE.json config 5
+# ---------------------------------------------------------------------------
+
+COSMO_NML = os.path.join(ROOT, "namelists", "cosmo.nml")
+COSMO_LEVELS = (7, 9)          # BASELINE config 5: cosmo.nml at 128³
+COSMO_STEPS = 20
+# the ICs: a Gaussian random δ with P(k) ∝ k⁻² from default_rng(COSMO_SEED),
+# scaled to COSMO_SIGMA rms per level-7 cell.  The particle density must
+# pass m_refine = 8 mean masses a cell, then 64 (levels 8 and 9), within
+# the 20 steps: at 0.2 rms level 8 appears at step 11 and level 9 at step
+# 15 on an H100 (PERF.md §6).  The baryon density fb·(1+δ) must stay
+# positive on every cell: the 128³ field's minimum is -5.06σ for seed 0
+# (negative at 0.2 rms), -4.97σ for seed 1 (checked, phase 39)
+COSMO_SEED, COSMO_SIGMA = 1, 0.2
+# set in code, each a cut of cosmo.nml's parameters (PERF.md §4):
+# nremap=1 refines at every coarse step, as the reference's flag_fine does
+# (its nremap is the load-balance cadence; the JAX package regrids every
+# nremap steps, and at 10 level 9 could not appear within 20 steps);
+# smallc=1e-6: with the default 1e-10 the f32 step of the cold gas (T2 =
+# 1e-8 at the start) goes non-finite after 9 coarse steps, in the JAX
+# package's formulation as in the port's (ROADMAP §C6); cosmo.nml's
+# m_refine=8 list stops at level 7, so level 8 would never refine: its
+# value carries on to the levels below levelmax
+COSMO_NREMAP, COSMO_SMALLC = 1, 1e-6
+COSMO_REPLAY_STEPS = 3
+COSMO_REPLAY_AT = 15           # phase 40 replays from the state at step 15
+COSMO_RESTART_AT = 5           # phase 42: 5 steps, dump, restore, 5 more
+GROWTH_LEVEL, GROWTH_AEND = 7, 0.06        # phase 41, uniform: 128³
+GROWTH_AMR = (4, 5, 0.05)                   # test_cosmo_amr_growth's size
+COSMO_CLI_LEVEL, COSMO_CLI_STEPS = 6, 3     # phase 43: 64³ ICs
+
+
+def _gaussian_ics(dirname: str, n: int, sigma: float, seed: int):
+    """A grafic directory of a Gaussian random δ (P(k) ∝ k⁻², rms
+    ``sigma``) and its Zel'dovich velocities at cosmo.nml's epoch, written
+    with the port's own ``write_zeldovich_ics``.  Returns min(1+δ)."""
+    import numpy as np
+    from ramses_tpu_torch.io import grafic
+    from ramses_tpu_torch.pm.init_part import fpeebl
+    rng = np.random.default_rng(seed)
+    kf = np.fft.fftfreq(n, d=1.0 / n)
+    kx, ky, kz = np.meshgrid(kf, kf, kf, indexing="ij")
+    k2 = kx ** 2 + ky ** 2 + kz ** 2
+    k2[0, 0, 0] = 1.0
+    dk = np.fft.fftn(rng.standard_normal((n, n, n))) / np.sqrt(k2)
+    dk[0, 0, 0] = 0.0
+    delta = np.real(np.fft.ifftn(dk))
+    delta *= sigma / delta.std()
+    hdr = grafic.GraficHeader(n, n, n, dx=100.0 / n, astart=0.02,
+                              omega_m=1.0, omega_v=0.0, h0=70.0)
+    grafic.write_zeldovich_ics(dirname, delta, hdr,
+                               fpeebl(0.02, 1.0, 0.0, 0.0))
+    return float(1.0 + delta.min())
+
+
+def _mode_ics(dirname: str, n: int, amp: float):
+    """``tests/test_cosmo_ics.py``'s single mode δ = amp·cos(2πx) with its
+    Zel'dovich velocities (EdS, astart 0.02)."""
+    import numpy as np
+    from ramses_tpu_torch.io import grafic
+    from ramses_tpu_torch.pm.init_part import fpeebl
+    x = (np.arange(n) + 0.5) / n
+    delta = (amp * np.cos(2 * np.pi * x))[:, None, None] * np.ones((1, n, n))
+    hdr = grafic.GraficHeader(n, n, n, dx=100.0 / n, astart=0.02,
+                              omega_m=1.0, omega_v=0.0, h0=70.0)
+    grafic.write_zeldovich_ics(dirname, delta, hdr,
+                               fpeebl(0.02, 1.0, 0.0, 0.0))
+
+
+def _mode_amplitude(ps, n: int) -> float:
+    """The cos(2πx) amplitude of the particles' CIC density at n³."""
+    import numpy as np
+    from ramses_tpu_torch.pm import particles as pmod
+    rho = pmod.deposit_cic(ps, (n, n, n), 1.0 / n).double().cpu().numpy()
+    x = (np.arange(n) + 0.5) / n
+    return 2.0 * float(np.mean(rho.mean(axis=(1, 2)) * np.cos(2 * np.pi * x)))
+
+
+def _mode_params(lmin: int, lmax: int, initdir: str, hydro: bool):
+    """``tests/test_cosmo_ics.py``'s ``_cosmo_params``: EdS, omega_b 0,
+    100 Mpc/h, aexp_ini 0.02."""
+    from ramses_tpu_torch.config import Params
+    p = Params(ndim=3)
+    p.run.cosmo = p.run.pic = p.run.poisson = True
+    p.run.hydro = hydro
+    p.amr.levelmin, p.amr.levelmax, p.amr.boxlen = lmin, lmax, 1.0
+    p.init.filetype = "grafic"
+    p.init.initfile = [initdir]
+    p.init.aexp_ini = 0.02
+    p.raw = {"cosmo_params": {"omega_m": 1.0, "omega_l": 0.0,
+                              "omega_b": 0.0, "h0": 70.0, "aexp": 0.02,
+                              "boxlen_ini": 100.0}}
+    return p
+
+
+def _cosmo_config(initdir: str):
+    """cosmo.nml at levelmin 7, levelmax 9 on the ICs in ``initdir``, with
+    the cuts above (``m_refine`` carried on to level 8)."""
+    from ramses_tpu_torch.config import load_params
+    p = load_params(COSMO_NML, ndim=3)
+    p.amr.levelmin, p.amr.levelmax = COSMO_LEVELS
+    p.init.initfile = [initdir]
+    p.run.nremap = COSMO_NREMAP
+    p.hydro.smallc = COSMO_SMALLC
+    m = list(p.refine.m_refine)
+    given = [v for v in m if v >= 0.0]
+    for i in range(p.amr.levelmax - 1):
+        if m[i] < 0.0:
+            m[i] = given[-1]
+    p.refine.m_refine = m
+    return p
+
+
+def _cosmo_snapshot(sim) -> dict:
+    """Device copies of a hierarchy's state: rows, potentials, forces,
+    particles, trees and PCG iterations."""
+    return dict(
+        u={l: sim.u[l].clone() for l in sim.levels()},
+        phi={l: v.clone() for l, v in sim.phi.items()},
+        fg={l: v.clone() for l, v in sim.fg.items()},
+        x=sim.p.x.clone(), v=sim.p.v.clone(),
+        keys={l: sim.tree.levels[l].keys.copy() for l in sim.levels()},
+        iters={l: int(v) for l, v in sim.poisson_iters.items()},
+        t=sim.t, nstep=sim.nstep)
+
+
+def _cosmo_diff(a: dict, b: dict) -> dict:
+    """Bitwise flags and the largest deviation of each part of two
+    :func:`_cosmo_snapshot`s (a part's max |Δ| over its max |value|)."""
+    import numpy as np
+    import torch
+
+    def rel(x, y):
+        if x.shape != y.shape:
+            return float("inf")
+        return float((x.double() - y.double()).abs().max()
+                     / y.double().abs().max().clamp(min=1e-300))
+    same_tree = (a["keys"].keys() == b["keys"].keys() and all(
+        np.array_equal(a["keys"][l], b["keys"][l]) for l in a["keys"]))
+    out = {"trees": same_tree, "iters": a["iters"] == b["iters"]}
+    for part in ("u", "phi", "fg"):
+        common = set(a[part]) & set(b[part])
+        out[part] = (same_tree and set(a[part]) == set(b[part]) and all(
+            torch.equal(a[part][l], b[part][l]) for l in common))
+        out[part + "_rel"] = max([rel(a[part][l], b[part][l])
+                                  for l in common] or [0.0])
+    for part in ("x", "v"):
+        out[part] = torch.equal(a[part], b[part])
+        out[part + "_rel"] = rel(a[part], b[part])
+    out["bitwise"] = all(out[k] for k in ("trees", "iters", "u", "phi",
+                                          "fg", "x", "v"))
+    return out
+
+
+def _cosmo_want(stepped, lmin: int) -> dict:
+    """The launches that the recorded coarse steps' levels require: K1 a
+    complete level's substep, K3 a blocked partial level's, K2 a stencil
+    partial level's."""
+    n = {"fused_muscl": 0, "tile_sweep": 0, "oct_sweep": 0}
+    for levels, complete, blocked in stepped:
+        for l, c, b in zip(levels, complete, blocked or (False,) * len(
+                levels)):
+            key = ("fused_muscl" if c else "tile_sweep" if b
+                   else "oct_sweep")
+            n[key] += 2 ** (l - lmin)
+    return _want(**n)
+
+
+def _record_kernel_inputs(store: dict):
+    """Wrap K1's and K3's wrappers so that each one's first call at each
+    cell size records device copies of its inputs in ``store`` (keyed by
+    the kernel's name and dx), then runs the kernel as before (one launch,
+    counted as before).  Returns the function that restores them."""
+    import torch
+    from ramses_tpu_torch.hydro import fused_muscl as fm
+    from ramses_tpu_torch.hydro import oct_muscl as om
+    k1, k3 = fm.fused_step, om.tile_sweep
+
+    def keep(a):
+        return a.clone() if torch.is_tensor(a) else a
+
+    def k3_rec(ut, ok, dt, cfg, dx, shift, want_flux=False):
+        if ("tile_sweep", dx) not in store:
+            store["tile_sweep", dx] = tuple(keep(a) for a in (
+                ut, ok, dt, cfg, dx, shift, want_flux))
+        return k3(ut, ok, dt, cfg, dx, shift, want_flux)
+
+    def k1_rec(u, dt, cfg, dx, bc, **kw):
+        if ("fused_muscl", dx) not in store:
+            store["fused_muscl", dx] = ((keep(u), keep(dt), cfg, dx, bc),
+                                        {k: keep(v) for k, v in kw.items()})
+        return k1(u, dt, cfg, dx, bc, **kw)
+    fm.fused_step, om.tile_sweep = k1_rec, k3_rec
+
+    def restore():
+        fm.fused_step, om.tile_sweep = k1, k3
+    return restore
+
+
+def _recorded_kernel_check(store: dict, level_of: dict) -> str:
+    """Each recorded K3 batch and K1 state (:func:`_record_kernel_inputs`)
+    through the kernel and its plain version on the card: K3's du and
+    face fluxes each within ``LOCAL_ATOL + LOCAL_RTOL·M`` (M the stencil
+    scale of phase 10), K1's state within the same of its 5³ stencil max.
+    Raises on a disagreement; returns a line of the N and the errors."""
+    import torch
+    from ramses_tpu_torch.hydro import fused_muscl as fm
+    from ramses_tpu_torch.hydro import oct_muscl as om
+    parts = []
+    for (name, dx), args in sorted(store.items(),
+                                   key=lambda kv: level_of[kv[0][1]]):
+        lvl = level_of[dx]
+        if name == "tile_sweep":
+            ut, ok, dt, cfg, _, shift, want_flux = args
+            got = om.tile_sweep(ut, ok, dt, cfg, dx, shift, want_flux)
+            want = om.tile_sweep_ref(ut, ok, dt, cfg, dx, shift, want_flux)
+            torch.cuda.synchronize()
+            scales = _output_scales(_batch_last((ut,))[0], 1 << (shift + 1),
+                                    True)
+            err, rel, ex = _local_check(_batch_last(got), _batch_last(want),
+                                        scales)
+            what = (f"K3 level {lvl} (N {ut.shape[1]} tiles, shift {shift}):"
+                    f" max abs err {err:.3e}, err / M (du/faces) "
+                    f"{rel[0]:.3e}/{rel[1]:.3e}")
+            del got, want, scales
+        else:
+            (u, dt, cfg, _, bc), kw = args
+            got = fm.fused_step(u, dt, cfg, dx, bc, **kw)
+            want = fm.fused_step_ref(u, dt, cfg, dx, bc, **kw)
+            if isinstance(got, tuple):
+                got, want = got[0], want[0]
+            torch.cuda.synchronize()
+            d = (got - want).abs()
+            scale = _stencil_scale(want)
+            ex = float((d - (LOCAL_ATOL + LOCAL_RTOL * scale)).max())
+            err = float(d.max())
+            rel = float((d / scale).nan_to_num(nan=0.0).max())
+            what = (f"K1 level {lvl} ({'x'.join(map(str, u.shape[1:]))}, "
+                    f"{'masked' if kw.get('ok') is not None else 'unmasked'})"
+                    f": max abs err {err:.3e}, err / stencil max {rel:.3e}")
+            del got, want, d, scale
+        if not ex <= 0.0:
+            raise AssertionError(f"config 5: {name} disagrees with its "
+                                 f"plain version on the inputs the main "
+                                 f"path gave it: {what}, tolerance excess "
+                                 f"{ex:.3e}")
+        parts.append(what)
+    return "; ".join(parts)
+
+
+def _cosmo_phases(dev, card: str):
+    """Phases 39-43 in a scratch directory that is removed at the end.
+    Returns config 5's K1 and K3 launches."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cosmo_")
+    try:
+        launches, straight = _cosmo_main(dev, card, tmp)
+        _cosmo_growth(card, tmp)
+        _cosmo_restart(card, tmp, straight)
+        _cosmo_cli(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def _cosmo_main(dev, card: str, tmp: str):
+    """Phases 39 (config 5 at 128³, 20 coarse steps) and 40 (a bitwise
+    replay).  Returns the launches of the run and its state after
+    ``2 * COSMO_RESTART_AT`` steps (phase 42's straight run)."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.amr import hierarchy as H
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.convert import amr_state_from, particles_from
+    from ramses_tpu_torch.driver import build_namelist_sim
+    from ramses_tpu_torch.pm import particles as pmod
+    ics = os.path.join(tmp, "ics128")
+    t0 = time.perf_counter()
+    pos = _gaussian_ics(ics, 2 ** COSMO_LEVELS[0], COSMO_SIGMA, COSMO_SEED)
+    ics_s = time.perf_counter() - t0
+    if not pos > 0.0:
+        raise AssertionError(f"config 5 ICs: min(1+δ) = {pos} <= 0")
+    p = _cosmo_config(ics)
+    lmin = p.amr.levelmin
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim = build_namelist_sim(AmrSim, p, None, torch.float32, None)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    a0 = sim.aexp_now()
+    npart = int(sim.p.active.sum())
+    mass0 = float(sim.totals()["mass"])
+    pmass0 = float(sim.p.m.double().sum())
+    stepped, dts, octs, walls = [], [], [], []
+    # each step's lagged free-fall cap (None before the first solve): a
+    # restore does not carry it (phase 42)
+    caps = []
+    # the inputs the last step hands K1 and K3, held against their plain
+    # versions after the run
+    recorded = {}
+    step_coarse = sim.step_coarse
+    cf = float(sim.cfg.courant_factor)
+
+    def counted(dt):
+        spec = sim._fused_spec()
+        stepped.append((spec.levels, spec.complete, spec.blocked))
+        dts.append(float(dt))
+        caps.append(float(pmod.freefall_dt(sim._rho_max, cf,
+                                           sim.grav_coeff()))
+                    if sim._rho_max else None)
+        restore = (_record_kernel_inputs(recorded)
+                   if len(stepped) == COSMO_STEPS else None)
+        t0 = time.perf_counter()
+        try:
+            step_coarse(dt)
+        finally:
+            if restore is not None:
+                restore()
+        walls.append(time.perf_counter() - t0)
+        octs.append([sim.tree.noct(l) for l in sim.levels()])
+    sim.step_coarse = counted
+    tend = float(sim.cosmo.tau_of_aexp(1.0))
+    updates = []
+    regrid = sim.regrid
+
+    def regrid_counted():
+        regrid()
+        updates.append(sim.updates_per_step())
+    sim.regrid = regrid_counted
+    t0 = time.perf_counter()
+    sim.evolve(tend, nstepmax=2 * COSMO_RESTART_AT)
+    straight = dict(_cosmo_snapshot(sim), dts=list(dts), caps=list(caps),
+                    stepped=list(stepped))
+    sim.evolve(tend, nstepmax=COSMO_REPLAY_AT)
+    # phase 40's state: host copies (no kernel launches)
+    state = amr_state_from(sim)
+    p_state = particles_from(sim.p, dtype=torch.float32, device="cpu")
+    sim.evolve(tend, nstepmax=COSMO_STEPS)
+    sim.drain()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    del sim.step_coarse, sim.regrid
+    want = _cosmo_want(stepped, lmin)
+    mass1 = float(sim.totals()["mass"])
+    finite = (all(bool(torch.isfinite(sim.u[l]).all())
+                  and bool(torch.isfinite(sim.phi[l]).all())
+                  and bool(torch.isfinite(sim.fg[l]).all())
+                  for l in sim.levels())
+              and bool(torch.isfinite(sim.p.x).all())
+              and bool(torch.isfinite(sim.p.v).all()))
+    reached = sorted({lv for step in stepped for lv in step[0]})
+    if not (sim.nstep == COSMO_STEPS and len(stepped) == COSMO_STEPS
+            and launches == want and finite
+            and int(sim.p.active.sum()) == npart == 8 ** COSMO_LEVELS[0]
+            and abs(mass1 - mass0) <= 1e-5 * abs(mass0)
+            and float(sim.p.m.double().sum()) == pmass0
+            and sim.aexp_now() > a0
+            and reached == list(range(lmin, p.amr.levelmax + 1))):
+        raise AssertionError(
+            f"config 5: {sim.nstep} coarse steps, launches {launches} "
+            f"(expected {want}), finite {finite}, particles "
+            f"{int(sim.p.active.sum())} of {npart}, leaf gas mass {mass0} -> "
+            f"{mass1}, aexp {a0} -> {sim.aexp_now()}, levels stepped "
+            f"{reached}, octs per step {octs}, dts {dts}, max density "
+            f"{sim._rho_max}")
+    nupd = sum(updates[i] for i in range(len(updates)))
+    _print(f"phase 39 config 5 on {card}: cosmo.nml levelmin={lmin} "
+           f"levelmax={p.amr.levelmax} (nremap={COSMO_NREMAP}, smallc="
+           f"{COSMO_SMALLC}, m_refine {p.refine.m_refine[:p.amr.levelmax]} "
+           f"set in code), {npart} particles, ICs "
+           f"(σ={COSMO_SIGMA}, min(1+δ)={pos:.4f}) written in {ics_s:.2f} "
+           f"s, AmrSim() {init_s:.3f} s; {COSMO_STEPS} coarse steps "
+           f"(a regrid each) in {wall:.3f} s = {wall / COSMO_STEPS:.4f} s a "
+           f"coarse step, {nupd / wall:.4e} cell-updates/s; aexp {a0:.4f} -> "
+           f"{sim.aexp_now():.4f}; octs per level at the end "
+           f"{ {l: sim.tree.noct(l) for l in sim.levels()} }, per step "
+           f"{octs}; step walls {[round(w, 3) for w in walls]}; dts "
+           f"{[round(d, 5) for d in dts]}; PCG iterations at the end "
+           f"{ {l: int(v) for l, v in sim.poisson_iters.items()} }; "
+           f"launches {launches} (expected {want}); leaf gas mass "
+           f"{mass0:.9e} -> {mass1:.9e}, particles {npart} kept, everything "
+           f"finite")
+
+    # K1 and K3 against their plain versions on the inputs the last coarse
+    # step handed them: every level it stepped, at its first substep
+    levels, complete, blocked = stepped[-1]
+    want_rec = {("fused_muscl" if c else "tile_sweep", sim.dx(l))
+                for l, c, b in zip(levels, complete,
+                                   blocked or (False,) * len(levels))
+                if c or b}
+    if set(recorded) != want_rec:
+        raise AssertionError(
+            f"config 5: the last step's K1/K3 inputs were not all recorded: "
+            f"{sorted((k, round(dx, 8)) for k, dx in recorded)} against "
+            f"{sorted((k, round(dx, 8)) for k, dx in want_rec)}")
+    line = _recorded_kernel_check(
+        recorded, {sim.dx(l): l for l in range(lmin, p.amr.levelmax + 1)})
+    recorded.clear()
+    torch.cuda.empty_cache()
+    _print(f"phase 39 K1 and K3 at config 5's shapes (the inputs the last "
+           f"coarse step gave them, each level's first substep) against "
+           f"their plain versions within LOCAL_ATOL + LOCAL_RTOL·M: {line}")
+
+    # where a coarse step's time goes: one more step, each part synchronised
+    coarse = H._coarse_step
+    acc = {"sweep": 0.0}
+
+    def timed_coarse(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = coarse(*a, **k)
+        torch.cuda.synchronize()
+        acc["sweep"] += time.perf_counter() - t0
+        return out
+    H._coarse_step = timed_coarse
+    try:
+        def coarse_step():
+            sim.regrid()
+            sim.step_coarse(sim.coarse_dt())
+        line, parts = _host_breakdown(
+            sim, coarse_step,
+            parts=("regrid", "_build_pm", "solve_gravity", "_pm_force",
+                   "_pm_drift", "coarse_dt", "step_coarse"),
+            nested=("_build_pm", "solve_gravity", "_pm_force", "_pm_drift"))
+    finally:
+        H._coarse_step = coarse
+    _print(f"phase 39 where a coarse step's time goes (octs "
+           f"{[sim.tree.noct(l) for l in sim.levels()]}): {line}; of "
+           f"step_coarse the K1/K3 sweep (_coarse_step) {acc['sweep']:.4f} "
+           f"s; host seconds by part: maps (_build_pm) "
+           f"{parts['_build_pm']:.4f}, solve {parts['solve_gravity']:.4f}, "
+           f"kick (gather) {parts['_pm_force']:.4f}, K1/K3 step "
+           f"{acc['sweep']:.4f}, drift {parts['_pm_drift']:.4f}, regrid "
+           f"{parts['regrid']:.4f}, Courant fetch {parts['coarse_dt']:.4f}")
+
+    # ---- 40. replay: 3 coarse steps twice from one state, bitwise ----
+    def replay():
+        s = AmrSim.from_state(p, **state, particles=particles_from(
+            p_state, dtype=torch.float32, device=dev))
+        s.evolve(tend, nstepmax=s.nstep + COSMO_REPLAY_STEPS)
+        s.drain()
+        return _cosmo_snapshot(s)
+    t0 = time.perf_counter()
+    a, b = replay(), replay()
+    rwall = time.perf_counter() - t0
+    d = _cosmo_diff(a, b)
+    if not d["bitwise"]:
+        raise AssertionError(f"config 5 replay of {COSMO_REPLAY_STEPS} "
+                             f"coarse steps is not bitwise: {d}")
+    _print(f"phase 40 config 5 replay: {COSMO_REPLAY_STEPS} coarse steps "
+           f"twice from phase 39's state at step {COSMO_REPLAY_AT} (octs "
+           f"{ {l: len(v) for l, v in state['tree_og'].items()} }; "
+           f"{rwall:.3f} s for both), bitwise equal: "
+           f"u, phi, fg, particle x and v, trees and PCG iterations "
+           f"{a['iters']}")
+    out = {"fused_muscl": launches["fused_muscl"],
+           "tile_sweep": launches["tile_sweep"]}
+    del sim, a, b, state
+    torch.cuda.empty_cache()
+    return out, straight
+
+
+def _cosmo_growth(card: str, tmp: str):
+    """Phase 41: linear growth, the JAX package's two oracles, on the
+    card."""
+    import torch
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.driver import Simulation, build_namelist_sim
+    from ramses_tpu_torch.pm.cosmology import Cosmology
+    n = 2 ** GROWTH_LEVEL
+    ics = os.path.join(tmp, "mode128")
+    _mode_ics(ics, n, 0.01)
+    p = _mode_params(GROWTH_LEVEL, GROWTH_LEVEL, ics, hydro=False)
+    p.output.tout = [float(Cosmology.from_params(p).tau_of_aexp(
+        GROWTH_AEND))]
+    p.output.noutput = 1
+    t0 = time.perf_counter()
+    sim = Simulation(p)
+    amp0 = _mode_amplitude(sim.state.p, n)
+    sim.evolve(chunk=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    aexp = sim.cosmo.aexp_of_tau(sim.t)
+    growth = _mode_amplitude(sim.state.p, n) / 0.01
+    want = GROWTH_AEND / 0.02
+    if not (abs(aexp - GROWTH_AEND) <= 1e-2 * GROWTH_AEND
+            and abs(growth - want) <= 0.12 * want
+            and bool(torch.isfinite(sim.state.p.x).all())):
+        raise AssertionError(
+            f"uniform linear growth at {n}³: aexp {aexp}, growth {growth} "
+            f"(D ∝ a: {want} within 12 %)")
+    line = (f"uniform {n}³ single mode (amp 0.01, {n ** 3} particles, FFT) "
+            f"to aexp {aexp:.5f} in {sim.nstep} steps, {wall:.3f} s: growth "
+            f"{growth:.4f} against a/a0 = {want:.4f} ({100 * (growth / want - 1):+.2f} "
+            f"%, limit 12 %; initial amplitude {amp0:.6f})")
+    del sim
+    lmin, lmax, a_end = GROWTH_AMR
+    n = 2 ** lmin
+    ics = os.path.join(tmp, "mode16")
+    _mode_ics(ics, n, 0.02)
+    p = _mode_params(lmin, lmax, ics, hydro=True)
+    p.refine.m_refine = [4.0] * 10
+    t0 = time.perf_counter()
+    sim = build_namelist_sim(AmrSim, p, None, torch.float32, None)
+    amp0 = _mode_amplitude(sim.p, n)
+    sim.evolve(float(sim.cosmo.tau_of_aexp(a_end)), nstepmax=400)
+    sim.drain()
+    wall = time.perf_counter() - t0
+    growth = _mode_amplitude(sim.p, n) / amp0
+    want = a_end / 0.02
+    if not (abs(sim.aexp_now() - a_end) <= 0.02 * a_end
+            and abs(growth - want) <= 0.2 * want):
+        raise AssertionError(
+            f"hierarchy linear growth: aexp {sim.aexp_now()}, growth "
+            f"{growth} (D ∝ a: {want} within 20 %)")
+    _print(f"phase 41 linear growth on {card}: {line}; hierarchy levelmin "
+           f"{lmin} levelmax {lmax} (m_refine 4, test_cosmo_amr_growth's "
+           f"size) to aexp {sim.aexp_now():.5f} in {sim.nstep} coarse steps, "
+           f"{wall:.3f} s, octs {[sim.tree.noct(l) for l in sim.levels()]}: "
+           f"growth {growth:.4f} against {want:.4f} "
+           f"({100 * (growth / want - 1):+.2f} %, limit 20 %)")
+    del sim
+    torch.cuda.empty_cache()
+
+
+def _cosmo_restart(card: str, tmp: str, straight: dict):
+    """Phase 42: config 5 from its ICs, 5 coarse steps, a dump with the
+    particles, ``from_snapshot``, 5 more; against phase 39's first 10."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.driver import build_namelist_sim
+    from ramses_tpu_torch.io import reader
+    from ramses_tpu_torch.resilience import checkpoint as ckpt
+    p = _cosmo_config(os.path.join(tmp, "ics128"))
+    sim = build_namelist_sim(AmrSim, p, None, torch.float32, None)
+    tend = float(sim.cosmo.tau_of_aexp(1.0))
+    sim.evolve(tend, nstepmax=COSMO_RESTART_AT)
+    x5, v5 = sim.p.x.clone(), sim.p.v.clone()
+    u5 = {l: sim.u[l].clone() for l in sim.levels()}
+    t0 = time.perf_counter()
+    out = sim.dump(1, os.path.join(tmp, "restart"))
+    dump_s = time.perf_counter() - t0
+    ok, reason = ckpt.validate_checkpoint(out)
+    nbytes = sum(os.path.getsize(os.path.join(out, f))
+                 for f in os.listdir(out))
+    parts = reader.load_snapshot(out)["part"][0]
+    del sim
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    back = AmrSim.from_snapshot(p, out)
+    restore_s = time.perf_counter() - t0
+    same_p = torch.equal(back.p.x, x5) and torch.equal(back.p.v, v5)
+    ulps = 0.0
+    rt_ok = back.levels() == list(u5)
+    for l in u5:
+        n = back.tree.noct(l) * 8
+        w, _rel, good = _round_trip(back.u[l][:n], u5[l][:n], axis=1)
+        ulps, rt_ok = max(ulps, w), rt_ok and good
+    first = []
+    step_coarse = back.step_coarse
+
+    def first_dt(dt):
+        first.append(float(dt))
+        step_coarse(dt)
+    back.step_coarse = first_dt
+    back.evolve(tend, nstepmax=2 * COSMO_RESTART_AT)
+    del back.step_coarse
+    back.drain()
+    if not (ok and len(parts["mass"]) == 8 ** COSMO_LEVELS[0] and same_p
+            and rt_ok and back.nstep == 2 * COSMO_RESTART_AT):
+        raise AssertionError(
+            f"config 5 restart: dump {reason}, {len(parts['mass'])} part "
+            f"rows, restored particles bitwise {same_p}, cells within "
+            f"{ulps:.2f} ulps, {back.nstep} steps")
+    d = _cosmo_diff(_cosmo_snapshot(back), straight)
+    dt_straight = straight["dts"][COSMO_RESTART_AT]
+    # a partial level's PCG starts from the restore's own solve where the
+    # straight run starts from its last step's: the two agree to the
+    # solver's tolerance, not bitwise
+    pcg = any(len(lv) > 1 for lv, _, _ in
+              straight["stepped"][COSMO_RESTART_AT:])
+    if first[0] == dt_straight and not pcg and not d["bitwise"]:
+        raise AssertionError(f"config 5 restart: the first restored dt "
+                             f"equals the straight run's ({first[0]!r}) but "
+                             f"10 steps differ: {d}")
+    # the one known cause of a different first dt: the straight run's
+    # lagged free-fall cap bound it, and the restore does not carry the
+    # density it comes from, so the restored dt is the larger
+    cap = straight["caps"][COSMO_RESTART_AT]
+    if first[0] != dt_straight and not (first[0] > dt_straight
+                                        and dt_straight == cap):
+        raise AssertionError(
+            f"config 5 restart: the first restored dt {first[0]!r} is not "
+            f"the straight run's {dt_straight!r}, and the straight run's "
+            f"free-fall cap ({cap!r}), which a restore does not carry, "
+            f"does not explain it")
+    if not all(bool(torch.isfinite(back.u[l]).all()) for l in back.levels()):
+        raise AssertionError("config 5 restart: state not finite")
+    verdict = ("bitwise equal to 10 straight steps" if d["bitwise"] else
+               f"not bitwise (u {d['u_rel']:.3e}, phi {d['phi_rel']:.3e}, "
+               f"x {d['x_rel']:.3e}, v {d['v_rel']:.3e} of their scale; "
+               f"trees equal {d['trees']}, PCG iterations equal "
+               f"{d['iters']})")
+    _print(f"phase 42 config 5 restart on {card}: {COSMO_RESTART_AT} steps, "
+           f"dump {nbytes} bytes in {dump_s:.3f} s (validates, "
+           f"{len(parts['mass'])} particle rows), from_snapshot "
+           f"{restore_s:.3f} s (particles bitwise, cells within "
+           f"{ulps:.2f} ulps), {COSMO_RESTART_AT} more steps: first dt "
+           f"{first[0]!r} restored, {dt_straight!r} straight (its "
+           f"free-fall cap {cap!r}); {verdict}")
+
+
+def _cosmo_cli(card: str, tmp: str):
+    """Phase 43: ``python -m ramses_tpu_torch`` on a copy of cosmo.nml with
+    64³ ICs (its own levelmin) and ``nstepmax`` cut."""
+    import re
+
+    from ramses_tpu_torch.io import reader
+    from ramses_tpu_torch.resilience import checkpoint as ckpt
+    run_dir = os.path.join(tmp, "cli")
+    os.makedirs(run_dir)
+    pos = _gaussian_ics(os.path.join(run_dir, "grafic_files"),
+                        2 ** COSMO_CLI_LEVEL, COSMO_SIGMA, COSMO_SEED)
+    if not pos > 0.0:
+        raise AssertionError(f"phase 43 ICs: min(1+δ) = {pos} <= 0")
+    text = open(COSMO_NML).read()
+    if f"levelmin={COSMO_CLI_LEVEL}" not in text:
+        raise AssertionError(f"cosmo.nml's levelmin is not "
+                             f"{COSMO_CLI_LEVEL}")
+    nml = os.path.join(run_dir, "cosmo.nml")
+    with open(nml, "w") as f:
+        f.write(text.replace("&RUN_PARAMS",
+                             f"&RUN_PARAMS\nnstepmax={COSMO_CLI_STEPS}", 1))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "ramses_tpu_torch", nml],
+                         cwd=run_dir, env=env, text=True,
+                         capture_output=True, timeout=CLI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    lines = run.stdout.strip().splitlines()
+    cosmo = [ln for ln in lines if re.match(r"cosmo-amr aexp=\S+ nstep=", ln)]
+    out = os.path.join(run_dir, "output_00001")
+    ok, reason = (ckpt.validate_checkpoint(out) if os.path.isdir(out)
+                  else (False, "missing"))
+    nrows = (len(reader.load_snapshot(out)["part"][0]["mass"]) if ok
+             else 0)
+    if not (run.returncode == 0 and len(cosmo) == 1
+            and f"nstep={COSMO_CLI_STEPS}" in cosmo[0] and ok
+            and nrows == 8 ** COSMO_CLI_LEVEL):
+        raise AssertionError(
+            f"phase 43 CLI: rc {run.returncode}, cosmo-amr lines {cosmo}, "
+            f"output_00001 {reason}, {nrows} particle rows; stdout tail "
+            f"{lines[-6:]}; stderr tail {run.stderr[-2000:]}")
+    _print(f"phase 43 the CLI on {card}: python -m ramses_tpu_torch "
+           f"cosmo.nml (64³ ICs, nstepmax={COSMO_CLI_STEPS}) rc 0 in "
+           f"{wall:.1f} s: {cosmo[0]}; output_00001 validates, "
+           f"{nrows} particle rows")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4083,6 +4782,13 @@ def main() -> int:
 
     # ---- 35-38. snapshots, restarts and supervised runs ----
     _restart_phases(dev, card)
+
+    # ---- 39-43. particles and cosmology: config 5 ----
+    cfg5 = _cosmo_phases(dev, card)
+    k1["launches"] += cfg5["fused_muscl"]
+    for r in oct_rows:
+        if r["name"] == "tile_sweep":
+            r["launches"] += cfg5["tile_sweep"]
     if PROFILER_LOST:
         _print("timing: the profiler lost these kernels' records in every "
                "window; their ms are queued CUDA events: "

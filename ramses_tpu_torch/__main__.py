@@ -1,7 +1,9 @@
 """Command-line entry point: ``python -m ramses_tpu_torch run.nml``.
 
 Runs a namelist on the GPU (``--device cpu`` for the CPU): hydro (with
-self-gravity under ``&RUN_PARAMS poisson``), or with ``--solver mhd`` (the
+self-gravity under ``&RUN_PARAMS poisson``, particles under ``pic``, the
+supercomoving clock and the grafic/Gadget ICs under ``cosmo``, as
+``namelists/cosmo.nml``), or with ``--solver mhd`` (the
 default when &INIT_PARAMS sets a region field, as in the JAX CLI)
 constrained-transport MHD, each on a uniform grid or, with ``levelmax >
 levelmin``, on the AMR hierarchy of one device.
@@ -19,7 +21,9 @@ stop; SIGUSR1 dumps one and carries on; ``--walltime`` stops in time.
 
 Prints one line per chunk of steps (per coarse step on the hierarchy) and
 the final conservation totals; MHD on the hierarchy closes with the JAX
-CLI's ``mhd-amr t=… nstep=… max|divB|/max|B|*dx=…`` line.
+CLI's ``mhd-amr t=… nstep=… max|divB|/max|B|*dx=…`` line, a cosmological
+hierarchy prints its ``cosmo-amr aexp=… nstep=… octs=[…]`` line before
+the dump.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ import sys
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="ramses_tpu_torch",
-        description="PyTorch/CUDA port of ramses_tpu (hydro with gravity "
-                    "and CT MHD, uniform or AMR on one device)")
+        description="PyTorch/CUDA port of ramses_tpu (hydro with gravity, "
+                    "particles and cosmology, and CT MHD, uniform or AMR "
+                    "on one device)")
     ap.add_argument("namelist", help="Fortran-namelist runtime config")
     ap.add_argument("--ndim", type=int, default=3,
                     help="spatial dimensions (compile-time in the reference)")
@@ -101,6 +106,8 @@ def run_cli(argv=None):
 
     sim = supervise_namelist(params, build, drive,
                              max_attempts=args.max_attempts, tend=tend)
+    if getattr(sim, "cosmo", None) is not None and cls is not Simulation:
+        print(sim.cosmo_line())
     if cls is not Simulation:
         sim.dump(1, base, namelist_path=args.namelist)
     return sim

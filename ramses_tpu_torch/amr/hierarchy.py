@@ -41,6 +41,20 @@ itself goes through the same kernels.  The solve's one host fetch is the
 mean density of a periodic box (:meth:`AmrSim.totals`); ``evolve`` then
 steps one coarse step at a time, as the JAX package does.
 
+``&RUN_PARAMS pic`` with particles (``AmrSim(params, particles=...)``, or
+the grafic/Gadget ICs of a ``cosmo`` namelist through the entry points)
+adds the particle-mesh layer (:mod:`ramses_tpu_torch.pm.amr_pm`): before
+each coarse step every level's deposit and gather maps are built in
+float64 on the device against the host tree's keys, each level's Poisson
+rhs gets the particles' deposit (summed in a fixed order), the particles
+are kicked with the force gathered at their finest covering level and
+drifted after the sweep; their Courant dt and the lagged free-fall time
+cap the coarse dt, and ``m_refine`` flags cells holding more than that
+many mean particle masses.  ``&RUN_PARAMS cosmo`` runs the supercomoving clock: the time is
+the conformal tau from ``aexp_ini``, the Poisson coefficient is
+``1.5·Ωm·aexp`` and ``0.1/|hexp|`` caps the dt.  The base-level baryons of
+the ICs are sampled onto each level (``init_dense_u``).
+
 ``AmrSim.dump`` writes a reference-format ``output_NNNNN/`` (every level's
 rows fetched once, the file writing optionally on an
 :class:`ramses_tpu_torch.io.async_writer.AsyncDumper`'s thread) and
@@ -50,11 +64,11 @@ device.
 
 Regrids always take the host prolongation-map migrate; the JAX package's
 ``device_regrid`` (on by default there) is pinned bitwise equal to it by
-its own tests and is not ported.  Particles, cooling, cosmology, star
-formation, sinks, RT, movies, load balance, offload, the step guard, the
-watchdog, telemetry, patch hooks, non-cubic roots and elastic sharded
-checkpoints are not ported yet: a namelist that turns one on raises
-``NotImplementedError`` naming it.
+its own tests and is not ported.  Cooling, star formation, sinks, the
+lightcone, the clump finder, RT, movies, load balance, offload, the step
+guard, the watchdog, telemetry, patch hooks, non-cubic roots and elastic
+sharded checkpoints are not ported yet: a namelist that turns one on
+raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -76,6 +90,9 @@ from ramses_tpu_torch.grid import boundary as bmod
 from ramses_tpu_torch.hydro.core import HydroStatic
 from ramses_tpu_torch.init import regions
 from ramses_tpu_torch.pm import amr_physics
+from ramses_tpu_torch.pm import amr_pm
+from ramses_tpu_torch.pm import particles as pmod
+from ramses_tpu_torch.pm.cosmology import Cosmology
 from ramses_tpu_torch.pm.particles import TRACER_ID0
 from ramses_tpu_torch.poisson import amr_solve as gs
 
@@ -109,6 +126,28 @@ class _Cfg1:
 
     def __init__(self, ndim: int):
         self.ndim = ndim
+
+
+def _sample_dense_periodic(dense: np.ndarray, x01: np.ndarray) -> np.ndarray:
+    """Periodic multilinear interpolation of a cell-centred dense field
+    ``[nvar, n, n, …]`` at unit-box positions ``x01 [npts, ndim]``: seeds
+    refined levels from base-resolution IC grids (the grafic baryons)."""
+    nvar = dense.shape[0]
+    nd = x01.shape[1]
+    n = dense.shape[1]
+    g = x01 * n - 0.5
+    i0 = np.floor(g).astype(np.int64)
+    w1 = g - i0
+    out = np.zeros((nvar, len(x01)))
+    for corner in range(1 << nd):
+        idx = []
+        w = np.ones(len(x01))
+        for d in range(nd):
+            bit = (corner >> d) & 1
+            idx.append(np.mod(i0[:, d] + bit, n))
+            w = w * (w1[:, d] if bit else 1.0 - w1[:, d])
+        out += dense[(slice(None),) + tuple(idx)] * w
+    return out
 
 
 def _advance(u, dev, dt, spec: FusedSpec, fg=None):
@@ -260,9 +299,9 @@ def restore_amr_scaffold(cls, params: Params, outdir: str, dtype, to_cons,
     og, order)`` writes them into the sim state.  The MC gas tracers come
     back from the part file's family-0 rows; restarts never re-seed them.
     Returns the sim."""
-    from ramses_tpu_torch.io.restart import (refuse_particles,
+    from ramses_tpu_torch.io.restart import (restore_particles,
                                              restore_tree_state)
-    from ramses_tpu_torch.pm.particles import FAM_GAS_TRACER
+    from ramses_tpu_torch.pm.particles import FAM_GAS_TRACER, lane_headroom
     tree_og, rows_lv, meta, parts = restore_tree_state(
         outdir, None, params.amr.levelmin, to_cons=to_cons)
     tree = Octree(params.ndim, params.amr.levelmin, params.amr.levelmax)
@@ -270,6 +309,7 @@ def restore_amr_scaffold(cls, params: Params, outdir: str, dtype, to_cons,
         tree.set_level(l, og)
     tracer_x = None
     tracer_id = None
+    ps = None
     if parts:
         # gas tracers ride the part files as massless family-0 rows:
         # split them back out (they are host positions, not lanes)
@@ -284,7 +324,15 @@ def restore_amr_scaffold(cls, params: Params, outdir: str, dtype, to_cons,
             parts = {k: (v[~sel] if isinstance(v, np.ndarray)
                          and len(v) == npart else v)
                      for k, v in parts.items()}
-        refuse_particles(parts)
+        if len(parts.get("mass", ())):
+            if not cls._pm_physics:
+                raise NotImplementedError(
+                    "not ported to ramses_tpu_torch yet: particles in a "
+                    f"snapshot restored on {cls.__name__}")
+            ps = restore_particles(parts, params.ndim, dtype=dtype,
+                                   device=resolve_device(device),
+                                   nmax=lane_headroom(params, False))
+            kw = dict(kw, particles=ps)
     # restarts never re-seed tracers: the restored population is the
     # truth, INCLUDING the empty one (e.g. every tracer escaped an open
     # box) — resurrecting a fresh population would fabricate trajectories
@@ -318,9 +366,13 @@ def restore_amr_scaffold(cls, params: Params, outdir: str, dtype, to_cons,
         sim._dt_cache = torch.tensor(float(dtnew[lm - 1]),
                                      dtype=torch.float64, device=sim.device)
     if sim.gravity:
-        # prime the force field so that the first post-restart coarse_dt
-        # carries the same gravity term (and the PCG the same warm start)
-        # a continuous run would
+        # prime the force field (and, with particles, the deposited-density
+        # maximum) so that the first post-restart coarse_dt carries a
+        # gravity term and a free-fall cap, and the PCG a warm start, as
+        # the JAX package primes them: from the restored state, at the
+        # restored epoch's supercomoving coefficient
+        if sim.pic:
+            sim._build_pm()
         sim.solve_gravity()
     return sim
 
@@ -353,6 +405,9 @@ class AmrSim:
     # set this: ``regrid`` then logs each migrated level's copy rows, new
     # octs and their father cells in ``_mig_log`` for them to replay
     _needs_mig_log = False
+    # the particle-mesh layer runs on this hierarchy (a subclass that
+    # refuses particles clears it, so that a restore refuses them too)
+    _pm_physics = True
 
     @classmethod
     def _unported(cls, params: Params) -> list:
@@ -367,7 +422,8 @@ class AmrSim:
     def __init__(self, params: Params, dtype=torch.float32, device=None,
                  init_tree: Optional[Octree] = None,
                  noct_pad: Optional[Dict[int, int]] = None,
-                 seed_tracers: bool = True):
+                 seed_tracers: bool = True, particles=None,
+                 init_dense_u=None):
         missing = self._unported(params)
         if missing:
             raise NotImplementedError(
@@ -421,6 +477,31 @@ class AmrSim:
         self.phi: Dict[int, torch.Tensor] = {}
         self.fg: Dict[int, torch.Tensor] = {}
         self.poisson_iters: Dict[int, torch.Tensor] = {}
+        # cosmology: supercomoving conformal-time integration
+        # (``amr/update_time.f90``; aexp/hexp from the Friedmann tables)
+        self.cosmo = None
+        if bool(params.run.cosmo):
+            if self.gravity and not self.grav_periodic:
+                raise NotImplementedError(
+                    "cosmology requires a periodic box")
+            self.cosmo = Cosmology.from_params(params)
+            self.t = float(self.cosmo.tau_ini)
+        # dense base-grid gas ICs (grafic baryons) sampled per level
+        self._init_dense = (np.asarray(init_dense_u)
+                            if init_dense_u is not None else None)
+        # the particle-mesh layer: the particles (a ParticleSet in the
+        # caller's dtype), each level's device maps of the last build, the
+        # gravity solve's total density per level (the m_refine input) and
+        # its maximum (the next step's free-fall cap)
+        self.p = particles
+        self.pic = bool(params.run.pic) and particles is not None
+        if self.pic and any(k == bmod.REFLECTING
+                            for pair in self.bc_kinds for k in pair):
+            raise NotImplementedError(
+                "AMR particles: reflecting boundaries unsupported")
+        self._pm_dev: Dict[int, dict] = {}
+        self._rho_dev: Dict[int, torch.Tensor] = {}
+        self._rho_max: Optional[float] = None
         if init_tree is not None:
             self.tree = init_tree
             self._rebuild_maps()
@@ -437,7 +518,7 @@ class AmrSim:
                    dtype=None, device=None, tracer_x=None, tracer_id=None,
                    tracer_rng=None, phi=None, fg=None, poisson_iters=None,
                    dt_old: float = 0.0, dt_next: Optional[float] = None,
-                   **kwargs) -> "AmrSim":
+                   particles=None, **kwargs) -> "AmrSim":
         """Start from a given hierarchy: per-level oct coordinates
         ``tree_og`` and state rows ``rows`` (numpy, e.g. from
         :func:`ramses_tpu_torch.convert.amr_state_from`), the time and the
@@ -451,6 +532,8 @@ class AmrSim:
         the Courant dt and its potential as the next PCG's warm start.
         ``dt_old`` is the last coarse step and ``dt_next`` (or None) the
         cached Courant dt of the next one, as a snapshot records them.
+        ``particles``: a :class:`ramses_tpu_torch.pm.particles.ParticleSet`
+        (e.g. from :func:`ramses_tpu_torch.convert.particles_from`).
         ``kwargs`` go to the constructor (a subclass's own arguments, such
         as a shard mesh)."""
         tree = Octree(params.ndim, params.amr.levelmin, params.amr.levelmax)
@@ -459,6 +542,8 @@ class AmrSim:
         if dtype is None:
             dtype = (torch.float64 if next(iter(rows.values())).dtype
                      == np.float64 else torch.float32)
+        if particles is not None:
+            kwargs = dict(kwargs, particles=particles)
         sim = cls(params, dtype=dtype, device=device, init_tree=tree,
                   noct_pad=noct_pad, seed_tracers=False, **kwargs)
         for l in sim.levels():
@@ -678,12 +763,19 @@ class AmrSim:
                     g_mg=mg)
 
     def _ic_state(self, lvl: int) -> torch.Tensor:
-        """Analytic conservative ICs on this level's (padded) rows."""
+        """Analytic conservative ICs on this level's (padded) rows, or
+        periodic multilinear samples of a dense IC grid (grafic
+        baryons)."""
         m = self.maps[lvl]
         centers = self.tree.cell_centers(lvl, self.boxlen)
-        x = [centers[:, d] for d in range(self.cfg.ndim)]
-        q = regions.region_condinit(x, self.dx(lvl), self.params, self.cfg)
-        u = regions.prim_to_cons(q, self.cfg)          # [nvar, ncell]
+        if self._init_dense is not None:
+            u = _sample_dense_periodic(self._init_dense,
+                                       centers / self.boxlen)
+        else:
+            x = [centers[:, d] for d in range(self.cfg.ndim)]
+            q = regions.region_condinit(x, self.dx(lvl), self.params,
+                                        self.cfg)
+            u = regions.prim_to_cons(q, self.cfg)      # [nvar, ncell]
         out = np.zeros((m.ncell_pad, self.cfg.nvar))
         out[:, 0] = self.cfg.smallr
         out[:, self.cfg.ndim + 1] = self.cfg.smalle * self.cfg.smallr
@@ -776,12 +868,36 @@ class AmrSim:
             off += fl.shape[0]
             f = ((bits[:self.maps[l].noct, None] >> np.arange(ttd)) & 1) \
                 .astype(bool).reshape(-1)
-            if l - 1 < len(r.r_refine) and r.r_refine[l - 1] > 0.0:
+            i = l - 1                                  # 1-based level lists
+            if i < len(r.r_refine) and r.r_refine[i] > 0.0:
                 f = f | flagmod.geometry_flags(
                     self.tree.cell_centers(l, self.boxlen), l, self.params)
+            if self.pic and i < len(r.m_refine) and r.m_refine[i] >= 0.0:
+                f = f | self._mass_flags(l, len(f), r.m_refine[i])
             crit[l] = f
         return flagmod.compute_new_tree(self.tree, crit, self.bc_kinds,
                                         self.params)
+
+    def _mass_flags(self, l: int, ncell: int, m_refine: float):
+        """Quasi-Lagrangian refinement (``flag_utils.f90`` m_refine): the
+        cells of level ``l`` holding more than ``m_refine`` mean particle
+        masses, from the gravity solve's total density of the level when it
+        has one, else deposited on demand with the last maps (as the JAX
+        package: without a solve since, the maps may be a build or more
+        old).  Host bools in tree order, or all False without a density."""
+        rho_dev = self._rho_dev.get(l)
+        if rho_dev is None or rho_dev.shape[0] < ncell:
+            if not self._pm_dev:
+                self._build_pm()
+            if l in self._pm_dev:
+                rho_dev = self.u[l][:, 0] + self._pm_rho(l).to(
+                    self.u[l].dtype)
+        if rho_dev is None or rho_dev.shape[0] < ncell:
+            return np.zeros(ncell, dtype=bool)
+        mp = (float(torch.sum(self.p.m * self.p.active))
+              / max(int(torch.sum(self.p.active)), 1))
+        thr = m_refine * mp / self.dx(l) ** self.tree_ndim
+        return self.tree_order_cells(rho_dev, l)[:ncell] > thr
 
     def regrid(self):
         """Flag, rebuild the tree, and migrate the device state
@@ -824,6 +940,7 @@ class AmrSim:
                 self.phi.pop(l, None)
                 self.fg.pop(l, None)
                 self.poisson_iters.pop(l, None)
+                self._rho_dev.pop(l, None)
         self._restrict_all()
         self._dt_cache = None
 
@@ -894,18 +1011,125 @@ class AmrSim:
         return None
 
     def coarse_dt(self) -> float:
-        """The coarse step's CFL dt: the one device→host fetch of a step."""
+        """The coarse step's dt: the CFL dt (the one device→host fetch of
+        a hydro step) capped by :meth:`_aux_dts`."""
         if self._dt_cache is not None:
-            return float(self._dt_cache)
-        return float(torch.min(_courant(
-            self.u, self.dev, self._fused_spec(),
-            self.fg if (self.gravity and self.fg) else None)))
+            dt = float(self._dt_cache)
+        else:
+            dt = float(torch.min(_courant(
+                self.u, self.dev, self._fused_spec(),
+                self.fg if (self.gravity and self.fg) else None)))
+        return min([dt] + self._aux_dts())
+
+    def _aux_dts(self) -> list:
+        """The dt caps beside the CFL dt: the particle Courant and the
+        lagged free-fall time, and the cosmological expansion."""
+        dts = []
+        if self.pic:
+            cf = float(self.cfg.courant_factor)
+            # particle Courant: a level-l particle moves cf*dx(l) per level
+            # substep, i.e. cf*dx(lmin) per coarse step
+            # (pm/newdt_fine.f90:186-233 folded through the exact factor-2
+            # subcycling)
+            dts.append(float(pmod.particle_dt(self.p, self.dx(self.lmin),
+                                              cf)))
+            if self.gravity and self._rho_max:
+                # free-fall cap from the last solve's deposited density
+                # (one step lagged; pm/newdt_fine.f90:51-60)
+                dts.append(float(pmod.freefall_dt(self._rho_max, cf,
+                                                  self.grav_coeff())))
+        if self.cosmo is not None:
+            # expansion cap (amr/update_time.f90 cosmo branch)
+            dts.append(0.1 / abs(self.hexp_now()))
+        return dts
+
+    # ------------------------------------------------------------------
+    # cosmology (host interpolation of the Friedmann tables)
+    # ------------------------------------------------------------------
+    # numpy's interpolation, as the JAX package's hierarchy takes it: its
+    # rounding differs from ``Cosmology.aexp_of_tau`` (``jnp.interp``'s)
+    # at a few times in a thousand, and grav_coeff must be the JAX
+    # hierarchy's to the bit (tests/test_torch_cosmo.py)
+    def aexp_now(self) -> float:
+        if self.cosmo is None:
+            return 1.0
+        return float(np.interp(self.t, self.cosmo.tau_frw,
+                               self.cosmo.axp_frw))
+
+    def hexp_now(self) -> float:
+        if self.cosmo is None:
+            return 0.0
+        return float(np.interp(self.t, self.cosmo.tau_frw,
+                               self.cosmo.hexp_frw))
 
     def grav_coeff(self) -> float:
-        """Poisson source coefficient 4π (``poisson/multigrid_fine_commons.
-        f90`` rhs; the supercomoving coefficient comes with cosmology,
-        which is refused)."""
-        return 4.0 * np.pi
+        """Poisson source coefficient: 4π, or the supercomoving
+        ``1.5·Ωm·aexp`` (``poisson/multigrid_fine_commons.f90`` rhs)."""
+        if self.cosmo is None:
+            return 4.0 * np.pi
+        return 1.5 * self.cosmo.omega_m * self.aexp_now()
+
+    # ------------------------------------------------------------------
+    # particle-mesh on the hierarchy (pm/amr_pm.py)
+    # ------------------------------------------------------------------
+    def _build_pm(self):
+        """The maps pass, once per coarse step (``make_tree_fine`` + the
+        index part of ``cic_amr``): each level's maps from a float64 copy
+        of the positions, built on the device against the host tree's
+        keys, and each level's deposit plan."""
+        from ramses_tpu_torch.pm.coupling import deposit_scheme_from_params
+        ncp = {l: self.maps[l].ncell_pad for l in self.levels()}
+        pm_maps = amr_pm.build_pm_maps(
+            self.tree, self.p.x.to(torch.float64), self.boxlen,
+            self.bc_kinds, ncp,
+            scheme=deposit_scheme_from_params(self.params))
+        wdtype = (torch.float64 if self.p.x.dtype == torch.float64
+                  else self.dtype)
+        self._pm_dev = {l: amr_pm.device_maps(mp, ncp[l], wdtype)
+                        for l, mp in pm_maps.items()}
+
+    def _pm_rho(self, l: int):
+        """Particle density on level ``l``'s flat cells (``rho_fine``)."""
+        pd = self._pm_dev[l]
+        ncp = self.maps[l].ncell_pad
+        if pd["plan"]["ncell_pad"] != ncp:
+            # maps of an older tree (the JAX package deposits with them
+            # all the same): the plan onto this level's rows
+            pd["plan"] = amr_pm.segment_plan(pd["idx"], pd["w"], ncp)
+        return amr_pm.deposit_flat(pd["plan"], self.p.m.to(pd["w"].dtype),
+                                   self.p.active,
+                                   self.dx(l) ** self.cfg.ndim)
+
+    def _pm_force(self):
+        """Force at the particle positions, gathered at each particle's
+        finest covering level (``move1``, ``pm/move_fine.f90:193``)."""
+        f = None
+        for l in self.levels():
+            pd = self._pm_dev[l]
+            fl = amr_pm.gather_flat(self.fg[l].to(pd["w"].dtype), pd["idx"],
+                                    pd["w"], pd["mask"])
+            f = fl if f is None else f + fl
+        return f
+
+    def _grav_pm_pre(self, dt: float):
+        """The sequence before the sweep: rebuild the particle maps, solve
+        the per-level Poisson problem, and complete the previous half-kick
+        plus this step's opening half-kick with the new force at x^n
+        (``synchro_fine``)."""
+        if self.pic:
+            self._build_pm()
+        if self.gravity:
+            self.solve_gravity()
+        if self.pic and self.gravity:
+            self.p = pmod.kick(self.p, self._pm_force(),
+                               0.5 * (self.dt_old + dt))
+
+    def _pm_drift(self, dt: float):
+        """``move_fine``: drift with the coarse dt (fine levels would split
+        it into exact halves with the same frozen force)."""
+        if self.pic:
+            self.p = pmod.drift(self.p, dt, self.boxlen,
+                                periodic=self.grav_periodic)
 
     def solve_gravity(self):
         """Per-level Poisson solve, coarse→fine one-way interface
@@ -921,15 +1145,26 @@ class AmrSim:
         coeff = self.grav_coeff()
         eps = float(self.params.poisson.epsilon)
         if self.grav_periodic:
-            rho_mean = (float(self.totals()["mass"])
-                        / (self.boxlen ** nd * np.prod(self.tree.root)))
+            # mean density over leaves + particles (periodic solvability)
+            mtot = float(self.totals()["mass"])
+            if self.pic:
+                mtot += float(torch.sum(self.p.m * self.p.active))
+            rho_mean = mtot / (self.boxlen ** nd * np.prod(self.tree.root))
         else:
             rho_mean = 0.0       # the isolated problem is well-posed as is
+        rho_max = None
         for l in self.levels():
             m = self.maps[l]
             d = self.dev[l]
             dx = self.dx(l)
-            rhs = coeff * (self.u[l][:, 0] - rho_mean)
+            rho = self.u[l][:, 0]
+            if self.pic:
+                rho = rho + self._pm_rho(l).to(rho.dtype)
+                self._rho_dev[l] = rho     # the m_refine criterion's input
+                mx = torch.max(rho)
+                rho_max = mx if rho_max is None else torch.maximum(rho_max,
+                                                                   mx)
+            rhs = coeff * (rho - rho_mean)
             if m.complete:
                 ncell = m.noct * (1 << nd)
                 shp = self.tree.cell_dims(l)
@@ -961,13 +1196,12 @@ class AmrSim:
             self.phi[l] = phi
             self.fg[l] = gs.grad_phi(phi, ghosts, d["g_nb"], dx, d["g_valid"],
                                      nd).to(self.dtype)
+        if rho_max is not None:
+            self._rho_max = float(rho_max)   # one host fetch a solve
 
     def step_coarse(self, dt: float):
-        if self.gravity:
-            # the gravity half of the JAX package's _grav_pm_pre: the force
-            # at the start of the step (the particle kick comes with the
-            # particle layer)
-            self.solve_gravity()
+        # the particle maps, the solve and the particle kick at x^n
+        self._grav_pm_pre(float(dt))
         spec = self._fused_spec()
         if spec.want_flux:
             # density BEFORE the step: the jump probabilities' denominator
@@ -980,6 +1214,7 @@ class AmrSim:
         self.u, self._dt_cache = out[0], out[1]
         if spec.want_flux:
             self._tracer_phi = out[2]
+        self._pm_drift(float(dt))
         self.t += float(dt)
         self._source_passes(float(dt))
         self.dt_old = float(dt)
@@ -996,10 +1231,12 @@ class AmrSim:
         between, then one fetch of (t, dt, steps done); callers guarantee
         no regrid is due inside the chunk.  Returns the steps done."""
         spec = self._fused_spec()
-        if spec.want_flux or self.gravity:
-            raise ValueError("step_chunk: the MC tracers move and the "
-                             "gravity solve runs before every coarse step; "
-                             "use step_coarse")
+        if (spec.want_flux or self.gravity or self.pic
+                or self.cosmo is not None):
+            raise ValueError("step_chunk: the MC tracers move, the gravity "
+                             "solve and the particles run, and the "
+                             "cosmological caps change before every coarse "
+                             "step; use step_coarse")
         f64 = dict(dtype=torch.float64, device=self.device)
         dt0 = (self._dt_cache if self._dt_cache is not None
                else torch.min(_courant(self.u, self.dev, spec))).to(**f64)
@@ -1028,7 +1265,9 @@ class AmrSim:
         optional :class:`ramses_tpu_torch.utils.ops.OpsGuard` (signal
         dumps, stop_run file, walltime watchdog), checked before each
         chunk."""
-        while self.t < tend * (1 - 1e-12) and self.nstep < nstepmax:
+        # sign-safe end test: cosmology runs in negative conformal time
+        tstop = tend * (1 - 1e-12) if tend >= 0 else tend * (1 + 1e-12)
+        while self.t < tstop and self.nstep < nstepmax:
             if guard is not None and not guard.check():
                 break
             t0 = time.perf_counter()
@@ -1039,7 +1278,8 @@ class AmrSim:
             lim = min(to_regrid, nstepmax - self.nstep, 64)
             chunk = 1 << (max(lim, 1).bit_length() - 1)
             per = self.updates_per_step()
-            if chunk > 1 and self.tracer_x is None and not self.gravity:
+            if (chunk > 1 and self.tracer_x is None and not self.gravity
+                    and not self.pic and self.cosmo is None):
                 n = self.step_chunk(chunk, tend)
             else:
                 dt = min(self.coarse_dt(), tend - self.t)
@@ -1087,6 +1327,12 @@ class AmrSim:
         if self.tracer_x is not None:
             note += f" tracers={len(self.tracer_x)}"
         return note
+
+    def cosmo_line(self) -> str:
+        """The JAX CLI's closing line of a cosmological hierarchy
+        (``ramses_tpu/__main__.py:372-374``)."""
+        return (f"cosmo-amr aexp={self.aexp_now():.4f} nstep={self.nstep} "
+                f"octs={[self.tree.noct(l) for l in self.levels()]}")
 
     def leaf_sample(self, lvl: int):
         """(centers [n, ndim], u [n, nvar]) of the leaf cells at one level,

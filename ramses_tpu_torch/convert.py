@@ -86,6 +86,22 @@ def amr_state_from(sim) -> dict:
     return out
 
 
+def particles_from(p, dtype=torch.float64, device="cpu"):
+    """A particle set of either package (a JAX ``ParticleSet`` or the
+    port's) as the port's :class:`ramses_tpu_torch.pm.particles.
+    ParticleSet` in ``dtype`` on ``device``: every lane, the inactive ones
+    included, each field a copy."""
+    from ramses_tpu_torch.pm.particles import ParticleSet
+    f = {k: _host(getattr(p, k)) for k in ParticleSet.__dataclass_fields__}
+    out = ParticleSet.make(f["x"], f["v"], f["m"], dtype=dtype,
+                           device=device, idp=f["idp"], family=f["family"])
+    out.active = torch.tensor(f["active"].astype(bool), device=device)
+    out.tp = torch.tensor(f["tp"], dtype=dtype, device=device)
+    out.zp = torch.tensor(f["zp"], dtype=dtype, device=device)
+    out.flags = torch.tensor(f["flags"].astype(np.int8), device=device)
+    return out
+
+
 def gravity_maps_from(obj) -> GravityMaps:
     """The port's :class:`GravityMaps` built field by field from any object
     with the same attributes (such as the JAX package's host-built maps)."""

@@ -1,7 +1,7 @@
 """Checkpoint-resume: rebuild simulation state from a snapshot directory.
 
-The port's own copy of ``ramses_tpu/io/restart.py`` (host numpy);
-``restore_particles`` comes with the particle layer (ROADMAP A4).
+The port's own copy of ``ramses_tpu/io/restart.py`` (host numpy; the
+restored particles go to the caller's device once).
 
 The reference restarts by re-reading its own dump inside ``init_amr`` /
 ``init_hydro`` / ``init_part`` (``nrestart>0``, SURVEY.md §5.4).  Here the
@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ramses_tpu_torch.io import reader as rdr
 from ramses_tpu_torch.io.snapshot import prim_out_to_cons, ref_cell_perm
@@ -77,14 +78,32 @@ def restore_tree_state(outdir: str, cfg, levelmin: int, to_cons=None):
     return tree_og, u_lv, meta, parts
 
 
-def refuse_particles(parts: Optional[dict]) -> None:
-    """Raise ``NotImplementedError`` naming the particle restore when the
-    read part file ``parts`` holds any row (``restore_particles`` comes
-    with the particle layer, ROADMAP A4)."""
-    if parts and len(parts.get("mass", ())):
-        raise NotImplementedError(
-            "not ported to ramses_tpu_torch yet: particles in a snapshot "
-            "(restore_particles; ROADMAP A4)")
+def restore_particles(parts: Optional[dict], ndim: int, *, dtype, device,
+                      nmax: Optional[int] = None):
+    """Rebuild a :class:`ramses_tpu_torch.pm.particles.ParticleSet` in
+    ``dtype`` on ``device`` from a read particle file (None for none).
+
+    ``nmax`` (clamped to the stored count) sets the lane headroom for runs
+    that keep creating particles.  Birth times and metallicities
+    round-trip when the file carries the star records
+    (``pm/output_part.f90`` optional ``birth_time``/``metallicity``)."""
+    from ramses_tpu_torch.pm.particles import ParticleSet
+    if parts is None:
+        return None
+    dims = "xyz"[:ndim]
+    x = np.stack([parts[f"position_{d}"] for d in dims], axis=1)
+    v = np.stack([parts[f"velocity_{d}"] for d in dims], axis=1)
+    nmax = max(nmax or 0, len(x)) or None
+    ps = ParticleSet.make(x, v, parts["mass"], dtype=dtype, device=device,
+                          idp=parts["identity"].astype(np.int64),
+                          family=parts["family"], nmax=nmax)
+    pad = ps.n - len(x)
+    for key, attr in (("birth_time", "tp"), ("metallicity", "zp")):
+        if key in parts:
+            setattr(ps, attr, torch.as_tensor(
+                np.pad(np.asarray(parts[key], np.float64), (0, pad)),
+                dtype=dtype, device=device))
+    return ps
 
 
 def restore_uniform(outdir: str, params, cfg) -> Tuple[np.ndarray, dict,

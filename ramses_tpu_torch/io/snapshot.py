@@ -3,8 +3,8 @@
 The port's own copy of ``ramses_tpu/io/snapshot.py`` (host numpy): given the
 same f64 state it writes the JAX package's bytes, file for file.  The
 drivers' device tensors are fetched once each (:func:`host64`), outside any
-step loop.  Particles other than the MC gas tracers (ROADMAP A4) and the
-sink/stellar CSVs (A6) are not ported.
+step loop.  Particles (dark matter and the MC gas tracers) ride the part
+files; the sink/stellar CSVs (ROADMAP A6) are not ported.
 
 One call to :func:`dump_all` produces ``output_NNNNN/`` with the same file
 set and record structure as the reference's ``dump_all``
@@ -387,9 +387,11 @@ def snapshot_from_uniform(sim, iout: int = 1) -> Snapshot:
             else:
                 lv.grav = np.zeros((lv.noct, 1 << ndim, ndim + 1))
 
-    # cosmology is refused by the port's drivers: aexp 1, no cosmo record
-    un = units_fn(params)
-    return Snapshot(
+    cosmo = getattr(sim, "cosmo", None)
+    aexp = (float(cosmo.aexp_of_tau(sim.state.t))
+            if cosmo is not None else 1.0)
+    un = units_fn(params, cosmo=cosmo, aexp=aexp)
+    snap = Snapshot(
         ndim=ndim, nlevelmax=max(params.amr.levelmax, lmin), levels=levels,
         boxlen=float(params.amr.boxlen), t=float(sim.state.t),
         gamma=cfg.gamma, var_names=hydro_var_names(cfg), units=un,
@@ -398,6 +400,14 @@ def snapshot_from_uniform(sim, iout: int = 1) -> Snapshot:
         tout=[params.output.tend or 0.0],
         base=base + (1,) * (3 - ndim),
     )
+    if cosmo is not None:
+        snap.aexp = aexp
+        snap.cosmo = (cosmo.omega_m, cosmo.omega_l, cosmo.omega_k,
+                      cosmo.omega_b, cosmo.h0, cosmo.aexp_ini,
+                      cosmo.boxlen_ini)
+    if getattr(sim.state, "p", None) is not None:
+        snap.particles = particles_dict(sim.state.p)
+    return snap
 
 
 def snapshot_from_amr(sim, iout: int = 1, raw_of=None, to_out=None,
@@ -490,8 +500,11 @@ def snapshot_from_amr(sim, iout: int = 1, raw_of=None, to_out=None,
             og=og, son=son.reshape(noct, -1)[:, perm],
             hydro=hyd.reshape(noct, 1 << ndim, -1)[:, perm])
 
+    # the JAX package's hierarchy writes the non-cosmological units and no
+    # cosmo record, whatever the run
     un = units_fn(params)
-    parts = None          # particles are ROADMAP A4: gas tracers only
+    parts = (particles_dict(sim.p)
+             if getattr(sim, "p", None) is not None else None)
     trc = getattr(sim, "tracer_x", None)
     if trc is not None and len(trc):
         # gas tracers ride the particle files as massless
@@ -499,8 +512,10 @@ def snapshot_from_amr(sim, iout: int = 1, raw_of=None, to_out=None,
         # in the same records).  Ids are the sim's stable per-tracer
         # ids (assigned once at seeding) so cross-snapshot trajectory
         # tracking by id survives particle-population changes.
-        parts = _tracer_dict(np.asarray(trc, np.float64),
-                             np.asarray(sim.tracer_id))
+        tb = _tracer_dict(np.asarray(trc, np.float64),
+                          np.asarray(sim.tracer_id))
+        parts = (tb if parts is None else
+                 {k: np.concatenate([parts[k], tb[k]]) for k in parts})
     # per-level dtold/dtnew from the exact factor-2 subcycling
     # (``amr/update_time.f90`` bookkeeping): restarts need the lmin
     # dtold to complete the pending closing half-kick, and the lmin
@@ -534,6 +549,26 @@ def _tracer_dict(x: np.ndarray, ids: np.ndarray) -> dict:
         level=np.full(n, 1, dtype=np.int32),
         family=np.full(n, FAM_GAS_TRACER, dtype=np.int8),
         tag=np.zeros(n, dtype=np.int8), tp=z.copy(), zp=z.copy())
+
+
+def particles_dict(p) -> dict:
+    """Host copies of a :class:`ramses_tpu_torch.pm.particles.ParticleSet`
+    (one fetch a field), active lanes only, in the JAX package's
+    ``particles_dict`` layout."""
+    h = p.to_host()
+    act = h["active"].astype(bool)
+    n = int(act.sum())
+    return dict(
+        x=h["x"].astype(np.float64)[act],
+        v=h["v"].astype(np.float64)[act],
+        m=h["m"].astype(np.float64)[act],
+        idp=h["idp"][act].astype(np.int32),
+        level=np.full(n, 1, dtype=np.int32),
+        family=h["family"][act].astype(np.int8),
+        tag=np.zeros(n, dtype=np.int8),
+        tp=h["tp"].astype(np.float64)[act],
+        zp=h["zp"].astype(np.float64)[act],
+    )
 
 
 # ----------------------------------------------------------------------

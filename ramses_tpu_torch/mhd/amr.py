@@ -682,6 +682,7 @@ class MhdAmrSim(AmrSim):
     given."""
 
     _needs_mig_log = True
+    _pm_physics = False
 
     @classmethod
     def _unported(cls, params: Params) -> list:

@@ -90,8 +90,8 @@ def unported_mhd_features(params: Params) -> list:
     (beyond what :func:`ramses_tpu_torch.driver.unported_features` and, on
     the hierarchy, :func:`ramses_tpu_torch.amr.hierarchy.
     unported_amr_features` list: particles, restart, the step guard,
-    telemetry, offload and the rest), and gravity, which the hydro drivers
-    run.  The hierarchy refuses tracers too: the JAX package
+    telemetry, offload and the rest), and gravity, particles and
+    cosmology, which the hydro drivers run.  The hierarchy refuses tracers too: the JAX package
     moves them there as CIC velocity tracers, which need the particle
     layer."""
     from ramses_tpu_torch.amr.hierarchy import unported_amr_features
@@ -100,6 +100,10 @@ def unported_mhd_features(params: Params) -> list:
     out = (unported_amr_features if amr else unported_features)(params)
     if params.run.poisson:
         out.append("gravity on the MHD drivers (&RUN_PARAMS poisson)")
+    if params.run.pic:
+        out.append("particles on the MHD drivers (&RUN_PARAMS pic)")
+    if params.run.cosmo:
+        out.append("cosmology on the MHD drivers (&RUN_PARAMS cosmo)")
     if params.run.tracer and amr:
         out.append("tracers (&RUN_PARAMS tracer) on the MHD hierarchy")
     return out

@@ -44,14 +44,21 @@ class ShardedAmrSim(AmrSim):
     (a :class:`ShardMesh`, or a sequence of devices for one; default every
     visible card)."""
 
+    _pm_physics = False
+
     @classmethod
     def _unported(cls, params: Params) -> list:
         from ramses_tpu_torch.driver import is_mhd
         mhd = ["MHD on a shard mesh (ShardedMhdAmrSim, dense_slab."
                "mhd_ct_slab; ROADMAP A8)"]
         grav = ["gravity on ShardedAmrSim (&RUN_PARAMS poisson; ROADMAP A8)"]
+        pm = [name for name, on in (
+            ("particles on ShardedAmrSim (&RUN_PARAMS pic; ROADMAP A8)",
+             params.run.pic),
+            ("cosmology on ShardedAmrSim (&RUN_PARAMS cosmo; ROADMAP A8)",
+             params.run.cosmo)) if on]
         return (super()._unported(params) + (mhd if is_mhd(params) else [])
-                + (grav if params.run.poisson else []))
+                + (grav if params.run.poisson else []) + pm)
 
     def __init__(self, params: Params, devices=None, dtype=torch.float32,
                  device=None, init_tree=None,

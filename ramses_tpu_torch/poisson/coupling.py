@@ -65,9 +65,13 @@ class GravitySpec:
                        bmod.BoundarySpec.from_params(p)))
 
 
-def solve_phi(spec: GravitySpec, rho, dx: float):
-    """Potential of the density contrast (zero-mean rhs, periodic)."""
-    rhs = spec.fourpi * (rho - torch.mean(rho))
+def solve_phi(spec: GravitySpec, rho, dx: float, fourpi=None):
+    """Potential of the density contrast (zero-mean rhs, periodic).
+    ``fourpi`` (a number or a 0-d device tensor) overrides the static rhs
+    factor: the cosmological ``1.5*omega_m*aexp`` varies in time
+    (``poisson/multigrid_fine_commons.f90:1087-1088``)."""
+    factor = spec.fourpi if fourpi is None else fourpi
+    rhs = factor * (rho - torch.mean(rho))
     if spec.solver == "fft":
         return smod.fft_solve(rhs, dx)
     if spec.solver == "mg":
@@ -77,18 +81,20 @@ def solve_phi(spec: GravitySpec, rho, dx: float):
     raise ValueError(spec.solver)
 
 
-def gravity_field(spec: GravitySpec, rho, dx: float):
-    """Acceleration [ndim, *sp]: analytic model or self-gravity solve."""
+def gravity_field(spec: GravitySpec, rho, dx: float, fourpi=None):
+    """Acceleration [ndim, *sp]: analytic model or self-gravity solve
+    (``fourpi`` as in :func:`solve_phi`)."""
     if spec.gravity_type > 0:
         x = cell_centers(tuple(rho.shape), dx, dtype=rho.dtype,
                          device=rho.device)
         return gravana(x, spec.gravity_type, spec.gravity_params,
                        spec.boxlen)
     if not spec.periodic:
-        phi, gh = isolated_solve(rho, dx, spec.fourpi, iters=spec.cg_iters,
+        factor = spec.fourpi if fourpi is None else fourpi
+        phi, gh = isolated_solve(rho, dx, factor, iters=spec.cg_iters,
                                  tol=spec.epsilon)
         return grad_isolated(phi, gh, dx)
-    return fmod.force(solve_phi(spec, rho, dx), dx)
+    return fmod.force(solve_phi(spec, rho, dx, fourpi), dx)
 
 
 def kick(u, f, dteff, cfg: HydroStatic):

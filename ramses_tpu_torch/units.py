@@ -1,8 +1,6 @@
 """Physical constants and user→cgs unit conversion.
 
-The port's own copy of ``ramses_tpu/units.py`` (pure Python).  Cosmology
-is refused by the port's drivers, so they call :func:`units` with
-``cosmo=None``.
+The port's own copy of ``ramses_tpu/units.py`` (pure Python).
 
 The reference keeps constants in ``amr/constants.f90`` and derives the five
 conversion scales in ``amr/units.f90`` (gravity runs assume G=1 in user

@@ -679,9 +679,14 @@ def test_unported_amr_features_raise():
     p.amr.load_balance = True
     with pytest.raises(NotImplementedError, match="load balance"):
         AmrSim(p, device="cpu")
+    # pic without particles runs the hydro hierarchy with the particle
+    # layer off, as the JAX package's AmrSim; the lightcone stays refused
     p = pparams(_text(), ndim=3)
     p.run.pic = True
-    with pytest.raises(NotImplementedError, match="particles"):
+    sim = AmrSim(p, device="cpu")
+    assert not sim.pic and sim.p is None
+    p.run.lightcone = True
+    with pytest.raises(NotImplementedError, match="lightcone"):
         AmrSim(p, device="cpu")
 
 

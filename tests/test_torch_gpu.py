@@ -13,6 +13,8 @@ of ``tests/test_pallas_kernel.py``: rtol 2e-5 / atol 2e-6 for the state,
 rel 3e-3 for the Courant dt.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -1053,7 +1055,7 @@ def test_solves_on_cuda_never_wait_on_the_host(cuda):
         solver.cg_solve(r, 1.0 / 16, iters=5, tol=1e-6)
         solver.fft_solve(r, 1.0 / 16)
         run_steps_pm(usim.grid, usim.gspec, usim.pspec, usim.state.u,
-                     usim.state.f, t, tend, 2)
+                     None, usim.state.f, t, tend, t.new_zeros(()), 2)
         gs.pcg_level(rhs, ghosts, d["g_nb"], d["g_octnb"], sim.dx(5),
                      d["g_valid"], 3, iters=5, phi0=sim.phi[5],
                      mg=d["g_mg"])
@@ -1065,3 +1067,67 @@ def test_solves_on_cuda_never_wait_on_the_host(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+def _cosmo_sim(initdir, deposit, device):
+    """``tests/test_cosmo_ics.py``'s single mode at 16³ with baryons (the
+    port's own grafic writer), the deposit scheme ``deposit``."""
+    from ramses_tpu_torch.config import Params
+    from ramses_tpu_torch.io import grafic
+    from ramses_tpu_torch.pm.init_part import fpeebl
+    n = 16
+    if not os.path.isdir(initdir):
+        x = (np.arange(n) + 0.5) / n
+        delta = (0.02 * np.cos(2 * np.pi * x))[:, None, None] \
+            * np.ones((1, n, n))
+        hdr = grafic.GraficHeader(n, n, n, dx=100.0 / n, astart=0.02,
+                                  omega_m=1.0, omega_v=0.0, h0=70.0)
+        grafic.write_zeldovich_ics(initdir, delta, hdr,
+                                   fpeebl(0.02, 1.0, 0.0, 0.0))
+    p = Params(ndim=3)
+    p.run.cosmo = p.run.pic = p.run.poisson = p.run.hydro = True
+    p.amr.levelmin, p.amr.levelmax, p.amr.boxlen = 4, 4, 1.0
+    p.init.filetype = "grafic"
+    p.init.initfile = [initdir]
+    p.init.aexp_ini = 0.02
+    p.raw = {"cosmo_params": {"omega_m": 1.0, "omega_l": 0.0,
+                              "omega_b": 0.045, "h0": 70.0, "aexp": 0.02,
+                              "boxlen_ini": 100.0},
+             "pm_params": {"deposit": deposit}}
+    return Simulation(p, device=device)
+
+
+@pytest.mark.parametrize("deposit", ["ngp", "cic", "tsc"])
+def test_particle_steps_on_cuda_never_wait_and_replay_bitwise(cuda,
+                                                              tmp_path,
+                                                              deposit):
+    """``run_steps_pm`` with a ``ParticleSet``, gas and the supercomoving
+    clock (aexp and hexp looked up on the card): after a first call that
+    puts the tables on the card, two steps with the sync debug mode at
+    "error" (a call that waits on the device raises); and the deposit sums
+    in a fixed order, so four steps run twice from one state are bitwise
+    equal."""
+    from ramses_tpu_torch.pm.coupling import run_steps_pm
+    sim = _cosmo_sim(os.path.join(str(tmp_path), "ics"), deposit, cuda)
+    st = sim.state
+    assert st.p is not None and sim.cosmo is not None
+    f64 = dict(dtype=torch.float64, device=cuda)
+    t0 = torch.tensor(st.t, **f64)
+    tend = torch.tensor(float(sim.cosmo.tau_of_aexp(0.5)), **f64)
+    dt0 = torch.tensor(st.dt_old, **f64)
+
+    def steps(n):
+        return run_steps_pm(sim.grid, sim.gspec, sim.pspec, st.u, st.p,
+                            st.f, t0, tend, dt0, n, cosmo=sim.cosmo)
+    steps(2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        steps(2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    a, b = steps(4), steps(4)
+    assert int(a[5]) == 4
+    for x, y in ((a[0], b[0]), (a[1].x, b[1].x), (a[1].v, b[1].v),
+                 (a[2], b[2]), (a[3], b[3])):
+        assert bool(torch.isfinite(x).all()) and torch.equal(x, y)

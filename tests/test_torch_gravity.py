@@ -15,8 +15,9 @@ in f64.
   tolerances, phi and fg within 1e-10 of their scale, equal
   ``poisson_iters``; and a step from the JAX run's state;
 * the point-mass force law on the port alone, as the JAX test judges it;
-* the refusals that stay: MHD with ``poisson``, ``ShardedAmrSim`` with
-  ``poisson``, ``pic``, ``cosmo`` and reflecting walls with self-gravity;
+* the refusals that stay: MHD with ``poisson``, ``pic`` or ``cosmo``,
+  ``ShardedAmrSim`` with ``poisson``, ``pic`` or ``cosmo``, and reflecting
+  walls with self-gravity (``pic`` itself runs on the hydro drivers);
 * ``namelists/pointmass.nml`` through the CLI and ``run_namelist``.
 """
 
@@ -361,13 +362,30 @@ def test_refusals_that_stay():
     with pytest.raises(NotImplementedError, match="gravity on ShardedAmrSim"):
         ShardedAmrSim(pparams(_sedov_grav(), ndim=3),
                       devices=ShardMesh(["cpu"] * 2))
+    # particles and cosmology run on the hydro drivers (pic without ICs:
+    # an empty particle set on the uniform grid, the layer off on the
+    # hierarchy) and stay refused on the MHD drivers and ShardedAmrSim
     for key, name in (("pic", "particles"), ("cosmo", "cosmology")):
-        for cls, g in ((Simulation, _blob(lmin=4, lmax=4)),
-                       (AmrSim, _blob())):
-            p = pdict(g, ndim=2)
+        for cls, g in ((MhdSimulation, None), (MhdAmrSim, None),
+                       (ShardedAmrSim, _blob())):
+            p = (pdict(g, ndim=2) if g is not None
+                 else load_params(OT_NML, ndim=2))
+            if cls is MhdSimulation:
+                p.amr.levelmax = p.amr.levelmin = 4
             setattr(p.run, key, True)
+            p.run.poisson = False
             with pytest.raises(NotImplementedError, match=name):
-                cls(p, device="cpu")
+                if cls is ShardedAmrSim:
+                    cls(p, devices=ShardMesh(["cpu"] * 2))
+                else:
+                    cls(p, device="cpu")
+    p = pdict(_blob(lmin=4, lmax=4), ndim=2)
+    p.run.pic = True
+    sim = Simulation(p, device="cpu")
+    assert sim.state.p.n == 1 and not sim.state.p.active.any()
+    p = pdict(_blob(), ndim=2)
+    p.run.pic = True
+    assert not AmrSim(p, device="cpu").pic
     for cls, g in ((Simulation, _blob(lmin=4, lmax=4)), (AmrSim, _blob())):
         g["boundary_params"] = {"nboundary": 2, "bound_type": [1, 1],
                                 "ibound_min": [-1, 1],

@@ -432,10 +432,15 @@ def test_pario_refused_by_name(kind, tmp_path):
 
 
 def test_particles_in_a_snapshot_refused(tmp_path):
-    """A JAX dump that carries particles (``restore_particles`` is ROADMAP
-    A4) is refused by name on restore, by the uniform driver and the
-    hierarchy alike; MC gas tracers alone restore (``amr_tracers``)."""
+    """A JAX dump that carries particles restores them (``restore_particles``)
+    on the uniform driver and the hydro hierarchy, lane for lane the JAX
+    package's restore (the uniform driver keeps them under ``pic``, as
+    the JAX one does); the MHD hierarchy, which runs no particles, refuses
+    them by name."""
+    from ramses_tpu.io.restart import restore_particles as jrestore
+    from ramses_tpu.io.restart import restore_uniform as jrestore_uniform
     from ramses_tpu.pm.particles import ParticleSet
+    from ramses_tpu_torch.io.restart import restore_particles
     jp = jparams(sod_text(lmin=3, lmax=3), ndim=2)
     jsim = JSimulation(jp, dtype=jnp.float64)
     rng = np.random.default_rng(7)
@@ -443,11 +448,25 @@ def test_particles_in_a_snapshot_refused(tmp_path):
                                     rng.standard_normal((20, 2)),
                                     rng.random(20))
     out = jsim.dump(1, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="restore_particles"):
-        Simulation.from_snapshot(pparams(sod_text(lmin=3, lmax=3), ndim=2),
-                                 out, device="cpu")
-    with pytest.raises(NotImplementedError, match="restore_particles"):
-        AmrSim.from_snapshot(pparams(sod_text(), ndim=2), out, device="cpu")
+    _, _, parts = jrestore_uniform(out, jp, jsim.cfg)
+    want = jrestore(parts, 2, nmax=24)
+    got = restore_particles(parts, 2, dtype=torch.float64, device="cpu",
+                            nmax=24)
+    for f in ("x", "v", "m", "active", "idp", "family", "tp", "zp"):
+        assert np.array_equal(getattr(got, f).numpy(),
+                              np.asarray(getattr(want, f))), f
+    text = sod_text(lmin=3, lmax=3).replace("&RUN_PARAMS",
+                                            "&RUN_PARAMS\npic=.true.")
+    usim = Simulation.from_snapshot(pparams(text, ndim=2), out,
+                                    dtype=torch.float64, device="cpu")
+    assert np.array_equal(usim.state.p.x.numpy(), np.asarray(jsim.state.p.x))
+    asim = AmrSim.from_snapshot(pparams(sod_text(), ndim=2), out,
+                                dtype=torch.float64, device="cpu")
+    assert np.array_equal(asim.p.idp.numpy(), np.asarray(jsim.state.p.idp))
+    with pytest.raises(NotImplementedError, match="particles in a snapshot"):
+        MhdAmrSim.from_snapshot(
+            pparams(sod_text().replace("hllc", "llf"), ndim=2), out,
+            device="cpu")
 
 
 def test_pario_checkpoint_dir_refused(tmp_path):

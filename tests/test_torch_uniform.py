@@ -149,9 +149,13 @@ def test_entry_points_require_cuda_or_cpu():
 
 
 def test_unported_features_raise():
+    # particles now run (pic without ICs: an empty set of one lane);
+    # cooling stays refused
     p = _params(load_params, level=3)
     p.run.pic = True
-    with pytest.raises(NotImplementedError, match="particles"):
+    assert Simulation(p, device="cpu").state.p.n == 1
+    p.cooling.cooling = True
+    with pytest.raises(NotImplementedError, match="cooling"):
         Simulation(p, device="cpu")
     p = _params(load_params, level=3)
     p.amr.levelmax = 4
