@@ -272,10 +272,9 @@ Phases, each printing its own line; any failure exits non-zero:
    dts, s a coarse step and cell-updates/s; then one more coarse step's
    host seconds by part (regrid, maps, solve, gather and kick, the K1/K3
    sweep, drift, Courant fetch);
-40. 3 coarse steps twice from phase 39's state after 15 steps
-   (``from_state`` with the particles; level 8 present, level 9 made by
-   the first regrid): u, phi, fg, particle x and v, trees and PCG
-   iterations bitwise;
+40. 3 coarse steps twice from phase 39's state after 12 steps
+   (``from_state`` with the particles; level 8 present): u, phi, fg,
+   particle x and v, trees and PCG iterations bitwise;
 41. linear growth, the JAX package's oracles: the uniform ``Simulation``
    on the single mode at 128³ (N-body, FFT) to a = 0.06, growth ∝ a within
    12 %; the hierarchy at ``test_cosmo_amr_growth``'s size (16³, levelmax
@@ -293,7 +292,43 @@ Phases, each printing its own line; any failure exits non-zero:
    validates with 262,144 particle rows.  Phases 39-43 write under a
    ``tempfile.mkdtemp`` directory, removed at the end.  Config 5's K1 and
    K3 launches join the kernels line's ``fused_muscl`` and ``tile_sweep``
-   rows.
+   rows;
+44. self-gravity with particles on the MHD hierarchy: the JAX test's
+   magnetised blob (``tests/test_mhd_amr.py:218``) in 3D at levelmin 6,
+   levelmax 8 (``MHD_GRAV_LEVELS``, cut from config 2's sizes), f32,
+   ``poisson`` and ``pic`` with 2,097,152 particles from
+   ``default_rng(44)``, 5 coarse steps (a regrid each; step 4 timed part
+   by part, step 5 under the profiler, its device busy share): K4 once a
+   complete-level substep, the leaf gas mass to rel 1e-5, the particle
+   count and mass kept, ``max|div B|·dx/max|B|`` ≤ 1e-5 where the scheme
+   keeps it, a finite state, the peak leaf density rising; K4 on the
+   last step's first complete-level inputs against its plain version
+   within ``LOCAL_ATOL + LOCAL_RTOL·M``; a 3-step replay twice, bitwise
+   (u, faces, phi, particles, trees);
+45. velocity tracers on the phase-44 hierarchy without gravity, in a
+   bulk flow, a tracer a leaf cell: 3 coarse steps, the tracers kept,
+   finite, inside the box and moving; the tracer pass's seconds;
+46. the uniform MC tracer functions at 256³ on a random state:
+   ``step_with_flux`` through K1's ``want_flux`` entry (one launch)
+   against the plain version within ``LOCAL_ATOL + LOCAL_RTOL·M``, then
+   ``mc_tracer_step`` on 2,097,152 tracers: kept and inside the box, the
+   moved fraction beside the expected Σp/N;
+47. ``collapse_iso.nml`` through ``run_cli`` in process, as shipped but
+   ``nstepmax`` (``COLLAPSE_STEPS``): K1 and K3 as the levels stepped
+   require, a finite state, a sink CSV with the reference's header; the
+   sinks, and s a coarse step by part with the sink pass on its own;
+48. ``smbh_bondi.nml`` through ``run_cli`` as shipped, ``--dtype
+   float64`` (2D, the general formulation): a sink forms in the first
+   pass, accretes and dumps AGN energy (the state turns non-finite a few
+   steps on, ROADMAP §C8); the sink mass by pass;
+49. ``turb_driving.nml`` through ``run_cli`` as shipped (32³, a
+   ``turb_fields.npz`` in its output), then at 256³ for 20 steps through
+   ``Simulation``: K1 once a step, the rms momentum finite and rising from
+   rest, a same-seed replay bitwise (u and the OU field), ms a step with
+   and without the forcing.  Phases 47-49 write under a
+   ``tempfile.mkdtemp`` directory, removed at the end; their K1, K3 and
+   K4 launches (and phase 46's flux launch) join the kernels line's rows.
+   A line then gives the script's wall by group of phases.
 
 The line before the last holds every ported kernel's numbers as one JSON
 object (``{"kernels": [...]}``); the last line is
@@ -488,24 +523,36 @@ def _count_ops(fn) -> int:
 
 
 def _profile(run, out_dir: str, name: str = "chip_smoke_trace.json",
-             warm: bool = True, stats: dict = None) -> str:
+             warm: bool = True, stats: dict = None, raw: bool = False) -> str:
     """One traced run of ``run`` (after one untraced run when ``warm``):
     device kernel time by name and the device's busy share of the window;
     the trace goes to ``out_dir/name`` (not kept when ``name`` is None).
     ``stats``, when given, receives the busy microseconds, the wall
-    seconds and the kernel launches of the window."""
+    seconds and the kernel launches of the window.  With ``raw`` only the
+    device is traced and its busy time is the sum of the raw events, with
+    no trace and no table by name: the tables take minutes to build at the
+    ~400,000 launches of an MHD gravity coarse step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if warm:
         run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] if raw else
+                 [ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    if raw:
+        ev = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+        busy_us = sum(e.duration_ns() for e in ev) / 1e3
+        if stats is not None:
+            stats.update(busy_us=busy_us, wall_s=wall, launches=len(ev))
+        return (f"device busy {busy_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms "
+                f"wall ({100 * busy_us / 1e6 / wall:.1f} %), {len(ev)} "
+                f"device events")
     if name is not None:
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir, name))
@@ -597,14 +644,18 @@ def _block_stencil_scale(blk):
     return m.reshape(5, n, s, s, s).movedim(1, -1)
 
 
-def _output_scales(blk, c: int, planes: bool):
+def _output_scales(blk, c: int, planes: bool, any_field: bool = False):
     """The scale of each value a sweep of ``blk`` returns: a cell's own
     5³ stencil max for ``du``; for a face flux the larger of the two cells
     it touches, and for K2's per-oct face sums the largest over the four
-    faces summed.  Shaped as ``(du, corrp)`` (K3) or ``(du, corr)`` (K2)."""
+    faces summed.  Shaped as ``(du, corrp)`` (K3) or ``(du, corr)`` (K2).
+    With ``any_field`` each field's scale is the largest of every field's
+    (K4's M)."""
     import torch
     from ramses_tpu_torch.amr import kernels as K
     s = _block_stencil_scale(blk)
+    if any_field:
+        s = s.amax(0, keepdim=True).expand_as(s)
     du = s[:, 2:2 + c, 2:2 + c, 2:2 + c]
     faces = []
     for d in range(3):
@@ -754,35 +805,54 @@ def _device_ms(fn, kernel: str, n: int = 50, tries: int = 5,
     return ms
 
 
+def _timed_parts(patches: dict):
+    """Wrap each ``name: (owner, attribute)`` (a method of a hierarchy, a
+    class or a module function) so that its calls are synchronised and
+    their wall seconds summed into ``acc[name]``; returns (acc, the
+    function that puts the originals back)."""
+    import torch
+    acc = dict.fromkeys(patches, 0.0)
+    saved = []
+    for name, (owner, attr) in patches.items():
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, fn, attr in vars(owner)))
+
+        def call(*a, _fn=fn, _name=name, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            acc[_name] += time.perf_counter() - t0
+            return out
+        setattr(owner, attr, call)
+
+    def restore():
+        for owner, attr, fn, own in reversed(saved):
+            if own:
+                setattr(owner, attr, fn)
+            else:
+                delattr(owner, attr)
+    return acc, restore
+
+
 def _host_breakdown(sim, run, parts=("_flag_and_tree", "_rebuild_maps",
                                       "_migrate_level", "_restrict_all",
                                       "coarse_dt", "step_coarse"),
                     nested=()) -> str:
     """Wall seconds of one ``run`` of an AMR coarse step split by the
-    hierarchy's parts (methods of ``sim``), the device synchronised around
-    each part; the ``nested`` parts run inside others and stay out of the
-    remainder ("other host").  Returns (the line, seconds by part)."""
+    hierarchy's parts (methods of ``sim``, :func:`_timed_parts`); the
+    ``nested`` parts run inside others and stay out of the remainder
+    ("other host").  Returns (the line, seconds by part)."""
     import torch
-    acc = dict.fromkeys(parts, 0.0)
-
-    def timed(name, fn):
-        def call(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            acc[name] += time.perf_counter() - t0
-            return out
-        return call
-    for name in parts:
-        setattr(sim, name, timed(name, getattr(sim, name)))
+    acc, restore = _timed_parts({name: (sim, name) for name in parts})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        restore()
     total = time.perf_counter() - t0
-    for name in parts:
-        delattr(sim, name)
     acc["other host"] = total - sum(v for k, v in acc.items()
                                     if k not in nested)
     return f"total {total:.4f} s: " + ", ".join(
@@ -3920,8 +3990,12 @@ COSMO_SEED, COSMO_SIGMA = 1, 0.2
 # m_refine=8 list stops at level 7, so level 8 would never refine: its
 # value carries on to the levels below levelmax
 COSMO_NREMAP, COSMO_SMALLC = 1, 1e-6
-COSMO_REPLAY_STEPS = 3
-COSMO_REPLAY_AT = 15           # phase 40 replays from the state at step 15
+# phase 40 replays 2 coarse steps from the state at step 15: level 9
+# first appears in the regrid of step 16, so the replay covers its
+# creation, its PCG and K3 on it (3 steps from there took 58 s on an H100
+# at 700 W)
+COSMO_REPLAY_STEPS = 2
+COSMO_REPLAY_AT = 15
 COSMO_RESTART_AT = 5           # phase 42: 5 steps, dump, restore, 5 more
 GROWTH_LEVEL, GROWTH_AEND = 7, 0.06        # phase 41, uniform: 128³
 GROWTH_AMR = (4, 5, 0.05)                   # test_cosmo_amr_growth's size
@@ -4064,11 +4138,12 @@ def _cosmo_want(stepped, lmin: int) -> dict:
     return _want(**n)
 
 
-def _record_kernel_inputs(store: dict):
+def _record_kernel_inputs(store: dict, last: bool = False):
     """Wrap K1's and K3's wrappers so that each one's first call at each
-    cell size records device copies of its inputs in ``store`` (keyed by
-    the kernel's name and dx), then runs the kernel as before (one launch,
-    counted as before).  Returns the function that restores them."""
+    cell size (with ``last``, its latest) records device copies of its
+    inputs in ``store`` (keyed by the kernel's name and dx), then runs the
+    kernel as before (one launch, counted as before).  Returns the
+    function that restores them."""
     import torch
     from ramses_tpu_torch.hydro import fused_muscl as fm
     from ramses_tpu_torch.hydro import oct_muscl as om
@@ -4078,13 +4153,13 @@ def _record_kernel_inputs(store: dict):
         return a.clone() if torch.is_tensor(a) else a
 
     def k3_rec(ut, ok, dt, cfg, dx, shift, want_flux=False):
-        if ("tile_sweep", dx) not in store:
+        if last or ("tile_sweep", dx) not in store:
             store["tile_sweep", dx] = tuple(keep(a) for a in (
                 ut, ok, dt, cfg, dx, shift, want_flux))
         return k3(ut, ok, dt, cfg, dx, shift, want_flux)
 
     def k1_rec(u, dt, cfg, dx, bc, **kw):
-        if ("fused_muscl", dx) not in store:
+        if last or ("fused_muscl", dx) not in store:
             store["fused_muscl", dx] = ((keep(u), keep(dt), cfg, dx, bc),
                                         {k: keep(v) for k, v in kw.items()})
         return k1(u, dt, cfg, dx, bc, **kw)
@@ -4095,12 +4170,20 @@ def _record_kernel_inputs(store: dict):
     return restore
 
 
-def _recorded_kernel_check(store: dict, level_of: dict) -> str:
+def _recorded_kernel_check(store: dict, level_of: dict,
+                           what: str = "config 5",
+                           any_field: bool = False) -> str:
     """Each recorded K3 batch and K1 state (:func:`_record_kernel_inputs`)
     through the kernel and its plain version on the card: K3's du and
     face fluxes each within ``LOCAL_ATOL + LOCAL_RTOL·M`` (M the stencil
-    scale of phase 10), K1's state within the same of its 5³ stencil max.
-    Raises on a disagreement; returns a line of the N and the errors."""
+    scale of phase 10), K1's state within the same of its 5³ stencil max
+    (edge cells replicated where the box is not periodic).  With
+    ``any_field`` M is the largest of every field's, as for K4: where the
+    gas is at rest under pressure (collapse_iso.nml's box) a momentum's
+    update is a difference of pressure fluxes, and the plain version's own
+    f32 error there (against itself in f64) reaches 1.6e-5 of the
+    momentum's own M but 1.2e-7 of every field's (a CPU run).  Raises on
+    a disagreement; returns a line of the N and the errors."""
     import torch
     from ramses_tpu_torch.hydro import fused_muscl as fm
     from ramses_tpu_torch.hydro import oct_muscl as om
@@ -4114,7 +4197,7 @@ def _recorded_kernel_check(store: dict, level_of: dict) -> str:
             want = om.tile_sweep_ref(ut, ok, dt, cfg, dx, shift, want_flux)
             torch.cuda.synchronize()
             scales = _output_scales(_batch_last((ut,))[0], 1 << (shift + 1),
-                                    True)
+                                    True, any_field)
             err, rel, ex = _local_check(_batch_last(got), _batch_last(want),
                                         scales)
             what = (f"K3 level {lvl} (N {ut.shape[1]} tiles, shift {shift}):"
@@ -4129,7 +4212,10 @@ def _recorded_kernel_check(store: dict, level_of: dict) -> str:
                 got, want = got[0], want[0]
             torch.cuda.synchronize()
             d = (got - want).abs()
-            scale = _stencil_scale(want)
+            scale = _stencil_scale(want, periodic=all(
+                k == (0, 0) for k in bc.kinds))
+            if any_field:
+                scale = scale.amax(0, keepdim=True).expand_as(scale)
             ex = float((d - (LOCAL_ATOL + LOCAL_RTOL * scale)).max())
             err = float(d.max())
             rel = float((d / scale).nan_to_num(nan=0.0).max())
@@ -4138,12 +4224,37 @@ def _recorded_kernel_check(store: dict, level_of: dict) -> str:
                     f": max abs err {err:.3e}, err / stencil max {rel:.3e}")
             del got, want, d, scale
         if not ex <= 0.0:
-            raise AssertionError(f"config 5: {name} disagrees with its "
+            raise AssertionError(f"{what}: {name} disagrees with its "
                                  f"plain version on the inputs the main "
                                  f"path gave it: {what}, tolerance excess "
                                  f"{ex:.3e}")
         parts.append(what)
     return "; ".join(parts)
+
+
+def _last_step_check(sim, recorded: dict, last, what: str,
+                     any_field: bool = False) -> str:
+    """:func:`_recorded_kernel_check` of the K1 and K3 inputs that one
+    coarse step of ``sim`` recorded (``last``: its ``_fused_spec``'s
+    levels, complete and blocked flags), after checking that every level
+    it stepped through K1 or K3 was recorded; empties ``recorded``."""
+    import torch
+    levels, complete, blocked = last
+    want = {("fused_muscl" if c else "tile_sweep", sim.dx(l))
+            for l, c, b in zip(levels, complete,
+                               blocked or (False,) * len(levels))
+            if c or b}
+    if set(recorded) != want:
+        raise AssertionError(
+            f"{what}: the last step's K1/K3 inputs were not all recorded: "
+            f"{sorted((k, round(dx, 8)) for k, dx in recorded)} against "
+            f"{sorted((k, round(dx, 8)) for k, dx in want)}")
+    line = _recorded_kernel_check(
+        recorded, {sim.dx(l): l for l in range(sim.lmin, sim.lmax + 1)},
+        what, any_field)
+    recorded.clear()
+    torch.cuda.empty_cache()
+    return line
 
 
 def _cosmo_phases(dev, card: str):
@@ -4283,36 +4394,13 @@ def _cosmo_main(dev, card: str, tmp: str):
 
     # K1 and K3 against their plain versions on the inputs the last coarse
     # step handed them: every level it stepped, at its first substep
-    levels, complete, blocked = stepped[-1]
-    want_rec = {("fused_muscl" if c else "tile_sweep", sim.dx(l))
-                for l, c, b in zip(levels, complete,
-                                   blocked or (False,) * len(levels))
-                if c or b}
-    if set(recorded) != want_rec:
-        raise AssertionError(
-            f"config 5: the last step's K1/K3 inputs were not all recorded: "
-            f"{sorted((k, round(dx, 8)) for k, dx in recorded)} against "
-            f"{sorted((k, round(dx, 8)) for k, dx in want_rec)}")
-    line = _recorded_kernel_check(
-        recorded, {sim.dx(l): l for l in range(lmin, p.amr.levelmax + 1)})
-    recorded.clear()
-    torch.cuda.empty_cache()
+    line = _last_step_check(sim, recorded, stepped[-1], "config 5")
     _print(f"phase 39 K1 and K3 at config 5's shapes (the inputs the last "
            f"coarse step gave them, each level's first substep) against "
            f"their plain versions within LOCAL_ATOL + LOCAL_RTOL·M: {line}")
 
     # where a coarse step's time goes: one more step, each part synchronised
-    coarse = H._coarse_step
-    acc = {"sweep": 0.0}
-
-    def timed_coarse(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = coarse(*a, **k)
-        torch.cuda.synchronize()
-        acc["sweep"] += time.perf_counter() - t0
-        return out
-    H._coarse_step = timed_coarse
+    acc, restore = _timed_parts({"sweep": (H, "_coarse_step")})
     try:
         def coarse_step():
             sim.regrid()
@@ -4323,7 +4411,7 @@ def _cosmo_main(dev, card: str, tmp: str):
                    "_pm_drift", "coarse_dt", "step_coarse"),
             nested=("_build_pm", "solve_gravity", "_pm_force", "_pm_drift"))
     finally:
-        H._coarse_step = coarse
+        restore()
     _print(f"phase 39 where a coarse step's time goes (octs "
            f"{[sim.tree.noct(l) for l in sim.levels()]}): {line}; of "
            f"step_coarse the K1/K3 sweep (_coarse_step) {acc['sweep']:.4f} "
@@ -4344,12 +4432,14 @@ def _cosmo_main(dev, card: str, tmp: str):
     a, b = replay(), replay()
     rwall = time.perf_counter() - t0
     d = _cosmo_diff(a, b)
-    if not d["bitwise"]:
+    if not (d["bitwise"] and p.amr.levelmax in a["u"]):
         raise AssertionError(f"config 5 replay of {COSMO_REPLAY_STEPS} "
-                             f"coarse steps is not bitwise: {d}")
+                             f"coarse steps from step {COSMO_REPLAY_AT}: "
+                             f"levels {sorted(a['u'])}, {d}")
     _print(f"phase 40 config 5 replay: {COSMO_REPLAY_STEPS} coarse steps "
            f"twice from phase 39's state at step {COSMO_REPLAY_AT} (octs "
-           f"{ {l: len(v) for l, v in state['tree_og'].items()} }; "
+           f"{ {l: len(v) for l, v in state['tree_og'].items()} }, at "
+           f"the end { {l: len(k) for l, k in a['keys'].items()} }; "
            f"{rwall:.3f} s for both), bitwise equal: "
            f"u, phi, fg, particle x and v, trees and PCG iterations "
            f"{a['iters']}")
@@ -4558,6 +4648,839 @@ def _cosmo_cli(card: str, tmp: str):
            f"{nrows} particle rows")
 
 
+# ----------------------------------------------------------------------
+# 44-49. the coarse-step source passes: gravity, particles and tracers on
+# the MHD hierarchy, sinks, turbulence forcing
+# ----------------------------------------------------------------------
+
+# config 2's sizes, 7 / 9, took over 600 s for the phase on an H100 at
+# 700 W (7-8 s a coarse step, a 32 s set-up, the replay 151 s, the
+# profile's tables minutes): cut to 6 / 8
+MHD_GRAV_LEVELS = (6, 8)
+MHD_GRAV_STEPS = 5
+MHD_GRAV_NPART = 2097152       # 128³ particles from default_rng(seed)
+MHD_GRAV_SEED = 44
+MHD_GRAV_PMASS = 0.05          # their total mass (the gas holds ~0.51)
+MHD_GRAV_REPLAY_AT, MHD_GRAV_REPLAY = 3, 2   # steps 4 and 5, twice
+MHD_TRACER_STEPS = 3
+MC_UNIFORM_NTR = 2097152
+MC_UNIFORM_SEED = 46
+COLLAPSE_NML = os.path.join(ROOT, "namelists", "collapse_iso.nml")
+# tend 0.05 takes 14 coarse steps, over 300 s (the host regrid and the PCG
+# ~10 s each a step at 64 k level-8 octs; 4 steps took 85 s on an H100):
+# cut by nstepmax
+COLLAPSE_STEPS = 2
+# phase 47b: 2 more coarse steps from phase 47's state with n_sink lowered
+# to just under the leaf density of the SINK_SEED_CELLS-th densest cell and
+# nsinkmax to SINK_MAX, so that sinks form, accrete, merge and drift on the
+# 3D hierarchy (as shipped none forms before tend: the clump's nH ~15
+# against n_sink 1e4).  After phase 47 the clump's ~3e5 leaf cells lie
+# within 0.02 of its peak density (a CPU run), so one step on most of
+# them pass the lowered threshold: nsinkmax ends the creation loop early
+COLLAPSE_LIVE_STEPS, SINK_SEED_CELLS, SINK_MAX = 2, 64, 16
+SMBH_NML = os.path.join(ROOT, "namelists", "smbh_bondi.nml")
+TURB_NML = os.path.join(ROOT, "namelists", "turb_driving.nml")
+TURB_LEVEL, TURB_STEPS = 8, 20          # phase 49: 256³ through Simulation
+
+# tests/test_mhd_amr.py::test_mhd_amr_self_gravity_collapse's magnetised
+# blob (tube_mhd.nml's roe with llf corners, a periodic box) in 3D
+MHD_BLOB3D = """
+&RUN_PARAMS
+hydro=.true.
+nremap=1
+{run}
+/
+&AMR_PARAMS
+levelmin={lmin}
+levelmax={lmax}
+boxlen=1.0
+/
+&INIT_PARAMS
+nregion=2
+region_type='square','square'
+x_center=0.5,0.5
+y_center=0.5,0.5
+z_center=0.5,0.5
+length_x=10.0,0.25
+length_y=10.0,0.25
+length_z=10.0,0.25
+exp_region=10.0,2.0
+d_region=0.1,50.0
+p_region=0.05,0.05
+A_region=0.1,0.1
+B_region=0.0,0.0
+C_region=0.0,0.0
+/
+&HYDRO_PARAMS
+gamma=1.6666667
+courant_factor=0.8
+riemann='roe'
+slope_type=1
+/
+&REFINE_PARAMS
+err_grad_d=0.2
+/
+"""
+
+
+def _blob3d(run: str, flow: bool = False):
+    """Phase 44's blob; ``flow`` gives the gas a bulk velocity (0.3, 0.2,
+    0.1) for phase 45's tracers to follow."""
+    from ramses_tpu_torch.config import params_from_string
+    lmin, lmax = MHD_GRAV_LEVELS
+    text = MHD_BLOB3D.format(lmin=lmin, lmax=lmax, run=run)
+    if flow:
+        text = text.replace("C_region=0.0,0.0", "C_region=0.0,0.0\n"
+                            "u_region=0.3,0.3\nv_region=0.2,0.2\n"
+                            "w_region=0.1,0.1")
+    return params_from_string(text, ndim=3)
+
+
+def _leaf_rho_max(sim) -> float:
+    """The largest density of any leaf cell of the hierarchy."""
+    import torch
+    peak = 0.0
+    for l in sim.levels():
+        leaf = torch.as_tensor(~sim.tree.refined_mask(l), device=sim.device)
+        if bool(leaf.any()):
+            rho = sim.u[l][:sim.tree.noct(l) * 2 ** sim.tree_ndim, 0]
+            peak = max(peak, float(rho[leaf].max()))
+    return peak
+
+
+def _leaf_rho(sim):
+    """Every leaf cell's density on the host (f64 numpy, one fetch a
+    level)."""
+    import numpy as np
+    return np.concatenate([
+        sim.u[l][:sim.tree.noct(l) * 2 ** sim.tree.ndim, 0].double().cpu()
+        .numpy()[~sim.tree.refined_mask(l)] for l in sim.levels()])
+
+
+def _mhd_held(sim):
+    """The levels where the MHD scheme keeps div B at roundoff (phase 19,
+    ROADMAP §C3)."""
+    return [l for l in sim.levels() if sim.maps[l].complete
+            or (sim.maps[l - 1].complete and not sim.tree.has(l + 1))]
+
+
+def _source_phases(dev, card: str) -> dict:
+    """Phases 44-49; returns the launches of their main paths by kernel."""
+    import shutil
+    import tempfile
+    out = {}
+    out["ct_step_slab"] = _mhd_grav_phase(dev, card)
+    _mhd_tracer_phase(card)
+    out["fused_muscl_flux"] = _mc_uniform_phase(dev, card)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sources_")
+    try:
+        k47 = _collapse_phase(card, tmp)
+        _smbh_phase(card, tmp)
+        k49 = _turb_phase(dev, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["fused_muscl"] = k47["fused_muscl"] + k49
+    out["tile_sweep"] = k47["tile_sweep"]
+    return out
+
+
+def _mhd_grav_phase(dev, card: str) -> int:
+    """Phase 44: the magnetised blob in 3D on the MHD hierarchy with
+    self-gravity and 2,097,152 particles; returns K4's launches."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.convert import mhd_amr_state_from, particles_from
+    from ramses_tpu_torch.mhd import amr as mamr
+    from ramses_tpu_torch.mhd import ct_slab
+    from ramses_tpu_torch.pm.particles import ParticleSet
+    p = _blob3d("poisson=.true.\npic=.true.")
+    lmin = p.amr.levelmin
+    rng = np.random.default_rng(MHD_GRAV_SEED)
+    x = rng.random((MHD_GRAV_NPART, 3))
+    ps = ParticleSet.make(x, np.zeros_like(x),
+                          np.full(MHD_GRAV_NPART,
+                                  MHD_GRAV_PMASS / MHD_GRAV_NPART),
+                          dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    sim = mamr.MhdAmrSim(p, particles=ps)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mass0 = float(sim.totals()["mass"])
+    pmass0 = float(sim.p.m.double().sum())
+    rho0 = _leaf_rho_max(sim)
+    stepped, walls, recorded, state = [], [], [], {}
+    step_coarse = sim.step_coarse
+    kernel = ct_slab.ct_step_slab
+
+    def record(*a, **k):
+        if not recorded:
+            recorded.append((tuple(v.clone() if torch.is_tensor(v) else v
+                                   for v in a),
+                             {kk: (v.clone() if torch.is_tensor(v) else v)
+                              for kk, v in k.items()}))
+        return kernel(*a, **k)
+
+    def counted(dt):
+        stepped.append(sim._fused_spec())
+        if len(stepped) == MHD_GRAV_REPLAY_AT + 1:
+            state.update(mhd_amr_state_from(sim))
+            state["particles"] = particles_from(sim.p, torch.float32,
+                                                "cpu")
+        if len(stepped) == MHD_GRAV_STEPS:
+            ct_slab.ct_step_slab = record
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            step_coarse(dt)
+        finally:
+            ct_slab.ct_step_slab = kernel
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    def coarse_step():
+        sim.regrid()
+        sim.step_coarse(sim.coarse_dt())
+    # steps 1-3 as evolve runs them, step 4 with each part synchronised,
+    # step 5 under the profiler (its K4 inputs recorded)
+    sim.step_coarse = counted
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim.evolve(1e9, nstepmax=MHD_GRAV_STEPS - 2)
+    acc, restore = _timed_parts({"sweep": (mamr, "_coarse_step")})
+    try:
+        line, parts = _host_breakdown(
+            sim, coarse_step,
+            parts=("regrid", "_build_pm", "solve_gravity", "_pm_force",
+                   "_pm_drift", "coarse_dt", "step_coarse"),
+            nested=("_build_pm", "solve_gravity", "_pm_force", "_pm_drift"))
+    finally:
+        restore()
+    busy = _profile(coarse_step, None, name=None, warm=False, raw=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    del sim.step_coarse
+    k4_want = sum(2 ** (l - lmin) for spec in stepped
+                  for l, c in zip(spec.levels, spec.complete) if c)
+    want = _want(ct_step_slab=k4_want)
+    mass1 = float(sim.totals()["mass"])
+    pmass1 = float(sim.p.m.double().sum())
+    npart = int(sim.p.active.sum())
+    rho1 = _leaf_rho_max(sim)
+    divb = sim.divb_levels()
+    held = _mhd_held(sim)
+    gap = sim.max_face_gap()
+    finite = (all(bool(torch.isfinite(sim.u[l]).all())
+                  and bool(torch.isfinite(sim.bfs[l]).all())
+                  and bool(torch.isfinite(sim.fg[l]).all())
+                  for l in sim.levels())
+              and bool(torch.isfinite(sim.p.x).all()))
+    octs = {l: sim.tree.noct(l) for l in sim.levels()}
+    readings = (f"{len(stepped)} coarse steps, launches {launches} (K4 "
+                f"expected {k4_want} = Σ 2^(l-{lmin}) over complete levels a "
+                f"step), leaf gas mass {mass0:.9e} -> {mass1:.9e}, particles "
+                f"{npart} of {MHD_GRAV_NPART}, particle mass {pmass0!r} -> "
+                f"{pmass1!r}, peak leaf density {rho0:.6e} -> {rho1:.6e}, "
+                f"max|div B|·dx/max|B| per level "
+                f"{ {l: float(f'{v:.3e}') for l, v in divb.items()} } (limit "
+                f"{DIVB_REL:.0e} on {held}), shared-face gap {gap}, finite "
+                f"{finite}, octs {octs}")
+    if not (len(stepped) == MHD_GRAV_STEPS and launches == want
+            and k4_want > 0 and finite
+            and abs(mass1 - mass0) <= 1e-5 * abs(mass0)
+            and npart == MHD_GRAV_NPART and pmass1 == pmass0
+            and rho1 > rho0 and gap == 0.0
+            and max(divb[l] for l in held) <= DIVB_REL):
+        raise AssertionError(f"phase 44 MHD gravity with particles: "
+                             f"{readings}")
+    _print(f"phase 44 MHD self-gravity with particles on {card}: the "
+           f"magnetised blob in 3D, levelmin {lmin} levelmax "
+           f"{p.amr.levelmax}, f32, {MHD_GRAV_NPART} particles "
+           f"(default_rng({MHD_GRAV_SEED}), total mass {MHD_GRAV_PMASS}); "
+           f"MhdAmrSim() {init_s:.3f} s, {MHD_GRAV_STEPS} coarse steps (a "
+           f"regrid each; step 4 synchronised part by part, step 5 under "
+           f"the profiler) in {wall:.3f} s, step walls "
+           f"{[round(w, 3) for w in walls]}; {readings}")
+
+    # K4 against its plain version on the last step's first complete-level
+    # call
+    a, k = recorded[0]
+    got = kernel(*a, **k)
+    want4 = ct_slab.ct_step_slab_ref(*a, **k)
+    torch.cuda.synchronize()
+    err, _, excess, k4_line = _ct_check(got, want4, 3)
+    if not excess <= 0.0:
+        raise AssertionError(f"phase 44: ct_step_slab disagrees with its "
+                             f"plain version on the last step's inputs: "
+                             f"{k4_line}")
+    ms = _device_ms(lambda: kernel(*a, **k), "mhd_ct_fused", n=20)
+    plain_ms = _median_ms(lambda: ct_slab.ct_step_slab_ref(*a, **k),
+                          reps=5, warm=1)
+    del got, want4, recorded[:]
+    _print(f"phase 44 K4 on the inputs the last coarse step gave it "
+           f"({tuple(int(n) - 4 for n in a[0].shape[1:])} with its refined "
+           f"mask{' and EMF override' if k.get('ovr') is not None else ''}) "
+           f"against its plain version within LOCAL_ATOL + LOCAL_RTOL·M: "
+           f"{k4_line}; {ms:.4f} ms/call on the device, plain {plain_ms:.4f} "
+           f"ms")
+    del a, k
+    torch.cuda.empty_cache()
+
+    _print(f"phase 44 where step 4's time goes: {line}; seconds "
+           f"by part: regrid {parts['regrid']:.4f}, PM maps (_build_pm) "
+           f"{parts['_build_pm']:.4f}, solve_gravity "
+           f"{parts['solve_gravity']:.4f}, sweep (kicks and CT, "
+           f"_coarse_step) {acc['sweep']:.4f}, particle kick (gather) "
+           f"{parts['_pm_force']:.4f}, drift {parts['_pm_drift']:.4f}, "
+           f"Courant fetch {parts['coarse_dt']:.4f}; step 5 under the "
+           f"profiler: {busy}")
+    del sim
+    torch.cuda.empty_cache()
+
+    # a replay from the state before step 4, twice: bitwise
+    def replay():
+        pp = state.pop("particles")
+        s = mamr.MhdAmrSim.from_state(p, **state, particles=particles_from(
+            pp, torch.float32, dev))
+        state["particles"] = pp
+        s.evolve(1e9, nstepmax=s.nstep + MHD_GRAV_REPLAY)
+        s.drain()
+        return s
+    t0 = time.perf_counter()
+    ra = replay()
+    snap = {l: (ra.u[l].cpu(), ra.bfs[l].cpu(), ra.phi[l].cpu())
+            for l in ra.levels()}
+    px, pv = ra.p.x.cpu(), ra.p.v.cpu()
+    keys = {l: ra.tree.levels[l].keys.copy() for l in ra.levels()}
+    del ra
+    rb = replay()
+    rwall = time.perf_counter() - t0
+    same = (set(keys) == set(rb.levels())
+            and all(np.array_equal(keys[l], rb.tree.levels[l].keys)
+                    and torch.equal(snap[l][0], rb.u[l].cpu())
+                    and torch.equal(snap[l][1], rb.bfs[l].cpu())
+                    and torch.equal(snap[l][2], rb.phi[l].cpu())
+                    for l in keys)
+            and torch.equal(px, rb.p.x.cpu()) and torch.equal(pv,
+                                                              rb.p.v.cpu()))
+    if not same:
+        raise AssertionError(f"phase 44: two {MHD_GRAV_REPLAY}-step replays "
+                             f"differ")
+    _print(f"phase 44 replay: {MHD_GRAV_REPLAY} coarse steps twice from the "
+           f"state before step {MHD_GRAV_REPLAY_AT + 1} ({rwall:.3f} s for "
+           f"both): bitwise equal (u, faces, phi, particle x and v, trees)")
+    del rb, snap, px, pv, state
+    torch.cuda.empty_cache()
+    return launches["ct_step_slab"]
+
+
+def _mhd_tracer_phase(card: str):
+    """Phase 45: phase 44's hierarchy without gravity, in a bulk flow, with
+    velocity tracers."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.mhd.amr import MhdAmrSim
+    from ramses_tpu_torch.pm import amr_physics
+    p = _blob3d("tracer=.true.\ntracer_per_cell=1.0", flow=True)
+    t0 = time.perf_counter()
+    sim = MhdAmrSim(p)
+    init_s = time.perf_counter() - t0
+    x0 = np.array(sim.tracer_x)
+    n0 = len(x0)
+    nleaf = sim.ncell_leaf()
+    drift = amr_physics.tracer_drift_amr
+    tw = []
+
+    def timed(s, dt):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drift(s, dt)
+        tw.append(time.perf_counter() - t0)
+    amr_physics.tracer_drift_amr = timed
+    try:
+        t0 = time.perf_counter()
+        sim.evolve(1e9, nstepmax=MHD_TRACER_STEPS)
+        sim.drain()
+        wall = time.perf_counter() - t0
+    finally:
+        amr_physics.tracer_drift_amr = drift
+    x1 = np.asarray(sim.tracer_x)
+    # the largest displacement, each the shortest way round the box
+    moved = (float(np.abs((x1 - x0 + 0.5) % 1.0 - 0.5).max())
+             if len(x1) == n0 else 0.0)
+    if not (len(x1) == n0 and np.isfinite(x1).all()
+            and ((x1 >= 0.0) & (x1 < 1.0)).all() and moved > 0.0
+            and len(tw) == MHD_TRACER_STEPS):
+        raise AssertionError(f"phase 45 MHD tracers: {len(x1)} of {n0}, "
+                             f"finite {np.isfinite(x1).all()}, moved {moved}")
+    _print(f"phase 45 velocity tracers on the MHD hierarchy on {card}: the "
+           f"phase-44 blob without gravity in a bulk flow (0.3, 0.2, 0.1), "
+           f"levelmin {p.amr.levelmin} "
+           f"levelmax {p.amr.levelmax}, {n0} tracers seeded on {nleaf} leaf "
+           f"cells (MhdAmrSim() {init_s:.3f} s), {MHD_TRACER_STEPS} coarse "
+           f"steps in {wall:.3f} s, the tracer pass (tracer_drift_amr) "
+           f"{[round(w, 4) for w in tw]} s a step; all {len(x1)} kept, "
+           f"finite and inside the box; largest move {moved:.4e}")
+    del sim
+    torch.cuda.empty_cache()
+
+
+def _mc_uniform_phase(dev, card: str) -> int:
+    """Phase 46: ``step_with_flux`` through K1's ``want_flux`` entry at 256³
+    and ``mc_tracer_step`` on 2,097,152 tracers; returns K1's flux
+    launches."""
+    import torch
+    from ramses_tpu_torch.config import load_params
+    from ramses_tpu_torch.driver import Simulation
+    from ramses_tpu_torch.grid.uniform import cfl_dt, step_with_flux
+    from ramses_tpu_torch.hydro import fused_muscl as fm
+    from ramses_tpu_torch.pm import tracers
+    sim = Simulation(load_params(NML, ndim=3))
+    g = sim.grid
+    # a random state (phase 3's), so that every cell has flows to jump on
+    u = torch.from_numpy(_random_state(g.shape, g.cfg.gamma, 46)).to(dev)
+    dt = cfl_dt(g, u).to(torch.float32)
+    torch.cuda.synchronize()
+    _reset_counts()
+    un, phi = step_with_flux(g, u, dt)
+    torch.cuda.synchronize()
+    launches = _counts()
+    ref, pref = fm.fused_step_ref(u, dt, g.cfg, g.dx, g.bc, want_flux=True)
+    torch.cuda.synchronize()
+    scale = _stencil_scale(ref)
+    err, rel, ex = _local_check((un, phi), (ref, pref[:, 0]),
+                                (scale, scale[0].expand((3,) + g.shape)))
+    del ref, pref, scale
+    if not (launches == _want(fused_muscl_flux=1) and ex <= 0.0):
+        raise AssertionError(f"phase 46 step_with_flux: launches {launches}, "
+                             f"against the plain version: max abs err "
+                             f"{err:.3e}, err / M (un/phi) {rel}, excess "
+                             f"{ex:.3e}")
+    swf_ms = _median_ms(lambda: step_with_flux(g, u, dt), reps=10)
+    gen = torch.Generator(device=dev).manual_seed(MC_UNIFORM_SEED)
+    boxlen = float(sim.params.amr.boxlen)
+    x = torch.rand((MC_UNIFORM_NTR, 3), generator=gen, dtype=torch.float64,
+                   device=dev) * boxlen
+    rho = u[0].to(torch.float64)
+    flux = phi.to(torch.float64)
+    _, full = tracers.jump_probs(x, rho, flux, g.shape, g.dx)
+    expect = float((1.0 - full[:, 0]).mean())
+    del full
+    t0 = time.perf_counter()
+    xn = tracers.mc_tracer_step(x, rho, flux, g.shape, g.dx, generator=gen)
+    torch.cuda.synchronize()
+    mc_s = time.perf_counter() - t0
+    mc_ms = _median_ms(lambda: tracers.mc_tracer_step(
+        x, rho, flux, g.shape, g.dx, generator=gen), reps=5, warm=1)
+    moved = float((torch.floor(xn / g.dx) != torch.floor(x / g.dx))
+                  .any(dim=1).double().mean())
+    inside = bool(((xn >= 0.0) & (xn < boxlen)).all())
+    if not (xn.shape == x.shape and inside
+            and bool(torch.isfinite(xn).all())):
+        raise AssertionError(f"phase 46 mc_tracer_step: shape {xn.shape}, "
+                             f"inside the box {inside}")
+    _print(f"phase 46 the uniform MC tracer step at {g.shape} (a random "
+           f"state, sedov3d.nml's solver) on {card}: step_with_flux through "
+           f"K1's want_flux entry (launches "
+           f"{ {k: v for k, v in launches.items() if v} }) against the "
+           f"plain version within LOCAL_ATOL + LOCAL_RTOL·M: max abs err "
+           f"{err:.3e}, err / M (un/phi) {'/'.join(f'{v:.3e}' for v in rel)}"
+           f"; step_with_flux {swf_ms:.4f} ms; mc_tracer_step on "
+           f"{MC_UNIFORM_NTR} tracers (f64, default Generator seed "
+           f"{MC_UNIFORM_SEED}): first call {mc_s:.4f} s, {mc_ms:.4f} ms a "
+           f"call; all kept and inside the box; moved fraction {moved:.6f} "
+           f"against the expected Σp/N {expect:.6f}")
+    del sim, u, un, phi, x, xn, rho, flux
+    torch.cuda.empty_cache()
+    return launches["fused_muscl_flux"]
+
+
+def _cli_in_process(argv, run_dir):
+    """``ramses_tpu_torch.__main__.run_cli(argv)`` in ``run_dir``: returns
+    (the sim, wall seconds); the signal handlers it installs are
+    restored."""
+    import signal
+
+    import torch
+    from ramses_tpu_torch.__main__ import run_cli
+    saved = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT,
+                                              signal.SIGUSR1)}
+    cwd = os.getcwd()
+    os.makedirs(run_dir, exist_ok=True)
+    os.chdir(run_dir)
+    try:
+        t0 = time.perf_counter()
+        sim = run_cli(argv)
+        torch.cuda.synchronize()
+        return sim, time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        for s, h in saved.items():
+            signal.signal(s, h)
+
+
+def _sink_csv(path: str):
+    """(header line, rows [n, 23]) of a ``sink_NNNNN.csv``."""
+    import numpy as np
+    lines = open(path).read().splitlines()
+    rows = [[float(v) for v in ln.split(",")] for ln in lines[2:]]
+    return lines[0], np.array(rows, dtype=np.float64).reshape(len(rows), 23)
+
+
+SINK_HEADER = (" # id,msink,x,y,z,vx,vy,vz,lx,ly,lz,tform,acc_rate,del_mass,"
+               "rho_gas,cs**2,etherm,vx_gas,vy_gas,vz_gas,mbh,dmfsink,level ")
+
+
+def _collapse_phase(card: str, tmp: str) -> dict:
+    """Phase 47: collapse_iso.nml through the CLI, in process, as shipped
+    but for ``nstepmax`` (``COLLAPSE_STEPS``), K1 and K3 held against their
+    plain versions on its last coarse step's inputs; then 47b, live sinks
+    on its hierarchy (:func:`_live_sinks`).  Returns the K1 and K3
+    launches of both."""
+    import torch
+    from ramses_tpu_torch.amr import hierarchy as H
+    from ramses_tpu_torch.pm import amr_physics
+    stepped, recorded = [], {}
+    step_coarse = H.AmrSim.step_coarse
+
+    def counted(self, dt):
+        spec = self._fused_spec()
+        stepped.append((spec.levels, spec.complete, spec.blocked))
+        rec = (_record_kernel_inputs(recorded)
+               if len(stepped) == COLLAPSE_STEPS else None)
+        try:
+            step_coarse(self, dt)
+        finally:
+            if rec is not None:
+                rec()
+    run_dir = os.path.join(tmp, "collapse")
+    os.makedirs(run_dir)
+    nml = os.path.join(run_dir, "collapse_iso.nml")
+    with open(nml, "w") as f:
+        f.write(open(COLLAPSE_NML).read().replace(
+            "&RUN_PARAMS", f"&RUN_PARAMS\nnstepmax={COLLAPSE_STEPS}", 1))
+    acc, restore = _timed_parts({
+        "regrid": (H.AmrSim, "regrid"),
+        "solve_gravity": (H.AmrSim, "solve_gravity"),
+        "sweep": (H, "_coarse_step"),
+        "sinks": (amr_physics, "sink_passes_amr"),
+        "Courant fetch": (H.AmrSim, "coarse_dt")})
+    H.AmrSim.step_coarse = counted
+    torch.cuda.synchronize()
+    _reset_counts()
+    try:
+        sim, wall = _cli_in_process([nml, "--ndim", "3"], run_dir)
+    finally:
+        H.AmrSim.step_coarse = step_coarse
+        restore()
+    launches = _counts()
+    lmin = sim.lmin
+    want = _cosmo_want(stepped, lmin)
+    csv = os.path.join(tmp, "collapse", "output_00001", "sink_00001.csv")
+    header, rows = _sink_csv(csv)
+    finite = all(bool(torch.isfinite(sim.u[l]).all()) for l in sim.levels())
+    nst = max(len(stepped), 1)
+    if not (isinstance(sim, H.AmrSim) and launches == want
+            and launches["fused_muscl"] > 0 and finite
+            and header == SINK_HEADER and len(rows) == sim.sinks.n
+            and sim.nstep == COLLAPSE_STEPS):
+        raise AssertionError(
+            f"phase 47 collapse_iso.nml: t={sim.t} after {sim.nstep} coarse "
+            f"steps, launches {launches} (expected {want}), finite {finite}, "
+            f"sink CSV header {header!r}, {len(rows)} rows for "
+            f"{sim.sinks.n} sinks")
+    _print(f"phase 47 collapse_iso.nml through the CLI on {card} (run_cli "
+           f"in process, as shipped but nstepmax={COLLAPSE_STEPS}: levelmin "
+           f"{lmin} levelmax {sim.lmax}, open box, isolated solve, f32): "
+           f"t={sim.t:.6e} in {sim.nstep} coarse "
+           f"steps, {wall:.3f} s; octs "
+           f"{[sim.tree.noct(l) for l in sim.levels()]}"
+           f"; launches {launches} (expected {want}); {sim.sinks.n} sinks, "
+           f"masses {[float(f'{m:.4e}') for m in sim.sinks.m]}; sink CSV "
+           f"parses with the reference header; seconds a coarse step by part"
+           f" (synchronised): " + ", ".join(f"{k} {v / nst:.4f}"
+                                            for k, v in acc.items())
+           + f", other {(wall - sum(acc.values())) / nst:.4f}")
+    line = _last_step_check(sim, recorded, stepped[-1],
+                            "phase 47 collapse_iso.nml", any_field=True)
+    _print(f"phase 47 K1 and K3 on the inputs collapse_iso.nml's last coarse "
+           f"step gave them (each level's first substep; outflow faces) "
+           f"against their plain versions within LOCAL_ATOL + "
+           f"LOCAL_RTOL·M, M any field's stencil max: {line}")
+    live = _live_sinks(sim, card)
+    out = {k: launches[k] + live[k] for k in ("fused_muscl", "tile_sweep")}
+    del sim
+    torch.cuda.empty_cache()
+    return out
+
+
+def _creation_logged(create, log: list):
+    """``pm/amr_physics.create_sinks_amr`` (``create``) that also adds the
+    sinks it makes and the mass it gives them to the entry ``log[-1]``."""
+    import numpy as np
+
+    def created(s, sinks, spec, units):
+        n0, m0 = sinks.n, float(np.sum(sinks.m))
+        out = create(s, sinks, spec, units)
+        log[-1].update(born=out.n - n0, created=float(np.sum(out.m)) - m0)
+        return out
+    return created
+
+
+def _live_sinks(sim, card: str) -> dict:
+    """Phase 47b: ``COLLAPSE_LIVE_STEPS`` coarse steps of phase 47's
+    hierarchy with ``n_sink`` just under the ``SINK_SEED_CELLS``-th densest
+    leaf cell and at most ``SINK_MAX`` sinks.  Gates: sinks form; every pass moves mass from the gas to
+    the sinks and nowhere else (threshold accretion, no AGN: the change
+    of the leaf gas mass and of the sinks' mass sum to zero within
+    1e-4 of the latter plus 1e-9 of the gas, f32 roundoff of the cells
+    written); the state finite, the sinks in the box; K1 and K3 launched
+    as the levels stepped require.  Returns the K1 and K3 launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.pm import amr_physics
+    thr = float(np.sort(_leaf_rho(sim))[-SINK_SEED_CELLS - 1])
+    sim.sink_spec = dataclasses.replace(
+        sim.sink_spec, n_sink=thr * sim.units.scale_nH, nsinkmax=SINK_MAX)
+    passes, create = amr_physics.sink_passes_amr, amr_physics.create_sinks_amr
+    log, stepped = [], []
+    def recorded(s, dt):
+        g0, m0 = float(s.totals()["mass"]), float(np.sum(s.sinks.m))
+        log.append({"born": 0, "created": 0.0})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        passes(s, dt)
+        torch.cuda.synchronize()
+        log[-1].update(s=time.perf_counter() - t0, n=s.sinks.n,
+                       dgas=float(s.totals()["mass"]) - g0,
+                       dsink=float(np.sum(s.sinks.m)) - m0)
+    amr_physics.sink_passes_amr = recorded
+    amr_physics.create_sinks_amr = _creation_logged(create, log)
+    gas0 = float(sim.totals()["mass"])
+    x0 = None
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        for _ in range(COLLAPSE_LIVE_STEPS):
+            sim.regrid()
+            spec = sim._fused_spec()
+            stepped.append((spec.levels, spec.complete, spec.blocked))
+            if sim.sinks.n:
+                x0 = sim.sinks.x.copy()
+            sim.step_coarse(sim.coarse_dt())
+        torch.cuda.synchronize()
+    finally:
+        amr_physics.sink_passes_amr = passes
+        amr_physics.create_sinks_amr = create
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    want = _cosmo_want(stepped, sim.lmin)
+    finite = (all(bool(torch.isfinite(sim.u[l]).all()) for l in sim.levels())
+              and bool(np.isfinite(sim.sinks.x).all())
+              and bool(np.isfinite(sim.sinks.m).all()))
+    inside = bool(((sim.sinks.x >= 0.0) & (sim.sinks.x < sim.boxlen)).all())
+    resid = [abs(e["dgas"] + e["dsink"]) for e in log]
+    held = all(r <= 1e-4 * abs(e["dsink"]) + 1e-9 * abs(gas0)
+               for r, e in zip(resid, log))
+    moved = (float(np.abs(sim.sinks.x - x0).max())
+             if x0 is not None and len(x0) == sim.sinks.n else None)
+    readings = (f"n_sink {sim.sink_spec.n_sink:.6e} (density {thr:.6e}); "
+                f"{COLLAPSE_LIVE_STEPS} coarse steps in {wall:.3f} s, octs "
+                f"{[sim.tree.noct(l) for l in sim.levels()]}; by pass: "
+                + "; ".join(
+                    f"{e['born']} new ({e['created']:.4e} created), "
+                    f"{e['n']} sinks, sinks {e['dsink']:+.6e}, gas "
+                    f"{e['dgas']:+.6e} (|sum| {r:.3e}), {e['s']:.4f} s"
+                    for e, r in zip(log, resid))
+                + f"; launches {launches} (expected {want}); finite "
+                f"{finite}, in the box {inside}; largest sink move in the "
+                f"last pass {moved}")
+    if not (len(log) == COLLAPSE_LIVE_STEPS and log[0]["born"] > 0
+            and sim.sinks.n > 0 and held and finite and inside
+            and launches == want and float(np.sum(sim.sinks.m)) > 0.0):
+        raise AssertionError(f"phase 47b live sinks: {readings}")
+    _print(f"phase 47b live sinks on collapse_iso.nml's hierarchy on {card} "
+           f"(phase 47's state, n_sink under the {SINK_SEED_CELLS + 1}th "
+           f"densest leaf cell, nsinkmax {SINK_MAX}, threshold accretion, "
+           f"f32): {readings}; the "
+           f"sink pass {sum(e['s'] for e in log) / len(log):.4f} s a coarse "
+           f"step at {sim.sinks.n} sinks")
+    return {"fused_muscl": launches["fused_muscl"],
+            "tile_sweep": launches["tile_sweep"]}
+
+
+def _smbh_phase(card: str, tmp: str):
+    """Phase 48: smbh_bondi.nml through the CLI as shipped (2D, the
+    general formulation), with ``--dtype float64``.  Its clump overshoots
+    in the first coarse step and the first AGN dump drives the dt to
+    ~1e-31, in the JAX package as in the port (ROADMAP §C8), so the state
+    goes non-finite some steps on.  Gates: a sink forms in the first pass,
+    accretes and injects AGN energy; the state is finite after that pass;
+    in every pass whose sums are finite, the sinks' mass grows by exactly
+    the mass created plus (1 - eps_r) of the mass accreted, within 1e-12
+    of the largest of those masses and the sinks' mass before the pass
+    (host f64)."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.pm import amr_physics, sinks as smod
+    log = []
+    passes, create = amr_physics.sink_passes_amr, amr_physics.create_sinks_amr
+    energy = smod.agn_energy
+
+    def recorded(s, dt):
+        rho = _leaf_rho(s)
+        m0 = float(np.sum(s.sinks.m))
+        log.append({"born": 0, "created": 0.0, "dm": 0.0, "e": 0.0,
+                    "rho": (float(rho.min()), float(rho.max())),
+                    "neg": int((rho < 0.0).sum()),
+                    "gas0": float(s.totals()["mass"]), "m0": m0})
+        passes(s, dt)
+        log[-1].update(
+            dsink=float(np.sum(s.sinks.m)) - m0, n=s.sinks.n,
+            gas=float(s.totals()["mass"]) - log[-1]["gas0"],
+            finite=all(bool(torch.isfinite(s.u[l]).all())
+                       for l in s.levels()))
+
+    def agn_recorded(dm, spec, units):
+        e, gain = energy(dm, spec, units)
+        log[-1].update(dm=float(np.sum(dm)), e=float(np.sum(e)))
+        return e, gain
+    amr_physics.sink_passes_amr = recorded
+    amr_physics.create_sinks_amr = _creation_logged(create, log)
+    smod.agn_energy = agn_recorded
+    try:
+        sim, wall = _cli_in_process([SMBH_NML, "--ndim", "2", "--dtype",
+                                     "float64"], os.path.join(tmp, "smbh"))
+    finally:
+        amr_physics.sink_passes_amr = passes
+        amr_physics.create_sinks_amr = create
+        smod.agn_energy = energy
+    header, rows = _sink_csv(os.path.join(tmp, "smbh", "output_00001",
+                                          "sink_00001.csv"))
+    eps_r = sim.sink_spec.eps_r
+    book = []            # (pass, |Δsink - created - (1 - eps_r)·dm|, scale)
+    for k, e in enumerate(log):
+        want = e["created"] + (1.0 - eps_r) * e["dm"]
+        if np.isfinite([e["dsink"], want]).all():
+            book.append((k + 1, abs(e["dsink"] - want),
+                         max(abs(e["m0"]), abs(e["dsink"]),
+                             abs(e["created"]), abs(e["dm"]))))
+    held = all(r <= 1e-12 * sc for _, r, sc in book)
+    finite = all(bool(torch.isfinite(sim.u[l]).all()) for l in sim.levels())
+    first = log[0] if log else {}
+    readings = "; ".join(
+        f"pass {k + 1}: {e['born']} new sinks ({e['created']:.4e} created), "
+        f"accreted {e['dm']:.4e}, AGN energy {e['e']:.4e}, sinks "
+        f"{e['dsink']:+.6e} to {e['n']}, leaf gas {e['gas']:+.6e}, leaf "
+        f"density {e['rho'][0]:.3e}..{e['rho'][1]:.3e} ({e['neg']} cells "
+        f"below 0) before it, finite after it {e['finite']}"
+        for k, e in enumerate(log))
+    if not (first and first["born"] > 0 and first["dm"] > 0.0
+            and first["e"] > 0.0 and first["finite"] and book
+            and book[0][0] == 1 and held and header == SINK_HEADER
+            and len(rows) == sim.sinks.n):
+        raise AssertionError(f"phase 48 smbh_bondi.nml: {sim.nstep} steps; "
+                             f"{readings}; sink mass bookkeeping (pass, "
+                             f"|residual|, scale) {book}")
+    _print(f"phase 48 smbh_bondi.nml through the CLI as shipped on {card} "
+           f"(run_cli in process, 2D, levelmin {sim.lmin} levelmax "
+           f"{sim.lmax}, f64): {sim.nstep} coarse steps, t={sim.t:.6e}, "
+           f"{wall:.3f} s, state finite at the end {finite} (ROADMAP §C8); "
+           f"{readings}; the sinks' mass grew by the mass created plus "
+           f"(1 - eps_r) of the mass accreted in passes "
+           f"{[k for k, _, _ in book]} (worst |residual| / scale "
+           f"{max(r / max(sc, 1e-300) for _, r, sc in book):.3e})")
+    del sim
+    torch.cuda.empty_cache()
+
+
+def _turb_phase(dev, card: str, tmp: str) -> int:
+    """Phase 49: turb_driving.nml through the CLI as shipped (32³), then at
+    256³ for 20 steps through ``Simulation``; returns the 256³ run's K1
+    launches."""
+    import math
+    import re
+
+    import torch
+    from ramses_tpu_torch.config import params_from_string
+    from ramses_tpu_torch.driver import Simulation
+    sim, wall = _cli_in_process([TURB_NML, "--ndim", "3"],
+                                os.path.join(tmp, "turb"))
+    v32 = float(torch.sqrt(torch.mean(torch.sum(
+        (sim.state.u[1:4] / sim.state.u[0]) ** 2, dim=0))))
+    out32 = os.path.join(tmp, "turb", "output_00001", "turb_fields.npz")
+    if not (os.path.exists(out32) and v32 > 0.0 and bool(
+            torch.isfinite(sim.state.u).all())):
+        raise AssertionError(f"phase 49 turb_driving.nml: {sim.nstep} steps, "
+                             f"rms velocity {v32}, turb_fields.npz "
+                             f"{os.path.exists(out32)}")
+    line32 = (f"turb_driving.nml through the CLI as shipped ({sim.grid.shape}"
+              f", run_cli in process): {sim.nstep} steps to t={sim.t:.4e} in "
+              f"{wall:.3f} s, rms velocity {v32:.4e}, output_00001 with "
+              f"turb_fields.npz")
+    del sim
+    text = open(TURB_NML).read()
+    text = re.sub(r"levelmin=\d+", f"levelmin={TURB_LEVEL}", text)
+    text = re.sub(r"levelmax=\d+", f"levelmax={TURB_LEVEL}", text)
+    text = re.sub(r"nstepmax=\d+", f"nstepmax={TURB_STEPS}", text)
+    text = text.replace("tout=0.25", "tout=100.0")
+
+    def run(forced: bool, store=None):
+        t = text if forced else text.replace("turb=.true.", "turb=.false.")
+        s = Simulation(params_from_string(t, ndim=3))
+        rms0 = float(torch.sqrt(torch.mean(s.state.u[1:4] ** 2)))
+        torch.cuda.synchronize()
+        _reset_counts()
+        rec = (_record_kernel_inputs(store, last=True) if store is not None
+               else None)
+        t0 = time.perf_counter()
+        try:
+            s.evolve()
+            torch.cuda.synchronize()
+        finally:
+            if rec is not None:
+                rec()
+        return s, time.perf_counter() - t0, _counts(), rms0
+    # the first forced run records K1's inputs at each step (its last
+    # step's are kept) for the check against the plain version
+    store = {}
+    a, _, launches, rms0 = run(True, store)
+    k1_line = _recorded_kernel_check(store, {a.grid.dx: TURB_LEVEL},
+                                     "phase 49 turbulence", any_field=True)
+    store.clear()
+    rms = float(torch.sqrt(torch.mean(a.state.u[1:4] ** 2)))
+    # the replay is the timed run with forcing (the first one also made
+    # the FFT plans)
+    b, wall_a, _, _ = run(True)
+    same = (torch.equal(a.state.u, b.state.u)
+            and torch.equal(a.turb.fhat, b.turb.fhat))
+    del b
+    c, wall_c, _, _ = run(False)
+    if not (a.nstep == TURB_STEPS and launches == _want(
+            fused_muscl=TURB_STEPS) and rms > rms0 and math.isfinite(rms)
+            and bool(torch.isfinite(a.state.u).all()) and same):
+        raise AssertionError(f"phase 49 turbulence at 256³: {a.nstep} steps, "
+                             f"launches {launches}, rms momentum {rms0} -> "
+                             f"{rms}, replay bitwise {same}")
+    _print(f"phase 49 turbulence on {card}: {line32}; turb_driving.nml at "
+           f"{a.grid.shape} through Simulation, {TURB_STEPS} steps (chunks "
+           f"of 16, one OU update and kick a chunk): launches {launches}, "
+           f"rms momentum {rms0:.4e} -> {rms:.4e}, a replay with the same "
+           f"seed bitwise (u and the OU field); "
+           f"{1e3 * wall_a / TURB_STEPS:.4f} "
+           f"ms a step with forcing against {1e3 * wall_c / c.nstep:.4f} ms "
+           f"without ({c.nstep} steps); K1 on the forced run's last step's "
+           f"inputs against its plain version within LOCAL_ATOL + "
+           f"LOCAL_RTOL·M, M any field's stencil max: {k1_line}")
+    del a, c
+    torch.cuda.empty_cache()
+    return launches["fused_muscl"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4576,6 +5499,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    # the script's wall by group of phases, for its time limit
+    marks = [("start", time.perf_counter())]
 
     # ---- 1. device ----
     smi = subprocess.run(
@@ -4756,39 +5681,62 @@ def main() -> int:
     del sim, u, t
     torch.cuda.empty_cache()
 
+    marks.append(("1-6", time.perf_counter()))
     # ---- 7-11. the AMR slice ----
     err7, oct_rows = _amr_phases(dev)
     k1["max_abs_err"] = max(k1["max_abs_err"], err7)
 
+    marks.append(("7-11", time.perf_counter()))
     # ---- 12-17. the MHD slice ----
     k4 = _mhd_phases(dev)
 
+    marks.append(("12-17", time.perf_counter()))
     # ---- 18-21. MHD on the AMR hierarchy ----
     k4_amr, err18 = _mhd_amr_phases(dev)
     k4["launches"] += k4_amr
     k4["max_abs_err"] = max(k4["max_abs_err"], err18)
 
+    marks.append(("18-21", time.perf_counter()))
     # ---- 22-26. the MC tracers on the hydro hierarchy ----
     flux_rows = _tracer_phases(dev)
 
+    marks.append(("22-26", time.perf_counter()))
     # ---- 27. the remaining hydro options: detente.nml ----
     _options_phase(dev)
 
+    marks.append(("27", time.perf_counter()))
     # ---- 28-30. the slab-sharded paths: K5 and K1's padded entry ----
     parallel_rows = _parallel_phases(dev)
 
+    marks.append(("28-30", time.perf_counter()))
     # ---- 31-34. self-gravity: config 3 and config 2 with gravity ----
     _gravity_phases(dev, card)
 
+    marks.append(("31-34", time.perf_counter()))
     # ---- 35-38. snapshots, restarts and supervised runs ----
     _restart_phases(dev, card)
 
+    marks.append(("35-38", time.perf_counter()))
     # ---- 39-43. particles and cosmology: config 5 ----
     cfg5 = _cosmo_phases(dev, card)
     k1["launches"] += cfg5["fused_muscl"]
     for r in oct_rows:
         if r["name"] == "tile_sweep":
             r["launches"] += cfg5["tile_sweep"]
+
+    marks.append(("39-43", time.perf_counter()))
+    # ---- 44-49. the coarse-step source passes ----
+    src = _source_phases(dev, card)
+    k1["launches"] += src["fused_muscl"]
+    k4["launches"] += src["ct_step_slab"]
+    for r in oct_rows + flux_rows:
+        if r["name"] in ("tile_sweep", "fused_muscl_flux"):
+            r["launches"] += src[r["name"]]
+    marks.append(("44-49", time.perf_counter()))
+    _print("script wall by phases: " + ", ".join(
+        f"{label} {t - t0:.1f} s" for (_, t0), (label, t)
+        in zip(marks, marks[1:]))
+        + f"; total {marks[-1][1] - marks[0][1]:.1f} s")
     if PROFILER_LOST:
         _print("timing: the profiler lost these kernels' records in every "
                "window; their ms are queued CUDA events: "

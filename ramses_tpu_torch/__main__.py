@@ -3,15 +3,19 @@
 Runs a namelist on the GPU (``--device cpu`` for the CPU): hydro (with
 self-gravity under ``&RUN_PARAMS poisson``, particles under ``pic``, the
 supercomoving clock and the grafic/Gadget ICs under ``cosmo``, as
-``namelists/cosmo.nml``), or with ``--solver mhd`` (the
-default when &INIT_PARAMS sets a region field, as in the JAX CLI)
-constrained-transport MHD, each on a uniform grid or, with ``levelmax >
+``namelists/cosmo.nml``, sinks under ``&SINK_PARAMS``, as
+``collapse_iso.nml`` and ``smbh_bondi.nml``, turbulence forcing under
+``&TURB_PARAMS`` on the uniform grid, as ``turb_driving.nml``), or with
+``--solver mhd`` (the default when &INIT_PARAMS sets a region field, as in
+the JAX CLI) constrained-transport MHD (on the hierarchy with gravity,
+particles and tracers), each on a uniform grid or, with ``levelmax >
 levelmin``, on the AMR hierarchy of one device.
 
 Writes the snapshots the JAX CLI writes into ``&OUTPUT_PARAMS
 output_dir``: the uniform hydro driver a reference-format
-``output_NNNNN/`` at each output time, the other drivers
-``output_00001/`` at the end.  Every run goes through the supervisor,
+``output_NNNNN/`` at each output time (with ``turb_fields.npz`` under
+forcing), the other drivers ``output_00001/`` at the end (with
+``sink_00001.csv`` under sinks).  Every run goes through the supervisor,
 which restores ``output_<nrestart>`` (``&RUN_PARAMS nrestart``) or, with
 ``--auto-resume`` (``auto_resume``, ``nrestart=-1``), the newest
 manifest-valid checkpoint; ``--max-attempts N`` resumes an interrupted
@@ -36,8 +40,8 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="ramses_tpu_torch",
         description="PyTorch/CUDA port of ramses_tpu (hydro with gravity, "
-                    "particles and cosmology, and CT MHD, uniform or AMR "
-                    "on one device)")
+                    "particles, cosmology, sinks and turbulence forcing, "
+                    "and CT MHD, uniform or AMR on one device)")
     ap.add_argument("namelist", help="Fortran-namelist runtime config")
     ap.add_argument("--ndim", type=int, default=3,
                     help="spatial dimensions (compile-time in the reference)")

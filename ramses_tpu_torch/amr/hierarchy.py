@@ -64,11 +64,22 @@ device.
 
 Regrids always take the host prolongation-map migrate; the JAX package's
 ``device_regrid`` (on by default there) is pinned bitwise equal to it by
-its own tests and is not ported.  Cooling, star formation, sinks, the
-lightcone, the clump finder, RT, movies, load balance, offload, the step
-guard, the watchdog, telemetry, patch hooks, non-cubic roots and elastic
-sharded checkpoints are not ported yet: a namelist that turns one on
-raises ``NotImplementedError`` naming it.
+its own tests and is not ported.
+
+``&SINK_PARAMS create_sinks`` runs the sink passes after each coarse step
+(:func:`ramses_tpu_torch.pm.amr_physics.sink_passes_amr`: creation on leaf
+cells, accretion over each sink's cloud, merging, the drift in the force
+field); the sinks are host numpy (``sim.sinks``), ``dump`` writes them as
+``sink_NNNNN.csv`` and a restore starts with none, as the JAX package's.
+Without a flux capture (the MHD hierarchy) tracers move as CIC velocity
+tracers (:func:`ramses_tpu_torch.pm.amr_physics.tracer_drift_amr`).
+
+Cooling, star formation, stellar objects, turbulence forcing (which the
+JAX package runs on the uniform grid only), the lightcone, the clump
+finder, RT, movies, load balance, offload, the step guard, the watchdog,
+telemetry, patch hooks, non-cubic roots and elastic sharded checkpoints
+are not ported yet: a namelist that turns one on raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -276,9 +287,13 @@ def unported_amr_features(params: Params) -> list:
     run yet: :func:`ramses_tpu_torch.driver.unported_features` and the
     hierarchy's own."""
     from ramses_tpu_torch.driver import unported_features
+    from ramses_tpu_torch.turb.forcing import TurbSpec
     a = params.amr
     root = [a.nx, a.ny, a.nz][:params.ndim]
     checks = [
+        ("turbulence forcing on the hierarchy (&TURB_PARAMS turb; the JAX "
+         "package forces the uniform grid only)",
+         TurbSpec.from_params(params).enabled),
         ("load balance (&AMR_PARAMS load_balance)", a.load_balance),
         ("offload (&AMR_PARAMS offload)",
          str(a.offload).strip().lower() != "off"),
@@ -298,7 +313,10 @@ def restore_amr_scaffold(cls, params: Params, outdir: str, dtype, to_cons,
     output columns to the solver's stored rows; ``place_level(sim, l, rows,
     og, order)`` writes them into the sim state.  The MC gas tracers come
     back from the part file's family-0 rows; restarts never re-seed them.
-    Returns the sim."""
+    The particles come back on every hierarchy, with the lane headroom of a
+    run that creates them (sinks) where the class runs the sink passes;
+    the sinks themselves start empty, as in the JAX package, whose restore
+    does not read the sink files.  Returns the sim."""
     from ramses_tpu_torch.io.restart import (restore_particles,
                                              restore_tree_state)
     from ramses_tpu_torch.pm.particles import FAM_GAS_TRACER, lane_headroom
@@ -324,14 +342,14 @@ def restore_amr_scaffold(cls, params: Params, outdir: str, dtype, to_cons,
             parts = {k: (v[~sel] if isinstance(v, np.ndarray)
                          and len(v) == npart else v)
                      for k, v in parts.items()}
+        # runs that keep creating particles need free lanes after the
+        # restart too, where the class keeps the sink passes live
+        from ramses_tpu_torch.pm.sinks import SinkSpec
+        grows = cls._pm_physics and SinkSpec.from_params(params).enabled
         if len(parts.get("mass", ())):
-            if not cls._pm_physics:
-                raise NotImplementedError(
-                    "not ported to ramses_tpu_torch yet: particles in a "
-                    f"snapshot restored on {cls.__name__}")
             ps = restore_particles(parts, params.ndim, dtype=dtype,
                                    device=resolve_device(device),
-                                   nmax=lane_headroom(params, False))
+                                   nmax=lane_headroom(params, grows))
             kw = dict(kw, particles=ps)
     # restarts never re-seed tracers: the restored population is the
     # truth, INCLUDING the empty one (e.g. every tracer escaped an open
@@ -405,8 +423,10 @@ class AmrSim:
     # set this: ``regrid`` then logs each migrated level's copy rows, new
     # octs and their father cells in ``_mig_log`` for them to replay
     _needs_mig_log = False
-    # the particle-mesh layer runs on this hierarchy (a subclass that
-    # refuses particles clears it, so that a restore refuses them too)
+    # the sink passes (and, once ported, star formation and cooling) run on
+    # this hierarchy's [rho, mom, E] rows; the MHD hierarchy clears it, as
+    # the JAX package's ``_pm_family`` does (the particle-mesh layer and
+    # the tracers run on both)
     _pm_physics = True
 
     @classmethod
@@ -423,7 +443,7 @@ class AmrSim:
                  init_tree: Optional[Octree] = None,
                  noct_pad: Optional[Dict[int, int]] = None,
                  seed_tracers: bool = True, particles=None,
-                 init_dense_u=None):
+                 init_dense_u=None, sinks=None):
         missing = self._unported(params)
         if missing:
             raise NotImplementedError(
@@ -502,6 +522,18 @@ class AmrSim:
         self._pm_dev: Dict[int, dict] = {}
         self._rho_dev: Dict[int, torch.Tensor] = {}
         self._rho_max: Optional[float] = None
+        # sink particles (&SINK_PARAMS): host numpy, coarse-step cadence;
+        # the unit scales they need (``amr/units.f90``)
+        from ramses_tpu_torch.pm.sinks import SinkSet, SinkSpec
+        from ramses_tpu_torch.units import units as units_fn
+        self.sink_spec = SinkSpec.from_params(params)
+        self.sinks = None
+        self.units = None
+        if self.sink_spec.enabled and self._pm_physics:
+            self.sinks = (sinks if sinks is not None
+                          else SinkSet.empty(params.ndim))
+            self.units = units_fn(params, cosmo=self.cosmo, aexp=(
+                self.cosmo.aexp_ini if self.cosmo is not None else 1.0))
         if init_tree is not None:
             self.tree = init_tree
             self._rebuild_maps()
@@ -518,7 +550,7 @@ class AmrSim:
                    dtype=None, device=None, tracer_x=None, tracer_id=None,
                    tracer_rng=None, phi=None, fg=None, poisson_iters=None,
                    dt_old: float = 0.0, dt_next: Optional[float] = None,
-                   particles=None, **kwargs) -> "AmrSim":
+                   particles=None, sinks=None, **kwargs) -> "AmrSim":
         """Start from a given hierarchy: per-level oct coordinates
         ``tree_og`` and state rows ``rows`` (numpy, e.g. from
         :func:`ramses_tpu_torch.convert.amr_state_from`), the time and the
@@ -533,7 +565,9 @@ class AmrSim:
         ``dt_old`` is the last coarse step and ``dt_next`` (or None) the
         cached Courant dt of the next one, as a snapshot records them.
         ``particles``: a :class:`ramses_tpu_torch.pm.particles.ParticleSet`
-        (e.g. from :func:`ramses_tpu_torch.convert.particles_from`).
+        (e.g. from :func:`ramses_tpu_torch.convert.particles_from`);
+        ``sinks``: a :class:`ramses_tpu_torch.pm.sinks.SinkSet` (e.g. from
+        :func:`ramses_tpu_torch.convert.sinks_from`).
         ``kwargs`` go to the constructor (a subclass's own arguments, such
         as a shard mesh)."""
         tree = Octree(params.ndim, params.amr.levelmin, params.amr.levelmax)
@@ -544,6 +578,8 @@ class AmrSim:
                      == np.float64 else torch.float32)
         if particles is not None:
             kwargs = dict(kwargs, particles=particles)
+        if sinks is not None:
+            kwargs = dict(kwargs, sinks=sinks)
         sim = cls(params, dtype=dtype, device=device, init_tree=tree,
                   noct_pad=noct_pad, seed_tracers=False, **kwargs)
         for l in sim.levels():
@@ -1199,7 +1235,17 @@ class AmrSim:
         if rho_max is not None:
             self._rho_max = float(rho_max)   # one host fetch a solve
 
+    def _refresh_units(self):
+        """Supercomoving unit scales depend on aexp (``amr/units.f90``):
+        refreshed before every coarse step of a cosmological run that
+        keeps them (the sink passes)."""
+        if self.cosmo is not None and self.units is not None:
+            from ramses_tpu_torch.units import units as units_fn
+            self.units = units_fn(self.params, cosmo=self.cosmo,
+                                  aexp=self.aexp_now())
+
     def step_coarse(self, dt: float):
+        self._refresh_units()
         # the particle maps, the solve and the particle kick at x^n
         self._grav_pm_pre(float(dt))
         spec = self._fused_spec()
@@ -1221,22 +1267,33 @@ class AmrSim:
         self.nstep += 1
 
     def _source_passes(self, dt: float):
-        """Coarse-cadence source passes after the step: the MC tracer
-        jumps (``pm/move_tracer.f90``) from this step's capture."""
-        if self.tracer_x is not None and self._tracer_phi is not None:
-            amr_physics.mc_tracer_amr(self)
+        """Coarse-cadence source passes after the step (``amr_step`` order
+        ``:369-380,493,549-567``): the sink passes, then the tracers, with
+        the MC jumps (``pm/move_tracer.f90``) where the step captured its
+        face fluxes and the CIC velocity drift where it did not (the MHD
+        hierarchy).  The sink passes change u after the step emitted the
+        next Courant dt, so the cached one is dropped (the reference
+        re-evaluates ``courant_fine`` after the source sweep)."""
+        if self.sinks is not None:
+            amr_physics.sink_passes_amr(self, dt)
+            self._dt_cache = None
+        if self.tracer_x is not None:
+            if self._tracer_phi is not None:
+                amr_physics.mc_tracer_amr(self)
+            else:
+                amr_physics.tracer_drift_amr(self, dt)
 
     def step_chunk(self, nsteps: int, tend: float) -> int:
         """Up to ``nsteps`` coarse steps with no host synchronisation in
         between, then one fetch of (t, dt, steps done); callers guarantee
         no regrid is due inside the chunk.  Returns the steps done."""
         spec = self._fused_spec()
-        if (spec.want_flux or self.gravity or self.pic
-                or self.cosmo is not None):
-            raise ValueError("step_chunk: the MC tracers move, the gravity "
-                             "solve and the particles run, and the "
-                             "cosmological caps change before every coarse "
-                             "step; use step_coarse")
+        if (self.tracer_x is not None or self.gravity or self.pic
+                or self.cosmo is not None or self.sinks is not None):
+            raise ValueError("step_chunk: the tracers move, the gravity "
+                             "solve, the particles and the sink passes run, "
+                             "and the cosmological caps change before every "
+                             "coarse step; use step_coarse")
         f64 = dict(dtype=torch.float64, device=self.device)
         dt0 = (self._dt_cache if self._dt_cache is not None
                else torch.min(_courant(self.u, self.dev, spec))).to(**f64)
@@ -1279,7 +1336,8 @@ class AmrSim:
             chunk = 1 << (max(lim, 1).bit_length() - 1)
             per = self.updates_per_step()
             if (chunk > 1 and self.tracer_x is None and not self.gravity
-                    and not self.pic and self.cosmo is None):
+                    and not self.pic and self.cosmo is None
+                    and self.sinks is None):
                 n = self.step_chunk(chunk, tend)
             else:
                 dt = min(self.coarse_dt(), tend - self.t)
@@ -1326,6 +1384,8 @@ class AmrSim:
         note = f"octs={[self.tree.noct(l) for l in self.levels()]}"
         if self.tracer_x is not None:
             note += f" tracers={len(self.tracer_x)}"
+        if self.sinks is not None:
+            note += f" sinks={self.sinks.n}"
         return note
 
     def cosmo_line(self) -> str:
@@ -1357,18 +1417,30 @@ class AmrSim:
 
         ``dumper``: optional :class:`ramses_tpu_torch.io.async_writer.
         AsyncDumper`; the host snapshot is assembled here (every level's
-        rows fetched once), the files are written on its thread."""
+        rows fetched once), the files are written on its thread.  With
+        sinks, ``sink_NNNNN.csv`` (``pm/output_sink.f90``) is staged beside
+        the file set and lands under its manifest."""
+        import shutil
+
         from ramses_tpu_torch.io import snapshot as snapmod
         snap = snapmod.snapshot_from_amr(self, iout)
+        extra = None
+        if self.sinks is not None:
+            extra = os.path.join(base_dir, f"output_{iout:05d}.extras.tmp")
+            if os.path.isdir(extra):
+                shutil.rmtree(extra)
+            os.makedirs(extra)
+            snapmod.write_sink_csv(os.path.join(extra, f"sink_{iout:05d}.csv"),
+                                   self.sinks)
         keep = int(self.params.output.checkpoint_keep)
         if dumper is not None:
             dumper.submit(snap, iout, base_dir,
                           namelist_path=namelist_path, ncpu=ncpu,
-                          keep_last=keep)
+                          extra_dir=extra, keep_last=keep)
             return os.path.join(base_dir, f"output_{iout:05d}")
         return snapmod.dump_all(snap, iout, base_dir,
                                 namelist_path=namelist_path, ncpu=ncpu,
-                                keep_last=keep)
+                                extra_dir=extra, keep_last=keep)
 
     @classmethod
     def from_snapshot(cls, params: Params, outdir: str, dtype=torch.float32,

@@ -113,9 +113,37 @@ def mhd_amr_state_from(sim) -> dict:
     ``MhdAmrSim`` or the port's) as numpy arrays: the keyword arguments of
     :meth:`ramses_tpu_torch.mhd.amr.MhdAmrSim.from_state` (per-level oct
     coordinates, cell rows, face rows ``[ncell_pad, 3, 2]`` and padded oct
-    counts, time and step count)."""
+    counts, time and step count, and what :func:`amr_state_from` carries
+    beside them: the last solve's ``phi``, ``fg`` and ``poisson_iters``
+    with gravity, the tracers, ``dt_old``).  The particles go across
+    through :func:`particles_from` (``from_state(..., particles=...)``)."""
     return dict(amr_state_from(sim),
                 bfs={l: _host(sim.bfs[l]) for l in sim.levels()})
+
+
+def sinks_from(sinks):
+    """A sink set of either package as the port's
+    :class:`ramses_tpu_torch.pm.sinks.SinkSet` (host numpy copies, the
+    next id kept)."""
+    from ramses_tpu_torch.pm.sinks import SinkSet
+    return SinkSet(x=np.array(sinks.x, dtype=np.float64),
+                   v=np.array(sinks.v, dtype=np.float64),
+                   m=np.array(sinks.m, dtype=np.float64),
+                   tform=np.array(sinks.tform, dtype=np.float64),
+                   idp=np.array(sinks.idp, dtype=np.int64),
+                   next_id=int(sinks.next_id))
+
+
+def turb_from(turb, spec, device="cpu"):
+    """A turbulence forcing of either package as the port's
+    :class:`ramses_tpu_torch.turb.forcing.TurbForcing` on ``device`` with
+    the same OU field (the port's ``spec``; its generator is seeded from
+    ``turb_seed``, as a JAX package's key cannot be continued)."""
+    from ramses_tpu_torch.turb.forcing import TurbForcing
+    out = TurbForcing(turb.shape, spec, device=device)
+    out.fhat = torch.tensor(np.asarray(_host(turb.fhat),
+                                       dtype=np.complex128), device=device)
+    return out
 
 
 def shards_from_numpy(u, mesh, axis: int, dtype=None) -> list:

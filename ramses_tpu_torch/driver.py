@@ -26,10 +26,19 @@ starts from the namelist's grafic or Gadget ICs (:func:`load_cosmo_ics`)
 at the conformal time of ``aexp_ini`` and turns ``aout`` into output
 times.
 
+After each chunk the coarse-cadence source passes run with the chunk's
+time (``Simulation._source_passes``, as the JAX driver's): the
+turbulence forcing of ``&TURB_PARAMS`` (:mod:`ramses_tpu_torch.turb.
+forcing`: one OU update and one kick a chunk, so the chunking is the JAX
+driver's), then the sink passes of ``&SINK_PARAMS`` (:mod:`ramses_tpu_torch.
+pm.sinks`, host numpy on one fetch of the state).  ``dump`` stages the OU
+field and its generator state as ``turb_fields.npz``.
+
 Runs on CUDA unless the caller passes ``device="cpu"``; without a GPU a
 run that did not ask for the CPU raises.  Every feature of the JAX driver
-beyond hydro with gravity, particles and cosmology, and MHD (uniform, or
-AMR on one device) raises ``NotImplementedError`` naming it.
+beyond hydro with gravity, particles, cosmology, sinks and turbulence
+forcing, and MHD (uniform, or AMR on one device) raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -123,11 +132,10 @@ def unported_features(params: Params) -> list:
     checks = [
         ("radiative transfer (&RUN_PARAMS rt)", params.run.rt),
         ("cooling (&COOLING_PARAMS cooling)", params.cooling.cooling),
-        ("turbulence forcing (&TURB_PARAMS turb)",
-         on("turb_params", "turb")),
         ("star formation (&SF_PARAMS)", bool(raw.get("sf_params"))),
-        ("sinks (&SINK_PARAMS create_sinks)",
-         on("sink_params", "create_sinks")),
+        # the JAX hierarchy builds them from the sinks
+        ("stellar objects (&STELLAR_PARAMS)",
+         bool(raw.get("stellar_params"))),
         ("movies (&MOVIE_PARAMS movie)", on("movie_params", "movie")),
         ("ensemble (&ENSEMBLE_PARAMS nmember > 1)",
          params.ensemble.nmember > 1),
@@ -189,6 +197,10 @@ class Simulation:
         self.cosmo = (Cosmology.from_params(params) if params.run.cosmo
                       else None)
         self.gspec = GravitySpec.from_params(params)
+        # the sink spec early: the particle-lane budget below needs to know
+        # whether the run keeps creating particles
+        from ramses_tpu_torch.pm.sinks import SinkSet, SinkSpec
+        self.sink_spec = SinkSpec.from_params(params)
         box_periodic = all(f.kind == bmod.PERIODIC
                            for pair in self.bc.faces for f in pair)
         if not box_periodic:
@@ -223,12 +235,14 @@ class Simulation:
                                                 device=self.device))
         if self.pspec.enabled:
             from ramses_tpu_torch.pm.particles import lane_headroom
-            # pic without IC particles: an empty set of npartmax lanes
+            # pic without IC particles: an empty set whose lane budget
+            # leaves room for a run that creates particles (sinks)
             self.state.p = particles if particles is not None else \
                 ParticleSet.make(np.zeros((0, params.ndim)),
                                  np.zeros((0, params.ndim)), np.zeros(0),
                                  dtype=dtype, device=self.device,
-                                 nmax=lane_headroom(params, False) or 1)
+                                 nmax=lane_headroom(
+                                     params, self.sink_spec.enabled) or 1)
         if self.gspec.enabled:
             # the supercomoving source coefficient at aexp_ini
             self._initial_force(
@@ -245,6 +259,17 @@ class Simulation:
                         for a in params.output.aout if a <= 1.0]
                 params.output.tout = sorted(set(params.output.tout + taus))
                 params.output.noutput = len(params.output.tout)
+        # coarse-cadence source passes: sinks (host numpy) and the OU
+        # turbulence forcing (&TURB_PARAMS) on the device
+        from ramses_tpu_torch.turb.forcing import TurbForcing, TurbSpec
+        from ramses_tpu_torch.units import units as units_fn
+        self.units = units_fn(params, cosmo=self.cosmo, aexp=(
+            self.cosmo.aexp_ini if self.cosmo is not None else 1.0))
+        self.sinks = (SinkSet.empty(params.ndim)
+                      if self.sink_spec.enabled else None)
+        self.turb_spec = TurbSpec.from_params(params)
+        self.turb = (TurbForcing(shape, self.turb_spec, device=self.device)
+                     if self.turb_spec.enabled else None)
         self.output_times = list(params.output.tout[:params.output.noutput])
         # called as on_output(sim, iout) at each output time reached (the
         # CLI dumps there); None writes nothing
@@ -370,6 +395,7 @@ class Simulation:
                 elif ndone:
                     st.dt_old = (st.t - t_before) / ndone
                 self.cell_updates += ndone * self.grid.ncell
+                self._source_passes(st.t - t_before)
                 if verbose:
                     print(self.step_line((st.t - t_before) / ndone
                                          if ndone else None, ndone))
@@ -381,6 +407,39 @@ class Simulation:
                 self.on_output(self, st.iout)
             st.iout += 1
         return st
+
+    def _source_passes(self, dt_chunk: float):
+        """Coarse-step-cadence source terms after a chunk of ``dt_chunk``
+        (``amr_step`` order ``:369-380,493,549-567``): the OU turbulence
+        forcing (one update and one kick with the chunk's time, on the
+        device), then sink creation, accretion, merging and motion on one
+        fetch of the state (and of the force, with gravity)."""
+        if dt_chunk <= 0.0:
+            return
+        st = self.state
+        if self.turb is not None:
+            from ramses_tpu_torch.turb.forcing import apply_forcing
+            self.turb.update(dt_chunk)
+            st.u = apply_forcing(st.u, self.turb.acceleration(), dt_chunk,
+                                 self.turb_spec.turb_min_rho)
+        if self.sinks is not None:
+            from ramses_tpu_torch.pm.sinks import (accrete, create_sinks,
+                                                   drift_kick, merge_sinks)
+            u_np = st.u.to(torch.float64).cpu().numpy()
+            u_np, self.sinks = create_sinks(
+                u_np, self.sinks, self.sink_spec, self.units, self.dx,
+                st.t, self.cfg.gamma)
+            u_np, self.sinks = accrete(
+                u_np, self.sinks, self.sink_spec, self.units, self.dx,
+                dt_chunk, self.cfg.gamma)
+            self.sinks = merge_sinks(self.sinks, self.sink_spec, self.dx)
+            f = st.f.to(torch.float64).cpu().numpy() if st.f is not None \
+                else None
+            self.sinks = drift_kick(self.sinks, f, self.dx, dt_chunk,
+                                    self.params.amr.boxlen,
+                                    spec=self.sink_spec, units=self.units)
+            st.u = torch.as_tensor(u_np, dtype=st.u.dtype,
+                                   device=self.device)
 
     def step_line(self, dt: Optional[float], chunk: int) -> str:
         """The per-chunk progress line."""
@@ -402,8 +461,11 @@ class Simulation:
 
     def status_note(self) -> str:
         """The CLI's closing note on the run: microseconds per cell
-        update."""
-        return f"mus/pt={self.mus_per_cell_update():.4f}"
+        update, and the sink count when sinks run."""
+        note = f"mus/pt={self.mus_per_cell_update():.4f}"
+        if self.sinks is not None:
+            note += f" sinks={self.sinks.n}"
+        return note
 
     # ------------------------------------------------------------------
     # snapshot / restart
@@ -419,6 +481,14 @@ class Simulation:
         snap = snapmod.snapshot_from_uniform(self, iout)
         base = base_dir or self.params.output.output_dir
         extra = None
+        if self.turb is not None:
+            # the OU field and its generator state ride in every snapshot
+            # (``turb/write_turb_fields.f90``), so a restart continues the
+            # same forcing realisation; staged beside the file set so that
+            # it lands under the checkpoint manifest
+            extra = os.path.join(base, f"output_{iout:05d}.extras.tmp")
+            os.makedirs(extra, exist_ok=True)
+            self.turb.save(os.path.join(extra, "turb_fields.npz"))
         if self.params.output.savegadget and self.state.p is not None:
             # &OUTPUT_PARAMS savegadget: each particle output also lands as
             # a Gadget SnapFormat=1 file, staged into the extras dir so
@@ -443,11 +513,15 @@ class Simulation:
         from ramses_tpu_torch.io.restart import (restore_particles,
                                                  restore_uniform)
         from ramses_tpu_torch.pm.particles import lane_headroom
+        from ramses_tpu_torch.pm.sinks import SinkSpec
         dense, meta, parts = restore_uniform(
             outdir, params, HydroStatic.from_params(params))
         dev = resolve_device(device)
+        # a run that creates particles needs free lanes after the restart
         p = (restore_particles(parts, params.ndim, dtype=dtype, device=dev,
-                               nmax=lane_headroom(params, False))
+                               nmax=lane_headroom(
+                                   params, SinkSpec.from_params(params)
+                                   .enabled))
              if parts else None)
         sim = cls(params, dtype=dtype, device=device, particles=p)
         sim.state.u = torch.as_tensor(dense, dtype=dtype, device=sim.device)
@@ -463,6 +537,22 @@ class Simulation:
             sim.state.iout = 1 + sum(
                 1 for tt in sim.output_times
                 if sim.state.t >= tt - 1e-12 * (abs(tt) + 1.0))
+        if sim.turb is not None:
+            import os
+            import warnings
+
+            from ramses_tpu_torch.turb.forcing import TurbForcing
+            tpath = os.path.join(outdir, "turb_fields.npz")
+            if os.path.exists(tpath):
+                # the OU field and the generator (read_turb_fields.f90):
+                # the restarted run continues the straight run's forcing
+                sim.turb = TurbForcing.load(tpath, sim.turb_spec,
+                                            device=sim.device)
+            else:
+                warnings.warn(f"no turb_fields.npz in {outdir}: the "
+                              "forcing re-seeds from turb_seed and the "
+                              "restart will not reproduce the original "
+                              "driving sequence")
         if sim.gspec.enabled:
             # the force of the restored density; the supercomoving factor
             # at the restored time, not at aexp_ini, so that the restart

@@ -65,6 +65,30 @@ def step(grid: UniformGrid, u, dt):
     return bmod.unpad(un, cfg.ndim, muscl.NGHOST)
 
 
+def step_with_flux(grid: UniformGrid, u, dt):
+    """Like :func:`step`, and also the mass flux·dt/dx at the LOW face of
+    every active cell, ``[ndim, *shape]`` (positive = flowing in +d): the
+    quantity the Monte-Carlo tracers sample
+    (``hydro/godunov_fine.f90:685-715``).  Where the fused kernel covers
+    the grid this is one launch of its ``want_flux`` entry (its low-face
+    slot); elsewhere the general formulation's mass flux."""
+    cfg = grid.cfg
+    dt = torch.as_tensor(dt, dtype=u.dtype, device=u.device)
+    if fused_ok(grid, u.dtype):
+        un, phi = fm.fused_step(u, dt, cfg, grid.dx, grid.bc,
+                                want_flux=True)
+        return un, phi[:, 0]
+    up = bmod.pad(u, grid.bc, cfg, muscl.NGHOST)
+    flux, tmp = muscl.unsplit(up, None, dt, (grid.dx,) * cfg.ndim, cfg)
+    un = muscl.apply_fluxes(up, flux, cfg)
+    if cfg.pressure_fix or cfg.nener:
+        un = muscl.dual_energy_fix(up, un, tmp, dt,
+                                   (grid.dx,) * cfg.ndim, cfg)
+    mass_flux = torch.stack([bmod.unpad(flux[d][0], cfg.ndim, muscl.NGHOST)
+                             for d in range(cfg.ndim)])
+    return bmod.unpad(un, cfg.ndim, muscl.NGHOST), mass_flux
+
+
 def cfl_dt(grid: UniformGrid, u):
     return compute_dt(u, None, grid.dx, grid.cfg)
 

@@ -211,6 +211,32 @@ def snapshot_from_mhd_amr(sim, iout: int = 1) -> Snapshot:
         gamma=mcfg.gamma)
 
 
+def write_sink_csv(path: str, sinks, dmf: Optional[dict] = None) -> None:
+    """``sink_NNNNN.csv`` with the reference's column header
+    (``pm/output_sink.f90:16-27``); unsampled quantities (angular
+    momentum, Bondi diagnostics, SMBH mass) write 0 — the oracle
+    (``tests/visu/visu_ramses.py:424-447``) parses any float there."""
+    with open(path, "w") as f:
+        f.write(" # id,msink,x,y,z,vx,vy,vz,lx,ly,lz,tform,acc_rate,"
+                "del_mass,rho_gas,cs**2,etherm,vx_gas,vy_gas,vz_gas,"
+                "mbh,dmfsink,level \n")
+        f.write(" # 1,m,l,l,l,l t**-1,l t**-1,l t**-1,m l**2 t**-1,"
+                "m l**2 t**-1,m l**2 t**-1,t,m t**-1,m,m l**-3,"
+                "l**2 t**-2,m l**2 t**-2,l t**-1,l t**-1,l t**-1,"
+                "m,m,1\n")
+        nd = sinks.x.shape[1]
+        for k in range(sinks.n):
+            x3 = list(sinks.x[k]) + [0.0] * (3 - nd)
+            v3 = list(sinks.v[k]) + [0.0] * (3 - nd)
+            dmfk = (dmf or {}).get(int(sinks.idp[k]), 0.0)
+            vals = ([sinks.m[k]] + x3 + v3 + [0.0, 0.0, 0.0]
+                    + [sinks.tform[k], 0.0, 0.0, 0.0, 0.0, 0.0,
+                       0.0, 0.0, 0.0, 0.0, dmfk])
+            f.write(f"{int(sinks.idp[k]):10d}"
+                    + "".join(f",{v:21.10e}" for v in vals)
+                    + f",{1:10d}\n")
+
+
 # ----------------------------------------------------------------------
 # snapshot tree model
 # ----------------------------------------------------------------------

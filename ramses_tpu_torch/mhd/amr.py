@@ -36,9 +36,21 @@ B_left/B_right faces, pressure) and ``from_snapshot`` restores it through
 the hydro hierarchy's restart scaffold: the face fields come back verbatim
 from the left and right columns, the centred B as their mean.
 
-Gravity, particles, tracers, patch hooks, offload and the multi-device
-slab and explicit-comm paths are not ported: a namelist that turns one on
-raises ``NotImplementedError`` naming it.
+``&RUN_PARAMS poisson`` runs the hydro hierarchy's per-level solve before
+each coarse step and gives each level a half kick of momentum before and
+after its sweep at fixed internal plus magnetic energy
+(:func:`mhd_kick_flat`, the ``synchro_hydro_fine`` step with the MHD
+layout), with the gravity-strength correction of the Courant dt; ``pic``
+adds the shared particle-mesh layer (maps, deposit, kick, drift, the
+particle and free-fall dt caps) and ``tracer`` the CIC velocity tracers
+(:func:`ramses_tpu_torch.pm.amr_physics.tracer_drift_amr`): the MHD step
+captures no face fluxes, as in the JAX package.  The kicks are torch
+formulations on the flat rows (the JAX package has no kernel for them);
+the complete levels' CT step stays K4.  Sinks, star formation and cooling
+stay off on this hierarchy, as the JAX package's ``_pm_family`` keeps
+them; cosmology, patch hooks, offload and the multi-device slab and
+explicit-comm paths are not ported: a namelist that turns one on raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -367,9 +379,12 @@ def mhd_tile_sweep(u_flat, interp_u, bf_flat, interp_bf, tile_src, tile_ok,
 # ---------------------------------------------------------------------------
 
 def mhd_level_courant(u_flat, bf_flat, valid_cell, dx: float,
-                      cfg: MhdStatic):
+                      cfg: MhdStatic, fg=None):
     """Fast-magnetosonic CFL dt over the level's valid cells (mhd
-    ``courant_fine``), a 0-d device tensor."""
+    ``courant_fine``), a 0-d device tensor.  ``fg`` ``[ncell, ndim]``
+    applies the gravity-strength correction of ``cmpdt``
+    (``hydro/godunov_utils.f90:100-110``), so that the kicks cannot outrun
+    the step in near-free-fall cells."""
     ctr = 0.5 * (bf_flat[:, :, 0] + bf_flat[:, :, 1])  # [ncell, 3]
     u = torch.cat([u_flat[:, :IBX], ctr, u_flat[:, IBX + NCOMP:]], dim=1).t()
     q = core.ctoprim(u, cfg)
@@ -378,8 +393,30 @@ def mhd_level_courant(u_flat, bf_flat, valid_cell, dx: float,
         w = torch.abs(q[1 + d]) + core.fast_speed(q, d, cfg)
         ws = w if ws is None else ws + w
     ws = torch.clamp(ws, min=cfg.smallc)
-    dtc = torch.where(valid_cell, dx / ws, torch.inf)
+    dtc = dx / ws
+    if fg is not None:
+        gnorm = sum(torch.abs(fg[:, d]) for d in range(cfg.ndim))
+        ratio = torch.clamp(gnorm * dx / ws ** 2, min=1e-4)
+        cf = cfg.courant_factor
+        dtc = dtc * (torch.sqrt(1.0 + 2.0 * cf * ratio) - 1.0) / (cf * ratio)
+    dtc = torch.where(valid_cell, dtc, torch.inf)
     return cfg.courant_factor * torch.min(dtc)
+
+
+def mhd_kick_flat(u_rows, fg_rows, dteff, ndim: int, smallr: float):
+    """Gravity momentum kick at fixed internal plus magnetic energy on flat
+    MHD rows (the ``synchro_hydro_fine`` step with the MHD layout: the
+    momentum always has 3 components at 1..3, the total energy is at
+    ``IP``); the components beyond ``ndim`` get no kick."""
+    r = torch.clamp(u_rows[:, 0], min=smallr)
+    ek_old = sum(0.5 * u_rows[:, 1 + c] ** 2 for c in range(NCOMP)) / r
+    mom = [u_rows[:, 1 + c] + r * fg_rows[:, c] * dteff if c < ndim
+           else u_rows[:, 1 + c] for c in range(NCOMP)]
+    ek_new = sum(0.5 * m * m for m in mom) / r
+    e = u_rows[:, IP] - ek_old + ek_new
+    # IP == 1 + NCOMP: [rho, mom, E, B, passives]
+    return torch.cat([u_rows[:, :1], torch.stack(mom, dim=1), e[:, None],
+                      u_rows[:, IP + 1:]], dim=1)
 
 
 def mhd_restrict_upload(u_level, bf_level, u_fine, bf_fine, ref_cell,
@@ -546,9 +583,11 @@ def _complete_level_step(u_l, bf_l, d, dt, dx: float, l: int,
     return du, b_rows
 
 
-def _advance(u, bf, dev, dt, spec: FusedSpec):
+def _advance(u, bf, dev, dt, spec: FusedSpec, fg=None):
     """One recursive subcycled MHD coarse step as device work only (cf.
-    :func:`ramses_tpu_torch.amr.hierarchy._advance`).
+    :func:`ramses_tpu_torch.amr.hierarchy._advance`); with
+    ``spec.gravity`` each level's half kicks with its force rows ``fg[l]``
+    before and after its sweep.
 
     Cell-state conservation at coarse-fine interfaces follows the hydro
     scheme: refined-face fluxes are zeroed in the coarse sweep and the fine
@@ -566,6 +605,8 @@ def _advance(u, bf, dev, dt, spec: FusedSpec):
         l = levels[i]
         d = dev[l]
         dxl = spec.boxlen / (1 << l)
+        if spec.gravity:
+            u[l] = mhd_kick_flat(u[l], fg[l], 0.5 * dtl, nd, cfg.smallr)
         unew[l] = u[l]
         child_emf = None
         if i + 1 < len(levels):
@@ -614,6 +655,8 @@ def _advance(u, bf, dev, dt, spec: FusedSpec):
                                                 d["corr_plan"], cfg)
             bf[l] = bfn
         u[l] = unew[l]
+        if spec.gravity:
+            u[l] = mhd_kick_flat(u[l], fg[l], 0.5 * dtl, nd, cfg.smallr)
         if i + 1 < len(levels):
             u[l], bf[l] = mhd_restrict_upload(
                 u[l], bf[l], u[levels[i + 1]], bf[levels[i + 1]],
@@ -633,19 +676,22 @@ def _advance(u, bf, dev, dt, spec: FusedSpec):
     return u, bf
 
 
-def _courant(u, bf, dev, spec: FusedSpec):
-    """All levels' CFL dts as coarse-step equivalents ``[nlevel]``."""
+def _courant(u, bf, dev, spec: FusedSpec, fg=None):
+    """All levels' CFL dts as coarse-step equivalents ``[nlevel]`` (with
+    the gravity correction of each level's ``fg[l]`` when given)."""
     return torch.stack([
         mhd_level_courant(u[l], bf[l], dev[l]["valid_cell"],
-                          spec.boxlen / (1 << l), spec.cfg)
+                          spec.boxlen / (1 << l), spec.cfg,
+                          fg.get(l) if fg else None)
         * (2.0 ** (l - spec.lmin)) for l in spec.levels])
 
 
-def _coarse_step(u, bf, dev, dt, spec: FusedSpec):
+def _coarse_step(u, bf, dev, dt, spec: FusedSpec, fg=None):
     """One coarse step and the next step's Courant dt (0-d device
     tensor)."""
-    u, bf = _advance(u, bf, dev, dt, spec)
-    return u, bf, torch.min(_courant(u, bf, dev, spec))
+    u, bf = _advance(u, bf, dev, dt, spec, fg)
+    return u, bf, torch.min(_courant(u, bf, dev, spec,
+                                     fg if spec.gravity else None))
 
 
 def _multi_step(u, bf, dev, t, tend, dt0, spec: FusedSpec, nsteps: int):
@@ -682,6 +728,8 @@ class MhdAmrSim(AmrSim):
     given."""
 
     _needs_mig_log = True
+    # MHD rows carry the cell-centred B: sinks (and star formation and
+    # cooling) stay off, as the JAX package's ``_pm_family`` keeps them
     _pm_physics = False
 
     @classmethod
@@ -952,26 +1000,42 @@ class MhdAmrSim(AmrSim):
 
     # ---- stepping ------------------------------------------------------
     def _fused_spec(self) -> FusedSpec:
+        # the CT step captures no face fluxes: tracers drift instead
         if self._spec is None:
-            self._spec = super()._fused_spec()._replace(cfg=self.mcfg)
+            self._spec = super()._fused_spec()._replace(cfg=self.mcfg,
+                                                         want_flux=False)
         return self._spec
 
     def coarse_dt(self) -> float:
+        """The CFL dt (the one device→host fetch of a step; with gravity
+        corrected by the last solve's force) capped by :meth:`_aux_dts`
+        (the particle Courant and the free-fall time)."""
         if self._dt_cache is not None:
-            return float(self._dt_cache)
-        return float(torch.min(_courant(self.u, self.bfs, self.dev,
-                                        self._fused_spec())))
+            dt = float(self._dt_cache)
+        else:
+            dt = float(torch.min(_courant(
+                self.u, self.bfs, self.dev, self._fused_spec(),
+                self.fg if (self.gravity and self.fg) else None)))
+        return min([dt] + self._aux_dts())
 
     def step_coarse(self, dt: float):
+        # the particle maps, the solve and the particle kick at x^n
+        self._grav_pm_pre(float(dt))
         self.u, self.bfs, self._dt_cache = _coarse_step(
             self.u, self.bfs, self.dev,
             torch.tensor(float(dt), dtype=self.dtype, device=self.device),
-            self._fused_spec())
+            self._fused_spec(), self.fg if self.gravity else None)
+        self._pm_drift(float(dt))
         self.t += float(dt)
+        self._source_passes(float(dt))
         self.dt_old = float(dt)
         self.nstep += 1
 
     def step_chunk(self, nsteps: int, tend: float) -> int:
+        if self.gravity or self.pic or self.tracer_x is not None:
+            raise ValueError("step_chunk: the gravity solve, the particles "
+                             "and the tracers run between coarse steps; use "
+                             "step_coarse")
         spec = self._fused_spec()
         f64 = dict(dtype=torch.float64, device=self.device)
         dt0 = (self._dt_cache if self._dt_cache is not None

@@ -84,28 +84,41 @@ def mhd_condinit(shape, dx: float, p: Params, cfg: MhdStatic):
 
 
 def unported_mhd_features(params: Params) -> list:
-    """Names of the namelist's features the port's MHD drivers do not run
-    yet: the uniform :class:`MhdSimulation`, or with ``levelmax >
-    levelmin`` the hierarchy :class:`ramses_tpu_torch.mhd.amr.MhdAmrSim`
-    (beyond what :func:`ramses_tpu_torch.driver.unported_features` and, on
-    the hierarchy, :func:`ramses_tpu_torch.amr.hierarchy.
-    unported_amr_features` list: particles, restart, the step guard,
-    telemetry, offload and the rest), and gravity, particles and
-    cosmology, which the hydro drivers run.  The hierarchy refuses tracers too: the JAX package
-    moves them there as CIC velocity tracers, which need the particle
-    layer."""
+    """Names of the namelist's features the port's MHD drivers do not run:
+    the uniform :class:`MhdSimulation`, or with ``levelmax > levelmin``
+    the hierarchy :class:`ramses_tpu_torch.mhd.amr.MhdAmrSim` (beyond what
+    :func:`ramses_tpu_torch.driver.unported_features` and, on the
+    hierarchy, :func:`ramses_tpu_torch.amr.hierarchy.unported_amr_features`
+    list: the step guard, telemetry, offload and the rest).
+
+    The hierarchy runs gravity, particles and tracers; the uniform driver
+    refuses all three, where the JAX package's ``MhdSimulation`` reads
+    none of them and would run without them.  Both refuse sinks (the JAX
+    package's MHD hierarchy turns them off, its uniform driver ignores
+    them) and cosmology (no JAX test runs it on MHD); the uniform driver
+    refuses turbulence forcing, which the JAX package applies on the hydro
+    ``Simulation`` only (the hierarchy's own refusal names it there)."""
     from ramses_tpu_torch.amr.hierarchy import unported_amr_features
     from ramses_tpu_torch.driver import unported_features
+    from ramses_tpu_torch.pm.sinks import SinkSpec
+    from ramses_tpu_torch.turb.forcing import TurbSpec
     amr = params.amr.levelmax > params.amr.levelmin
     out = (unported_amr_features if amr else unported_features)(params)
-    if params.run.poisson:
-        out.append("gravity on the MHD drivers (&RUN_PARAMS poisson)")
-    if params.run.pic:
-        out.append("particles on the MHD drivers (&RUN_PARAMS pic)")
+    if not amr:
+        r = params.run
+        for on, name in ((r.poisson, "gravity (&RUN_PARAMS poisson)"),
+                         (r.pic, "particles (&RUN_PARAMS pic)"),
+                         (r.tracer, "tracers (&RUN_PARAMS tracer)")):
+            if on:
+                out.append(f"{name} on the uniform MHD driver (it runs on "
+                           "the MHD hierarchy)")
+        if TurbSpec.from_params(params).enabled:
+            out.append("turbulence forcing on the uniform MHD driver "
+                       "(&TURB_PARAMS turb)")
+    if SinkSpec.from_params(params).enabled:
+        out.append("sinks on the MHD drivers (&SINK_PARAMS create_sinks)")
     if params.run.cosmo:
         out.append("cosmology on the MHD drivers (&RUN_PARAMS cosmo)")
-    if params.run.tracer and amr:
-        out.append("tracers (&RUN_PARAMS tracer) on the MHD hierarchy")
     return out
 
 

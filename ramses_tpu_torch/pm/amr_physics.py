@@ -1,15 +1,24 @@
-"""Monte-Carlo gas tracers on the AMR hierarchy (host numpy).
+"""Source passes on the AMR hierarchy: Monte-Carlo and velocity gas
+tracers, and sink particles (host numpy).
 
-Port of the tracer part of ``ramses_tpu/pm/amr_physics.py``:
-:func:`ngp_rows` (the cell containing each position at one level) and
+Port of the tracer and sink parts of ``ramses_tpu/pm/amr_physics.py``:
+:func:`ngp_rows` (the cell containing each position at one level),
 :func:`mc_tracer_amr`, the flux-probability jumps of ``pm/move_tracer.f90``
-(the Cadiou et al. scheme).  Tracer positions and ids live on the host, as
-in the JAX package: the coarse step captures each level's face mass fluxes
-on the device (``want_flux`` of the hydro kernels, :mod:`ramses_tpu_torch.
+(the Cadiou et al. scheme), :func:`tracer_drift_amr`, the CIC velocity
+tracers of the paths that capture no face fluxes (the MHD hierarchy), and
+:func:`sink_passes_amr`, the sink creation, accretion, merging and motion
+of ``pm/sink_particle.f90``.  They run at coarse-step cadence after the
+step, as in the JAX package.  Tracer positions and ids, and the sinks, live
+on the host: the coarse step captures each level's face mass fluxes on the
+device (``want_flux`` of the hydro kernels, :mod:`ramses_tpu_torch.
 amr.kernels`), and the jumps run once per coarse step on the host with the
 simulation's own numpy generator, so the same captures and generator state
-give the same tracers as the JAX package.  Star formation, sinks and the
-velocity tracers of the MHD hierarchy are not ported yet.
+give the same tracers as the JAX package.  The sink pass fetches what the
+JAX package fetches: each level's density column first, the whole level
+only where a candidate cell exists, the levels the sinks' clouds touch,
+and the force rows at the sinks; a level it changed goes back to the
+device in the state's dtype.  Star formation and SN feedback are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +27,8 @@ import numpy as np
 import torch
 
 from ramses_tpu_torch.amr.tree import Octree, map_coords
+from ramses_tpu_torch.pm import amr_pm
+from ramses_tpu_torch.units import factG_in_cgs
 
 
 def ngp_rows(tree: Octree, x: np.ndarray, lvl: int, boxlen: float,
@@ -139,3 +150,300 @@ def mc_tracer_amr(sim):
         if getattr(sim, "tracer_id", None) is not None:
             sim.tracer_id = sim.tracer_id[keep]
     sim.tracer_x = x
+
+
+def tracer_drift_amr(sim, dt: float):
+    """Advect the tracers with the CIC-gathered gas velocity at each
+    tracer's finest covering level (the velocity-tracer scheme,
+    ``pm/move_tracer.f90``'s pre-MC path): the maps are built on the device
+    from a float64 copy of the positions, each level's velocity is gathered
+    in float64, and the velocities come back in one fetch.  An open box
+    drops the tracers that leave it (and their ids)."""
+    x = sim.tracer_x
+    if x is None or len(x) == 0:
+        return
+    x_host = np.asarray(x, dtype=np.float64)
+    ncp = {l: sim.maps[l].ncell_pad for l in sim.levels()}
+    maps = amr_pm.build_pm_maps(
+        sim.tree, torch.as_tensor(x_host, device=sim.device), sim.boxlen,
+        sim.bc_kinds, ncp)
+    nd = sim.cfg.ndim
+    v = torch.zeros((len(x_host), nd), dtype=torch.float64,
+                    device=sim.device)
+    for l, mp in maps.items():
+        u = sim.u[l].to(torch.float64)
+        vel = u[:, 1:1 + nd] / torch.clamp(u[:, :1], min=1e-300)
+        vals = torch.cat([vel, vel.new_zeros((1, nd))])[mp.idx]
+        gathered = (vals * mp.w[..., None]).sum(dim=1)
+        v = torch.where(mp.assigned[:, None], gathered, v)
+    x = x_host + v.cpu().numpy() * dt
+    if sim.grav_periodic:
+        sim.tracer_x = np.mod(x, sim.boxlen)
+    else:
+        # open box: tracers leave the domain and are dropped
+        keep = ((x >= 0.0) & (x < sim.boxlen)).all(axis=1)
+        sim.tracer_x = x[keep]
+        if getattr(sim, "tracer_id", None) is not None:
+            sim.tracer_id = sim.tracer_id[keep]
+
+
+def _host(t) -> np.ndarray:
+    """A device tensor as a new float64 numpy array (one fetch)."""
+    return t.to(torch.float64).cpu().numpy()
+
+
+def _put(sim, l: int, u: np.ndarray):
+    """A level's host rows back on the device in the state's dtype."""
+    sim.u[l] = torch.as_tensor(u, dtype=sim.dtype, device=sim.device)
+
+
+def _levels_of(sim, x: np.ndarray) -> np.ndarray:
+    """Each position's finest covering level (``assign_levels``), host."""
+    return amr_pm.assign_levels(
+        sim.tree, torch.as_tensor(np.asarray(x, dtype=np.float64)),
+        sim.boxlen).numpy()
+
+
+def create_sinks_amr(sim, sinks, spec, units):
+    """Threshold creation on leaf cells above ``n_sink``, outside the
+    exclusion radius of every existing and newly accepted sink; the
+    gas above the threshold becomes the new sinks' mass.  Returns the
+    grown :class:`SinkSet`."""
+    from ramses_tpu_torch.pm.sinks import SinkSet
+
+    nd = sim.cfg.ndim
+    ttd = 2 ** nd
+    d_thr = spec.n_sink / units.scale_nH
+    for l in sim.levels():
+        if sinks.n >= spec.nsinkmax:
+            break
+        ncell = sim.maps[l].noct * ttd
+        dx = sim.dx(l)
+        vol = dx ** nd
+        # density column first: quiet levels skip the full host copy
+        rho = _host(sim.u[l][:ncell, 0])
+        leaf = ~sim.tree.refined_mask(l)
+        cand = leaf & (rho * units.scale_nH > spec.n_sink)
+        rows = np.nonzero(cand)[0]
+        if len(rows) == 0:
+            continue
+        u = _host(sim.u[l])
+        xnew = sim.tree.cell_centers(l, sim.boxlen)[rows]
+        # greedy density-ordered exclusion: the densest candidate wins its
+        # merge-radius neighbourhood (the flat-batch stand-in for
+        # create_sink's local-maximum test: a resolved clump spawns ONE
+        # sink), also enforced against the existing sinks
+        order = np.argsort(-rho[rows])
+        r2 = (spec.merging_cells * dx) ** 2
+        accepted = []
+        acc_x = [] if sinks.n == 0 else [sinks.x]
+        room = spec.nsinkmax - sinks.n
+        for k in order:
+            if len(accepted) >= room:
+                break
+            xs = np.concatenate(acc_x) if acc_x else np.zeros((0, nd))
+            if len(xs) and (((xs - xnew[k]) ** 2).sum(-1) < r2).any():
+                continue
+            accepted.append(k)
+            acc_x.append(xnew[k:k + 1])
+        if not accepted:
+            continue
+        accepted = np.asarray(accepted)
+        rows, xnew = rows[accepted], xnew[accepted]
+        dm_rho = np.maximum(rho[rows] - d_thr, 0.0)
+        mnew = dm_rho * vol
+        vel = u[rows, 1:1 + nd] / np.maximum(rho[rows, None], 1e-300)
+        u[rows] *= (1.0 - dm_rho / rho[rows])[:, None]
+        _put(sim, l, u)
+        new_idp = sinks.next_id + np.arange(len(rows), dtype=np.int64)
+        sinks = SinkSet(
+            x=np.concatenate([sinks.x, xnew]),
+            v=np.concatenate([sinks.v, vel]),
+            m=np.concatenate([sinks.m, mnew]),
+            tform=np.concatenate([sinks.tform, np.full(len(rows), sim.t)]),
+            idp=np.concatenate([sinks.idp, new_idp]),
+            next_id=sinks.next_id + len(rows))
+    return sinks
+
+
+def sink_passes_amr(sim, dt: float):
+    """Sink creation, accretion, merging and motion on the hierarchy
+    (``pm/sink_particle.f90`` create_sink:6, grow_sink:575,
+    accrete_sink:722): threshold creation on leaf cells with an exclusion
+    radius, Bondi or threshold accretion over each sink's cloud from the
+    finest covering cells, pairwise merging, and the leapfrog drift in the
+    AMR gravity field (NGP at the covering level), with the direct
+    sink-sink force under ``direct_force``."""
+    from ramses_tpu_torch.pm.sinks import (SinkSet, agn_energy,
+                                           cloud_offsets, direct_force_kick,
+                                           merge_sinks)
+
+    spec = sim.sink_spec
+    units = sim.units
+    sinks: SinkSet = sim.sinks
+    nd = sim.cfg.ndim
+    gamma = float(sim.cfg.gamma)
+    d_thr = spec.n_sink / units.scale_nH
+
+    sinks = create_sinks_amr(sim, sinks, spec, units)
+
+    # ---- accretion over the sink CLOUD (``create_cloud_from_sink``,
+    # pm/sink_particle.f90:131): equal-weight points within
+    # 0.5*ir_cloud*dx_min sample the gas state, and the draw distributes
+    # over every covered leaf cell with per-cell 90% caps shared between
+    # overlapping clouds
+    if sinks.n and spec.accretion_scheme != "none":
+        dxm = sim.dx(max(sim.levels()))
+        offs = cloud_offsets(nd, spec.ir_cloud, dxm)
+        ncl = len(offs)
+        ns = sinks.n
+        pts = (sinks.x[:, None, :] + offs[None]).reshape(-1, nd)
+        # wrap/clip per dimension: periodic dims wrap, walled dims clamp
+        for d in range(nd):
+            if tuple(sim.bc_kinds[d]) == (0, 0):
+                pts[:, d] = np.mod(pts[:, d], sim.boxlen)
+            else:
+                pts[:, d] = np.clip(pts[:, d], 0.0,
+                                    np.nextafter(sim.boxlen, 0))
+        lvp = _levels_of(sim, pts)
+        plvl = np.full(len(pts), -1, dtype=np.int64)
+        prow = np.full(len(pts), -1, dtype=np.int64)
+        ulv = {}
+        vol_l = {l: sim.dx(l) ** nd for l in sim.levels()}
+        for l in sim.levels():
+            selp = np.nonzero(lvp == l)[0]
+            if len(selp) == 0:
+                continue
+            r = ngp_rows(sim.tree, pts[selp], l, sim.boxlen, sim.bc_kinds)
+            ok = r >= 0
+            plvl[selp[ok]] = l
+            prow[selp[ok]] = r[ok]
+            ulv[l] = _host(sim.u[l])
+        valid = plvl >= 0
+        npts = len(pts)
+        rho_p = np.full(npts, 1e-300)
+        mom_p = np.zeros((npts, nd))
+        e_p = np.zeros(npts)
+        vol_p = np.zeros(npts)
+        for l, u in ulv.items():
+            m = plvl == l
+            rows = prow[m]
+            rho_p[m] = np.maximum(u[rows, 0], 1e-300)
+            mom_p[m] = u[rows, 1:1 + nd]
+            e_p[m] = u[rows, 1 + nd]
+            vol_p[m] = vol_l[l]
+        # per-sink cloud-averaged state (equal-weight cloud points)
+        w2 = valid.reshape(ns, ncl).astype(np.float64)
+        wsum = np.maximum(w2.sum(1), 1e-300)
+        rho2 = rho_p.reshape(ns, ncl)
+        mom2 = mom_p.reshape(ns, ncl, nd)
+        # floor-density cells can carry stray momenta whose v = mom/rho
+        # overflows f64: suppress and zero those contributions
+        with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+            rho_bar = (rho2 * w2).sum(1) / wsum
+            mw = np.maximum((rho2 * w2).sum(1), 1e-300)
+            vgas_bar = np.nan_to_num(
+                (mom2 * w2[:, :, None]).sum(1) / mw[:, None],
+                posinf=0.0, neginf=0.0)
+            ek2 = np.nan_to_num(0.5 * (mom2 ** 2).sum(2) / rho2,
+                                posinf=0.0, neginf=0.0)
+            press2 = (gamma - 1.0) * (e_p.reshape(ns, ncl) - ek2)
+            cs2 = gamma * np.maximum((press2 * w2).sum(1) / wsum, 1e-300) \
+                / np.maximum(rho_bar, 1e-300)
+        if spec.accretion_scheme == "bondi":
+            g_code = factG_in_cgs * units.scale_d * units.scale_t ** 2
+            vrel2 = ((sinks.v - vgas_bar) ** 2).sum(1)
+            mdot = (4 * np.pi * g_code ** 2 * sinks.m ** 2 * rho_bar
+                    / np.maximum(cs2 + vrel2, 1e-300) ** 1.5)
+            # equal split over the sink's valid cloud points
+            dm_p = np.where(valid, np.repeat(mdot * dt / wsum, ncl), 0.0)
+        else:   # threshold: per-point excess, deduped per (sink, cell)
+            key_sc = (np.repeat(np.arange(ns), ncl) * (1 << 40)
+                      + plvl * (1 << 32) + prow)
+            _, first = np.unique(np.where(valid, key_sc, -1),
+                                 return_index=True)
+            once = np.zeros(npts, dtype=bool)
+            once[first] = True
+            once &= valid
+            dm_p = np.where(once, spec.c_acc
+                            * np.maximum(rho_p - d_thr, 0.0) * vol_p, 0.0)
+        # group per unique CELL: cap the combined draw at 90% of its gas
+        key = plvl * (1 << 48) + prow
+        uniq, inv = np.unique(np.where(valid, key, -1), return_inverse=True)
+        inv = inv.reshape(-1)
+        tot_req = np.bincount(inv, weights=dm_p, minlength=len(uniq))
+        # gas available per unique cell (first point of each group)
+        firsts = np.zeros(len(uniq), dtype=np.int64)
+        firsts[inv[::-1]] = np.arange(npts)[::-1]
+        cell_gas = rho_p[firsts] * vol_p[firsts]
+        allowed = np.minimum(tot_req, 0.9 * cell_gas)
+        scale = allowed / np.maximum(tot_req, 1e-300)
+        dm_p = dm_p * scale[inv] * valid
+        with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+            vpt = np.nan_to_num(mom_p / rho_p[:, None],
+                                posinf=0.0, neginf=0.0)
+        for l, u in ulv.items():
+            m = (plvl == l) & (dm_p > 0.0)
+            if not m.any():
+                continue
+            rows = prow[m]
+            # additive removal against the PRE-draw state: duplicates (two
+            # cloud points in one cell) sum to exactly the combined
+            # fraction of the old state
+            np.add.at(u, rows,
+                      -u[rows] * (dm_p[m] / (rho_p[m] * vol_l[l]))[:, None])
+            _put(sim, l, u)
+        dm = dm_p.reshape(ns, ncl).sum(1)
+        p_acc = (vpt * dm_p[:, None]).reshape(ns, ncl, nd).sum(1)
+        m_gain = dm
+        if spec.agn:
+            e_agn, m_gain = agn_energy(dm, spec, units)
+            # dump into the sink's own covering cell (the cloud centre)
+            lv0 = _levels_of(sim, sinks.x)
+            for l in ulv:
+                m = lv0 == l
+                if not m.any():
+                    continue
+                rows = ngp_rows(sim.tree, sinks.x[m], l, sim.boxlen,
+                                sim.bc_kinds)
+                ok = rows >= 0
+                u = _host(sim.u[l])
+                np.add.at(u[:, 1 + nd], rows[ok], e_agn[m][ok] / vol_l[l])
+                _put(sim, l, u)
+        newm = sinks.m + m_gain
+        sinks.v = (sinks.v * sinks.m[:, None] + p_acc) \
+            / np.maximum(newm, 1e-300)[:, None]
+        sinks.m = newm
+
+    sinks = merge_sinks(sinks, spec, sim.dx(sim.lmax))
+
+    # ---- leapfrog motion in the AMR gravity field
+    if sinks.n:
+        if sim.gravity and sim.fg:
+            lv = _levels_of(sim, sinks.x)
+            acc = np.zeros_like(sinks.v)
+            for l in sim.levels():
+                sel = np.nonzero(lv == l)[0]
+                if len(sel) == 0 or l not in sim.fg:
+                    continue
+                rows = ngp_rows(sim.tree, sinks.x[sel], l, sim.boxlen,
+                                sim.bc_kinds)
+                ok = rows >= 0
+                fg = _host(sim.fg[l])
+                acc[sel[ok]] = fg[rows[ok]]
+            sinks.v = sinks.v + acc * dt
+        if spec.direct_force:
+            sinks = direct_force_kick(
+                sinks, units, sim.dx(max(sim.levels())), dt,
+                sim.boxlen if sim.grav_periodic else None)
+        x = sinks.x + sinks.v * dt
+        if sim.grav_periodic:
+            sinks.x = np.mod(x, sim.boxlen)
+        else:
+            # open box: sinks leaving the domain are removed (the escaping
+            # particles' policy)
+            keep = ((x >= 0.0) & (x < sim.boxlen)).all(axis=1)
+            sinks = SinkSet(x=x[keep], v=sinks.v[keep], m=sinks.m[keep],
+                            tform=sinks.tform[keep], idp=sinks.idp[keep],
+                            next_id=sinks.next_id)
+    sim.sinks = sinks

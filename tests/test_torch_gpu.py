@@ -1131,3 +1131,106 @@ def test_particle_steps_on_cuda_never_wait_and_replay_bitwise(cuda,
     for x, y in ((a[0], b[0]), (a[1].x, b[1].x), (a[1].v, b[1].v),
                  (a[2], b[2]), (a[3], b[3])):
         assert bool(torch.isfinite(x).all()) and torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the coarse-step source passes: MHD gravity, sinks, turbulence forcing
+# ---------------------------------------------------------------------------
+
+MHD_GRAV_BLOB = MHD_BLOB.replace("hydro=.true.",
+                                 "hydro=.true.\npoisson=.true.")
+
+
+def test_mhd_gravity_step_never_waits_and_replays_bitwise(cuda):
+    """One MHD coarse step with self-gravity (the half kicks at every
+    level substep, K4 on the complete level, the gravity-corrected next
+    Courant dt) issues device work only; and two coarse steps (the
+    per-level solve included) run twice from one state are bitwise."""
+    from ramses_tpu_torch.config import params_from_string
+    from ramses_tpu_torch.convert import mhd_amr_state_from
+    from ramses_tpu_torch.mhd import amr
+    p = params_from_string(MHD_GRAV_BLOB, ndim=2)
+    sim = amr.MhdAmrSim(p)
+    assert sim.gravity
+    sim.evolve(1e9, nstepmax=1)
+    sim.solve_gravity()
+    dt = torch.tensor(sim.coarse_dt(), dtype=torch.float32, device=cuda)
+    spec = sim._fused_spec()
+    assert spec.gravity
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        u, bf, dtn = amr._coarse_step(sim.u, sim.bfs, sim.dev, dt, spec,
+                                      sim.fg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(dtn) > 0.0
+    state = mhd_amr_state_from(sim)
+
+    def replay():
+        s = amr.MhdAmrSim.from_state(p, **state, device=cuda)
+        s.evolve(1e9, nstepmax=s.nstep + 2)
+        return s
+    a, b = replay(), replay()
+    for l in a.levels():
+        for x, y in ((a.u[l], b.u[l]), (a.bfs[l], b.bfs[l]),
+                     (a.phi[l], b.phi[l]), (a.fg[l], b.fg[l])):
+            assert bool(torch.isfinite(x).all()) and torch.equal(x, y), l
+
+
+def test_sink_pass_fetches_only_the_density_columns_when_quiet(cuda):
+    """The hierarchy's coarse step with sinks on issues device work only;
+    the sink pass on a state with no candidate cell and no sink fetches
+    one density column a level (counted as the synchronisations the sync
+    debug mode warns about), as the JAX package's pass does."""
+    import re
+    import warnings
+
+    from ramses_tpu_torch.amr import hierarchy as H
+    from ramses_tpu_torch.config import params_from_string
+    from ramses_tpu_torch.pm import amr_physics
+    text = open(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "namelists", "smbh_bondi.nml")).read()
+    text = re.sub(r"levelmin=\d+", "levelmin=4", text)
+    text = re.sub(r"levelmax=\d+", "levelmax=5", text)
+    text = text.replace("n_sink=500.0", "n_sink=1e30")
+    sim = H.AmrSim(params_from_string(text, ndim=2))
+    sim.evolve(1e9, nstepmax=1)
+    assert sim.sinks is not None and sim.sinks.n == 0
+    spec = sim._fused_spec()
+    dt = torch.tensor(1e-4, dtype=torch.float32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        H._coarse_step(sim.u, sim.dev, dt, spec, sim.fg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            amr_physics.sink_passes_amr(sim, 1e-4)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == len(sim.levels()), [str(w.message) for w in syncs]
+    assert sim.sinks.n == 0
+
+
+def test_turbulence_forcing_same_seed_same_bits(cuda):
+    """The OU forcing on the card: two forcings with one seed give the
+    same field and acceleration bit for bit, through three updates; the
+    acceleration's rms is turb_rms."""
+    from ramses_tpu_torch.turb.forcing import TurbForcing, TurbSpec
+    spec = TurbSpec(enabled=True, seed=7, turb_T=0.5, comp_frac=0.3333)
+    a = TurbForcing((64, 64, 64), spec, device=cuda)
+    b = TurbForcing((64, 64, 64), spec, device=cuda)
+    for dt in (0.01, 0.02, 0.03):
+        a.update(dt)
+        b.update(dt)
+    assert torch.equal(a.fhat, b.fhat)
+    acc_a, acc_b = a.acceleration(), b.acceleration()
+    assert torch.equal(acc_a, acc_b)
+    rms = float(torch.sqrt(torch.mean(torch.sum(acc_a ** 2, dim=0))))
+    assert abs(rms - 1.0) < 1e-12

@@ -353,21 +353,26 @@ def test_refusals_that_stay():
 
     p = load_params(TUBE, ndim=1)
     p.run.poisson = True
-    with pytest.raises(NotImplementedError, match="gravity on the MHD"):
+    with pytest.raises(NotImplementedError,
+                       match="gravity .* on the uniform MHD driver"):
         MhdSimulation(p, device="cpu")
+    # gravity runs on the MHD hierarchy (tests/test_torch_mhd_gravity.py)
     p = load_params(OT_NML, ndim=2)
+    p.amr.levelmin, p.amr.levelmax = 4, 5
     p.run.poisson = True
-    with pytest.raises(NotImplementedError, match="gravity on the MHD"):
-        MhdAmrSim(p, device="cpu")
+    assert MhdAmrSim(p, device="cpu").gravity
     with pytest.raises(NotImplementedError, match="gravity on ShardedAmrSim"):
         ShardedAmrSim(pparams(_sedov_grav(), ndim=3),
                       devices=ShardMesh(["cpu"] * 2))
     # particles and cosmology run on the hydro drivers (pic without ICs:
     # an empty particle set on the uniform grid, the layer off on the
-    # hierarchy) and stay refused on the MHD drivers and ShardedAmrSim
+    # hierarchy); cosmology stays refused on the MHD drivers and
+    # ShardedAmrSim, particles on the uniform MHD driver and ShardedAmrSim
     for key, name in (("pic", "particles"), ("cosmo", "cosmology")):
         for cls, g in ((MhdSimulation, None), (MhdAmrSim, None),
                        (ShardedAmrSim, _blob())):
+            if cls is MhdAmrSim and key == "pic":
+                continue            # runs (tests/test_torch_mhd_gravity.py)
             p = (pdict(g, ndim=2) if g is not None
                  else load_params(OT_NML, ndim=2))
             if cls is MhdSimulation:

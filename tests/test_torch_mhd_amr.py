@@ -605,14 +605,21 @@ def test_cli_runs_orszag2d_on_cpu(tmp_path):
 
 
 def test_unported_features_raise_and_cuda_is_the_default():
-    for key, value, name in (("poisson", True, "gravity"),
-                             ("pic", True, "particles"),
-                             ("tracer", True, "tracers"),
+    for key, value, name in (("cosmo", True, "cosmology"),
                              ("fault_inject", "nan@3", "fault injection")):
         p = pload(OT_NML, ndim=2)
         setattr(p.run, key, value)
         with pytest.raises(NotImplementedError, match=name):
             PA.MhdAmrSim(p, device="cpu")
+    # gravity, particles (none given: the layer stays off, as on the hydro
+    # hierarchy) and tracers run on the MHD hierarchy
+    for key in ("poisson", "pic", "tracer"):
+        p = pload(OT_NML, ndim=2)
+        p.amr.levelmin, p.amr.levelmax = 4, 5
+        setattr(p.run, key, True)
+        sim = PA.MhdAmrSim(p, device="cpu")
+        assert (sim.gravity, sim.pic, sim.tracer_x is not None) == (
+            key == "poisson", False, key == "tracer")
     p = pload(OT_NML, ndim=2)
     p.amr.offload = "host"
     with pytest.raises(NotImplementedError, match="offload"):

@@ -341,8 +341,13 @@ def test_particle_refusals():
     p.run.poisson = False
     with pytest.raises(NotImplementedError, match="particles on Sharded"):
         ShardedAmrSim(p, devices=ShardMesh(["cpu"] * 2))
-    assert [n for n in unported_mhd_features(p) if "particles" in n]
+    # particles run on the MHD hierarchy, the uniform MHD driver refuses
+    # them
+    assert not [n for n in unported_mhd_features(p) if "particles" in n]
     p.amr.levelmax = p.amr.levelmin
-    with pytest.raises(NotImplementedError, match="particles on the MHD"):
+    with pytest.raises(NotImplementedError,
+                       match="particles .* on the uniform MHD driver"):
         MhdSimulation(p, device="cpu")
+    # the sink passes (and star formation and cooling) stay off the MHD
+    # hierarchy, as the JAX package's _pm_family keeps them
     assert MhdAmrSim._pm_physics is False and AmrSim._pm_physics is True

@@ -435,8 +435,8 @@ def test_particles_in_a_snapshot_refused(tmp_path):
     """A JAX dump that carries particles restores them (``restore_particles``)
     on the uniform driver and the hydro hierarchy, lane for lane the JAX
     package's restore (the uniform driver keeps them under ``pic``, as
-    the JAX one does); the MHD hierarchy, which runs no particles, refuses
-    them by name."""
+    the JAX one does).  The MHD hierarchy refused them until it ran the
+    particle layer; its restore is tested with its own dumps."""
     from ramses_tpu.io.restart import restore_particles as jrestore
     from ramses_tpu.io.restart import restore_uniform as jrestore_uniform
     from ramses_tpu.pm.particles import ParticleSet
@@ -463,10 +463,9 @@ def test_particles_in_a_snapshot_refused(tmp_path):
     asim = AmrSim.from_snapshot(pparams(sod_text(), ndim=2), out,
                                 dtype=torch.float64, device="cpu")
     assert np.array_equal(asim.p.idp.numpy(), np.asarray(jsim.state.p.idp))
-    with pytest.raises(NotImplementedError, match="particles in a snapshot"):
-        MhdAmrSim.from_snapshot(
-            pparams(sod_text().replace("hllc", "llf"), ndim=2), out,
-            device="cpu")
+    # the MHD hierarchy restores the particles of its own dumps too, as the
+    # JAX package's does: tests/test_torch_mhd_gravity.py::
+    # test_mhd_particle_restart
 
 
 def test_pario_checkpoint_dir_refused(tmp_path):

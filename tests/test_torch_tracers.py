@@ -15,7 +15,15 @@
   rtol 2e-4 / atol 2e-6, and tracers drift at the gas velocity across a
   refinement boundary;
 * the coarse step's capture runs through the kernels' flux variants only
-  on CUDA tensors: here the plain versions, which count no launch.
+  on CUDA tensors: here the plain versions, which count no launch;
+* the MHD hierarchy's CIC velocity tracers (``tracer_drift_amr``; the MHD
+  step captures no fluxes) against the JAX package's over 2 coarse steps
+  and on a carried state: rtol 1e-10 / 1e-13;
+* the uniform MC tracer functions: ``step_with_flux`` in f64 against the
+  JAX package's (rtol 1e-10 / atol 1e-12) and through K1's ``want_flux``
+  entry in f32 (its plain version here) against the general formulation
+  (rtol 2e-5); ``mc_tracer_step`` with the JAX run's categorical choices
+  fed to the port (rel 1e-14), and with its own generator.
 """
 
 import types
@@ -295,3 +303,204 @@ def test_tracer_sedov_nml_through_the_cli(tmp_path):
     count = int(last.split("tracers=")[1].split()[0])
     want = len(JAmrSim(jload(src, ndim=2)).tracer_x)
     assert count == want > 1000
+
+
+# ---------------------------------------------------------------------------
+# velocity tracers on the MHD hierarchy, and the uniform MC tracer step
+# ---------------------------------------------------------------------------
+
+MHD_TRACERS = """
+&RUN_PARAMS
+hydro=.true.
+tracer=.true.
+tracer_per_cell=1.0
+nremap=1
+/
+&AMR_PARAMS
+levelmin=4
+levelmax=5
+boxlen=1.0
+/
+&INIT_PARAMS
+nregion=2
+region_type='square','square'
+x_center=0.5,0.5
+y_center=0.5,0.5
+length_x=10.0,0.4
+length_y=10.0,0.4
+exp_region=10.0,2.0
+d_region=1.0,4.0
+p_region=1.0,3.0
+u_region=0.3,0.6
+v_region=0.2,-0.4
+A_region=0.5,0.5
+B_region=0.3,0.3
+/
+&HYDRO_PARAMS
+gamma=1.6666667
+courant_factor=0.8
+riemann='hlld'
+slope_type=1
+/
+&REFINE_PARAMS
+err_grad_d=0.05
+/
+"""
+
+
+def test_mhd_velocity_tracers_match_jax():
+    """The MHD hierarchy captures no face fluxes: its tracers drift with
+    the CIC-gathered gas velocity (``tracer_drift_amr``).  Seeded by each
+    package on its own state, then 2 coarse steps (a regrid each) with the
+    JAX run's dts: positions at rtol 1e-10 / atol 1e-12, ids identical;
+    then ``tracer_drift_amr`` on the JAX run's state carried across."""
+    from ramses_tpu.mhd.amr import MhdAmrSim as JMhdAmrSim
+
+    from ramses_tpu_torch.convert import mhd_amr_state_from
+    from ramses_tpu_torch.mhd.amr import MhdAmrSim
+    jsim = JMhdAmrSim(jparams(MHD_TRACERS, ndim=2), dtype=jnp.float64)
+    psim = MhdAmrSim(pparams(MHD_TRACERS, ndim=2), dtype=torch.float64,
+                     device="cpu")
+    np.testing.assert_array_equal(psim.tracer_x, jsim.tracer_x)
+    assert not psim._fused_spec().want_flux
+    seeded = np.array(psim.tracer_x)
+    for _ in range(2):
+        jsim.regrid()
+        psim.regrid()
+        dt = jsim.coarse_dt()
+        jsim.step_coarse(dt)
+        psim.step_coarse(dt)
+    assert psim._tracer_phi is None
+    np.testing.assert_allclose(psim.tracer_x, jsim.tracer_x, rtol=1e-10,
+                               atol=1e-12)
+    assert np.array_equal(psim.tracer_id, jsim.tracer_id)
+    assert np.abs(psim.tracer_x - seeded).max() > 0.0     # they moved
+    csim = MhdAmrSim.from_state(pparams(MHD_TRACERS, ndim=2),
+                                **mhd_amr_state_from(jsim), device="cpu")
+    x0 = np.array(csim.tracer_x)
+    jap.tracer_drift_amr(jsim, 0.01)
+    ap.tracer_drift_amr(csim, 0.01)
+    np.testing.assert_allclose(csim.tracer_x, jsim.tracer_x, rtol=1e-13,
+                               atol=1e-15)
+    assert np.abs(csim.tracer_x - x0).max() > 0.0
+    with pytest.raises(ValueError, match="tracers"):
+        csim.step_chunk(2, 1.0)
+
+
+@pytest.mark.parametrize("nd", [2, 3])
+def test_step_with_flux_matches_jax(nd):
+    """The uniform step with its low-face mass fluxes, in f64 (the general
+    formulation in both packages): rtol 1e-10 / atol 1e-12."""
+    from ramses_tpu.grid import boundary as jb
+    from ramses_tpu.grid import uniform as ju
+    from ramses_tpu.hydro.core import HydroStatic as JStatic
+
+    from ramses_tpu_torch.convert import hydro_static_from
+    from ramses_tpu_torch.grid import boundary as pb
+    from ramses_tpu_torch.grid import uniform as pu
+    rng = np.random.default_rng(nd)
+    shape = (12,) * nd
+    jcfg = JStatic(ndim=nd, riemann="hllc", slope_type=2)
+    u = np.empty((2 + nd,) + shape)
+    u[0] = rng.uniform(0.5, 2.0, shape)
+    u[1:1 + nd] = rng.standard_normal((nd,) + shape) * 0.3
+    u[1 + nd] = rng.uniform(3.0, 5.0, shape)
+    jgrid = ju.UniformGrid(cfg=jcfg, shape=shape, dx=1.0 / 12,
+                           bc=jb.BoundarySpec.periodic(nd))
+    pgrid = pu.UniformGrid(cfg=hydro_static_from(jcfg), shape=shape,
+                           dx=1.0 / 12, bc=pb.BoundarySpec.periodic(nd))
+    jun, jphi = ju.step_with_flux(jgrid, jnp.asarray(u), 0.01)
+    pun, pphi = pu.step_with_flux(pgrid, torch.from_numpy(u), 0.01)
+    np.testing.assert_allclose(pun.numpy(), np.asarray(jun), rtol=1e-10,
+                               atol=1e-12)
+    np.testing.assert_allclose(pphi.numpy(), np.asarray(jphi), rtol=1e-10,
+                               atol=1e-12)
+    # the fluxes account for the mass update
+    du = -sum(pphi[d] - torch.roll(pphi[d], -1, d) for d in range(nd))
+    np.testing.assert_allclose((pun[0] - torch.from_numpy(u[0])).numpy(),
+                               -du.numpy(), rtol=1e-10, atol=1e-12)
+
+
+def test_step_with_flux_takes_the_fused_entry_where_it_covers():
+    """3D f32 within K1's scope: ``step_with_flux`` goes through K1's
+    ``want_flux`` entry (its plain version on a CPU tensor) and its low-face
+    flux is the general formulation's to f32 precision."""
+    from ramses_tpu_torch.grid import boundary as pb
+    from ramses_tpu_torch.grid import uniform as pu
+    from ramses_tpu_torch.hydro.core import HydroStatic
+    rng = np.random.default_rng(1)
+    shape = (16, 16, 16)
+    cfg = HydroStatic(ndim=3, riemann="hllc", slope_type=1)
+    grid = pu.UniformGrid(cfg=cfg, shape=shape, dx=1.0 / 16,
+                          bc=pb.BoundarySpec.periodic(3))
+    assert pu.fused_ok(grid, torch.float32)
+    u = np.empty((5,) + shape, dtype=np.float32)
+    u[0] = rng.uniform(0.5, 2.0, shape)
+    u[1:4] = rng.standard_normal((3,) + shape) * 0.3
+    u[4] = rng.uniform(3.0, 5.0, shape)
+    calls = []
+    ref = fm.fused_step_ref
+
+    def spy(*a, **k):
+        calls.append(k.get("want_flux"))
+        return ref(*a, **k)
+    fm.fused_step_ref = spy
+    try:
+        un, phi = pu.step_with_flux(grid, torch.from_numpy(u), 1e-3)
+    finally:
+        fm.fused_step_ref = ref
+    assert calls == [True]
+    u64 = torch.from_numpy(u.astype(np.float64))
+    grid64 = pu.UniformGrid(cfg=cfg, shape=shape, dx=1.0 / 16,
+                            bc=pb.BoundarySpec.periodic(3))
+    un64, phi64 = pu.step_with_flux(grid64, u64, 1e-3)
+    np.testing.assert_allclose(phi.numpy(), phi64.numpy(), rtol=2e-5,
+                               atol=2e-7)
+    np.testing.assert_allclose(un.numpy(), un64.numpy(), rtol=2e-5,
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize("nd", [2, 3])
+def test_mc_tracer_step_matches_jax(nd):
+    """``mc_tracer_step`` with the JAX run's categorical draws fed to the
+    port (each tracer's move read off the JAX result): positions equal to
+    rel 1e-14; the probabilities sum to 1 and the port's own draws keep
+    every tracer in the box."""
+    import jax
+
+    from ramses_tpu.pm import tracers as jt
+
+    from ramses_tpu_torch.pm import tracers as pt
+    rng = np.random.default_rng(10 + nd)
+    shape = (10,) * nd
+    dx = 0.1
+    rho = rng.uniform(0.5, 2.0, shape)
+    flux = rng.standard_normal((nd,) + shape) * 0.2
+    x = rng.uniform(0.0, 1.0, (500, nd))
+    key = jax.random.PRNGKey(3)
+    jnew = np.asarray(jt.mc_tracer_step(jnp.asarray(x), key,
+                                        jnp.asarray(rho), jnp.asarray(flux),
+                                        shape, dx))
+    cell = np.clip((x / dx).astype(np.int64), 0, 9)
+    jcell = np.clip(np.floor(jnew / dx + 1e-9).astype(np.int64), 0, 9)
+    move = (jcell - cell + 5) % 10 - 5                   # -1, 0, +1
+    assert set(np.abs(move).sum(1)) <= {0, 1}
+    choice = np.zeros(len(x), dtype=np.int64)
+    for d in range(nd):
+        choice = np.where(move[:, d] == -1, 1 + 2 * d, choice)
+        choice = np.where(move[:, d] == 1, 2 + 2 * d, choice)
+    pnew = pt.mc_tracer_step(torch.from_numpy(x), torch.from_numpy(rho),
+                             torch.from_numpy(flux), shape, dx,
+                             choice=torch.from_numpy(choice))
+    np.testing.assert_allclose(pnew.numpy(), jnew, rtol=1e-14, atol=1e-15)
+    _, full = pt.jump_probs(torch.from_numpy(x), torch.from_numpy(rho),
+                            torch.from_numpy(flux), shape, dx)
+    np.testing.assert_allclose(full.sum(1).numpy(), 1.0, rtol=1e-14)
+    assert (full.numpy()[np.arange(len(x)), choice] > 0).all()
+    g = torch.Generator().manual_seed(0)
+    own = pt.mc_tracer_step(torch.from_numpy(x), torch.from_numpy(rho),
+                            torch.from_numpy(flux), shape, dx, generator=g)
+    assert ((own >= 0) & (own < 1.0)).all()
+    moved = (np.floor(own.numpy() / dx) != np.floor(x / dx)).any(1).mean()
+    expect = float((1.0 - full[:, 0]).mean())
+    assert abs(moved - expect) < 0.1
