@@ -327,7 +327,46 @@ Phases, each printing its own line; any failure exits non-zero:
    rest, a same-seed replay bitwise (u and the OU field), ms a step with
    and without the forcing.  Phases 47-49 write under a
    ``tempfile.mkdtemp`` directory, removed at the end; their K1, K3 and
-   K4 launches (and phase 46's flux launch) join the kernels line's rows.
+   K4 launches (and phase 46's flux launch) join the kernels line's rows;
+50. ``BASELINE.json`` config 1 with cooling: sedov3d at 256³ f32 with
+   ``&COOLING_PARAMS cooling`` and the JAX tests' ISM units, 20 steps
+   through ``Simulation`` (``run_steps_cool``): K1 and K6
+   (``csrc/cooling.cu``, the per-cell cooling solve) once a step, no host
+   sync in two steps under the sync debug mode "error", a replay bitwise,
+   the energy below the adiabatic run's, a finite state; K6 on the last
+   step's recorded inputs against its plain version (f32: each cell within
+   rel 2e-5 of the plain f32 result or ten times its conditioning move,
+   at most 0.1 % of the cells in that form, and at each quantile of the
+   cells' error against the f64 plain result within twice the plain f32
+   version's; f64: each cell within rel 1e-10 or ten times its
+   conditioning move; the worst cell with both iteration counts), its
+   device time, the plain version's, the bound (the bytes of what varies
+   per cell and the tables, and its operations at this run's iteration
+   counts at the unfused f32 rate), the iterations a cell; the same check
+   and timing on 2^20 random cells over dt 3e15 s, where the march is
+   long; ms a step with and without cooling;
+51. config 2's hierarchy cut to 6 / 8 (f32) on the JAX test's SF blob
+   (``tests/test_amr_physics.py:73-98``) with cooling, self-gravity, star
+   formation and thermal feedback, 5 coarse steps: K1, K3 and K6 as the
+   stepped levels require (K6 once a level substep), K1, K3 and K6 on the
+   last step's inputs against their plain versions (K1 and K3 with M any
+   field's stencil max; K6 on each level's last call, and timed on the
+   finest level's rows), gas + stars mass to
+   rel 1e-5, stars above levelmin, each SN fired once; s a coarse step by
+   part and the device's busy share;
+52. kinetic feedback (``f_w`` = 1) on the blob at 6 / 7, every pass's
+   mass and energy budget; then the JAX stellar test's set-up at 6 / 7
+   (quanta scaled by the cell volume): objects spawn and explode, and
+   ``stellar_00001.csv`` parses with the reference's header;
+53. uniform SF: the blob at 128³ through ``Simulation`` with ``pic``, SF
+   and thermal feedback, 5 chunks: gas + stars mass kept, a dump and a
+   restore, new star ids past the restored ones;
+54. ``namelists/cosmo_gal.nml`` through ``run_cli`` in process, as shipped
+   but its 64³ ICs (written by the port's ``write_zeldovich_ics``) and
+   ``nstepmax``: the state finite, the cooling tables rebuilt as aexp
+   moves, gas + particle mass kept; stars, aexp and s a step by part.
+   Phases 52-54 write under a ``tempfile.mkdtemp`` directory, removed at
+   the end; the K6 row's launches are phases 50, 51 and 54's.
    A line then gives the script's wall by group of phases.
 
 The line before the last holds every ported kernel's numbers as one JSON
@@ -583,10 +622,12 @@ def _profile(run, out_dir: str, name: str = "chip_smoke_trace.json",
 
 def _reset_counts():
     """Every kernel's launch count to 0."""
+    from ramses_tpu_torch.hydro import cooling
     from ramses_tpu_torch.hydro import fused_muscl as fm
     from ramses_tpu_torch.hydro import oct_muscl as om
     from ramses_tpu_torch.mhd import ct_slab
     from ramses_tpu_torch.parallel import dma_halo
+    cooling.launches = 0
     fm.launches = fm.flux_launches = 0
     fm.padded_launches = fm.padded_flux_launches = 0
     ct_slab.launches = dma_halo.launches = 0
@@ -598,6 +639,7 @@ def _counts() -> dict:
     """Every kernel's launch count, the flux variants under their own
     keys (``fused_muscl_flux``, ``tile_sweep_flux``, ``oct_sweep_flux``)
     and K1's padded entry under ``fused_muscl_padded(_flux)``."""
+    from ramses_tpu_torch.hydro import cooling
     from ramses_tpu_torch.hydro import fused_muscl as fm
     from ramses_tpu_torch.hydro import oct_muscl as om
     from ramses_tpu_torch.mhd import ct_slab
@@ -606,7 +648,7 @@ def _counts() -> dict:
             "fused_muscl_padded": fm.padded_launches,
             "fused_muscl_padded_flux": fm.padded_flux_launches,
             **om.launches, "ct_step_slab": ct_slab.launches,
-            "halo_exchange": dma_halo.launches}
+            "halo_exchange": dma_halo.launches, "cooling": cooling.launches}
 
 
 def _want(**n) -> dict:
@@ -5481,6 +5523,808 @@ def _turb_phase(dev, card: str, tmp: str) -> int:
     return launches["fused_muscl"]
 
 
+# ----------------------------------------------------------------------
+# 50-54. cooling (K6), star formation and SN feedback, stellar objects,
+# cosmo_gal.nml
+# ----------------------------------------------------------------------
+
+# the JAX tests' ISM units (tests/test_amr_physics.py:13-14)
+ISM_UNITS = {"units_density": 1.66e-24, "units_time": 3.15e13,
+             "units_length": 3.08e18}
+COOL_LEVEL, COOL_STEPS = 8, 20             # phase 50: config 1 at 256³
+# phase 51: config 2's levels, 7 / 9, took 23 s a coarse step on an H100
+# at 700 W (the regrid 12.0 s at 87,975 level-9 octs, the PCG 10.5 s):
+# cut to 6 / 8, as phase 44
+SF_AMR_LEVELS, SF_AMR_STEPS = (6, 8), 5
+FB_LEVELS, FB_STEPS = (6, 7), 3            # phase 52
+# phase 52's stellar objects at 6 / 7: the JAX test's set-up at 4 / 5
+# with its sink-mass quantum and SN energy scaled by the cell volume
+STELLAR_SCALE = 1.0 / 64
+SF_UNIFORM_LEVEL, SF_UNIFORM_CHUNKS = 7, 5  # phase 53: 128³, 16 steps each
+GAL_NML = os.path.join(ROOT, "namelists", "cosmo_gal.nml")
+GAL_LEVEL, GAL_STEPS = 6, 8                # phase 54: 64³ ICs as shipped
+# K6 in f64 against its plain version: per cell rel 1e-10, or ten times
+# the move of the plain version's own result when nH, T2 or dt change by
+# 1 to 64 ulps (tests/test_torch_gpu.py)
+K6_F64_REL = 1e-10
+# K6 in f32 against its plain f32 version: per cell rel 2e-5 (RTOL), or ten
+# times the move of the plain f32 result when nH, T2 or dt change by 1 to
+# 4 ulps; at most this share of the cells may take the second form (K6
+# and its plain version agree bit for bit in f32 on the card: 2^20 random
+# cells, dt 3e15 s, at z = 0 and with the UV of z = 3)
+K6_F32_CONDITIONED = 1e-3
+# K6 is built with -fmad=false, so its adds and multiplies issue apart:
+# half the f32 rate that counts an FMA as two operations
+F32_UNFUSED_OPS_PER_S = F32_OPS_PER_S / 2
+K6_MARCH_CELLS = 1 << 20                   # phase 50's random cells
+
+
+def _sf_blob(lmin: int, lmax: int, d_in=10.0, p_in=100.0, tend=0.01,
+             **groups):
+    """``tests/test_amr_physics.py``'s blob (3D, ISM units) as the port's
+    params, with the extra namelist groups given."""
+    from ramses_tpu_torch.config import params_from_dict
+    g = {"run_params": {"hydro": True},
+         "amr_params": {"levelmin": lmin, "levelmax": lmax, "boxlen": 1.0,
+                        "npartmax": 10000},
+         "init_params": {"nregion": 2, "region_type": ["square", "square"],
+                         "x_center": [0.5, 0.5], "y_center": [0.5, 0.5],
+                         "z_center": [0.5, 0.5],
+                         "length_x": [10.0, 0.25], "length_y": [10.0, 0.25],
+                         "length_z": [10.0, 0.25], "exp_region": [10.0, 2.0],
+                         "d_region": [0.1, d_in], "p_region": [0.05, p_in]},
+         "hydro_params": {"gamma": 5.0 / 3.0, "courant_factor": 0.5},
+         "units_params": dict(ISM_UNITS), "output_params": {"tend": tend}}
+    for k, v in groups.items():
+        g[k] = dict(g.get(k, {}), **v)
+    return params_from_dict(g, ndim=3)
+
+
+def _record_k6(store: dict, order=None):
+    """Wrap K6's wrapper so that its calls record device copies of their
+    inputs in ``store``, then launch as before: under the key "last" the
+    latest call, or with ``order`` (the level of each call, in call order)
+    each level's latest call under its level.  Returns the function that
+    restores it."""
+    import torch
+    from ramses_tpu_torch.hydro import cooling as pc
+    k6 = pc.solve_cooling
+    calls = [0]
+
+    def rec(tables, nH, T2, zsolar, boost, dt_s, want_iters=False):
+        key = "last" if order is None else order[calls[0]]
+        calls[0] += 1
+        store[key] = (tables,) + tuple(
+            a.clone() if torch.is_tensor(a) else a
+            for a in (nH, T2, zsolar, boost, dt_s))
+        return k6(tables, nH, T2, zsolar, boost, dt_s, want_iters)
+    pc.solve_cooling = rec
+
+    def restore():
+        pc.solve_cooling = k6
+    return restore
+
+
+def _substep_order(levels) -> list:
+    """The level of each cooling call of one coarse step, in call order:
+    ``hierarchy._advance`` cools a level after its two finer substeps."""
+    if not levels:
+        return []
+    inner = _substep_order(levels[1:])
+    return inner + inner + [levels[0]]
+
+
+def _k6_ops_per_iter(dev) -> float:
+    """The plain version's elementwise operations per cell and iteration
+    (``_count_ops``; the five 10^x, the log10 and the table gathers not
+    counted), from two runs of 1,024 equal cells whose iteration counts
+    differ."""
+    import torch
+    from ramses_tpu_torch.hydro import cooling as pc
+    tabs = pc.build_tables(device=dev)
+    nH = torch.ones(1024, dtype=torch.float32, device=dev)
+    T2 = torch.full_like(nH, 1e6)
+    got = []
+    for dt in (3e13, 3e14):
+        _, it = pc.solve_cooling_ref(tabs, nH, T2, 0.0, 1.0, dt,
+                                     want_iters=True)
+        got.append((int(it.max()), _count_ops(
+            lambda: pc.solve_cooling_ref(tabs, nH, T2, 0.0, 1.0, dt))))
+    (i1, n1), (i2, n2) = got
+    return (n2 - n1) / ((i2 - i1) * 1024)
+
+
+def _random_cooling_cells(n: int, seed: int = 3):
+    """Random cells of the cooling tables' whole range (nH 1e-6..1e4, T2
+    10..3e8, metallicity 0..1, the self-shielding boost), as numpy f64 (the
+    card tests' cells)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    nH, T2 = 10 ** rng.uniform(-6, 4, n), 10 ** rng.uniform(1, 8.5, n)
+    z = rng.uniform(0, 1, n)
+    return [nH, T2, z, np.maximum(np.exp(-nH / 0.01), 1e-20)]
+
+
+def _k6_f32_spread(dev) -> str:
+    """The plain version in f32 against f64 on 20,000 random cells (z = 0
+    and the UV tables of z = 3): the cells past 2e-5 and the worst, why K6
+    in f32 is held per cell to the plain f32 version and not to f64."""
+    import torch
+    from ramses_tpu_torch.hydro import cooling as pc
+    n = 20000
+    cells = _random_cooling_cells(n)
+    out = []
+    for aexp, j21 in ((1.0, 0.0), (0.25, 1.0)):
+        tabs = pc.build_tables(aexp=aexp, J21=j21, device=dev)
+        res = [pc.solve_cooling_ref(
+            tabs, *[torch.tensor(a, dtype=dt, device=dev) for a in cells],
+            torch.tensor(3e15, dtype=dt, device=dev)).double()
+            for dt in (torch.float32, torch.float64)]
+        rel = (res[0] - res[1]).abs() / res[1].abs()
+        out.append(f"{'UV at z=3' if j21 else 'z=0'} {int((rel > 2e-5).sum())} "
+                   f"of {n} past 2e-5, the worst {float(rel.max()):.3e}")
+    return "; ".join(out)
+
+
+def _conditioning_move(tabs, args, want, cells, ks, ulp: float):
+    """Each of ``cells``' largest relative move of the plain version's
+    result ``want`` when nH, T2 or dt alone is scaled by ``1 + k·ulp`` for
+    each k of ``ks``: every such copy of the cells in one batched call
+    (the plain version is elementwise, so a cell's result does not depend
+    on its batch)."""
+    import torch
+    from ramses_tpu_torch.hydro import cooling as pc
+    nH = args[0].reshape(-1)
+    m = int(cells.numel())
+
+    def rows(v):
+        v = torch.as_tensor(v, dtype=nH.dtype, device=nH.device).reshape(-1)
+        return v[cells] if v.numel() == nH.numel() else v.expand(m)
+    sub = [rows(v) for v in args]
+    batch = [[], [], [], [], []]
+    for i in (0, 1, 4):
+        for k in ks:
+            for j in range(5):
+                batch[j].append(sub[j] * (1 + k * ulp) if j == i else sub[j])
+    got = pc.solve_cooling_ref(tabs, *[torch.cat(b) for b in batch])
+    w = want.reshape(-1)[cells]
+    return (got.reshape(-1, m) - w).abs().amax(0) / w.abs()
+
+
+def _k6_bound(rec, iters, ops_per_iter: float) -> dict:
+    """K6's least time on these inputs: the bytes of what varies per cell
+    (nH, T2 and the result; zsolar or boost where they are per cell, not
+    numbers at stride 0) and the tables, once each, over HBM's rate, and
+    the operations at this run's iteration counts (``iters`` summed) over
+    the unfused f32 rate; the larger binds."""
+    import torch
+    tabs, nH, T2, zs, bs, _ = rec
+    n, size = nH.numel(), nH.element_size()
+    per_cell = 3 + sum(1 for v in (zs, bs)
+                       if torch.is_tensor(v) and v.numel() == n)
+    tables = sum(t.numel() * t.element_size()
+                 for t in tabs.packed(nH.dtype))
+    nbytes = size * per_cell * n + tables
+    nops = ops_per_iter * float(iters.double().sum())
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * nops / F32_UNFUSED_OPS_PER_S
+    return dict(bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+                ops_ms=ops_ms, nbytes=nbytes, nops=nops,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _k6_check(rec, what: str, ops_per_iter: float, time_it: bool = False,
+              plain_reps: int = 3):
+    """K6 on one recorded call's inputs (``_record_k6``) against its plain
+    version on the card.  f32, per cell: within rel 2e-5 of the plain f32
+    result or, where the plain f32 result itself moves when nH, T2 or dt
+    change by 1 to 4 ulps, within ten times that move, with at most
+    ``K6_F32_CONDITIONED`` of the cells in the second form; and against the
+    plain f64 result at each quantile of the cells' error (median to max)
+    within twice the plain f32 version's plus 1e-6 (the f32 march departs
+    from the f64 one: :func:`_k6_f32_spread`).  f64: the same inputs in f64
+    through both, each cell within ``K6_F64_REL`` or, where the plain
+    version's own result moves when nH, T2 or dt change by 1 to 64 ulps,
+    ten times that move.  Returns a dict of the readings (and, with
+    ``time_it``, the kernel's device ms, the plain version's ms and the
+    bound)."""
+    import torch
+    from ramses_tpu_torch.hydro import cooling as pc
+    tabs, nH, T2, zs, bs, dts = rec
+    n = nH.numel()
+    got, it_k = pc.solve_cooling(tabs, nH, T2, zs, bs, dts, want_iters=True)
+    plain, it_p = pc.solve_cooling_ref(tabs, nH, T2, zs, bs, dts,
+                                       want_iters=True)
+    d64 = [x.double() if torch.is_tensor(x) else x
+           for x in (nH, T2, zs, bs, dts)]
+    exact = pc.solve_cooling_ref(tabs, *d64)
+    torch.cuda.synchronize()
+    q = torch.tensor([0.5, 0.9, 0.99, 0.999, 1.0], dtype=torch.float64,
+                     device=nH.device)
+
+    def quant(x):
+        rel = ((x.double() - exact).abs() / exact.abs()).reshape(-1)
+        if rel.numel() > 1 << 24:            # torch.quantile's input cap
+            rel = rel[torch.randperm(rel.numel(), device=rel.device)
+                      [:1 << 24]]
+        return torch.quantile(rel, q)
+    ek, ep = quant(got), quant(plain)
+    if not bool((ek <= 2 * ep + 1e-6).all()):
+        raise AssertionError(f"{what}: K6 in f32 less accurate than its "
+                             f"plain version: error quantiles against f64 "
+                             f"{ek.tolist()} against {ep.tolist()}")
+    # f32: every cell against the plain f32 result
+    rel32 = ((got - plain).abs() / plain.abs()).reshape(-1)
+    bad32 = torch.nonzero(rel32 > RTOL).reshape(-1)
+    nbad32, move32 = int(bad32.numel()), 0.0
+    if nbad32:
+        mv = _conditioning_move(tabs, (nH, T2, zs, bs, dts), plain, bad32,
+                                (1, -1, 2, -2, 4, -4), 2.0 ** -23)
+        over = rel32[bad32] > torch.clamp(10 * mv, min=RTOL)
+        move32 = float(mv.max())
+        if bool(over.any()) or nbad32 > K6_F32_CONDITIONED * n:
+            j = int(torch.nonzero(over)[0]) if bool(over.any()) else 0
+            c = int(bad32[j])
+            raise AssertionError(
+                f"{what}: K6 in f32 disagrees with its plain f32 version: "
+                f"{nbad32} of {n} cells past {RTOL:g} (at most "
+                f"{K6_F32_CONDITIONED:g} of them may be); cell {c} rel "
+                f"{float(rel32[c]):.3e}, its conditioning move "
+                f"{float(mv[j]):.3e}, iterations {int(it_k.reshape(-1)[c])}"
+                f" kernel, {int(it_p.reshape(-1)[c])} plain")
+    w = int(torch.argmax(rel32))
+    worst = (f"worst cell against plain f32: rel {float(rel32[w]):.3e} "
+             f"(iterations {int(it_k.reshape(-1)[w])} kernel, "
+             f"{int(it_p.reshape(-1)[w])} plain), {nbad32} of {n} cells "
+             f"past {RTOL:g}, each within ten times its conditioning move "
+             f"(the largest {move32:.3e})")
+    # f64: every cell, the conditioned ones probed where they fail
+    k64 = pc.solve_cooling(tabs, *d64)
+    rel64 = ((k64 - exact).abs() / exact.abs()).reshape(-1)
+    bad = torch.nonzero(rel64 > K6_F64_REL).reshape(-1)
+    nbad = int(bad.numel())
+    if nbad:
+        move = _conditioning_move(tabs, d64, exact, bad,
+                                  (1, -2, 4, -8, 16, -64), 1.1e-16)
+        over = rel64[bad] > torch.clamp(10 * move, min=K6_F64_REL)
+        if bool(over.any()):
+            j = int(torch.nonzero(over)[0])
+            raise AssertionError(
+                f"{what}: K6 in f64 disagrees with its plain version: cell "
+                f"{int(bad[j])} rel {float(rel64[bad[j]]):.3e}, its "
+                f"conditioning move {float(move[j]):.3e}")
+    out = dict(n=n, iters_mean=float(it_k.double().mean()),
+               iters_max=int(it_k.max()), max_abs_err=float(
+                   (got - plain).abs().max()), rel64=float(rel64.max()),
+               conditioned=nbad, q_kernel=ek.tolist(), q_plain=ep.tolist(),
+               worst=worst)
+    if time_it:
+        out["ms"] = _device_ms(
+            lambda: pc.solve_cooling(tabs, nH, T2, zs, bs, dts),
+            "cooling_kernel", n=20, launched=lambda: pc.launches)
+        out["plain_ms"] = _median_ms(
+            lambda: pc.solve_cooling_ref(tabs, nH, T2, zs, bs, dts),
+            reps=plain_reps, warm=1)
+        out.update(_k6_bound(rec, it_k, ops_per_iter))
+    del got, plain, exact, k64
+    torch.cuda.empty_cache()
+    return out
+
+
+def _k6_timing(r: dict, ops_per_iter: float) -> str:
+    return (f"{r['ms']:.4f} ms/launch, plain version {r['plain_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} (bytes "
+            f"{r['bytes_ms']:.4f} ms for {r['nbytes'] / 1e9:.4f} GB; "
+            f"operations {r['ops_ms']:.4f} ms for {r['nops'] / 1e9:.4f} G "
+            f"at {ops_per_iter:.1f} a cell and iteration, unfused f32 at "
+            f"{F32_UNFUSED_OPS_PER_S:.3g}/s), "
+            f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound")
+
+
+def _k6_march(dev, ops_per_iter: float) -> dict:
+    """K6 where the march is long: ``K6_MARCH_CELLS`` random cells
+    (:func:`_random_cooling_cells`, z = 0 tables) over dt 3e15 s in f32,
+    checked as the main paths' calls are, and timed."""
+    import torch
+    from ramses_tpu_torch.hydro import cooling as pc
+    tabs = pc.build_tables(device=dev)
+    cells = [torch.tensor(a, dtype=torch.float32, device=dev)
+             for a in _random_cooling_cells(K6_MARCH_CELLS)]
+    rec = (tabs, *cells, torch.tensor(3e15, dtype=torch.float32,
+                                      device=dev))
+    return _k6_check(rec, "phase 50 random cells", ops_per_iter,
+                     time_it=True, plain_reps=1)
+
+
+def _k6_line(r: dict) -> str:
+    return (f"{r['n']} cells, iterations mean {r['iters_mean']:.3f} max "
+            f"{r['iters_max']}; f32 error quantiles against plain f64 "
+            f"{[f'{x:.2e}' for x in r['q_kernel']]} (plain f32 "
+            f"{[f'{x:.2e}' for x in r['q_plain']]}); {r['worst']}; f64 "
+            f"max rel {r['rel64']:.3e} ({r['conditioned']} cells past "
+            f"{K6_F64_REL:g}, each within ten times its conditioning move)")
+
+
+def _cooling_phases(dev, card: str) -> dict:
+    """Phases 50-54; returns the K6 row and the main paths' launches."""
+    import shutil
+    import tempfile
+    ops = _k6_ops_per_iter(dev)
+    row, l50 = _cool_uniform_phase(dev, card, ops)
+    march = _k6_march(dev, ops)
+    _print(f"phase 50 K6 where the march is long, on {card}: "
+           f"{K6_MARCH_CELLS} random cells (z = 0 tables, dt 3e15 s, f32): "
+           f"{_k6_timing(march, ops)}; {_k6_line(march)}")
+    l51 = _sf_amr_phase(dev, card, ops)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sf_")
+    try:
+        _feedback_stellar_phase(card, tmp)
+        _sf_uniform_phase(card, tmp)
+        l54 = _cosmo_gal_phase(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {k: l50.get(k, 0) + l51.get(k, 0) + l54.get(k, 0)
+           for k in ("fused_muscl", "tile_sweep", "cooling")}
+    row["launches"] = out["cooling"]
+    return dict(out, row=row)
+
+
+def _hot_energy(sim, t2_hot: float = 1e4) -> float:
+    """The thermal energy of a uniform state's cells hotter than ``t2_hot``
+    in T2 (K): the blast's, without the cold ambient that cooling_step
+    raises to T2_MIN (``ramses_tpu/hydro/cooling.py:665``)."""
+    import torch
+    u = sim.state.u.double()
+    ekin = 0.5 * (u[1:4] ** 2).sum(0) / u[0]
+    eint = u[4] - ekin
+    t2 = (sim.cfg.gamma - 1.0) * eint / u[0] * sim.units.scale_T2
+    return float(torch.sum(torch.where(t2 > t2_hot, eint, 0.0))) \
+        * sim.dx ** 3
+
+
+def _cool_uniform_phase(dev, card: str, ops_per_iter: float):
+    """Phase 50: config 1 (sedov3d at 256³, f32) with ``&COOLING_PARAMS
+    cooling`` and the ISM units, 20 steps through ``Simulation``."""
+    import re
+
+    import torch
+    from ramses_tpu_torch.config import params_from_string
+    from ramses_tpu_torch.driver import Simulation
+    from ramses_tpu_torch.grid.uniform import run_steps_cool
+    text = open(NML).read()
+    text = re.sub(r"levelmin=\d+", f"levelmin={COOL_LEVEL}", text)
+    text = re.sub(r"levelmax=\d+", f"levelmax={COOL_LEVEL}", text)
+    text = re.sub(r"nstepmax=\d+", f"nstepmax={COOL_STEPS}", text)
+    text = text.replace("tout=1.0", "tout=100.0") + "\n&UNITS_PARAMS\n" \
+        + "\n".join(f"{k}={v}" for k, v in ISM_UNITS.items()) + "\n/\n"
+    cool = text + "&COOLING_PARAMS\ncooling=.true.\n/\n"
+
+    def run(t, store=None):
+        s = Simulation(params_from_string(t, ndim=3))
+        torch.cuda.synchronize()
+        _reset_counts()
+        rec = _record_k6(store) if store is not None else None
+        t0 = time.perf_counter()
+        try:
+            s.evolve()
+            torch.cuda.synchronize()
+        finally:
+            if rec is not None:
+                rec()
+        return s, time.perf_counter() - t0, _counts()
+    store = {}
+    a, _, launches = run(cool, store)
+    b, wall_b, _ = run(cool)
+    same = torch.equal(a.state.u, b.state.u)
+    del b
+    c, wall_c, _ = run(text)
+    # the adiabatic run to the cooled run's end time
+    d, _, _ = run(re.sub(r"nstepmax=\d+", "nstepmax=1000", text).replace(
+        "tout=100.0", f"tout={a.t!r}"))
+    e_cool, e_adia = _hot_energy(a), _hot_energy(d)
+    tot = (float(a.totals()["energy"]), float(d.totals()["energy"]))
+    finite = bool(torch.isfinite(a.state.u).all())
+    del c, d
+    # the step loop waits on nothing: two steps under the sync debug mode
+    f64 = dict(dtype=torch.float64, device=dev)
+    t0, tend = torch.tensor(a.t, **f64), torch.tensor(1e30, **f64)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run_steps_cool(a.grid, a.state.u, t0, tend, 2, a.cool_tables,
+                       a.cool_spec)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not (a.nstep == COOL_STEPS and launches == _want(
+            fused_muscl=COOL_STEPS, cooling=COOL_STEPS) and finite and same
+            and e_cool < e_adia):
+        raise AssertionError(
+            f"phase 50 sedov3d with cooling at 256³: {a.nstep} steps, "
+            f"launches {launches}, finite {finite}, replay bitwise {same}, "
+            f"thermal energy above 1e4 K {e_cool} against the adiabatic "
+            f"run's {e_adia} (total energies {tot})")
+    r = _k6_check(store["last"], "phase 50", ops_per_iter, time_it=True)
+    spread = _k6_f32_spread(dev)
+    _print(f"phase 50 config 1 with cooling on {card}: sedov3d "
+           f"{a.grid.shape} f32, ISM units, {COOL_STEPS} steps through "
+           f"Simulation (run_steps_cool: K1, then cooling_step with K6): "
+           f"launches {launches}; no host sync in 2 steps under sync debug "
+           f"'error'; a replay bitwise; thermal energy of the gas above "
+           f"1e4 K {e_cool:.9e} against {e_adia:.9e} in the adiabatic run "
+           f"to the same time (total energy {tot[0]:.9e} against "
+           f"{tot[1]:.9e}: the T2_MIN clip heats the 1e-3 K ambient); "
+           f"{1e3 * wall_b / COOL_STEPS:.4f} ms a step with cooling "
+           f"(the replay), {1e3 * wall_c / COOL_STEPS:.4f} ms without "
+           f"(run_steps on K1 with its Courant min); K6 on the last step's "
+           f"recorded inputs: {_k6_timing(r, ops_per_iter)}; "
+           f"{_k6_line(r)}; the plain version in f32 against f64 "
+           f"on random cells (dt 3e15 s): {spread}; library call: none")
+    row = {"name": "cooling", "route": "cuda",
+           "source": "ramses_tpu_torch/csrc/cooling.cu",
+           "replaces": "ramses_tpu/hydro/cooling.py:373 (solve_cooling's "
+                       "lax.while_loop; no pallas_call)",
+           "launches": 0, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+           "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+           "bound_by": r["bound_by"], "library_ms": None}
+    del a
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def _sf_amr_phase(dev, card: str, ops_per_iter: float) -> dict:
+    """Phase 51: config 2's levels (7 / 9, f32) on the JAX test's SF blob
+    with cooling, self-gravity, star formation and thermal feedback, 5
+    coarse steps; returns the launches."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.amr import hierarchy as H
+    from ramses_tpu_torch.pm import amr_physics as ap
+    from ramses_tpu_torch.pm.star_formation import (FLAG_SN_DONE,
+                                                    mstar_quantum)
+    lmin, lmax = SF_AMR_LEVELS
+    p = _sf_blob(lmin, lmax, d_in=50.0, p_in=0.5, tend=1.0,
+                 run_params={"poisson": True},
+                 amr_params={"npartmax": 400000},
+                 refine_params={"err_grad_d": 0.2},
+                 cooling_params={"cooling": True},
+                 sf_params={"n_star": 1.0, "t_star": 0.1, "m_star": 1.0},
+                 feedback_params={"eta_sn": 0.1, "t_sne": 0.001})
+    stepped, recorded, k6rec = [], {}, {}
+    step_coarse = H.AmrSim.step_coarse
+
+    def counted(self, dt):
+        spec = self._fused_spec()
+        stepped.append((spec.levels, spec.complete, spec.blocked))
+        last = len(stepped) == SF_AMR_STEPS
+        rec = _record_kernel_inputs(recorded) if last else None
+        rec6 = (_record_k6(k6rec, _substep_order(spec.levels)) if last
+                else None)
+        try:
+            step_coarse(self, dt)
+        finally:
+            if rec is not None:
+                rec()
+                rec6()
+    sim = H.AmrSim(p)
+    m0 = float(sim.totals()["mass"])
+    acc, restore = _timed_parts({
+        "regrid": (H.AmrSim, "regrid"),
+        "solve": (H.AmrSim, "solve_gravity"),
+        "sweep with cooling": (H, "_coarse_step"),
+        "cooling": (H, "cooling_step"),
+        "SF": (ap, "star_formation_amr"),
+        "feedback": (ap, "thermal_feedback_amr"),
+        "Courant fetch": (H.AmrSim, "coarse_dt")})
+    H.AmrSim.step_coarse = counted
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        sim.evolve(1.0, nstepmax=SF_AMR_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        H.AmrSim.step_coarse = step_coarse
+        restore()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    want = _cosmo_want(stepped, lmin)
+    want["cooling"] = sum(2 ** (l - lmin) for levels, _, _ in stepped
+                          for l in levels)
+    f = {k: v.cpu().numpy() for k, v in (("m", sim.p.m), ("x", sim.p.x),
+                                          ("act", sim.p.active),
+                                          ("flags", sim.p.flags),
+                                          ("fam", sim.p.family))}
+    stars = f["act"] & (f["fam"] == 2)
+    m_star = float(f["m"][stars].astype(np.float64).sum())
+    m1 = float(sim.totals()["mass"])
+    lv = ap._levels_of(sim, f["x"][stars].astype(np.float64))
+    mq = np.float32(mstar_quantum(sim.sf_spec, sim.units, sim.dx(lmax), 3))
+    fired = stars & ((f["flags"] & FLAG_SN_DONE) != 0)
+    # each SN fired once: a fired star holds (1 - eta_sn) of the quantum,
+    # an unfired one the quantum
+    once = (np.allclose(f["m"][fired], np.float32(0.9) * mq, rtol=1e-6)
+            and np.allclose(f["m"][stars & ~fired], mq, rtol=1e-6))
+    finite = all(bool(torch.isfinite(sim.u[l]).all()) for l in sim.levels())
+    ok = (launches == want and abs(m1 + m_star - m0) <= 1e-5 * m0
+          and stars.sum() > 0 and (lv > lmin).any() and fired.any()
+          and once and finite)
+    if not ok:
+        raise AssertionError(
+            f"phase 51 SF blob at {lmin}/{lmax}: launches {launches} "
+            f"(expected {want}), gas+stars {m1 + m_star} against {m0}, "
+            f"{int(stars.sum())} stars, levels {np.bincount(lv)}, SNe "
+            f"{int(fired.sum())}, once {once}, finite {finite}")
+    nst = len(stepped)
+    _print(f"phase 51 config 2 with cooling, gravity, SF and thermal "
+           f"feedback on {card}: the JAX test's SF blob at "
+           f"levelmin {lmin} levelmax {lmax} f32, {nst} coarse steps in "
+           f"{wall:.3f} s, octs {[sim.tree.noct(l) for l in sim.levels()]};"
+           f" launches {launches} (expected {want}); {int(stars.sum())} "
+           f"stars, by level {dict(zip(*np.unique(lv, return_counts=True)))}"
+           f", {int(fired.sum())} SNe fired once each; gas + stars "
+           f"{m1 + m_star:.9e} against {m0:.9e}; s a coarse step by part "
+           f"(synchronised; the sweep holds the cooling): "
+           + ", ".join(f"{k} {v / nst:.4f}" for k, v in acc.items())
+           + f", other {(wall - sum(acc.values())) / nst:.4f}")
+    # M any field's: the SN-heated gas's pressure dwarfs its momenta, whose
+    # updates are differences of pressure fluxes (as in phases 47 and 49)
+    line = _last_step_check(sim, recorded, stepped[-1], "phase 51",
+                            any_field=True)
+    finest = max(k6rec)
+    k6 = {l: _k6_check(r, f"phase 51 level {l}", ops_per_iter,
+                       time_it=l == finest) for l, r in sorted(k6rec.items())}
+    stats = {}
+    prof = _profile(lambda: (sim.regrid(), sim.step_coarse(
+        sim.coarse_dt())), os.path.join(ROOT, "chiprun_out"), name=None,
+        warm=False, stats=stats, raw=True)
+    _print(f"phase 51 K1 and K3 on the last coarse step's inputs against "
+           f"their plain versions within LOCAL_ATOL + LOCAL_RTOL·M, M any "
+           f"field's stencil max: {line}; "
+           f"K6 on each level's last-step inputs: "
+           + "; ".join(f"level {l}: {_k6_line(r)}" for l, r in k6.items())
+           + f"; K6 timed on level {finest}'s rows: "
+           f"{_k6_timing(k6[finest], ops_per_iter)}"
+           + f"; one more coarse step under the profiler: {prof}")
+    del sim
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _feedback_stellar_phase(card: str, tmp: str):
+    """Phase 52: kinetic feedback on the SF blob at 6 / 7 (its mass and
+    energy budget at every pass), then the JAX stellar test's set-up at 6
+    / 7 (sinks, stellar objects that spawn and explode, the CSV)."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.pm import amr_physics as ap
+    from ramses_tpu_torch.pm.star_formation import (M_SUN, host_particles,
+                                                    sn_due_mask)
+    lmin, lmax = FB_LEVELS
+    p = _sf_blob(lmin, lmax, d_in=50.0, p_in=0.5, tend=1.0,
+                 amr_params={"npartmax": 200000},
+                 refine_params={"err_grad_d": 0.2},
+                 sf_params={"n_star": 1.0, "t_star": 0.1, "m_star": 1.0},
+                 feedback_params={"eta_sn": 0.1, "t_sne": 0.001,
+                                  "f_w": 1.0})
+    sim = AmrSim(p)
+    budgets = []
+    kin = ap.kinetic_feedback_amr
+
+    def checked(s):
+        f = host_particles(s.p)
+        due = sn_due_mask(f, s.sf_spec, s.units, s.t)
+        mej = s.sf_spec.eta_sn * f["m"][due].astype(np.float64)
+        v2 = (f["v"][due].astype(np.float64) ** 2).sum(1)
+        esn = (1e51 / (10.0 * M_SUN)) / s.units.scale_v ** 2
+        t0 = s.totals()
+        kin(s)
+        t1 = s.totals()
+        budgets.append((len(mej), t1["mass"] - t0["mass"], mej.sum(),
+                        t1["energy"] - t0["energy"],
+                        (mej * esn + 0.5 * mej * v2).sum(), t0["energy"],
+                        t0["mass"]))
+    ap.kinetic_feedback_amr = checked
+    t0 = time.perf_counter()
+    try:
+        sim.evolve(1.0, nstepmax=FB_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        ap.kinetic_feedback_amr = kin
+    wall = time.perf_counter() - t0
+    nsn = sum(b[0] for b in budgets)
+    # the rows are f32: a total moves by its own rounding, ~1e-7 of it
+    bad = [b for b in budgets if b[0] and not (
+        abs(b[1] - b[2]) <= 1e-4 * b[2] + 1e-6 * b[6]
+        and abs(b[3] - b[4]) <= 1e-4 * b[4] + 1e-6 * abs(b[5]))]
+    if not (len(budgets) == FB_STEPS and nsn > 0 and not bad):
+        raise AssertionError(f"phase 52 kinetic feedback: {nsn} SNe, "
+                             f"budgets (n, dm, mej, dE, expected, E, M) "
+                             f"{bad}")
+    kin_line = (f"kinetic feedback (f_w=1) on the SF blob at {lmin}/{lmax}, "
+                f"{FB_STEPS} coarse steps in {wall:.3f} s: {nsn} SNe; every "
+                f"pass's leaf gas mass and energy changed by the ejecta and "
+                f"E_SN + their kinetic energy within 1e-4 (and 1e-6 of the "
+                f"totals) (passes: "
+                + "; ".join(f"{b[0]} SNe dm {b[1]:.6e}/{b[2]:.6e} dE "
+                            f"{b[3]:.6e}/{b[4]:.6e}" for b in budgets if b[0])
+                + ")")
+    del sim
+    p = _sf_blob(lmin, lmax, d_in=100.0, p_in=1.0, tend=1.0,
+                 refine_params={"err_grad_d": 0.2},
+                 sink_params={"create_sinks": True, "n_sink": 10.0,
+                              "accretion_scheme": "threshold",
+                              "c_acc": 0.2},
+                 stellar_params={"stellar_msink_th": 0.002 * STELLAR_SCALE,
+                                 "imf_index": -2.35, "imf_low": 8.0,
+                                 "imf_high": 120.0, "lt_t0": 1e-6,
+                                 "sn_e_ref": 0.02 * STELLAR_SCALE,
+                                 "sn_direct": False})
+    sim = AmrSim(p)
+    e0 = float(sim.totals()["energy"])
+    t0 = time.perf_counter()
+    sim.evolve(1.0, nstepmax=FB_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spawned = sim.stellar.next_id - 1
+    out = sim.dump(1, os.path.join(tmp, "stellar"))
+    lines = open(os.path.join(out, "stellar_00001.csv")).read().splitlines()
+    ids = [int(ln.split(",")[0]) for ln in lines[2:]]
+    e1 = float(sim.totals()["energy"])
+    finite = all(bool(torch.isfinite(sim.u[l]).all()) for l in sim.levels())
+    if not (spawned > 0 and sim.stellar.n < spawned and finite
+            and lines[:2] == [" # id,mstellar,tform,tlife ", " # 1,m,t,t"]
+            and ids == [int(i) for i in sim.stellar.idp]):
+        raise AssertionError(
+            f"phase 52 stellar objects: {spawned} spawned, {sim.stellar.n} "
+            f"alive, finite {finite}, CSV head {lines[:3]}, {len(ids)} rows")
+    _print(f"phase 52 on {card}: {kin_line}; stellar objects (the JAX "
+           f"stellar test's set-up at {lmin}/{lmax}, its quanta x "
+           f"{STELLAR_SCALE:g}, lt_t0 1e-6 so that an object explodes the "
+           f"step after its birth) {FB_STEPS} coarse steps in {wall:.3f} s:"
+           f" {sim.sinks.n} sinks, {spawned} objects spawned, "
+           f"{spawned - sim.stellar.n} exploded, {sim.stellar.n} alive; "
+           f"energy {e0:.6e} -> {e1:.6e}; stellar_00001.csv parses with the "
+           f"reference header, {len(ids)} rows")
+    del sim
+    torch.cuda.empty_cache()
+
+
+def _sf_uniform_phase(card: str, tmp: str):
+    """Phase 53: the SF blob at 128³ through the uniform ``Simulation``
+    with ``pic``, SF and thermal feedback, 5 chunks; then a dump, a
+    restore and one more chunk."""
+    import torch
+    from ramses_tpu_torch.driver import Simulation
+    lv = SF_UNIFORM_LEVEL
+    nsteps = 16 * SF_UNIFORM_CHUNKS
+    p = _sf_blob(lv, lv, d_in=50.0, p_in=0.5, tend=1.0,
+                 run_params={"pic": True, "nstepmax": nsteps},
+                 amr_params={"npartmax": 200000},
+                 sf_params={"n_star": 1.0, "t_star": 0.1, "m_star": 1.0},
+                 feedback_params={"eta_sn": 0.1, "t_sne": 0.001},
+                 output_params={"noutput": 1, "tout": [100.0]})
+    sim = Simulation(p)
+    m0 = float(sim.totals()["mass"])
+    t0 = time.perf_counter()
+    sim.evolve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    act = sim.state.p.active.cpu().numpy()
+    m1 = float(sim.totals()["mass"]) + float(
+        sim.state.p.m.double().cpu().numpy()[act].sum())
+    nstar = sim.n_stars()
+    out = sim.dump(900, os.path.join(tmp, "sf_uniform"))
+    ids = set(sim.state.p.idp.cpu().numpy()[act].tolist())
+    back = Simulation.from_snapshot(p, out)
+    next_id = back._next_star_id
+    # after the SNe the heated gas cuts the dt a hundredfold: chunks until
+    # new stars form (up to four)
+    for _ in range(4):
+        back.params.run.nstepmax = back.nstep + 16
+        back.evolve()
+        bact = back.state.p.active.cpu().numpy()
+        new = set(back.state.p.idp.cpu().numpy()[bact].tolist()) - ids
+        if new:
+            break
+    restored = set(back.state.p.idp.cpu().numpy()[bact].tolist()) & ids
+    if not (sim.nstep == nsteps and nstar > 0 and abs(m1 - m0) <= 1e-5 * m0
+            and next_id == max(ids) + 1 and new
+            and min(new) > max(ids) and len(restored) == len(ids)):
+        raise AssertionError(
+            f"phase 53 uniform SF: {sim.nstep} steps, {nstar} stars, gas + "
+            f"stars {m1} against {m0}, {len(new)} new ids after the "
+            f"restore (min {min(new) if new else None}, restored max "
+            f"{max(ids) if ids else None})")
+    _print(f"phase 53 uniform SF on {card}: the SF blob at "
+           f"{sim.grid.shape} f32 through Simulation with pic, SF and "
+           f"thermal feedback, {SF_UNIFORM_CHUNKS} chunks of 16 steps in "
+           f"{wall:.3f} s ({1e3 * wall / nsteps:.3f} ms a step with the "
+           f"passes): {nstar} stars, gas + stars {m1:.9e} against "
+           f"{m0:.9e}; dumped, restored, {back.nstep - sim.nstep} more "
+           f"steps: {len(new)} new stars, ids from {min(new)} past the "
+           f"restored {max(ids)}")
+    del sim, back
+    torch.cuda.empty_cache()
+
+
+def _cosmo_gal_phase(card: str, tmp: str) -> dict:
+    """Phase 54: ``namelists/cosmo_gal.nml`` as shipped but its ICs (64³,
+    written by the port's ``write_zeldovich_ics``) and ``nstepmax``,
+    through the CLI in process; returns the launches."""
+    import torch
+    from ramses_tpu_torch.amr import hierarchy as H
+    from ramses_tpu_torch.hydro import cooling as pc
+    from ramses_tpu_torch.pm import amr_physics as ap
+    run_dir = os.path.join(tmp, "gal")
+    os.makedirs(run_dir)
+    pos = _gaussian_ics(os.path.join(run_dir, "grafic_files"),
+                        2 ** GAL_LEVEL, COSMO_SIGMA, COSMO_SEED)
+    text = open(GAL_NML).read()
+    if f"levelmin={GAL_LEVEL}" not in text:
+        raise AssertionError(f"cosmo_gal.nml's levelmin is not {GAL_LEVEL}")
+    nml = os.path.join(run_dir, "cosmo_gal.nml")
+    with open(nml, "w") as f:
+        f.write(text.replace("&RUN_PARAMS",
+                             f"&RUN_PARAMS\nnstepmax={GAL_STEPS}", 1))
+    walls, masses, finite = [], [], []
+    step_coarse = H.AmrSim.step_coarse
+
+    def logged(self, dt):
+        t0 = time.perf_counter()
+        step_coarse(self, dt)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        masses.append(float(self.totals()["mass"])
+                      + float(torch.sum(self.p.m.double() * self.p.active)))
+        finite.append(all(bool(torch.isfinite(self.u[l]).all())
+                          for l in self.levels()))
+    acc, restore = _timed_parts({
+        "regrid": (H.AmrSim, "regrid"),
+        "tables (host numpy)": (pc, "tables_from_params"),
+        "maps": (H.AmrSim, "_build_pm"),
+        "solve": (H.AmrSim, "solve_gravity"),
+        "sweep with cooling": (H, "_coarse_step"),
+        "cooling": (H, "cooling_step"),
+        "SF": (ap, "star_formation_amr"),
+        "feedback": (ap, "thermal_feedback_amr")})
+    H.AmrSim.step_coarse = logged
+    torch.cuda.synchronize()
+    _reset_counts()
+    try:
+        sim, wall = _cli_in_process([nml, "--ndim", "3"], run_dir)
+    finally:
+        H.AmrSim.step_coarse = step_coarse
+        restore()
+    launches = _counts()
+    m0 = masses[0] if masses else 0.0
+    bad = [i for i, ok in enumerate(finite) if not ok]
+    ok = (sim.nstep == GAL_STEPS and not bad and sim.cool_tabulations >= 2
+          and all(abs(m - m0) <= 1e-5 * m0 for m in masses)
+          and launches["cooling"] > 0 and os.path.isdir(
+              os.path.join(run_dir, "output_00001")))
+    if not ok:
+        raise AssertionError(
+            f"phase 54 cosmo_gal.nml: {sim.nstep} steps, non-finite after "
+            f"steps {bad}, tables built {sim.cool_tabulations} times, total "
+            f"mass by step {masses}, launches {launches}")
+    n = len(walls)
+    _print(f"phase 54 cosmo_gal.nml through the CLI on {card} (run_cli in "
+           f"process, f32, as shipped but its {2 ** GAL_LEVEL}³ ICs (min "
+           f"1+δ {pos:.3f}) and nstepmax={GAL_STEPS}; pressure_fix: the "
+           f"general hydro formulation, cooling through K6): "
+           f"{sim.cosmo_line()}, "
+           f"{sim.n_stars()} stars, in {wall:.3f} s; tables built "
+           f"{sim.cool_tabulations} times; total mass (gas + particles) "
+           f"{masses[0]:.9e} -> {masses[-1]:.9e}; launches {launches}; s a "
+           f"coarse step {[round(w, 3) for w in walls]}, by part "
+           f"(synchronised): " + ", ".join(f"{k} {v / n:.4f}"
+                                           for k, v in acc.items()))
+    del sim
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5733,6 +6577,13 @@ def main() -> int:
         if r["name"] in ("tile_sweep", "fused_muscl_flux"):
             r["launches"] += src[r["name"]]
     marks.append(("44-49", time.perf_counter()))
+    # ---- 50-54. cooling (K6), star formation, stellar objects ----
+    cool = _cooling_phases(dev, card)
+    k1["launches"] += cool["fused_muscl"]
+    for r in oct_rows:
+        if r["name"] == "tile_sweep":
+            r["launches"] += cool["tile_sweep"]
+    marks.append(("50-54", time.perf_counter()))
     _print("script wall by phases: " + ", ".join(
         f"{label} {t - t0:.1f} s" for (_, t0), (label, t)
         in zip(marks, marks[1:]))
@@ -5742,7 +6593,7 @@ def main() -> int:
                "window; their ms are queued CUDA events: "
                + "; ".join(PROFILER_LOST))
     _print(json.dumps({"kernels": [k1] + oct_rows + [k4] + flux_rows
-                       + parallel_rows}))
+                       + parallel_rows + [cool["row"]]}))
     _print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

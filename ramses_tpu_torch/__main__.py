@@ -3,8 +3,10 @@
 Runs a namelist on the GPU (``--device cpu`` for the CPU): hydro (with
 self-gravity under ``&RUN_PARAMS poisson``, particles under ``pic``, the
 supercomoving clock and the grafic/Gadget ICs under ``cosmo``, as
-``namelists/cosmo.nml``, sinks under ``&SINK_PARAMS``, as
-``collapse_iso.nml`` and ``smbh_bondi.nml``, turbulence forcing under
+``namelists/cosmo.nml``, cooling, star formation and SN feedback, as
+``cosmo_gal.nml``, sinks under ``&SINK_PARAMS``, as ``collapse_iso.nml``
+and ``smbh_bondi.nml``, with stellar objects under ``&STELLAR_PARAMS`` on
+the hierarchy, turbulence forcing under
 ``&TURB_PARAMS`` on the uniform grid, as ``turb_driving.nml``), or with
 ``--solver mhd`` (the default when &INIT_PARAMS sets a region field, as in
 the JAX CLI) constrained-transport MHD (on the hierarchy with gravity,
@@ -15,7 +17,8 @@ Writes the snapshots the JAX CLI writes into ``&OUTPUT_PARAMS
 output_dir``: the uniform hydro driver a reference-format
 ``output_NNNNN/`` at each output time (with ``turb_fields.npz`` under
 forcing), the other drivers ``output_00001/`` at the end (with
-``sink_00001.csv`` under sinks).  Every run goes through the supervisor,
+``sink_00001.csv`` under sinks, ``stellar_00001.csv`` with stellar
+objects).  Every run goes through the supervisor,
 which restores ``output_<nrestart>`` (``&RUN_PARAMS nrestart``) or, with
 ``--auto-resume`` (``auto_resume``, ``nrestart=-1``), the newest
 manifest-valid checkpoint; ``--max-attempts N`` resumes an interrupted
@@ -27,7 +30,7 @@ Prints one line per chunk of steps (per coarse step on the hierarchy) and
 the final conservation totals; MHD on the hierarchy closes with the JAX
 CLI's ``mhd-amr t=… nstep=… max|divB|/max|B|*dx=…`` line, a cosmological
 hierarchy prints its ``cosmo-amr aexp=… nstep=… octs=[…]`` line before
-the dump.
+the dump (with `` stars=N`` under star formation).
 """
 
 from __future__ import annotations
@@ -40,8 +43,9 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="ramses_tpu_torch",
         description="PyTorch/CUDA port of ramses_tpu (hydro with gravity, "
-                    "particles, cosmology, sinks and turbulence forcing, "
-                    "and CT MHD, uniform or AMR on one device)")
+                    "particles, cosmology, cooling, star formation, sinks "
+                    "and turbulence forcing, and CT MHD, uniform or AMR "
+                    "on one device)")
     ap.add_argument("namelist", help="Fortran-namelist runtime config")
     ap.add_argument("--ndim", type=int, default=3,
                     help="spatial dimensions (compile-time in the reference)")
@@ -111,7 +115,10 @@ def run_cli(argv=None):
     sim = supervise_namelist(params, build, drive,
                              max_attempts=args.max_attempts, tend=tend)
     if getattr(sim, "cosmo", None) is not None and cls is not Simulation:
-        print(sim.cosmo_line())
+        sf = getattr(sim, "sf_spec", None)
+        # the star count beside the line under star formation
+        print(sim.cosmo_line() + (f" stars={sim.n_stars()}"
+                                  if sf is not None and sf.enabled else ""))
     if cls is not Simulation:
         sim.dump(1, base, namelist_path=args.namelist)
     return sim

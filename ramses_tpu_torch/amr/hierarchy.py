@@ -74,7 +74,18 @@ field); the sinks are host numpy (``sim.sinks``), ``dump`` writes them as
 Without a flux capture (the MHD hierarchy) tracers move as CIC velocity
 tracers (:func:`ramses_tpu_torch.pm.amr_physics.tracer_drift_amr`).
 
-Cooling, star formation, stellar objects, turbulence forcing (which the
+``&COOLING_PARAMS cooling`` applies the cooling source after each level
+substep's sweep and kick (:func:`ramses_tpu_torch.hydro.cooling.
+cooling_step` on the flat rows, K6 on the card), with the tables built at
+the run's epoch; under cosmology the unit scales follow aexp every coarse
+step and the tables are rebuilt whenever aexp has moved by 2 %.
+``&SF_PARAMS`` adds star formation on the leaf cells and the delayed SN
+feedback of ``&FEEDBACK_PARAMS`` after each coarse step (stars are
+particles: the run turns ``pic`` on), and ``&STELLAR_PARAMS`` the stellar
+objects spawned from the sinks' accreted mass and their SNe
+(:mod:`ramses_tpu_torch.pm.stellar`, ``stellar_NNNNN.csv`` in each dump).
+
+Turbulence forcing (which the
 JAX package runs on the uniform grid only), the lightcone, the clump
 finder, RT, movies, load balance, offload, the step guard, the watchdog,
 telemetry, patch hooks, non-cubic roots and elastic sharded checkpoints
@@ -98,6 +109,7 @@ from ramses_tpu_torch.amr.tree import Octree, cell_offsets
 from ramses_tpu_torch.config import Params
 from ramses_tpu_torch.device import resolve_device
 from ramses_tpu_torch.grid import boundary as bmod
+from ramses_tpu_torch.hydro.cooling import cooling_step
 from ramses_tpu_torch.hydro.core import HydroStatic
 from ramses_tpu_torch.init import regions
 from ramses_tpu_torch.pm import amr_physics
@@ -130,6 +142,9 @@ class FusedSpec(NamedTuple):
     slab: tuple = ()
     # self-gravity: a half kick of each level before and after its sweep
     gravity: bool = False
+    # the cooling source (a hydro.cooling.CoolingSpec) after each level
+    # substep's sweep and kick, or None
+    cool: object = None
 
 
 class _Cfg1:
@@ -161,11 +176,13 @@ def _sample_dense_periodic(dense: np.ndarray, x01: np.ndarray) -> np.ndarray:
     return out
 
 
-def _advance(u, dev, dt, spec: FusedSpec, fg=None):
+def _advance(u, dev, dt, spec: FusedSpec, fg=None, cool=None):
     """One coarse step (the recursive subcycled ``amr_step``) as device work
     only: ``u`` maps level → rows, ``dt`` is a 0-d device tensor in the
     state dtype, ``fg`` (with ``spec.gravity``) level → the force rows
-    ``[ncell_pad, ndim]``.  Returns ``(u, phi)``: the new state dict and,
+    ``[ncell_pad, ndim]``, ``cool`` (with ``spec.cool``) the cooling
+    tables and the unit scales ``[scale_T2, scale_nH, scale_t]`` as a
+    device tensor.  Returns ``(u, phi)``: the new state dict and,
     with ``spec.want_flux``, each level's face mass fluxes ``[ncell_pad,
     ndim, 2]`` summed over its substeps (else None).  The input tensors are
     not modified."""
@@ -233,6 +250,13 @@ def _advance(u, dev, dt, spec: FusedSpec, fg=None):
         u[l] = unew[l]
         if spec.gravity:
             u[l] = gs.kick_flat(u[l], fg[l], 0.5 * dtl, cfg.ndim, cfg.smallr)
+        if spec.cool is not None:
+            # cooling_fine follows godunov_fine at every level substep
+            # (amr/amr_step.f90:448-474); pointwise, so the flat rows
+            # transpose straight into the dense-state pass (K6 on the card)
+            tabs, scl = cool
+            u[l] = cooling_step(u[l].T, tabs, spec.cool, dtl, cfg,
+                                scales=scl).T
         if i + 1 < len(levels):
             u[l] = K.restrict_upload(u[l], u[levels[i + 1]], d["ref_cell"],
                                      d["son_oct"], cfg)
@@ -253,16 +277,17 @@ def _courant(u, dev, spec: FusedSpec, fg=None):
         for l in spec.levels])
 
 
-def _coarse_step(u, dev, dt, spec: FusedSpec, fg=None):
+def _coarse_step(u, dev, dt, spec: FusedSpec, fg=None, cool=None):
     """One coarse step and the NEXT step's Courant dt (a 0-d device
     tensor), the reference's ``dtnew`` bookkeeping; with
     ``spec.want_flux`` also the step's face mass fluxes per level."""
-    u, phi = _advance(u, dev, dt, spec, fg)
+    u, phi = _advance(u, dev, dt, spec, fg, cool)
     dtn = torch.min(_courant(u, dev, spec, fg if spec.gravity else None))
     return (u, dtn, phi) if spec.want_flux else (u, dtn)
 
 
-def _multi_step(u, dev, t, tend, dt0, spec: FusedSpec, nsteps: int):
+def _multi_step(u, dev, t, tend, dt0, spec: FusedSpec, nsteps: int,
+                cool=None):
     """``nsteps`` coarse steps with the time bookkeeping on the device
     (``t``, ``tend``, ``dt0``: 0-d f64 tensors); steps past ``tend`` are
     no-ops.  Only valid while the tree is frozen.  Returns ``(u, t, dt_next,
@@ -274,7 +299,8 @@ def _multi_step(u, dev, t, tend, dt0, spec: FusedSpec, nsteps: int):
         dt = torch.minimum(dtc, torch.clamp(tend - t, min=0.0))
         active = t < tend
         un, dtn = _coarse_step(u, dev,
-                               torch.where(active, dt, 0.0).to(sdtype), spec)
+                               torch.where(active, dt, 0.0).to(sdtype), spec,
+                               cool=cool)
         u = {l: torch.where(active, un[l], u[l]) for l in u}
         t = torch.where(active, t + dt, t)
         dtc = torch.where(active, dtn.to(dtc.dtype), dtc)
@@ -314,9 +340,10 @@ def restore_amr_scaffold(cls, params: Params, outdir: str, dtype, to_cons,
     og, order)`` writes them into the sim state.  The MC gas tracers come
     back from the part file's family-0 rows; restarts never re-seed them.
     The particles come back on every hierarchy, with the lane headroom of a
-    run that creates them (sinks) where the class runs the sink passes;
-    the sinks themselves start empty, as in the JAX package, whose restore
-    does not read the sink files.  Returns the sim."""
+    run that creates them (star formation, sinks) where the class runs
+    those passes, and new star ids continue past the restored ones; the
+    sinks and stellar objects themselves start empty, as in the JAX
+    package, whose restore reads neither CSV.  Returns the sim."""
     from ramses_tpu_torch.io.restart import (restore_particles,
                                              restore_tree_state)
     from ramses_tpu_torch.pm.particles import FAM_GAS_TRACER, lane_headroom
@@ -343,9 +370,11 @@ def restore_amr_scaffold(cls, params: Params, outdir: str, dtype, to_cons,
                          and len(v) == npart else v)
                      for k, v in parts.items()}
         # runs that keep creating particles need free lanes after the
-        # restart too, where the class keeps the sink passes live
+        # restart too, where the class keeps the SF and sink passes live
         from ramses_tpu_torch.pm.sinks import SinkSpec
-        grows = cls._pm_physics and SinkSpec.from_params(params).enabled
+        from ramses_tpu_torch.pm.star_formation import SfSpec
+        grows = cls._pm_physics and (SfSpec.from_params(params).enabled
+                                     or SinkSpec.from_params(params).enabled)
         if len(parts.get("mass", ())):
             ps = restore_particles(parts, params.ndim, dtype=dtype,
                                    device=resolve_device(device),
@@ -383,6 +412,9 @@ def restore_amr_scaffold(cls, params: Params, outdir: str, dtype, to_cons,
     if len(dtnew) >= lm and dtnew[lm - 1] > 0.0:
         sim._dt_cache = torch.tensor(float(dtnew[lm - 1]),
                                      dtype=torch.float64, device=sim.device)
+    if ps is not None:
+        # new star ids must not collide with the restored particles'
+        sim._next_star_id = int(ps.idp.max()) + 1
     if sim.gravity:
         # prime the force field (and, with particles, the deposited-density
         # maximum) so that the first post-restart coarse_dt carries a
@@ -423,9 +455,9 @@ class AmrSim:
     # set this: ``regrid`` then logs each migrated level's copy rows, new
     # octs and their father cells in ``_mig_log`` for them to replay
     _needs_mig_log = False
-    # the sink passes (and, once ported, star formation and cooling) run on
-    # this hierarchy's [rho, mom, E] rows; the MHD hierarchy clears it, as
-    # the JAX package's ``_pm_family`` does (the particle-mesh layer and
+    # star formation, the sink passes, the stellar objects and cooling run
+    # on this hierarchy's [rho, mom, E] rows; the MHD hierarchy clears it,
+    # as the JAX package's ``_pm_family`` does (the particle-mesh layer and
     # the tracers run on both)
     _pm_physics = True
 
@@ -522,18 +554,60 @@ class AmrSim:
         self._pm_dev: Dict[int, dict] = {}
         self._rho_dev: Dict[int, torch.Tensor] = {}
         self._rho_max: Optional[float] = None
-        # sink particles (&SINK_PARAMS): host numpy, coarse-step cadence;
-        # the unit scales they need (``amr/units.f90``)
+        # the coarse-cadence source passes (&SF_PARAMS with &FEEDBACK_PARAMS,
+        # &SINK_PARAMS, &STELLAR_PARAMS: host numpy) and the cooling inside
+        # the step (&COOLING_PARAMS), on the [rho, mom, E] rows of the
+        # hierarchies that keep ``_pm_physics``; the unit scales they need
+        # (``amr/units.f90``) at the run's epoch
+        from ramses_tpu_torch.hydro.cooling import (CoolingSpec,
+                                                    tables_from_params)
         from ramses_tpu_torch.pm.sinks import SinkSet, SinkSpec
+        from ramses_tpu_torch.pm.star_formation import SfSpec
+        from ramses_tpu_torch.pm.stellar import StellarSet, StellarSpec
         from ramses_tpu_torch.units import units as units_fn
+        aexp0 = self.cosmo.aexp_ini if self.cosmo is not None else 1.0
+        self.sf_spec = (SfSpec.from_params(params) if self._pm_physics
+                        else SfSpec(enabled=False))
         self.sink_spec = SinkSpec.from_params(params)
+        self.stellar_spec = StellarSpec.from_params(params)
         self.sinks = None
-        self.units = None
         if self.sink_spec.enabled and self._pm_physics:
             self.sinks = (sinks if sinks is not None
                           else SinkSet.empty(params.ndim))
-            self.units = units_fn(params, cosmo=self.cosmo, aexp=(
-                self.cosmo.aexp_ini if self.cosmo is not None else 1.0))
+        # stellar objects spawn from the sinks' accreted mass
+        self.stellar = (StellarSet.empty(params.ndim)
+                        if self.stellar_spec.enabled
+                        and self.sinks is not None else None)
+        # star formation and the stellar objects draw from one generator
+        self._sf_rng = np.random.default_rng(1234)
+        self._next_star_id = 1
+        cooling = bool(params.cooling.cooling) and self._pm_physics
+        self.units = None
+        if self.sf_spec.enabled or self.sinks is not None or cooling:
+            self.units = units_fn(params, cosmo=self.cosmo, aexp=aexp0)
+        self.cool_spec = None
+        self.cool_tables = None
+        self._cool_scales = None
+        self._cool_aexp = aexp0
+        # tables rebuilt as aexp moves (a cosmological run's set_table)
+        self.cool_tabulations = 0
+        if cooling:
+            self.cool_spec = CoolingSpec.from_params(params, self.units)
+            self.cool_tables = tables_from_params(params, aexp0, self.device)
+            self.cool_tabulations = 1
+            self._cool_scales = self._scales(self.units)
+        if self.sf_spec.enabled:
+            if self.p is None:
+                # an empty set whose lanes leave room for the new stars
+                self.p = pmod.ParticleSet.make(
+                    np.zeros((0, params.ndim)), np.zeros((0, params.ndim)),
+                    np.zeros(0), dtype=dtype, device=self.device,
+                    nmax=pmod.lane_headroom(params, True))
+            self.pic = True           # stars deposit and drift like DM
+            if any(k == bmod.REFLECTING
+                   for pair in self.bc_kinds for k in pair):
+                raise NotImplementedError(
+                    "AMR particles: reflecting boundaries unsupported")
         if init_tree is not None:
             self.tree = init_tree
             self._rebuild_maps()
@@ -550,7 +624,9 @@ class AmrSim:
                    dtype=None, device=None, tracer_x=None, tracer_id=None,
                    tracer_rng=None, phi=None, fg=None, poisson_iters=None,
                    dt_old: float = 0.0, dt_next: Optional[float] = None,
-                   particles=None, sinks=None, **kwargs) -> "AmrSim":
+                   particles=None, sinks=None, sf_rng=None,
+                   next_star_id: Optional[int] = None, stellar=None,
+                   **kwargs) -> "AmrSim":
         """Start from a given hierarchy: per-level oct coordinates
         ``tree_og`` and state rows ``rows`` (numpy, e.g. from
         :func:`ramses_tpu_torch.convert.amr_state_from`), the time and the
@@ -567,7 +643,11 @@ class AmrSim:
         ``particles``: a :class:`ramses_tpu_torch.pm.particles.ParticleSet`
         (e.g. from :func:`ramses_tpu_torch.convert.particles_from`);
         ``sinks``: a :class:`ramses_tpu_torch.pm.sinks.SinkSet` (e.g. from
-        :func:`ramses_tpu_torch.convert.sinks_from`).
+        :func:`ramses_tpu_torch.convert.sinks_from`).  ``sf_rng`` (a
+        bit-generator state) and ``next_star_id`` continue the SF
+        generator and the star ids; ``stellar`` a
+        :class:`ramses_tpu_torch.pm.stellar.StellarSet` (e.g. from
+        :func:`ramses_tpu_torch.convert.stellar_from`).
         ``kwargs`` go to the constructor (a subclass's own arguments, such
         as a shard mesh)."""
         tree = Octree(params.ndim, params.amr.levelmin, params.amr.levelmax)
@@ -604,6 +684,12 @@ class AmrSim:
                 sim._spec = None
             if tracer_rng is not None:
                 sim._tracer_rng.bit_generator.state = tracer_rng
+        if sf_rng is not None:
+            sim._sf_rng.bit_generator.state = sf_rng
+        if next_star_id is not None:
+            sim._next_star_id = int(next_star_id)
+        if stellar is not None and sim.stellar is not None:
+            sim.stellar = stellar
         return sim
 
     def _seed_tracers(self):
@@ -1032,7 +1118,7 @@ class AmrSim:
                 block_shift=int(self.params.amr.oct_block_shift),
                 want_flux=(self.tracer_x is not None
                            and len(self.tracer_x) > 0),
-                gravity=self.gravity)
+                gravity=self.gravity, cool=self.cool_spec)
             slab = tuple(self._slab_spec(l) if self.maps[l].complete
                          else None for l in lv)
             if any(sl is not None for sl in slab):
@@ -1235,14 +1321,38 @@ class AmrSim:
         if rho_max is not None:
             self._rho_max = float(rho_max)   # one host fetch a solve
 
+    def _scales(self, un) -> torch.Tensor:
+        """The cooling pass's ``[scale_T2, scale_nH, scale_t]`` as a device
+        tensor in the state dtype (an epoch change rebuilds it; the pass
+        reads it on the device)."""
+        return torch.tensor([un.scale_T2, un.scale_nH, un.scale_t],
+                            dtype=self.dtype, device=self.device)
+
+    def _cool_bundle(self):
+        """``(tables, scales)`` of the step's cooling, or None."""
+        if self.cool_tables is None:
+            return None
+        return self.cool_tables, self._cool_scales
+
     def _refresh_units(self):
         """Supercomoving unit scales depend on aexp (``amr/units.f90``):
-        refreshed before every coarse step of a cosmological run that
-        keeps them (the sink passes)."""
-        if self.cosmo is not None and self.units is not None:
-            from ramses_tpu_torch.units import units as units_fn
-            self.units = units_fn(self.params, cosmo=self.cosmo,
-                                  aexp=self.aexp_now())
+        before every coarse step of a cosmological run the host units (the
+        SF and sink passes) and the cooling scales are refreshed, and the
+        cooling tables re-tabulated whenever aexp has moved by 2 % since
+        the last build (``set_table(aexp)``)."""
+        if self.cosmo is None or self.units is None:
+            return
+        from ramses_tpu_torch.hydro.cooling import tables_from_params
+        from ramses_tpu_torch.units import units as units_fn
+        a = self.aexp_now()
+        self.units = units_fn(self.params, cosmo=self.cosmo, aexp=a)
+        if self.cool_tables is not None:
+            self._cool_scales = self._scales(self.units)
+            if abs(a - self._cool_aexp) > 0.02 * self._cool_aexp:
+                self.cool_tables = tables_from_params(self.params, a,
+                                                      self.device)
+                self._cool_aexp = a
+                self.cool_tabulations += 1
 
     def step_coarse(self, dt: float):
         self._refresh_units()
@@ -1256,7 +1366,7 @@ class AmrSim:
         out = _coarse_step(
             self.u, self.dev,
             torch.tensor(float(dt), dtype=self.dtype, device=self.device),
-            spec, self.fg if self.gravity else None)
+            spec, self.fg if self.gravity else None, self._cool_bundle())
         self.u, self._dt_cache = out[0], out[1]
         if spec.want_flux:
             self._tracer_phi = out[2]
@@ -1268,20 +1378,37 @@ class AmrSim:
 
     def _source_passes(self, dt: float):
         """Coarse-cadence source passes after the step (``amr_step`` order
-        ``:369-380,493,549-567``): the sink passes, then the tracers, with
-        the MC jumps (``pm/move_tracer.f90``) where the step captured its
-        face fluxes and the CIC velocity drift where it did not (the MHD
-        hierarchy).  The sink passes change u after the step emitted the
-        next Courant dt, so the cached one is dropped (the reference
-        re-evaluates ``courant_fine`` after the source sweep)."""
+        ``:369-380,493,549-567``), in the JAX package's order: star
+        formation and its SN feedback (kinetic with ``f_w > 0``, else
+        thermal), the sink passes, the stellar objects (spawned from the
+        sinks' new mass, then exploded, with the SF generator), then the
+        tracers, with the MC jumps (``pm/move_tracer.f90``) where the step
+        captured its face fluxes and the CIC velocity drift where it did
+        not (the MHD hierarchy).  SF and the sinks change u after the step
+        emitted the next Courant dt, so the cached one is dropped (the
+        reference re-evaluates ``courant_fine`` after the source sweep)."""
+        if self.sf_spec.enabled:
+            amr_physics.star_formation_amr(self, dt)
+            if self.sf_spec.f_w > 0:
+                amr_physics.kinetic_feedback_amr(self)
+            else:
+                amr_physics.thermal_feedback_amr(self)
         if self.sinks is not None:
             amr_physics.sink_passes_amr(self, dt)
-            self._dt_cache = None
+        if self.stellar is not None:
+            from ramses_tpu_torch.pm import stellar as stmod
+            self.stellar = stmod.make_stellar_from_sinks(
+                self.sinks, self.stellar, self.stellar_spec, self._sf_rng,
+                self.t)
+            self.stellar = stmod.sn_from_stellar(self, self.stellar,
+                                                 self.stellar_spec)
         if self.tracer_x is not None:
             if self._tracer_phi is not None:
                 amr_physics.mc_tracer_amr(self)
             else:
                 amr_physics.tracer_drift_amr(self, dt)
+        if self.sf_spec.enabled or self.sinks is not None:
+            self._dt_cache = None
 
     def step_chunk(self, nsteps: int, tend: float) -> int:
         """Up to ``nsteps`` coarse steps with no host synchronisation in
@@ -1299,7 +1426,8 @@ class AmrSim:
                else torch.min(_courant(self.u, self.dev, spec))).to(**f64)
         u, t, dtn, ndone = _multi_step(
             self.u, self.dev, torch.tensor(self.t, **f64),
-            torch.tensor(float(tend), **f64), dt0, spec, nsteps)
+            torch.tensor(float(tend), **f64), dt0, spec, nsteps,
+            self._cool_bundle())
         self.u, self._dt_cache = u, dtn
         t_host, dt_host, n = torch.stack([t, dtn, ndone.to(t.dtype)]) \
             .cpu().tolist()
@@ -1386,7 +1514,15 @@ class AmrSim:
             note += f" tracers={len(self.tracer_x)}"
         if self.sinks is not None:
             note += f" sinks={self.sinks.n}"
+        if self.sf_spec.enabled:
+            note += f" stars={self.n_stars()}"
+        if self.stellar is not None:
+            note += f" stellar={self.stellar.n}"
         return note
+
+    def n_stars(self) -> int:
+        """Active star particles (one fetch)."""
+        return self.p.count(pmod.FAM_STAR)
 
     def cosmo_line(self) -> str:
         """The JAX CLI's closing line of a cosmological hierarchy
@@ -1418,20 +1554,26 @@ class AmrSim:
         ``dumper``: optional :class:`ramses_tpu_torch.io.async_writer.
         AsyncDumper`; the host snapshot is assembled here (every level's
         rows fetched once), the files are written on its thread.  With
-        sinks, ``sink_NNNNN.csv`` (``pm/output_sink.f90``) is staged beside
-        the file set and lands under its manifest."""
+        sinks, ``sink_NNNNN.csv`` (``pm/output_sink.f90``) and, with stellar
+        objects, ``stellar_NNNNN.csv`` (``pm/output_stellar.f90``) are
+        staged beside the file set and land under its manifest."""
         import shutil
 
         from ramses_tpu_torch.io import snapshot as snapmod
         snap = snapmod.snapshot_from_amr(self, iout)
         extra = None
-        if self.sinks is not None:
+        if self.sinks is not None or self.stellar is not None:
             extra = os.path.join(base_dir, f"output_{iout:05d}.extras.tmp")
             if os.path.isdir(extra):
                 shutil.rmtree(extra)
             os.makedirs(extra)
-            snapmod.write_sink_csv(os.path.join(extra, f"sink_{iout:05d}.csv"),
-                                   self.sinks)
+        if self.sinks is not None:
+            snapmod.write_sink_csv(
+                os.path.join(extra, f"sink_{iout:05d}.csv"), self.sinks,
+                self.stellar.dmf if self.stellar is not None else None)
+        if self.stellar is not None:
+            snapmod.write_stellar_csv(
+                os.path.join(extra, f"stellar_{iout:05d}.csv"), self.stellar)
         keep = int(self.params.output.checkpoint_keep)
         if dumper is not None:
             dumper.submit(snap, iout, base_dir,

@@ -66,8 +66,11 @@ def amr_state_from(sim) -> dict:
     count, the last coarse step ``dt_old``; with MC tracers also their
     positions, ids and the state of the jump generator, so both packages
     draw the same numbers next; with gravity the last solve's ``phi``,
-    ``fg`` and ``poisson_iters`` per level).  The cached Courant dt of the
-    next coarse step is not carried: the new sim computes its own."""
+    ``fg`` and ``poisson_iters`` per level; with star formation or stellar
+    objects the SF generator's state and the next star id
+    (:func:`sf_state_from`), and the stellar objects).  The cached Courant
+    dt of the next coarse step is not carried: the new sim computes its
+    own."""
     levels = sim.levels()
     out = dict(tree_og={l: _host(sim.tree.levels[l].og) for l in levels},
                rows={l: _host(sim.u[l]) for l in levels},
@@ -78,6 +81,12 @@ def amr_state_from(sim) -> dict:
         out.update(tracer_x=np.array(sim.tracer_x, dtype=np.float64),
                    tracer_id=np.array(sim.tracer_id, dtype=np.int64),
                    tracer_rng=sim._tracer_rng.bit_generator.state)
+    sf = getattr(sim, "sf_spec", None)
+    if (sf is not None and sf.enabled) or \
+            getattr(sim, "stellar", None) is not None:
+        out.update(sf_state_from(sim))
+        if sim.stellar is not None:
+            out.update(stellar=stellar_from(sim.stellar))
     if getattr(sim, "gravity", False) and sim.phi:
         out.update(phi={l: _host(v) for l, v in sim.phi.items()},
                    fg={l: _host(v) for l, v in sim.fg.items()},
@@ -158,3 +167,41 @@ def gather_shards(shards, axis: int) -> np.ndarray:
     """The port's per-shard tensors back as one numpy array, concatenated
     along ``axis`` (the JAX package's global view)."""
     return np.concatenate([_host(s) for s in shards], axis=axis)
+
+
+def sf_state_from(sim) -> dict:
+    """The star-formation bookkeeping of a simulation of either package:
+    the bit-generator state of its SF generator (``_sf_rng``, which the
+    stellar objects also draw from) and the next star id, as the keyword
+    arguments ``sf_rng`` and ``next_star_id`` of the port's ``from_state``
+    (so both packages draw the same numbers next)."""
+    return dict(sf_rng=sim._sf_rng.bit_generator.state,
+                next_star_id=int(sim._next_star_id))
+
+
+def stellar_from(stellar):
+    """A stellar-object set of either package as the port's
+    :class:`ramses_tpu_torch.pm.stellar.StellarSet` (host numpy copies,
+    the next id and the per-sink accumulators kept)."""
+    from ramses_tpu_torch.pm.stellar import StellarSet
+    return StellarSet(m=np.array(stellar.m, dtype=np.float64),
+                      tform=np.array(stellar.tform, dtype=np.float64),
+                      tlife=np.array(stellar.tlife, dtype=np.float64),
+                      x=np.array(stellar.x, dtype=np.float64),
+                      sink_idp=np.array(stellar.sink_idp, dtype=np.int64),
+                      idp=np.array(stellar.idp, dtype=np.int64),
+                      next_id=int(stellar.next_id),
+                      dmf={int(k): float(v) for k, v in stellar.dmf.items()})
+
+
+def cooling_tables_from(tables, device="cpu"):
+    """Cooling tables of either package (a JAX ``CoolingTables`` or the
+    port's) as the port's :class:`ramses_tpu_torch.hydro.cooling.
+    CoolingTables` on ``device``, every table a float64 copy."""
+    from ramses_tpu_torch.hydro.cooling import TABLE_NAMES, CoolingTables
+    names = ("log_nH", "log_T2") + TABLE_NAMES + ("mu",)
+    host = {n: np.array(_host(getattr(tables, n)), dtype=np.float64)
+            for n in names}
+    dev = torch.device(device)
+    return CoolingTables(**{n: torch.tensor(host[n], device=dev)
+                            for n in names}, host=host)

@@ -26,19 +26,28 @@ starts from the namelist's grafic or Gadget ICs (:func:`load_cosmo_ics`)
 at the conformal time of ``aexp_ini`` and turns ``aout`` into output
 times.
 
+``&COOLING_PARAMS cooling`` steps through :func:`ramses_tpu_torch.grid.
+uniform.run_steps_cool` (each step K1 where it covers the grid, then the
+cooling solve, K6 on the card), with tables built at the run's epoch.
+The JAX driver warns and ignores cooling when gravity, particles or
+cosmology are on; the port refuses that combination by name.
+
 After each chunk the coarse-cadence source passes run with the chunk's
 time (``Simulation._source_passes``, as the JAX driver's): the
 turbulence forcing of ``&TURB_PARAMS`` (:mod:`ramses_tpu_torch.turb.
 forcing`: one OU update and one kick a chunk, so the chunking is the JAX
-driver's), then the sink passes of ``&SINK_PARAMS`` (:mod:`ramses_tpu_torch.
-pm.sinks`, host numpy on one fetch of the state).  ``dump`` stages the OU
-field and its generator state as ``turb_fields.npz``.
+driver's), the star formation and SN feedback of ``&SF_PARAMS`` and
+``&FEEDBACK_PARAMS`` (:mod:`ramses_tpu_torch.pm.star_formation`, with
+``&RUN_PARAMS pic``), then the sink passes of ``&SINK_PARAMS``
+(:mod:`ramses_tpu_torch.pm.sinks`), each host numpy on one fetch of the
+state.  ``dump`` stages the OU field and its generator state as
+``turb_fields.npz``.
 
 Runs on CUDA unless the caller passes ``device="cpu"``; without a GPU a
 run that did not ask for the CPU raises.  Every feature of the JAX driver
-beyond hydro with gravity, particles, cosmology, sinks and turbulence
-forcing, and MHD (uniform, or AMR on one device) raises
-``NotImplementedError`` naming it.
+beyond hydro with gravity, particles, cosmology, cooling, star formation,
+sinks and turbulence forcing, and MHD (uniform, or AMR on one device)
+raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -131,11 +140,6 @@ def unported_features(params: Params) -> list:
 
     checks = [
         ("radiative transfer (&RUN_PARAMS rt)", params.run.rt),
-        ("cooling (&COOLING_PARAMS cooling)", params.cooling.cooling),
-        ("star formation (&SF_PARAMS)", bool(raw.get("sf_params"))),
-        # the JAX hierarchy builds them from the sinks
-        ("stellar objects (&STELLAR_PARAMS)",
-         bool(raw.get("stellar_params"))),
         ("movies (&MOVIE_PARAMS movie)", on("movie_params", "movie")),
         ("ensemble (&ENSEMBLE_PARAMS nmember > 1)",
          params.ensemble.nmember > 1),
@@ -197,10 +201,30 @@ class Simulation:
         self.cosmo = (Cosmology.from_params(params) if params.run.cosmo
                       else None)
         self.gspec = GravitySpec.from_params(params)
-        # the sink spec early: the particle-lane budget below needs to know
-        # whether the run keeps creating particles
+        # the SF and sink specs early: the particle-lane budget below needs
+        # to know whether the run keeps creating particles
         from ramses_tpu_torch.pm.sinks import SinkSet, SinkSpec
+        from ramses_tpu_torch.pm.star_formation import SfSpec
         self.sink_spec = SinkSpec.from_params(params)
+        self.sf_spec = SfSpec.from_params(params)
+        raw = params.raw or {}
+        if raw.get("stellar_params"):
+            raise NotImplementedError(
+                "stellar objects on the uniform grid (&STELLAR_PARAMS; the "
+                "JAX package builds them from the sinks on the hierarchy "
+                "only)")
+        if self.sf_spec.enabled and not self.pspec.enabled:
+            raise NotImplementedError(
+                "star formation on the uniform grid without particles "
+                "(&SF_PARAMS needs &RUN_PARAMS pic for its star particles)")
+        if params.cooling.cooling and (self.gspec.enabled
+                                       or self.pspec.enabled
+                                       or self.cosmo is not None):
+            raise NotImplementedError(
+                "cooling with gravity, particles or cosmology on the uniform "
+                "grid (&COOLING_PARAMS with &RUN_PARAMS poisson, pic or "
+                "cosmo; the JAX driver warns and runs without the cooling; "
+                "the hierarchy runs them together)")
         box_periodic = all(f.kind == bmod.PERIODIC
                            for pair in self.bc.faces for f in pair)
         if not box_periodic:
@@ -236,13 +260,13 @@ class Simulation:
         if self.pspec.enabled:
             from ramses_tpu_torch.pm.particles import lane_headroom
             # pic without IC particles: an empty set whose lane budget
-            # leaves room for a run that creates particles (sinks)
+            # leaves room for a run that creates particles (SF, sinks)
+            grows = self.sf_spec.enabled or self.sink_spec.enabled
             self.state.p = particles if particles is not None else \
                 ParticleSet.make(np.zeros((0, params.ndim)),
                                  np.zeros((0, params.ndim)), np.zeros(0),
                                  dtype=dtype, device=self.device,
-                                 nmax=lane_headroom(
-                                     params, self.sink_spec.enabled) or 1)
+                                 nmax=lane_headroom(params, grows) or 1)
         if self.gspec.enabled:
             # the supercomoving source coefficient at aexp_ini
             self._initial_force(
@@ -259,14 +283,26 @@ class Simulation:
                         for a in params.output.aout if a <= 1.0]
                 params.output.tout = sorted(set(params.output.tout + taus))
                 params.output.noutput = len(params.output.tout)
-        # coarse-cadence source passes: sinks (host numpy) and the OU
-        # turbulence forcing (&TURB_PARAMS) on the device
+        # cooling microphysics (&COOLING_PARAMS: tables at this epoch, on
+        # the run's device)
         from ramses_tpu_torch.turb.forcing import TurbForcing, TurbSpec
         from ramses_tpu_torch.units import units as units_fn
         self.units = units_fn(params, cosmo=self.cosmo, aexp=(
             self.cosmo.aexp_ini if self.cosmo is not None else 1.0))
+        self.cool_tables = None
+        self.cool_spec = None
+        if params.cooling.cooling:
+            from ramses_tpu_torch.hydro.cooling import (CoolingSpec,
+                                                        tables_from_params)
+            self.cool_spec = CoolingSpec.from_params(params, self.units)
+            self.cool_tables = tables_from_params(params, 1.0, self.device)
+        # coarse-cadence source passes: star formation and sinks (host
+        # numpy, SF drawing from its own generator) and the OU turbulence
+        # forcing (&TURB_PARAMS) on the device
         self.sinks = (SinkSet.empty(params.ndim)
                       if self.sink_spec.enabled else None)
+        self._sf_rng = np.random.default_rng(1234)
+        self._next_star_id = 1
         self.turb_spec = TurbSpec.from_params(params)
         self.turb = (TurbForcing(shape, self.turb_spec, device=self.device)
                      if self.turb_spec.enabled else None)
@@ -305,14 +341,17 @@ class Simulation:
     @classmethod
     def from_state(cls, params: Params, u, t: float, nstep: int,
                    device=None, dtype=None, particles=None, f=None,
-                   dt_old: float = 0.0) -> "Simulation":
+                   dt_old: float = 0.0, sf_rng=None,
+                   next_star_id: Optional[int] = None) -> "Simulation":
         """Start from a given state ``u [nvar, *sp]`` (numpy or tensor —
         e.g. ``np.asarray(jax_sim.state.u)``), time ``t`` and step count
         ``nstep``; the dtype defaults to ``u``'s.  ``particles`` (a
         :class:`ramses_tpu_torch.pm.particles.ParticleSet`, e.g. from
         :func:`ramses_tpu_torch.convert.particles_from`), the force ``f``
         of the last step (else the force of the given state) and the last
-        step ``dt_old`` carry the particle-mesh state."""
+        step ``dt_old`` carry the particle-mesh state; ``sf_rng`` (a
+        bit-generator state) and ``next_star_id`` the SF bookkeeping (e.g.
+        from :func:`ramses_tpu_torch.convert.sf_state_from`)."""
         from ramses_tpu_torch.convert import state_from_numpy
         arr = np.asarray(u)
         if dtype is None:
@@ -329,6 +368,10 @@ class Simulation:
         elif sim.gspec.enabled:
             sim._initial_force(sim.fourpi_now())
         sim.state.nstep = int(nstep)
+        if sf_rng is not None:
+            sim._sf_rng.bit_generator.state = sf_rng
+        if next_star_id is not None:
+            sim._next_star_id = int(next_star_id)
         sim.state.iout = 1 + sum(
             1 for tt in sim.output_times
             if sim.state.t >= tt - 1e-12 * (abs(tt) + 1.0))
@@ -378,6 +421,12 @@ class Simulation:
                         torch.tensor(tout, **f64),
                         torch.tensor(st.dt_old, **f64), n,
                         cosmo=self.cosmo)
+                elif self.cool_tables is not None:
+                    from ramses_tpu_torch.grid.uniform import run_steps_cool
+                    u, t, ndone = run_steps_cool(
+                        self.grid, st.u, st.t, tout, n, self.cool_tables,
+                        self.cool_spec)
+                    dt_old = None
                 else:
                     u, t, ndone = run_steps(self.grid, st.u, st.t, tout, n)
                     dt_old = None
@@ -412,8 +461,10 @@ class Simulation:
         """Coarse-step-cadence source terms after a chunk of ``dt_chunk``
         (``amr_step`` order ``:369-380,493,549-567``): the OU turbulence
         forcing (one update and one kick with the chunk's time, on the
-        device), then sink creation, accretion, merging and motion on one
-        fetch of the state (and of the force, with gravity)."""
+        device), star formation and its SN feedback (kinetic with ``f_w >
+        0``, else thermal), then sink creation, accretion, merging and
+        motion, each on one fetch of the state (and of the force, with
+        gravity)."""
         if dt_chunk <= 0.0:
             return
         st = self.state
@@ -422,6 +473,24 @@ class Simulation:
             self.turb.update(dt_chunk)
             st.u = apply_forcing(st.u, self.turb.acceleration(), dt_chunk,
                                  self.turb_spec.turb_min_rho)
+        if self.sf_spec.enabled:
+            from ramses_tpu_torch.pm.star_formation import (kinetic_feedback,
+                                                            star_formation,
+                                                            thermal_feedback)
+            u_np = st.u.to(torch.float64).cpu().numpy()
+            u_np, p2, self._next_star_id = star_formation(
+                u_np, st.p, self._sf_rng, self.sf_spec, self.units,
+                self.dx, st.t, dt_chunk, self._next_star_id)
+            if self.sf_spec.f_w > 0:
+                u_np, p2 = kinetic_feedback(u_np, p2, self.sf_spec,
+                                            self.units, self.dx, st.t,
+                                            bc=self.bc)
+            else:
+                u_np, p2 = thermal_feedback(u_np, p2, self.sf_spec,
+                                            self.units, self.dx, st.t)
+            st.u = torch.as_tensor(u_np, dtype=st.u.dtype,
+                                   device=self.device)
+            st.p = p2
         if self.sinks is not None:
             from ramses_tpu_torch.pm.sinks import (accrete, create_sinks,
                                                    drift_kick, merge_sinks)
@@ -465,7 +534,14 @@ class Simulation:
         note = f"mus/pt={self.mus_per_cell_update():.4f}"
         if self.sinks is not None:
             note += f" sinks={self.sinks.n}"
+        if self.sf_spec.enabled:
+            note += f" stars={self.n_stars()}"
         return note
+
+    def n_stars(self) -> int:
+        """Active star particles (one fetch)."""
+        from ramses_tpu_torch.pm.particles import FAM_STAR
+        return self.state.p.count(FAM_STAR)
 
     # ------------------------------------------------------------------
     # snapshot / restart
@@ -514,16 +590,20 @@ class Simulation:
                                                  restore_uniform)
         from ramses_tpu_torch.pm.particles import lane_headroom
         from ramses_tpu_torch.pm.sinks import SinkSpec
+        from ramses_tpu_torch.pm.star_formation import SfSpec
         dense, meta, parts = restore_uniform(
             outdir, params, HydroStatic.from_params(params))
         dev = resolve_device(device)
         # a run that creates particles needs free lanes after the restart
+        grows = (SfSpec.from_params(params).enabled
+                 or SinkSpec.from_params(params).enabled)
         p = (restore_particles(parts, params.ndim, dtype=dtype, device=dev,
-                               nmax=lane_headroom(
-                                   params, SinkSpec.from_params(params)
-                                   .enabled))
+                               nmax=lane_headroom(params, grows))
              if parts else None)
         sim = cls(params, dtype=dtype, device=device, particles=p)
+        if p is not None:
+            # new star ids must not collide with the restored particles'
+            sim._next_star_id = int(p.idp.max()) + 1
         sim.state.u = torch.as_tensor(dense, dtype=dtype, device=sim.device)
         sim.state.t = float(meta["t"])
         sim.state.nstep = int(meta["nstep"])

@@ -9,8 +9,9 @@ Two formulations, chosen by configuration only: the fused kernel
 (:mod:`ramses_tpu_torch.hydro.fused_muscl`) for 3D f32 hydro within its
 scope, where each step is one kernel launch that also yields the next
 step's Courant dt; the port of ``muscl.unsplit`` for everything else
-(the counterpart of the JAX package's XLA path).  The batch and cooling
-variants of ``run_steps`` are not ported yet.
+(the counterpart of the JAX package's XLA path).  :func:`run_steps_cool`
+follows each step with the cooling source (K6 on the card).  The batch
+variant of ``run_steps`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -152,6 +153,33 @@ def _run_steps_fused(grid: UniformGrid, u, t, tend, nsteps: int,
         ndone = ndone + active.to(torch.int64)
         hist.append((t, dt_eff))
     return _finish(u, t, ndone, hist, trace)
+
+
+def run_steps_cool(grid: UniformGrid, u, t, tend, nsteps: int, tables,
+                   cspec):
+    """:func:`run_steps` with the cooling source applied after each hydro
+    step (the ``cooling_fine`` call that follows ``godunov_fine`` in
+    ``amr/amr_step.f90:448-474``): each step is :func:`step` (K1 where it
+    covers the grid), then :func:`ramses_tpu_torch.hydro.cooling.
+    cooling_step` with the step's dt, both masked by ``active`` as in the
+    JAX package.  The Courant dt is recomputed from the cooled state each
+    step; nothing is fetched.  Returns ``(u, t, n_done)`` as device
+    tensors."""
+    from ramses_tpu_torch.hydro.cooling import cooling_step
+    t = _time(t, u)
+    tend = _time(tend, u)
+    ndone = torch.zeros((), dtype=torch.int64, device=u.device)
+    for _ in range(nsteps):
+        dt = cfl_dt(grid, u).to(torch.float64)
+        dt = torch.minimum(dt, torch.clamp(tend - t, min=0.0))
+        active = t < tend
+        dt_eff = torch.where(active, dt, 0.0)
+        un = step(grid, u, dt_eff)
+        un = cooling_step(un, tables, cspec, dt_eff.to(u.dtype), grid.cfg)
+        u = torch.where(active, un, u)
+        t = torch.where(active, t + dt, t)
+        ndone = ndone + active.to(torch.int64)
+    return u, t, ndone
 
 
 def _finish(u, t, ndone, hist, trace: bool):

@@ -3,8 +3,9 @@
 The port's own copy of ``ramses_tpu/io/snapshot.py`` (host numpy): given the
 same f64 state it writes the JAX package's bytes, file for file.  The
 drivers' device tensors are fetched once each (:func:`host64`), outside any
-step loop.  Particles (dark matter and the MC gas tracers) ride the part
-files; the sink/stellar CSVs (ROADMAP A6) are not ported.
+step loop.  Particles (dark matter, stars and the MC gas tracers) ride
+the part files; the sinks and the stellar objects have their CSVs
+(:func:`write_sink_csv`, :func:`write_stellar_csv`).
 
 One call to :func:`dump_all` produces ``output_NNNNN/`` with the same file
 set and record structure as the reference's ``dump_all``
@@ -235,6 +236,17 @@ def write_sink_csv(path: str, sinks, dmf: Optional[dict] = None) -> None:
             f.write(f"{int(sinks.idp[k]):10d}"
                     + "".join(f",{v:21.10e}" for v in vals)
                     + f",{1:10d}\n")
+
+
+def write_stellar_csv(path: str, stellar) -> None:
+    """``stellar_NNNNN.csv`` (``pm/output_stellar.f90:16-21``)."""
+    with open(path, "w") as f:
+        f.write(" # id,mstellar,tform,tlife \n")
+        f.write(" # 1,m,t,t\n")
+        for k in range(stellar.n):
+            f.write(f"{int(stellar.idp[k]):10d},{stellar.m[k]:21.10e},"
+                    f"{stellar.tform[k]:21.10e},"
+                    f"{stellar.tlife[k]:21.10e}\n")
 
 
 # ----------------------------------------------------------------------

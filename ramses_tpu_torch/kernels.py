@@ -27,7 +27,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile=0")
 
+# flags of one source beside NVCC_FLAGS: the cooling solve (K6) is built
+# without FMA contraction, so that its arithmetic rounds where its plain
+# version's does
+EXTRA_FLAGS: Dict[str, tuple] = {"cooling": ("-fmad=false",)}
+
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def flags(name: str) -> tuple:
+    """The ``nvcc`` flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
 def nvcc_path() -> str:
@@ -51,7 +61,7 @@ def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -72,7 +82,7 @@ def build(names: Sequence[str]) -> Dict[str, str]:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+            cmd = [nvcc_path(), *flags(name), "-o", tmp,
                    str(CSRC / f"{name}.cu")]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)

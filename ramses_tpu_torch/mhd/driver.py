@@ -97,7 +97,10 @@ def unported_mhd_features(params: Params) -> list:
     package's MHD hierarchy turns them off, its uniform driver ignores
     them) and cosmology (no JAX test runs it on MHD); the uniform driver
     refuses turbulence forcing, which the JAX package applies on the hydro
-    ``Simulation`` only (the hierarchy's own refusal names it there)."""
+    ``Simulation`` only (the hierarchy's own refusal names it there).
+    Both refuse cooling, star formation and stellar objects: the JAX
+    package's MHD hierarchy turns all three off (``_pm_family``) and its
+    uniform driver ignores them, where the hydro drivers run them."""
     from ramses_tpu_torch.amr.hierarchy import unported_amr_features
     from ramses_tpu_torch.driver import unported_features
     from ramses_tpu_torch.pm.sinks import SinkSpec
@@ -119,6 +122,16 @@ def unported_mhd_features(params: Params) -> list:
         out.append("sinks on the MHD drivers (&SINK_PARAMS create_sinks)")
     if params.run.cosmo:
         out.append("cosmology on the MHD drivers (&RUN_PARAMS cosmo)")
+    raw = params.raw or {}
+    for on, name in ((params.cooling.cooling,
+                      "cooling on the MHD drivers (&COOLING_PARAMS cooling)"),
+                     (bool(raw.get("sf_params")),
+                      "star formation on the MHD drivers (&SF_PARAMS)"),
+                     (bool(raw.get("stellar_params")),
+                      "stellar objects on the MHD drivers "
+                      "(&STELLAR_PARAMS)")):
+        if on:
+            out.append(name)
     return out
 
 

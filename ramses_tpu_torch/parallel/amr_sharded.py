@@ -20,11 +20,17 @@ communication: the same arithmetic on the same rows, not a fallback.
 the JAX package's does; :meth:`AmrSim.from_snapshot` restores it onto any
 shard count.
 
+The coarse-cadence source passes run as on :class:`AmrSim`, as the JAX
+package's ``ShardedAmrSim`` inherits them: the sink passes, the stellar
+objects and the in-step cooling take the global view of the rows, which
+all shards share on one card.
+
 Not ported yet, and refused by name: the explicit partial-level schedules
 (``explicit_comm=True``, ``parallel/amr_comm``), load balance, a mesh
 across several cards, MHD on a mesh (``ShardedMhdAmrSim`` with
-``dense_slab.mhd_ct_slab``) and self-gravity (``&RUN_PARAMS poisson``,
-which the single-device hierarchy runs); ROADMAP A8 holds them.
+``dense_slab.mhd_ct_slab``), self-gravity (``&RUN_PARAMS poisson``),
+particles and cosmology, and star formation, which makes particles (the
+single-device hierarchy runs them all); ROADMAP A8 holds them.
 """
 
 from __future__ import annotations
@@ -44,8 +50,6 @@ class ShardedAmrSim(AmrSim):
     (a :class:`ShardMesh`, or a sequence of devices for one; default every
     visible card)."""
 
-    _pm_physics = False
-
     @classmethod
     def _unported(cls, params: Params) -> list:
         from ramses_tpu_torch.driver import is_mhd
@@ -56,14 +60,18 @@ class ShardedAmrSim(AmrSim):
             ("particles on ShardedAmrSim (&RUN_PARAMS pic; ROADMAP A8)",
              params.run.pic),
             ("cosmology on ShardedAmrSim (&RUN_PARAMS cosmo; ROADMAP A8)",
-             params.run.cosmo)) if on]
+             params.run.cosmo),
+            ("star formation on ShardedAmrSim (&SF_PARAMS: its star "
+             "particles need the particles; ROADMAP A8)",
+             bool((params.raw or {}).get("sf_params")))) if on]
         return (super()._unported(params) + (mhd if is_mhd(params) else [])
                 + (grav if params.run.poisson else []) + pm)
 
     def __init__(self, params: Params, devices=None, dtype=torch.float32,
                  device=None, init_tree=None,
                  noct_pad: Optional[Dict[int, int]] = None,
-                 seed_tracers: bool = True, explicit_comm: bool = False):
+                 seed_tracers: bool = True, explicit_comm: bool = False,
+                 **kw):
         if explicit_comm:
             raise NotImplementedError(
                 "not ported to ramses_tpu_torch yet: explicit partial-level "
@@ -79,7 +87,7 @@ class ShardedAmrSim(AmrSim):
         self._ok_flat: Dict[int, tuple] = {}
         super().__init__(params, dtype=dtype, device=mesh.device,
                          init_tree=init_tree, noct_pad=noct_pad,
-                         seed_tracers=seed_tracers)
+                         seed_tracers=seed_tracers, **kw)
 
     def dump(self, iout: int = 1, base_dir: str = ".", namelist_path=None,
              ncpu: Optional[int] = None, dumper=None) -> str:

@@ -17,8 +17,18 @@ give the same tracers as the JAX package.  The sink pass fetches what the
 JAX package fetches: each level's density column first, the whole level
 only where a candidate cell exists, the levels the sinks' clouds touch,
 and the force rows at the sinks; a level it changed goes back to the
-device in the state's dtype.  Star formation and SN feedback are not
-ported yet.
+device in the state's dtype.
+
+:func:`star_formation_amr`, :func:`thermal_feedback_amr` and
+:func:`kinetic_feedback_amr` are the Schmidt-law star formation and the
+delayed SN feedback of ``pm/star_formation.f90`` and ``pm/feedback.f90``
+on the hierarchy: SF samples the leaf cells of every level with the
+hierarchy's numpy generator, feedback lands in each star's finest covering
+cell (the kinetic bubble on that level).  They keep the JAX package's
+fetch discipline: each level's density column first, the whole level only
+where a cell is eligible or a star explodes.  The sink passes feed the
+stellar objects' accreted-mass accumulators (:mod:`ramses_tpu_torch.pm.
+stellar`) where the hierarchy runs them.
 """
 
 from __future__ import annotations
@@ -256,6 +266,10 @@ def create_sinks_amr(sim, sinks, spec, units):
         u[rows] *= (1.0 - dm_rho / rho[rows])[:, None]
         _put(sim, l, u)
         new_idp = sinks.next_id + np.arange(len(rows), dtype=np.int64)
+        stellar = getattr(sim, "stellar", None)
+        if stellar is not None:
+            for sid, mass in zip(new_idp, mnew):
+                stellar.add_accreted(sid, float(mass))
         sinks = SinkSet(
             x=np.concatenate([sinks.x, xnew]),
             v=np.concatenate([sinks.v, vel]),
@@ -410,6 +424,11 @@ def sink_passes_amr(sim, dt: float):
                 u = _host(sim.u[l])
                 np.add.at(u[:, 1 + nd], rows[ok], e_agn[m][ok] / vol_l[l])
                 _put(sim, l, u)
+        stellar = getattr(sim, "stellar", None)
+        if stellar is not None:
+            for sid, dmi in zip(sinks.idp, dm):
+                if dmi > 0.0:
+                    stellar.add_accreted(sid, float(dmi))
         newm = sinks.m + m_gain
         sinks.v = (sinks.v * sinks.m[:, None] + p_acc) \
             / np.maximum(newm, 1e-300)[:, None]
@@ -447,3 +466,192 @@ def sink_passes_amr(sim, dt: float):
                             tform=sinks.tform[keep], idp=sinks.idp[keep],
                             next_id=sinks.next_id)
     sim.sinks = sinks
+
+
+# ---------------------------------------------------------------------------
+# star formation and SN feedback on the hierarchy
+# ---------------------------------------------------------------------------
+
+def star_formation_amr(sim, dt: float):
+    """Schmidt-law SF over every level's leaf cells (coarse cadence): the
+    uniform pass (:mod:`ramses_tpu_torch.pm.star_formation`) on flat
+    batches.  Poisson-samples N ~ P(mgas/mstar · dt/t_star(ρ)) per
+    eligible leaf cell, caps at 90 % of the cell gas, removes the mass at
+    the cell velocity, appends FAM_STAR particles to ``sim.p``."""
+    from ramses_tpu_torch.pm.star_formation import (append_stars,
+                                                    mstar_quantum,
+                                                    sf_timescale_code)
+    spec = sim.sf_spec
+    units = sim.units
+    nd = sim.cfg.ndim
+    ttd = 2 ** nd
+    mstar = mstar_quantum(spec, units, sim.dx(sim.lmax), nd)
+    rng = sim._sf_rng
+    for l in sim.levels():
+        ncell = sim.maps[l].noct * ttd
+        dx = sim.dx(l)
+        vol = dx ** nd
+        # the density column only: most levels of a quiet hierarchy have
+        # no eligible cell, and the whole level's fetch would dominate
+        rho = _host(sim.u[l][:ncell, 0])
+        nH = rho * units.scale_nH
+        leaf = ~sim.tree.refined_mask(l)
+        eligible = leaf & (nH > spec.n_star)
+        if not eligible.any():
+            continue
+        tstar_code = sf_timescale_code(rho, nH, spec, units)
+        lam = np.where(eligible, rho * vol / mstar * dt / tstar_code, 0.0)
+        cap = np.maximum((0.9 * rho * vol / mstar).astype(np.int64), 0)
+        # the draw is capped at 90% of the cell gas anyway; clamping λ
+        # there also keeps it inside the Poisson sampler's range
+        lam = np.minimum(np.where(np.isfinite(lam), lam, 0.0), cap)
+        big = lam > 1e6             # Poisson(λ)≈λ: deterministic draw
+        nnew = np.where(big, lam.astype(np.int64),
+                        rng.poisson(np.where(big, 0.0, lam)))
+        nnew = np.minimum(nnew, cap)
+        rows = np.nonzero(nnew > 0)[0]
+        if len(rows) == 0:
+            continue
+        counts = nnew[rows]
+        u = _host(sim.u[l])
+        centers = sim.tree.cell_centers(l, sim.boxlen)[rows]
+        vel = u[rows, 1:1 + nd] / np.maximum(u[rows, :1], 1e-300)
+        sim.p, sim._next_star_id, kept = append_stars(
+            sim.p, centers, vel, counts, mstar, sim.t, sim._next_star_id)
+        if kept.sum() == 0:
+            continue
+        dm = kept * mstar / vol
+        frac = 1.0 - dm / rho[rows]
+        u[rows] *= frac[:, None]
+        _put(sim, l, u)
+
+
+def _due_stars(sim):
+    """(host fields of ``sim.p``, the due mask, the due stars' positions,
+    velocities and ejecta masses, their finest covering levels), or None
+    when no SN is due."""
+    from ramses_tpu_torch.pm.star_formation import (host_particles,
+                                                    sn_due_mask)
+    spec = sim.sf_spec
+    if spec.eta_sn <= 0:
+        return None
+    f = host_particles(sim.p)
+    due = sn_due_mask(f, spec, sim.units, sim.t)
+    if not due.any():
+        return None
+    x = f["x"][due].astype(np.float64)
+    mej = spec.eta_sn * f["m"][due]
+    return f, due, x, f["v"][due], mej, _levels_of(sim, x)
+
+
+def thermal_feedback_amr(sim):
+    """Delayed thermal SN dumps into each star's finest covering cell
+    (``pm/feedback.f90:6-231,351``): stars older than t_sne return eta_sn
+    of their mass + 1e51 erg / 10 Msun specific energy, once."""
+    from ramses_tpu_torch.pm.star_formation import M_SUN, mark_sn_done
+    got = _due_stars(sim)
+    if got is None:
+        return
+    f, due, x, vstar, mej, lv = got
+    nd = sim.cfg.ndim
+    esn_code = (1e51 / (10.0 * M_SUN)) / sim.units.scale_v ** 2
+    for l in sim.levels():
+        sel = lv == l
+        if not sel.any():
+            continue
+        rows = ngp_rows(sim.tree, x[sel], l, sim.boxlen, sim.bc_kinds)
+        ok = rows >= 0
+        if not ok.any():
+            continue
+        r = rows[ok]
+        vol = sim.dx(l) ** nd
+        u = _host(sim.u[l])
+        me = mej[sel][ok]
+        vs = vstar[sel][ok]
+        np.add.at(u[:, 0], r, me / vol)
+        for d in range(nd):
+            np.add.at(u[:, 1 + d], r, me * vs[:, d] / vol)
+        ek = 0.5 * me * (vs ** 2).sum(axis=1)
+        np.add.at(u[:, 1 + nd], r, (ek + me * esn_code) / vol)
+        _put(sim, l, u)
+    sim.p = mark_sn_done(sim.p, f, due, mej)
+
+
+def kinetic_feedback_amr(sim):
+    """Delayed KINETIC SN winds on the hierarchy (the ``f_w`` mass-loaded
+    momentum scheme of ``pm/feedback.f90``; see
+    :func:`ramses_tpu_torch.pm.star_formation.kinetic_feedback` for the
+    bubble and the energy split): the 3^ndim bubble lives on each star's
+    finest covering level; bubble cells the level does not cover, or that
+    are refined there, fall back to the host cell."""
+    from ramses_tpu_torch.pm.star_formation import (M_SUN, mark_sn_done,
+                                                    wind_shell)
+    got = _due_stars(sim)
+    if got is None:
+        return
+    f, due, x, vstar, mej, lv = got
+    spec = sim.sf_spec
+    nd = sim.cfg.ndim
+    esn_code = (1e51 / (10.0 * M_SUN)) / sim.units.scale_v ** 2
+    offs, rhat = wind_shell(nd)
+    nc = len(offs)
+    for l in sim.levels():
+        sel = lv == l
+        if not sel.any():
+            continue
+        dxl = sim.dx(l)
+        vol = dxl ** nd
+        rows0 = ngp_rows(sim.tree, x[sel], l, sim.boxlen, sim.bc_kinds)
+        ok = rows0 >= 0
+        if not ok.any():
+            continue
+        u = _host(sim.u[l])
+        r0 = rows0[ok]
+        me = mej[sel][ok]
+        vs = vstar[sel][ok]
+        xs = x[sel][ok]
+        # sweep from the host cell (capped at 25% of its gas); SNe sharing
+        # a host cell debit it ONCE for their combined draw
+        uniq, inv = np.unique(r0, return_inverse=True)
+        mcell_u = u[uniq, 0] * vol
+        tot_req = np.bincount(inv, weights=spec.f_w * me)
+        tot_allow = np.minimum(tot_req, 0.25 * mcell_u)
+        msw = spec.f_w * me * (tot_allow
+                               / np.maximum(tot_req, 1e-300))[inv]
+        mcell = mcell_u[inv]
+        vcell = u[uniq][inv][:, 1:1 + nd] \
+            / np.maximum(u[uniq][inv][:, :1], 1e-300)
+        e_removed = (msw / np.maximum(mcell, 1e-300)
+                     * u[uniq, 1 + nd][inv] * vol)
+        u[uniq] *= (1.0 - tot_allow
+                    / np.maximum(mcell_u, 1e-300))[:, None]
+        mload = me + msw
+        vw = np.sqrt(2.0 * esn_code * me / np.maximum(mload, 1e-300))
+        vbulk = (me[:, None] * vs + msw[:, None] * vcell) \
+            / np.maximum(mload[:, None], 1e-300)
+        e_inj = np.zeros(len(me))
+        # bubble targets refined at this level are covered by a finer oct
+        # whose restriction would overwrite the deposit: host-cell fallback
+        ref_mask = np.asarray(sim.tree.refined_mask(l))
+        for k in range(nc):
+            xt = xs + offs[k] * dxl
+            rt = ngp_rows(sim.tree, xt, l, sim.boxlen, sim.bc_kinds)
+            bad = (rt < 0) | ref_mask[np.maximum(rt, 0)]
+            r = np.where(~bad, rt, r0)
+            central = np.logical_or(bool((offs[k] == 0).all()), bad)
+            mshare = mload / nc
+            vk = np.where(central[:, None], vbulk,
+                          vbulk + vw[:, None] * rhat[k])
+            np.add.at(u[:, 0], r, mshare / vol)
+            for d in range(nd):
+                np.add.at(u[:, 1 + d], r, mshare * vk[:, d] / vol)
+            ek = 0.5 * mshare * (vk ** 2).sum(axis=1)
+            np.add.at(u[:, 1 + nd], r, ek / vol)
+            e_inj += ek
+        # exact budget: the remainder (with the fallback shares'
+        # suppressed kicks) lands as heat in the host cell
+        e_target = (e_removed + me * esn_code
+                    + 0.5 * me * (vs ** 2).sum(axis=1))
+        np.add.at(u[:, 1 + nd], r0, (e_target - e_inj) / vol)
+        _put(sim, l, u)
+    sim.p = mark_sn_done(sim.p, f, due, mej)

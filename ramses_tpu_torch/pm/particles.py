@@ -126,6 +126,10 @@ class ParticleSet:
             f: torch.where(keep, getattr(self, f), getattr(other, f))
             for f in self.__dataclass_fields__})
 
+    def count(self, family: int) -> int:
+        """Active particles of ``family`` (one fetch)."""
+        return int(torch.sum(self.active & (self.family == family)))
+
     def to_host(self) -> dict:
         """Every field as a numpy array (one fetch a field)."""
         return {f: getattr(self, f).cpu().numpy()

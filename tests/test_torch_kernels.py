@@ -49,8 +49,8 @@ def test_build_is_keyed_on_source_and_flags(tmp_path, build_dir,
     nvcc = _fake_nvcc(tmp_path, 'while [ "$1" != "-o" ]; do shift; done; '
                                 'echo built > "$2"')
     monkeypatch.setattr(kernels, "nvcc_path", lambda: nvcc)
-    assert kernels.sources() == ["fused_muscl", "halo_exchange", "mhd_ct",
-                                 "oct_muscl"]
+    assert kernels.sources() == ["cooling", "fused_muscl", "halo_exchange",
+                                 "mhd_ct", "oct_muscl"]
     kernels.build(kernels.sources())        # the compilers run together
     targets = [kernels.library_path(n) for n in kernels.sources()]
     for target in targets:
@@ -58,7 +58,13 @@ def test_build_is_keyed_on_source_and_flags(tmp_path, build_dir,
     assert sorted(p.name for p in build_dir.iterdir()) == \
         sorted(t.name for t in targets)
     assert kernels.build(kernels.sources()) == {}   # already built
-    target = targets[0]
+    # a source's own flags are part of its key
+    assert "-fmad=false" in kernels.flags("cooling")
+    with monkeypatch.context() as m:
+        m.setattr(kernels, "EXTRA_FLAGS", {})
+        assert kernels.library_path("cooling") != targets[0]
+        assert kernels.library_path("fused_muscl") == targets[1]
+    target = targets[1]
     # the shared header is part of every source's key
     copy = tmp_path / "csrc"
     copy.mkdir()
@@ -71,7 +77,7 @@ def test_build_is_keyed_on_source_and_flags(tmp_path, build_dir,
     assert kernels.library_path("fused_muscl") != target
     monkeypatch.setattr(kernels, "NVCC_FLAGS",
                         kernels.NVCC_FLAGS + ("-lineinfo",))
-    assert kernels.library_path("oct_muscl") != targets[3]
+    assert kernels.library_path("oct_muscl") != targets[4]
 
 
 def test_no_nvcc_raises(monkeypatch):

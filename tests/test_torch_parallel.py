@@ -623,6 +623,70 @@ def test_sharded_amr_ppermute_evolve_is_amrsim():
         _equal(s4.u[l], s1.u[l])
 
 
+# the set-up that found ShardedAmrSim dropping the sinks: AMR2D's two
+# regions at levelmax 5, every leaf cell a sink candidate
+AMR2D_SINKS = (AMR2D.replace("levelmax=6", "levelmax=5")
+               .replace("halo_backend='dma'", "halo_backend='auto'")
+               .replace("&OUTPUT_PARAMS", "&SINK_PARAMS\ncreate_sinks=.true."
+                        "\nn_sink=1e-30\n/\n&OUTPUT_PARAMS"))
+
+
+def _by_id(sinks):
+    o = np.argsort(sinks.idp)
+    return {k: np.asarray(getattr(sinks, k))[o] for k in ("idp", "x", "v",
+                                                         "m", "tform")}
+
+
+@needs8
+def test_sharded_amr_runs_the_sink_passes():
+    """ShardedAmrSim runs the sink passes, as the JAX package's (which
+    inherits them): one coarse step of the 2D set-up in f64 on 8 shards
+    from JAX's initial state makes JAX's sinks (ids equal; x, v, m within
+    rtol 1e-10), and the port's single-device AmrSim's bitwise, sinks and
+    rows."""
+    js = JShardedAmrSim(jparams(AMR2D_SINKS, ndim=2), devices=jax.devices(),
+                        dtype=jnp.float64)
+    state = amr_state_from(js)
+    dt = js.coarse_dt()
+    js.step_coarse(dt)
+    p = params_from_string(AMR2D_SINKS, ndim=2)
+    s8 = ShardedAmrSim.from_state(p, devices=_mesh(), **state)
+    s1 = AmrSim.from_state(p, device="cpu", **state)
+    assert s8.sinks is not None and s8.sinks.n == 0
+    assert s8.coarse_dt() == s1.coarse_dt() == pytest.approx(dt, rel=RTOL)
+    s8.step_coarse(dt)
+    s1.step_coarse(dt)
+    got, one, want = _by_id(s8.sinks), _by_id(s1.sinks), _by_id(js.sinks)
+    assert s8.sinks.n == js.sinks.n > 100
+    np.testing.assert_array_equal(got["idp"], want["idp"])
+    for k in ("x", "v", "m", "tform"):
+        np.testing.assert_array_equal(got[k], one[k])
+        _close(got[k], want[k])
+    for l in s8.levels():
+        _equal(s8.u[l], s1.u[l])
+    assert "sinks=" in s8.status_note()
+
+
+def test_sharded_amr_cools_as_amrsim():
+    """The in-step cooling on ShardedAmrSim (4 shards, f64): 2 coarse
+    steps bitwise the single-device AmrSim's."""
+    p = params_from_string(AMR2D.replace(
+        "&OUTPUT_PARAMS", "&COOLING_PARAMS\ncooling=.true.\n/\n"
+        "&UNITS_PARAMS\nunits_density=1.66e-24\nunits_time=3.15e13\n"
+        "units_length=3.08e18\n/\n&OUTPUT_PARAMS"), ndim=2)
+    p.amr.halo_backend = "auto"
+    s4 = ShardedAmrSim(p, devices=_mesh(4), dtype=torch.float64)
+    s1 = AmrSim(p, dtype=torch.float64, device="cpu")
+    assert s4.cool_tables is not None
+    for _ in range(2):
+        dt = s4.coarse_dt()
+        assert dt == s1.coarse_dt()
+        s4.step_coarse(dt)
+        s1.step_coarse(dt)
+    for l in s1.levels():
+        _equal(s4.u[l], s1.u[l])
+
+
 # ---------------------------------------------------------------------------
 # (g) refusals, backend choice, conversions
 # ---------------------------------------------------------------------------
