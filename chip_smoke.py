@@ -43,7 +43,9 @@ Phases, each printing its own line; any failure exits non-zero:
    config), every launch counter at 0 just before: K1 once per coarse
    step, K3 once per partial-level substep, K2 never; a finite state,
    leaf mass conserved to rel 1e-5; octs per level, wall time and
-   cell-updates/s (``Σ_l noct·8·2^(l-lmin)`` per coarse step);
+   cell-updates/s (``Σ_l noct·8·2^(l-lmin)`` per coarse step).  Its
+   regrids migrate on the device (``device_regrid``, the default): K7
+   (``csrc/regrid_maps.cu``) once a changed level above levelmin;
 9. from that state, 3 coarse steps three times: blocked twice (bitwise
    equal: the replay contract of ``bench.py``) and with
    ``oct_blocking=.false.`` once (K2 launched, K3 not; equal trees, rows
@@ -72,6 +74,13 @@ Phases, each printing its own line; any failure exits non-zero:
    it replaces;
 11. profile: one AMR coarse step (regrid, Courant fetch, step) under
    ``torch.profiler``, trace to ``chiprun_out/chip_smoke_amr_trace.json``;
+   then, from that state, one coarse step split by part with
+   ``device_regrid`` on and off (each synchronised), a ``cProfile`` of one
+   regrid with the top 12 functions by cumulative time under
+   ``_flag_and_tree`` and under ``_rebuild_maps``, and ``keys.encode`` and
+   ``Octree.lookup_keys`` at 262,144 keys through the native library and
+   through numpy (bitwise equal), and both paths at batch sizes from 1,024
+   to 262,144 (``KEY_SWEEP``), timed in turn, to place ``keys.NATIVE_MIN``;
 12. MHD kernel check: K4 (``ct_step_slab``) against its plain version on
    random 2D 256² and 3D 64³ padded boxes, {llf, hll, hlld} × riemann2d
    {average, llf} × slope {1, 2, 8}, half of them with a random refined
@@ -303,8 +312,8 @@ Phases, each printing its own line; any failure exits non-zero:
    count and mass kept, ``max|div B|·dx/max|B|`` ≤ 1e-5 where the scheme
    keeps it, a finite state, the peak leaf density rising; K4 on the
    last step's first complete-level inputs against its plain version
-   within ``LOCAL_ATOL + LOCAL_RTOL·M``; a 3-step replay twice, bitwise
-   (u, faces, phi, particles, trees);
+   within ``LOCAL_ATOL + LOCAL_RTOL·M``; steps 4 and 5 replayed twice
+   (``MHD_GRAV_REPLAY``), bitwise (u, faces, phi, particles, trees);
 45. velocity tracers on the phase-44 hierarchy without gravity, in a
    bulk flow, a tracer a leaf cell: 3 coarse steps, the tracers kept,
    finite, inside the box and moving; the tracer pass's seconds;
@@ -366,7 +375,25 @@ Phases, each printing its own line; any failure exits non-zero:
    ``nstepmax``: the state finite, the cooling tables rebuilt as aexp
    moves, gas + particle mass kept; stars, aexp and s a step by part.
    Phases 52-54 write under a ``tempfile.mkdtemp`` directory, removed at
-   the end; the K6 row's launches are phases 50, 51 and 54's.
+   the end; the K6 row's launches are phases 50, 51 and 54's;
+55. the device migrate: config 2 from one initial state for 10 coarse
+   steps with ``device_regrid`` on and off, after every regrid the trees'
+   keys and every level's ``u`` bitwise equal, ``build_prolong_maps``
+   never called on the device path, K7's launches equal to the changed
+   levels above levelmin, K7 bitwise to its plain version on every
+   regrid's inputs and on random sorted key sets of 262,144 octs (2D and
+   3D, periodic and reflecting); K7's device ms, its plain version's and
+   its bound (the new keys read once, the maps written once) at the main
+   path's largest regrid level and at 262,144 octs;
+56. non-cubic roots: (a) config 2's twin, sedov3d at ``nx=ny=nz=2``,
+   ``boxlen=0.25``, levelmin 6 / levelmax 8 (config 2's cells), 10
+   coarse steps: after each regrid its level-l oct coordinates equal
+   phase 55's level-(l+1) ones, its leaf field within ``1e-10 + 1e-6·M``
+   of config 2's (and whether bitwise), K1 and K3 launched as the levels
+   require, cell-updates/s beside config 2's; (b) sedov3d at root
+   (2, 1, 1), 6 / 8, 5 coarse steps: K1 on the 128×64×64 complete level,
+   K1 and K3 on the last step's inputs against their plain versions, mass
+   conserved to rel 1e-5.
    A line then gives the script's wall by group of phases.
 
 The line before the last holds every ported kernel's numbers as one JSON
@@ -627,7 +654,8 @@ def _reset_counts():
     from ramses_tpu_torch.hydro import oct_muscl as om
     from ramses_tpu_torch.mhd import ct_slab
     from ramses_tpu_torch.parallel import dma_halo
-    cooling.launches = 0
+    from ramses_tpu_torch.amr import device_regrid
+    cooling.launches = device_regrid.launches = 0
     fm.launches = fm.flux_launches = 0
     fm.padded_launches = fm.padded_flux_launches = 0
     ct_slab.launches = dma_halo.launches = 0
@@ -901,12 +929,14 @@ def _host_breakdown(sim, run, parts=("_flag_and_tree", "_rebuild_maps",
         f"{k.strip('_')} {v:.4f}" for k, v in acc.items()), acc
 
 
-def _amr_phases(dev):
+def _amr_phases(dev, card: str):
     """Phases 7-11 (the AMR slice); returns K1's max abs err on level 7 of
-    the AMR state and the K3 and K2 rows of the kernels line."""
+    the AMR state, the K3 and K2 rows of the kernels line and phase 8's
+    cell-updates/s."""
     import numpy as np
     import torch
     from ramses_tpu_torch.amr import bitperm
+    from ramses_tpu_torch.amr import device_regrid as dregrid
     from ramses_tpu_torch.amr import kernels as K
     from ramses_tpu_torch.amr.hierarchy import AmrSim
     from ramses_tpu_torch.convert import amr_state_from
@@ -978,6 +1008,7 @@ def _amr_phases(dev):
     sim.drain()
     wall = time.perf_counter() - t0
     launches = _counts()
+    k7 = dregrid.launches
     del sim.step_coarse
     want = _want(fused_muscl=len(stepped),
                  tile_sweep=sum(2 ** (l - lmin) for lv in stepped for l in lv
@@ -992,6 +1023,9 @@ def _amr_phases(dev):
     if launches != want:
         raise AssertionError(f"AMR main path launched {launches}, "
                              f"expected {want}")
+    if not k7 > 0:
+        raise AssertionError("AMR main path: no regrid went through K7 "
+                             "(regrid_maps)")
     if not all(bool(torch.isfinite(sim.u[l]).all()) for l in sim.levels()):
         raise AssertionError("AMR main path state is not finite")
     if abs(mass1 - mass0) > 1e-5 * abs(mass0):
@@ -1002,10 +1036,11 @@ def _amr_phases(dev):
            f"{sim.nstep} coarse steps t={sim.t:.6e}, octs per level {octs}, "
            f"tiles per partial level "
            f"{ {l: b.ntile for l, b in sim.blocks.items()} }, launches "
-           f"{launches} (expected {want}); leaf mass {mass0:.9e} -> "
+           f"{launches} (expected {want}), regrid_maps (K7) {k7}; leaf mass {mass0:.9e} -> "
            f"{mass1:.9e}; AmrSim() {init_s:.3f} s, evolve {wall:.3f} s = "
            f"{sim.cell_updates / wall:.4e} cell-updates/s "
            f"({sim.cell_updates} cell updates)")
+    rate8 = sim.cell_updates / wall
 
     # ---- 9. replay and the stencil path (K2) from one state ----
     state = amr_state_from(sim)
@@ -1231,6 +1266,7 @@ def _amr_phases(dev):
     _print(f"phase 11 one AMR coarse step (regrid + Courant fetch + step, "
            f"octs {[sim.tree.noct(l) for l in sim.levels()]}): wall by part, "
            f"each synchronised: {walls}; profiled: {prof}")
+    _print(f"phase 11 the regrid on {card}: " + _regrid_split(sim))
 
     def row(name, src_line, launches):
         r = rows[(name, partial[-1])]
@@ -1245,7 +1281,7 @@ def _amr_phases(dev):
     return err7, [row("tile_sweep", "ramses_tpu/hydro/pallas_oct.py:396",
                       launches["tile_sweep"]),
                   row("oct_sweep", "ramses_tpu/hydro/pallas_oct.py:213",
-                      oct_launches)]
+                      oct_launches)], rate8, k7
 
 def _ct_check(got, want, nd: int, periodic: bool = True):
     """K4 against its plain version at a main path's state, each value
@@ -6325,6 +6361,475 @@ def _cosmo_gal_phase(card: str, tmp: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11's regrid split, phases 55-56: the device migrate (K7) and
+# non-cubic roots
+# ---------------------------------------------------------------------------
+
+REGRID_STEPS = 10              # phase 55: config 2's coarse steps
+K7_RANDOM_OCTS = 262144        # phase 55's random key sets (2D and 3D)
+TWIN_LEVELS, TWIN_ROOT, TWIN_BOXLEN = (6, 8), (2, 2, 2), 0.25
+TWIN_STEPS = 10
+SLAB_ROOT, SLAB_STEPS = (2, 1, 1), 5   # phase 56b
+TWIN_REL = 1e-6                # leaf field within 1e-10 + TWIN_REL·M
+PROFILE_TOP = 12
+KEY_SWEEP = (1024, 2048, 4096, 8192, 16384, 65536, 262144)   # phase 11
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median wall ms of a host function (after one warm call)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _paired_ms(fa, fb, reps: int = 11) -> tuple:
+    """Median wall ms of two host functions, called in turn (after one
+    warm call each), so that both see the same host."""
+    fa(), fb()
+    ta, tb = [], []
+    for _ in range(reps):
+        for fn, times in ((fa, ta), (fb, tb)):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(ta), statistics.median(tb)
+
+
+def _top_cumulative(prof, skip: str) -> str:
+    """The ``PROFILE_TOP`` functions of a ``cProfile`` by cumulative time
+    (the wrapper ``skip`` left out): name, file:line, seconds, calls."""
+    import pstats
+    st = pstats.Stats(prof).stats
+    rows = sorted(((ct, nc, f"{fn} ({os.path.basename(fl)}:{ln})")
+                   for (fl, ln, fn), (_, nc, _, ct, _) in st.items()
+                   if fn != skip), reverse=True)[:PROFILE_TOP]
+    return "; ".join(f"{name} {ct:.4f} s x{nc}" for ct, nc, name in rows)
+
+
+def _regrid_split(sim) -> str:
+    """Phase 11's regrid by function, from ``sim``'s state: one coarse step
+    split by part with ``device_regrid`` on and off (each from a sim
+    restored on that state), a ``cProfile`` of one regrid under
+    ``_flag_and_tree`` and ``_rebuild_maps``, and the key paths at
+    262,144 keys and at ``KEY_SWEEP``'s batch sizes through the native
+    library and numpy."""
+    import cProfile
+
+    import numpy as np
+    import torch
+    from ramses_tpu_torch import native
+    from ramses_tpu_torch.amr import keys as kmod
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.amr.tree import lookup_np
+    from ramses_tpu_torch.convert import amr_state_from
+    state = amr_state_from(sim)
+
+    def fresh(on: bool):
+        p = _amr_params()
+        p.amr.device_regrid = on
+        return AmrSim.from_state(p, **state)
+    walls = {}
+    for on in (True, False):
+        s = fresh(on)
+
+        def coarse_step(s=s):
+            s.regrid()
+            s.step_coarse(s.coarse_dt())
+        walls[on] = _host_breakdown(s, coarse_step)[0]
+        del s
+    s = fresh(True)
+    profs = {}
+    for name in ("_flag_and_tree", "_rebuild_maps"):
+        prof = profs[name] = cProfile.Profile()
+
+        def profiled(*a, _fn=getattr(s, name), _prof=prof, **k):
+            _prof.enable()
+            try:
+                out = _fn(*a, **k)
+                torch.cuda.synchronize()
+                return out
+            finally:
+                _prof.disable()
+        setattr(s, name, profiled)
+    s.regrid()
+    torch.cuda.synchronize()
+    split = "; ".join(f"under {name}: {_top_cumulative(prof, 'profiled')}"
+                      for name, prof in profs.items())
+    del s
+    lev = sim.tree.levels[sim.lmin]
+    og, keys = lev.og, lev.keys
+    rng = np.random.default_rng(55)
+    queries = np.concatenate([keys[rng.permutation(len(keys))[:len(keys) // 2]],
+                              rng.integers(0, 2 * int(keys[-1]),
+                                           len(keys) - len(keys) // 2)])
+    enc = native.morton_encode(og, 3)
+    look = native.lookup_sorted(keys, queries)
+    if not (np.array_equal(enc, kmod.encode_np(og, 3))
+            and np.array_equal(look, lookup_np(keys, queries))):
+        raise AssertionError("phase 11: the native key paths differ from "
+                             "numpy")
+    paths = (f"keys.encode of {len(og)} level-{sim.lmin} octs native "
+             f"{_host_ms(lambda: native.morton_encode(og, 3)):.3f} ms, numpy "
+             f"{_host_ms(lambda: kmod.encode_np(og, 3)):.3f} ms; "
+             f"lookup_keys of {len(queries)} keys (half present) native "
+             f"{_host_ms(lambda: native.lookup_sorted(keys, queries)):.3f} "
+             f"ms, numpy {_host_ms(lambda: lookup_np(keys, queries)):.3f} ms"
+             f" (bitwise equal)")
+    # where the native path starts to win (keys.NATIVE_MIN): batches of
+    # the level's octs and queries, native and numpy timed in turn
+    sweep = []
+    for n in KEY_SWEEP:
+        o, q = og[:n], queries[rng.permutation(len(queries))[:n]]
+        enc_n, enc_p = _paired_ms(lambda: native.morton_encode(o, 3),
+                                  lambda: kmod.encode_np(o, 3))
+        look_n, look_p = _paired_ms(lambda: native.lookup_sorted(keys, q),
+                                    lambda: lookup_np(keys, q))
+        sweep.append(f"{n}: encode {enc_n:.4f}/{enc_p:.4f}, lookup "
+                     f"{look_n:.4f}/{look_p:.4f}")
+    paths += (f"; native/numpy ms by batch size (lookups in the "
+              f"{len(keys)} level-{sim.lmin} keys, the switch at "
+              f"{kmod.NATIVE_MIN}) " + ", ".join(sweep))
+    return (f"one coarse step from phase 11's state with device_regrid on: "
+            f"{walls[True]}; off: {walls[False]}; cProfile of one regrid "
+            f"(top {PROFILE_TOP} by cumulative time) {split}; {paths}")
+
+
+def _k7_key_set(ndim: int, lvl: int, n: int, seed: int):
+    """A random regrid's sorted key arrays at level ``lvl`` of a cubic
+    box: ``n`` new octs among the level's 2^(ndim(lvl-1)) slots, an old
+    level that kept 80 % of them and gained a fifth as many others, and a
+    coarser level holding every new oct's father and a fifth as many
+    others; each padded with sentinels."""
+    import numpy as np
+    from ramses_tpu_torch.amr import keys as kmod
+    rng = np.random.default_rng(seed)
+    side = 1 << (lvl - 1)
+
+    def keys_of(flat, s):
+        c = np.stack(np.unravel_index(flat, (s,) * ndim), axis=1)
+        return np.unique(kmod.encode(c, ndim))
+    new = keys_of(rng.choice(side ** ndim, n, replace=False), side)
+    old = np.unique(np.concatenate([
+        new[rng.random(n) < 0.8],
+        keys_of(rng.choice(side ** ndim, n // 5, replace=False), side)]))
+    coarse = np.unique(np.concatenate([
+        new >> ndim,
+        keys_of(rng.choice((side // 2) ** ndim, n // 5, replace=False),
+                side // 2)]))
+    return new, old, coarse, (side,) * ndim
+
+
+def _k7_bytes(n: int, ndim: int) -> int:
+    """The least bytes of one K7 call on ``n`` (padded) new octs: the keys
+    read once, pos, f_cell and the 2·ndim neighbours (int64) and kept
+    (bool) written once."""
+    return n * (8 + 8 + 1 + 8 + 16 * ndim)
+
+
+def _k7_err(got, want) -> float:
+    """The largest |got - want| over K7's outputs (the maps as int64)."""
+    return max(float((g.long() - w.long()).abs().max()) if g.numel() else 0.0
+               for g, w in zip(got, want))
+
+
+def _regrid_phase(dev, card: str) -> dict:
+    """Phase 55: config 2 with the device migrate against the host maps
+    from one initial state, K7 against its plain version on every
+    regrid's inputs and on random key sets; returns the K7 row, the
+    device run's oct coordinates after each regrid and its final sim."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.amr import device_regrid as dr
+    from ramses_tpu_torch.amr import maps as mapmod
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.convert import amr_state_from
+    p = _amr_params()
+    tend = p.output.tout[-1] if p.output.tout else p.output.tend
+    state = amr_state_from(AmrSim(p))
+    host_maps, k7_fn = mapmod.build_prolong_maps, dr.regrid_maps
+    runs = {}
+    for on in (True, False):
+        p = _amr_params()
+        p.amr.device_regrid = on
+        sim = AmrSim.from_state(p, **state)
+        rec = dict(og=[], keys=[], u=[], changed=0, host_maps=0, k7=[])
+        regrid = sim.regrid
+
+        def recorded(sim=sim, rec=rec, regrid=regrid):
+            old = {l: (sim.tree.levels[l].keys, sim.u[l].shape[0])
+                   for l in sim.levels()}
+            regrid()
+            rec["changed"] += sum(
+                1 for l in sim.levels() if l > sim.lmin and not (
+                    l in old and old[l][1] == sim.u[l].shape[0]
+                    and np.array_equal(old[l][0], sim.tree.levels[l].keys)))
+            rec["og"].append({l: sim.tree.levels[l].og
+                              for l in sim.levels()})
+            rec["keys"].append({l: sim.tree.levels[l].keys
+                                for l in sim.levels()})
+            rec["u"].append({l: sim.u[l].clone() for l in sim.levels()})
+
+        def counted(*a, rec=rec, **k):
+            rec["host_maps"] += 1
+            return host_maps(*a, **k)
+
+        def k7_rec(*a, rec=rec):
+            out = k7_fn(*a)
+            rec["k7"].append((tuple(x.clone() if torch.is_tensor(x) else x
+                                    for x in a),
+                              tuple(o.clone() for o in out)))
+            return out
+        sim.regrid = recorded
+        mapmod.build_prolong_maps, dr.regrid_maps = counted, k7_rec
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            sim.evolve(tend, nstepmax=REGRID_STEPS)
+            sim.drain()
+        finally:
+            mapmod.build_prolong_maps, dr.regrid_maps = host_maps, k7_fn
+        rec.update(sim=sim, wall=time.perf_counter() - t0,
+                   k7_launches=dr.launches, counts=_counts())
+        del sim.regrid
+        runs[on] = rec
+    a, b = runs[True], runs[False]
+    nreg = len(a["u"])
+    if not (a["sim"].nstep == b["sim"].nstep == REGRID_STEPS
+            and nreg == len(b["u"]) == REGRID_STEPS):
+        raise AssertionError(f"phase 55: {a['sim'].nstep} and "
+                             f"{b['sim'].nstep} steps, {nreg} and "
+                             f"{len(b['u'])} regrids")
+    for i in range(nreg):
+        ka, kb = a["keys"][i], b["keys"][i]
+        same = sorted(ka) == sorted(kb) and all(
+            np.array_equal(ka[l], kb[l]) and torch.equal(a["u"][i][l],
+                                                           b["u"][i][l])
+            for l in ka)
+        if not same:
+            raise AssertionError(f"phase 55: regrid {i + 1} differs between "
+                                 f"device_regrid on and off")
+    if not (a["host_maps"] == 0 and b["host_maps"] == b["changed"] > 0
+            and a["k7_launches"] == a["changed"] == len(a["k7"])
+            and b["k7_launches"] == 0 and a["counts"] == b["counts"]):
+        raise AssertionError(
+            f"phase 55: build_prolong_maps calls {a['host_maps']} (device) "
+            f"{b['host_maps']} (host), changed levels {a['changed']} / "
+            f"{b['changed']}, K7 launches {a['k7_launches']} / "
+            f"{b['k7_launches']} ({len(a['k7'])} recorded), other launches "
+            f"{a['counts']} / {b['counts']}")
+    err = 0.0
+    for args, got in a["k7"]:
+        want = dr.regrid_maps_ref(*args)
+        err = max(err, _k7_err(got, want))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"phase 55: regrid_maps disagrees with its "
+                                 f"plain version on {args[0].numel()} octs "
+                                 f"of a regrid")
+    del b["u"], a["u"]
+    torch.cuda.empty_cache()
+    # K7 at the main path's largest regrid level, timed
+    args = max(a["k7"], key=lambda r: r[0][0].numel())[0]
+    n, nd = args[0].numel(), args[3]
+    ms = _device_ms(lambda: dr.regrid_maps(*args), "regrid_maps_kernel",
+                    launched=lambda: dr.launches)
+    pms = _median_ms(lambda: dr.regrid_maps_ref(*args), reps=10)
+    bound = 1e3 * _k7_bytes(n, nd) / HBM_BYTES_PER_S
+    # random key sets of 262,144 octs: 2D and 3D, periodic and reflecting
+    lines = []
+    for nd_, lvl in ((2, 11), (3, 8)):
+        new, old, coarse, dims = _k7_key_set(nd_, lvl, K7_RANDOM_OCTS,
+                                             60 + nd_)
+        kn = dr.upload_keys(new, len(new) + 4096, dev)
+        ko = dr.upload_keys(old, len(old) + 16, dev)
+        kc = dr.upload_keys(coarse, len(coarse) + 16, dev)
+        for kinds in (((0, 0),) * nd_, ((1, 1), (1, 2), (2, 1))[:nd_]):
+            call = (kn, ko, kc, nd_, kinds, dims)
+            got = dr.regrid_maps(*call)
+            want = dr.regrid_maps_ref(*call)
+            torch.cuda.synchronize()
+            err = max(err, _k7_err(got, want))
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"phase 55: regrid_maps disagrees with "
+                                     f"its plain version on {len(new)} "
+                                     f"random {nd_}D octs, kinds {kinds}")
+            kms = _device_ms(lambda: dr.regrid_maps(*call),
+                             "regrid_maps_kernel",
+                             launched=lambda: dr.launches)
+            kpms = _median_ms(lambda: dr.regrid_maps_ref(*call), reps=10)
+            kb = 1e3 * _k7_bytes(kn.numel(), nd_) / HBM_BYTES_PER_S
+            lines.append(f"{nd_}D {'periodic' if kinds[0] == (0, 0) else 'reflecting/outflow'} "
+                         f"{kn.numel()} octs ({len(new)} real): bitwise, "
+                         f"{kms:.4f} ms, plain {kpms:.4f} ms, bound "
+                         f"{kb:.5f} ms ({100 * kb / kms:.1f} %)")
+        del kn, ko, kc
+    _print(f"phase 55 the device migrate on {card}: config 2 (sedov3d "
+           f"levelmin={AMR_LEVELS[0]} levelmax={AMR_LEVELS[1]}) from one "
+           f"initial state, {REGRID_STEPS} coarse steps with device_regrid "
+           f"on and off: after each of {nreg} regrids the keys and every "
+           f"level's u bitwise equal; build_prolong_maps calls "
+           f"{a['host_maps']} (on) / {b['host_maps']} (off); changed levels "
+           f"above levelmin {a['changed']}, K7 launches {a['k7_launches']} "
+           f"(on) / {b['k7_launches']} (off), each bitwise to its plain "
+           f"version on its inputs; walls (recording each regrid's state) "
+           f"{a['wall']:.3f} s (on) / {b['wall']:.3f} s (off); K7 at the "
+           f"main path's largest regrid level ({n} octs, {nd}D): "
+           f"{ms:.4f} ms on the device (profiler), plain {pms:.4f} ms, "
+           f"bound {bound:.6f} ms by bytes ({_k7_bytes(n, nd)} B), library "
+           f"call: none (no single PyTorch call derives these maps); "
+           f"random sorted key sets: " + "; ".join(lines)
+           + f"; max |K7 - plain| over every comparison {err:.1f}")
+    row = {"name": "regrid_maps", "route": "cuda",
+           "source": "ramses_tpu_torch/csrc/regrid_maps.cu",
+           "replaces": "ramses_tpu/amr/device_regrid.py:214",
+           "launches": a["k7_launches"], "max_abs_err": err, "ms": ms,
+           "plain_ms": pms, "bound_ms": bound, "bound_by": "bytes",
+           "library_ms": None}
+    og, sim = a["og"], a["sim"]
+    del runs, a, b
+    torch.cuda.empty_cache()
+    return {"row": row, "og": og, "sim": sim}
+
+
+def _root_params(root, levels, boxlen: float):
+    """sedov3d at ``levels`` (``_amr_params``'s criteria) on a coarse grid
+    of ``root`` root cells of side ``boxlen``."""
+    p = _amr_params()
+    p.amr.levelmin, p.amr.levelmax = levels
+    p.amr.nx, p.amr.ny, p.amr.nz = root
+    p.amr.boxlen = boxlen
+    return p
+
+
+def _stepped_run(p, nsteps: int, record_last: bool = False):
+    """``AmrSim(p).evolve`` for ``nsteps`` coarse steps with the launch
+    counters at 0 just before; returns the sim, the leaf mass before, the
+    wall s of evolve, the launches and the K1/K3 launches its levels
+    require, each regrid's oct coordinates, and (``record_last``) the last
+    step's recorded K1/K3 inputs and levels."""
+    import torch
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    tend = p.output.tout[-1] if p.output.tout else p.output.tend
+    sim = AmrSim(p)
+    stepped, og, recorded = [], [], {}
+    step_coarse, regrid = sim.step_coarse, sim.regrid
+
+    def counted(dt):
+        spec = sim._fused_spec()
+        stepped.append((spec.levels, spec.complete, spec.blocked))
+        rec = (_record_kernel_inputs(recorded)
+               if record_last and len(stepped) == nsteps else None)
+        try:
+            step_coarse(dt)
+        finally:
+            if rec is not None:
+                rec()
+
+    def traced():
+        regrid()
+        og.append({l: sim.tree.levels[l].og for l in sim.levels()})
+    sim.step_coarse, sim.regrid = counted, traced
+    mass0 = float(sim.totals()["mass"])
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim.evolve(tend, nstepmax=nsteps)
+    sim.drain()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    del sim.step_coarse, sim.regrid
+    return dict(sim=sim, mass0=mass0, wall=wall, launches=launches,
+                want=_cosmo_want(stepped, sim.lmin), og=og,
+                recorded=recorded, last=stepped[-1] if stepped else None)
+
+
+def _noncubic_phases(dev, card: str, rg: dict, rate8: float) -> dict:
+    """Phase 56: (a) config 2's twin on a 2³ root against phase 55's
+    config-2 run, (b) sedov3d on a (2, 1, 1) root with K1 and K3 on its
+    last step's inputs; returns their K1 and K3 launches."""
+    import numpy as np
+    import torch
+    # ---- 56a. the twin: the same cells as config 2 ----
+    p = _root_params(TWIN_ROOT, TWIN_LEVELS, TWIN_BOXLEN)
+    r = _stepped_run(p, TWIN_STEPS)
+    twin, wall, launches, want, og = (r["sim"], r["wall"], r["launches"],
+                                      r["want"], r["og"])
+    c2 = rg["sim"]
+    if not (twin.nstep == TWIN_STEPS and launches == want
+            and len(og) == len(rg["og"])):
+        raise AssertionError(f"phase 56a twin: {twin.nstep} steps, launches "
+                             f"{launches} (expected {want}), {len(og)} "
+                             f"regrids against {len(rg['og'])}")
+    for i, (ta, cb) in enumerate(zip(og, rg["og"])):
+        if sorted(l + 1 for l in ta) != sorted(cb) or not all(
+                np.array_equal(ta[l], cb[l + 1]) for l in ta):
+            raise AssertionError(f"phase 56a: the twin's tree differs from "
+                                 f"config 2's after regrid {i + 1}")
+    worst, bitwise = 0.0, True
+    for l in twin.levels():
+        ca, ua = twin.leaf_sample(l)
+        cb, ub = c2.leaf_sample(l + 1)
+        oa, ob = np.lexsort(ca.T), np.lexsort(cb.T)
+        if not np.array_equal(ca[oa], cb[ob]):
+            raise AssertionError(f"phase 56a: leaf cells of twin level {l} "
+                                 f"differ from config 2's level {l + 1}")
+        d = np.abs(ua[oa] - ub[ob])
+        m = np.abs(ub).max(axis=0)
+        worst = max(worst, float((d / (1e-10 + TWIN_REL * m)).max()))
+        bitwise = bitwise and bool((d == 0).all())
+    if not worst <= 1.0:
+        raise AssertionError(f"phase 56a: the twin's leaf field parts from "
+                             f"config 2's: max |Δ| / (1e-10 + {TWIN_REL}·M) "
+                             f"{worst:.3e}")
+    rate = twin.cell_updates / wall
+    _print(f"phase 56a non-cubic twin of config 2 on {card}: sedov3d at "
+           f"nx=ny=nz={TWIN_ROOT[0]}, boxlen={TWIN_BOXLEN}, levelmin "
+           f"{TWIN_LEVELS[0]} levelmax {TWIN_LEVELS[1]} "
+           f"({twin.tree.cell_dims(twin.lmin)} base cells), "
+           f"{twin.nstep} coarse steps: after each of {len(og)} regrids its "
+           f"level-l octs equal config 2's level-(l+1) octs; leaf field "
+           f"max |Δ| / (1e-10 + {TWIN_REL}·M) {worst:.3e}, bitwise "
+           f"{bitwise}; octs {[twin.tree.noct(l) for l in twin.levels()]}; "
+           f"launches {launches} (expected {want}); evolve {wall:.3f} s = "
+           f"{rate:.4e} cell-updates/s against config 2's {rate8:.4e} "
+           f"(phase 8)")
+    out = {k: launches[k] for k in ("fused_muscl", "tile_sweep")}
+    del twin, c2, r, rg["sim"]
+    torch.cuda.empty_cache()
+    # ---- 56b. a (2, 1, 1) root: K1 on a 128 x 64 x 64 complete level ----
+    p = _root_params(SLAB_ROOT, TWIN_LEVELS, TWIN_BOXLEN)
+    r = _stepped_run(p, SLAB_STEPS, record_last=True)
+    sim, wall, launches, want = (r["sim"], r["wall"], r["launches"],
+                                 r["want"])
+    mass0, mass1 = r["mass0"], float(sim.totals()["mass"])
+    finite = all(bool(torch.isfinite(sim.u[l]).all()) for l in sim.levels())
+    shape = sim.tree.cell_dims(sim.lmin)
+    if not (sim.nstep == SLAB_STEPS and launches == want and finite
+            and launches["fused_muscl"] == SLAB_STEPS
+            and abs(mass1 - mass0) <= 1e-5 * abs(mass0)):
+        raise AssertionError(f"phase 56b: {sim.nstep} steps, launches "
+                             f"{launches} (expected {want}), finite {finite},"
+                             f" mass {mass0} -> {mass1}")
+    line = _last_step_check(sim, r["recorded"], r["last"], "phase 56b")
+    _print(f"phase 56b sedov3d on a {SLAB_ROOT} root on {card}: levelmin "
+           f"{sim.lmin} levelmax {sim.lmax}, boxlen {TWIN_BOXLEN}, base level "
+           f"{shape}, {sim.nstep} coarse steps in {wall:.3f} s, octs "
+           f"{[sim.tree.noct(l) for l in sim.levels()]}; launches {launches}"
+           f" (expected {want}); leaf mass {mass0:.9e} -> {mass1:.9e}; K1 and"
+           f" K3 on the last coarse step's inputs against their plain "
+           f"versions within LOCAL_ATOL + LOCAL_RTOL·M: {line}")
+    for k in out:
+        out[k] += launches[k]
+    del sim, r
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6527,7 +7032,7 @@ def main() -> int:
 
     marks.append(("1-6", time.perf_counter()))
     # ---- 7-11. the AMR slice ----
-    err7, oct_rows = _amr_phases(dev)
+    err7, oct_rows, rate8, k7 = _amr_phases(dev, card)
     k1["max_abs_err"] = max(k1["max_abs_err"], err7)
 
     marks.append(("7-11", time.perf_counter()))
@@ -6584,6 +7089,15 @@ def main() -> int:
         if r["name"] == "tile_sweep":
             r["launches"] += cool["tile_sweep"]
     marks.append(("50-54", time.perf_counter()))
+    # ---- 55-56. the device migrate (K7) and non-cubic roots ----
+    rg = _regrid_phase(dev, card)
+    rg["row"]["launches"] = k7
+    nc = _noncubic_phases(dev, card, rg, rate8)
+    k1["launches"] += nc["fused_muscl"]
+    for r in oct_rows:
+        if r["name"] == "tile_sweep":
+            r["launches"] += nc["tile_sweep"]
+    marks.append(("55-56", time.perf_counter()))
     _print("script wall by phases: " + ", ".join(
         f"{label} {t - t0:.1f} s" for (_, t0), (label, t)
         in zip(marks, marks[1:]))
@@ -6593,7 +7107,7 @@ def main() -> int:
                "window; their ms are queued CUDA events: "
                + "; ".join(PROFILER_LOST))
     _print(json.dumps({"kernels": [k1] + oct_rows + [k4] + flux_rows
-                       + parallel_rows + [cool["row"]]}))
+                       + parallel_rows + [cool["row"], rg["row"]]}))
     _print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -62,9 +62,21 @@ rows fetched once, the file writing optionally on an
 coordinates (:func:`restore_amr_scaffold`), any domain count onto one
 device.
 
-Regrids always take the host prolongation-map migrate; the JAX package's
-``device_regrid`` (on by default there) is pinned bitwise equal to it by
-its own tests and is not ported.
+A regrid migrates each changed level on the device by default
+(``&AMR_PARAMS device_regrid``, :mod:`ramses_tpu_torch.amr.device_regrid`):
+the survivor and prolongation maps come from the sorted key arrays, through
+K7 on the card, with no host table.  The host prolongation maps
+(``maps.build_prolong_maps``) are taken by configuration only: with
+``device_regrid=.false.``, on the MHD hierarchy (whose face field replays
+``_mig_log``), and where the keys outgrow int64 (``keys_fit``).  The two
+migrate bit for bit alike.
+
+A non-cubic coarse grid (``&AMR_PARAMS nx, ny, nz``) runs on the plain
+hydro hierarchy: level ``l`` has ``root[d]·2^l`` cells along dim ``d``, a
+complete level converts between its flat rows and the dense box through
+index maps where it is not one power-of-two cube, and the JAX package's
+gate refuses it beside particles, tracers, cosmology, MHD, star formation
+and sinks.
 
 ``&SINK_PARAMS create_sinks`` runs the sink passes after each coarse step
 (:func:`ramses_tpu_torch.pm.amr_physics.sink_passes_amr`: creation on leaf
@@ -88,7 +100,7 @@ objects spawned from the sinks' accreted mass and their SNe
 Turbulence forcing (which the
 JAX package runs on the uniform grid only), the lightcone, the clump
 finder, RT, movies, load balance, offload, the step guard, the watchdog,
-telemetry, patch hooks, non-cubic roots and elastic sharded checkpoints
+telemetry, patch hooks and elastic sharded checkpoints
 are not ported yet: a namelist that turns one on raises
 ``NotImplementedError`` naming it.
 """
@@ -145,6 +157,9 @@ class FusedSpec(NamedTuple):
     # the cooling source (a hydro.cooling.CoolingSpec) after each level
     # substep's sweep and kick, or None
     cool: object = None
+    # coarse root-cell counts a dim (nx, ny, nz); level l's dense shape is
+    # root[d]·2^l (empty: the single cube)
+    root: tuple = ()
 
 
 class _Cfg1:
@@ -197,6 +212,9 @@ def _advance(u, dev, dt, spec: FusedSpec, fg=None, cool=None):
     def dx(l):
         return spec.boxlen / (1 << l)
 
+    def shape(l):
+        return tuple(r << l for r in (spec.root or (1,) * cfg.ndim))
+
     def advance(i, dtl):
         l = levels[i]
         d = dev[l]
@@ -217,9 +235,9 @@ def _advance(u, dev, dt, spec: FusedSpec, fg=None, cool=None):
                     u[l], d.get("ok_flat"), dtl, dx(l), sl, cfg,
                     ret_flux=wf)
             else:
-                out = K.dense_sweep(u[l], None, None, d["ok_dense"], dtl,
-                                    dx(l), (1 << l,) * cfg.ndim, spec.bspec,
-                                    cfg, ret_flux=wf)
+                out = K.dense_sweep(u[l], d.get("inv_perm"), d.get("perm"),
+                                    d["ok_dense"], dtl, dx(l), shape(l),
+                                    spec.bspec, cfg, ret_flux=wf)
             du = out[0] if wf else out
         elif spec.blocked and spec.blocked[i]:
             interp = K.interp_cells(u[l - 1], d["b_interp_cell"],
@@ -315,7 +333,6 @@ def unported_amr_features(params: Params) -> list:
     from ramses_tpu_torch.driver import unported_features
     from ramses_tpu_torch.turb.forcing import TurbSpec
     a = params.amr
-    root = [a.nx, a.ny, a.nz][:params.ndim]
     checks = [
         ("turbulence forcing on the hierarchy (&TURB_PARAMS turb; the JAX "
          "package forces the uniform grid only)",
@@ -323,8 +340,6 @@ def unported_amr_features(params: Params) -> list:
         ("load balance (&AMR_PARAMS load_balance)", a.load_balance),
         ("offload (&AMR_PARAMS offload)",
          str(a.offload).strip().lower() != "off"),
-        ("non-cubic coarse grid (&AMR_PARAMS nx, ny, nz)",
-         any(int(n) != 1 for n in root)),
     ]
     return unported_features(params) + [n for n, on in checks if on]
 
@@ -349,7 +364,8 @@ def restore_amr_scaffold(cls, params: Params, outdir: str, dtype, to_cons,
     from ramses_tpu_torch.pm.particles import FAM_GAS_TRACER, lane_headroom
     tree_og, rows_lv, meta, parts = restore_tree_state(
         outdir, None, params.amr.levelmin, to_cons=to_cons)
-    tree = Octree(params.ndim, params.amr.levelmin, params.amr.levelmax)
+    tree = Octree(params.ndim, params.amr.levelmin, params.amr.levelmax,
+                  root=root_of(params))
     for l, og in tree_og.items():
         tree.set_level(l, og)
     tracer_x = None
@@ -440,6 +456,12 @@ def _place_u_rows(sim, l: int, rows: np.ndarray, og: np.ndarray,
     sim.u[l] = out
 
 
+def root_of(params: Params) -> tuple:
+    """The coarse root-cell counts a dim (``&AMR_PARAMS nx, ny, nz``)."""
+    a = params.amr
+    return tuple(int(n) for n in [a.nx, a.ny, a.nz][:params.ndim])
+
+
 def _mig_consts(ndim: int):
     offs = cell_offsets(ndim)
     return (offs * 2 - 1).astype(np.float64), np.arange(1 << ndim)
@@ -460,6 +482,9 @@ class AmrSim:
     # as the JAX package's ``_pm_family`` does (the particle-mesh layer and
     # the tracers run on both)
     _pm_physics = True
+    # non-cubic coarse grids run on this hierarchy's dense paths; the MHD
+    # hierarchy clears it (its CT sweep assumes one root cube)
+    _noncubic_ok = True
 
     @classmethod
     def _unported(cls, params: Params) -> list:
@@ -481,6 +506,8 @@ class AmrSim:
             raise NotImplementedError(
                 "not ported to ramses_tpu_torch's AMR hierarchy yet: "
                 + ", ".join(missing))
+        self.root = root_of(params)
+        self._check_root(params)
         self.device = resolve_device(device)
         self.params = params
         self.cfg = HydroStatic.from_params(params)
@@ -617,6 +644,27 @@ class AmrSim:
         if bool(params.run.tracer) and seed_tracers:
             self._seed_tracers()
 
+    def _check_root(self, params: Params):
+        """The JAX package's gate of a non-cubic coarse grid: the plain
+        hydro hierarchy only, without the layers that wrap positions at a
+        scalar boxlen or keep dense paths of their own."""
+        if all(r == 1 for r in self.root):
+            return
+        blocked = ([] if self._noncubic_ok
+                   else [f"{type(self).__name__} solver family"])
+        blocked += [f for f in ("pic", "rt", "tracer", "cosmo", "clumpfind",
+                                "mhd")
+                    if bool(getattr(params.run, f, False))]
+        raw = params.raw or {}
+        if raw.get("sf_params"):
+            blocked.append("star formation")
+        if raw.get("sink_params"):
+            blocked.append("sinks")
+        if blocked:
+            raise NotImplementedError(
+                f"non-cubic coarse grid {self.root} currently supports the "
+                f"plain hydro hierarchy only (got: {', '.join(blocked)})")
+
     @classmethod
     def from_state(cls, params: Params, tree_og: Dict[int, np.ndarray],
                    rows: Dict[int, np.ndarray], t: float = 0.0,
@@ -650,7 +698,8 @@ class AmrSim:
         :func:`ramses_tpu_torch.convert.stellar_from`).
         ``kwargs`` go to the constructor (a subclass's own arguments, such
         as a shard mesh)."""
-        tree = Octree(params.ndim, params.amr.levelmin, params.amr.levelmax)
+        tree = Octree(params.ndim, params.amr.levelmin, params.amr.levelmax,
+                      root=root_of(params))
         for l, og in tree_og.items():
             tree.set_level(l, og)
         if dtype is None:
@@ -833,6 +882,11 @@ class AmrSim:
                     ok_dense=(self._dev(m.ok_dense)
                               if m.ok_dense is not None else None),
                     valid_cell=valid_cell, **self._restriction_dev(m))
+                if not K.pow2_cube(self.tree.cell_dims(l)):
+                    # bitperm holds for one root cube only: a non-cubic
+                    # level converts through the index maps
+                    self.dev[l].update(perm=self._dev(m.perm),
+                                       inv_perm=self._dev(m.inv_perm))
                 continue
             self.dev[l] = dict(
                 stencil_src=self._dev(m.stencil_src),
@@ -913,7 +967,8 @@ class AmrSim:
     def _init_refine(self):
         """Iterative initial mesh build (``amr/init_refine.f90:5-154``):
         apply analytic ICs, flag, rebuild, repeat until stable."""
-        self.tree = Octree.base(self.params.ndim, self.lmin, self.lmax)
+        self.tree = Octree.base(self.params.ndim, self.lmin, self.lmax,
+                                root=self.root)
         self._rebuild_maps()
         self._alloc_from_ics()
         for _ in range(self.lmax - self.lmin + 2):
@@ -954,8 +1009,8 @@ class AmrSim:
                         2 ** cfg.ndim))
                     continue
                 out.append(K.dense_refine_flags(
-                    self.u[l], None, None, eg, fls, self.tree.cell_dims(l),
-                    self.bspec, cfg))
+                    self.u[l], d.get("inv_perm"), d.get("perm"), eg, fls,
+                    self.tree.cell_dims(l), self.bspec, cfg))
                 continue
             pre = "b_" if spec.blocked and spec.blocked[i] else ""
             interp = K.interp_cells(self.u[l - 1], d[pre + "interp_cell"],
@@ -1021,10 +1076,25 @@ class AmrSim:
         thr = m_refine * mp / self.dx(l) ** self.tree_ndim
         return self.tree_order_cells(rho_dev, l)[:ncell] > thr
 
+    def _device_regrid_ok(self) -> bool:
+        """Gate of the device-resident migrate (:mod:`ramses_tpu_torch.amr.
+        device_regrid`), as the JAX package's: ``&AMR_PARAMS
+        device_regrid``; not where the migration is replayed into state
+        beside ``u`` (``_needs_mig_log``: the MHD face field needs the host
+        maps); not where the keys outgrow int64."""
+        if not bool(self.params.amr.device_regrid) or self._needs_mig_log:
+            return False
+        from ramses_tpu_torch.amr import device_regrid as dregrid
+        return dregrid.keys_fit(self.tree_ndim, max(self.levels()),
+                                self.root)
+
     def regrid(self):
         """Flag, rebuild the tree, and migrate the device state
-        (``flag_fine`` + ``refine_fine``/``kill_grid``) through the host
-        prolongation maps."""
+        (``flag_fine`` + ``refine_fine``/``kill_grid``): through maps
+        derived on the device from the sorted keys (K7 on the card) where
+        :meth:`_device_regrid_ok`, else through the host prolongation
+        maps.  A steady regrid (no oct set changed) builds and uploads
+        nothing."""
         self._mig_log: Dict[int, tuple] = {}
         if self.lmax == self.lmin:
             return
@@ -1039,12 +1109,38 @@ class AmrSim:
                 b.ntile for b in self.blocks.values()), "blocks_rebuilt": 0}
             return
         self._rebuild_maps(oldtree, old_maps, old_dev)
+        dregrid = None
+        if self._device_regrid_ok():
+            from ramses_tpu_torch.amr import device_regrid as dregrid
+        # each (tree, level, pad) uploaded once a regrid: a level's new
+        # keys serve again as the next level's coarse keys
+        keys_dev: Dict[tuple, torch.Tensor] = {}
+
+        def _keys_dev(tree_, l_, pad_):
+            kk = (id(tree_), l_, pad_)
+            if kk not in keys_dev:
+                kn = (tree_.levels[l_].keys if tree_.has(l_)
+                      else np.zeros(0, np.int64))
+                keys_dev[kk] = dregrid.upload_keys(kn, pad_, self.device)
+            return keys_dev[kk]
+
         new_u: Dict[int, torch.Tensor] = {}
         for l in self.levels():
             m = self.maps[l]
             if ((l == self.lmin or self._keys_same(oldtree, l))
                     and old_u[l].shape[0] == m.ncell_pad):
                 new_u[l] = old_u[l]
+                continue
+            if dregrid is not None:
+                onoct = oldtree.noct(l) if oldtree.has(l) else 0
+                new_u[l] = dregrid.migrate_level(
+                    old_u.get(l), new_u[l - 1],
+                    _keys_dev(self.tree, l, m.noct_pad),
+                    _keys_dev(oldtree, l, mapmod.bucket(max(onoct, 1), 8)),
+                    _keys_dev(self.tree, l - 1, self.maps[l - 1].noct_pad),
+                    m.ncell_pad, self.cfg.ndim, self.bc_kinds,
+                    self.tree.cell_dims(l - 1), self.cfg,
+                    int(self.params.refine.interpol_type))
                 continue
             pmaps = mapmod.build_prolong_maps(self.tree, oldtree, l,
                                               self.bc_kinds)
@@ -1118,7 +1214,8 @@ class AmrSim:
                 block_shift=int(self.params.amr.oct_block_shift),
                 want_flux=(self.tracer_x is not None
                            and len(self.tracer_x) > 0),
-                gravity=self.gravity, cool=self.cool_spec)
+                gravity=self.gravity, cool=self.cool_spec,
+                root=self.root)
             slab = tuple(self._slab_spec(l) if self.maps[l].complete
                          else None for l in lv)
             if any(sl is not None for sl in slab):
@@ -1290,17 +1387,19 @@ class AmrSim:
             if m.complete:
                 ncell = m.noct * (1 << nd)
                 shp = self.tree.cell_dims(l)
-                dense = K.rows_to_dense(rhs, None, shp)
+                dense = K.rows_to_dense(rhs, d.get("inv_perm"), shp)
                 if self.grav_periodic:
                     phi_dense = fft_solve(dense, dx)
                     fg_rows = K.dense_to_rows(
-                        gs.grad_dense(phi_dense, dx, nd), None, shp)
+                        gs.grad_dense(phi_dense, dx, nd), d.get("perm"), shp)
                 else:
                     phi_dense, gh = isolated_solve(dense / coeff, dx, coeff,
                                                    iters=300, tol=eps)
                     fg_rows = K.dense_to_rows(torch.movedim(
-                        grad_isolated(phi_dense, gh, dx), 0, -1), None, shp)
-                phi = K.dense_to_rows(phi_dense, None, shp).to(rhs.dtype)
+                        grad_isolated(phi_dense, gh, dx), 0, -1),
+                        d.get("perm"), shp)
+                phi = K.dense_to_rows(phi_dense, d.get("perm"),
+                                      shp).to(rhs.dtype)
                 if m.ncell_pad > ncell:
                     phi = torch.cat([phi, phi.new_zeros(m.ncell_pad - ncell)])
                     fg_rows = torch.cat([fg_rows, fg_rows.new_zeros(

@@ -1,7 +1,8 @@
 """Integer Morton (Z-order) keys for oct coordinates.
 
-The port's own copy of ``ramses_tpu/amr/keys.py`` (numpy only; the
-optional native encoder of the JAX package is not carried over).
+The port's own copy of ``ramses_tpu/amr/keys.py``: numpy below 4,096 keys
+and the port's g++ library (:mod:`ramses_tpu_torch.native`, bitwise the
+same keys) from there on, as the JAX package chooses.
 
 Replaces the reference's Hilbert state-machine keys (``amr/hilbert.f90:5-196``)
 for *topology bookkeeping*: the tree only needs a total order with fast
@@ -16,6 +17,9 @@ sorted Morton array is the whole "tree": membership = ``searchsorted``.
 from __future__ import annotations
 
 import numpy as np
+
+# batches of this many keys and more go through the native library
+NATIVE_MIN = 4096
 
 
 def _spread2(x: np.ndarray) -> np.ndarray:
@@ -41,7 +45,19 @@ def _spread3(x: np.ndarray) -> np.ndarray:
 
 
 def encode(ig: np.ndarray, ndim: int) -> np.ndarray:
-    """Morton keys (int64) from integer coords ``ig [n, ndim]``."""
+    """Morton keys (int64) from integer coords ``ig [n, ndim]``: numpy
+    below :data:`NATIVE_MIN` keys, the native library from there on."""
+    ig = np.asarray(ig)
+    if ndim == 1:
+        return ig[:, 0].astype(np.int64)
+    if len(ig) >= NATIVE_MIN:           # amortize the ctypes call
+        from ramses_tpu_torch import native
+        return native.morton_encode(ig, ndim)
+    return encode_np(ig, ndim)
+
+
+def encode_np(ig: np.ndarray, ndim: int) -> np.ndarray:
+    """:func:`encode`'s numpy path, at any size."""
     ig = np.asarray(ig)
     if ndim == 1:
         return ig[:, 0].astype(np.int64)

@@ -1,6 +1,7 @@
 """Host-resident octree topology.
 
-The port's own copy of ``ramses_tpu/amr/tree.py`` (numpy only).
+The port's own copy of ``ramses_tpu/amr/tree.py`` (numpy, with the
+batched key lookups of 4,096 keys and more in the port's g++ library).
 
 Replaces the reference's pointer-based fully-threaded tree
 (``son/father/nbor`` arrays + per-(level,cpu) linked lists,
@@ -112,20 +113,17 @@ class Octree:
             return np.full(len(og), -1, dtype=np.int64)
         lev = self.levels[lvl]
         ks = kmod.encode(np.asarray(og, dtype=np.int64), self.ndim)
-        pos = np.searchsorted(lev.keys, ks)
-        pos = np.clip(pos, 0, lev.noct - 1)
-        hit = lev.keys[pos] == ks
-        return np.where(hit, pos, -1)
+        return lookup_np(lev.keys, ks)
 
     def lookup_keys(self, lvl: int, ks: np.ndarray) -> np.ndarray:
         """Oct indices for Morton keys; -1 where absent."""
         if not self.has(lvl):
             return np.full(len(ks), -1, dtype=np.int64)
         lev = self.levels[lvl]
-        pos = np.searchsorted(lev.keys, ks)
-        pos = np.clip(pos, 0, lev.noct - 1)
-        hit = lev.keys[pos] == ks
-        return np.where(hit, pos, -1)
+        if len(ks) >= kmod.NATIVE_MIN:      # amortize the ctypes call
+            from ramses_tpu_torch import native
+            return native.lookup_sorted(lev.keys, ks)
+        return lookup_np(lev.keys, ks)
 
     def cell_coords(self, lvl: int) -> np.ndarray:
         """Global cell coords of every cell of the level, flat-cell order:
@@ -162,6 +160,14 @@ class Octree:
         rows = self.son_parent_cells(lvl)
         out[rows[rows >= 0]] = True
         return out
+
+
+def lookup_np(sorted_keys: np.ndarray, ks: np.ndarray) -> np.ndarray:
+    """:meth:`Octree.lookup_keys`'s numpy path on a non-empty sorted key
+    array, at any size: positions, -1 where absent."""
+    pos = np.searchsorted(sorted_keys, ks)
+    pos = np.clip(pos, 0, len(sorted_keys) - 1)
+    return np.where(sorted_keys[pos] == ks, pos, -1)
 
 
 def cell_offsets(ndim: int) -> np.ndarray:

@@ -728,6 +728,8 @@ class MhdAmrSim(AmrSim):
     given."""
 
     _needs_mig_log = True
+    # the dense CT path assumes one root cube, as the JAX package's
+    _noncubic_ok = False
     # MHD rows carry the cell-centred B: sinks (and star formation and
     # cooling) stay off, as the JAX package's ``_pm_family`` keeps them
     _pm_physics = False

@@ -103,7 +103,7 @@ class ShardedAmrSim(AmrSim):
         falls outside the slab envelope and keeps the single-device
         sweep."""
         from ramses_tpu_torch.parallel import dense_slab
-        shape = (1 << lvl,) * self.cfg.ndim
+        shape = self.tree.cell_dims(lvl)
         ncell_pad = self.maps[lvl].noct_pad * 2 ** self.cfg.ndim
         return dense_slab.build_slab_spec(
             self.devices, lvl, self.cfg.ndim, shape, ncell_pad,

@@ -1382,3 +1382,95 @@ def test_run_steps_cool_never_waits_and_replays_bitwise(cuda):
     assert bool(torch.isfinite(a[0]).all())
     # the periodic box keeps its energy without cooling
     assert float(a[0][4].sum()) < float(u0[4].sum())
+
+
+def _regrid_keys(ndim, root, lvl, seed, device):
+    """A random regrid's sentinel-padded sorted key arrays at level
+    ``lvl`` (new octs on 30 % of the slots, an old level keeping 80 % of
+    them plus others, a coarser level with every father plus others) and
+    the lvl-1 cell counts."""
+    from ramses_tpu_torch.amr import device_regrid as dr
+    from ramses_tpu_torch.amr import keys as kmod
+    rng = np.random.default_rng(seed)
+    dims = tuple(r << (lvl - 1) for r in root)
+
+    def some(shape, p):
+        c = np.stack(np.meshgrid(*[np.arange(n) for n in shape],
+                                 indexing="ij"), -1).reshape(-1, ndim)
+        return c[rng.random(len(c)) < p]
+    new = some(dims, 0.3)
+    old = np.concatenate([new[rng.random(len(new)) < 0.8], some(dims, 0.1)])
+    coarse = np.concatenate([new >> 1, some(tuple(n // 2 for n in dims),
+                                            0.2)])
+    enc = [np.unique(kmod.encode(c, ndim)) for c in (new, old, coarse)]
+    return tuple(dr.upload_keys(k, len(k) + pad, device)
+                 for k, pad in zip(enc, (29, 5, 3))) + (dims,)
+
+
+@pytest.mark.parametrize("ndim,root,lvl,kinds", [
+    (1, (1,), 9, ((1, 2),)),
+    (2, (1, 1), 8, ((0, 0), (0, 0))),
+    (2, (2, 1), 7, ((1, 1), (0, 0))),
+    (2, (1, 3), 6, ((2, 2), (0, 2))),
+    (3, (1, 1, 1), 6, ((0, 0), (0, 0), (0, 0))),
+    (3, (1, 1, 1), 6, ((1, 1), (2, 1), (1, 2))),
+    (3, (2, 1, 1), 6, ((0, 0), (1, 1), (2, 2))),
+])
+def test_regrid_maps_kernel_is_bitwise_plain(cuda, ndim, root, lvl, kinds):
+    from ramses_tpu_torch.amr import device_regrid as dr
+    new, old, coarse, dims = _regrid_keys(ndim, root, lvl, lvl + ndim, cuda)
+    n0 = dr.launches
+    got = dr.regrid_maps(new, old, coarse, ndim, kinds, dims)
+    want = dr.regrid_maps_ref(new, old, coarse, ndim, kinds, dims)
+    torch.cuda.synchronize()
+    assert dr.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.device == w.device
+        assert torch.equal(g, w)
+
+
+def test_regrid_maps_kernel_refuses_what_it_does_not_take(cuda):
+    from ramses_tpu_torch.amr import device_regrid as dr
+    new, old, coarse, dims = _regrid_keys(2, (1, 1), 5, 1, cuda)
+    with pytest.raises(ValueError, match="int64"):
+        dr.regrid_maps(new.to(torch.int32), old, coarse, 2, ((0, 0),) * 2,
+                       dims)
+    with pytest.raises(ValueError, match="CUDA device"):
+        dr.regrid_maps(new, old.cpu(), coarse, 2, ((0, 0),) * 2, dims)
+
+
+def test_config2_regrid_is_bitwise_with_device_regrid_on_and_off(cuda):
+    """sedov3d with config 2's criteria at levelmin 5 / levelmax 7 (f32,
+    the card): from one state, 3 coarse steps a regrid each with
+    ``device_regrid`` on (K7 launched) and off (host maps), the trees and
+    every level's rows bitwise equal after each regrid."""
+    from ramses_tpu_torch.amr import device_regrid as dr
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.convert import amr_state_from
+    ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def params(on):
+        p = load_params(os.path.join(ROOT, "namelists", "sedov3d.nml"),
+                        ndim=3)
+        p.amr.levelmin, p.amr.levelmax = 5, 7
+        p.refine.err_grad_d = p.refine.err_grad_p = 0.1
+        p.amr.device_regrid = on
+        return p
+    state = amr_state_from(AmrSim(params(True)))
+    sims = {on: AmrSim.from_state(params(on), **state)
+            for on in (True, False)}
+    k7 = {True: 0, False: 0}
+    for _ in range(3):
+        for on, s in sims.items():
+            n0 = dr.launches
+            s.regrid()
+            k7[on] += dr.launches - n0
+        a, b = sims[True], sims[False]
+        assert a.levels() == b.levels()
+        for l in a.levels():
+            assert np.array_equal(a.tree.levels[l].keys,
+                                  b.tree.levels[l].keys)
+            assert torch.equal(a.u[l], b.u[l]), l
+        for s in (a, b):
+            s.step_coarse(s.coarse_dt())
+    assert k7[True] > 0 and k7[False] == 0
