@@ -393,7 +393,36 @@ Phases, each printing its own line; any failure exits non-zero:
    require, cell-updates/s beside config 2's; (b) sedov3d at root
    (2, 1, 1), 6 / 8, 5 coarse steps: K1 on the 128×64×64 complete level,
    K1 and K3 on the last step's inputs against their plain versions, mass
-   conserved to rel 1e-5.
+   conserved to rel 1e-5;
+57. radiative transfer, the kernels: K8 (``csrc/rt_m1.cu``) against its
+   plain version on random f64 states, its dense entry in 1D, 2D and 3D,
+   periodic and outflow, 1 to 3 groups, with and without beams, on sizes
+   ragged against its blocks, and its block entry on random gathered
+   stencils (only the octs' rows written), every value within 1e-13 × the
+   field's max over the cell's 3^d stencil; K9 (``csrc/rt_chem.cu``) gray
+   and 3-ion (1 to 8 groups), with and without the UV background, heating
+   on and off, on 1,000,003 random cells (N 1e-30 to 1e-5, T 10 to 1e6 K),
+   every value within rel 1e-12;
+58. the RT main path: ``stromgren3.nml`` at 128³ (levelmin = levelmax = 7
+   set in code) through ``run_namelist``: one static advance of 684
+   substeps, K8 and K9 launched once each a substep, the state finite,
+   photons within 1.05 of those injected, the x²-weighted ionized volume
+   within rel 0.3 of the analytic Strömgren growth; the RT wall, ms a
+   substep, a 40-substep window's device busy share; K8 and K9 timed on
+   the final state beside their plain versions and bounds (bytes at
+   3.35 TB/s or f64 operations at 33.5 TFLOP/s, pow and exp one each);
+59. ``iliev1``, ``rad_beams``, ``stromgren2d``, ``stromgren3`` and
+   ``twin_rad_src`` through the CLI in process as shipped, each run's
+   substeps and launches (K9 none under ``rt_pp``); ``iliev1.nml`` at 128³
+   to tout = 100: K1 once an issued step, K8/K9 once a substep, mass to
+   rel 1e-5, the energy up, the photon budget, RT's share of the wall;
+60. RT on the hierarchy: ``tests/test_rt_amr.py``'s refined front at
+   levelmin 6 / levelmax 8 (f32 gas, r_refine 0.25), one coarse step of
+   118 substeps: K1, K3, K8's dense and block entries and K9 launched as
+   the levels and substeps require, K7 never; the ionized volume and the
+   gas energy up, every level's radiation finite with N >= 0, the front
+   radially ordered on level 8; then the 3-group He ladder at 64³ beside
+   the uniform driver (the JAX test's bound, rel 0.35).
    A line then gives the script's wall by group of phases.
 
 The line before the last holds every ported kernel's numbers as one JSON
@@ -559,16 +588,17 @@ def _sweep_bytes(c: int, n: int, outs) -> int:
     return 4 * (n * (5 * state + mask) + 1 + sum(x.numel() for x in outs))
 
 
-def _count_ops(fn) -> int:
-    """Elementwise f32 operations the plain version performs, counted from
+def _count_ops(fn, extra=()) -> int:
+    """Elementwise operations the plain version performs, counted from
     the tensors it computes on: each arithmetic, comparison or select op
-    counts its output's elements, a reduction its input's."""
+    counts its output's elements, a reduction its input's; ``extra`` names
+    more ops counted as one operation an element (``pow``, ``exp``)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     elementwise = {"add", "sub", "rsub", "mul", "div", "neg", "abs", "sign",
                    "sqrt", "reciprocal", "maximum", "minimum", "clamp",
                    "clamp_min", "clamp_max", "where", "lt", "le", "gt", "ge",
-                   "eq", "ne"}
+                   "eq", "ne"} | set(extra)
     reductions = {"min", "max", "sum", "amin", "amax"}
 
     class Count(TorchDispatchMode):
@@ -589,7 +619,8 @@ def _count_ops(fn) -> int:
 
 
 def _profile(run, out_dir: str, name: str = "chip_smoke_trace.json",
-             warm: bool = True, stats: dict = None, raw: bool = False) -> str:
+             warm: bool = True, stats: dict = None, raw: bool = False,
+             names=None, expect: int = None, tries: int = 5) -> str:
     """One traced run of ``run`` (after one untraced run when ``warm``):
     device kernel time by name and the device's busy share of the window;
     the trace goes to ``out_dir/name`` (not kept when ``name`` is None).
@@ -597,28 +628,51 @@ def _profile(run, out_dir: str, name: str = "chip_smoke_trace.json",
     seconds and the kernel launches of the window.  With ``raw`` only the
     device is traced and its busy time is the sum of the raw events, with
     no trace and no table by name: the tables take minutes to build at the
-    ~400,000 launches of an MHD gravity coarse step."""
+    ~400,000 launches of an MHD gravity coarse step.  With ``names`` (raw
+    only) the sum is that of the kernels whose names hold one of
+    ``names``, and the window opens with 20 untimed kernels and a
+    synchronisation (the trace drops a window's first records, as
+    :func:`_device_ms` says); with ``expect`` too, a window that kept
+    other than ``expect`` of those records is traced again, up to
+    ``tries`` windows, and the share is reported as not measured when
+    none did."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if warm:
         run()
+    lead = torch.zeros(16, device="cuda") if names else None
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA] if raw else
-                 [ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    if raw:
+    seen = []
+    for _ in range(tries if expect is not None else 1):
+        with profile(activities=[ProfilerActivity.CUDA] if raw else
+                     [ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if names:
+                for _ in range(20):
+                    lead.add_(1.0)
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if not raw:
+            break
         ev = [e for e in prof.profiler.kineto_results.events()
-              if e.device_type() == DeviceType.CUDA]
+              if e.device_type() == DeviceType.CUDA
+              and (not names or any(k in e.name() for k in names))]
+        if expect is None or len(ev) == expect:
+            break
+        seen.append(len(ev))
+    else:
+        return (f"busy share not measured: the profiler kept {seen} of "
+                f"{expect} kernel records in {tries} windows")
+    if raw:
         busy_us = sum(e.duration_ns() for e in ev) / 1e3
         if stats is not None:
             stats.update(busy_us=busy_us, wall_s=wall, launches=len(ev))
         return (f"device busy {busy_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms "
                 f"wall ({100 * busy_us / 1e6 / wall:.1f} %), {len(ev)} "
-                f"device events")
+                f"{'kernel records' if names else 'device events'}")
     if name is not None:
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir, name))
@@ -655,7 +709,10 @@ def _reset_counts():
     from ramses_tpu_torch.mhd import ct_slab
     from ramses_tpu_torch.parallel import dma_halo
     from ramses_tpu_torch.amr import device_regrid
+    from ramses_tpu_torch.rt import chem as rt_chem
+    from ramses_tpu_torch.rt import m1 as rt_m1
     cooling.launches = device_regrid.launches = 0
+    rt_m1.launches = rt_m1.block_launches = rt_chem.launches = 0
     fm.launches = fm.flux_launches = 0
     fm.padded_launches = fm.padded_flux_launches = 0
     ct_slab.launches = dma_halo.launches = 0
@@ -666,17 +723,22 @@ def _reset_counts():
 def _counts() -> dict:
     """Every kernel's launch count, the flux variants under their own
     keys (``fused_muscl_flux``, ``tile_sweep_flux``, ``oct_sweep_flux``)
-    and K1's padded entry under ``fused_muscl_padded(_flux)``."""
+    and K1's padded entry under ``fused_muscl_padded(_flux)``; K8's block
+    entry under ``rt_m1_block``."""
     from ramses_tpu_torch.hydro import cooling
     from ramses_tpu_torch.hydro import fused_muscl as fm
     from ramses_tpu_torch.hydro import oct_muscl as om
     from ramses_tpu_torch.mhd import ct_slab
     from ramses_tpu_torch.parallel import dma_halo
+    from ramses_tpu_torch.rt import chem as rt_chem
+    from ramses_tpu_torch.rt import m1 as rt_m1
     return {"fused_muscl": fm.launches, "fused_muscl_flux": fm.flux_launches,
             "fused_muscl_padded": fm.padded_launches,
             "fused_muscl_padded_flux": fm.padded_flux_launches,
             **om.launches, "ct_step_slab": ct_slab.launches,
-            "halo_exchange": dma_halo.launches, "cooling": cooling.launches}
+            "halo_exchange": dma_halo.launches, "cooling": cooling.launches,
+            "rt_m1": rt_m1.launches, "rt_m1_block": rt_m1.block_launches,
+            "rt_chem": rt_chem.launches}
 
 
 def _want(**n) -> dict:
@@ -6830,6 +6892,899 @@ def _noncubic_phases(dev, card: str, rg: dict, rate8: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 57-60. radiative transfer: K8 (csrc/rt_m1.cu) and K9 (csrc/rt_chem.cu)
+# ---------------------------------------------------------------------------
+
+F64_OPS_PER_S = 33.5e12        # H100 SXM f64 outside the tensor cores
+# K8 (+, -, *, /, sqrt only) and K9 are built with -fmad=false and round
+# where their plain versions do on the card: K8 every value within 1e-13 ×
+# the field's max over the cell's 3^d stencil, K9 within rel 1e-12
+K8_REL, K9_REL = 1e-13, 1e-12
+RT_UNITS = {"units_density": 1.66e-24, "units_time": 3.15e13,
+            "units_length": 3.08e18}
+STROMGREN3_NML = os.path.join(ROOT, "namelists", "stromgren3.nml")
+RT_NAMELISTS = (("iliev1", 3), ("rad_beams", 2), ("stromgren2d", 2),
+                ("stromgren3", 3), ("twin_rad_src", 2))
+RT_LEVEL = 7                   # phase 58: stromgren3 at 128³, 684 substeps
+ILIEV_LEVEL, ILIEV_TOUT = 7, 100.0     # phase 59: iliev1 at 128³, 100 Myr
+# phase 60: the refined front of tests/test_rt_amr.py at levelmin 6 /
+# levelmax 8 (its r_refine sphere widened to 0.25 so that the front's far
+# band lies on level 8), 118 substeps; then the 3-group He ladder at 64³
+RT_AMR_LEVELS, RT_AMR_TEND, RT_AMR_R = (6, 8), 0.004, 0.25
+RT_AMR_NSUB = (100, 300)       # the substeps phase 60 is sized for
+RT_AMR_R_GROWN = 0.27          # phase 60's regrid: the sphere grows
+RT_HE_LEVEL, RT_HE_TEND = 6, 0.004
+RT_K9_CELLS = 1000003          # phase 57's random cells (3-ion: half)
+
+
+def _rt_state(shape, ng, c_red, seed, beams=False, nd=None):
+    """Random RT state on the CPU, f64: ``U [ng, 1+nd, *shape]`` with N over
+    25 decades and |F| up to 1.2 c_red N (so the limiter acts), sources on
+    a tenth of the cells, beams (src_F) where asked."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    nd = len(shape) if nd is None else nd
+    N = 10.0 ** rng.uniform(-30, -5, (ng,) + shape)
+    F = rng.standard_normal((ng, nd) + shape)
+    F *= 1.2 * c_red * N[:, None] * rng.random((ng, 1) + shape) / \
+        np.sqrt((F ** 2).sum(axis=1, keepdims=True))
+    F[:, :, rng.random(shape) < 0.2] = 0.0
+    src = np.where(rng.random((ng,) + shape) < 0.1,
+                   10.0 ** rng.uniform(-20, -15, (ng,) + shape), 0.0)
+    srcF = (c_red * src[:, None] * rng.standard_normal((ng, nd) + shape)
+            if beams else None)
+    return (torch.from_numpy(np.concatenate([N[:, None], F], axis=1)),
+            torch.from_numpy(src),
+            None if srcF is None else torch.from_numpy(srcF))
+
+
+def _rt_cells(n, seed, ng=1):
+    """Random chemistry cells, f64: N from 1e-30 to 1e-5, T from 10 to 1e6
+    K, nH from 1e-4 to 1e2, the fractions from 1e-12 to 1."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    t = torch.from_numpy
+    return (t(10.0 ** rng.uniform(-30, -5, (ng, n))),
+            t(10.0 ** rng.uniform(-12, 0, n)),
+            t(10.0 ** rng.uniform(-12, -0.31, n)),
+            t(10.0 ** rng.uniform(-12, -0.31, n)),
+            t(10.0 ** rng.uniform(1, 6, n)), t(10.0 ** rng.uniform(-4, 2, n)))
+
+
+def _stencil_max(x, nd: int, periodic: bool = True):
+    """|x| maxed over each cell's 3^nd neighbourhood along the last nd axes
+    (wrapping, or replicating the edge as the outflow ghosts do)."""
+    import torch
+    a = x.abs()
+    for ax in range(a.dim() - nd, a.dim()):
+        n = a.shape[ax]
+        lo = a.roll(1, ax) if periodic else torch.cat(
+            [a.narrow(ax, 0, 1), a.narrow(ax, 0, n - 1)], ax)
+        hi = a.roll(-1, ax) if periodic else torch.cat(
+            [a.narrow(ax, 1, n - 1), a.narrow(ax, n - 1, 1)], ax)
+        a = torch.maximum(a, torch.maximum(lo, hi))
+    return a
+
+
+def _k8_check(got, want, scale, what: str) -> tuple:
+    """(max abs err, worst err / (K8_REL·M)); raises past the tolerance."""
+    import torch
+    err = (got - want).abs()
+    ratio = float((err / (K8_REL * scale)).nan_to_num(0.0, posinf=1e30)
+                  .max())
+    if not (bool(torch.isfinite(got).all()) and ratio <= 1.0):
+        raise AssertionError(f"{what}: K8 disagrees with its plain version: "
+                             f"max abs err {float(err.max()):.3e}, worst "
+                             f"err / (1e-13 M) {ratio:.3e}")
+    return float(err.max()), ratio
+
+
+def _k9_check(pairs, what: str) -> tuple:
+    """(max abs err, max rel err) over (got, want) pairs; raises past rel
+    K9_REL."""
+    import torch
+    mx, rel = 0.0, 0.0
+    for got, want in pairs:
+        r = float(((got - want).abs() / want.abs()).nan_to_num(
+            0.0, posinf=1e30).max())
+        mx = max(mx, float((got - want).abs().max()))
+        rel = max(rel, r)
+        if not (bool(torch.isfinite(got).all()) and r <= K9_REL):
+            raise AssertionError(f"{what}: K9 disagrees with its plain "
+                                 f"version: rel {r:.3e}")
+    return mx, rel
+
+
+def _block_rows(blk, nd: int):
+    """The interior [2:4]^nd cells of ``blk [ncols, 6.., noct]`` as
+    oct-major rows ``[noct·2^nd, ncols]`` (K8's block-entry layout)."""
+    interior = (slice(None),) + tuple(slice(2, 4) for _ in range(nd))
+    return blk[interior].permute((nd + 1,) + tuple(range(1, nd + 1)) + (0,)
+                                 ).reshape(-1, blk.shape[0])
+
+
+def _k8_block_held(rad, blk, dt, dx, c_red, nd, ng, what: str) -> tuple:
+    """K8's block entry on ``rad``/``blk`` against the plain version: the
+    written rows within K8_REL × the field's max over the cell's 3^nd
+    stencil in its block, the rest of the rows untouched."""
+    import torch
+    from ramses_tpu_torch.rt import m1
+    got = m1.block_update(rad, blk, dt, dx, c_red, nd, ng)
+    want = m1.block_update_ref(rad, blk, dt, dx, c_red, nd, ng)
+    ref = torch.cat([m1.glf_block_ref(blk[g * (1 + nd):(g + 1) * (1 + nd)],
+                                      dt, dx, c_red, nd) for g in range(ng)])
+    scale = _block_rows(_stencil_max(ref.movedim(-1, 1), nd).movedim(1, -1),
+                        nd)
+    del ref
+    n = blk.shape[-1] * 2 ** nd
+    if not torch.equal(got[n:], rad[n:]):
+        raise AssertionError(f"{what}: K8 block entry wrote past its octs' "
+                             f"rows")
+    return _k8_check(got[:n], want[:n], scale, what)
+
+
+def _k8_block_check(dev, nd, ng, noct, seed):
+    """K8's block entry on random gathered stencils against the plain
+    version (:func:`_k8_block_held`)."""
+    import torch
+    c_red = 3e7
+    U, _, _ = _rt_state((6,) * nd + (noct,), ng, c_red, seed, nd=nd)
+    blk = U.reshape((ng * (1 + nd),) + U.shape[2:]).contiguous().to(dev)
+    rad = torch.rand((noct * 2 ** nd + 7, ng * (1 + nd)),
+                     dtype=torch.float64, device=dev)
+    dt, dx = 0.8 * 3e19 / 3.0 / c_red, 3e19
+    return _k8_block_held(rad, blk, dt, dx, c_red, nd, ng,
+                          f"block entry nd={nd} ng={ng} noct={noct}")
+
+
+def _rt_kernel_phase(dev, card: str) -> dict:
+    """Phase 57: K8's dense entry (1D/2D/3D, periodic and outflow, 1 and 3
+    groups, with and without beams, sizes ragged against its 256-thread
+    blocks), its block entry on random gathered stencils, and K9 gray and
+    3-ion (with and without the UV background, heating on and off) on
+    random f64 states, each against its plain version."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.hydro.cooling import uv_rates
+    from ramses_tpu_torch.rt import chem, m1, spectra
+    t0 = time.perf_counter()
+    c_red = 3e7
+    dt, dx = 0.8 * 3e19 / 3.0 / c_red, 3e19
+    err8 = ratio8 = 0.0
+    dense = [((33,), 1, True, False), ((1000,), 3, False, True),
+             ((9, 14), 1, False, False), ((45, 70), 3, True, True),
+             ((5, 7, 6), 1, True, True), ((37, 29, 41), 3, False, False),
+             ((37, 29, 41), 1, True, True), ((1, 4, 3), 2, True, False),
+             ((64, 64, 64), 1, False, True)]
+    for i, (shape, ng, periodic, beams) in enumerate(dense):
+        U, src, srcF = [None if t is None else t.to(dev)
+                        for t in _rt_state(shape, ng, c_red, 70 + i, beams)]
+        nd = len(shape)
+        got = m1.transport(U, dt, dx, c_red, nd, periodic, src, srcF)
+        want = m1.transport_ref(U, dt, dx, c_red, nd, periodic, src, srcF)
+        e, r = _k8_check(got, want, _stencil_max(want, nd, periodic),
+                         f"dense entry {shape} ng={ng} periodic={periodic} "
+                         f"beams={beams}")
+        err8, ratio8 = max(err8, e), max(ratio8, r)
+    for i, (nd, ng, noct) in enumerate(((1, 1, 7), (2, 3, 500),
+                                        (3, 1, 4099), (3, 2, 3000))):
+        e, r = _k8_block_check(dev, nd, ng, noct, 90 + i)
+        err8, ratio8 = max(err8, e), max(ratio8, r)
+    g, h = uv_rates(1.0, 1.0)
+    uv = ((g["HI"], g["HeI"], g["HeII"]), (h["HI"], h["HeI"], h["HeII"]))
+    err9 = rel9 = 0.0
+    for i, (use_uv, heating, otsa) in enumerate(((False, True, True),
+                                                 (True, True, True),
+                                                 (True, False, False))):
+        N, x, _, _, T, nH = [t.to(dev) for t in _rt_cells(RT_K9_CELLS,
+                                                          110 + i)]
+        uvv = uv if use_uv else None
+        want = chem.chem_step_ref(N[0], x, T, nH, 3e10, c_red,
+                                  chem.GroupSpec(), otsa, heating=heating,
+                                  uv=uvv)
+        rows = torch.zeros((N.shape[1], 4), dtype=torch.float64, device=dev)
+        rows[:, 0] = N[0]
+        got = chem.chem_gray(rows[:, 0], x, T, nH, 3e10, c_red,
+                             chem.GroupSpec(), otsa, heating=heating, uv=uvv)
+        e, r = _k9_check(zip((rows[:, 0],) + got, want),
+                         f"gray uv={use_uv} heating={heating}")
+        err9, rel9 = max(err9, e), max(rel9, r)
+    for i, (ng, use_uv, heating) in enumerate(((1, False, True),
+                                               (3, True, True),
+                                               (2, False, False),
+                                               (8, True, True))):
+        N, x, h2, h3, T, nH = [t.to(dev) for t in _rt_cells(
+            RT_K9_CELLS // 2, 120 + i, ng)]
+        nHe = nH * 0.08
+        groups = spectra.blackbody_groups(1e5, list(np.geomspace(
+            13.6, 1e3, ng + 1)))
+        uvv = uv if use_uv else None
+        want = chem.chem_step_3ion_ref(list(N), (x, h2, h3), T, nH, nHe,
+                                       1e11, c_red, groups, heating=heating,
+                                       uv=uvv)
+        he = torch.stack([h2, h3], dim=1)
+        Nv = N.clone()
+        got = chem.chem_3ion(Nv, x, he[:, 0], he[:, 1], T, nH, nHe, 1e11,
+                             c_red, groups, heating=heating, uv=uvv)
+        e, r = _k9_check(list(zip(Nv, want[0]))
+                         + list(zip(got, list(want[1]) + [want[2]])),
+                         f"3-ion ng={ng} uv={use_uv} heating={heating}")
+        err9, rel9 = max(err9, e), max(rel9, r)
+    torch.cuda.synchronize()
+    _print(f"phase 57 RT kernels against their plain versions on {card}: "
+           f"K8 dense entry {len(dense)} cases (1D/2D/3D, periodic and "
+           f"outflow, ng 1-3, beams, ragged), block entry 4 cases; max abs "
+           f"err {err8:.3e}, worst err / (1e-13 M) {ratio8:.3e}; K9 gray 3 "
+           f"cases and 3-ion 4 cases (ng 1-8, UV, heating on/off) on "
+           f"{RT_K9_CELLS} / {RT_K9_CELLS // 2} random cells: max abs err "
+           f"{err9:.3e}, max rel err {rel9:.3e} (tolerance {K9_REL:g}); "
+           f"{time.perf_counter() - t0:.1f} s")
+    return dict(k8_err=err8, k9_err=err9)
+
+
+def _rt_bound(nbytes: float, nops: float) -> dict:
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * nops / F64_OPS_PER_S
+    return dict(bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+                ops_ms=ops_ms, nbytes=nbytes, nops=nops,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _rt_timing(r: dict) -> str:
+    return (f"{r['ms']:.4f} ms/launch, plain version {r['plain_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} (bytes "
+            f"{r['bytes_ms']:.4f} ms for {r['nbytes'] / 1e6:.1f} MB; "
+            f"operations {r['ops_ms']:.4f} ms for {r['nops'] / 1e9:.4f} G "
+            f"f64 at {F64_OPS_PER_S:.3g}/s), "
+            f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound")
+
+
+RT_OPS = ("pow", "exp")           # counted as one operation each
+
+
+def _rt_substep(rs) -> float:
+    """One RT-Courant substep of an RtSim [s]."""
+    from ramses_tpu_torch.rt import m1
+    return m1.rt_courant_dt(rs.dx, rs.spec.c_red, rs.spec.courant)
+
+
+def _rt_time_kernels(rs) -> tuple:
+    """K8 and K9 timed per launch (device ms) on an RtSim's state beside
+    their plain versions and their bounds, each checked against its plain
+    version on that state; returns (K8 readings, K9 readings)."""
+    import torch
+    from ramses_tpu_torch.rt import chem, m1
+    spec = rs.spec
+    nd = spec.ndim
+    dt = _rt_substep(rs)
+    U, src = rs.U.clone(), rs._src
+    k8 = lambda: m1.transport(U, dt, rs.dx, spec.c_red, nd,  # noqa: E731
+                              spec.periodic, src)
+    plain8 = lambda: m1.transport_ref(U, dt, rs.dx,  # noqa: E731
+                                      spec.c_red, nd, spec.periodic, src)
+    want = plain8()
+    e8, r8 = _k8_check(k8(), want, _stencil_max(want, nd, spec.periodic),
+                       "phase 58 final state")
+    del want
+    r8 = dict(max_abs_err=e8, ratio=r8,
+              ms=_device_ms(k8, "rt_m1::dense_kernel", n=30,
+                            launched=lambda: m1.launches),
+              plain_ms=_median_ms(plain8, reps=5, warm=1),
+              **_rt_bound(8 * (2 * U.numel() + src.numel()),
+                          _count_ops(plain8, RT_OPS)))
+    n = U[0, 0].numel()
+    x, T, nH = (a.reshape(-1) for a in (rs.x, rs.T, rs.nH))
+    N0 = U.reshape(-1, 1 + nd, n)[0, 0].clone()
+    Nk = N0.clone()
+    got = chem.chem_gray(Nk, x, T, nH, dt, spec.c_red, spec.group,
+                         spec.otsa, heating=spec.heating)
+    want = chem.chem_step_ref(N0, x, T, nH, dt, spec.c_red, spec.group,
+                              spec.otsa, heating=spec.heating)
+    e9, rel9 = _k9_check(zip((Nk,) + got, want), "phase 58 final state")
+    k9 = lambda: chem.chem_gray(Nk, x, T, nH, dt,  # noqa: E731
+                                spec.c_red, spec.group, spec.otsa,
+                                heating=spec.heating)
+    plain9 = lambda: chem.chem_step_ref(N0, x, T, nH, dt,  # noqa: E731
+                                        spec.c_red, spec.group, spec.otsa,
+                                        heating=spec.heating)
+    r9 = dict(max_abs_err=e9, rel=rel9,
+              ms=_device_ms(k9, "rt_chem::gray_kernel", n=30,
+                            launched=lambda: chem.launches),
+              plain_ms=_median_ms(plain9, reps=5, warm=1),
+              **_rt_bound(8 * 7 * n, _count_ops(plain9, RT_OPS)))
+    del U, N0, Nk
+    torch.cuda.empty_cache()
+    return r8, r9
+
+
+def _with_levels(src: str, lvl: int, subs=()) -> str:
+    """A namelist's text with levelmin = levelmax = ``lvl`` and the given
+    (pattern, replacement) edits."""
+    import re
+    text = open(src).read()
+    for pat, rep in ((r"levelmin=\d+", f"levelmin={lvl}"),
+                     (r"levelmax=\d+", f"levelmax={lvl}")) + tuple(subs):
+        text, n = re.subn(pat, rep, text)
+        if not n:
+            raise AssertionError(f"{src}: no {pat!r} to edit")
+    return text
+
+
+def _stromgren_phase(dev, card: str, tmp: str) -> dict:
+    """Phase 58: stromgren3.nml at 128³ through ``run_namelist`` (static:
+    one advance of 684 substeps); returns the launches and the K8/K9
+    readings on the final state."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.driver import run_namelist
+    from ramses_tpu_torch.rt import chem
+    from ramses_tpu_torch.rt.coupling import RtCoupled
+    from ramses_tpu_torch.rt.driver import stromgren_radius
+    path = os.path.join(tmp, "stromgren3_128.nml")
+    with open(path, "w") as f:
+        f.write(_with_levels(STROMGREN3_NML, RT_LEVEL))
+    acc, restore = _timed_parts({"rt": (RtCoupled, "advance")})
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        sim = run_namelist(path)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    rs = sim.rt.sim
+    nsub = rs.substeps
+    n = 2 ** RT_LEVEL
+    if rs.shape != (n,) * 3 or sim.nstep != 1 or nsub != rs.nsub(sim.t):
+        raise AssertionError(f"phase 58: {sim.nstep} steps, {nsub} substeps "
+                             f"at {rs.shape}, expected 1 and "
+                             f"{rs.nsub(sim.t)} at {n}³")
+    if launches != _want(rt_m1=nsub, rt_chem=nsub):
+        raise AssertionError(f"phase 58: launches {launches} for {nsub} "
+                             f"substeps")
+    for f in ("N", "F", "x", "T"):
+        if not bool(torch.isfinite(getattr(rs, f)).all()):
+            raise AssertionError(f"phase 58: {f} is not finite")
+    st = sim.rt.rt_stats()
+    if not 0.0 < st["photons"] <= 1.05 * st["injected"]:
+        raise AssertionError(f"phase 58: photon budget {st}")
+    # the x²-weighted ionized volume against the analytic Strömgren
+    # growth at this time (tests/test_rt_driver.py:72-104)
+    xf, Tf = rs.x.cpu().numpy(), rs.T.cpu().numpy()
+    t_ion = float(np.median(Tf[xf > 0.9])) if (xf > 0.9).any() else 1e4
+    nH, ndot = 1e-2, 5e48
+    r_s = stromgren_radius(ndot, nH, T=t_ion)
+    t_rec = 1.0 / (float(chem.alpha_B(torch.tensor(t_ion,
+                                                   dtype=torch.float64)))
+                   * nH)
+    v_exp = 4.0 / 3.0 * np.pi * r_s ** 3 * (1.0 - np.exp(-sim.t / t_rec))
+    v_got = float((xf ** 2).sum()) * rs.dx ** 3
+    if abs(v_got / v_exp - 1.0) > 0.3:
+        raise AssertionError(f"phase 58: ionized volume {v_got:.4e} against "
+                             f"the Strömgren {v_exp:.4e}")
+    busy = _profile(lambda: rs.advance(40 * _rt_substep(rs)), None,
+                    name=None, warm=False, raw=True,
+                    names=("ramses_rt_m1", "ramses_rt_chem"), expect=80)
+    r8, r9 = _rt_time_kernels(rs)
+    _print(f"phase 58 RT main path on {card}: stromgren3.nml at {n}³ "
+           f"(levelmin = levelmax = {RT_LEVEL} set in code, static), "
+           f"{nsub} substeps, launches K8 {launches['rt_m1']} K9 "
+           f"{launches['rt_chem']}; run_namelist {wall:.3f} s, RT "
+           f"{acc['rt']:.3f} s = {1e3 * acc['rt'] / nsub:.4f} ms a "
+           f"substep; a 40-substep window: {busy}; photons "
+           f"{st['photons']:.6e} of {st['injected']:.6e} injected (ratio "
+           f"{st['ratio']:.6f}); x²-weighted ionized volume {v_got:.6e} "
+           f"cm³ against the Strömgren {v_exp:.6e} (rel "
+           f"{v_got / v_exp - 1.0:+.4f}, T_ion {t_ion:.1f} K)")
+    _print(f"phase 58 K8 on the final state: {_rt_timing(r8)}; against "
+           f"plain: max abs err {r8['max_abs_err']:.3e}, worst err / "
+           f"(1e-13 M) {r8['ratio']:.3e}; library call: none (no PyTorch "
+           f"call computes an M1 step)")
+    _print(f"phase 58 K9 on the final state: {_rt_timing(r9)}; against "
+           f"plain: max abs err {r9['max_abs_err']:.3e}, max rel "
+           f"{r9['rel']:.3e}; library call: none (no PyTorch call computes "
+           f"the photochemistry)")
+    del sim, rs
+    torch.cuda.empty_cache()
+    return dict(launches=launches, k8=r8, k9=r9)
+
+
+def _issued_steps():
+    """Wrap the uniform driver's ``run_steps`` so that the steps each call
+    issues are summed (K1 launches once an issued step: the steps past the
+    output time are masked on the device, not skipped); returns (the
+    count, the function that restores it)."""
+    from ramses_tpu_torch import driver
+    real = driver.run_steps
+    n = [0]
+
+    def counted(grid, u, t, tend, nsteps, **kw):
+        n[0] += nsteps
+        return real(grid, u, t, tend, nsteps, **kw)
+    driver.run_steps = counted
+
+    def restore():
+        driver.run_steps = real
+    return n, restore
+
+
+def _rt_cli_phase(card: str, tmp: str) -> dict:
+    """Phase 59: the five RT namelists through the CLI as shipped, then
+    iliev1.nml at 128³; returns the launches."""
+    import torch
+    from ramses_tpu_torch.driver import run_namelist
+    from ramses_tpu_torch.rt.coupling import RtCoupled
+    total = dict.fromkeys(_counts(), 0)
+    lines = []
+    for name, ndim in RT_NAMELISTS:
+        src = os.path.join(ROOT, "namelists", f"{name}.nml")
+        torch.cuda.synchronize()
+        _reset_counts()
+        issued, restore = _issued_steps()
+        try:
+            sim, wall = _cli_in_process([src, "--ndim", str(ndim)],
+                                        os.path.join(tmp, name))
+        finally:
+            restore()
+        launches = _counts()
+        rs = sim.rt.sim
+        k9 = 0 if rs.spec.pp else rs.substeps
+        if launches != _want(rt_m1=rs.substeps, rt_chem=k9,
+                             fused_muscl=issued[0]):
+            raise AssertionError(f"phase 59 {name}: launches {launches} for "
+                                 f"{sim.nstep} steps, {rs.substeps} "
+                                 f"substeps")
+        for f in ("N", "F", "x", "T"):
+            if not bool(torch.isfinite(getattr(rs, f)).all()):
+                raise AssertionError(f"phase 59 {name}: {f} is not finite")
+        if not bool(torch.isfinite(sim.state.u).all()):
+            raise AssertionError(f"phase 59 {name}: u is not finite")
+        for k in total:
+            total[k] += launches[k]
+        lines.append(f"{name} {rs.shape} {sim.nstep} steps ({issued[0]} "
+                     f"issued) {rs.substeps} substeps K8 "
+                     f"{launches['rt_m1']} K9 {launches['rt_chem']} K1 "
+                     f"{launches['fused_muscl']} {wall:.2f} s")
+    _print(f"phase 59 the RT namelists through the CLI on {card} (run_cli "
+           f"in process, as shipped): " + "; ".join(lines))
+    # iliev1 at 128³: f32 gas through K1, f64 RT through K8/K9 once a chunk
+    path = os.path.join(tmp, "iliev1_128.nml")
+    with open(path, "w") as f:
+        f.write(_with_levels(os.path.join(ROOT, "namelists", "iliev1.nml"),
+                             ILIEV_LEVEL, ((r"tout=0\.03",
+                                            f"tout={ILIEV_TOUT}"),)))
+    acc, restore = _timed_parts({"rt": (RtCoupled, "advance")})
+    from ramses_tpu_torch.config import load_params
+    from ramses_tpu_torch.driver import Simulation
+    base = Simulation(load_params(path, ndim=3))
+    mass0, e0 = (float(base.totals()[k]) for k in ("mass", "energy"))
+    del base
+    issued, restore_steps = _issued_steps()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        sim = run_namelist(path)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+        restore_steps()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    rs = sim.rt.sim
+    if launches != _want(fused_muscl=issued[0], rt_m1=rs.substeps,
+                         rt_chem=rs.substeps):
+        raise AssertionError(f"phase 59 iliev1 128³: launches {launches} for "
+                             f"{sim.nstep} steps, {rs.substeps} substeps")
+    tot = sim.totals()
+    mass1, e1 = float(tot["mass"]), float(tot["energy"])
+    st = sim.rt.rt_stats()
+    if abs(mass1 - mass0) > 1e-5 * abs(mass0) or not e1 > e0 \
+            or not 0.0 < st["photons"] <= 1.05 * st["injected"] \
+            or not bool(torch.isfinite(sim.state.u).all()):
+        raise AssertionError(f"phase 59 iliev1 128³: mass {mass0} -> "
+                             f"{mass1}, energy {e0} -> {e1}, photons {st}")
+    for k in total:
+        total[k] += launches[k]
+    _print(f"phase 59 iliev1.nml at 128³ on {card} (levelmin = levelmax = "
+           f"{ILIEV_LEVEL}, tout = {ILIEV_TOUT:g} set in code; f32 gas): "
+           f"{sim.nstep} hydro steps ({issued[0]} issued, K1 "
+           f"{launches['fused_muscl']}), "
+           f"{rs.substeps} RT substeps (K8 {launches['rt_m1']}, K9 "
+           f"{launches['rt_chem']}); mass {mass0:.9e} -> {mass1:.9e}, "
+           f"energy {e0:.6e} -> {e1:.6e}; photons {st['photons']:.4e} of "
+           f"{st['injected']:.4e}; run_namelist {wall:.3f} s, RT "
+           f"{acc['rt']:.3f} s ({100 * acc['rt'] / wall:.1f} % of the wall)")
+    del sim
+    torch.cuda.empty_cache()
+    return total
+
+
+def _rt_amr_params(lmin, lmax, tend, refine=None, **rt):
+    """The RT set-up of tests/test_rt_amr.py (a uniform neutral box, a
+    central source, reduced light speed 1e-4 c) as port Params."""
+    from ramses_tpu_torch.config import params_from_dict
+    g = {
+        "run_params": {"hydro": True, "rt": True},
+        "amr_params": {"levelmin": lmin, "levelmax": lmax, "boxlen": 1.0},
+        "init_params": {"nregion": 1, "region_type": ["square"],
+                        "x_center": [0.5], "y_center": [0.5],
+                        "z_center": [0.5], "length_x": [10.0],
+                        "length_y": [10.0], "length_z": [10.0],
+                        "exp_region": [10.0], "d_region": [1.0],
+                        "p_region": [1e-4]},
+        "hydro_params": {"gamma": 5.0 / 3.0, "courant_factor": 0.5},
+        "rt_params": dict({"rt_ndot": 1e48, "rt_c_fraction": 1e-4,
+                           "rt_src_pos": [0.5, 0.5, 0.5], "rt_otsa": True},
+                          **rt),
+        "units_params": dict(RT_UNITS),
+        "output_params": {"tend": tend},
+    }
+    if refine:
+        g["refine_params"] = refine
+    return params_from_dict(g, ndim=3)
+
+
+class _Kept:
+    """A device copy of a tensor that keeps its layout: a copy of its
+    whole (contiguous) base, and the sizes, strides and offset that lay
+    the tensor out in it (the K9 columns of the AMR rows are strided
+    views)."""
+
+    def __init__(self, t):
+        base = t if t._base is None else t._base
+        if not base.is_contiguous():
+            raise AssertionError("a recorded tensor's base is not "
+                                 "contiguous")
+        self.base = base.clone()
+        self.view = (tuple(t.size()), tuple(t.stride()),
+                     t.storage_offset() - base.storage_offset())
+
+    def fresh(self):
+        """(a new copy of the base, the tensor laid out in it)."""
+        b = self.base.clone()
+        return b, b.as_strided(*self.view)
+
+
+RT_ENTRIES = (("transport", "m1", "dense"), ("block_update", "m1", "block"),
+              ("chem_gray", "chem", "gray"), ("chem_3ion", "chem", "3ion"))
+
+
+def _record_rt(rt, store: dict):
+    """Wrap K8's and K9's wrappers as ``rt`` (an ``RtAmrCoupled``) calls
+    them, so that each call records its arguments (tensors as
+    :class:`_Kept`) in ``store`` under (entry, level), then launches as
+    before; the latest call of an entry on a level is kept.  Returns the
+    function that restores them."""
+    import torch
+    from ramses_tpu_torch.rt import chem, m1
+    mods = {"m1": m1, "chem": chem}
+    level = [None]
+    real = {}
+
+    def kept(x):
+        return _Kept(x) if torch.is_tensor(x) else x
+    for fn, mod, entry in RT_ENTRIES:
+        real[fn] = getattr(mods[mod], fn)
+
+        def rec(*a, _fn=real[fn], _entry=entry, **kw):
+            store[(_entry, level[0])] = ([kept(x) for x in a],
+                                         {k: kept(v) for k, v in kw.items()})
+            return _fn(*a, **kw)
+        setattr(mods[mod], fn, rec)
+    transport, chemistry = rt._transport, rt._chemistry
+
+    def tr(sim, l, *a):
+        level[0] = l
+        return transport(sim, l, *a)
+
+    def ch(l, *a):
+        level[0] = l
+        return chemistry(l, *a)
+    rt._transport, rt._chemistry = tr, ch
+
+    def restore():
+        for fn, mod, _ in RT_ENTRIES:
+            setattr(mods[mod], fn, real[fn])
+        del rt._transport, rt._chemistry
+    return restore
+
+
+def _rt_recorded_check(store: dict, what: str) -> tuple:
+    """K8's and K9's entries on the arguments :func:`_record_rt` kept,
+    laid out as the hierarchy gave them, against their plain versions:
+    K8 within K8_REL × the field's stencil max, K9 within rel K9_REL, and
+    K9 leaves the rows' other columns as they were.  Returns (K8 max abs
+    err, K9 max abs err, what was checked)."""
+    import inspect
+    import torch
+    from ramses_tpu_torch.rt import chem, m1
+    e8 = e9 = 0.0
+    done = []
+    for (entry, l), (args, kw) in sorted(store.items(),
+                                         key=lambda kv: kv[0][::-1]):
+        fn = {"dense": m1.transport, "block": m1.block_update,
+              "gray": chem.chem_gray, "3ion": chem.chem_3ion}[entry]
+        base, first = args[0].fresh()
+        b = inspect.signature(fn).bind(
+            first, *[x.fresh()[1] if isinstance(x, _Kept) else x
+                     for x in args[1:]],
+            **{k: v.fresh()[1] if isinstance(v, _Kept) else v
+               for k, v in kw.items()})
+        b.apply_defaults()
+        p = b.arguments
+        tag = f"{what} level {l} {entry}"
+        if entry == "dense":
+            got = fn(*b.args, **b.kwargs)
+            want = m1.transport_ref(*b.args, **b.kwargs)
+            e8 = max(e8, _k8_check(got, want, _stencil_max(
+                want, p["ndim"], p["periodic"]), tag)[0])
+            shape = tuple(p["U"].shape)
+        elif entry == "block":
+            e8 = max(e8, _k8_block_held(*b.args, what=tag)[0])
+            shape = tuple(p["blk"].shape)
+        else:
+            N0 = first.clone()
+            got = fn(*b.args, **b.kwargs)
+            if entry == "gray":
+                want = chem.chem_step_ref(
+                    N0, p["x"], p["T"], p["nH"], p["dt"], p["c_red"],
+                    p["group"], p["otsa"], heating=p["heating"], uv=p["uv"])
+                pairs = zip((first,) + tuple(got), want)
+            else:
+                want = chem.chem_step_3ion_ref(
+                    list(N0), (p["x"], p["xhe2"], p["xhe3"]), p["T"],
+                    p["nH"], p["nHe"], p["dt"], p["c_red"], p["groups"],
+                    p["otsa"], heating=p["heating"], uv=p["uv"])
+                pairs = (list(zip(first, want[0]))
+                         + list(zip(got, list(want[1]) + [want[2]])))
+            e9 = max(e9, _k9_check(pairs, tag)[0])
+            rest = torch.ones_like(base, dtype=torch.bool)
+            rest.as_strided(*args[0].view).fill_(False)
+            if not torch.equal(base[rest], args[0].base[rest]):
+                raise AssertionError(f"{tag}: K9 wrote outside its N "
+                                     f"columns")
+            shape = tuple(first.shape)
+        done.append(f"{l} {entry} {list(shape)}")
+    return e8, e9, ", ".join(done)
+
+
+def _rt_recorded_substep(sim, what: str) -> tuple:
+    """One RT substep of an ``AmrSim`` (a coarse dt of half the RT Courant
+    step) with K8's and K9's inputs recorded on every level, then each
+    entry checked on them (:func:`_rt_recorded_check`)."""
+    from ramses_tpu_torch.rt import m1
+    rt = sim.rt_amr
+    spec = rt.spec
+    dx = sim.dx(max(sim.levels())) * rt.un.scale_l
+    store = {}
+    restore = _record_rt(rt, store)
+    try:
+        nsub = rt.advance(sim, 0.5 * m1.rt_courant_dt(
+            dx, spec.c_red, spec.courant) / rt.un.scale_t)
+    finally:
+        restore()
+    if nsub != 1 or len(store) != 2 * len(sim.levels()):
+        raise AssertionError(f"{what}: {nsub} substeps, recorded "
+                             f"{sorted(store)}")
+    return _rt_recorded_check(store, what)
+
+
+def _rt_forced_regrid(sim, r: float, what: str) -> tuple:
+    """Grow the refined sphere of an RT hierarchy to radius ``r`` and
+    regrid, so that new octs take their rows from the coarser level
+    through ``apply_migration`` and the host maps; checks that rows moved,
+    that K7 never launched and that every level's rows fit its new maps,
+    finite with N >= 0.  Returns (levels migrated, octs, seconds)."""
+    import torch
+    from ramses_tpu_torch.amr import device_regrid as dr
+    rt = sim.rt_amr
+    migrated, k7 = [], dr.launches
+    apply = rt.apply_migration
+    rt.apply_migration = lambda s: (migrated.append(len(s._mig_log)),
+                                    apply(s))
+    sim.params.refine.r_refine = [r] * 10
+    t0 = time.perf_counter()
+    try:
+        sim.regrid()
+        torch.cuda.synchronize()
+    finally:
+        del rt.apply_migration
+    wall = time.perf_counter() - t0
+    if not (migrated and migrated[0] > 0) or dr.launches != k7:
+        raise AssertionError(f"{what} regrid: migrations {migrated} (the "
+                             f"levels logged), K7 {dr.launches - k7}")
+    for l in sim.levels():
+        rad = rt.rad[l]
+        if rad.shape[0] != sim.maps[l].ncell_pad or not (
+                bool(torch.isfinite(rad).all())
+                and bool((rad[:, ::1 + rt.nd] >= 0).all())
+                and bool(torch.isfinite(rt.xion[l]).all())):
+            raise AssertionError(f"{what} regrid: level {l} rows "
+                                 f"{tuple(rad.shape)} not finite or N < 0")
+    return migrated[0], [sim.tree.noct(l) for l in sim.levels()], wall
+
+
+def _rt_amr_phase(dev, card: str) -> dict:
+    """Phase 60: RT on the hierarchy (the refined front at levelmin 6 /
+    levelmax 8, f32 gas through K1/K3, f64 RT through K8's two entries and
+    K9; K7 never launched), a regrid that migrates the rows, K8 and K9 on
+    one substep's inputs as the migrated hierarchy lays them out against
+    their plain versions, then the 3-group He ladder at 64³ beside the
+    uniform driver (and K9's 3-ion entry on its rows); returns the
+    launches and the K8/K9 errors."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.amr import device_regrid as dr
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.driver import Simulation
+    lmin, lmax = RT_AMR_LEVELS
+    p = _rt_amr_params(lmin, lmax, RT_AMR_TEND, rt_ndot=1e44, refine={
+        k: [v] * 10 for k, v in (("r_refine", RT_AMR_R), ("x_refine", 0.5),
+                                 ("y_refine", 0.5), ("z_refine", 0.5))})
+    p.init.d_region = [10.0]
+    t_build = time.perf_counter()
+    sim = AmrSim(p)
+    t_build = time.perf_counter() - t_build
+    e0 = float(sim.totals()["energy"])
+    v0 = sim.rt_amr.ionized_volume(sim)
+    stepped, rt_calls = [], []
+    step_coarse, advance = sim.step_coarse, sim.rt_amr.advance
+
+    def counted(dt):
+        spec = sim._fused_spec()
+        stepped.append((spec.levels, spec.complete, spec.blocked))
+        step_coarse(dt)
+
+    def rt_counted(s, dt):
+        nc = sum(bool(s.maps[l].complete) for l in s.levels())
+        n = advance(s, dt)
+        rt_calls.append((n, nc, len(s.levels()) - nc))
+        return n
+    sim.step_coarse, sim.rt_amr.advance = counted, rt_counted
+    k7 = dr.launches
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sim.evolve(RT_AMR_TEND)
+    sim.drain()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    del sim.step_coarse, sim.rt_amr.advance
+    want = _cosmo_want(stepped, lmin)
+    nsub = sum(n for n, _, _ in rt_calls)
+    want.update(rt_m1=sum(n * c for n, c, _ in rt_calls),
+                rt_m1_block=sum(n * q for n, _, q in rt_calls),
+                rt_chem=sum(n * (c + q) for n, c, q in rt_calls))
+    if launches != want or dr.launches != k7:
+        raise AssertionError(f"phase 60: launches {launches}, the levels "
+                             f"require {want}; K7 {dr.launches - k7}")
+    if not RT_AMR_NSUB[0] <= nsub <= RT_AMR_NSUB[1]:
+        raise AssertionError(f"phase 60: {nsub} substeps, sized for "
+                             f"{RT_AMR_NSUB}")
+    v1 = sim.rt_amr.ionized_volume(sim)
+    e1 = float(sim.totals()["energy"])
+    for l in sim.levels():
+        rad = sim.rt_amr.rad[l]
+        if not (bool(torch.isfinite(rad).all())
+                and bool((rad[:, 0] >= 0).all())):
+            raise AssertionError(f"phase 60: level {l} rad not finite or "
+                                 f"N < 0")
+    x = sim.tree_order_cells(sim.rt_amr.xion[lmax], lmax)
+    xc = sim.tree.cell_centers(lmax, sim.boxlen)
+    rr = np.sqrt(((xc - 0.5) ** 2).sum(axis=1))
+    near = float(x[rr < 0.04].mean())
+    far = float(x[(rr > 0.18) & (rr < 0.23)].mean())
+    if not (v1 > 1.5 * v0 and e1 > e0 and near > 0.8 and far < 0.1):
+        raise AssertionError(f"phase 60: ionized volume {v0} -> {v1}, "
+                             f"energy {e0} -> {e1}, near {near} far {far}")
+    octs = [sim.tree.noct(l) for l in sim.levels()]
+    nmig, octs_mig, t_mig = _rt_forced_regrid(sim, RT_AMR_R_GROWN, "phase 60")
+    # K8's entries and K9 on one substep's inputs as the migrated
+    # hierarchy lays them out, against their plain versions
+    e8, e9, held = _rt_recorded_substep(sim, "phase 60")
+    # the 3-group He ladder at 64³ beside the uniform driver on the grid
+    he = dict(rt_ngroups=3, rt_y_he=0.25, rt_t_star=1e5)
+    t_he = time.perf_counter()
+    asim = AmrSim(_rt_amr_params(RT_HE_LEVEL, RT_HE_LEVEL, RT_HE_TEND, **he))
+    _reset_counts()
+    asim.evolve(RT_HE_TEND, nstepmax=3)
+    usim = Simulation(_rt_amr_params(RT_HE_LEVEL, RT_HE_LEVEL, RT_HE_TEND,
+                                     **he))
+    usim.evolve()
+    torch.cuda.synchronize()
+    he_launches = _counts()
+    t_he = time.perf_counter() - t_he
+    v_amr = asim.rt_amr.ionized_volume(asim)
+    v_uni = float(usim.rt.sim.x.sum()) * usim.dx ** 3
+    xhe2 = float(asim.rt_amr.xhe[RT_HE_LEVEL][:, 0].max())
+    if not (v_amr > 0.05 and v_uni > 0.05
+            and abs(v_amr - v_uni) < 0.35 * max(v_amr, v_uni)
+            and xhe2 > 1e-3):
+        raise AssertionError(f"phase 60 He ladder: AMR {v_amr} uniform "
+                             f"{v_uni}, max xHeII {xhe2}")
+    he8, he9, he_held = _rt_recorded_substep(asim, "phase 60 He")
+    _print(f"phase 60 RT on the hierarchy on {card}: the refined front "
+           f"(tests/test_rt_amr.py set-up at levelmin {lmin} / levelmax "
+           f"{lmax}, r_refine {RT_AMR_R}, d_region 10, f32 gas), octs "
+           f"{octs}, {len(stepped)} coarse steps, {nsub} substeps; "
+           f"launches K1 {launches['fused_muscl']} K3 "
+           f"{launches['tile_sweep']} K8 dense {launches['rt_m1']} block "
+           f"{launches['rt_m1_block']} K9 {launches['rt_chem']} K7 0 (as "
+           f"the levels require); ionized volume {v0:.4e} -> {v1:.4e}, gas "
+           f"energy {e0:.6e} -> {e1:.6e}, level {lmax} near {near:.4f} far "
+           f"{far:.4f}; built in {t_build:.3f} s (host tree and maps), "
+           f"evolved in {wall:.3f} s; r_refine grown to {RT_AMR_R_GROWN} "
+           f"and regridded in {t_mig:.3f} s: {nmig} levels migrated "
+           f"through apply_migration, octs {octs_mig}, K7 0, rows finite "
+           f"with N >= 0.  3-group He at {2 ** RT_HE_LEVEL}³ "
+           f"({t_he:.3f} s): "
+           f"AMR {v_amr:.4e}, uniform {v_uni:.4e} (rel "
+           f"{abs(v_amr - v_uni) / max(v_amr, v_uni):.4f} of the 0.35 "
+           f"bound), max xHeII {xhe2:.4f}")
+    _print(f"phase 60 K8 and K9 on one substep's inputs as the hierarchy "
+           f"lays them out (level entry [shape]), against their plain "
+           f"versions: after the regrid {held}; He {he_held}; K8 max abs "
+           f"err {max(e8, he8):.3e} (tolerance {K8_REL:g} × stencil max), "
+           f"K9 max abs err {max(e9, he9):.3e} (rel {K9_REL:g})")
+    out = {k: launches[k] + he_launches[k] for k in launches}
+    out.update(k8_err=max(e8, he8), k9_err=max(e9, he9))
+    del sim, asim, usim
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rt_phases(dev, card: str) -> dict:
+    """Phases 57-60; returns the K8 and K9 rows and the K1/K3 launches of
+    their main paths."""
+    import shutil
+    import tempfile
+    marks = [time.perf_counter()]
+    k = _rt_kernel_phase(dev, card)
+    marks.append(time.perf_counter())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rt_")
+    try:
+        s = _stromgren_phase(dev, card, tmp)
+        marks.append(time.perf_counter())
+        cli = _rt_cli_phase(card, tmp)
+        marks.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    amr = _rt_amr_phase(dev, card)
+    marks.append(time.perf_counter())
+    _print("phases 57-60 wall: " + ", ".join(
+        f"{57 + i} {b - a:.1f} s" for i, (a, b) in enumerate(
+            zip(marks, marks[1:]))))
+    n = {key: s["launches"][key] + cli[key] + amr[key]
+         for key in s["launches"]}
+    err = {"rt_m1": max(k["k8_err"], s["k8"]["max_abs_err"], amr["k8_err"]),
+           "rt_chem": max(k["k9_err"], s["k9"]["max_abs_err"],
+                          amr["k9_err"])}
+    rows = []
+    for name, src, replaces, r, err, launched in (
+            ("rt_m1", "rt_m1.cu",
+             "ramses_tpu/rt/m1.py:81 (transport_step, and rt/amr.py:63 "
+             "_glf_block; fused by XLA, no pallas_call)", s["k8"],
+             err["rt_m1"], n["rt_m1"] + n["rt_m1_block"]),
+            ("rt_chem", "rt_chem.cu",
+             "ramses_tpu/rt/chem.py:179 (chem_step, and :92 "
+             "chem_step_3ion; fused by XLA, no pallas_call)", s["k9"],
+             err["rt_chem"], n["rt_chem"])):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"ramses_tpu_torch/csrc/{src}",
+                     "replaces": replaces, "launches": launched,
+                     "max_abs_err": err, "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": None})
+    return dict(rows=rows, fused_muscl=n["fused_muscl"],
+                tile_sweep=n["tile_sweep"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7098,6 +8053,13 @@ def main() -> int:
         if r["name"] == "tile_sweep":
             r["launches"] += nc["tile_sweep"]
     marks.append(("55-56", time.perf_counter()))
+    # ---- 57-60. radiative transfer: K8 and K9 ----
+    rt = _rt_phases(dev, card)
+    k1["launches"] += rt["fused_muscl"]
+    for r in oct_rows:
+        if r["name"] == "tile_sweep":
+            r["launches"] += rt["tile_sweep"]
+    marks.append(("57-60", time.perf_counter()))
     _print("script wall by phases: " + ", ".join(
         f"{label} {t - t0:.1f} s" for (_, t0), (label, t)
         in zip(marks, marks[1:]))
@@ -7107,7 +8069,8 @@ def main() -> int:
                "window; their ms are queued CUDA events: "
                + "; ".join(PROFILER_LOST))
     _print(json.dumps({"kernels": [k1] + oct_rows + [k4] + flux_rows
-                       + parallel_rows + [cool["row"], rg["row"]]}))
+                       + parallel_rows + [cool["row"], rg["row"]]
+                       + rt["rows"]}))
     _print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

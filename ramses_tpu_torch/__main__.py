@@ -7,7 +7,9 @@ supercomoving clock and the grafic/Gadget ICs under ``cosmo``, as
 ``cosmo_gal.nml``, sinks under ``&SINK_PARAMS``, as ``collapse_iso.nml``
 and ``smbh_bondi.nml``, with stellar objects under ``&STELLAR_PARAMS`` on
 the hierarchy, turbulence forcing under
-``&TURB_PARAMS`` on the uniform grid, as ``turb_driving.nml``), or with
+``&TURB_PARAMS`` on the uniform grid, as ``turb_driving.nml``, radiative
+transfer under ``&RUN_PARAMS rt``, as ``iliev1.nml``, ``rad_beams.nml``,
+``stromgren2d.nml``, ``stromgren3.nml`` and ``twin_rad_src.nml``), or with
 ``--solver mhd`` (the default when &INIT_PARAMS sets a region field, as in
 the JAX CLI) constrained-transport MHD (on the hierarchy with gravity,
 particles and tracers), each on a uniform grid or, with ``levelmax >
@@ -43,9 +45,9 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="ramses_tpu_torch",
         description="PyTorch/CUDA port of ramses_tpu (hydro with gravity, "
-                    "particles, cosmology, cooling, star formation, sinks "
-                    "and turbulence forcing, and CT MHD, uniform or AMR "
-                    "on one device)")
+                    "particles, cosmology, cooling, star formation, sinks, "
+                    "turbulence forcing and radiative transfer, and CT "
+                    "MHD, uniform or AMR on one device)")
     ap.add_argument("namelist", help="Fortran-namelist runtime config")
     ap.add_argument("--ndim", type=int, default=3,
                     help="spatial dimensions (compile-time in the reference)")

@@ -68,7 +68,8 @@ the survivor and prolongation maps come from the sorted key arrays, through
 K7 on the card, with no host table.  The host prolongation maps
 (``maps.build_prolong_maps``) are taken by configuration only: with
 ``device_regrid=.false.``, on the MHD hierarchy (whose face field replays
-``_mig_log``), and where the keys outgrow int64 (``keys_fit``).  The two
+``_mig_log``) and with RT (whose rows replay it), and where the keys
+outgrow int64 (``keys_fit``).  The two
 migrate bit for bit alike.
 
 A non-cubic coarse grid (``&AMR_PARAMS nx, ny, nz``) runs on the plain
@@ -97,9 +98,17 @@ particles: the run turns ``pic`` on), and ``&STELLAR_PARAMS`` the stellar
 objects spawned from the sinks' accreted mass and their SNe
 (:mod:`ramses_tpu_torch.pm.stellar`, ``stellar_NNNNN.csv`` in each dump).
 
+``&RUN_PARAMS rt`` adds radiative transfer on the levels
+(:class:`ramses_tpu_torch.rt.amr.RtAmrCoupled`, ``sim.rt_amr``): after
+each coarse step's source passes the per-level f64 radiation rows advance
+by RT-Courant substeps (K8 on every level, K9 for the chemistry) and the
+photoheating goes into the gas energy; the rows migrate through the host
+prolongation maps (``_mig_log``), so such a hierarchy never takes the
+device migrate, and it steps one coarse step at a time.
+
 Turbulence forcing (which the
 JAX package runs on the uniform grid only), the lightcone, the clump
-finder, RT, movies, load balance, offload, the step guard, the watchdog,
+finder, movies, load balance, offload, the step guard, the watchdog,
 telemetry, patch hooks and elastic sharded checkpoints
 are not ported yet: a namelist that turns one on raises
 ``NotImplementedError`` naming it.
@@ -485,6 +494,9 @@ class AmrSim:
     # non-cubic coarse grids run on this hierarchy's dense paths; the MHD
     # hierarchy clears it (its CT sweep assumes one root cube)
     _noncubic_ok = True
+    # radiative transfer on the levels (&RUN_PARAMS rt:
+    # :class:`ramses_tpu_torch.rt.amr.RtAmrCoupled`), None without it
+    rt_amr = None
 
     @classmethod
     def _unported(cls, params: Params) -> list:
@@ -643,6 +655,16 @@ class AmrSim:
             self._init_refine()
         if bool(params.run.tracer) and seed_tracers:
             self._seed_tracers()
+        # radiative transfer (&RUN_PARAMS rt; gray or multigroup/He): built
+        # after the tree and the maps exist; its rows migrate through the
+        # host prolongation maps, replayed from ``_mig_log``
+        if bool(params.run.rt):
+            from ramses_tpu_torch.rt.amr import RtAmrCoupled
+            from ramses_tpu_torch.units import units as units_fn
+            un = self.units if self.units is not None else units_fn(
+                params, cosmo=self.cosmo, aexp=aexp0)
+            self.rt_amr = RtAmrCoupled(self, params, un)
+            self._needs_mig_log = True
 
     def _check_root(self, params: Params):
         """The JAX package's gate of a non-cubic coarse grid: the plain
@@ -1145,11 +1167,13 @@ class AmrSim:
             pmaps = mapmod.build_prolong_maps(self.tree, oldtree, l,
                                               self.bc_kinds)
             if self._needs_mig_log:
-                # (copy_dst, copy_src, new_octs, f_cell, ncell_pad)
-                self._mig_log[l] = pmaps[:4] + (m.ncell_pad,)
+                # (copy_dst, copy_src, new_octs, f_cell, nb, ncell_pad)
+                self._mig_log[l] = pmaps + (m.ncell_pad,)
             new_u[l] = self._migrate_level(old_u.get(l), new_u[l - 1],
                                            m.ncell_pad, *pmaps)
         self.u = new_u
+        if self.rt_amr is not None:
+            self.rt_amr.apply_migration(self)
         # prune stale gravity state: a level whose bucketed size changed or
         # that vanished must not seed the next solve's warm start
         for l in list(self.phi):
@@ -1163,14 +1187,21 @@ class AmrSim:
         self._dt_cache = None
 
     def _migrate_level(self, old, u_coarse, ncell_pad, copy_dst, copy_src,
-                       new_octs, f_cell, nb):
+                       new_octs, f_cell, nb, cfg=None, itype=None):
         """One level of the new tree: surviving octs copied from the old
         rows, new octs interpolated from the (already migrated) coarser
         level (``make_grid_fine``, ``amr/refine_utils.f90:590``).  Every
-        destination row is written once."""
-        ttd = 1 << self.cfg.ndim
-        sgn_tab, oct_ar = _mig_consts(self.cfg.ndim)
-        buf = torch.zeros((ncell_pad, u_coarse.shape[1]), dtype=self.dtype,
+        destination row is written once.  The rows keep ``u_coarse``'s
+        dtype; ``cfg`` (anything with ``ndim`` and ``nvar``) and ``itype``
+        default to the gas's (RT migrates its f64 rows with its own column
+        count and ``itype`` 1)."""
+        cfg = self.cfg if cfg is None else cfg
+        itype = (int(self.params.refine.interpol_type) if itype is None
+                 else itype)
+        dtype = u_coarse.dtype
+        ttd = 1 << cfg.ndim
+        sgn_tab, oct_ar = _mig_consts(cfg.ndim)
+        buf = torch.zeros((ncell_pad, u_coarse.shape[1]), dtype=dtype,
                           device=self.device)
         if len(copy_dst):
             rows_d = (copy_dst.astype(np.int64)[:, None] * ttd
@@ -1183,11 +1214,11 @@ class AmrSim:
             vals = K.interp_cells(
                 u_coarse, self._dev(np.repeat(f_cell, ttd)),
                 self._dev(np.repeat(nb, ttd, axis=0)),
-                self._dev(np.tile(sgn_tab, (len(new_octs), 1)), self.dtype),
-                self.cfg, itype=int(self.params.refine.interpol_type))
+                self._dev(np.tile(sgn_tab, (len(new_octs), 1)), dtype),
+                cfg, itype=itype)
             rows_new = (new_octs.astype(np.int64)[:, None] * ttd
                         + oct_ar).reshape(-1)
-            buf.index_copy_(0, self._dev(rows_new), vals.to(self.dtype))
+            buf.index_copy_(0, self._dev(rows_new), vals.to(dtype))
         return buf
 
     def _restrict_all(self):
@@ -1506,6 +1537,8 @@ class AmrSim:
                 amr_physics.mc_tracer_amr(self)
             else:
                 amr_physics.tracer_drift_amr(self, dt)
+        if self.rt_amr is not None:
+            self.rt_amr.advance(self, dt)
         if self.sf_spec.enabled or self.sinks is not None:
             self._dt_cache = None
 
@@ -1515,11 +1548,13 @@ class AmrSim:
         no regrid is due inside the chunk.  Returns the steps done."""
         spec = self._fused_spec()
         if (self.tracer_x is not None or self.gravity or self.pic
-                or self.cosmo is not None or self.sinks is not None):
+                or self.cosmo is not None or self.sinks is not None
+                or self.rt_amr is not None):
             raise ValueError("step_chunk: the tracers move, the gravity "
-                             "solve, the particles and the sink passes run, "
-                             "and the cosmological caps change before every "
-                             "coarse step; use step_coarse")
+                             "solve, the particles, the sink passes and the "
+                             "radiative transfer run, and the cosmological "
+                             "caps change before every coarse step; use "
+                             "step_coarse")
         f64 = dict(dtype=torch.float64, device=self.device)
         dt0 = (self._dt_cache if self._dt_cache is not None
                else torch.min(_courant(self.u, self.dev, spec))).to(**f64)
@@ -1564,7 +1599,7 @@ class AmrSim:
             per = self.updates_per_step()
             if (chunk > 1 and self.tracer_x is None and not self.gravity
                     and not self.pic and self.cosmo is None
-                    and self.sinks is None):
+                    and self.sinks is None and self.rt_amr is None):
                 n = self.step_chunk(chunk, tend)
             else:
                 dt = min(self.coarse_dt(), tend - self.t)

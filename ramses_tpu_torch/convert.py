@@ -205,3 +205,34 @@ def cooling_tables_from(tables, device="cpu"):
     dev = torch.device(device)
     return CoolingTables(**{n: torch.tensor(host[n], device=dev)
                             for n in names}, host=host)
+
+
+def rt_state_from(rt) -> dict:
+    """The radiation state of a uniform RT run of either package (an
+    ``RtSim``, or an ``RtCoupled`` and its injected-photon count) as numpy
+    arrays in the JAX package's shapes: the keyword arguments of
+    :meth:`ramses_tpu_torch.rt.coupling.RtCoupled.load_state` (N, F, x, T,
+    nH, the sources src and src_F, xHe2/xHe3 with the 3-ion system, the
+    time)."""
+    sim = getattr(rt, "sim", rt)
+    out = dict(N=_host(sim.N), F=_host(sim.F), x=_host(sim.x),
+               T=_host(sim.T), nH=_host(sim.nH), src=_host(sim.src),
+               src_F=None if sim.src_F is None else _host(sim.src_F),
+               t=float(sim.t))
+    if sim.spec.full3:
+        out.update(xHe2=_host(sim.xHe2), xHe3=_host(sim.xHe3))
+    if sim is not rt:
+        out["injected"] = float(rt._injected)
+    return out
+
+
+def rt_amr_state_from(sim) -> dict:
+    """The radiation rows of an AMR simulation of either package (its
+    ``rt_amr``) as numpy arrays per level: the keyword arguments of
+    :meth:`ramses_tpu_torch.rt.amr.RtAmrCoupled.load_state` (``rad``,
+    ``xion``, ``xhe`` and the injected-photon count)."""
+    rt = sim.rt_amr
+    return dict(rad={l: _host(a) for l, a in rt.rad.items()},
+                xion={l: _host(a) for l, a in rt.xion.items()},
+                xhe={l: _host(a) for l, a in rt.xhe.items()},
+                injected=float(rt._injected))

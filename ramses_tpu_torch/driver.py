@@ -32,6 +32,13 @@ cooling solve, K6 on the card), with tables built at the run's epoch.
 The JAX driver warns and ignores cooling when gravity, particles or
 cosmology are on; the port refuses that combination by name.
 
+``&RUN_PARAMS rt`` adds radiative transfer (:mod:`ramses_tpu_torch.rt`,
+:class:`ramses_tpu_torch.rt.coupling.RtCoupled`): once a chunk, after the
+source passes, RT advances by the chunk's time (every substep K8 then K9 on
+the card) and writes the photoheating back into the gas energy; with
+``&RUN_PARAMS static`` the gas stays frozen and one RT advance reaches each
+output time as one step.
+
 After each chunk the coarse-cadence source passes run with the chunk's
 time (``Simulation._source_passes``, as the JAX driver's): the
 turbulence forcing of ``&TURB_PARAMS`` (:mod:`ramses_tpu_torch.turb.
@@ -46,8 +53,8 @@ state.  ``dump`` stages the OU field and its generator state as
 Runs on CUDA unless the caller passes ``device="cpu"``; without a GPU a
 run that did not ask for the CPU raises.  Every feature of the JAX driver
 beyond hydro with gravity, particles, cosmology, cooling, star formation,
-sinks and turbulence forcing, and MHD (uniform, or AMR on one device)
-raises ``NotImplementedError`` naming it.
+sinks, turbulence forcing and radiative transfer, and MHD (uniform, or AMR
+on one device) raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -139,7 +146,6 @@ def unported_features(params: Params) -> list:
         return bool(v[0] if isinstance(v, list) else v)
 
     checks = [
-        ("radiative transfer (&RUN_PARAMS rt)", params.run.rt),
         ("movies (&MOVIE_PARAMS movie)", on("movie_params", "movie")),
         ("ensemble (&ENSEMBLE_PARAMS nmember > 1)",
          params.ensemble.nmember > 1),
@@ -306,6 +312,15 @@ class Simulation:
         self.turb_spec = TurbSpec.from_params(params)
         self.turb = (TurbForcing(shape, self.turb_spec, device=self.device)
                      if self.turb_spec.enabled else None)
+        # radiative transfer (&RUN_PARAMS rt): the subcycled M1 transport
+        # and thermochemistry against the live gas (amr_step.f90:594-672),
+        # in f64 whatever the gas dtype
+        self.rt = None
+        if params.run.rt:
+            from ramses_tpu_torch.rt.coupling import RtCoupled
+            self.rt = RtCoupled(params, self.grid,
+                                units_fn(params, cosmo=self.cosmo),
+                                self.state.u)
         self.output_times = list(params.output.tout[:params.output.noutput])
         # called as on_output(sim, iout) at each output time reached (the
         # CLI dumps there); None writes nothing
@@ -412,6 +427,13 @@ class Simulation:
                     return st
                 n = min(chunk, nstepmax - st.nstep)
                 t_before = st.t
+                if self.rt is not None and self.params.run.static:
+                    # frozen gas: pure RT evolution to the output time
+                    # (the reference's static Stromgren tests)
+                    st.u = self.rt.advance(st.u, tout - st.t)
+                    st.t = tout
+                    st.nstep += 1
+                    continue
                 t0 = time.perf_counter()
                 if self.pm_path:
                     f64 = dict(dtype=torch.float64, device=self.device)
@@ -445,6 +467,10 @@ class Simulation:
                     st.dt_old = (st.t - t_before) / ndone
                 self.cell_updates += ndone * self.grid.ncell
                 self._source_passes(st.t - t_before)
+                if self.rt is not None and st.t > t_before:
+                    # RT once a chunk, with the chunk's time (the JAX
+                    # driver's cadence)
+                    st.u = self.rt.advance(st.u, st.t - t_before)
                 if verbose:
                     print(self.step_line((st.t - t_before) / ndone
                                          if ndone else None, ndone))

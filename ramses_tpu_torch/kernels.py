@@ -27,10 +27,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile=0")
 
-# flags of one source beside NVCC_FLAGS: the cooling solve (K6) is built
-# without FMA contraction, so that its arithmetic rounds where its plain
-# version's does
-EXTRA_FLAGS: Dict[str, tuple] = {"cooling": ("-fmad=false",)}
+# flags of one source beside NVCC_FLAGS: the cooling solve (K6), the RT
+# transport (K8) and the RT chemistry (K9) are built without FMA
+# contraction, so that their arithmetic rounds where their plain versions'
+# does
+EXTRA_FLAGS: Dict[str, tuple] = {name: ("-fmad=false",)
+                                 for name in ("cooling", "rt_m1", "rt_chem")}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -954,7 +954,7 @@ class MhdAmrSim(AmrSim):
             if info is None:
                 new_bf[l] = old_bf[l]
                 continue
-            copy_dst, copy_src, new_octs, f_cell, ncell_pad = info
+            copy_dst, copy_src, new_octs, f_cell, _nb, ncell_pad = info
             oct_ar = np.arange(ttd)
             buf = torch.zeros((ncell_pad, NCOMP, 2), dtype=self.dtype,
                               device=self.device)

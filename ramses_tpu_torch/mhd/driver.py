@@ -100,7 +100,9 @@ def unported_mhd_features(params: Params) -> list:
     ``Simulation`` only (the hierarchy's own refusal names it there).
     Both refuse cooling, star formation and stellar objects: the JAX
     package's MHD hierarchy turns all three off (``_pm_family``) and its
-    uniform driver ignores them, where the hydro drivers run them."""
+    uniform driver ignores them, where the hydro drivers run them.  Both
+    refuse radiative transfer: the JAX package's MHD hierarchy warns and
+    runs without it, its uniform driver ignores it."""
     from ramses_tpu_torch.amr.hierarchy import unported_amr_features
     from ramses_tpu_torch.driver import unported_features
     from ramses_tpu_torch.pm.sinks import SinkSpec
@@ -129,7 +131,11 @@ def unported_mhd_features(params: Params) -> list:
                       "star formation on the MHD drivers (&SF_PARAMS)"),
                      (bool(raw.get("stellar_params")),
                       "stellar objects on the MHD drivers "
-                      "(&STELLAR_PARAMS)")):
+                      "(&STELLAR_PARAMS)"),
+                     (params.run.rt,
+                      "radiative transfer on the MHD drivers (&RUN_PARAMS "
+                      "rt; the JAX package's MHD hierarchy warns and runs "
+                      "without it)")):
         if on:
             out.append(name)
     return out

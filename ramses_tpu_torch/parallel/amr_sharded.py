@@ -63,7 +63,10 @@ class ShardedAmrSim(AmrSim):
              params.run.cosmo),
             ("star formation on ShardedAmrSim (&SF_PARAMS: its star "
              "particles need the particles; ROADMAP A8)",
-             bool((params.raw or {}).get("sf_params")))) if on]
+             bool((params.raw or {}).get("sf_params"))),
+            ("radiative transfer on ShardedAmrSim (&RUN_PARAMS rt: the "
+             "slab transport of rt/amr.py; ROADMAP A8e)",
+             params.run.rt)) if on]
         return (super()._unported(params) + (mhd if is_mhd(params) else [])
                 + (grav if params.run.poisson else []) + pm)
 

@@ -39,7 +39,7 @@ class StellarSpec:
     sn_direct: bool = False          # explode at birth (testing mode)
     Tsat: float = 1e50               # post-injection temperature cap
     # sink RT (HII) feedback parameters (pm/sink_feedback_parameters.f90:
-    # 43-53), read for the radiative transfer, which is not ported
+    # 43-53), read by the radiative transfer (rt/amr.py)
     hii_t_myr: float = 0.0           # emitting lifetime [Myr]
     stf_k: float = 9.634642584812752e48   # photons/s
     stf_m0: float = 27.28098824280431     # Msun

@@ -1474,3 +1474,179 @@ def test_config2_regrid_is_bitwise_with_device_regrid_on_and_off(cuda):
         for s in (a, b):
             s.step_coarse(s.coarse_dt())
     assert k7[True] > 0 and k7[False] == 0
+
+
+# ---------------------------------------------------------------------------
+# RT: K8 (csrc/rt_m1.cu) and K9 (csrc/rt_chem.cu) against their plain
+# versions on the card: K8 within 1e-13 × the field's max over the cell's
+# 3^d stencil, K9 within rel 1e-12 (both built without FMA contraction, so
+# both agree bit for bit where they call the same libdevice functions)
+# ---------------------------------------------------------------------------
+
+def _rt_states():
+    """``tests/test_torch_rt_host.py``'s state makers, imported by path
+    (another installed package may own the top-level name ``tests``)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "test_torch_rt_host.py")
+    spec = importlib.util.spec_from_file_location("_rt_host_states", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("shape,ng,periodic,beams", [
+    ((33,), 1, True, False), ((33,), 3, False, True),
+    ((9, 14), 1, False, False), ((9, 14), 3, True, True),
+    ((5, 7, 6), 1, True, True), ((6, 5, 9), 3, False, False),
+    ((1, 4, 3), 2, True, False), ((37, 29, 41), 1, True, False)])
+def test_rt_m1_dense_kernel_matches_plain(cuda, shape, ng, periodic, beams):
+    from ramses_tpu_torch.rt import m1
+    h = _rt_states()
+    dense_close, rt_state = h.dense_close, h.rt_state
+    nd, c_red = len(shape), 3e7
+    U, src, srcF = [None if t is None else t.to(cuda)
+                    for t in rt_state(shape, ng, c_red, 7 * ng + nd, beams)]
+    dt, dx = 0.8 * 3e19 / 3.0 / c_red, 3e19
+    n0 = m1.launches
+    got = m1.transport(U, dt, dx, c_red, nd, periodic, src, srcF)
+    assert m1.launches == n0 + 1
+    want = m1.transport_ref(U, dt, dx, c_red, nd, periodic, src, srcF)
+    dense_close(got, want, nd, periodic)
+
+
+@pytest.mark.parametrize("nd,ng,noct", [(1, 1, 7), (2, 3, 500), (3, 1, 11),
+                                        (3, 2, 3000)])
+def test_rt_m1_block_kernel_matches_plain(cuda, nd, ng, noct):
+    from ramses_tpu_torch.rt import m1
+    blk = _rt_states()._blocks(nd, ng, noct, 5 * nd + ng, 3e7).to(cuda)
+    rad = torch.rand((noct * 2 ** nd + 5, ng * (1 + nd)), dtype=torch.float64,
+                     device=cuda)
+    dt, dx = 0.8 * 3e19 / 3.0 / 3e7, 3e19
+    n0 = m1.block_launches
+    got = m1.block_update(rad, blk, dt, dx, 3e7, nd, ng)
+    assert m1.block_launches == n0 + 1
+    want = m1.block_update_ref(rad, blk, dt, dx, 3e7, nd, ng)
+    scale = want.abs().amax(dim=0, keepdim=True)
+    assert bool(((got - want).abs() <= 1e-13 * scale).all())
+
+
+def _k9_rel(got, want):
+    rel = ((got - want).abs() / want.abs()).nan_to_num(0.0)
+    assert bool((rel <= 1e-12).all()), float(rel.max())
+
+
+@pytest.mark.parametrize("uv,heating", [(False, True), (True, True),
+                                        (True, False)])
+def test_rt_chem_gray_kernel_matches_plain(cuda, uv, heating):
+    from ramses_tpu_torch.rt import chem
+    h = _rt_states()
+    N, x, _, _, T, nH = [t.to(cuda) for t in h.chem_cells(100003, 11)]
+    uvv = h._uv() if uv else None
+    want = chem.chem_step_ref(N[0], x, T, nH, 3e10, 3e7, chem.GroupSpec(),
+                              heating=heating, uv=uvv)
+    rows = torch.zeros((N.shape[1], 4), dtype=torch.float64, device=cuda)
+    rows[:, 0] = N[0]
+    n0 = chem.launches
+    got = chem.chem_gray(rows[:, 0], x, T, nH, 3e10, 3e7, chem.GroupSpec(),
+                         heating=heating, uv=uvv)
+    assert chem.launches == n0 + 1
+    for g, w in zip((rows[:, 0],) + got, want):
+        _k9_rel(g, w)
+
+
+@pytest.mark.parametrize("ng,uv,heating", [(1, False, True), (3, True, True),
+                                           (2, False, False),
+                                           (8, True, True)])
+def test_rt_chem_3ion_kernel_matches_plain(cuda, ng, uv, heating):
+    from ramses_tpu_torch.rt import chem, spectra
+    h = _rt_states()
+    N, x, xhe2, xhe3, T, nH = [t.to(cuda) for t in h.chem_cells(50021,
+                                                                13 + ng, ng)]
+    nHe = nH * 0.08
+    groups = spectra.blackbody_groups(1e5, list(np.geomspace(13.6, 1e3,
+                                                             ng + 1)))
+    uvv = h._uv() if uv else None
+    want = chem.chem_step_3ion_ref(list(N), (x, xhe2, xhe3), T, nH, nHe,
+                                   1e11, 3e7, groups, heating=heating,
+                                   uv=uvv)
+    he = torch.stack([xhe2, xhe3], dim=1)
+    n0 = chem.launches
+    Nv = N.clone()
+    got = chem.chem_3ion(Nv, x, he[:, 0], he[:, 1], T, nH, nHe, 1e11, 3e7,
+                         groups, heating=heating, uv=uvv)
+    assert chem.launches == n0 + 1
+    for g in range(ng):
+        _k9_rel(Nv[g], want[0][g])
+    for g, w in zip(got, list(want[1]) + [want[2]]):
+        _k9_rel(g, w)
+
+
+def test_rt_kernels_refuse_what_they_do_not_take(cuda):
+    from ramses_tpu_torch.rt import chem, m1
+    U = torch.zeros((1, 4, 4, 4, 4), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="float64"):
+        m1.transport(U, 1.0, 1.0, 1.0, 3)
+    x = torch.zeros(8, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous float64"):
+        chem.chem_gray(x, x, x.cpu(), x, 1.0, 1.0, chem.GroupSpec())
+
+
+@pytest.mark.parametrize("full3,beams", [(False, False), (True, True)])
+def test_rt_substeps_never_wait_on_the_host(cuda, full3, beams):
+    """An RtSim advance is nsub × (K8, K9) queued on the card: no host
+    synchronisation (sync debug mode "error" raises at one)."""
+    from ramses_tpu_torch.rt import driver as rtd
+    from ramses_tpu_torch.rt import m1, spectra
+    kw = dict(groups3=spectra.blackbody_groups(1e5, spectra.DEFAULT_BOUNDS),
+              y_he=0.24) if full3 else {}
+    spec = rtd.RtSpec(ndim=3, c_fraction=1e-3, **kw)
+    n, dx = 32, 1e19
+    sim = rtd.RtSim((n,) * 3, dx, spec, nH=np.full((n,) * 3, 1e-2),
+                    device=cuda)
+    sim.point_source((n * dx / 2,) * 3, 5e48,
+                     direction=(1.0, 0.0, 0.0) if beams else None)
+    dt = m1.rt_courant_dt(dx, spec.c_red, spec.courant)
+    sim.advance(2 * dt)                # loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert sim.advance(20 * dt) == 20
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(sim.U).all())
+
+
+def test_rt_hierarchy_advance_never_waits_on_the_host(cuda):
+    """``RtAmrCoupled.advance`` with the point source on a 4/5 hierarchy
+    (f32 gas): the substeps' transport on both entries, the chemistry, the
+    restriction and the heating write-back queue without a host sync."""
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.config import params_from_dict
+    g = {"run_params": {"hydro": True, "rt": True},
+         "amr_params": {"levelmin": 4, "levelmax": 5, "boxlen": 1.0},
+         "init_params": {"nregion": 1, "region_type": ["square"],
+                         "x_center": [0.5], "y_center": [0.5],
+                         "z_center": [0.5], "length_x": [10.0],
+                         "length_y": [10.0], "length_z": [10.0],
+                         "exp_region": [10.0], "d_region": [10.0],
+                         "p_region": [1e-4]},
+         "hydro_params": {"gamma": 5.0 / 3.0},
+         "rt_params": {"rt_ndot": 1e44, "rt_c_fraction": 1e-4,
+                       "rt_src_pos": [0.5, 0.5, 0.5]},
+         "refine_params": {"r_refine": [0.15] * 8, "x_refine": [0.5] * 8,
+                           "y_refine": [0.5] * 8, "z_refine": [0.5] * 8},
+         "units_params": {"units_density": 1.66e-24,
+                          "units_time": 3.15e13, "units_length": 3.08e18}}
+    sim = AmrSim(params_from_dict(g, ndim=3))
+    assert sim.tree.noct(5) > 0
+    sim.rt_amr.advance(sim, 1e-5)      # loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nsub = sim.rt_amr.advance(sim, 2e-3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert nsub > 1
+    for l in sim.levels():
+        assert bool(torch.isfinite(sim.rt_amr.rad[l]).all())
