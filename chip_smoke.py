@@ -163,7 +163,7 @@ Phases, each printing its own line; any failure exits non-zero:
    corrections and phi within rtol 2e-5 / atol 2e-6;
 23. the MC-tracer main path: phase 8's sedov3d AMR with ``tracer=.true.``
    and ``tracer_per_cell=1.0`` set in code (~2.1 M tracers), ``evolve``
-   for 5 coarse steps (a regrid before each) with every launch count at 0
+   for 3 coarse steps (a regrid before each) with every launch count at 0
    just before ``AmrSim()``: K1 with the fluxes once per coarse step, K3
    with the fluxes once per partial-level substep, no other kernel; after
    each step Σ_d (φ_lo − φ_hi) == Δρ on every leaf cell of every level
@@ -229,13 +229,15 @@ Phases, each printing its own line; any failure exits non-zero:
    point-mass law (median |f_r r²/M − 1| under 0.2 on 0.2 < r < 0.3, the
    judge of ``tests/test_amr_gravity.py``), ms a step and a profile;
 33. config 2 with self-gravity as ``bench.py``'s ``bench_amr_poisson``
-   (``poisson=.true.``): 6 warm coarse steps, then 4 timed, each a regrid
+   (``poisson=.true.``), its depth cut to fit the script's time limit
+   (``GRAV_WARM``): 1 warm coarse step, then 2 timed, each a regrid
    and a coarse step: PCG iterations/s, iterations a step, cell-updates/s;
    K1 and K3 exactly as the levels stepped require, leaf mass to rel 1e-5,
    every level's phi, fg and u finite; a coarse step's host seconds by
    part with ``solve_gravity`` as one; the finest level's PCG cut to 0 and
    10 iterations under the profiler (launches an iteration, busy share);
-   3 coarse steps twice from one state, bitwise (u, phi, fg, iterations);
+   one coarse step twice from one state, bitwise (u, phi, fg,
+   iterations);
 34. ``namelists/pointmass.nml`` (levelmin=4, levelmax=7, ``nstepmax=4``)
    through ``run_namelist`` as the CLI runs it: K1 and K3 as the levels
    stepped require, finite, mass to rel 1e-5;
@@ -261,7 +263,8 @@ Phases, each printing its own line; any failure exits non-zero:
    ``MhdSimulation.from_snapshot``, 5 steps (K4 5 launches after the
    restore); faces bitwise, cells within the round trip, mass and energy
    to rel 1e-5, div B; cells and faces bitwise 10 straight steps';
-38. the CLI in a subprocess on a copy of sedov3d.nml whose output time
+38. the CLI in a subprocess on a copy of sedov3d.nml at 128³
+   (``CLI_LEVEL``) whose output time
    the run reaches after ``CLI_STEPS`` steps, ``--max-attempts 3``: a
    SIGTERM after its first step line stops it with ``output_00900``, the
    supervisor resumes from it, and ``output_00001`` validates; a second
@@ -274,16 +277,18 @@ Phases, each printing its own line; any failure exits non-zero:
    ``default_rng(1)``, 0.2 rms a cell) written with the port's
    ``write_zeldovich_ics`` (2,097,152 particles and the baryons), built
    through ``build_namelist_sim`` with every launch count at 0 just
-   before, 20 coarse steps through ``evolve`` (a regrid each): K1 and K3
+   before, 16 coarse steps through ``evolve`` (a regrid each; level 9
+   first appears in the 16th): K1 and K3
    exactly as the levels stepped require, levels 8 and 9 reached, the leaf
    gas mass (rel 1e-5), the particle count and mass kept, u, phi, fg and
    the particles finite, aexp rising; octs per level, the steps' walls and
-   dts, s a coarse step and cell-updates/s; then one more coarse step's
-   host seconds by part (regrid, maps, solve, gather and kick, the K1/K3
-   sweep, drift, Courant fetch);
-40. 3 coarse steps twice from phase 39's state after 12 steps
-   (``from_state`` with the particles; level 8 present): u, phi, fg,
-   particle x and v, trees and PCG iterations bitwise;
+   dts, s a coarse step and cell-updates/s over the first 15; the 16th
+   with its host seconds by part (regrid, maps, solve, gather and kick,
+   the K1/K3 sweep, drift, Courant fetch);
+40. one coarse step twice from phase 39's state after 11 steps
+   (``from_state`` with the particles; level 8 created by the step's
+   regrid): u, phi, fg, particle x and v, trees and PCG iterations
+   bitwise;
 41. linear growth, the JAX package's oracles: the uniform ``Simulation``
    on the single mode at 128³ (N-body, FFT) to a = 0.06, growth ∝ a within
    12 %; the hierarchy at ``test_cosmo_amr_growth``'s size (16³, levelmax
@@ -304,15 +309,16 @@ Phases, each printing its own line; any failure exits non-zero:
    rows;
 44. self-gravity with particles on the MHD hierarchy: the JAX test's
    magnetised blob (``tests/test_mhd_amr.py:218``) in 3D at levelmin 6,
-   levelmax 8 (``MHD_GRAV_LEVELS``, cut from config 2's sizes), f32,
+   levelmax 7 (``MHD_GRAV_LEVELS``, cut from config 2's sizes), f32,
    ``poisson`` and ``pic`` with 2,097,152 particles from
-   ``default_rng(44)``, 5 coarse steps (a regrid each; step 4 timed part
-   by part, step 5 under the profiler, its device busy share): K4 once a
+   ``default_rng(44)``, 2 coarse steps (a regrid each; step 1 timed part
+   by part, step 2 under the profiler, its device busy share; cut from 5
+   to fit the time limit): K4 once a
    complete-level substep, the leaf gas mass to rel 1e-5, the particle
    count and mass kept, ``max|div B|·dx/max|B|`` ≤ 1e-5 where the scheme
    keeps it, a finite state, the peak leaf density rising; K4 on the
    last step's first complete-level inputs against its plain version
-   within ``LOCAL_ATOL + LOCAL_RTOL·M``; steps 4 and 5 replayed twice
+   within ``LOCAL_ATOL + LOCAL_RTOL·M``; step 2 replayed twice
    (``MHD_GRAV_REPLAY``), bitwise (u, faces, phi, particles, trees);
 45. velocity tracers on the phase-44 hierarchy without gravity, in a
    bulk flow, a tracer a leaf cell: 3 coarse steps, the tracers kept,
@@ -323,7 +329,8 @@ Phases, each printing its own line; any failure exits non-zero:
    ``mc_tracer_step`` on 2,097,152 tracers: kept and inside the box, the
    moved fraction beside the expected Σp/N;
 47. ``collapse_iso.nml`` through ``run_cli`` in process, as shipped but
-   ``nstepmax`` (``COLLAPSE_STEPS``): K1 and K3 as the levels stepped
+   ``nstepmax`` and ``levelmax`` (``COLLAPSE_STEPS``, 1, and
+   ``COLLAPSE_LEVELMAX``, 7 for the shipped 8): K1 and K3 as the levels stepped
    require, a finite state, a sink CSV with the reference's header; the
    sinks, and s a coarse step by part with the sink pass on its own;
 48. ``smbh_bondi.nml`` through ``run_cli`` as shipped, ``--dtype
@@ -354,9 +361,9 @@ Phases, each printing its own line; any failure exits non-zero:
    counts at the unfused f32 rate), the iterations a cell; the same check
    and timing on 2^20 random cells over dt 3e15 s, where the march is
    long; ms a step with and without cooling;
-51. config 2's hierarchy cut to 6 / 8 (f32) on the JAX test's SF blob
+51. config 2's hierarchy cut to 6 / 7 (f32) on the JAX test's SF blob
    (``tests/test_amr_physics.py:73-98``) with cooling, self-gravity, star
-   formation and thermal feedback, 5 coarse steps: K1, K3 and K6 as the
+   formation and thermal feedback, 3 coarse steps: K1, K3 and K6 as the
    stepped levels require (K6 once a level substep), K1, K3 and K6 on the
    last step's inputs against their plain versions (K1 and K3 with M any
    field's stencil max; K6 on each level's last call, and timed on the
@@ -417,12 +424,44 @@ Phases, each printing its own line; any failure exits non-zero:
    to tout = 100: K1 once an issued step, K8/K9 once a substep, mass to
    rel 1e-5, the energy up, the photon budget, RT's share of the wall;
 60. RT on the hierarchy: ``tests/test_rt_amr.py``'s refined front at
-   levelmin 6 / levelmax 8 (f32 gas, r_refine 0.25), one coarse step of
-   118 substeps: K1, K3, K8's dense and block entries and K9 launched as
+   levelmin 6 / levelmax 7 (one refined level, as the JAX test's 4 / 5;
+   f32 gas, r_refine 0.25), one coarse step of 59 substeps: K1, K3, K8's
+   dense and block entries and K9 launched as
    the levels and substeps require, K7 never; the ionized volume and the
    gas energy up, every level's radiation finite with N >= 0, the front
-   radially ordered on level 8; then the 3-group He ladder at 64³ beside
-   the uniform driver (the JAX test's bound, rel 0.35).
+   radially ordered on level 7; then the 3-group He ladder at 64³ beside
+   the uniform driver (the JAX test's bound, rel 0.35);
+61. the clump finder's watershed (K10, ``csrc/watershed.cu``) against its
+   plain version ``watershed_ref`` on the card, labels bitwise: random
+   f64 fields at 64³, 256² and 256³, the noise quantised to four levels
+   (plateaus for the index tie-break) at 64³ and 256³, four Gaussian peaks
+   at 128³ (long uphill chains), each at thresholds that cut off none,
+   half and 99 % of the cells; K10's device ms a call (its two kernels
+   in ``torch.profiler``) and a call's wall on the stream (median of CUDA
+   events after warm-up), the plain version's, the bound (rho read and
+   the labels written once, 16 B a cell, or a comparison a neighbour and
+   a link followed at 33.5 TFLOP/s f64), the share of it, the links
+   followed, and the registers and spills of its build;
+62. ``namelists/mergertree.nml`` (f32, ``build_namelist_sim`` and
+   ``evolve`` as ``run_namelist`` runs it, a dump at each output) on the
+   port's 64³ Gaussian ICs, its clump finder, AMR, refinement and
+   cosmology keys as shipped, ``aout`` cut to ``MT_AOUT``: at each of the
+   three outputs a ``clump_NNNNN.txt``, a ``clump_cat_NNNNN.npz`` and from
+   the second a ``mergertree_NNNNN.txt`` under the manifest; K10 once an
+   output, K1/K3 as the levels stepped require; each output's K10 labels
+   bitwise the plain version's on the deposit the run built (recorded);
+   the largest halo of the last output has a main progenitor in the one
+   before; the bound mass within the particles'; the clump pass's host
+   seconds an output by part; then a restart from the second output
+   (``nrestart=2``) whose ``mergertree_00003.txt`` is the straight run's,
+   bitwise or with the same main branch; and the CLI in process
+   (``nstepmax=2``): K10 once, its one output's clump table;
+63. config 5 (phase 39's ``cosmo.nml`` at 128³) with ``lightcone``, full
+   sky, ``zmax_cone`` 1000 and ``boxlen_ini`` ``CONE_BOX`` set in code,
+   ``CONE_STEPS`` coarse steps: one ``cone_NNNNN.npz`` a step, each
+   ``a_emit`` between its step's epochs, the shells tiling the lookback
+   distance; a dump restored emits its first shell; the emission's host
+   ms a step and the particles a shell.
    A line then gives the script's wall by group of phases.
 
 The line before the last holds every ported kernel's numbers as one JSON
@@ -487,9 +526,9 @@ OT_NML = os.path.join(ROOT, "namelists", "orszag2d.nml")
 TUBE_NML = os.path.join(ROOT, "namelists", "tube_mhd.nml")
 DETENTE_NML = os.path.join(ROOT, "namelists", "detente.nml")
 # the MC-tracer main path: BASELINE config 2 with &RUN_PARAMS tracer and
-# tracer_per_cell=1.0 (the namelist default) set in code, cut to 5 coarse
+# tracer_per_cell=1.0 (the namelist default) set in code, cut to 3 coarse
 # steps (2 with oct_blocking=.false.)
-TRACER_STEPS, TRACER_STENCIL_STEPS = 5, 2
+TRACER_STEPS, TRACER_STENCIL_STEPS = 3, 2
 # Σ_d (φ_lo − φ_hi) == Δρ on the leaf cells: the JAX package's own oracle
 # (tests/test_mc_tracer_amr.py:44-73) and its f32 tolerance
 FLUX_RTOL, FLUX_ATOL = 2e-4, 2e-6
@@ -515,8 +554,16 @@ DIVB_REL = 1e-5
 # LOCAL_RTOL is unchanged.
 
 
+# (script seconds, phase) at each printed phase line, for the per-phase
+# wall line at the end: a phase's wall is the gap to the line before it
+PHASE_MARKS = []
+
+
 def _print(*a):
-    print(*a, flush=True)
+    text = " ".join(str(x) for x in a)
+    if text.startswith("phase "):
+        PHASE_MARKS.append((time.perf_counter(), text.split()[1]))
+    print(text, flush=True)
 
 
 def _median_ms(fn, reps: int = 30, warm: int = 3) -> float:
@@ -709,9 +756,10 @@ def _reset_counts():
     from ramses_tpu_torch.mhd import ct_slab
     from ramses_tpu_torch.parallel import dma_halo
     from ramses_tpu_torch.amr import device_regrid
+    from ramses_tpu_torch.pm import clumps
     from ramses_tpu_torch.rt import chem as rt_chem
     from ramses_tpu_torch.rt import m1 as rt_m1
-    cooling.launches = device_regrid.launches = 0
+    cooling.launches = device_regrid.launches = clumps.launches = 0
     rt_m1.launches = rt_m1.block_launches = rt_chem.launches = 0
     fm.launches = fm.flux_launches = 0
     fm.padded_launches = fm.padded_flux_launches = 0
@@ -724,12 +772,13 @@ def _counts() -> dict:
     """Every kernel's launch count, the flux variants under their own
     keys (``fused_muscl_flux``, ``tile_sweep_flux``, ``oct_sweep_flux``)
     and K1's padded entry under ``fused_muscl_padded(_flux)``; K8's block
-    entry under ``rt_m1_block``."""
+    entry under ``rt_m1_block``; K10 under ``watershed``."""
     from ramses_tpu_torch.hydro import cooling
     from ramses_tpu_torch.hydro import fused_muscl as fm
     from ramses_tpu_torch.hydro import oct_muscl as om
     from ramses_tpu_torch.mhd import ct_slab
     from ramses_tpu_torch.parallel import dma_halo
+    from ramses_tpu_torch.pm import clumps
     from ramses_tpu_torch.rt import chem as rt_chem
     from ramses_tpu_torch.rt import m1 as rt_m1
     return {"fused_muscl": fm.launches, "fused_muscl_flux": fm.flux_launches,
@@ -738,7 +787,7 @@ def _counts() -> dict:
             **om.launches, "ct_step_slab": ct_slab.launches,
             "halo_exchange": dma_halo.launches, "cooling": cooling.launches,
             "rt_m1": rt_m1.launches, "rt_m1_block": rt_m1.block_launches,
-            "rt_chem": rt_chem.launches}
+            "rt_chem": rt_chem.launches, "watershed": clumps.launches}
 
 
 def _want(**n) -> dict:
@@ -2913,7 +2962,9 @@ MG_RESIDUAL = 1e-6             # JAX: 4.871e-7 (TPU, BENCH_r02), 5.106e-7 (CPU)
 MG_FFT_REL = 1e-4              # JAX on the CPU: 7.97e-6
 GRAV_UNIFORM_LEVEL = 7         # pointmass.nml at 128³
 GRAV_UNIFORM_STEPS = 5
-GRAV_WARM, GRAV_TIMED = 6, 4   # bench.py's bench_amr_poisson
+# bench.py's bench_amr_poisson runs 6 warm and 4 timed coarse steps and
+# phase 33 replayed 3: ~5 s each on an H100, so cut to fit the time limit
+GRAV_WARM, GRAV_TIMED, GRAV_REPLAY = 1, 2, 1
 
 
 def _force_law(f, shape, dx: float, rho):
@@ -3156,29 +3207,29 @@ def _gravity_phases(dev, card: str):
            f"({sim.tree.noct(lf)} octs): {per_iter:.1f} kernel launches "
            f"an iteration, 10 iterations profiled: {prof}")
 
-    # replay: 3 coarse steps twice from one state, bitwise
+    # replay: GRAV_REPLAY coarse steps twice from one state, bitwise
     state = amr_state_from(sim)
 
-    def three_steps():
+    def replay():
         s = AmrSim.from_state(p, **state)
-        s.evolve(1e9, nstepmax=s.nstep + 3)
+        s.evolve(1e9, nstepmax=s.nstep + GRAV_REPLAY)
         s.drain()
         return s
-    a, b = three_steps(), three_steps()
+    a, b = replay(), replay()
     for l in a.levels():
         same = (np.array_equal(a.tree.levels[l].keys, b.tree.levels[l].keys)
                 and torch.equal(a.u[l], b.u[l])
                 and torch.equal(a.phi[l], b.phi[l])
                 and torch.equal(a.fg[l], b.fg[l]))
         if not same:
-            raise AssertionError(f"self-gravity replay of 3 AMR steps is "
-                                 f"not bitwise equal on level {l}")
+            raise AssertionError(f"self-gravity replay of {GRAV_REPLAY} AMR "
+                                 f"steps is not bitwise equal on level {l}")
     if {l: int(v) for l, v in a.poisson_iters.items()} != \
             {l: int(v) for l, v in b.poisson_iters.items()}:
         raise AssertionError("self-gravity replay: PCG iteration counts "
                              "differ")
-    _print(f"phase 33 replay: 3 coarse steps with self-gravity twice from "
-           f"one state, bitwise equal (u, phi, fg, trees, PCG iterations "
+    _print(f"phase 33 replay: {GRAV_REPLAY} coarse steps with self-gravity "
+           f"twice from one state, bitwise equal (u, phi, fg, trees, PCG iterations "
            f"{ {l: int(v) for l, v in a.poisson_iters.items()} })")
     del sim, a, b, state
     torch.cuda.empty_cache()
@@ -3664,6 +3715,10 @@ def _parallel_phases(dev):
 # CLI_STEPS steps (measured in process first), its continuation CLI_MORE
 # steps later
 CLI_STEPS, CLI_MORE = 400, 50
+# ... at levelmin = levelmax = 7 (128³) instead of the shipped 8: at 256³
+# its three 1.15 GB dumps and two restores took ~90 s of the script's time
+# limit, and phase 35 already round-trips config 1 at 256³
+CLI_LEVEL = 7
 CLI_TIMEOUT = 600
 # phase 35: the restarted config 1 against 10 straight steps, max |Δ| /
 # (1e-10 + M).  Not 0: the uniform driver recomputes the Courant dt at a
@@ -4025,6 +4080,7 @@ def _restart_cli(tmp: str):
     # the output times: where an uninterrupted run stands after CLI_STEPS
     # and CLI_STEPS + CLI_MORE steps
     p = load_params(NML, ndim=3)
+    p.amr.levelmin = p.amr.levelmax = CLI_LEVEL
     p.run.nstepmax = CLI_STEPS
     probe = Simulation(p)
     probe.output_times = [1e30]
@@ -4035,7 +4091,11 @@ def _restart_cli(tmp: str):
     t2 = probe.t
     del probe
     torch.cuda.empty_cache()
-    text = open(NML).read().replace("nstepmax=10", "nstepmax=100000")
+    text = (open(NML).read().replace("nstepmax=10", "nstepmax=100000")
+            .replace("levelmin=8\nlevelmax=8",
+                     f"levelmin={CLI_LEVEL}\nlevelmax={CLI_LEVEL}"))
+    if f"levelmin={CLI_LEVEL}" not in text:
+        raise AssertionError("phase 38: sedov3d.nml's levelmin line moved")
     run_dir = os.path.join(tmp, "cli")
     os.makedirs(run_dir)
     first = os.path.join(run_dir, "first.nml")
@@ -4097,7 +4157,9 @@ def _restart_cli(tmp: str):
             f"phase 38 nrestart=1: rc {cont.returncode}, output_00002 "
             f"{reason2} {meta2}; stdout tail {cont.stdout[-1500:]}; stderr "
             f"tail {cont.stderr[-1500:]}")
-    _print(f"phase 38 CLI sedov3d 256³ --max-attempts 3 to tout={t1!r} "
+    n = 2 ** CLI_LEVEL
+    _print(f"phase 38 CLI sedov3d {n}³ (levelmin = levelmax = {CLI_LEVEL} "
+           f"in the copy) --max-attempts 3 to tout={t1!r} "
            f"({CLI_STEPS} steps): SIGTERM after its first step line; "
            f"{stops[0]}; {resumed[0]}; rc 0 in {wall:.1f} s, output_00001 "
            f"validates (nstep {meta1['nstep']}, t {meta1['t']!r}); the "
@@ -4111,12 +4173,14 @@ def _restart_cli(tmp: str):
 
 COSMO_NML = os.path.join(ROOT, "namelists", "cosmo.nml")
 COSMO_LEVELS = (7, 9)          # BASELINE config 5: cosmo.nml at 128³
-COSMO_STEPS = 20
+# cut from 20 to fit the script's time limit: the steps after the
+# 16th cost 7-10 s each on an H100 (the host regrid and PCG)
+COSMO_STEPS = 16
 # the ICs: a Gaussian random δ with P(k) ∝ k⁻² from default_rng(COSMO_SEED),
 # scaled to COSMO_SIGMA rms per level-7 cell.  The particle density must
 # pass m_refine = 8 mean masses a cell, then 64 (levels 8 and 9), within
-# the 20 steps: at 0.2 rms level 8 appears at step 11 and level 9 at step
-# 15 on an H100 (PERF.md §6).  The baryon density fb·(1+δ) must stay
+# the 16 steps: at 0.2 rms level 8 is first stepped in step 12 and level 9
+# in step 16 on an H100 (PERF.md §6).  The baryon density fb·(1+δ) must stay
 # positive on every cell: the 128³ field's minimum is -5.06σ for seed 0
 # (negative at 0.2 rms), -4.97σ for seed 1 (checked, phase 39)
 COSMO_SEED, COSMO_SIGMA = 1, 0.2
@@ -4130,22 +4194,24 @@ COSMO_SEED, COSMO_SIGMA = 1, 0.2
 # m_refine=8 list stops at level 7, so level 8 would never refine: its
 # value carries on to the levels below levelmax
 COSMO_NREMAP, COSMO_SMALLC = 1, 1e-6
-# phase 40 replays 2 coarse steps from the state at step 15: level 9
-# first appears in the regrid of step 16, so the replay covers its
-# creation, its PCG and K3 on it (3 steps from there took 58 s on an H100
-# at 700 W)
-COSMO_REPLAY_STEPS = 2
-COSMO_REPLAY_AT = 15
+# phase 40 replays one coarse step from the state at step 11: level 8
+# first appears in the regrid of step 12, so the replay covers a partial
+# level's creation, its PCG and K3 on it (from step 15, level 9's
+# creation, 2 steps took 23-33 s and 1 step 19-25 s on an H100 at 700 W)
+COSMO_REPLAY_STEPS = 1
+COSMO_REPLAY_AT = 11
 COSMO_RESTART_AT = 5           # phase 42: 5 steps, dump, restore, 5 more
 GROWTH_LEVEL, GROWTH_AEND = 7, 0.06        # phase 41, uniform: 128³
 GROWTH_AMR = (4, 5, 0.05)                   # test_cosmo_amr_growth's size
 COSMO_CLI_LEVEL, COSMO_CLI_STEPS = 6, 3     # phase 43: 64³ ICs
 
 
-def _gaussian_ics(dirname: str, n: int, sigma: float, seed: int):
+def _gaussian_ics(dirname: str, n: int, sigma: float, seed: int,
+                  box: float = 100.0):
     """A grafic directory of a Gaussian random δ (P(k) ∝ k⁻², rms
-    ``sigma``) and its Zel'dovich velocities at cosmo.nml's epoch, written
-    with the port's own ``write_zeldovich_ics``.  Returns min(1+δ)."""
+    ``sigma``) and its Zel'dovich velocities at cosmo.nml's epoch in a box
+    of ``box`` Mpc/h, written with the port's own ``write_zeldovich_ics``.
+    Returns min(1+δ)."""
     import numpy as np
     from ramses_tpu_torch.io import grafic
     from ramses_tpu_torch.pm.init_part import fpeebl
@@ -4158,7 +4224,7 @@ def _gaussian_ics(dirname: str, n: int, sigma: float, seed: int):
     dk[0, 0, 0] = 0.0
     delta = np.real(np.fft.ifftn(dk))
     delta *= sigma / delta.std()
-    hdr = grafic.GraficHeader(n, n, n, dx=100.0 / n, astart=0.02,
+    hdr = grafic.GraficHeader(n, n, n, dx=box / n, astart=0.02,
                               omega_m=1.0, omega_v=0.0, h0=70.0)
     grafic.write_zeldovich_ics(dirname, delta, hdr,
                                fpeebl(0.02, 1.0, 0.0, 0.0))
@@ -4414,7 +4480,7 @@ def _cosmo_phases(dev, card: str):
 
 
 def _cosmo_main(dev, card: str, tmp: str):
-    """Phases 39 (config 5 at 128³, 20 coarse steps) and 40 (a bitwise
+    """Phases 39 (config 5 at 128³, 16 coarse steps) and 40 (a bitwise
     replay).  Returns the launches of the run and its state after
     ``2 * COSMO_RESTART_AT`` steps (phase 42's straight run)."""
     import numpy as np
@@ -4486,9 +4552,23 @@ def _cosmo_main(dev, card: str, tmp: str):
     # phase 40's state: host copies (no kernel launches)
     state = amr_state_from(sim)
     p_state = particles_from(sim.p, dtype=torch.float32, device="cpu")
-    sim.evolve(tend, nstepmax=COSMO_STEPS)
+    sim.evolve(tend, nstepmax=COSMO_STEPS - 1)
     sim.drain()
     wall = time.perf_counter() - t0
+    # where a coarse step's time goes: the last step, each part
+    # synchronised (it is also the step whose K1/K3 inputs are recorded)
+    acc, restore = _timed_parts({"sweep": (H, "_coarse_step")})
+    try:
+        def coarse_step():
+            sim.regrid()
+            sim.step_coarse(sim.coarse_dt())
+        line, parts = _host_breakdown(
+            sim, coarse_step,
+            parts=("regrid", "_build_pm", "solve_gravity", "_pm_force",
+                   "_pm_drift", "coarse_dt", "step_coarse"),
+            nested=("_build_pm", "solve_gravity", "_pm_force", "_pm_drift"))
+    finally:
+        restore()
     launches = _counts()
     del sim.step_coarse, sim.regrid
     want = _cosmo_want(stepped, lmin)
@@ -4514,15 +4594,16 @@ def _cosmo_main(dev, card: str, tmp: str):
             f"{mass1}, aexp {a0} -> {sim.aexp_now()}, levels stepped "
             f"{reached}, octs per step {octs}, dts {dts}, max density "
             f"{sim._rho_max}")
-    nupd = sum(updates[i] for i in range(len(updates)))
+    nupd = sum(updates[:COSMO_STEPS - 1])
     _print(f"phase 39 config 5 on {card}: cosmo.nml levelmin={lmin} "
            f"levelmax={p.amr.levelmax} (nremap={COSMO_NREMAP}, smallc="
            f"{COSMO_SMALLC}, m_refine {p.refine.m_refine[:p.amr.levelmax]} "
            f"set in code), {npart} particles, ICs "
            f"(σ={COSMO_SIGMA}, min(1+δ)={pos:.4f}) written in {ics_s:.2f} "
            f"s, AmrSim() {init_s:.3f} s; {COSMO_STEPS} coarse steps "
-           f"(a regrid each) in {wall:.3f} s = {wall / COSMO_STEPS:.4f} s a "
-           f"coarse step, {nupd / wall:.4e} cell-updates/s; aexp {a0:.4f} -> "
+           f"(a regrid each), the first {COSMO_STEPS - 1} through evolve in "
+           f"{wall:.3f} s = {wall / (COSMO_STEPS - 1):.4f} s a coarse step, "
+           f"{nupd / wall:.4e} cell-updates/s; aexp {a0:.4f} -> "
            f"{sim.aexp_now():.4f}; octs per level at the end "
            f"{ {l: sim.tree.noct(l) for l in sim.levels()} }, per step "
            f"{octs}; step walls {[round(w, 3) for w in walls]}; dts "
@@ -4539,20 +4620,7 @@ def _cosmo_main(dev, card: str, tmp: str):
            f"coarse step gave them, each level's first substep) against "
            f"their plain versions within LOCAL_ATOL + LOCAL_RTOL·M: {line}")
 
-    # where a coarse step's time goes: one more step, each part synchronised
-    acc, restore = _timed_parts({"sweep": (H, "_coarse_step")})
-    try:
-        def coarse_step():
-            sim.regrid()
-            sim.step_coarse(sim.coarse_dt())
-        line, parts = _host_breakdown(
-            sim, coarse_step,
-            parts=("regrid", "_build_pm", "solve_gravity", "_pm_force",
-                   "_pm_drift", "coarse_dt", "step_coarse"),
-            nested=("_build_pm", "solve_gravity", "_pm_force", "_pm_drift"))
-    finally:
-        restore()
-    _print(f"phase 39 where a coarse step's time goes (octs "
+    _print(f"phase 39 where the last coarse step's time goes (octs "
            f"{[sim.tree.noct(l) for l in sim.levels()]}): {line}; of "
            f"step_coarse the K1/K3 sweep (_coarse_step) {acc['sweep']:.4f} "
            f"s; host seconds by part: maps (_build_pm) "
@@ -4572,7 +4640,7 @@ def _cosmo_main(dev, card: str, tmp: str):
     a, b = replay(), replay()
     rwall = time.perf_counter() - t0
     d = _cosmo_diff(a, b)
-    if not (d["bitwise"] and p.amr.levelmax in a["u"]):
+    if not (d["bitwise"] and lmin + 1 in a["u"]):
         raise AssertionError(f"config 5 replay of {COSMO_REPLAY_STEPS} "
                              f"coarse steps from step {COSMO_REPLAY_AT}: "
                              f"levels {sorted(a['u'])}, {d}")
@@ -4795,29 +4863,34 @@ def _cosmo_cli(card: str, tmp: str):
 
 # config 2's sizes, 7 / 9, took over 600 s for the phase on an H100 at
 # 700 W (7-8 s a coarse step, a 32 s set-up, the replay 151 s, the
-# profile's tables minutes): cut to 6 / 8
-MHD_GRAV_LEVELS = (6, 8)
-MHD_GRAV_STEPS = 5
+# profile's tables minutes): cut to 6 / 8, then (the script's time
+# limit; 6 / 8 took 72 s for the phase on a slow host) to 6 / 7
+MHD_GRAV_LEVELS = (6, 7)
+MHD_TRACER_LEVELS = (6, 8)     # phase 45's blob
+MHD_GRAV_STEPS = 2             # ~7 s each on an H100 (host regrid and PCG)
 MHD_GRAV_NPART = 2097152       # 128³ particles from default_rng(seed)
 MHD_GRAV_SEED = 44
 MHD_GRAV_PMASS = 0.05          # their total mass (the gas holds ~0.51)
-MHD_GRAV_REPLAY_AT, MHD_GRAV_REPLAY = 3, 2   # steps 4 and 5, twice
+MHD_GRAV_REPLAY_AT, MHD_GRAV_REPLAY = 1, 1   # step 2, twice
 MHD_TRACER_STEPS = 3
 MC_UNIFORM_NTR = 2097152
 MC_UNIFORM_SEED = 46
 COLLAPSE_NML = os.path.join(ROOT, "namelists", "collapse_iso.nml")
 # tend 0.05 takes 14 coarse steps, over 300 s (the host regrid and the PCG
 # ~10 s each a step at 64 k level-8 octs; 4 steps took 85 s on an H100):
-# cut by nstepmax
-COLLAPSE_STEPS = 2
-# phase 47b: 2 more coarse steps from phase 47's state with n_sink lowered
+# cut by nstepmax to 1, and its levelmax 8 to 7 (one step
+# and phase 47b's at 8 took 41 s on a slow host), to fit the script's
+# time limit
+COLLAPSE_STEPS, COLLAPSE_LEVELMAX = 1, 7
+# phase 47b: 1 more coarse step from phase 47's state with n_sink lowered
 # to just under the leaf density of the SINK_SEED_CELLS-th densest cell and
 # nsinkmax to SINK_MAX, so that sinks form, accrete, merge and drift on the
 # 3D hierarchy (as shipped none forms before tend: the clump's nH ~15
-# against n_sink 1e4).  After phase 47 the clump's ~3e5 leaf cells lie
-# within 0.02 of its peak density (a CPU run), so one step on most of
-# them pass the lowered threshold: nsinkmax ends the creation loop early
-COLLAPSE_LIVE_STEPS, SINK_SEED_CELLS, SINK_MAX = 2, 64, 16
+# against n_sink 1e4).  After two steps at the shipped levelmax 8 the
+# clump's ~3e5 leaf cells lay within 0.02 of its peak density (a CPU
+# run), so most of them pass the lowered threshold: nsinkmax ends the
+# creation loop early
+COLLAPSE_LIVE_STEPS, SINK_SEED_CELLS, SINK_MAX = 1, 64, 16
 SMBH_NML = os.path.join(ROOT, "namelists", "smbh_bondi.nml")
 TURB_NML = os.path.join(ROOT, "namelists", "turb_driving.nml")
 TURB_LEVEL, TURB_STEPS = 8, 20          # phase 49: 256³ through Simulation
@@ -4863,11 +4936,11 @@ err_grad_d=0.2
 """
 
 
-def _blob3d(run: str, flow: bool = False):
-    """Phase 44's blob; ``flow`` gives the gas a bulk velocity (0.3, 0.2,
-    0.1) for phase 45's tracers to follow."""
+def _blob3d(run: str, flow: bool = False, levels=MHD_GRAV_LEVELS):
+    """Phase 44's blob at ``levels``; ``flow`` gives the gas a bulk
+    velocity (0.3, 0.2, 0.1) for phase 45's tracers to follow."""
     from ramses_tpu_torch.config import params_from_string
-    lmin, lmax = MHD_GRAV_LEVELS
+    lmin, lmax = levels
     text = MHD_BLOB3D.format(lmin=lmin, lmax=lmax, run=run)
     if flow:
         text = text.replace("C_region=0.0,0.0", "C_region=0.0,0.0\n"
@@ -4980,8 +5053,8 @@ def _mhd_grav_phase(dev, card: str) -> int:
     def coarse_step():
         sim.regrid()
         sim.step_coarse(sim.coarse_dt())
-    # steps 1-3 as evolve runs them, step 4 with each part synchronised,
-    # step 5 under the profiler (its K4 inputs recorded)
+    # the first steps as evolve runs them, the last but one with each part
+    # synchronised, the last under the profiler (its K4 inputs recorded)
     sim.step_coarse = counted
     torch.cuda.synchronize()
     _reset_counts()
@@ -5039,8 +5112,9 @@ def _mhd_grav_phase(dev, card: str) -> int:
            f"{p.amr.levelmax}, f32, {MHD_GRAV_NPART} particles "
            f"(default_rng({MHD_GRAV_SEED}), total mass {MHD_GRAV_PMASS}); "
            f"MhdAmrSim() {init_s:.3f} s, {MHD_GRAV_STEPS} coarse steps (a "
-           f"regrid each; step 4 synchronised part by part, step 5 under "
-           f"the profiler) in {wall:.3f} s, step walls "
+           f"regrid each; step {MHD_GRAV_STEPS - 1} synchronised part by "
+           f"part, step {MHD_GRAV_STEPS} under the profiler) in {wall:.3f} "
+           f"s, step walls "
            f"{[round(w, 3) for w in walls]}; {readings}")
 
     # K4 against its plain version on the last step's first complete-level
@@ -5067,18 +5141,20 @@ def _mhd_grav_phase(dev, card: str) -> int:
     del a, k
     torch.cuda.empty_cache()
 
-    _print(f"phase 44 where step 4's time goes: {line}; seconds "
+    _print(f"phase 44 where step {MHD_GRAV_STEPS - 1}'s time goes: {line}; "
+           f"seconds "
            f"by part: regrid {parts['regrid']:.4f}, PM maps (_build_pm) "
            f"{parts['_build_pm']:.4f}, solve_gravity "
            f"{parts['solve_gravity']:.4f}, sweep (kicks and CT, "
            f"_coarse_step) {acc['sweep']:.4f}, particle kick (gather) "
            f"{parts['_pm_force']:.4f}, drift {parts['_pm_drift']:.4f}, "
-           f"Courant fetch {parts['coarse_dt']:.4f}; step 5 under the "
-           f"profiler: {busy}")
+           f"Courant fetch {parts['coarse_dt']:.4f}; step {MHD_GRAV_STEPS} "
+           f"under the profiler: {busy}")
     del sim
     torch.cuda.empty_cache()
 
-    # a replay from the state before step 4, twice: bitwise
+    # a replay from the state before step MHD_GRAV_REPLAY_AT + 1, twice:
+    # bitwise
     def replay():
         pp = state.pop("particles")
         s = mamr.MhdAmrSim.from_state(p, **state, particles=particles_from(
@@ -5122,7 +5198,8 @@ def _mhd_tracer_phase(card: str):
     import torch
     from ramses_tpu_torch.mhd.amr import MhdAmrSim
     from ramses_tpu_torch.pm import amr_physics
-    p = _blob3d("tracer=.true.\ntracer_per_cell=1.0", flow=True)
+    p = _blob3d("tracer=.true.\ntracer_per_cell=1.0", flow=True,
+                levels=MHD_TRACER_LEVELS)
     t0 = time.perf_counter()
     sim = MhdAmrSim(p)
     init_s = time.perf_counter() - t0
@@ -5274,7 +5351,8 @@ SINK_HEADER = (" # id,msink,x,y,z,vx,vy,vz,lx,ly,lz,tform,acc_rate,del_mass,"
 
 def _collapse_phase(card: str, tmp: str) -> dict:
     """Phase 47: collapse_iso.nml through the CLI, in process, as shipped
-    but for ``nstepmax`` (``COLLAPSE_STEPS``), K1 and K3 held against their
+    but for ``nstepmax`` and ``levelmax`` (``COLLAPSE_STEPS``,
+    ``COLLAPSE_LEVELMAX``), K1 and K3 held against their
     plain versions on its last coarse step's inputs; then 47b, live sinks
     on its hierarchy (:func:`_live_sinks`).  Returns the K1 and K3
     launches of both."""
@@ -5298,8 +5376,11 @@ def _collapse_phase(card: str, tmp: str) -> dict:
     os.makedirs(run_dir)
     nml = os.path.join(run_dir, "collapse_iso.nml")
     with open(nml, "w") as f:
-        f.write(open(COLLAPSE_NML).read().replace(
-            "&RUN_PARAMS", f"&RUN_PARAMS\nnstepmax={COLLAPSE_STEPS}", 1))
+        text = open(COLLAPSE_NML).read().replace(
+            "&RUN_PARAMS", f"&RUN_PARAMS\nnstepmax={COLLAPSE_STEPS}", 1)
+        if "levelmax=8" not in text:
+            raise AssertionError("phase 47: collapse_iso.nml's levelmax moved")
+        f.write(text.replace("levelmax=8", f"levelmax={COLLAPSE_LEVELMAX}"))
     acc, restore = _timed_parts({
         "regrid": (H.AmrSim, "regrid"),
         "solve_gravity": (H.AmrSim, "solve_gravity"),
@@ -5331,7 +5412,8 @@ def _collapse_phase(card: str, tmp: str) -> dict:
             f"sink CSV header {header!r}, {len(rows)} rows for "
             f"{sim.sinks.n} sinks")
     _print(f"phase 47 collapse_iso.nml through the CLI on {card} (run_cli "
-           f"in process, as shipped but nstepmax={COLLAPSE_STEPS}: levelmin "
+           f"in process, as shipped but nstepmax={COLLAPSE_STEPS} and "
+           f"levelmax={COLLAPSE_LEVELMAX}: levelmin "
            f"{lmin} levelmax {sim.lmax}, open box, isolated solve, f32): "
            f"t={sim.t:.6e} in {sim.nstep} coarse "
            f"steps, {wall:.3f} s; octs "
@@ -5632,8 +5714,10 @@ ISM_UNITS = {"units_density": 1.66e-24, "units_time": 3.15e13,
 COOL_LEVEL, COOL_STEPS = 8, 20             # phase 50: config 1 at 256³
 # phase 51: config 2's levels, 7 / 9, took 23 s a coarse step on an H100
 # at 700 W (the regrid 12.0 s at 87,975 level-9 octs, the PCG 10.5 s):
-# cut to 6 / 8, as phase 44
-SF_AMR_LEVELS, SF_AMR_STEPS = (6, 8), 5
+# cut to 6 / 8, then to 6 / 7 and 3 coarse steps (after 5 at 6 / 8, 875
+# of 1683 stars had fired; 3 at 6 / 8 took 60 s for the phase on a slow
+# host), to fit the script's time limit
+SF_AMR_LEVELS, SF_AMR_STEPS = (6, 7), 3
 FB_LEVELS, FB_STEPS = (6, 7), 3            # phase 52
 # phase 52's stellar objects at 6 / 7: the JAX test's set-up at 4 / 5
 # with its sink-mass quantum and SN energy scaled by the cell volume
@@ -6071,8 +6155,8 @@ def _cool_uniform_phase(dev, card: str, ops_per_iter: float):
 
 def _sf_amr_phase(dev, card: str, ops_per_iter: float) -> dict:
     """Phase 51: config 2's levels (7 / 9, f32) on the JAX test's SF blob
-    with cooling, self-gravity, star formation and thermal feedback, 5
-    coarse steps; returns the launches."""
+    with cooling, self-gravity, star formation and thermal feedback,
+    ``SF_AMR_STEPS`` coarse steps; returns the launches."""
     import numpy as np
     import torch
     from ramses_tpu_torch.amr import hierarchy as H
@@ -6909,10 +6993,12 @@ RT_NAMELISTS = (("iliev1", 3), ("rad_beams", 2), ("stromgren2d", 2),
 RT_LEVEL = 7                   # phase 58: stromgren3 at 128³, 684 substeps
 ILIEV_LEVEL, ILIEV_TOUT = 7, 100.0     # phase 59: iliev1 at 128³, 100 Myr
 # phase 60: the refined front of tests/test_rt_amr.py at levelmin 6 /
-# levelmax 8 (its r_refine sphere widened to 0.25 so that the front's far
-# band lies on level 8), 118 substeps; then the 3-group He ladder at 64³
-RT_AMR_LEVELS, RT_AMR_TEND, RT_AMR_R = (6, 8), 0.004, 0.25
-RT_AMR_NSUB = (100, 300)       # the substeps phase 60 is sized for
+# levelmax 7 (its r_refine sphere widened to 0.25 so that the front's far
+# band lies on level 7), 59 substeps; then the 3-group He ladder at 64³.
+# At levelmax 8 (162,616 level-8 octs, 118 substeps) its host
+# build and regrid took 53 s of the script's time limit
+RT_AMR_LEVELS, RT_AMR_TEND, RT_AMR_R = (6, 7), 0.004, 0.25
+RT_AMR_NSUB = (40, 150)        # the substeps phase 60 is sized for
 RT_AMR_R_GROWN = 0.27          # phase 60's regrid: the sphere grows
 RT_HE_LEVEL, RT_HE_TEND = 6, 0.004
 RT_K9_CELLS = 1000003          # phase 57's random cells (3-ion: half)
@@ -7785,6 +7871,547 @@ def _rt_phases(dev, card: str) -> dict:
                 tile_sweep=n["tile_sweep"])
 
 
+# ---------------------------------------------------------------------------
+# phases 61-63: the clump finder's watershed (K10), mergertree.nml and the
+# lightcone
+# ---------------------------------------------------------------------------
+
+MT_NML = os.path.join(ROOT, "namelists", "mergertree.nml")
+# phase 61: K10 against its plain version on these fields (name, shape,
+# kind: uniform noise, the noise quantised to four levels, a few periodic
+# Gaussian peaks), each at thresholds that cut off none, half and nearly
+# all (99 %) of the cells; timed at the half threshold
+K10_CASES = (("random 64³", (64, 64, 64), "random"),
+             ("random 256²", (256, 256), "random"),
+             ("random 256³", (256, 256, 256), "random"),
+             ("plateau 64³", (64, 64, 64), "plateau"),
+             ("plateau 256³", (256, 256, 256), "plateau"),
+             ("smooth 128³", (128, 128, 128), "smooth"))
+# phase 62: mergertree.nml's own clump finder, AMR, refinement and cosmology
+# keys, on a P(k) ∝ k⁻² Gaussian δ of MT_SIGMA rms per level-6 cell at
+# a = 0.02 (default_rng(MT_SEED)), written by the port.  At 0.3 rms the
+# shipped thresholds (density 80, mass 10 particles) keep 3, 10 and 22
+# halos at a = 0.1, 0.12 and 0.14 (phase 62 on an H100).
+# Cuts: aout 0.1, 0.2, ..., 1.0 (10 outputs) to MT_AOUT, so that three
+# outputs come within ~30 coarse steps (nremap=50 then never regrids after
+# the initial refinement); nstepmax MT_NSTEPMAX as a guard
+MT_SIGMA, MT_SEED = 0.3, 1
+MT_AOUT = (0.1, 0.12, 0.14)
+MT_NSTEPMAX = 200
+# phase 63: config 5 (phase 39's cosmo.nml at 128³ on its ICs) with the
+# lightcone, full sky, zmax_cone 1000, for CONE_STEPS coarse steps.
+# cosmo.nml sets no boxlen_ini, so its box is boxlen = 1 Mpc/h and a step's
+# shell lies ~5,150 box lengths away (~1e8 periodic replicas, each a pass
+# over the 2,097,152 particles); set in code, boxlen_ini = CONE_BOX Mpc/h
+# (the ICs written at that size) puts it 0.52 box lengths away, in the box
+# and the replicas beside it (at 3,000 Mpc/h, 1.7 box lengths: 160
+# replicas, each a pass over every particle)
+CONE_STEPS, CONE_BOX = 5, 10000.0
+
+
+def _k10_field(kind: str, shape, seed: int):
+    """Phase 61's density (float64 on the host): ``random`` uniform noise,
+    ``plateau`` the noise quantised to four levels, ``smooth`` four periodic
+    Gaussian peaks (σ 0.08 box) over a floor."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return rng.random(shape)
+    if kind == "plateau":
+        return np.floor(rng.random(shape) * 4.0) / 4.0
+    axes = [(np.arange(n) + 0.5) / n for n in shape]
+    rho = np.full(shape, 0.01)
+    for _ in range(4):
+        c = rng.random(len(shape))
+        r2 = np.zeros(shape)
+        for d, (g, ci) in enumerate(zip(axes, c)):
+            dd = np.abs(g - ci)
+            dd = np.minimum(dd, 1.0 - dd) ** 2
+            r2 = r2 + dd.reshape([-1 if e == d else 1
+                                  for e in range(len(shape))])
+        rho += rng.uniform(1.0, 5.0) * np.exp(-r2 / (2 * 0.08 ** 2))
+    return rho
+
+
+def _k10_chains(rho, thr: float, nd: int):
+    """(links followed, the longest chain) by the cells above ``thr`` on
+    their way to their peaks: the chase's data-dependent work."""
+    import torch
+    from ramses_tpu_torch.pm import clumps
+    parent = clumps.steepest_parent(rho, nd).reshape(-1)
+    cur = torch.nonzero((rho > thr).reshape(-1)).reshape(-1)
+    links = longest = 0
+    while cur.numel():
+        nxt = parent[cur]
+        moving = nxt != cur
+        n = int(moving.sum())
+        if not n:
+            break
+        links += n
+        longest += 1
+        cur = nxt[moving]
+    return links, longest
+
+
+def _k10_check(rho, thr: float, nd: int, what: str):
+    """K10 against its plain version on one field and threshold: labels
+    bitwise; returns the max |K10 - plain| (0)."""
+    import torch
+    from ramses_tpu_torch.pm import clumps
+    got = clumps.watershed(rho, thr, nd)
+    want = clumps.watershed_ref(rho, thr, nd)
+    torch.cuda.synchronize()
+    if got.dtype != torch.int64 or not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"K10 disagrees with its plain version on "
+                             f"{what} (threshold {thr!r}): {bad} labels of "
+                             f"{got.numel()}")
+    return float((got - want).abs().max())
+
+
+def _watershed_kernel_phase(dev, card: str, ptxas: str) -> dict:
+    """Phase 61: K10 bitwise against ``watershed_ref`` on the card on
+    random, plateau and smooth fields at three thresholds each, timed
+    beside its plain version and its bound; ``ptxas``: the registers and
+    spills of its build."""
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.pm import clumps
+    rows, err = {}, 0.0
+    for i, (name, shape, kind) in enumerate(K10_CASES):
+        host = _k10_field(kind, shape, 61 + i)
+        rho = torch.from_numpy(host).to(dev)
+        nd = len(shape)
+        # just under the quantiles, so that a plateau at one is kept
+        thrs = (float(host.min()) - 1.0, float(np.median(host)) - 1e-9,
+                float(np.quantile(host, 0.99)) - 1e-9)
+        for thr in thrs:
+            err = max(err, _k10_check(rho, thr, nd, name))
+        thr = thrs[1]
+
+        def call():
+            return clumps.watershed(rho, thr, nd)
+        # a call's wall on the stream (CUDA events: with the device idle,
+        # the host's enqueue of the call), and the device time of its two
+        # kernels (the profiler; where it lost a kernel's records, the
+        # queued events of whole calls, which hold both)
+        call_ms = _median_ms(call)
+        lost = len(PROFILER_LOST)
+        parts = [_device_ms(call, k, launched=lambda: clumps.launches)
+                 for k in ("parents_kernel", "labels_kernel")]
+        ms = max(parts) if len(PROFILER_LOST) > lost else sum(parts)
+        big = rho.numel() > 2 ** 22
+        plain_ms = _median_ms(lambda: clumps.watershed_ref(rho, thr, nd),
+                              reps=5 if big else 20, warm=1 if big else 3)
+        links, longest = _k10_chains(rho, thr, nd)
+        ncell = rho.numel()
+        # rho read once, the labels written once; a cell's 3^nd - 1
+        # comparisons and its threshold test, and a comparison a link
+        b = _rt_bound(16.0 * ncell, ncell * 3 ** nd + links)
+        rows[name] = dict(b, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                          links=links, longest=longest, ncell=ncell)
+        _print(f"phase 61 K10 {name} ({kind}, f64): bitwise at thresholds "
+               f"{[f'{t:.4g}' for t in thrs]}; at the median: "
+               + _rt_timing(rows[name])
+               + f" (device: parents {parts[0]:.4f} + labels {parts[1]:.4f}"
+               f" ms; a call's wall on the stream {call_ms:.4f} ms); "
+               f"{links} links followed (longest chain {longest})")
+        del rho
+    _print(f"phase 61 K10's build: {ptxas or 'not rebuilt in this run'}")
+    torch.cuda.empty_cache()
+    return dict(rows=rows, max_abs_err=err)
+
+
+def _mt_text(aout) -> str:
+    """mergertree.nml with phase 62's cuts (``aout``, ``noutput``,
+    ``nstepmax``); its other keys as shipped."""
+    import re
+    text = open(MT_NML).read()
+    for key in ("relevance_threshold=3", "density_threshold=80",
+                "saddle_threshold=200", "mass_threshold=10", "nx_clump=64",
+                "unbind=.true.", "saddle_pot=.true.", "nmassbins=100",
+                "levelmin=6", "levelmax=9", "clumpfind=.true.",
+                "nremap=50", "m_refine=8.0"):
+        if key not in text:
+            raise AssertionError(f"mergertree.nml no longer holds {key}")
+    text = re.sub(r"aout=[0-9.,]+", "aout=" + ",".join(map(str, aout)),
+                  text)
+    text = re.sub(r"noutput=\d+", f"noutput={len(aout)}", text)
+    return text.replace("&RUN_PARAMS", f"&RUN_PARAMS\nnstepmax={MT_NSTEPMAX}",
+                        1)
+
+
+def _clump_table(path: str):
+    """The rows of a ``clump_NNNNN.txt`` as [n, 12] (none: [0, 12])."""
+    import numpy as np
+    rows = np.loadtxt(path, ndmin=2)
+    return rows.reshape(-1, 12)
+
+
+def _mergertree_phase(dev, card: str, tmp: str) -> dict:
+    """Phase 62: mergertree.nml through the CLI in process on the card,
+    three outputs, each output's K10 labels held to the plain version on
+    the deposit the run built; then a restart from the second output.
+    Returns the launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from ramses_tpu_torch.amr import device_regrid
+    from ramses_tpu_torch.amr import hierarchy as H
+    from ramses_tpu_torch.config import load_params
+    from ramses_tpu_torch.driver import build_namelist_sim
+    from ramses_tpu_torch.pm import clumps
+    from ramses_tpu_torch.resilience import checkpoint as ckpt
+    from ramses_tpu_torch.utils import halos
+    run_dir = os.path.join(tmp, "mergertree")
+    os.makedirs(run_dir)
+    pos = _gaussian_ics(os.path.join(run_dir, "grafic_files"), 64, MT_SIGMA,
+                        MT_SEED)
+    nml = os.path.join(run_dir, "mergertree.nml")
+    with open(nml, "w") as f:
+        f.write(_mt_text(MT_AOUT))
+    # every watershed of the run: its input (the deposit the run built, on
+    # the card) and K10's labels
+    recorded = []
+    watershed = clumps.watershed
+
+    def recording(rho, threshold, ndim):
+        out = watershed(rho, threshold, ndim)
+        recorded.append((rho, float(threshold), ndim, out.clone()))
+        return out
+    clumps.watershed = recording
+    steps, stepped = [], []
+    step_coarse = H.AmrSim.step_coarse
+
+    def logged(self, dt):
+        spec = self._fused_spec()
+        stepped.append((spec.levels, spec.complete, spec.blocked))
+        t0 = time.perf_counter()
+        step_coarse(self, dt)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    acc, restore = _timed_parts({
+        "pass": (H.AmrSim, "_clumpfind_pass"),
+        "catalogue": (halos, "catalogue_from_arrays"),
+        "find_clumps": (halos, "find_clumps"),
+        "K10": (clumps, "watershed"),
+        "unbinding": (halos, "build_catalogue")})
+    H.AmrSim.step_coarse = logged
+    params = load_params(nml, ndim=3)
+    params.init.initfile = [os.path.join(run_dir, "grafic_files")]
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        sim = build_namelist_sim(H.AmrSim, params, None, torch.float32,
+                                 None)
+        for i, a in enumerate(MT_AOUT, 1):
+            sim.evolve(float(sim.cosmo.tau_of_aexp(a)),
+                       nstepmax=MT_NSTEPMAX)
+            sim.dump(i, run_dir, namelist_path=nml)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        H.AmrSim.step_coarse = step_coarse
+        restore()
+        clumps.watershed = watershed
+    launches = _counts()
+    k7 = device_regrid.launches
+    nout = len(MT_AOUT)
+    outs = [os.path.join(run_dir, f"output_{i:05d}")
+            for i in range(1, nout + 1)]
+    # the files of every output, under its manifest
+    for i, out in enumerate(outs, 1):
+        want = [f"clump_{i:05d}.txt", f"clump_cat_{i:05d}.npz"]
+        if i > 1:
+            want.append(f"mergertree_{i:05d}.txt")
+        ok, why = (ckpt.validate_checkpoint(out) if os.path.isdir(out)
+                   else (False, "missing"))
+        man = (open(os.path.join(out, "manifest.json")).read() if ok
+               else "")
+        if not ok or any(w not in man for w in want):
+            raise AssertionError(f"phase 62 {out}: {why}; manifest holds "
+                                 f"{[w for w in want if w in man]} of {want}")
+    if launches["watershed"] != nout or len(recorded) != nout:
+        raise AssertionError(f"phase 62: K10 launched {launches['watershed']}"
+                             f" times ({len(recorded)} recorded) for {nout} "
+                             f"outputs")
+    want = _cosmo_want(stepped, sim.lmin)
+    sweeps = ("fused_muscl", "tile_sweep", "oct_sweep")
+    if any(launches[key] != want[key] for key in sweeps) \
+            or len(stepped) != sim.nstep:
+        raise AssertionError(f"phase 62: launches {launches} where the "
+                             f"{sim.nstep} coarse steps' levels require "
+                             f"{ {key: want[key] for key in sweeps} }")
+    # each output's K10 labels against the plain version on that output's
+    # own deposit
+    err = 0.0
+    for k, (rho, thr, nd, got) in enumerate(recorded, 1):
+        want = clumps.watershed_ref(rho, thr, nd)
+        if rho.dtype != torch.float64 or rho.shape != (64, 64, 64) \
+                or not torch.equal(got, want):
+            raise AssertionError(f"phase 62 output {k}: K10's labels on the "
+                                 f"run's deposit {tuple(rho.shape)} "
+                                 f"{rho.dtype} differ from the plain "
+                                 f"version's")
+        err = max(err, float((got - want).abs().max()))
+    tables = [_clump_table(os.path.join(o, f"clump_{i:05d}.txt"))
+              for i, o in enumerate(outs, 1)]
+    nhalo = [len(t) for t in tables]
+    act = sim.p.active
+    mtot = float(sim.p.m.double()[act].sum())
+    bound = [float(t[:, 2].sum()) for t in tables]
+    if not all(n > 0 for n in nhalo) or max(bound) > mtot:
+        raise AssertionError(f"phase 62: halos by output {nhalo}, bound mass "
+                             f"{bound} of {mtot}")
+    tree = np.loadtxt(os.path.join(outs[-1], f"mergertree_{nout:05d}.txt"),
+                      ndmin=2)
+    top = int(tables[-1][0, 0])
+    main = tree[(tree[:, 0] == nout - 1) & (tree[:, 1] == top)
+                & (tree[:, 6] == 1)]
+    if len(main) != 1 or int(main[0, 2]) != nout - 2:
+        raise AssertionError(f"phase 62: the largest halo {top} of the last "
+                             f"output has main links {main.tolist()}")
+    # restart from the second output (the nrestart=2 path): the tree
+    # rebuilt from the persisted catalogues
+    rdir = os.path.join(tmp, "mergertree_restart")
+    os.makedirs(rdir)
+    for name in ("output_00001", "output_00002"):
+        shutil.copytree(os.path.join(run_dir, name),
+                        os.path.join(rdir, name))
+    _reset_counts()
+    t0 = time.perf_counter()
+    back = build_namelist_sim(H.AmrSim, params,
+                              os.path.join(rdir, "output_00002"),
+                              torch.float32, None)
+    nstep0 = back.nstep
+    back.evolve(float(back.cosmo.tau_of_aexp(MT_AOUT[-1])),
+                nstepmax=MT_NSTEPMAX)
+    back.dump(nout, rdir, namelist_path=nml)
+    torch.cuda.synchronize()
+    rwall = time.perf_counter() - t0
+    rlaunch = _counts()
+    # the CLI starts the namelist on the card (cut to 2 coarse steps; a
+    # hierarchy's CLI run writes its one output at its end)
+    cdir = os.path.join(tmp, "mergertree_cli")
+    os.makedirs(cdir)
+    os.symlink(os.path.join(run_dir, "grafic_files"),
+               os.path.join(cdir, "grafic_files"))
+    cnml = os.path.join(cdir, "mergertree.nml")
+    with open(cnml, "w") as f:
+        f.write(_mt_text(MT_AOUT).replace(f"nstepmax={MT_NSTEPMAX}",
+                                          "nstepmax=2"))
+    _reset_counts()
+    cli, cwall = _cli_in_process([cnml, "--ndim", "3"], cdir)
+    claunch = _counts()
+    cout = os.path.join(cdir, "output_00001")
+    if cli.nstep != 2 or claunch["watershed"] != 1 or not os.path.exists(
+            os.path.join(cout, "clump_00001.txt")) \
+            or not ckpt.validate_checkpoint(cout)[0]:
+        raise AssertionError(f"phase 62 CLI: {cli.nstep} coarse steps, "
+                             f"launches {claunch}, output "
+                             f"{sorted(os.listdir(cdir))}")
+    name = f"mergertree_{nout:05d}.txt"
+    straight = open(os.path.join(outs[-1], name), "rb").read()
+    again = open(os.path.join(rdir, f"output_{nout:05d}", name), "rb").read()
+    rtree = np.loadtxt(os.path.join(rdir, f"output_{nout:05d}", name),
+                       ndmin=2)
+    rtop = int(_clump_table(os.path.join(
+        rdir, f"output_{nout:05d}", f"clump_{nout:05d}.txt"))[0, 0])
+    rmain = rtree[(rtree[:, 0] == nout - 1) & (rtree[:, 1] == rtop)
+                  & (rtree[:, 6] == 1)]
+    bitwise = straight == again
+    if rlaunch["watershed"] != 1 or not (
+            bitwise or (rtop == top and len(rmain) == 1
+                        and rmain[0, 3] == main[0, 3])):
+        raise AssertionError(f"phase 62 restart: K10 {rlaunch['watershed']}, "
+                             f"{name} bitwise {bitwise}, largest halo {rtop} "
+                             f"(straight {top}), main links "
+                             f"{rmain.tolist()} (straight {main.tolist()})")
+    n = max(nout, 1)
+    split = {"deposit": acc["catalogue"] - acc["find_clumps"]
+             - acc["unbinding"],
+             "K10": acc["K10"], "merges": acc["find_clumps"] - acc["K10"],
+             "unbinding": acc["unbinding"],
+             "files": acc["pass"] - acc["catalogue"]}
+    _print(f"phase 62 mergertree.nml on {card} (build_namelist_sim and "
+           f"evolve as run_namelist, f32, a dump at each aout as the "
+           f"reference writes its outputs; &CLUMPFIND, &AMR, &REFINE and "
+           f"&COSMO as shipped; cuts: aout {list(MT_AOUT)} of 0.1..1.0, so "
+           f"three outputs come within ~30 coarse steps, and "
+           f"nstepmax={MT_NSTEPMAX} as a guard; 64³ ICs, {MT_SIGMA} rms, "
+           f"min 1+δ {pos:.3f}): {sim.cosmo_line()} "
+           f"in {wall:.3f} s, {sim.nstep} coarse steps "
+           f"(median {statistics.median(steps):.4f} s); halos by output "
+           f"{nhalo}, bound mass {[f'{b:.4e}' for b in bound]} of "
+           f"{mtot:.6e}; the largest halo {top} of output {nout} has main "
+           f"progenitor {int(main[0, 3])} in output {nout - 1} "
+           f"({int(main[0, 4])} shared); launches {launches}, K7 {k7}; K10 "
+           f"bitwise the plain version on each output's own deposit; "
+           f"clump pass host s an output (synchronised): "
+           + ", ".join(f"{k} {v / n:.4f}" for k, v in split.items())
+           + f", in all {acc['pass'] / n:.4f}; restart from output 2 "
+           f"(nrestart=2): {back.nstep - nstep0} coarse steps in "
+           f"{rwall:.3f} s, "
+           f"{name} bitwise the straight run's: {bitwise}"
+           + ("" if bitwise else f" (main branch {top} <- "
+              f"{int(rmain[0, 3])} as straight)")
+           + f"; python -m ramses_tpu_torch mergertree.nml (nstepmax=2, in "
+           f"process): {cwall:.3f} s, K10 {claunch['watershed']}")
+    del sim, back, cli, recorded
+    torch.cuda.empty_cache()
+    launches["max_abs_err"] = err
+    launches["split"] = {k: v / n for k, v in split.items()}
+    return launches
+
+
+def _cone_config(initdir: str, outdir: str):
+    """Config 5 (``_cosmo_config``) with the lightcone on, full sky,
+    zmax_cone 1000 and boxlen_ini ``CONE_BOX``, writing into ``outdir``."""
+    p = _cosmo_config(initdir)
+    p.run.lightcone = True
+    p.lightcone.zmax_cone = 1000.0
+    p.lightcone.thetay_cone = p.lightcone.thetaz_cone = 90.0
+    p.raw.setdefault("cosmo_params", {})["boxlen_ini"] = CONE_BOX
+    p.output.output_dir = outdir
+    return p
+
+
+def _cone_shells(outdir: str, epochs: list, what: str) -> list:
+    """The cones in ``outdir`` against the JAX test's checks: one a coarse
+    step (``epochs``: its (a before, a after) each), each ``a_emit``
+    between its step's two epochs, the shells tiling the lookback distance
+    with no overlap beyond roundoff.  Returns the particles a shell."""
+    import glob
+
+    import numpy as np
+    names = sorted(glob.glob(os.path.join(outdir, "cone_*.npz")))
+    if len(names) != len(epochs):
+        raise AssertionError(f"phase 63 {what}: {len(names)} cones for "
+                             f"{len(epochs)} coarse steps")
+    counts, ranges = [], []
+    for name, (a0, a1) in zip(names, epochs):
+        z = np.load(name)
+        r, ae = z["r"], z["a_emit"]
+        ok = (len(r) > 0 and z["pos"].shape == z["vel"].shape == (len(r), 3)
+              and len(ae) == len(r) and float(z["aexp"]) == a1
+              and bool((ae >= a0 - 1e-12).all())
+              and bool((ae <= a1 + 1e-12).all()))
+        if not ok:
+            raise AssertionError(f"phase 63 {what} {name}: {len(r)} "
+                                 f"particles, a_emit in [{ae.min()}, "
+                                 f"{ae.max()}] for the step {a0} -> {a1}")
+        counts.append(len(r))
+        ranges.append((float(r.min()), float(r.max())))
+    for (lo1, hi1), (lo0, hi0) in zip(ranges[1:], ranges[:-1]):
+        if hi1 > lo0 + 1e-8:
+            raise AssertionError(f"phase 63 {what}: shells overlap: "
+                                 f"{ranges}")
+    return counts
+
+
+def _lightcone_phase(dev, card: str, tmp: str) -> dict:
+    """Phase 63: config 5 with the lightcone for CONE_STEPS coarse steps,
+    then a dump restored that emits its first shell.  Returns the
+    launches."""
+    import torch
+    from ramses_tpu_torch.amr.hierarchy import AmrSim
+    from ramses_tpu_torch.driver import build_namelist_sim
+    from ramses_tpu_torch.pm import lightcone as lc
+    ics = os.path.join(tmp, "cone_ics")
+    pos = _gaussian_ics(ics, 2 ** COSMO_LEVELS[0], COSMO_SIGMA, COSMO_SEED,
+                        box=CONE_BOX)
+    cone_dir = os.path.join(tmp, "cones")
+    p = _cone_config(ics, cone_dir)
+    sim = build_namelist_sim(AmrSim, p, None, torch.float32, None)
+    epochs, ms = [], []
+    emit = lc.emit_coarse_step
+
+    def timed(s, outdir="."):
+        a0 = s._cone_aexp_prev
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = emit(s, outdir=outdir)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        epochs.append((a0, s.aexp_now()))
+        return out
+    lc.emit_coarse_step = timed
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        sim.evolve(float(sim.cosmo.tau_of_aexp(1.0)), nstepmax=CONE_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        counts = _cone_shells(cone_dir, epochs, "run")
+        npart = int(sim.p.active.sum())
+        # a restore emits its first shell
+        out = sim.dump(1, os.path.join(tmp, "cone_dump"))
+        rdir = os.path.join(tmp, "cones_restored")
+        back = AmrSim.from_snapshot(_cone_config(ics, rdir), out)
+        seeded = back._cone_aexp_prev == back.aexp_now()
+        epochs.clear()
+        back.step_coarse(back.coarse_dt())
+        rcount = _cone_shells(rdir, epochs, "restore")
+    finally:
+        lc.emit_coarse_step = emit
+    if sim.nstep != CONE_STEPS or not seeded or \
+            launches["fused_muscl"] != CONE_STEPS:
+        raise AssertionError(f"phase 63: {sim.nstep} coarse steps, restore "
+                             f"seeded {seeded}, launches {launches}")
+    _print(f"phase 63 config 5 with the lightcone on {card} (cosmo.nml at "
+           f"128³, {npart} particles, full sky, zmax_cone 1000; cut: "
+           f"boxlen_ini {CONE_BOX:g} Mpc/h set in code, the ICs written at "
+           f"that size (min 1+δ {pos:.3f}), because cosmo.nml's 1 Mpc/h box "
+           f"puts a step's shell ~5,150 box lengths away, ~1e8 replicas): "
+           f"{CONE_STEPS} "
+           f"coarse steps in {wall:.3f} s, one cone a step, shells tiling "
+           f"the lookback distance, each a_emit between its step's epochs; "
+           f"particles a shell {counts}; emission host ms a step "
+           f"{[round(m, 1) for m in ms[:CONE_STEPS]]}; launches {launches}; "
+           f"the restore from a dump emits its first shell "
+           f"({rcount[0]} particles, {ms[-1]:.1f} ms)")
+    del sim, back
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _clump_phases(dev, card: str, ptxas: str) -> dict:
+    """Phases 61-63; returns the K10 row and the K1/K3 launches of their
+    main paths.  ``ptxas``: K10's build report (registers, spills)."""
+    import shutil
+    import tempfile
+    marks = [time.perf_counter()]
+    k = _watershed_kernel_phase(dev, card, ptxas)
+    marks.append(time.perf_counter())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_clumps_")
+    try:
+        mt = _mergertree_phase(dev, card, tmp)
+        marks.append(time.perf_counter())
+        cone = _lightcone_phase(dev, card, tmp)
+        marks.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _print("phases 61-63 wall: " + ", ".join(
+        f"{61 + i} {b - a:.1f} s" for i, (a, b) in enumerate(
+            zip(marks, marks[1:]))))
+    r = k["rows"]["random 64³"]
+    row = {"name": "watershed", "route": "cuda",
+           "source": "ramses_tpu_torch/csrc/watershed.cu",
+           "replaces": "ramses_tpu/pm/clumps.py:28 (steepest_parent, :50 "
+                       "_pointer_jump and :64 watershed; fused by XLA, no "
+                       "pallas_call)",
+           "launches": mt["watershed"] + cone["watershed"],
+           "max_abs_err": max(k["max_abs_err"], mt["max_abs_err"]),
+           "ms": r["ms"], "plain_ms": r["plain_ms"],
+           "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+           "library_ms": None}
+    return dict(row=row, fused_muscl=mt["fused_muscl"] + cone["fused_muscl"],
+                tile_sweep=mt["tile_sweep"] + cone["tile_sweep"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8060,6 +8687,18 @@ def main() -> int:
         if r["name"] == "tile_sweep":
             r["launches"] += rt["tile_sweep"]
     marks.append(("57-60", time.perf_counter()))
+    # ---- 61-63. the clump finder (K10), mergertree.nml, the lightcone ----
+    cl = _clump_phases(dev, card, _ptxas_report(logs.get("watershed", "")))
+    k1["launches"] += cl["fused_muscl"]
+    for r in oct_rows:
+        if r["name"] == "tile_sweep":
+            r["launches"] += cl["tile_sweep"]
+    marks.append(("61-63", time.perf_counter()))
+    phase_walls = {}
+    for (t0, _), (t1, ph) in zip(PHASE_MARKS, PHASE_MARKS[1:]):
+        phase_walls[ph] = phase_walls.get(ph, 0.0) + t1 - t0
+    _print("wall by phase (from the phase's previous line): " + ", ".join(
+        f"{ph} {w:.1f}" for ph, w in phase_walls.items() if w >= 1.0))
     _print("script wall by phases: " + ", ".join(
         f"{label} {t - t0:.1f} s" for (_, t0), (label, t)
         in zip(marks, marks[1:]))
@@ -8070,7 +8709,7 @@ def main() -> int:
                + "; ".join(PROFILER_LOST))
     _print(json.dumps({"kernels": [k1] + oct_rows + [k4] + flux_rows
                        + parallel_rows + [cool["row"], rg["row"]]
-                       + rt["rows"]}))
+                       + rt["rows"] + [cl["row"]]}))
     _print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

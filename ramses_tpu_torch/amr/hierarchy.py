@@ -106,12 +106,20 @@ photoheating goes into the gas energy; the rows migrate through the host
 prolongation maps (``_mig_log``), so such a hierarchy never takes the
 device migrate, and it steps one coarse step at a time.
 
-Turbulence forcing (which the
-JAX package runs on the uniform grid only), the lightcone, the clump
-finder, movies, load balance, offload, the step guard, the watchdog,
-telemetry, patch hooks and elastic sharded checkpoints
-are not ported yet: a namelist that turns one on raises
-``NotImplementedError`` naming it.
+``&RUN_PARAMS clumpfind`` runs the in-run clump finder at every dump
+(``_clumpfind_pass``: the live particles' NGP deposit on ``nx_clump^ndim``
+cells, its watershed through K10 on the card, the host merges and
+unbinding of :mod:`ramses_tpu_torch.pm.halo`, ``clump_NNNNN.txt``,
+``clump_cat_NNNNN.npz`` and, from the second output of a run or of the
+catalogues it finds beside its outputs, ``mergertree_NNNNN.txt``, all under
+the dump's manifest).  ``&RUN_PARAMS lightcone`` writes the particles of
+the comoving shell swept by each coarse step of a cosmological run to
+``cone_NNNNN.npz`` (:mod:`ramses_tpu_torch.pm.lightcone`).
+
+Turbulence forcing (which the JAX package runs on the uniform grid only),
+movies, load balance, offload, the step guard, the watchdog, telemetry,
+patch hooks and elastic sharded checkpoints are not ported yet: a namelist
+that turns one on raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -426,6 +434,10 @@ def restore_amr_scaffold(cls, params: Params, outdir: str, dtype, to_cons,
     sim._dt_cache = None
     sim.t = float(meta["t"])
     sim.nstep = int(meta["nstep"])
+    if bool(params.run.lightcone) and sim.cosmo is not None:
+        # seed the shell chain from the restored epoch so that the first
+        # coarse step after the restart emits its shell
+        sim._cone_aexp_prev = sim.aexp_now()
     # the stored dtnew makes the restart take the SAME next step a
     # continuous run would (its cached CFL dt included the gravity term
     # the fresh sim's empty force field cannot reproduce)
@@ -577,6 +589,11 @@ class AmrSim:
                     "cosmology requires a periodic box")
             self.cosmo = Cosmology.from_params(params)
             self.t = float(self.cosmo.tau_ini)
+            if bool(params.run.lightcone):
+                # seed the lightcone shell chain at the run's start so the
+                # FIRST coarse step emits its shell (restarts re-seed from
+                # the restored epoch in restore_amr_scaffold)
+                self._cone_aexp_prev = self.cosmo.aexp_ini
         # dense base-grid gas ICs (grafic baryons) sampled per level
         self._init_dense = (np.asarray(init_dense_u)
                             if init_dense_u is not None else None)
@@ -1514,9 +1531,10 @@ class AmrSim:
         sinks' new mass, then exploded, with the SF generator), then the
         tracers, with the MC jumps (``pm/move_tracer.f90``) where the step
         captured its face fluxes and the CIC velocity drift where it did
-        not (the MHD hierarchy).  SF and the sinks change u after the step
-        emitted the next Courant dt, so the cached one is dropped (the
-        reference re-evaluates ``courant_fine`` after the source sweep)."""
+        not (the MHD hierarchy), then the lightcone's shell and RT.  SF and
+        the sinks change u after the step emitted the next Courant dt, so
+        the cached one is dropped (the reference re-evaluates
+        ``courant_fine`` after the source sweep)."""
         if self.sf_spec.enabled:
             amr_physics.star_formation_amr(self, dt)
             if self.sf_spec.f_w > 0:
@@ -1537,6 +1555,12 @@ class AmrSim:
                 amr_physics.mc_tracer_amr(self)
             else:
                 amr_physics.tracer_drift_amr(self, dt)
+        if bool(self.params.run.lightcone) and self.cosmo is not None \
+                and self.p is not None:
+            # output_cone every coarse step (amr_step.f90:177-178)
+            from ramses_tpu_torch.pm import lightcone as lcmod
+            lcmod.emit_coarse_step(
+                self, outdir=str(self.params.output.output_dir))
         if self.rt_amr is not None:
             self.rt_amr.advance(self, dt)
         if self.sf_spec.enabled or self.sinks is not None:
@@ -1690,16 +1714,16 @@ class AmrSim:
         rows fetched once), the files are written on its thread.  With
         sinks, ``sink_NNNNN.csv`` (``pm/output_sink.f90``) and, with stellar
         objects, ``stellar_NNNNN.csv`` (``pm/output_stellar.f90``) are
-        staged beside the file set and land under its manifest."""
+        staged beside the file set and land under its manifest, as do the
+        clump finder's files (:meth:`_clumpfind_pass`)."""
         import shutil
 
         from ramses_tpu_torch.io import snapshot as snapmod
         snap = snapmod.snapshot_from_amr(self, iout)
-        extra = None
+        extra = os.path.join(base_dir, f"output_{iout:05d}.extras.tmp")
+        if os.path.isdir(extra):
+            shutil.rmtree(extra)
         if self.sinks is not None or self.stellar is not None:
-            extra = os.path.join(base_dir, f"output_{iout:05d}.extras.tmp")
-            if os.path.isdir(extra):
-                shutil.rmtree(extra)
             os.makedirs(extra)
         if self.sinks is not None:
             snapmod.write_sink_csv(
@@ -1708,6 +1732,10 @@ class AmrSim:
         if self.stellar is not None:
             snapmod.write_stellar_csv(
                 os.path.join(extra, f"stellar_{iout:05d}.csv"), self.stellar)
+        self._clumpfind_pass(extra, iout)
+        if not os.path.isdir(extra) or not os.listdir(extra):
+            shutil.rmtree(extra, ignore_errors=True)
+            extra = None
         keep = int(self.params.output.checkpoint_keep)
         if dumper is not None:
             dumper.submit(snap, iout, base_dir,
@@ -1717,6 +1745,105 @@ class AmrSim:
         return snapmod.dump_all(snap, iout, base_dir,
                                 namelist_path=namelist_path, ncpu=ncpu,
                                 extra_dir=extra, keep_last=keep)
+
+    def _clumpfind_pass(self, out: str, iout: int):
+        """In-run PHEW chain at output time (``clumpfind=.true.``,
+        ``pm/clump_finder.f90``), as the JAX package runs it: deposit the
+        LIVE particles (fetched once), watershed (K10 on the card) with
+        relevance merging, unbind, apply ``mass_threshold``, write the
+        clump table into the dump's staging directory ``out``, and grow the
+        run's merger tree across outputs (``pm/merger_tree.f90``, with
+        ``MergerTree``'s defaults: the JAX package reads neither
+        ``&MERGERTREE_PARAMS`` nor ``logbins``).
+
+        The tree's halo catalogues persist per output (``clump_cat_NNNNN.
+        npz``: ids as a flat int64 array and offsets, no object arrays) so
+        that a restart rebuilds the cross-output links from the catalogues
+        of the earlier outputs beside this one, skipping a malformed one
+        with a warning."""
+        import glob
+        import re
+        import warnings
+
+        if not bool(self.params.run.clumpfind):
+            return
+        if self.p is None:
+            warnings.warn("clumpfind=.true. needs particles (pic or "
+                          "SF); no clump tables will be written")
+            return
+        from ramses_tpu_torch.pm.halo import (Halo, MergerTree,
+                                              write_halo_table)
+        from ramses_tpu_torch.utils.halos import catalogue_from_arrays
+        cf = self.params.clumpfind
+        act = self.p.active.cpu().numpy()
+        x = self.p.x.cpu().numpy()[act]
+        if len(x) == 0:
+            return
+        m = self.p.m.cpu().numpy()[act]
+        halos = catalogue_from_arrays(
+            x, self.p.v.cpu().numpy()[act], m,
+            self.p.idp.cpu().numpy()[act], self.boxlen,
+            nx=int(cf.nx_clump), threshold=float(cf.density_threshold),
+            relevance=float(cf.relevance_threshold),
+            npart_min=int(cf.npart_min), unbind=bool(cf.unbind),
+            saddle_pot=bool(cf.saddle_pot),
+            nmassbins=int(cf.nmassbins),
+            saddle_threshold=max(float(cf.saddle_threshold), 0.0),
+            device=self.device)
+        if cf.mass_threshold > 0 and act.any():
+            mp = float(m.mean())
+            halos = [h for h in halos
+                     if h.mass >= cf.mass_threshold * mp]
+        os.makedirs(out, exist_ok=True)
+        write_halo_table(halos,
+                         os.path.join(out, f"clump_{iout:05d}.txt"))
+        if not hasattr(self, "_mergertree"):
+            self._mergertree = MergerTree()
+            # a restart (or a fresh sim writing beside earlier outputs):
+            # the catalogues of the outputs BEFORE this one, in order (a
+            # restart may overwrite later outputs of the aborted run)
+            base = os.path.dirname(os.path.abspath(out))
+            for f in sorted(glob.glob(
+                    os.path.join(base, "output_*", "clump_cat_*.npz"))):
+                mm_ = re.search(r"clump_cat_(\d+)\.npz$",
+                                os.path.basename(f))
+                if mm_ is None or int(mm_.group(1)) >= iout:
+                    continue
+                try:
+                    z = np.load(f)
+                    off = np.asarray(z["ids_off"], dtype=np.int64)
+                    flat = np.asarray(z["ids_flat"], dtype=np.int64)
+                    ids = [flat[off[k]:off[k + 1]]
+                           for k in range(len(off) - 1)]
+                    old = [Halo(index=int(i), mass=float(mm),
+                                npart=len(hid), pos=pp, vel=vv,
+                                ekin=0.0, epot=0.0, ids=hid)
+                           for i, mm, pp, vv, hid in zip(
+                               z["index"], z["mass"], z["pos"],
+                               z["vel"], ids)]
+                    t_snap = float(z["t"])
+                except Exception as e:      # truncated zip, missing keys
+                    warnings.warn(f"skipping malformed clump "
+                                  f"catalogue {f}: {e}")
+                    continue
+                self._mergertree.add_snapshot(t_snap, old)
+        ids_off = np.concatenate(
+            [[0], np.cumsum([len(h.ids) for h in halos])]
+        ).astype(np.int64)
+        np.savez_compressed(
+            os.path.join(out, f"clump_cat_{iout:05d}.npz"),
+            t=float(self.t),
+            index=np.array([h.index for h in halos]),
+            mass=np.array([h.mass for h in halos]),
+            pos=np.array([h.pos for h in halos]),
+            vel=np.array([h.vel for h in halos]),
+            ids_off=ids_off,
+            ids_flat=(np.concatenate([h.ids for h in halos])
+                      if halos else np.zeros(0)).astype(np.int64))
+        self._mergertree.add_snapshot(float(self.t), halos)
+        if len(self._mergertree.snapshots) > 1:
+            self._mergertree.write(
+                os.path.join(out, f"mergertree_{iout:05d}.txt"))
 
     @classmethod
     def from_snapshot(cls, params: Params, outdir: str, dtype=torch.float32,

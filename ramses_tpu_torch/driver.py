@@ -161,10 +161,22 @@ def unported_features(params: Params) -> list:
          bool(str(params.output.telemetry or "").strip("'\" "))),
         ("patch hooks (&RUN_PARAMS patch)",
          bool(str(r.patch or "").strip("'\" "))),
-        ("lightcone (&RUN_PARAMS lightcone)", r.lightcone),
-        ("clump finder (&RUN_PARAMS clumpfind)", r.clumpfind),
     ]
     return [name for name, enabled in checks if enabled]
+
+
+def hierarchy_passes(params: Params, where: str) -> list:
+    """The per-run analysis passes that run on the hydro hierarchy
+    (:class:`ramses_tpu_torch.amr.hierarchy.AmrSim`) only, named for the
+    driver ``where`` that refuses them: the lightcone and the clump finder
+    (the JAX package's uniform driver ignores both keys, its MHD hierarchy
+    has no particles to pass them)."""
+    r = params.run
+    return [f"{name} on {where} (it runs on the hydro AMR hierarchy)"
+            for name, on in (("lightcone (&RUN_PARAMS lightcone)",
+                              r.lightcone),
+                             ("clump finder (&RUN_PARAMS clumpfind)",
+                              r.clumpfind)) if on]
 
 
 class Simulation:
@@ -177,7 +189,8 @@ class Simulation:
 
     def __init__(self, params: Params, dtype=torch.float32, device=None,
                  particles: Optional[ParticleSet] = None):
-        missing = unported_features(params)
+        missing = unported_features(params) + hierarchy_passes(
+            params, "the uniform Simulation")
         if missing:
             raise NotImplementedError(
                 "not ported to ramses_tpu_torch yet: " + ", ".join(missing))

@@ -102,9 +102,10 @@ def unported_mhd_features(params: Params) -> list:
     package's MHD hierarchy turns all three off (``_pm_family``) and its
     uniform driver ignores them, where the hydro drivers run them.  Both
     refuse radiative transfer: the JAX package's MHD hierarchy warns and
-    runs without it, its uniform driver ignores it."""
+    runs without it, its uniform driver ignores it.  Both refuse the
+    lightcone and the clump finder, which run on the hydro hierarchy."""
     from ramses_tpu_torch.amr.hierarchy import unported_amr_features
-    from ramses_tpu_torch.driver import unported_features
+    from ramses_tpu_torch.driver import hierarchy_passes, unported_features
     from ramses_tpu_torch.pm.sinks import SinkSpec
     from ramses_tpu_torch.turb.forcing import TurbSpec
     amr = params.amr.levelmax > params.amr.levelmin
@@ -138,7 +139,7 @@ def unported_mhd_features(params: Params) -> list:
                       "without it)")):
         if on:
             out.append(name)
-    return out
+    return out + hierarchy_passes(params, "the MHD drivers")
 
 
 class MhdSimulation:

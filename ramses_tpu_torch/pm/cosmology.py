@@ -108,6 +108,23 @@ def interp(x, xp, fp) -> float:
     return float(f)
 
 
+def interp_array(x, xp, fp) -> np.ndarray:
+    """``jnp.interp(x, xp, fp)`` of a host array, ``xp`` ascending: its
+    formula, with its guard of knots closer than the spacing of eps."""
+    xp = np.asarray(xp, dtype=np.float64)
+    fp = np.asarray(fp, dtype=np.float64)
+    x = np.asarray(x, dtype=np.float64)
+    i = np.clip(np.searchsorted(xp, x, side="right"), 1, len(xp) - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    dx0 = np.abs(dx) <= np.spacing(np.finfo(np.float64).eps)
+    f = np.where(dx0, fp[i - 1],
+                 fp[i - 1] + (delta / np.where(dx0, 1.0, dx)) * df)
+    f = np.where(x < xp[0], fp[0], f)
+    return np.where(x > xp[-1], fp[-1], f)
+
+
 @dataclass(frozen=True)
 class Cosmology:
     """Flat(ish) FRW background + supercomoving unit scales.
@@ -199,8 +216,11 @@ class Cosmology:
         return self._interp(aexp, "axp_frw", "chi_frw") * self._chi_to_box
 
     def aexp_of_chi(self, chi):
-        """Emission epoch at comoving distance ``chi`` [box units]."""
+        """Emission epoch at comoving distance ``chi`` [box units]: a host
+        number, or an array of them (the lightcone's radii)."""
         c = np.asarray(self.chi_frw[::-1]) * self._chi_to_box
+        if np.ndim(chi):
+            return interp_array(chi, c, self.axp_frw[::-1])
         return interp(chi, c, self.axp_frw[::-1])
 
     @property

@@ -680,13 +680,13 @@ def test_unported_amr_features_raise():
     with pytest.raises(NotImplementedError, match="load balance"):
         AmrSim(p, device="cpu")
     # pic without particles runs the hydro hierarchy with the particle
-    # layer off, as the JAX package's AmrSim; the lightcone stays refused
+    # layer off, as the JAX package's AmrSim; offload stays refused
     p = pparams(_text(), ndim=3)
     p.run.pic = True
     sim = AmrSim(p, device="cpu")
     assert not sim.pic and sim.p is None
-    p.run.lightcone = True
-    with pytest.raises(NotImplementedError, match="lightcone"):
+    p.amr.offload = "auto"
+    with pytest.raises(NotImplementedError, match="offload"):
         AmrSim(p, device="cpu")
 
 

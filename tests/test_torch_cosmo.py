@@ -22,7 +22,8 @@ on the CPU in f64.
 * ``namelists/cosmo.nml`` through the port's CLI, shrunk as
   ``tests/test_cosmo_ics.py``'s namelist runs shrink it;
 * the refusals that stay: cosmology on the MHD drivers and on
-  ``ShardedAmrSim``, the lightcone and the clump finder.
+  ``ShardedAmrSim``, the lightcone and the clump finder on the uniform
+  ``Simulation`` and the MHD drivers (the hydro hierarchy runs both).
 
 The hierarchy's mode is δ = −A·cos(2πx) (the density peak in the middle
 of the box): with the peak at the origin the refined flat cell 0 of the
@@ -481,11 +482,26 @@ def test_cosmology_refusals_and_the_end_time():
     assert [n for n in unported_mhd_features(p) if "cosmology" in n]
     with pytest.raises(NotImplementedError, match="cosmology on Sharded"):
         ShardedAmrSim(p, devices=ShardMesh(["cpu"] * 2))
+    # the hydro hierarchy runs the lightcone and the clump finder (its
+    # shell chain seeded at the run's start); the uniform Simulation and
+    # the MHD drivers refuse both by name; the non-cubic gate names
+    # clumpfind
     p.run.lightcone = True
     p.run.clumpfind = True
-    assert [n for n in unported_features(p)
-            if "lightcone" in n or "clump" in n] != []
-    with pytest.raises(NotImplementedError, match="lightcone"):
+    assert not [n for n in unported_features(p)
+                if "lightcone" in n or "clump" in n]
+    sim = AmrSim(p, device="cpu")
+    assert sim._cone_aexp_prev == sim.cosmo.aexp_ini
+    names = unported_mhd_features(p)
+    for key in ("lightcone", "clump finder"):
+        assert [n for n in names if key in n and "MHD drivers" in n]
+    u = _params(Params, 3, 3, "", False)
+    u.run.lightcone = u.run.clumpfind = True
+    with pytest.raises(NotImplementedError,
+                       match="lightcone .*uniform Simulation.*clump finder"):
+        Simulation(u, device="cpu")
+    p.amr.nx = 2
+    with pytest.raises(NotImplementedError, match="non-cubic.*clumpfind"):
         AmrSim(p, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):

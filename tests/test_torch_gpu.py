@@ -1650,3 +1650,39 @@ def test_rt_hierarchy_advance_never_waits_on_the_host(cuda):
     assert nsub > 1
     for l in sim.levels():
         assert bool(torch.isfinite(sim.rt_amr.rad[l]).all())
+
+
+@pytest.mark.parametrize("shape,kind", [((300,), "plateau"),
+                                        ((40, 27), "random"),
+                                        ((20, 17, 24), "smooth"),
+                                        ((64, 64, 64), "plateau"),
+                                        ((1, 5, 2), "random")])
+def test_watershed_kernel_is_bitwise_plain(cuda, shape, kind):
+    """K10 against ``watershed_ref`` on the card: labels bitwise, at
+    thresholds that cut off none, half and nearly all of the cells."""
+    from ramses_tpu_torch.pm import clumps
+    from test_torch_clumps_host import field, thresholds
+    host = field(kind, shape, len(shape))
+    rho = torch.tensor(host, dtype=torch.float64, device=cuda)
+    for thr in thresholds(host):
+        n0 = clumps.launches
+        got = clumps.watershed(rho, thr, len(shape))
+        want = clumps.watershed_ref(rho, thr, len(shape))
+        torch.cuda.synchronize()
+        assert clumps.launches == n0 + 1
+        assert got.dtype == want.dtype == torch.int64
+        assert got.device == rho.device and torch.equal(got, want)
+
+
+def test_watershed_kernel_refuses_what_it_does_not_take(cuda):
+    from ramses_tpu_torch.pm import clumps
+    with pytest.raises(ValueError, match="float64"):
+        clumps.watershed(torch.ones((4, 4), dtype=torch.float32,
+                                    device=cuda), 0.5, 2)
+    with pytest.raises(ValueError, match="ndim"):
+        clumps.watershed(torch.ones((4, 4), dtype=torch.float64,
+                                    device=cuda), 0.5, 3)
+    n0 = clumps.launches
+    empty = clumps.watershed(torch.ones((0, 4), dtype=torch.float64,
+                                        device=cuda), 0.5, 2)
+    assert empty.shape == (0, 4) and clumps.launches == n0

@@ -51,7 +51,7 @@ def test_build_is_keyed_on_source_and_flags(tmp_path, build_dir,
     monkeypatch.setattr(kernels, "nvcc_path", lambda: nvcc)
     assert kernels.sources() == ["cooling", "fused_muscl", "halo_exchange",
                                  "mhd_ct", "oct_muscl", "regrid_maps",
-                                 "rt_chem", "rt_m1"]
+                                 "rt_chem", "rt_m1", "watershed"]
     kernels.build(kernels.sources())        # the compilers run together
     targets = [kernels.library_path(n) for n in kernels.sources()]
     for target in targets:
