@@ -346,11 +346,17 @@ Phases, each printing its own line; any failure exits non-zero:
    K4 launches (and phase 46's flux launch) join the kernels line's rows;
 50. ``BASELINE.json`` config 1 with cooling: sedov3d at 256³ f32 with
    ``&COOLING_PARAMS cooling`` and the JAX tests' ISM units, 20 steps
-   through ``Simulation`` (``run_steps_cool``): K1 and K6
-   (``csrc/cooling.cu``, the per-cell cooling solve) once a step, no host
+   through ``Simulation`` (``run_steps_cool``): K1 and K6's fused entry
+   (``csrc/cooling.cu``, cooling_step's conversions and the per-cell
+   cooling solve in one launch) once a step and K6's march never, no host
    sync in two steps under the sync debug mode "error", a replay bitwise,
-   the energy below the adiabatic run's, a finite state; K6 on the last
-   step's recorded inputs against its plain version (f32: each cell within
+   the energy below the adiabatic run's, a finite state; K6's fused entry
+   on the last step's recorded state against ``cooling_step_ref`` (the E
+   row per cell, |ΔE| over the new thermal energy, under the gates below
+   through the march's conditioning, in the state's f32 and again in f64;
+   the other rows untouched), timed beside the plain version, the torch
+   passes around the march entry, and its bound; K6's march on that
+   state's march inputs against its plain version (f32: each cell within
    rel 2e-5 of the plain f32 result or ten times its conditioning move,
    at most 0.1 % of the cells in that form, and at each quantile of the
    cells' error against the f64 plain result within twice the plain f32
@@ -360,14 +366,16 @@ Phases, each printing its own line; any failure exits non-zero:
    per cell and the tables, and its operations at this run's iteration
    counts at the unfused f32 rate), the iterations a cell; the same check
    and timing on 2^20 random cells over dt 3e15 s, where the march is
-   long; ms a step with and without cooling;
+   long; ms a step with and without cooling, and the cooled step's
+   Courant pass and select;
 51. config 2's hierarchy cut to 6 / 7 (f32) on the JAX test's SF blob
    (``tests/test_amr_physics.py:73-98``) with cooling, self-gravity, star
-   formation and thermal feedback, 3 coarse steps: K1, K3 and K6 as the
-   stepped levels require (K6 once a level substep), K1, K3 and K6 on the
-   last step's inputs against their plain versions (K1 and K3 with M any
-   field's stencil max; K6 on each level's last call, and timed on the
-   finest level's rows), gas + stars mass to
+   formation and thermal feedback, 3 coarse steps: K1, K3 and K6's fused
+   entry as the stepped levels require (once a level substep), K1, K3 and
+   K6 on the last step's inputs against their plain versions (K1 and K3
+   with M any field's stencil max; K6 as in phase 50 on each level's last
+   call, the level's rows as ``u[l].T``, and timed on the finest level's
+   rows), gas + stars mass to
    rel 1e-5, stars above levelmin, each SN fired once; s a coarse step by
    part and the device's busy share;
 52. kinetic feedback (``f_w`` = 1) on the blob at 6 / 7, every pass's
@@ -380,9 +388,12 @@ Phases, each printing its own line; any failure exits non-zero:
 54. ``namelists/cosmo_gal.nml`` through ``run_cli`` in process, as shipped
    but its 64³ ICs (written by the port's ``write_zeldovich_ics``) and
    ``nstepmax``: the state finite, the cooling tables rebuilt as aexp
-   moves, gas + particle mass kept; stars, aexp and s a step by part.
+   moves, gas + particle mass kept, K6's fused entry (never its march)
+   with the epoch's scales a device tensor, checked as in phase 50 on the
+   last call's rows; stars, aexp and s a step by part.
    Phases 52-54 write under a ``tempfile.mkdtemp`` directory, removed at
-   the end; the K6 row's launches are phases 50, 51 and 54's;
+   the end; the K6 row's launches are phases 50, 51 and 54's (both
+   entries); its times are the fused entry's at phase 50;
 55. the device migrate: config 2 from one initial state for 10 coarse
    steps with ``device_regrid`` on and off, after every regrid the trees'
    keys and every level's ``u`` bitwise equal, ``build_prolong_maps``
@@ -404,9 +415,12 @@ Phases, each printing its own line; any failure exits non-zero:
 57. radiative transfer, the kernels: K8 (``csrc/rt_m1.cu``) against its
    plain version on random f64 states, its dense entry in 1D, 2D and 3D,
    periodic and outflow, 1 to 3 groups, with and without beams, on sizes
-   ragged against its blocks, and its block entry on random gathered
-   stencils (only the octs' rows written), every value within 1e-13 × the
-   field's max over the cell's 3^d stencil; K9 (``csrc/rt_chem.cu``) gray
+   ragged against its 32 × 8 tiles and with fewer than three x planes,
+   its chunks of x planes (1, 2, 3 and all 37) bitwise the launch's own
+   choice, and its block entry on random gathered stencils, the last
+   block's octs ragged (only the octs' rows written), every value within
+   1e-13 × the field's max over the cell's 3^d stencil; K9
+   (``csrc/rt_chem.cu``) gray
    and 3-ion (1 to 8 groups), with and without the UV background, heating
    on and off, on 1,000,003 random cells (N 1e-30 to 1e-5, T 10 to 1e6 K),
    every value within rel 1e-12;
@@ -417,7 +431,8 @@ Phases, each printing its own line; any failure exits non-zero:
    within rel 0.3 of the analytic Strömgren growth; the RT wall, ms a
    substep, a 40-substep window's device busy share; K8 and K9 timed on
    the final state beside their plain versions and bounds (bytes at
-   3.35 TB/s or f64 operations at 33.5 TFLOP/s, pow and exp one each);
+   3.35 TB/s or f64 operations unfused at 16.75e12/s, pow and exp one
+   each);
 59. ``iliev1``, ``rad_beams``, ``stromgren2d``, ``stromgren3`` and
    ``twin_rad_src`` through the CLI in process as shipped, each run's
    substeps and launches (K9 none under ``rt_pp``); ``iliev1.nml`` at 128³
@@ -473,6 +488,7 @@ beside it, the script fails before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -612,13 +628,18 @@ def _stencil_scale(x, nd: int = 3, periodic: bool = True):
 
 def _ptxas_report(log: str) -> str:
     """Registers and spill stores of each kernel entry, from nvcc's
-    ``-Xptxas -v`` report."""
+    ``-Xptxas -v`` report: each entry's first figures after its
+    "Compiling entry function" line (the functions it calls report their
+    own frames after them)."""
     import re
-    names = re.findall(r"Compiling entry function '([^']+)'", log)
-    regs = re.findall(r"Used (\d+) registers", log)
-    spills = re.findall(r"(\d+) bytes spill stores", log)
-    return "; ".join(f"{n}: {r} registers, {sp} B spill stores"
-                     for n, r, sp in zip(names, regs, spills))
+    out = []
+    for part in log.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        out.append(f"{name}: {regs.group(1) if regs else '?'} registers, "
+                   f"{spill.group(1) if spill else '?'} B spill stores")
+    return "; ".join(out)
 
 
 def _sweep_bytes(c: int, n: int, outs) -> int:
@@ -759,7 +780,8 @@ def _reset_counts():
     from ramses_tpu_torch.pm import clumps
     from ramses_tpu_torch.rt import chem as rt_chem
     from ramses_tpu_torch.rt import m1 as rt_m1
-    cooling.launches = device_regrid.launches = clumps.launches = 0
+    cooling.launches = cooling.step_launches = 0
+    device_regrid.launches = clumps.launches = 0
     rt_m1.launches = rt_m1.block_launches = rt_chem.launches = 0
     fm.launches = fm.flux_launches = 0
     fm.padded_launches = fm.padded_flux_launches = 0
@@ -771,8 +793,9 @@ def _reset_counts():
 def _counts() -> dict:
     """Every kernel's launch count, the flux variants under their own
     keys (``fused_muscl_flux``, ``tile_sweep_flux``, ``oct_sweep_flux``)
-    and K1's padded entry under ``fused_muscl_padded(_flux)``; K8's block
-    entry under ``rt_m1_block``; K10 under ``watershed``."""
+    and K1's padded entry under ``fused_muscl_padded(_flux)``; K6's fused
+    entry under ``cooling_step``; K8's block entry under ``rt_m1_block``;
+    K10 under ``watershed``."""
     from ramses_tpu_torch.hydro import cooling
     from ramses_tpu_torch.hydro import fused_muscl as fm
     from ramses_tpu_torch.hydro import oct_muscl as om
@@ -786,6 +809,7 @@ def _counts() -> dict:
             "fused_muscl_padded_flux": fm.padded_flux_launches,
             **om.launches, "ct_step_slab": ct_slab.launches,
             "halo_exchange": dma_halo.launches, "cooling": cooling.launches,
+            "cooling_step": cooling.step_launches,
             "rt_m1": rt_m1.launches, "rt_m1_block": rt_m1.block_launches,
             "rt_chem": rt_chem.launches, "watershed": clumps.launches}
 
@@ -5763,27 +5787,33 @@ def _sf_blob(lmin: int, lmax: int, d_in=10.0, p_in=100.0, tend=0.01,
 
 
 def _record_k6(store: dict, order=None):
-    """Wrap K6's wrapper so that its calls record device copies of their
-    inputs in ``store``, then launch as before: under the key "last" the
-    latest call, or with ``order`` (the level of each call, in call order)
-    each level's latest call under its level.  Returns the function that
-    restores it."""
+    """Wrap K6's fused entry (``cooling._fused_step``, which
+    ``cooling_step`` launches for what ``fused_supports`` takes) so that
+    its calls record device copies of their inputs in ``store``, then
+    launch as before: under the key "last" the latest call, or with
+    ``order`` (the level of each call, in call order) each level's latest
+    call under its level.  A record is ``(tables, u, spec, dt, cfg,
+    scales)``, ``u`` laid out as the caller handed it (a level's rows as
+    ``u[l].T``).  Returns the function that restores it."""
     import torch
     from ramses_tpu_torch.hydro import cooling as pc
-    k6 = pc.solve_cooling
+    k6 = pc._fused_step
     calls = [0]
 
-    def rec(tables, nH, T2, zsolar, boost, dt_s, want_iters=False):
+    def kept(a):
+        return a.clone() if torch.is_tensor(a) else a
+
+    def rec(u, tables, spec, dt, cfg, t2_floor, scales, inplace):
+        if t2_floor is not None:
+            raise AssertionError("K6's record keeps no given t2_floor")
         key = "last" if order is None else order[calls[0]]
         calls[0] += 1
-        store[key] = (tables,) + tuple(
-            a.clone() if torch.is_tensor(a) else a
-            for a in (nH, T2, zsolar, boost, dt_s))
-        return k6(tables, nH, T2, zsolar, boost, dt_s, want_iters)
-    pc.solve_cooling = rec
+        store[key] = (tables, u.clone(), spec, kept(dt), cfg, kept(scales))
+        return k6(u, tables, spec, dt, cfg, t2_floor, scales, inplace)
+    pc._fused_step = rec
 
     def restore():
-        pc.solve_cooling = k6
+        pc._fused_step = k6
     return restore
 
 
@@ -6027,6 +6057,156 @@ def _k6_line(r: dict) -> str:
             f"{K6_F64_REL:g}, each within ten times its conditioning move)")
 
 
+def _k6_step_ops(rec) -> int:
+    """The plain version's operations of cooling_step's conversions on a
+    recorded state (everything but the march), as ``_count_ops`` counts
+    them."""
+    from ramses_tpu_torch.hydro import cooling as pc
+    tabs, u, spec, dt, cfg, scales = rec
+
+    def conversions():
+        p = pc.cooling_inputs(u, spec, dt, cfg, scales=scales)
+        eint = pc.cooling_energy(p["T2"], p, spec, cfg, scales)
+        return eint + p["ekin"] + p["eother"]
+    return _count_ops(conversions, ("exp",))
+
+
+def _k6_step_check(rec, what: str, ops_per_iter: float,
+                   time_it: bool = False, plain_reps: int = 3) -> dict:
+    """K6's fused entry on one recorded call's state (:func:`_record_k6`)
+    against its plain version (``cooling_step_ref``) on the card, in the
+    state's type and again with the state in f64: the E row per cell,
+    |ΔE| over the plain new thermal energy, within K6's gates (f32 rel
+    2e-5, f64 rel 1e-10), or within ten times the march's conditioning
+    move at the cell (:func:`_conditioning_move` on the march's inputs)
+    plus two ulps of E (the last add's rounding), with at most
+    ``K6_F32_CONDITIONED`` of the f32 cells in that second form; every
+    other row untouched; one launch of the fused entry a call.  Then K6's
+    march on that state's march inputs (:func:`_k6_check`).  With
+    ``time_it``, the fused entry's device ms, the plain version's, the
+    torch passes around the march entry (the route before the fused
+    entry), and the bound.  Returns the readings, the march's under
+    "march"."""
+    import torch
+    from ramses_tpu_torch.hydro import cooling as pc
+    tabs, u, spec, dt, cfg, scales = rec
+    e = cfg.ndim + 1
+    n = u[0].numel()
+    keep = [k for k in range(u.shape[0]) if k != e]
+    out = {}
+    for dtype in dict.fromkeys((u.dtype, torch.float64)):
+        def cast(x):
+            return x.to(dtype) if torch.is_tensor(x) else x
+        uu, dd, ss = cast(u), cast(dt), cast(scales)
+        if not pc.fused_supports(spec):
+            raise AssertionError(f"{what}: K6's fused entry does not take "
+                                 f"the recorded configuration")
+        n0 = pc.step_launches
+        got = pc.cooling_step(uu, tabs, spec, dd, cfg, scales=ss)
+        want = pc.cooling_step_ref(uu, tabs, spec, dd, cfg, scales=ss)
+        if pc.step_launches != n0 + 1 or not torch.equal(got[keep],
+                                                          uu[keep]):
+            raise AssertionError(f"{what}: K6's fused entry launched "
+                                 f"{pc.step_launches - n0} times or wrote "
+                                 f"past the E row")
+        p = pc.cooling_inputs(uu, spec, dd, cfg, scales=ss)
+        args = (p["nH"], p["T2"], p["zsolar"], p["boost"], p["dt_s"])
+        T2n = pc.solve_cooling_ref(tabs, *args)
+        eint = pc.cooling_energy(T2n, p, spec, cfg, ss)
+        err = (got[e] - want[e]).abs().reshape(-1)
+        rel = err / eint.abs().reshape(-1)
+        f64 = dtype == torch.float64
+        tol = K6_F64_REL if f64 else RTOL
+        bad = torch.nonzero(rel > tol).reshape(-1)
+        nbad = int(bad.numel())
+        if nbad:
+            ks, ulp = (((1, -2, 4, -8, 16, -64), 1.1e-16) if f64
+                       else ((1, -1, 2, -2, 4, -4), 2.0 ** -23))
+            mv = _conditioning_move(tabs, args, T2n, bad, ks, ulp)
+            slack = (2 * torch.finfo(dtype).eps * want[e].abs().reshape(-1)
+                     / eint.abs().reshape(-1))[bad]
+            over = rel[bad] > torch.clamp(10 * mv, min=tol) + slack
+            if bool(over.any()) or (not f64
+                                    and nbad > K6_F32_CONDITIONED * n):
+                c = int(bad[int(torch.argmax(rel[bad]))])
+                raise AssertionError(
+                    f"{what}: K6's fused entry in {dtype} disagrees with "
+                    f"cooling_step: {nbad} of {n} cells past {tol:g}; cell "
+                    f"{c} rel {float(rel[c]):.3e}")
+        out[str(dtype).split(".")[-1]] = dict(
+            rel=float(rel.max()), past=nbad, max_abs_err=float(err.max()),
+            equal=int((got[e] == want[e]).sum()))
+        del got, want, p, args, T2n, eint
+    march_rec = (tabs, *(pc.cooling_inputs(u, spec, dt, cfg,
+                                           scales=scales)[k]
+                         for k in ("nH", "T2", "zsolar", "boost", "dt_s")))
+    march = _k6_check(march_rec, f"{what} march", ops_per_iter,
+                      time_it=time_it, plain_reps=plain_reps)
+    r = dict(n=n, march=march, max_abs_err=max(
+        march["max_abs_err"], out[str(u.dtype).split(".")[-1]]["max_abs_err"]),
+        **{f"fused_{k}": v for k, v in out.items()})
+    if time_it:
+        # the entry alone: its E row into a copy of the state, which the
+        # wrapper (not in place) would make on every call
+        out = u.clone()
+        lib = pc._library()
+        stream = torch.cuda.current_stream().cuda_stream
+        r["ms"] = _device_ms(
+            lambda: pc.call_step(lib, u, out, tabs, spec, dt, cfg, scales,
+                                 stream),
+            "ramses_cooling::step_kernel", n=20)
+        del out
+        r["plain_ms"] = _median_ms(
+            lambda: pc.cooling_step_ref(u, tabs, spec, dt, cfg,
+                                        scales=scales),
+            reps=plain_reps, warm=1)
+        def torch_route():
+            # the pass as torch passes around the march entry (the route
+            # before the fused entry)
+            p = pc.cooling_inputs(u, spec, dt, cfg, scales=scales)
+            T2n = pc.solve_cooling(tabs, p["nH"], p["T2"], p["zsolar"],
+                                   p["boost"], p["dt_s"])
+            o = u.clone()
+            o[cfg.ndim + 1] = (pc.cooling_energy(T2n, p, spec, cfg, scales)
+                               + p["ekin"] + p["eother"])
+            return o
+        r["torch_route_ms"] = _median_ms(torch_route, reps=10)
+        size = u.element_size()
+        tables = sum(t.numel() * t.element_size()
+                     for t in tabs.packed(u.dtype))
+        nbytes = size * n * (cfg.ndim + 3 + cfg.nener) + tables
+        nops = (ops_per_iter * march["iters_mean"] * n + _k6_step_ops(rec))
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * nops / F32_UNFUSED_OPS_PER_S
+        r.update(bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+                 ops_ms=ops_ms, nbytes=nbytes, nops=nops,
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    torch.cuda.empty_cache()
+    return r
+
+
+def _k6_step_timing(r: dict, ops_per_iter: float) -> str:
+    return (f"{r['ms']:.4f} ms/launch, plain version (cooling_step_ref) "
+            f"{r['plain_ms']:.4f} ms, the torch passes around the march "
+            f"entry {r['torch_route_ms']:.4f} ms (a synchronised call), bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} (bytes "
+            f"{r['bytes_ms']:.4f} ms for {r['nbytes'] / 1e9:.4f} GB: the "
+            f"state's rows in, E out, the tables; operations "
+            f"{r['ops_ms']:.4f} ms for {r['nops'] / 1e9:.4f} G: the march at "
+            f"{ops_per_iter:.1f} a cell and iteration and the conversions, "
+            f"unfused f32 at {F32_UNFUSED_OPS_PER_S:.3g}/s), "
+            f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound")
+
+
+def _k6_step_line(r: dict) -> str:
+    fused = "; ".join(
+        f"{k[6:]}: E rel max {v['rel']:.3e}, {v['past']} cells past the "
+        f"gate's first form, {v['equal']} of {r['n']} bitwise"
+        for k, v in r.items() if k.startswith("fused_"))
+    return (f"fused entry against cooling_step_ref ({fused}); the march on "
+            f"the state's march inputs: {_k6_line(r['march'])}")
+
+
 def _cooling_phases(dev, card: str) -> dict:
     """Phases 50-54; returns the K6 row and the main paths' launches."""
     import shutil
@@ -6037,17 +6217,19 @@ def _cooling_phases(dev, card: str) -> dict:
     _print(f"phase 50 K6 where the march is long, on {card}: "
            f"{K6_MARCH_CELLS} random cells (z = 0 tables, dt 3e15 s, f32): "
            f"{_k6_timing(march, ops)}; {_k6_line(march)}")
-    l51 = _sf_amr_phase(dev, card, ops)
+    l51, e51 = _sf_amr_phase(dev, card, ops)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sf_")
     try:
         _feedback_stellar_phase(card, tmp)
         _sf_uniform_phase(card, tmp)
-        l54 = _cosmo_gal_phase(card, tmp)
+        l54, e54 = _cosmo_gal_phase(card, tmp, ops)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out = {k: l50.get(k, 0) + l51.get(k, 0) + l54.get(k, 0)
-           for k in ("fused_muscl", "tile_sweep", "cooling")}
-    row["launches"] = out["cooling"]
+           for k in ("fused_muscl", "tile_sweep", "cooling", "cooling_step")}
+    # K6's two entries: the march and the fused pass the main paths take
+    row["launches"] = out["cooling"] + out["cooling_step"]
+    row["max_abs_err"] = max(row["max_abs_err"], e51, e54)
     return dict(out, row=row)
 
 
@@ -6072,7 +6254,7 @@ def _cool_uniform_phase(dev, card: str, ops_per_iter: float):
     import torch
     from ramses_tpu_torch.config import params_from_string
     from ramses_tpu_torch.driver import Simulation
-    from ramses_tpu_torch.grid.uniform import run_steps_cool
+    from ramses_tpu_torch.grid.uniform import cfl_dt, run_steps_cool
     text = open(NML).read()
     text = re.sub(r"levelmin=\d+", f"levelmin={COOL_LEVEL}", text)
     text = re.sub(r"levelmax=\d+", f"levelmax={COOL_LEVEL}", text)
@@ -6118,18 +6300,25 @@ def _cool_uniform_phase(dev, card: str, ops_per_iter: float):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     if not (a.nstep == COOL_STEPS and launches == _want(
-            fused_muscl=COOL_STEPS, cooling=COOL_STEPS) and finite and same
-            and e_cool < e_adia):
+            fused_muscl=COOL_STEPS, cooling_step=COOL_STEPS) and finite
+            and same and e_cool < e_adia):
         raise AssertionError(
             f"phase 50 sedov3d with cooling at 256³: {a.nstep} steps, "
             f"launches {launches}, finite {finite}, replay bitwise {same}, "
             f"thermal energy above 1e4 K {e_cool} against the adiabatic "
             f"run's {e_adia} (total energies {tot})")
-    r = _k6_check(store["last"], "phase 50", ops_per_iter, time_it=True)
+    r = _k6_step_check(store["last"], "phase 50", ops_per_iter,
+                       time_it=True)
+    # the cooled step's other passes beside K1 and K6: the Courant dt of
+    # the cooled state (torch) and the active mask's select
+    u = a.state.u
+    courant_ms = _median_ms(lambda: cfl_dt(a.grid, u), reps=10)
+    where_ms = _median_ms(lambda: torch.where(t0 < tend, u, u), reps=10)
     spread = _k6_f32_spread(dev)
     _print(f"phase 50 config 1 with cooling on {card}: sedov3d "
            f"{a.grid.shape} f32, ISM units, {COOL_STEPS} steps through "
-           f"Simulation (run_steps_cool: K1, then cooling_step with K6): "
+           f"Simulation (run_steps_cool: K1, then cooling_step through "
+           f"K6's fused entry): "
            f"launches {launches}; no host sync in 2 steps under sync debug "
            f"'error'; a replay bitwise; thermal energy of the gas above "
            f"1e4 K {e_cool:.9e} against {e_adia:.9e} in the adiabatic run "
@@ -6137,14 +6326,20 @@ def _cool_uniform_phase(dev, card: str, ops_per_iter: float):
            f"{tot[1]:.9e}: the T2_MIN clip heats the 1e-3 K ambient); "
            f"{1e3 * wall_b / COOL_STEPS:.4f} ms a step with cooling "
            f"(the replay), {1e3 * wall_c / COOL_STEPS:.4f} ms without "
-           f"(run_steps on K1 with its Courant min); K6 on the last step's "
-           f"recorded inputs: {_k6_timing(r, ops_per_iter)}; "
-           f"{_k6_line(r)}; the plain version in f32 against f64 "
+           f"(run_steps on K1 with its Courant min); in the cooled step, "
+           f"the Courant pass on the cooled state (cfl_dt, torch) "
+           f"{courant_ms:.4f} ms and the active mask's where {where_ms:.4f} "
+           f"ms (synchronised calls); K6's fused entry on the "
+           f"last step's recorded state: {_k6_step_timing(r, ops_per_iter)}; "
+           f"its march entry on that state's march inputs: "
+           f"{_k6_timing(r['march'], ops_per_iter)}; "
+           f"{_k6_step_line(r)}; the plain version in f32 against f64 "
            f"on random cells (dt 3e15 s): {spread}; library call: none")
     row = {"name": "cooling", "route": "cuda",
            "source": "ramses_tpu_torch/csrc/cooling.cu",
            "replaces": "ramses_tpu/hydro/cooling.py:373 (solve_cooling's "
-                       "lax.while_loop; no pallas_call)",
+                       "lax.while_loop, and cooling_step's conversions; no "
+                       "pallas_call)",
            "launches": 0, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
            "bound_by": r["bound_by"], "library_ms": None}
@@ -6210,8 +6405,8 @@ def _sf_amr_phase(dev, card: str, ops_per_iter: float) -> dict:
     wall = time.perf_counter() - t0
     launches = _counts()
     want = _cosmo_want(stepped, lmin)
-    want["cooling"] = sum(2 ** (l - lmin) for levels, _, _ in stepped
-                          for l in levels)
+    want["cooling_step"] = sum(2 ** (l - lmin) for levels, _, _ in stepped
+                               for l in levels)
     f = {k: v.cpu().numpy() for k, v in (("m", sim.p.m), ("x", sim.p.x),
                                           ("act", sim.p.active),
                                           ("flags", sim.p.flags),
@@ -6253,8 +6448,9 @@ def _sf_amr_phase(dev, card: str, ops_per_iter: float) -> dict:
     line = _last_step_check(sim, recorded, stepped[-1], "phase 51",
                             any_field=True)
     finest = max(k6rec)
-    k6 = {l: _k6_check(r, f"phase 51 level {l}", ops_per_iter,
-                       time_it=l == finest) for l, r in sorted(k6rec.items())}
+    k6 = {l: _k6_step_check(r, f"phase 51 level {l}", ops_per_iter,
+                            time_it=l == finest)
+          for l, r in sorted(k6rec.items())}
     stats = {}
     prof = _profile(lambda: (sim.regrid(), sim.step_coarse(
         sim.coarse_dt())), os.path.join(ROOT, "chiprun_out"), name=None,
@@ -6262,14 +6458,18 @@ def _sf_amr_phase(dev, card: str, ops_per_iter: float) -> dict:
     _print(f"phase 51 K1 and K3 on the last coarse step's inputs against "
            f"their plain versions within LOCAL_ATOL + LOCAL_RTOL·M, M any "
            f"field's stencil max: {line}; "
-           f"K6 on each level's last-step inputs: "
-           + "; ".join(f"level {l}: {_k6_line(r)}" for l, r in k6.items())
-           + f"; K6 timed on level {finest}'s rows: "
-           f"{_k6_timing(k6[finest], ops_per_iter)}"
+           f"K6 on each level's last-step rows (u[l].T as the hierarchy "
+           f"hands them over): "
+           + "; ".join(f"level {l}: {_k6_step_line(r)}"
+                       for l, r in k6.items())
+           + f"; K6's fused entry timed on level {finest}'s rows: "
+           f"{_k6_step_timing(k6[finest], ops_per_iter)}; its march entry "
+           f"on their march inputs: "
+           f"{_k6_timing(k6[finest]['march'], ops_per_iter)}"
            + f"; one more coarse step under the profiler: {prof}")
     del sim
     torch.cuda.empty_cache()
-    return launches
+    return launches, max(r["max_abs_err"] for r in k6.values())
 
 
 def _feedback_stellar_phase(card: str, tmp: str):
@@ -6430,10 +6630,12 @@ def _sf_uniform_phase(card: str, tmp: str):
     torch.cuda.empty_cache()
 
 
-def _cosmo_gal_phase(card: str, tmp: str) -> dict:
+def _cosmo_gal_phase(card: str, tmp: str, ops_per_iter: float):
     """Phase 54: ``namelists/cosmo_gal.nml`` as shipped but its ICs (64³,
     written by the port's ``write_zeldovich_ics``) and ``nstepmax``,
-    through the CLI in process; returns the launches."""
+    through the CLI in process, K6's fused entry on the last cooling call's
+    rows (the epoch's scales a device tensor) against ``cooling_step``;
+    returns the launches and K6's largest error."""
     import torch
     from ramses_tpu_torch.amr import hierarchy as H
     from ramses_tpu_torch.hydro import cooling as pc
@@ -6471,20 +6673,23 @@ def _cosmo_gal_phase(card: str, tmp: str) -> dict:
         "SF": (ap, "star_formation_amr"),
         "feedback": (ap, "thermal_feedback_amr")})
     H.AmrSim.step_coarse = logged
+    store = {}
     torch.cuda.synchronize()
     _reset_counts()
+    rec = _record_k6(store)
     try:
         sim, wall = _cli_in_process([nml, "--ndim", "3"], run_dir)
     finally:
         H.AmrSim.step_coarse = step_coarse
         restore()
+        rec()
     launches = _counts()
     m0 = masses[0] if masses else 0.0
     bad = [i for i, ok in enumerate(finite) if not ok]
     ok = (sim.nstep == GAL_STEPS and not bad and sim.cool_tabulations >= 2
           and all(abs(m - m0) <= 1e-5 * m0 for m in masses)
-          and launches["cooling"] > 0 and os.path.isdir(
-              os.path.join(run_dir, "output_00001")))
+          and launches["cooling_step"] > 0 and launches["cooling"] == 0
+          and os.path.isdir(os.path.join(run_dir, "output_00001")))
     if not ok:
         raise AssertionError(
             f"phase 54 cosmo_gal.nml: {sim.nstep} steps, non-finite after "
@@ -6494,7 +6699,8 @@ def _cosmo_gal_phase(card: str, tmp: str) -> dict:
     _print(f"phase 54 cosmo_gal.nml through the CLI on {card} (run_cli in "
            f"process, f32, as shipped but its {2 ** GAL_LEVEL}³ ICs (min "
            f"1+δ {pos:.3f}) and nstepmax={GAL_STEPS}; pressure_fix: the "
-           f"general hydro formulation, cooling through K6): "
+           f"general hydro formulation, cooling through K6's fused "
+           f"entry): "
            f"{sim.cosmo_line()}, "
            f"{sim.n_stars()} stars, in {wall:.3f} s; tables built "
            f"{sim.cool_tabulations} times; total mass (gas + particles) "
@@ -6502,9 +6708,13 @@ def _cosmo_gal_phase(card: str, tmp: str) -> dict:
            f"coarse step {[round(w, 3) for w in walls]}, by part "
            f"(synchronised): " + ", ".join(f"{k} {v / n:.4f}"
                                            for k, v in acc.items()))
-    del sim
+    k6 = _k6_step_check(store["last"], "phase 54", ops_per_iter)
+    _print(f"phase 54 K6 on the last cooling call's rows "
+           f"{tuple(store['last'][1].shape)} (scales a device tensor): "
+           f"{_k6_step_line(k6)}")
+    del sim, store
     torch.cuda.empty_cache()
-    return launches
+    return launches, k6["max_abs_err"]
 
 
 # ---------------------------------------------------------------------------
@@ -6981,6 +7191,9 @@ def _noncubic_phases(dev, card: str, rg: dict, rate8: float) -> dict:
 # ---------------------------------------------------------------------------
 
 F64_OPS_PER_S = 33.5e12        # H100 SXM f64 outside the tensor cores
+# K8 and K9 are built with -fmad=false, so their adds and multiplies issue
+# apart: half the f64 rate that counts an FMA as two operations
+F64_UNFUSED_OPS_PER_S = F64_OPS_PER_S / 2
 # K8 (+, -, *, /, sqrt only) and K9 are built with -fmad=false and round
 # where their plain versions do on the card: K8 every value within 1e-13 ×
 # the field's max over the cell's 3^d stencil, K9 within rel 1e-12
@@ -7144,7 +7357,9 @@ def _rt_kernel_phase(dev, card: str) -> dict:
              ((9, 14), 1, False, False), ((45, 70), 3, True, True),
              ((5, 7, 6), 1, True, True), ((37, 29, 41), 3, False, False),
              ((37, 29, 41), 1, True, True), ((1, 4, 3), 2, True, False),
-             ((64, 64, 64), 1, False, True)]
+             ((64, 64, 64), 1, False, True), ((300,), 1, True, True),
+             ((19, 45), 3, True, False), ((2, 9, 33), 3, False, False),
+             ((7, 37, 41), 3, True, True)]
     for i, (shape, ng, periodic, beams) in enumerate(dense):
         U, src, srcF = [None if t is None else t.to(dev)
                         for t in _rt_state(shape, ng, c_red, 70 + i, beams)]
@@ -7155,8 +7370,26 @@ def _rt_kernel_phase(dev, card: str) -> dict:
                          f"dense entry {shape} ng={ng} periodic={periodic} "
                          f"beams={beams}")
         err8, ratio8 = max(err8, e), max(ratio8, r)
+    # the dense entry's chunks of x planes (a 3D block marches one chunk,
+    # as many chunks as keep every block resident): copies of one group
+    # give the group's own bits, 1 to 128 groups cutting x from one plane
+    # a block to the whole box
+    U, src, srcF = [t.to(dev) for t in _rt_state((37, 29, 41), 1, c_red, 89,
+                                                 True)]
+    one = m1.transport(U, dt, dx, c_red, 3, True, src, srcF)
+    for ng in (2, 4, 8, 32, 128):
+        got = m1.transport(U.repeat(ng, 1, 1, 1, 1), dt, dx, c_red, 3, True,
+                           src.repeat(ng, 1, 1, 1),
+                           srcF.repeat(ng, 1, 1, 1, 1))
+        if not all(torch.equal(g, one[0]) for g in got):
+            raise AssertionError(f"phase 57: K8's dense entry differs "
+                                 f"between one group and {ng} copies of it "
+                                 f"(its chunks of x planes)")
+    del one, got, U, src, srcF
     for i, (nd, ng, noct) in enumerate(((1, 1, 7), (2, 3, 500),
-                                        (3, 1, 4099), (3, 2, 3000))):
+                                        (3, 1, 4099), (3, 2, 3000),
+                                        (3, 3, 33), (2, 2, 130),
+                                        (1, 3, 300))):
         e, r = _k8_block_check(dev, nd, ng, noct, 90 + i)
         err8, ratio8 = max(err8, e), max(ratio8, r)
     g, h = uv_rates(1.0, 1.0)
@@ -7202,7 +7435,10 @@ def _rt_kernel_phase(dev, card: str) -> dict:
     torch.cuda.synchronize()
     _print(f"phase 57 RT kernels against their plain versions on {card}: "
            f"K8 dense entry {len(dense)} cases (1D/2D/3D, periodic and "
-           f"outflow, ng 1-3, beams, ragged), block entry 4 cases; max abs "
+           f"outflow, ng 1-3, beams, ragged against its tiles, fewer than "
+           f"three x planes) and its x chunks bitwise alike (1 to 128 "
+           f"copies of a group at 37 x 29 x 41), block entry 7 cases (the "
+           f"last block's octs ragged); max abs "
            f"err {err8:.3e}, worst err / (1e-13 M) {ratio8:.3e}; K9 gray 3 "
            f"cases and 3-ion 4 cases (ng 1-8, UV, heating on/off) on "
            f"{RT_K9_CELLS} / {RT_K9_CELLS // 2} random cells: max abs err "
@@ -7213,10 +7449,39 @@ def _rt_kernel_phase(dev, card: str) -> dict:
 
 def _rt_bound(nbytes: float, nops: float) -> dict:
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * nops / F64_OPS_PER_S
+    ops_ms = 1e3 * nops / F64_UNFUSED_OPS_PER_S
     return dict(bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
                 ops_ms=ops_ms, nbytes=nbytes, nops=nops,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _k8_ops(U, src=None, src_F=None) -> int:
+    """The operations of K8's dense entry as the function needs them,
+    each counted as ``_count_ops`` counts the plain version's (an
+    elementwise operation a value, a power one), but with one closure a
+    cell (the plain version forms three a padded cell, each the whole
+    pressure tensor), row d of P for axis d, and each face once.  A cell's
+    closure 2nd + 21: the N clamp, |F|² (nd squares and adds), f² (a
+    multiply, a square, a divide, a clamp), chi 9, iterm 2, oterm 3,
+    1/|F|² 2; at the cells and their face neighbours.  A flux row 5nd + 1
+    (F_d F_j times 1/|F|², times oterm, iterm on the diagonal, times N,
+    times c²) at the cells and the two neighbours along its axis.  A face
+    5 (1 + nd): a component's flux sum, its half, the jump in U, its c/2
+    multiple, the difference.  A cell and axis 3 (1 + nd): the faces'
+    difference, times dt/dx, into the increment.  The finish 4nd + 8: N +
+    dN and its clamp, F + dF, the limiter (|F| 2nd + 1, c N, the
+    comparison, the clamp, the divide, the select, F times the scale).
+    The sources two a value."""
+    ng, nd = U.shape[0], U.shape[1] - 1
+    sp = U.shape[2:]
+    cells = math.prod(sp)
+    side = [cells // n for n in sp]       # the cells of a plane across d
+    n = (cells + 2 * sum(side)) * (2 * nd + 21) \
+        + sum(cells + 2 * a for a in side) * (5 * nd + 1) \
+        + sum(cells + a for a in side) * 5 * (1 + nd) \
+        + cells * nd * 3 * (1 + nd) + cells * (4 * nd + 8)
+    n += 2 * cells * ((src is not None) + nd * (src_F is not None))
+    return ng * n
 
 
 def _rt_timing(r: dict) -> str:
@@ -7224,8 +7489,10 @@ def _rt_timing(r: dict) -> str:
             f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} (bytes "
             f"{r['bytes_ms']:.4f} ms for {r['nbytes'] / 1e6:.1f} MB; "
             f"operations {r['ops_ms']:.4f} ms for {r['nops'] / 1e9:.4f} G "
-            f"f64 at {F64_OPS_PER_S:.3g}/s), "
-            f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound")
+            f"f64, unfused at {F64_UNFUSED_OPS_PER_S:.3g}/s), "
+            f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound: "
+            f"{100 * r['bytes_ms'] / r['ms']:.1f} % of the bytes' time, "
+            f"{100 * r['ops_ms'] / r['ms']:.1f} % of the operations'")
 
 
 RT_OPS = ("pow", "exp")           # counted as one operation each
@@ -7259,8 +7526,9 @@ def _rt_time_kernels(rs) -> tuple:
               ms=_device_ms(k8, "rt_m1::dense_kernel", n=30,
                             launched=lambda: m1.launches),
               plain_ms=_median_ms(plain8, reps=5, warm=1),
+              plain_ops=_count_ops(plain8, RT_OPS),
               **_rt_bound(8 * (2 * U.numel() + src.numel()),
-                          _count_ops(plain8, RT_OPS)))
+                          _k8_ops(U, src)))
     n = U[0, 0].numel()
     x, T, nH = (a.reshape(-1) for a in (rs.x, rs.T, rs.nH))
     N0 = U.reshape(-1, 1 + nd, n)[0, 0].clone()
@@ -7367,8 +7635,10 @@ def _stromgren_phase(dev, card: str, tmp: str) -> dict:
            f"{st['ratio']:.6f}); x²-weighted ionized volume {v_got:.6e} "
            f"cm³ against the Strömgren {v_exp:.6e} (rel "
            f"{v_got / v_exp - 1.0:+.4f}, T_ion {t_ion:.1f} K)")
-    _print(f"phase 58 K8 on the final state: {_rt_timing(r8)}; against "
-           f"plain: max abs err {r8['max_abs_err']:.3e}, worst err / "
+    _print(f"phase 58 K8 on the final state: {_rt_timing(r8)} (the "
+           f"operations as the function needs them, one closure a cell; "
+           f"the plain version performs {r8['plain_ops'] / 1e9:.4f} G); "
+           f"against plain: max abs err {r8['max_abs_err']:.3e}, worst err / "
            f"(1e-13 M) {r8['ratio']:.3e}; library call: none (no PyTorch "
            f"call computes an M1 step)")
     _print(f"phase 58 K9 on the final state: {_rt_timing(r9)}; against "

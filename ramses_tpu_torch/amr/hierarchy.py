@@ -288,10 +288,12 @@ def _advance(u, dev, dt, spec: FusedSpec, fg=None, cool=None):
         if spec.cool is not None:
             # cooling_fine follows godunov_fine at every level substep
             # (amr/amr_step.f90:448-474); pointwise, so the flat rows
-            # transpose straight into the dense-state pass (K6 on the card)
+            # transpose straight into the dense-state pass (K6's fused
+            # entry on the card), which rewrites the E column of this
+            # step's own rows in place
             tabs, scl = cool
             u[l] = cooling_step(u[l].T, tabs, spec.cool, dtl, cfg,
-                                scales=scl).T
+                                scales=scl, inplace=True).T
         if i + 1 < len(levels):
             u[l] = K.restrict_upload(u[l], u[levels[i + 1]], d["ref_cell"],
                                      d["son_oct"], cfg)

@@ -161,8 +161,8 @@ def run_steps_cool(grid: UniformGrid, u, t, tend, nsteps: int, tables,
     step (the ``cooling_fine`` call that follows ``godunov_fine`` in
     ``amr/amr_step.f90:448-474``): each step is :func:`step` (K1 where it
     covers the grid), then :func:`ramses_tpu_torch.hydro.cooling.
-    cooling_step` with the step's dt, both masked by ``active`` as in the
-    JAX package.  The Courant dt is recomputed from the cooled state each
+    cooling_step` with the step's dt (K6's fused entry on the card), both
+    masked by ``active`` as in the JAX package.  The Courant dt is recomputed from the cooled state each
     step; nothing is fetched.  Returns ``(u, t, n_done)`` as device
     tensors."""
     from ramses_tpu_torch.hydro.cooling import cooling_step
@@ -175,7 +175,9 @@ def run_steps_cool(grid: UniformGrid, u, t, tend, nsteps: int, tables,
         active = t < tend
         dt_eff = torch.where(active, dt, 0.0)
         un = step(grid, u, dt_eff)
-        un = cooling_step(un, tables, cspec, dt_eff.to(u.dtype), grid.cfg)
+        # the step's fresh state: its E row is rewritten in place
+        un = cooling_step(un, tables, cspec, dt_eff.to(u.dtype), grid.cfg,
+                          inplace=True)
         u = torch.where(active, un, u)
         t = torch.where(active, t + dt, t)
         ndone = ndone + active.to(torch.int64)

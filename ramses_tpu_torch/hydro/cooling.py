@@ -26,6 +26,11 @@ The ISM module (``cooling_ism``, Audit & Hennebelle 2005) runs its fixed
 length needs no fetch.  :func:`cooling_step` is the vectorised
 ``cooling_fine`` pass on a dense state ``[nvar, *sp]``; its unit scales may
 be a device tensor, so that a cosmological epoch change fetches nothing.
+On a CUDA state it is one launch of K6's fused entry (the conversions
+around the solve, the solve and the new E row; ``step_launches`` counts
+it) for what :func:`fused_supports` takes, everything but the ISM module;
+its plain version is :func:`cooling_step_ref`.  K6 reads the tables interleaved
+(:meth:`CoolingTables.interleaved`).
 
 Conventions: ``T2`` is T/mu in Kelvin; ``nH`` in H/cc; rates in
 erg cm^3 / s so that dT2/dt = -(2X/3kB) * nH * Lambda_net.
@@ -51,9 +56,11 @@ VARMAX = 4.0        # per-substep relative change bound (solve_cooling)
 T_CMB0 = 2.726
 MAX_ITER = 500      # solve_cooling's iteration cap
 
-# K6 launches since the count was last reset (the main path's proof that
-# it ran through the kernel); the plain version does not count.
+# K6 launches since the counts were last reset (the main path's proof that
+# it ran through the kernel): the march entry (solve_cooling) and the fused
+# entry (cooling_step); the plain versions do not count.
 launches = 0
+step_launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -285,6 +292,24 @@ class CoolingTables:
                    self.log_nH.to(dtype).contiguous(),
                    self.log_T2.to(dtype).contiguous())
             self._packs[dtype] = out
+        return out
+
+    def interleaved(self, dtype) -> torch.Tensor:
+        """The five table pairs interleaved for K6, ``[NBIN_N, NBIN_T - 1,
+        20]`` in ``dtype`` (cast once and kept): entry ``[i_nH, i_T2]``
+        holds, table by table (``TABLE_NAMES[:5]``), ``tab[i_nH, i_T2]``,
+        ``tab[i_nH, i_T2 + 1]``, ``tab_p[i_nH, i_T2]``, ``tab_p[i_nH, i_T2
+        + 1]``: the values one row of a cubic Hermite reads, 80 B in f32
+        (160 B in f64) in one run."""
+        out = self._packs.get((dtype, "inter"))
+        if out is None:
+            tabs = self.packed(dtype)[0]
+            val, der = tabs[:5], tabs[5:]
+            out = torch.stack([val[..., :-1], val[..., 1:], der[..., :-1],
+                               der[..., 1:]], dim=-1)     # [5, N, T-1, 4]
+            out = out.permute(1, 2, 0, 3).reshape(
+                NBIN_N, NBIN_T - 1, 20).contiguous()
+            self._packs[(dtype, "inter")] = out
         return out
 
     def divisors(self, dtype) -> tuple:
@@ -520,8 +545,21 @@ _ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
              + [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
              + [ctypes.c_double] * 10 + [ctypes.c_void_p])
+_STEP_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 4
+                  + [ctypes.c_int] * 4 + [ctypes.c_double] * 19
+                  + [ctypes.c_void_p])
 _ENTRY = {torch.float32: "ramses_cooling_f32",
           torch.float64: "ramses_cooling_f64"}
+_STEP_ENTRY = {torch.float32: "ramses_cooling_step_f32",
+               torch.float64: "ramses_cooling_step_f64"}
+
+
+def _consts(tables) -> tuple:
+    """The table constants in the order K6's entries take them."""
+    c = tables.consts()
+    return tuple(c[k] for k in ("log_nH0", "log_nH1", "dlog_nH", "log_T20",
+                                "dlog_T2", "h", "h2", "h3", "precoeff",
+                                "log_T2max"))
 
 
 def _library():
@@ -532,11 +570,12 @@ def _library():
 def bind(lib):
     """Declare the C entry points' signatures on a loaded build of
     ``csrc/cooling.cu``."""
-    for name in _ENTRY.values():
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
+    for entries, args in ((_ENTRY, _ARGTYPES), (_STEP_ENTRY, _STEP_ARGTYPES)):
+        for name in entries.values():
+            fn = getattr(lib, name)
+            if fn.argtypes is None:
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
     return lib
 
 
@@ -570,45 +609,53 @@ def _check_args(tables, nH, T2):
 
 
 def _launch(tables, nH, T2, zsolar, boost, dt_s, want_iters):
-    """One K6 launch, counted in ``launches``; raises on bad arguments and
-    when the build or the launch fails.  No cells: nothing is launched or
-    counted."""
+    """One K6 launch of the march entry, counted in ``launches``; raises on
+    bad arguments and when the build or the launch fails.  No cells:
+    nothing is launched or counted."""
     global launches
     _check_args(tables, nH, T2)
-    dtype = nH.dtype
     shape = nH.shape
-    n = nH.numel()
-    if not n:
+    if not nH.numel():
         out = torch.empty_like(nH)
         iters = torch.empty(shape, dtype=torch.int32, device=nH.device)
         return (out, iters) if want_iters else out
-    nh = nH.reshape(-1).contiguous()
-    t2 = T2.reshape(-1).contiguous()
-    zs, zs_stride = _operand(zsolar, nh, "zsolar")
-    bs, bs_stride = _operand(boost, nh, "boost")
-    dts, _ = _operand(dt_s, nh[:1], "dt_s")
-    tabs, log_nH, log_T2 = tables.packed(dtype)
-    out = torch.empty_like(nh)
-    iters = (torch.empty(n, dtype=torch.int32, device=nh.device)
-             if want_iters else None)
-    c = tables.consts()
-    lib = _library()
-    with torch.cuda.device(nh.device):
-        err = getattr(lib, _ENTRY[dtype])(
-            nh.data_ptr(), t2.data_ptr(), zs.data_ptr(), zs_stride,
-            bs.data_ptr(), bs_stride, dts.data_ptr(), tabs.data_ptr(),
-            log_nH.data_ptr(), log_T2.data_ptr(), out.data_ptr(),
-            iters.data_ptr() if iters is not None else None, n,
-            c["log_nH0"], c["log_nH1"], c["dlog_nH"], c["log_T20"],
-            c["dlog_T2"], c["h"], c["h2"], c["h3"], c["precoeff"],
-            c["log_T2max"],
-            torch.cuda.current_stream(nh.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"cooling kernel launch failed (cudaError "
-                           f"{err})")
+    with torch.cuda.device(nH.device):
+        out, iters = call(_library(), tables, nH, T2, zsolar, boost, dt_s,
+                          want_iters,
+                          torch.cuda.current_stream(nH.device).cuda_stream)
     launches += 1
     out = out.reshape(shape)
     return (out, iters.reshape(shape)) if want_iters else out
+
+
+def call(lib, tables, nH, T2, zsolar, boost, dt_s, want_iters=False,
+         stream=None):
+    """One call of the march entry (``ramses_cooling_f32``/``_f64``) in
+    the loaded build ``lib`` (the card's build on CUDA tensors, or a host
+    build of the source on CPU ones); returns the flat ``(T2 out, iters or
+    None)``; raises on the error it returns."""
+    dtype = nH.dtype
+    nh = nH.reshape(-1).contiguous()
+    t2 = T2.reshape(-1).contiguous()
+    n = nh.numel()
+    zs, zs_stride = _operand(zsolar, nh, "zsolar")
+    bs, bs_stride = _operand(boost, nh, "boost")
+    dts, _ = _operand(dt_s, nh[:1], "dt_s")
+    _, log_nH, log_T2 = tables.packed(dtype)
+    inter = tables.interleaved(dtype)
+    out = torch.empty_like(nh)
+    iters = (torch.empty(n, dtype=torch.int32, device=nh.device)
+             if want_iters else None)
+    err = getattr(lib, _ENTRY[dtype])(
+        nh.data_ptr(), t2.data_ptr(), zs.data_ptr(), zs_stride,
+        bs.data_ptr(), bs_stride, dts.data_ptr(), inter.data_ptr(),
+        log_nH.data_ptr(), log_T2.data_ptr(), out.data_ptr(),
+        iters.data_ptr() if iters is not None else None, n,
+        *_consts(tables), stream)
+    if err:
+        raise RuntimeError(f"cooling kernel launch failed (cudaError "
+                           f"{err})")
+    return out, iters
 
 
 # ----------------------------------------------------------------------
@@ -768,20 +815,24 @@ def _clip_max(x, hi: float):
     return torch.clamp(x, max=hi)
 
 
-def cooling_step(u, tables: CoolingTables, spec: CoolingSpec, dt, cfg,
-                 t2_floor=None, scales=None):
-    """Apply cooling over dt (code units) to a dense conservative state
-    ``u [nvar, *sp]`` — the vectorized ``cooling_fine`` pass: separate
-    thermal from kinetic energy, convert to (nH, T2) in cgs, integrate,
-    convert back; returns the new state.  ``t2_floor`` (like rho, K) is
-    the polytrope temperature subtracted before and re-added after
-    (``:329-355``).  ``dt`` a scalar or a 0-d tensor on u's device.
+def _floor_of(nH, spec: CoolingSpec):
+    """The polytrope temperature floor (K) of ``spec.floor_form`` at
+    ``nH``; None without one."""
+    if not spec.floor_form:
+        return None
+    from ramses_tpu_torch.hydro.eos import barotropic_eos_temperature
+    return barotropic_eos_temperature(nH, spec.floor_form, spec.T2_eos,
+                                      spec.polytrope_rho_cu,
+                                      spec.polytrope_index)
 
-    ``scales``: an optional tensor ``[scale_T2, scale_nH, scale_t]`` on
-    u's device overriding the spec's values: a cosmological run passes
-    the current epoch's supercomoving conversions with no host fetch.
-    The solve is :func:`solve_cooling` (K6 on a CUDA tensor) unless
-    ``spec.ism``."""
+
+def cooling_inputs(u, spec: CoolingSpec, dt, cfg, t2_floor=None,
+                   scales=None) -> dict:
+    """The torch passes of :func:`cooling_step` before the solve, on a
+    dense conservative state ``u [nvar, *sp]``: ``rho`` (the smallr
+    clamp), ``ekin``, ``eother``, ``nH``, ``T2`` (the floor subtracted,
+    clipped to T2_MIN and T2max), the floor ``t2_floor``, ``boost``,
+    ``zsolar`` and ``dt_s``, the solve's inputs."""
     ndim = cfg.ndim
     if scales is None:
         s_T2, s_nH, s_t = spec.scale_T2, spec.scale_nH, spec.scale_t
@@ -798,12 +849,8 @@ def cooling_step(u, tables: CoolingTables, spec: CoolingSpec, dt, cfg,
     nH = rho * s_nH
 
     if t2_floor is None:
-        if spec.floor_form:
-            from ramses_tpu_torch.hydro.eos import barotropic_eos_temperature
-            t2_floor = barotropic_eos_temperature(
-                nH, spec.floor_form, spec.T2_eos, spec.polytrope_rho_cu,
-                spec.polytrope_index)
-        else:
+        t2_floor = _floor_of(nH, spec)
+        if t2_floor is None:
             t2_floor = torch.zeros_like(T2)
     T2_excess = _clip_max(torch.clamp(T2 - t2_floor, min=T2_MIN),
                           spec.T2max)
@@ -812,16 +859,147 @@ def cooling_step(u, tables: CoolingTables, spec: CoolingSpec, dt, cfg,
     boost = (torch.clamp(torch.exp(-nH / 0.01), min=1e-20)
              if spec.self_shielding else 1.0)
     # as the JAX package: the mean metallicity, also with metal=.true.
-    zsolar = spec.z_ave
+    return dict(rho=rho, ekin=ekin, eother=eother, nH=nH, T2=T2_excess,
+                t2_floor=t2_floor, boost=boost, zsolar=spec.z_ave,
+                dt_s=dt * s_t)
 
-    dt_s = dt * s_t
+
+def cooling_energy(T2_new, parts: dict, spec: CoolingSpec, cfg,
+                   scales=None):
+    """The thermal energy after the solve: the floor added back, the
+    T2max clip, back to code units (``cooling_step`` after the solve)."""
+    s_T2 = spec.scale_T2 if scales is None else scales[0]
+    T2_out = _clip_max(T2_new + parts["t2_floor"], spec.T2max)
+    return T2_out / s_T2 * parts["rho"] / (cfg.gamma - 1.0)
+
+
+def cooling_step_ref(u, tables: CoolingTables, spec: CoolingSpec, dt, cfg,
+                     t2_floor=None, scales=None, inplace: bool = False):
+    """Plain version of K6's fused entry: :func:`cooling_step`'s torch
+    passes around :func:`solve_cooling_ref` (or the ISM module), on either
+    device; the CPU's formulation and the card's yardstick."""
+    p = cooling_inputs(u, spec, dt, cfg, t2_floor, scales)
     if spec.ism:
-        T2_new = solve_cooling_ism(nH, T2_excess, dt_s, cfg.gamma,
+        T2_new = solve_cooling_ism(p["nH"], p["T2"], p["dt_s"], cfg.gamma,
                                    nsub=spec.ism_nsub)
     else:
-        T2_new = solve_cooling(tables, nH, T2_excess, zsolar, boost, dt_s)
-    T2_out = _clip_max(T2_new + t2_floor, spec.T2max)
-    eint_new = T2_out / s_T2 * rho / (cfg.gamma - 1.0)
-    out = u.clone()
-    out[ndim + 1] = eint_new + ekin + eother
+        T2_new = solve_cooling_ref(tables, p["nH"], p["T2"], p["zsolar"],
+                                   p["boost"], p["dt_s"])
+    eint_new = cooling_energy(T2_new, p, spec, cfg, scales)
+    out = u if inplace else u.clone()
+    out[cfg.ndim + 1] = eint_new + p["ekin"] + p["eother"]
     return out
+
+
+def fused_supports(spec: CoolingSpec) -> bool:
+    """Whether K6's fused entry takes this cooling pass (by configuration
+    only): everything but the ISM module (``spec.ism``), whose solve has
+    no kernel."""
+    return not spec.ism
+
+
+def cooling_step(u, tables: CoolingTables, spec: CoolingSpec, dt, cfg,
+                 t2_floor=None, scales=None, inplace: bool = False):
+    """Apply cooling over dt (code units) to a dense conservative state
+    ``u [nvar, *sp]`` — the vectorized ``cooling_fine`` pass: separate
+    thermal from kinetic energy, convert to (nH, T2) in cgs, integrate,
+    convert back; returns the new state (``u`` itself, its E row
+    rewritten, with ``inplace``; else a copy).  ``t2_floor`` (like rho, K)
+    is the polytrope temperature subtracted before and re-added after
+    (``:329-355``); without it, ``spec.floor_form``'s.  ``dt`` a scalar or
+    a 0-d tensor on u's device.
+
+    ``scales``: an optional tensor ``[scale_T2, scale_nH, scale_t]`` on
+    u's device overriding the spec's values: a cosmological run passes
+    the current epoch's supercomoving conversions with no host fetch.
+
+    A CUDA state that :func:`fused_supports` takes is one launch of K6's
+    fused entry (counted in ``step_launches``), or raises; a CPU state,
+    and the ISM module on either device, run :func:`cooling_step_ref`."""
+    if u.device.type != "cpu" and fused_supports(spec):
+        return _fused_step(u, tables, spec, dt, cfg, t2_floor, scales,
+                           inplace)
+    return cooling_step_ref(u, tables, spec, dt, cfg, t2_floor, scales,
+                            inplace)
+
+
+def _fused_step(u, tables, spec, dt, cfg, t2_floor, scales, inplace):
+    """One launch of K6's fused entry, counted in ``step_launches``;
+    raises on arguments it does not take and when the build or the launch
+    fails.  No cells: nothing is launched or counted."""
+    global step_launches
+    if u.device.type != "cuda" or tables.device != u.device:
+        raise ValueError("cooling_step: the state and the tables must lie "
+                         "on one CUDA device")
+    out = u if inplace else u.clone()
+    if u[0].numel():
+        with torch.cuda.device(u.device):
+            call_step(_library(), u, out, tables, spec, dt, cfg, scales,
+                      torch.cuda.current_stream(u.device).cuda_stream,
+                      t2_floor)
+        step_launches += 1
+    return out
+
+
+def call_step(lib, u, out, tables, spec, dt, cfg, scales=None,
+              stream=None, t2_floor=None):
+    """One call of the fused entry (``ramses_cooling_step_f32``/``_f64``)
+    in the loaded build ``lib`` (the card's build on CUDA tensors, or a
+    host build of the source on CPU ones): reads the state ``u`` and
+    writes the new E row into ``out`` (``u`` itself, or a tensor of its
+    shape).  ``u`` is f32 or f64, a 2-D view (a level's ``u[l].T``) or a
+    contiguous tensor; ``dt`` a number or a one-element tensor,
+    ``scales`` a tensor of three values and ``t2_floor`` one of a value a
+    cell (or one for all), each in u's dtype on its device.  Without
+    ``t2_floor``, ``spec.floor_form``'s floor is computed here in torch,
+    as :func:`cooling_inputs` computes it.  Raises ValueError on anything
+    else and RuntimeError on the error the entry returns."""
+    nvar = u.shape[0]
+    ndim = cfg.ndim
+    if nvar < ndim + 2 + cfg.nener or out.shape != u.shape:
+        raise ValueError(f"cooling_step: state {tuple(u.shape)} (out "
+                         f"{tuple(out.shape)}) for ndim={ndim}, "
+                         f"nener={cfg.nener}")
+    if u.dtype not in _STEP_ENTRY or not (u.dim() == 2
+                                          or u.is_contiguous()):
+        raise ValueError(f"cooling_step: K6 takes an f32 or f64 state, a "
+                         f"2-D view or a contiguous one, not {u.dtype} of "
+                         f"strides {u.stride()}")
+    if scales is not None and not torch.is_tensor(scales):
+        raise ValueError("cooling_step: scales must be a tensor")
+    for name, t, n in (("dt", dt, (1,)), ("scales", scales, (3,)),
+                       ("t2_floor", t2_floor, (1, u[0].numel()))):
+        if torch.is_tensor(t) and (t.dtype != u.dtype or t.device != u.device
+                                   or t.numel() not in n):
+            raise ValueError(f"cooling_step: {name} must hold "
+                             f"{' or '.join(map(str, n))} values in the "
+                             f"state's dtype on its device, not "
+                             f"{t.numel()} {t.dtype} on {t.device}")
+    if t2_floor is None and spec.floor_form:
+        s_nH = spec.scale_nH if scales is None else scales[1]
+        t2_floor = _floor_of(torch.clamp(u[0], min=cfg.smallr) * s_nH, spec)
+    fl = (None if t2_floor is None else torch.broadcast_to(
+        t2_floor, u.shape[1:]).reshape(-1).contiguous())
+    flat = u if u.dim() == 2 else u.reshape(nvar, -1)
+    erow = (out if out.dim() == 2 else out.reshape(nvar, -1))[ndim + 1]
+    dtype = u.dtype
+    _, log_nH, log_T2 = tables.packed(dtype)
+    inter = tables.interleaved(dtype)
+    sc = None if scales is None else scales.reshape(3).contiguous()
+    dtp = dt.reshape(1) if torch.is_tensor(dt) else None
+    has_max = spec.T2max < torch.finfo(dtype).max
+    err = getattr(lib, _STEP_ENTRY[dtype])(
+        flat.data_ptr(), erow.data_ptr(),
+        fl.data_ptr() if fl is not None else None,
+        sc.data_ptr() if sc is not None else None,
+        dtp.data_ptr() if dtp is not None else None, inter.data_ptr(),
+        log_nH.data_ptr(), log_T2.data_ptr(), flat.shape[1], flat.stride(0),
+        flat.stride(1), erow.stride(0), ndim, cfg.nener, int(has_max),
+        int(bool(spec.self_shielding)), float(cfg.smallr),
+        float(cfg.gamma - 1.0), float(spec.scale_T2), float(spec.scale_nH),
+        float(spec.scale_t), 0.0 if dtp is not None else float(dt),
+        float(spec.z_ave), float(T2_MIN), float(spec.T2max),
+        *_consts(tables), stream)
+    if err:
+        raise RuntimeError(f"cooling step kernel launch failed (cudaError "
+                           f"{err})")

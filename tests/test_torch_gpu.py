@@ -1352,7 +1352,8 @@ COOL_NML = "\n".join([
 def test_run_steps_cool_never_waits_and_replays_bitwise(cuda):
     """``run_steps_cool`` on the card at 32³ (K1's scope): after a first
     call that puts the packed tables on the card, two steps with the sync
-    debug mode at "error"; K1 and K6 each once a step; four steps run
+    debug mode at "error"; K1 and K6's fused entry each once a step (the
+    march entry never); four steps run
     twice from one state bitwise equal, finite, with less energy than at
     the start."""
     from ramses_tpu_torch.config import params_from_string
@@ -1369,19 +1370,87 @@ def test_run_steps_cool_never_waits_and_replays_bitwise(cuda):
                               sim.cool_spec)
     steps(1)
     torch.cuda.synchronize()
-    k1, k6 = fm.launches, pc.launches
+    k1, k6, k6m = fm.launches, pc.step_launches, pc.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         steps(2)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert fm.launches - k1 == 2 and pc.launches - k6 == 2
+    assert fm.launches - k1 == 2 and pc.step_launches - k6 == 2
+    assert pc.launches == k6m          # the fused entry, not the march
     a, b = steps(4), steps(4)
     assert int(a[2]) == 4 and torch.equal(a[0], b[0]) and torch.equal(a[1],
                                                                       b[1])
     assert bool(torch.isfinite(a[0]).all())
     # the periodic box keeps its energy without cooling
     assert float(a[0][4].sum()) < float(u0[4].sum())
+
+
+def _cooling_host():
+    """``tests/test_torch_cooling_host.py``'s states, cases and gates,
+    imported by path (another installed package may own the top-level name
+    ``tests``)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "test_torch_cooling_host.py")
+    spec = importlib.util.spec_from_file_location("_cooling_host", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", range(7))
+def test_cooling_fused_entry_matches_cooling_step(cuda, dtype, case):
+    """K6's fused entry on the card against ``cooling_step_ref`` on the
+    same CUDA state (the host test's cases: dense states and a level's
+    transposed rows, scales and dt as tensors and numbers, extra
+    energies, self-shielding, a T2max clip, a polytrope floor and a given
+    per-cell floor), with the host test's gates;
+    one launch of the fused entry a call and none of the march, the other
+    rows untouched, in place the same bits."""
+    from ramses_tpu_torch.hydro import cooling as pc
+    from ramses_tpu_torch.hydro.core import HydroStatic
+    h = _cooling_host()
+    ndim, nener, opts, tensor_scales, tensor_dt, rows = h.STEP[case]
+    tabs = pc.build_tables(aexp=0.25, J21=1.0, device=cuda)
+    cfg = HydroStatic(ndim=ndim, gamma=5.0 / 3.0, nener=nener)
+    spec = h._spec(**opts)
+    shape = {1: (20011,), 2: (151, 149), 3: (41, 37, 33)}[ndim]
+    u = h._state(shape, ndim, nener, 7 * ndim + nener, dtype).to(cuda)
+    if rows:
+        u = u.reshape(u.shape[0], -1).t().contiguous().t()
+    scales = (torch.tensor([0.9 * h.ISM.scale_T2, 1.1 * h.ISM.scale_nH,
+                            h.ISM.scale_t], dtype=dtype, device=cuda)
+              if tensor_scales else None)
+    dt = (torch.tensor(30.0, dtype=dtype, device=cuda) if tensor_dt
+          else 30.0)
+    fl = h._given_floor(opts, u)
+    n0, m0 = pc.step_launches, pc.launches
+    got = pc.cooling_step(u, tabs, spec, dt, cfg, fl, scales)
+    assert pc.step_launches == n0 + 1 and pc.launches == m0
+    want = pc.cooling_step_ref(u, tabs, spec, dt, cfg, fl, scales)
+    e = ndim + 1
+    keep = [k for k in range(u.shape[0]) if k != e]
+    assert torch.equal(got[keep], u[keep])
+    own = u.clone()
+    assert pc.cooling_step(own, tabs, spec, dt, cfg, fl, scales,
+                           inplace=True) is own
+    assert torch.equal(own, got)
+    p = pc.cooling_inputs(u, spec, dt, cfg, fl, scales)
+    march = [p["nH"], p["T2"], p["zsolar"], p["boost"], p["dt_s"]]
+    T2n = pc.solve_cooling_ref(tabs, *march)
+    eint = pc.cooling_energy(T2n, p, spec, cfg, scales)
+    ks, ulp = (((1, -2, 4, -8, 16, -64), 1.1e-16) if dtype == torch.float64
+               else ((1, -1, 2, -2, 4, -4), 2.0 ** -23))
+    args = [a.reshape(-1) if torch.is_tensor(a) and a.dim() else a
+            for a in march]
+
+    def move(cells):
+        return h._move(lambda *a: pc.solve_cooling_ref(tabs, *a), args,
+                       T2n.reshape(-1), cells, ks, ulp)
+    ulp_e = torch.finfo(dtype).eps * want[e].abs() / eint.abs()
+    h._held(got[e], want[e], eint.abs(), move, dtype, slack=2 * ulp_e)
 
 
 def _regrid_keys(ndim, root, lvl, seed, device):
@@ -1499,7 +1568,13 @@ def _rt_states():
     ((33,), 1, True, False), ((33,), 3, False, True),
     ((9, 14), 1, False, False), ((9, 14), 3, True, True),
     ((5, 7, 6), 1, True, True), ((6, 5, 9), 3, False, False),
-    ((1, 4, 3), 2, True, False), ((37, 29, 41), 1, True, False)])
+    ((1, 4, 3), 2, True, False), ((37, 29, 41), 1, True, False),
+    # ragged against K8's staged tiles, or fewer than three x planes
+    ((300,), 1, True, True), ((513,), 3, False, False),
+    ((19, 45), 3, True, False), ((33, 8), 1, False, True),
+    ((1, 9, 33), 1, True, True), ((2, 9, 33), 3, False, False),
+    ((2, 17, 65), 1, True, False), ((7, 37, 41), 3, True, True),
+    ((7, 37, 41), 1, False, True), ((4, 2, 3), 2, True, False)])
 def test_rt_m1_dense_kernel_matches_plain(cuda, shape, ng, periodic, beams):
     from ramses_tpu_torch.rt import m1
     h = _rt_states()
@@ -1516,7 +1591,9 @@ def test_rt_m1_dense_kernel_matches_plain(cuda, shape, ng, periodic, beams):
 
 
 @pytest.mark.parametrize("nd,ng,noct", [(1, 1, 7), (2, 3, 500), (3, 1, 11),
-                                        (3, 2, 3000)])
+                                        (3, 2, 3000), (3, 1, 45), (3, 3, 33),
+                                        (2, 2, 130), (1, 3, 300),
+                                        (3, 1, 70001)])
 def test_rt_m1_block_kernel_matches_plain(cuda, nd, ng, noct):
     from ramses_tpu_torch.rt import m1
     blk = _rt_states()._blocks(nd, ng, noct, 5 * nd + ng, 3e7).to(cuda)
@@ -1529,6 +1606,31 @@ def test_rt_m1_block_kernel_matches_plain(cuda, nd, ng, noct):
     want = m1.block_update_ref(rad, blk, dt, dx, 3e7, nd, ng)
     scale = want.abs().amax(dim=0, keepdim=True)
     assert bool(((got - want).abs() <= 1e-13 * scale).all())
+    assert torch.equal(got[noct * 2 ** nd:], rad[noct * 2 ** nd:])
+
+
+@pytest.mark.parametrize("shape,periodic", [((7, 9, 33), True),
+                                            ((5, 10, 40), False),
+                                            ((64, 33, 70), True)])
+def test_rt_m1_dense_kernel_chunk_cuts_are_bitwise(cuda, shape, periodic):
+    """Copies of one group give the bits of the group alone, on the card:
+    the launch cuts the x planes into as many chunks as keep every block
+    resident, so 1 to 128 groups march chunks of one plane up to the
+    whole box."""
+    from ramses_tpu_torch.rt import m1
+    h = _rt_states()
+    c_red = 3e7
+    U, src, srcF = [t.to(cuda) for t in h.rt_state(shape, 1, c_red, 5,
+                                                   True)]
+    dt, dx = 0.8 * 3e19 / 3.0 / c_red, 3e19
+    one = m1.transport(U, dt, dx, c_red, 3, periodic, src, srcF)
+    for ng in (2, 8, 32, 128):
+        got = m1.transport(U.repeat(ng, 1, 1, 1, 1), dt, dx, c_red, 3,
+                           periodic, src.repeat(ng, 1, 1, 1),
+                           srcF.repeat(ng, 1, 1, 1, 1))
+        assert all(torch.equal(g, one[0]) for g in got), ng
+    want = m1.transport_ref(U, dt, dx, c_red, 3, periodic, src, srcF)
+    h.dense_close(one, want, 3, periodic)
 
 
 def _k9_rel(got, want):

@@ -69,6 +69,7 @@ static thread_local dim3 blockIdx, threadIdx, blockDim, gridDim;
 #define __constant__
 #define __align__(n)
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 // the running launch: its block barrier, warp barriers and dynamic buffer
@@ -104,10 +105,12 @@ inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned)(((unsigned long long)a * b) >> 32);
 }
 inline void cp_async_f32(float* s, const float* g) { *s = *g; }
+inline void cp_async_f64(double* s, const double* g) { *s = *g; }
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorInvalidConfiguration = 9 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
 template <class F>
@@ -119,11 +122,19 @@ inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
 template <class F>
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
     int* n, F, int, size_t) { *n = 1; return 0; }
-inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
-// one SM: the emulation runs one block at a time
+// the device the emulation stands for and its SMs: device 0 has one (the
+// emulation runs one block at a time); host_device(dev, sms) makes `dev`
+// current with `sms` SMs, for code that sizes its launch by the card
+static int host_dev_ = 0;
+static int host_sms_[64] = {1};
+extern "C" void host_device(int dev, int sms) {
+  host_dev_ = dev & 63;
+  host_sms_[host_dev_] = sms;
+}
+inline cudaError_t cudaGetDevice(int* d) { *d = host_dev_; return 0; }
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = 1; return 0;
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int dev) {
+  *v = host_sms_[dev & 63] > 0 ? host_sms_[dev & 63] : 1; return 0;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 typedef void* cudaStream_t;
@@ -165,7 +176,10 @@ inline void host_launch(dim3 grid, dim3 block, size_t smem, F body) {
 
 LAUNCH = re.compile(
     r"(\w+<[^;<>]*>)<<<grid, block, (\w+), s>>>\(([^;]*)\);")
-DYN_SMEM = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?float (\w+)\[\];")
+DYN_SMEM = re.compile(
+    r"extern __shared__ (?:__align__\(\d+\) )?(float|double) (\w+)\[\];")
+# the launch's dynamic buffer (floats, 16-byte aligned) in the declared type
+DYN_SMEM_HOST = r"\1* \2 = (\1*)host_launch_->dyn.data();"
 
 
 def _as_launch(m):
@@ -180,7 +194,7 @@ def _host_build(out, name):
         common.replace("#include <cuda_runtime.h>", '#include "cuda_host.h"'))
     src, n = LAUNCH.subn(_as_launch, (kernels.CSRC / f"{name}.cu").read_text())
     assert n > 0 and "<<<" not in src
-    src = DYN_SMEM.sub(r"float* \1 = host_launch_->dyn.data();", src)
+    src = DYN_SMEM.sub(DYN_SMEM_HOST, src)
     assert "extern __shared__" not in src
     (out / f"{name}.cpp").write_text('#include "cuda_host.h"\n' + src)
     lib_path = out / f"lib{name}_host.so"

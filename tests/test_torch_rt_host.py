@@ -2,8 +2,10 @@
 versions.
 
 ``ramses_tpu_torch/csrc/rt_m1.cu`` (K8: the dense entry on 1D/2D/3D boxes,
-periodic and outflow, with sources and beams, and the block entry on
-gathered oct stencils) and ``csrc/rt_chem.cu`` (K9: gray and 3-ion, with
+periodic and outflow, with sources and beams, on boxes ragged against its
+staged tiles and with fewer than three x planes, its chunks of x planes
+bitwise alike; the block entry on gathered oct stencils, the last block's
+octs ragged) and ``csrc/rt_chem.cu`` (K9: gray and 3-ion, with
 and without the UV background, heating on and off) are compiled with
 ``g++`` through the threaded stand-in of the CUDA runtime of
 ``test_torch_muscl_host.py`` (each block's threads are ``std::thread``s,
@@ -39,12 +41,15 @@ K9_REL = 1e-12
 
 
 def _build(out, name):
-    from tests.test_torch_muscl_host import LAUNCH, RUNTIME, _as_launch
+    from tests.test_torch_muscl_host import (DYN_SMEM, DYN_SMEM_HOST, LAUNCH,
+                                             RUNTIME, _as_launch)
     (out / "cuda_host.h").write_text(RUNTIME)
     src = (kernels.CSRC / f"{name}.cu").read_text().replace(
         "#include <cuda_runtime.h>", '#include "cuda_host.h"')
     src, n = LAUNCH.subn(_as_launch, src)
     assert n > 0 and "<<<" not in src
+    src = DYN_SMEM.sub(DYN_SMEM_HOST, src)
+    assert "extern __shared__" not in src
     (out / f"{name}.cpp").write_text(src)
     lib = out / f"lib{name}_host.so"
     subprocess.run([shutil.which("g++"), "-std=c++20", "-O1", "-pthread",
@@ -103,10 +108,18 @@ def dense_close(got, want, nd, periodic):
         float(((got - want).abs() / scale).nan_to_num(0.0).max())
 
 
+# the last ten are ragged against K8's staged tiles (32 along the fastest
+# axis x 8 rows with a one-cell ring in 3D and 2D, segments of 256 in 1D)
+# or have fewer than three x planes (3D blocks march chunks of x planes)
 DENSE = [((33,), 1, True, False), ((33,), 3, False, True),
          ((9, 14), 1, False, False), ((9, 14), 3, True, True),
          ((5, 7, 6), 1, True, True), ((6, 5, 9), 3, False, False),
-         ((1, 4, 3), 2, True, False)]
+         ((1, 4, 3), 2, True, False),
+         ((300,), 1, True, True), ((513,), 3, False, False),
+         ((19, 45), 3, True, False), ((33, 8), 1, False, True),
+         ((1, 9, 33), 1, True, True), ((2, 9, 33), 3, False, False),
+         ((2, 17, 65), 1, True, False), ((7, 37, 41), 3, True, True),
+         ((7, 37, 41), 1, False, True), ((4, 2, 3), 2, True, False)]
 
 
 @pytest.mark.parametrize("shape,ng,periodic,beams", DENSE)
@@ -122,14 +135,53 @@ def test_k8_dense_host_build_matches_plain_version(host, shape, ng,
     dense_close(got, want, nd, periodic)
 
 
+# each box's 4 tiles × 2 groups, and the SMs of the device the host build
+# stands for (one block resident an SM): the launch cuts the x planes into
+# SMs / 8 chunks, 1 to all of them (x chunks of 7, 4, 3, 2, 1 planes and
+# 5, 3, 2, 2, 1)
+@pytest.mark.parametrize("shape,periodic,sms", [
+    ((7, 9, 33), True, (1, 16, 24, 32, 56)),
+    ((5, 10, 40), False, (8, 16, 24, 32, 40))])
+def test_k8_dense_host_build_chunk_cuts_are_bitwise(host, shape, periodic,
+                                                    sms):
+    """Every chunk of x planes a 3D block marches, as the card's SM count
+    sets it (1 plane up to the whole box), gives the same bits: the planes
+    at a chunk's ends are staged from the neighbouring chunks' cells and
+    their records recomputed by the same instructions."""
+    lib = host[0]
+    lib.host_device.argtypes = [ctypes.c_int, ctypes.c_int]
+    c_red = 3e7
+    U, src, srcF = rt_state(shape, 2, c_red, 5, True)
+    dt, dx = 0.8 * 3e19 / 3.0 / c_red, 3e19
+    outs = []
+    try:
+        for n in sms:
+            # a device a count: the launch asks a device's SMs once
+            lib.host_device(n, n)
+            got = torch.empty_like(U)
+            m1.call_dense(lib, U, got, dt, dx, c_red, 3, periodic, src,
+                          srcF)
+            outs.append(got)
+    finally:
+        lib.host_device(0, 1)
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    want = m1.transport_ref(U, dt, dx, c_red, 3, periodic, src, srcF)
+    dense_close(outs[0], want, 3, periodic)
+
+
 def _blocks(nd, ng, noct, seed, c_red):
     U, _, _ = rt_state((6,) * nd + (noct,), ng, c_red, seed, nd=nd)
     # [ng, 1+nd, 6.., noct]: the gathered layout [ng*(1+nd), 6^nd, noct]
     return U.reshape((ng * (1 + nd),) + U.shape[2:]).contiguous()
 
 
-@pytest.mark.parametrize("nd,ng,noct", [(1, 1, 7), (2, 3, 5), (3, 1, 11),
-                                        (3, 2, 3)])
+# a block takes 256/2^nd octs (32 in 3D, 64 in 2D, 128 in 1D): fewer, and
+# counts that leave the last block ragged
+BLOCKS = [(1, 1, 7), (2, 3, 5), (3, 1, 11), (3, 2, 3), (3, 1, 45),
+          (3, 3, 33), (2, 2, 130), (1, 3, 300)]
+
+
+@pytest.mark.parametrize("nd,ng,noct", BLOCKS)
 def test_k8_block_host_build_matches_plain_version(host, nd, ng, noct):
     lib = host[0]
     c_red = 3e7
