@@ -6724,6 +6724,7 @@ def _cosmo_gal_phase(card: str, tmp: str, ops_per_iter: float):
 
 REGRID_STEPS = 10              # phase 55: config 2's coarse steps
 K7_RANDOM_OCTS = 262144        # phase 55's random key sets (2D and 3D)
+K7_BLOCK = 128                 # octs a K7 block (csrc/regrid_maps.cu)
 TWIN_LEVELS, TWIN_ROOT, TWIN_BOXLEN = (6, 8), (2, 2, 2), 0.25
 TWIN_STEPS = 10
 SLAB_ROOT, SLAB_STEPS = (2, 1, 1), 5   # phase 56b
@@ -6893,11 +6894,26 @@ def _k7_err(got, want) -> float:
                for g, w in zip(got, want))
 
 
-def _regrid_phase(dev, card: str) -> dict:
+def _empty_ms(lib, entry: str, kernel: str, blocks: int) -> float:
+    """Device ms of an empty kernel on ``blocks`` blocks as wide as the
+    kernel's own (``entry`` of the loaded build ``lib``, its kernel named
+    ``kernel``): the latency floor under a kernel's small shapes."""
+    import torch
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = getattr(lib, entry)(blocks, stream)
+        if err:
+            raise RuntimeError(f"{entry} failed (cudaError {err})")
+    return _device_ms(launch, kernel)
+
+
+def _regrid_phase(dev, card: str, ptxas: str) -> dict:
     """Phase 55: config 2 with the device migrate against the host maps
     from one initial state, K7 against its plain version on every
     regrid's inputs and on random key sets; returns the K7 row, the
-    device run's oct coordinates after each regrid and its final sim."""
+    device run's oct coordinates after each regrid and its final sim.
+    ``ptxas``: K7's build report (registers, spills)."""
     import numpy as np
     import torch
     from ramses_tpu_torch.amr import device_regrid as dr
@@ -6992,10 +7008,17 @@ def _regrid_phase(dev, card: str) -> dict:
     # K7 at the main path's largest regrid level, timed
     args = max(a["k7"], key=lambda r: r[0][0].numel())[0]
     n, nd = args[0].numel(), args[3]
+    lib = dr._library()
     ms = _device_ms(lambda: dr.regrid_maps(*args), "regrid_maps_kernel",
                     launched=lambda: dr.launches)
+    call_ms = _median_ms(lambda: dr.regrid_maps(*args))
     pms = _median_ms(lambda: dr.regrid_maps_ref(*args), reps=10)
     bound = 1e3 * _k7_bytes(n, nd) / HBM_BYTES_PER_S
+    empty = _empty_ms(lib, "ramses_regrid_empty", "regrid_empty_kernel",
+                      -(-n // K7_BLOCK))
+    branch = ("keys staged whole" if dr.staged(lib, args[1].numel(),
+                                                args[2].numel())
+              else "keys read through L1")
     # random key sets of 262,144 octs: 2D and 3D, periodic and reflecting
     lines = []
     for nd_, lvl in ((2, 11), (3, 8)):
@@ -7019,10 +7042,18 @@ def _regrid_phase(dev, card: str) -> dict:
                              launched=lambda: dr.launches)
             kpms = _median_ms(lambda: dr.regrid_maps_ref(*call), reps=10)
             kb = 1e3 * _k7_bytes(kn.numel(), nd_) / HBM_BYTES_PER_S
+            how = ("staged whole" if dr.staged(lib, ko.numel(), kc.numel())
+                   else "read through L1")
             lines.append(f"{nd_}D {'periodic' if kinds[0] == (0, 0) else 'reflecting/outflow'} "
-                         f"{kn.numel()} octs ({len(new)} real): bitwise, "
-                         f"{kms:.4f} ms, plain {kpms:.4f} ms, bound "
-                         f"{kb:.5f} ms ({100 * kb / kms:.1f} %)")
+                         f"{kn.numel()} octs ({len(new)} real; "
+                         f"{ko.numel()} old, {kc.numel()} coarse keys, "
+                         f"{how}): "
+                         f"bitwise, {kms:.4f} ms, plain {kpms:.4f} ms, "
+                         f"bound {kb:.5f} ms ({100 * kb / kms:.1f} %)")
+        blocks = -(-kn.numel() // K7_BLOCK)
+        ems = _empty_ms(lib, "ramses_regrid_empty", "regrid_empty_kernel",
+                        blocks)
+        lines.append(f"an empty launch on its {blocks} blocks {ems:.4f} ms")
         del kn, ko, kc
     _print(f"phase 55 the device migrate on {card}: config 2 (sedov3d "
            f"levelmin={AMR_LEVELS[0]} levelmax={AMR_LEVELS[1]}) from one "
@@ -7034,12 +7065,17 @@ def _regrid_phase(dev, card: str) -> dict:
            f"(on) / {b['k7_launches']} (off), each bitwise to its plain "
            f"version on its inputs; walls (recording each regrid's state) "
            f"{a['wall']:.3f} s (on) / {b['wall']:.3f} s (off); K7 at the "
-           f"main path's largest regrid level ({n} octs, {nd}D): "
-           f"{ms:.4f} ms on the device (profiler), plain {pms:.4f} ms, "
-           f"bound {bound:.6f} ms by bytes ({_k7_bytes(n, nd)} B), library "
-           f"call: none (no single PyTorch call derives these maps); "
-           f"random sorted key sets: " + "; ".join(lines)
-           + f"; max |K7 - plain| over every comparison {err:.1f}")
+           f"main path's largest regrid level ({n} octs, {nd}D; "
+           f"{args[1].numel()} old, {args[2].numel()} coarse keys, "
+           f"{branch}): {ms:.4f} ms on the device (profiler), a call's "
+           f"wall on the stream {call_ms:.4f} ms, plain {pms:.4f} ms, "
+           f"bound {bound:.6f} ms by bytes ({_k7_bytes(n, nd)} B), the "
+           f"latency floor (an empty launch on its {-(-n // K7_BLOCK)} blocks) "
+           f"{empty:.4f} ms, library call: none (no single PyTorch call "
+           f"derives these maps); random sorted key sets: "
+           + "; ".join(lines)
+           + f"; max |K7 - plain| over every comparison {err:.1f}; K7's "
+           f"build: {ptxas or 'not rebuilt in this run'}")
     row = {"name": "regrid_maps", "route": "cuda",
            "source": "ramses_tpu_torch/csrc/regrid_maps.cu",
            "replaces": "ramses_tpu/amr/device_regrid.py:214",
@@ -8223,6 +8259,26 @@ def _k10_chains(rho, thr: float, nd: int):
     return links, longest
 
 
+def _k10_floor(shape) -> tuple:
+    """(ms, text): the latency floor under K10 at ``shape``: an empty
+    launch on its parents kernel's grid (one block a tile: 16 x 16 x 4
+    cells in 3D, 32 x 32 in 2D, 1,024 in 1D, as ``csrc/watershed.cu``'s
+    Tile) and one on its labels kernel's (1,024 cells a block), device ms
+    each."""
+    import math
+
+    from ramses_tpu_torch.pm import clumps
+    tile = {1: (1024,), 2: (32, 32), 3: (4, 16, 16)}[len(shape)]
+    grids = (math.prod(-(-n // t) for n, t in zip(shape, tile)),
+             -(-math.prod(shape) // 1024))
+    lib = clumps._library()
+    parts = [_empty_ms(lib, "ramses_watershed_empty",
+                       "watershed_empty_kernel", b) for b in grids]
+    return sum(parts), (f"the latency floor {sum(parts):.4f} ms (empty "
+                        f"launches on its {grids[0]} and {grids[1]} blocks "
+                        f"{parts[0]:.4f} + {parts[1]:.4f})")
+
+
 def _k10_check(rho, thr: float, nd: int, what: str):
     """K10 against its plain version on one field and threshold: labels
     bitwise; returns the max |K10 - plain| (0)."""
@@ -8275,17 +8331,20 @@ def _watershed_kernel_phase(dev, card: str, ptxas: str) -> dict:
                               reps=5 if big else 20, warm=1 if big else 3)
         links, longest = _k10_chains(rho, thr, nd)
         ncell = rho.numel()
+        floor, floor_text = _k10_floor(shape)
         # rho read once, the labels written once; a cell's 3^nd - 1
         # comparisons and its threshold test, and a comparison a link
         b = _rt_bound(16.0 * ncell, ncell * 3 ** nd + links)
         rows[name] = dict(b, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                          links=links, longest=longest, ncell=ncell)
+                          links=links, longest=longest, ncell=ncell,
+                          floor_ms=floor)
         _print(f"phase 61 K10 {name} ({kind}, f64): bitwise at thresholds "
                f"{[f'{t:.4g}' for t in thrs]}; at the median: "
                + _rt_timing(rows[name])
                + f" (device: parents {parts[0]:.4f} + labels {parts[1]:.4f}"
                f" ms; a call's wall on the stream {call_ms:.4f} ms); "
-               f"{links} links followed (longest chain {longest})")
+               f"{floor_text}; {links} links followed (longest chain "
+               f"{longest})")
         del rho
     _print(f"phase 61 K10's build: {ptxas or 'not rebuilt in this run'}")
     torch.cuda.empty_cache()
@@ -8426,6 +8485,19 @@ def _mergertree_phase(dev, card: str, tmp: str) -> dict:
                                  f"{rho.dtype} differ from the plain "
                                  f"version's")
         err = max(err, float((got - want).abs().max()))
+    # K10 on the last output's own 64³ deposit: device ms of its two
+    # kernels (profiler) and a call's wall on the stream (CUDA events)
+    rho, thr, nd, _ = recorded[-1]
+    k10_parts = [_device_ms(lambda: clumps.watershed(rho, thr, nd), k,
+                            launched=lambda: clumps.launches)
+                 for k in ("parents_kernel", "labels_kernel")]
+    k10_call = _median_ms(lambda: clumps.watershed(rho, thr, nd))
+    k10_text = (f"K10 on output {nout}'s deposit (threshold {thr:.4g}, "
+                f"{int((rho > thr).sum())} cells above): device "
+                f"{sum(k10_parts):.4f} ms (parents {k10_parts[0]:.4f} + "
+                f"labels {k10_parts[1]:.4f}), a call's wall on the stream "
+                f"{k10_call:.4f} ms, {_k10_floor(tuple(rho.shape))[1]}")
+    del rho
     tables = [_clump_table(os.path.join(o, f"clump_{i:05d}.txt"))
               for i, o in enumerate(outs, 1)]
     nhalo = [len(t) for t in tables]
@@ -8528,7 +8600,8 @@ def _mergertree_phase(dev, card: str, tmp: str) -> dict:
            + ("" if bitwise else f" (main branch {top} <- "
               f"{int(rmain[0, 3])} as straight)")
            + f"; python -m ramses_tpu_torch mergertree.nml (nstepmax=2, in "
-           f"process): {cwall:.3f} s, K10 {claunch['watershed']}")
+           f"process): {cwall:.3f} s, K10 {claunch['watershed']}; "
+           + k10_text)
     del sim, back, cli, recorded
     torch.cuda.empty_cache()
     launches["max_abs_err"] = err
@@ -8942,7 +9015,7 @@ def main() -> int:
             r["launches"] += cool["tile_sweep"]
     marks.append(("50-54", time.perf_counter()))
     # ---- 55-56. the device migrate (K7) and non-cubic roots ----
-    rg = _regrid_phase(dev, card)
+    rg = _regrid_phase(dev, card, _ptxas_report(logs.get("regrid_maps", "")))
     rg["row"]["launches"] = k7
     nc = _noncubic_phases(dev, card, rg, rate8)
     k1["launches"] += nc["fused_muscl"]

@@ -19,8 +19,9 @@ new coarser level:
   face takes the father cell itself.
 
 :func:`regrid_maps` computes those maps: K7 (``csrc/regrid_maps.cu``, one
-thread an oct) on a CUDA tensor, :func:`regrid_maps_ref` (the plain torch
-formulation of ``_migrate_level_jit``'s map lines) on a CPU one.  The maps
+thread an oct, its searches in lockstep over keys staged in shared memory)
+on a CUDA tensor, :func:`regrid_maps_ref` (the plain torch formulation of
+``_migrate_level_jit``'s map lines) on a CPU one.  The maps
 are integers, so the two agree bit for bit.  :func:`migrate_level` then
 interpolates with ``amr/kernels.interp_cells`` and selects with ``where``,
 as the JAX package does: ``interp_cells`` is elementwise per request row,
@@ -215,13 +216,25 @@ def _library():
 
 
 def bind(lib):
-    """Declare the C entry point's signature on a loaded build of
+    """Declare the C entry points' signatures on a loaded build of
     ``csrc/regrid_maps.cu``."""
     fn = lib.ramses_regrid_maps
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
+        lib.ramses_regrid_maps_staged.argtypes = [ctypes.c_longlong] * 2
+        lib.ramses_regrid_maps_staged.restype = ctypes.c_int
+        lib.ramses_regrid_empty.argtypes = [ctypes.c_longlong,
+                                            ctypes.c_void_p]
+        lib.ramses_regrid_empty.restype = ctypes.c_int
     return lib
+
+
+def staged(lib, n_old: int, n_c: int) -> bool:
+    """Whether K7 (the loaded build ``lib``) stages ``n_old`` old and
+    ``n_c`` coarse keys whole in shared memory; else it reads them
+    through L1."""
+    return bool(lib.ramses_regrid_maps_staged(n_old, n_c))
 
 
 def _launch(new_keys, old_keys, coarse_keys, ndim, bc_kinds, dims):

@@ -96,12 +96,16 @@ def _library():
 
 
 def bind(lib):
-    """Declare the C entry point's signature on a loaded build of
+    """Declare the C entry points' signatures on a loaded build of
     ``csrc/watershed.cu``."""
     fn = lib.ramses_watershed
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+        for name in ("ramses_watershed", "ramses_watershed_wide"):
+            getattr(lib, name).argtypes = _ARGTYPES
+            getattr(lib, name).restype = ctypes.c_int
+        lib.ramses_watershed_empty.argtypes = [ctypes.c_longlong,
+                                               ctypes.c_void_p]
+        lib.ramses_watershed_empty.restype = ctypes.c_int
     return lib
 
 
@@ -123,24 +127,35 @@ def _launch(rho: torch.Tensor, threshold: float, ndim: int) -> torch.Tensor:
     return out
 
 
+# cells from which K10 runs its 64-bit instantiation (int64 scratch and
+# indices); below, 32-bit
+WIDE_CELLS = 1 << 31
+
+
 def call(lib, rho: torch.Tensor, threshold: float, ndim: int,
-         stream=None) -> torch.Tensor:
+         stream=None, wide=None) -> torch.Tensor:
     """One call of ``ramses_watershed`` in the loaded build ``lib`` on a
     contiguous float64 ``rho`` of ``ndim`` (1 to 3) axes (the card's build
     on a CUDA tensor, or a host build of the source on a CPU one); returns
     the int64 labels and raises on the error the call returns.  No cells:
-    nothing is called."""
+    nothing is called.  ``wide``: the 64-bit instantiation
+    (``ramses_watershed_wide``); by default from :data:`WIDE_CELLS` cells
+    on."""
     if ndim not in (1, 2, 3) or rho.dim() != ndim:
         raise ValueError(f"watershed: ndim {ndim} for a rho of shape "
                          f"{tuple(rho.shape)}")
     labels = torch.empty(rho.shape, dtype=torch.int64, device=rho.device)
     if not rho.numel():
         return labels
-    parent = torch.empty_like(labels)      # the kernel's scratch
+    if wide is None:
+        wide = rho.numel() >= WIDE_CELLS
+    # the kernel's scratch, a cell's pointer or its encoded root
+    scratch = torch.empty(rho.shape, device=rho.device,
+                          dtype=torch.int64 if wide else torch.int32)
     dims = list(rho.shape) + [1] * (3 - ndim)
-    err = lib.ramses_watershed(
-        rho.data_ptr(), *dims, ndim, float(threshold), parent.data_ptr(),
-        labels.data_ptr(), stream)
+    entry = lib.ramses_watershed_wide if wide else lib.ramses_watershed
+    err = entry(rho.data_ptr(), *dims, ndim, float(threshold),
+                scratch.data_ptr(), labels.data_ptr(), stream)
     if err:
         raise RuntimeError(f"watershed kernel launch failed (cudaError "
                            f"{err})")

@@ -1498,6 +1498,23 @@ def test_regrid_maps_kernel_is_bitwise_plain(cuda, ndim, root, lvl, kinds):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("lvl,staged", [(5, True), (6, False)])
+def test_regrid_maps_kernel_branches_are_bitwise_plain(cuda, lvl, staged):
+    """K7's two branches on the card (3D, mixed faces): old and coarse keys
+    staged whole (level 5, also from views 8 bytes into their storage,
+    which take 8-byte copies) and the keys read through L1 (level 6,
+    ~14,000 keys)."""
+    from ramses_tpu_torch.amr import device_regrid as dr
+    new, old, coarse, dims = _regrid_keys(3, (1, 1, 1), lvl, 40 + lvl, cuda)
+    kinds = ((0, 0), (1, 1), (2, 1))
+    assert dr.staged(dr._library(), old.numel(), coarse.numel()) == staged
+    for o, c in ((old, coarse), (old[1:], coarse[1:])):
+        got = dr.regrid_maps(new, o, c, 3, kinds, dims)
+        want = dr.regrid_maps_ref(new, o, c, 3, kinds, dims)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def test_regrid_maps_kernel_refuses_what_it_does_not_take(cuda):
     from ramses_tpu_torch.amr import device_regrid as dr
     new, old, coarse, dims = _regrid_keys(2, (1, 1), 5, 1, cuda)
@@ -1774,6 +1791,30 @@ def test_watershed_kernel_is_bitwise_plain(cuda, shape, kind):
         assert clumps.launches == n0 + 1
         assert got.dtype == want.dtype == torch.int64
         assert got.device == rho.device and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,kind", [((5, 11, 37), "random"),
+                                        ((9, 17, 70), "peak"),
+                                        ((33, 65), "plateau"),
+                                        ((2, 33, 1), "flat"),
+                                        ((3000,), "steps")])
+def test_watershed_kernel_tiles_and_wide_are_bitwise_plain(cuda, shape,
+                                                            kind):
+    """K10 on the card on grids its tiles do not divide, chains across
+    tiles and thin axes, through both instantiations (32-bit, and the
+    64-bit one through ``ramses_watershed_wide``): labels bitwise."""
+    from ramses_tpu_torch.pm import clumps
+    from test_torch_clumps_host import field, thresholds
+    host = field(kind, shape, len(shape))
+    rho = torch.tensor(host, dtype=torch.float64, device=cuda)
+    lib = clumps._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for thr in thresholds(host):
+        want = clumps.watershed_ref(rho, thr, len(shape))
+        for wide in (False, True):
+            got = clumps.call(lib, rho, thr, len(shape), stream, wide)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (thr, wide)
 
 
 def test_watershed_kernel_refuses_what_it_does_not_take(cuda):

@@ -7,11 +7,14 @@ header stands in for the CUDA runtime.  Each ``<<<grid, block, smem>>>``
 launch runs every thread of a block as a real thread (``std::thread``);
 the blocks run one after another, and the threads meet at a per-block
 ``std::barrier`` for ``__syncthreads()`` and at a per-warp one for
-``__reduce_min_sync``.  ``__shared__`` arrays are static, so one buffer
-serves the running block, and ``extern __shared__`` is a buffer of the
-launch's dynamic size.  ``cp.async``'s copy, commit and wait are plain
-copies (the header defines ``RAMSES_HOST_STUBS`` and the helpers), and
-``cudaFuncSetAttribute`` and the occupancy queries are stubs.  So K1's
+``__reduce_min_sync`` and ``__any_sync``.  ``__shared__`` arrays are
+static, so one buffer serves the running block, and ``extern __shared__`` (of ``float``,
+``double``, ``int64_t`` or ``int32_t``) is a buffer of the launch's dynamic
+size.  ``cp.async``'s copies (4 and 8 bytes of floats, 8 and 16 bytes of
+anything), commit and wait are plain copies (the header defines
+``RAMSES_HOST_STUBS`` and the helpers), and ``cudaFuncSetAttribute`` and
+the occupancy queries are stubs; ``host_library`` builds any other source
+through the same header (K7, K10).  So K1's
 staged march (several barriers a plane), K2's per-oct sums through shared
 memory and K1's Courant min (warp and block reductions, one atomic a
 block) run as written.  Built with ``-ffp-contract=off``, the device
@@ -70,6 +73,8 @@ static thread_local dim3 blockIdx, threadIdx, blockDim, gridDim;
 #define __align__(n)
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) double2 { double x, y; };
+struct alignas(16) longlong2 { long long x, y; };
+inline longlong2 make_longlong2(long long x, long long y) { return {x, y}; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 // the running launch: its block barrier, warp barriers and dynamic buffer
@@ -96,6 +101,17 @@ inline int __reduce_min_sync(unsigned, int v) {
   h.warp[w]->arrive_and_wait();
   return m;
 }
+inline bool __any_sync(unsigned, int p) {
+  HostLaunch& h = *host_launch_;
+  const int t = host_tid(), w = t / 32;
+  const int nw = min(32, h.nthread - 32 * w);
+  h.slot[t] = p != 0;
+  h.warp[w]->arrive_and_wait();
+  bool any = false;
+  for (int i = 0; i < nw; ++i) any |= h.slot[32 * w + i] != 0;
+  h.warp[w]->arrive_and_wait();
+  return any;
+}
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
@@ -106,6 +122,8 @@ inline unsigned __umulhi(unsigned a, unsigned b) {
 }
 inline void cp_async_f32(float* s, const float* g) { *s = *g; }
 inline void cp_async_f64(double* s, const double* g) { *s = *g; }
+inline void cp_async_16(void* s, const void* g) { memcpy(s, g, 16); }
+inline void cp_async_8(void* s, const void* g) { memcpy(s, g, 8); }
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
 typedef int cudaError_t;
@@ -176,8 +194,11 @@ inline void host_launch(dim3 grid, dim3 block, size_t smem, F body) {
 
 LAUNCH = re.compile(
     r"(\w+<[^;<>]*>)<<<grid, block, (\w+), s>>>\(([^;]*)\);")
+# a launch of a kernel that is not a template
+PLAIN_LAUNCH = re.compile(r"\b(\w+)<<<grid, block, (\w+), s>>>\(([^;]*)\);")
 DYN_SMEM = re.compile(
-    r"extern __shared__ (?:__align__\(\d+\) )?(float|double) (\w+)\[\];")
+    r"extern __shared__ (?:__align__\(\d+\) )?"
+    r"(float|double|int64_t|int32_t) (\w+)\[\];")
 # the launch's dynamic buffer (floats, 16-byte aligned) in the declared type
 DYN_SMEM_HOST = r"\1* \2 = (\1*)host_launch_->dyn.data();"
 
@@ -185,6 +206,29 @@ DYN_SMEM_HOST = r"\1* \2 = (\1*)host_launch_->dyn.data();"
 def _as_launch(m):
     return (f"host_launch(grid, block, {m.group(2)}, [&] "
             f"{{ {m.group(1)}({m.group(3)}); }});")
+
+
+def host_library(out, name, launches, plain_launches=0):
+    """``csrc/<name>.cu`` built with g++ against :data:`RUNTIME` into
+    ``out``: its ``launches`` templated and ``plain_launches`` plain
+    ``<<<grid, block, smem, s>>>`` launches run through ``host_launch``,
+    its ``extern __shared__`` arrays are the launch's dynamic buffer.
+    Returns the loaded library."""
+    (out / "cuda_host.h").write_text(RUNTIME)
+    src = (kernels.CSRC / f"{name}.cu").read_text().replace(
+        "#include <cuda_runtime.h>", '#include "cuda_host.h"')
+    src, n = LAUNCH.subn(_as_launch, src)
+    src, m = PLAIN_LAUNCH.subn(_as_launch, src)
+    assert (n, m) == (launches, plain_launches) and "<<<" not in src
+    src = DYN_SMEM.sub(DYN_SMEM_HOST, src)
+    assert "extern __shared__" not in src
+    (out / f"{name}.cpp").write_text(src)
+    lib = out / f"lib{name}_host.so"
+    subprocess.run([shutil.which("g++"), "-std=c++20", "-O1", "-pthread",
+                    "-shared", "-fPIC", "-w", "-o", str(lib),
+                    str(out / f"{name}.cpp")], check=True,
+                   capture_output=True)
+    return ctypes.CDLL(str(lib))
 
 
 def _host_build(out, name):

@@ -10,7 +10,8 @@ version and a host build of ``csrc/regrid_maps.cu``) on the CPU.
 * K7's source, built with g++ against a stand-in CUDA header (the
   harness of ``tests/test_torch_muscl_host.py``), bitwise its plain
   version: 1D, 2D and 3D, periodic, reflecting and outflow faces,
-  non-cubic cell counts;
+  non-cubic cell counts, sentinel pads, on both sides of the keys it
+  stages whole (its two branches), odd, one-key and unaligned arrays;
 * the hierarchy: the device migrate bitwise the host migrate with no
   ``build_prolong_maps`` call (2D and 3D, levelmin 4 / levelmax 6, f64,
   three regrids), a steady regrid uploads nothing, the gate takes the
@@ -18,10 +19,8 @@ version and a host build of ``csrc/regrid_maps.cu``) on the CPU.
   package's ``AmrSim`` with ``device_regrid`` on (f64, rtol 1e-10).
 """
 
-import ctypes
 import os
 import shutil
-import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +35,6 @@ from ramses_tpu.amr.hierarchy import AmrSim as JAmrSim  # noqa: E402
 from ramses_tpu.config import load_params as jload  # noqa: E402
 from ramses_tpu.hydro.core import HydroStatic as JHydroStatic  # noqa: E402
 
-from ramses_tpu_torch import kernels  # noqa: E402
 from ramses_tpu_torch.amr import device_regrid as dr  # noqa: E402
 from ramses_tpu_torch.amr import keys as kmod  # noqa: E402
 from ramses_tpu_torch.amr import maps as mapmod  # noqa: E402
@@ -263,20 +261,11 @@ def test_migrate_level_matches_jax(ndim):
 def host_k7(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
-    from tests.test_torch_muscl_host import LAUNCH, RUNTIME, _as_launch
-    out = tmp_path_factory.mktemp("regrid_host")
-    (out / "cuda_host.h").write_text(RUNTIME)
-    src = (kernels.CSRC / "regrid_maps.cu").read_text().replace(
-        "#include <cuda_runtime.h>", '#include "cuda_host.h"')
-    src, n = LAUNCH.subn(_as_launch, src)
-    assert n == 1 and "<<<" not in src
-    (out / "regrid_maps.cpp").write_text(src)
-    lib = out / "libregrid_maps_host.so"
-    subprocess.run([shutil.which("g++"), "-std=c++20", "-O1", "-pthread",
-                    "-shared", "-fPIC", "-w", "-o", str(lib),
-                    str(out / "regrid_maps.cpp")], check=True,
-                   capture_output=True)
-    return dr.bind(ctypes.CDLL(str(lib)))
+    from tests.test_torch_muscl_host import host_library
+    # the two branches' launches (keys staged whole, read through L1) and the
+    # empty kernel's
+    return dr.bind(host_library(tmp_path_factory.mktemp("regrid_host"),
+                                "regrid_maps", 2, 1))
 
 
 @pytest.mark.parametrize("ndim,root,lvl,kinds", CASES)
@@ -287,6 +276,80 @@ def test_k7_host_build_is_bitwise_its_plain_version(host_k7, ndim, root, lvl,
     want = dr.regrid_maps_ref(new, old, coarse, ndim, kinds, dims)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _bitwise(lib, new, old, coarse, ndim, kinds, dims):
+    got = dr.call(lib, new, old, coarse, ndim, kinds, dims)
+    want = dr.regrid_maps_ref(new, old, coarse, ndim, kinds, dims)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+# (ndim, root, level, fraction of the level's slots): key sets of some 10^3
+# octs, whose old and coarse keys K7 stages whole, and of some 10^4, which
+# it reads through L1
+BRANCH_SETS = {False: {1: ((1,), 12, 0.3), 2: ((1, 1), 6, 0.3),
+                       3: ((1, 1, 1), 5, 0.3)},
+               True: {1: ((1,), 15, 0.6), 2: ((1, 1), 8, 0.6),
+                      3: ((1, 1, 1), 6, 0.3)}}
+BC_KINDS = {"periodic": (0, 0), "reflecting": (1, 1), "outflow": (2, 2)}
+
+
+@pytest.mark.parametrize("big", [False, True])
+@pytest.mark.parametrize("bc", sorted(BC_KINDS))
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_k7_host_build_on_both_sides_of_the_staged_keys(host_k7, ndim, bc,
+                                                       big):
+    """Both branches of K7 (old and coarse keys staged whole in shared
+    memory; read through L1), in 1D, 2D and 3D, on periodic, reflecting
+    and outflow boxes, sentinel pads included: bitwise the plain
+    version."""
+    root, lvl, frac = BRANCH_SETS[big][ndim]
+    new, old, coarse, dims = _key_set(ndim, root, lvl, 7 * lvl + ndim,
+                                      frac)
+    assert dr.staged(host_k7, old.numel(), coarse.numel()) != big
+    _bitwise(host_k7, new, old, coarse, ndim, (BC_KINDS[bc],) * ndim, dims)
+
+
+def test_k7_host_build_branch_edges(host_k7):
+    """The staged branch on odd and one-key arrays and on arrays that are
+    not 16-byte aligned (8-byte copies); the other branch where one array
+    is large and the other holds one or two keys."""
+    nd, kinds = 3, ((0, 0), (1, 1), (2, 1))
+    new, old, coarse, dims = _key_set(nd, (1, 1, 1), 5, 4)
+    # odd lengths; views that start 8 bytes into their storage
+    for o, c in ((old[:-1], coarse), (old, coarse[:-2]),
+                 (old[1:], coarse[1:]), (old[:1], coarse[:1])):
+        assert dr.staged(host_k7, o.numel(), c.numel())
+        _bitwise(host_k7, new, o, c, nd, kinds, dims)
+    # 13,000 of level 6's 32^3 octs: alone past the staged keys
+    rng = np.random.default_rng(6)
+    big = dr.upload_keys(np.sort(rng.choice(32 ** 3, 13000, replace=False)),
+                         13003, "cpu")
+    dims6 = (32,) * 3
+    one = dr.upload_keys(kmod.encode(np.array([[3, 5, 7]]), nd), 1, "cpu")
+    for c in (one >> nd, dr.upload_keys((one >> nd).numpy(), 2, "cpu")):
+        assert not dr.staged(host_k7, big.numel(), c.numel())
+        assert not dr.staged(host_k7, c.numel(), big.numel())
+        _bitwise(host_k7, one, big, c, nd, kinds, dims6)
+        _bitwise(host_k7, big, c, big >> nd, nd, kinds, dims6)
+
+
+@pytest.mark.parametrize("ndim,dims", [(1, (7,)), (2, (5, 7)),
+                                       (3, (5, 7, 3)), (3, (4, 3, 6))])
+def test_k7_host_build_on_odd_cell_counts(host_k7, ndim, dims):
+    """Odd lvl-1 cell counts, where a father's oct is cut by the box's
+    face and the step inside it leaves the box: every oct of the box, on
+    each boundary kind, bitwise the plain version."""
+    c = np.stack(np.meshgrid(*[np.arange(n) for n in dims], indexing="ij"),
+                 -1).reshape(-1, ndim)
+    keys = np.unique(kmod.encode(c, ndim))
+    new = dr.upload_keys(keys, len(keys) + 3, "cpu")
+    old = dr.upload_keys(keys[::2], len(keys) // 2 + 4, "cpu")
+    coarse = dr.upload_keys(np.unique(keys >> ndim), len(keys), "cpu")
+    for bc in sorted(BC_KINDS):
+        _bitwise(host_k7, new, old, coarse, ndim, (BC_KINDS[bc],) * ndim,
+                 dims)
 
 
 def test_k7_host_build_edge_cases(host_k7):
